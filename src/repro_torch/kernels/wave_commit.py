@@ -1,0 +1,131 @@
+"""The probe-family wave: claim install + probe + lane verdicts + bumps.
+
+Replaces the TPU kernel ``wave_commit_pallas``
+(src/repro/kernels/wave_commit.py); the semantics are the JAX oracle
+``ref.wave_commit``:
+
+  1. min-install the claim word ``(inv_wave << 16) | prio16`` of every
+     ``do_w`` op into ``claim_w`` (and of every ``do_r`` op into
+     ``claim_r`` when ``dual``);
+  2. probe the post-install tables: the strongest live claimant prio16 of
+     the op's cell (fine) or row (coarse), NO_PRIO when unclaimed/masked;
+  3. conflict = check_w  & (wprio < prio)
+              | check_w2 & (wprio != NO_PRIO) & (wprio != prio)
+              | check_r  & (rprio < prio)                   (dual only)
+              | extra
+     (``check_w2``/``check_r``/``extra`` may be None);
+  4. commit = ~conflict.any(lane);
+  5. ``bump``: +1 on ``wts`` per committed ``do_w`` op.
+
+The tables are updated in place; the wrapper returns ``(conflict bool[T, K],
+commit bool[T])``.  CUDA tensors launch ``csrc/wave_commit.cu`` (an
+atomicMin install launch, then a probe/verdict/bump launch with one block
+per lane); CPU tensors take ``wave_commit_plain``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.core.claimword import NO_PRIO, claim_word, inv_wave, \
+    live_prio, u32
+from repro_torch.kernels import build
+from repro_torch.kernels.scatter import gather_rows, pick_group, scatter_u32
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIG = {"repro_wave_commit": [_P] * 14 + [_I] * 8 + [_P]}
+
+
+def probe_plain(table: torch.Tensor, keys: torch.Tensor,
+                groups: torch.Tensor, ivw: int, fine: bool) -> torch.Tensor:
+    """Strongest live claimant prio16 per op (int64), NO_PRIO when
+    unclaimed or masked (the JAX oracle ``ref.claim_probe``)."""
+    rows, valid = gather_rows(table, keys)
+    pr = live_prio(rows, ivw)
+    wp = pick_group(pr, groups, NO_PRIO) if fine else pr.min(dim=-1).values
+    return torch.where(valid, wp, NO_PRIO)
+
+
+def wave_commit_plain(claim_w, claim_r, wts, keys, groups, prio, do_w, do_r,
+                      check_w, check_w2, check_r, extra, wave: int,
+                      fine: bool, dual: bool, bump: bool):
+    """Plain PyTorch version of the kernel (see the module docstring)."""
+    ivw = inv_wave(wave)
+    words = claim_word(wave, prio)
+    p = u32(prio)
+    scatter_u32(claim_w, keys, groups, words, do_w, "amin")
+    wprio = probe_plain(claim_w, keys, groups, ivw, fine)
+    conflict = check_w & (wprio < p)
+    if check_w2 is not None:
+        conflict = conflict | (check_w2 & (wprio != NO_PRIO) & (wprio != p))
+    if dual:
+        scatter_u32(claim_r, keys, groups, words, do_r, "amin")
+        if check_r is not None:
+            rprio = probe_plain(claim_r, keys, groups, ivw, fine)
+            conflict = conflict | (check_r & (rprio < p))
+    if extra is not None:
+        conflict = conflict | extra
+    commit = ~conflict.any(dim=1)
+    if bump:
+        scatter_u32(wts, keys, groups, torch.ones_like(p),
+                    do_w & commit[:, None], "sum")
+    return conflict, commit
+
+
+def wave_commit(claim_w: torch.Tensor, claim_r: Optional[torch.Tensor],
+                wts: Optional[torch.Tensor], keys: torch.Tensor,
+                groups: torch.Tensor, prio: torch.Tensor,
+                do_w: torch.Tensor, do_r: Optional[torch.Tensor],
+                check_w: torch.Tensor, check_w2: Optional[torch.Tensor],
+                check_r: Optional[torch.Tensor],
+                extra: Optional[torch.Tensor], wave: int, fine: bool,
+                dual: bool, bump: bool):
+    """The fused probe-family wave; returns (conflict, commit) and updates
+    ``claim_w`` (``claim_r`` when dual, ``wts`` when bump) in place."""
+    if keys.device.type == "cpu":
+        return wave_commit_plain(claim_w, claim_r, wts, keys, groups, prio,
+                                 do_w, do_r, check_w, check_w2, check_r,
+                                 extra, wave, fine, dual, bump)
+    dev = build.launch_device(keys)
+    T, K = keys.shape
+    N, G = claim_w.shape
+    if K > 1024:
+        raise ValueError(f"wave_commit holds one lane per block: K={K} "
+                         "exceeds 1024 threads")
+    build.check("claim_w", claim_w, torch.int32, (N, G), dev)
+    if dual:
+        build.check("claim_r", claim_r, torch.int32, (N, G), dev)
+        build.check("do_r", do_r, torch.bool, (T, K), dev)
+    if bump:
+        build.check("wts", wts, torch.int32, (N, G), dev)
+    build.check("keys", keys, torch.int32, (T, K), dev)
+    build.check("groups", groups, torch.int32, (T, K), dev)
+    build.check("prio", prio, torch.int32, (T, K), dev)
+    build.check("do_w", do_w, torch.bool, (T, K), dev)
+    build.check("check_w", check_w, torch.bool, (T, K), dev)
+    for name, m in (("check_w2", check_w2), ("check_r", check_r),
+                    ("extra", extra)):
+        if m is not None:
+            build.check(name, m, torch.bool, (T, K), dev)
+    conflict = torch.empty((T, K), dtype=torch.bool, device=dev)
+    commit = torch.empty((T,), dtype=torch.bool, device=dev)
+    lib = build.load("wave_commit", _SIG)
+    with torch.cuda.device(dev):
+        rc = lib.repro_wave_commit(
+            build.ptr(claim_w), build.ptr(claim_r if dual else None),
+            build.ptr(wts if bump else None), build.ptr(keys),
+            build.ptr(groups), build.ptr(prio), build.ptr(do_w),
+            build.ptr(do_r if dual else None), build.ptr(check_w),
+            build.ptr(check_w2), build.ptr(check_r if dual else None),
+            build.ptr(extra), build.ptr(conflict), build.ptr(commit),
+            T, K, N, G, inv_wave(wave), int(fine), int(dual), int(bump),
+            build.stream(dev))
+    build.raise_on_error("wave_commit", rc)
+    wave_commit.launches += 1
+    return conflict, commit
+
+
+wave_commit.launches = 0

@@ -1,0 +1,84 @@
+"""Where a wave's time goes on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.wave_profile \
+        --workload tpcc --lanes 128 --waves 50
+
+For each (cc, granularity) of OCC and TicToc: the host wall time per wave
+(``core/engine.run_waves``, the wave loop of ``run``, synchronized, without
+the profiler), then one ``torch.profiler`` pass over the same number of waves
+giving the device kernels per wave, the device-busy time per wave (the
+union of kernel and copy intervals), the idle share of the profiled wall
+time, and the kernels that take the most device time.  Prints one JSON
+line per configuration and needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from collections import defaultdict
+
+import torch
+
+
+def profile(workload: str, cc: str, gran: int, lanes: int, waves: int,
+            warmup: int = 10, top: int = 8, **wl_kw) -> dict:
+    from torch.autograd import DeviceType
+    from repro_torch.core.engine import make_wave_step, run_waves
+    from repro_torch.core.types import engine_state_init, resolve_device
+    from repro_torch.launch.txn_bench import make_config, make_workload
+    dev = resolve_device("cuda")
+    wl = make_workload(workload, **wl_kw)
+    cfg = make_config(wl, cc, gran, lanes)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = engine_state_init(cfg, wl.init_store(dev))
+    step = make_wave_step(cfg)
+    state, _ = run_waves(cfg, wl, state, step, gen, warmup)
+    state, wall = run_waves(cfg, wl, state, step, gen, waves)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        state, wall_prof = run_waves(cfg, wl, state, step, gen, waves)
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:  # union of device intervals (us)
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in kern:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {
+        "workload": workload, "cc": cc, "granularity": gran,
+        "lanes": lanes, "waves": waves,
+        "device_name": torch.cuda.get_device_name(dev),
+        "wall_ms_per_wave": wall / waves * 1e3,
+        "wall_ms_per_wave_profiled": wall_prof / waves * 1e3,
+        "device_events_per_wave": len(kern) / waves,
+        "device_busy_ms_per_wave": busy / waves / 1e3,
+        "device_idle_share": 1.0 - busy / 1e6 / wall_prof,
+        "top_device": [
+            {"name": n[:80], "ms_per_wave": us / waves / 1e3,
+             "per_wave": c / waves} for n, (us, c) in ranked],
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--workload", choices=("tpcc", "ycsb"), default="tpcc")
+    ap.add_argument("--lanes", type=int, default=128)
+    ap.add_argument("--waves", type=int, default=50)
+    ap.add_argument("--n-keys", type=int, default=10_000_000)
+    args = ap.parse_args(argv)
+    kw = {"n_keys": args.n_keys} if args.workload == "ycsb" else {}
+    for gran in (0, 1):
+        for cc in ("occ", "tictoc"):
+            print(json.dumps(profile(args.workload, cc, gran, args.lanes,
+                                     args.waves, **kw)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

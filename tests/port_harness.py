@@ -1,0 +1,94 @@
+"""Shared helpers of the repro_torch parity tests (not a test module).
+
+The JAX engine draws every wave's batch and lane permutation inside its
+scan (``repro/core/engine.py`` make_wave_step); torch cannot reproduce
+``jax.random``.  ``jax_draws`` replays those draws outside the engine,
+exactly as the scan makes them, and ``port_replay`` feeds them into the
+port's wave step on a store carried across from the JAX store.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.core import types as jt
+from repro.core.engine import run as jax_run
+from repro_torch.core import convert
+from repro_torch.core import engine as pe
+
+
+def jax_config(wl, cc: int, gran: int, lanes: int) -> jt.EngineConfig:
+    return jt.EngineConfig(
+        cc=cc, lanes=lanes, slots=wl.slots, n_records=wl.n_records,
+        n_groups=wl.n_groups, n_cols=wl.n_cols, n_txn_types=wl.n_txn_types,
+        granularity=gran, n_rings=wl.n_rings)
+
+
+def jax_draws(wl, lanes: int, n_waves: int, seed: int = 0) -> list:
+    """[(fresh batch fields, ring tails, perm)] per wave, as numpy: the
+    split -> gen -> permutation chain of the JAX wave step, replayed."""
+    gen = jax.jit(wl.gen, static_argnums=(2,))
+    rng = jax.random.PRNGKey(seed)
+    tails = jnp.zeros((wl.n_rings,), jnp.int32)
+    out = []
+    for w in range(n_waves):
+        rng, rng_gen, rng_perm = jax.random.split(rng, 3)
+        fresh, tails = gen(rng_gen, jnp.uint32(w), lanes, tails)
+        perm = jax.random.permutation(rng_perm, lanes).astype(jnp.uint32)
+        fields = {f.name: np.asarray(getattr(fresh, f.name))
+                  for f in dataclasses.fields(fresh)}
+        out.append((fields, np.asarray(tails), np.asarray(perm)))
+    return out
+
+
+def store_arrays(store) -> dict:
+    return {k: np.asarray(getattr(store, k))
+            for k in ("wts", "rts", "claim_w", "claim_r", "ring_tails")}
+
+
+def port_replay(cfg, store0: dict, draws: list, device="cpu"):
+    """Run the port's wave step over ``draws`` from the store ``store0``
+    ({field: numpy array}); returns the final EngineState."""
+    from repro_torch.core.types import engine_state_init
+    state = engine_state_init(cfg, convert.store_from_numpy(store0, device))
+    step = pe.make_wave_step(cfg)
+    for fresh, tails, perm in draws:
+        state = step(state, convert.batch_from_numpy(fresh, device),
+                     torch.from_numpy(tails.astype(np.int32)).to(device),
+                     torch.from_numpy(perm.astype(np.int64)).to(device))
+    return state
+
+
+def assert_engine_parity(wl, cc: int, gran: int, lanes: int, draws: list,
+                         seed: int = 0) -> None:
+    """The port's replay of the JAX draws equals JAX ``run``: integer state
+    and counters bit-identical, lane_time and throughput to rtol 1e-5
+    (float32 sums reduced in another order)."""
+    jcfg = jax_config(wl, cc, gran, lanes)
+    n_waves = len(draws)
+    ref = jax_run(jcfg, wl, n_waves=n_waves, seed=seed, keep_state=True)
+    js = ref.final_state
+    cfg = convert.config_from_fields(dataclasses.asdict(jcfg))
+    state = port_replay(cfg, store_arrays(wl.init_store(False)), draws)
+    res = pe.summarize(cfg, state, n_waves)
+
+    assert res.commits == ref.commits
+    assert res.aborts == ref.aborts
+    assert res.abort_causes == ref.abort_causes
+    assert res.commits_by_type == ref.commits_by_type
+    assert res.ext_events == ref.ext_events
+    assert sum(res.abort_causes) == res.aborts
+    got = convert.store_to_numpy(state.store)
+    for k in ("wts", "rts", "claim_w", "ring_tails"):
+        np.testing.assert_array_equal(got[k], np.asarray(getattr(js.store, k)),
+                                      err_msg=k)
+    np.testing.assert_array_equal(state.age.numpy(), np.asarray(js.age))
+    np.testing.assert_array_equal(state.pending_live.numpy(),
+                                  np.asarray(js.pending_live))
+    np.testing.assert_allclose(state.lane_time.numpy(),
+                               np.asarray(js.lane_time), rtol=1e-5)
+    np.testing.assert_allclose(res.throughput, ref.throughput, rtol=1e-5)

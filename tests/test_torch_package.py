@@ -1,0 +1,262 @@
+"""Package rules of the port: imports, devices, dispatch, slice limits.
+
+- no repro_torch module, nor chip_smoke.py, loads jax or the JAX package;
+- entry points default to CUDA and raise without it;
+- kernel wrappers take the plain version only for CPU tensors and count
+  only kernel launches;
+- settings and mechanisms outside the slice raise NotImplementedError;
+- the benchmark CLI runs on the CPU and writes the JSON row schema.
+"""
+import dataclasses
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro.core import backend as jbackend
+from repro.core import types as jt
+from repro_torch import kernels as K
+from repro_torch.core import backend as pb
+from repro_torch.core import types as pt
+from repro_torch.core.cc import VALIDATORS
+from repro_torch.core.engine import make_wave_step, run, run_waves
+from repro_torch.kernels import build
+from repro_torch.launch import txn_bench
+from repro_torch.workloads import YCSBWorkload
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_no_module_loads_jax_or_the_jax_package():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
+        "print(bad)\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert len(_modules()) >= 20
+
+
+def test_sources_name_no_jax_import():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(repro_torch.__path__[0]):
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith(".py")]
+    for p in paths:
+        for line in open(p):
+            s = line.strip()
+            assert not s.startswith(("import jax", "from jax",
+                                     "import repro.", "from repro.",
+                                     "from repro import")), (p, s)
+
+
+def test_run_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wl = YCSBWorkload.make(n_keys=500)
+    cfg = txn_bench.make_config(wl, "occ", 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run(cfg, wl, 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        wl.init_store()
+
+
+def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
+    K.reset_launches()
+    wl = YCSBWorkload.make(n_keys=500)
+    for cc in ("occ", "tictoc"):
+        res = run(txn_bench.make_config(wl, cc, 1, 8), wl, 3, device="cpu")
+        assert res.commits + res.aborts == 24
+        assert res.device == "cpu"
+    assert K.launch_counts() == {op: 0 for op in K.WRAPPERS}
+    assert pb.kernel_coverage(pt.CC_TICTOC, K.launch_counts()) == {
+        "wave_commit": "torch", "ts_gather": "torch",
+        "ts_install_max": "torch", "segment_count": "torch"}
+    assert pb.kernel_coverage(pt.CC_OCC, {"wave_commit": 3,
+                                          "segment_count": 6}) == {
+        "wave_commit": "cuda", "segment_count": "cuda"}
+
+
+@pytest.mark.parametrize("cc", ["occ", "tictoc"])
+def test_run_waves_continues_the_loop_of_run(cc):
+    """Two run_waves calls of 2 and 3 waves on one generator end in the
+    state that run reaches in 5 waves with the same seed."""
+    wl = YCSBWorkload.make(n_keys=500)
+    cfg = txn_bench.make_config(wl, cc, 1, 8)
+    whole = run(cfg, wl, 5, seed=3, device="cpu", keep_state=True)
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    state = pt.engine_state_init(cfg, wl.init_store("cpu"))
+    step = make_wave_step(cfg)
+    for n in (2, 3):
+        state, wall_s = run_waves(cfg, wl, state, step, gen, n)
+        assert wall_s >= 0.0
+    want = whole.final_state
+    assert state.wave == want.wave == 5
+    for name in ("commits", "aborts", "abort_causes", "lane_time"):
+        assert torch.equal(getattr(state, name), getattr(want, name)), name
+    for name in ("wts", "rts", "claim_w", "ring_tails"):
+        assert torch.equal(getattr(state.store, name),
+                           getattr(want.store, name)), name
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    keys = torch.zeros((2, 2), dtype=torch.int32, device="meta")
+    mask = torch.zeros((2, 2), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        K.segment_count(keys, keys, 2, mask)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        K.ts_gather(torch.zeros((4, 2), dtype=torch.int32, device="meta"),
+                    keys, keys, True)
+
+
+def test_launch_checks_refuse_what_the_kernels_do_not_take():
+    dev = torch.device("cpu")
+    ok = torch.zeros((4, 2), dtype=torch.int32)
+    build.check("t", ok, torch.int32, (4, 2), dev)
+    with pytest.raises(TypeError, match="dtype"):
+        build.check("t", ok.to(torch.int64), torch.int32, (4, 2), dev)
+    with pytest.raises(ValueError, match="shape"):
+        build.check("t", ok, torch.int32, (2, 4), dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        build.check("t", torch.zeros((2, 4), dtype=torch.int32).t(),
+                    torch.int32, (4, 2), dev)
+    with pytest.raises(ValueError, match="is on meta"):
+        build.check("t", ok.to("meta"), torch.int32, (4, 2), dev)
+    with pytest.raises(TypeError, match="expected a tensor"):
+        build.check("t", None, torch.int32, (4, 2), dev)
+    with pytest.raises(RuntimeError, match="error code 700"):
+        build.raise_on_error("wave_commit", 700)
+    build.raise_on_error("wave_commit", 0)
+
+
+def test_cuda_build_raises_without_nvcc(monkeypatch):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    real_exists = os.path.exists
+    monkeypatch.setattr(build.os.path, "exists",
+                        lambda p: False if str(p).endswith("nvcc")
+                        else real_exists(p))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc_path()
+
+
+def test_every_kernel_has_a_cuda_source_and_a_counter():
+    for name in build.SOURCES:
+        assert (build.CSRC / f"{name}.cu").exists()
+        assert build.library_path(name).name.startswith(name + "-")
+    assert set(K.WRAPPERS) == {"wave_commit", "segment_count", "ts_gather",
+                               "ts_install_max"}
+    for w in K.WRAPPERS.values():
+        assert isinstance(w.launches, int)
+
+
+def test_surface_matches_the_jax_package():
+    assert pb.SURFACE_OPS == jbackend.SURFACE_OPS
+    assert pb.N_OPS == jbackend.N_OPS == 16
+    assert pb.CC_OPS == jbackend.CC_OPS
+    for op in pb.SURFACE_OPS:
+        assert hasattr(pb.BACKEND, op), op
+    for op in set(pb.SURFACE_OPS) - set(K.WRAPPERS):
+        with pytest.raises(NotImplementedError, match="ROADMAP B"):
+            getattr(pb.BACKEND, op)()
+
+
+def _cfg(**kw):
+    base = dict(cc=pt.CC_OCC, lanes=4, slots=4, n_records=64, n_groups=2,
+                n_cols=0, n_txn_types=1)
+    base.update(kw)
+    return pt.EngineConfig(**base)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fuse_wave=False), dict(max_extent=4), dict(mv_depth=2),
+    dict(arrival_rate=2.0, queue_cap=8), dict(track_values=True),
+    dict(track_conflicts=True), dict(cc=pt.CC_MVCC, mv_depth=4),
+], ids=["unfused", "scans", "mv", "open-loop", "values", "conflicts",
+        "mvcc"])
+def test_settings_outside_the_slice_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        _cfg(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mv_depth=-1), dict(cc=pt.CC_MVCC), dict(snapshot_age=2),
+    dict(queue_cap=4), dict(max_extent=0), dict(bucket_size=0),
+    dict(arrival_rate=-1.0), dict(max_extent=1000),
+])
+def test_config_validation_matches_jax(kw):
+    with pytest.raises(ValueError):
+        _cfg(**kw)
+    with pytest.raises(ValueError):
+        jt.EngineConfig(**{**dict(cc=jt.CC_OCC, lanes=4, slots=4,
+                                  n_records=64, n_groups=2, n_cols=0,
+                                  n_txn_types=1), **kw})
+
+
+@pytest.mark.parametrize("cc", [pt.CC_2PL, pt.CC_SWISS, pt.CC_ADAPTIVE,
+                                pt.CC_AUTOGRAN])
+def test_other_mechanisms_wait_for_their_slice(cc):
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        VALIDATORS[cc]
+
+
+def test_config_carried_across_from_jax_fields():
+    from repro_torch.core.convert import config_from_fields
+    jcfg = jt.EngineConfig(cc=jt.CC_TICTOC, lanes=8, slots=16,
+                           n_records=100, n_groups=2, n_cols=10,
+                           n_txn_types=1, granularity=0, backend="pallas")
+    cfg = config_from_fields(dataclasses.asdict(jcfg))
+    assert (cfg.cc, cfg.lanes, cfg.granularity) == (jt.CC_TICTOC, 8, 0)
+    assert dataclasses.asdict(cfg.cost) == dataclasses.asdict(jcfg.cost)
+
+
+def test_store_round_trips_uint32_bit_patterns():
+    from repro_torch.core.convert import store_from_numpy, store_to_numpy
+    rng = np.random.default_rng(0)
+    arrays = {k: rng.integers(0, 1 << 32, (5, 2), dtype=np.uint64).astype(
+        np.uint32) for k in ("wts", "rts", "claim_w", "claim_r")}
+    arrays["ring_tails"] = np.arange(3, dtype=np.int32)
+    back = store_to_numpy(store_from_numpy(arrays, "cpu"))
+    for k, v in arrays.items():
+        np.testing.assert_array_equal(back[k], v)
+
+
+def test_txn_bench_cli_on_cpu(tmp_path, capsys):
+    out = tmp_path / "rows.json"
+    txn_bench.main(["--workload", "ycsb", "--cc", "occ", "tictoc",
+                    "--granularity", "both", "--lanes", "8", "--waves", "3",
+                    "--n-keys", "2000", "--device", "cpu",
+                    "--json", str(out)])
+    rows = json.loads(out.read_text())
+    assert len(rows) == 4
+    for r in rows:
+        assert r["commits"] + r["aborts"] == 24
+        assert sum(r["abort_causes"].values()) == r["aborts"]
+        assert r["backend"] == "cpu" and r["device_name"] == "cpu"
+        assert set(r["kernel_ops"].values()) == {"torch"}
+        for key in ("workload", "cc", "granularity", "lanes", "waves",
+                    "abort_rate", "ro_commits", "ro_aborts", "throughput",
+                    "ext_events", "wall_s", "max_extent"):
+            assert key in r
+    assert "waves/s" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        txn_bench.main(["--workload", "tpcc", "--theta", "0.5"])
