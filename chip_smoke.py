@@ -2,27 +2,38 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from src/repro_torch/csrc, then:
+Builds the port's eight CUDA kernels from src/repro_torch/csrc, then:
 
   1. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes (TPC-C: N = 2,450,808 records, T = 128 lanes,
      K = 64 slots; YCSB: N = 10M, K = 16; G = 2), over every flag
      combination, with hot, duplicated, masked (key -1) and stale-tag
-     inputs.  Outputs and updated tables must be bit-identical.  Each is
-     timed with CUDA events (warm-up, then the median of 30 calls queued
-     behind a device sleep so that host overhead stays out of the device
-     time) beside its plain version and, where one PyTorch call computes
-     the same function, that call;
-  2. the main path on TPC-C (full scale, T = 128, 200 waves; OCC and TicToc
-     x coarse and fine) through the benchmark CLI's grid runner, with the
-     launch counters set to 0 just before and read just after: every
-     kernel of each mechanism must have launched, aborts must sum over
-     causes, every lane-wave must commit or abort, and OCC-fine must beat
-     OCC-coarse and TicToc-coarse (the paper's quickstart ordering);
+     inputs, masks with and without live ops, and a wave whose claim tag
+     has its top bit clear.  Outputs and updated tables must be
+     bit-identical.  Each is timed with CUDA events (warm-up, then the
+     median of 30 calls queued behind a device sleep so that host overhead
+     stays out of the device time) beside its plain version and, where one
+     PyTorch call computes the same function, that call;
+  2. the main path on TPC-C (full scale, T = 128, 200 waves) through the
+     benchmark CLI's grid runner: OCC, TicToc, 2PL, SwissTM and Adaptive
+     x coarse and fine, plus AutoGran coarse, with the launch counters set
+     to 0 just before and read just after.  Every kernel of each
+     mechanism must have launched, aborts must sum over causes, every
+     lane-wave must commit or abort, and OCC-fine must beat OCC-coarse and
+     TicToc-coarse (the paper's quickstart ordering), and AutoGran-coarse
+     must beat OCC-coarse (the paper's section 5 proposal);
   3. the same main path on YCSB (10M keys, theta 0.9, 50% writes);
-  4. cross-device identity: one set of draws made on the CPU, run through
+  4. the unfused route (claim_probe + commit_install) of the five
+     probe-family mechanisms on TPC-C at full scale, counters reset just
+     before: claim_probe must launch, commit_install too where the
+     mechanism bumps, wave_commit never, and each run must end with the
+     fused run's results;
+  5. fused = unfused on the card: one set of CPU-made draws through both
+     routes, integer and float state bit-identical;
+  6. cross-device identity: one set of draws made on the CPU, run through
      the wave step on the card (kernels) and on the CPU (plain versions);
-     integer state must be bit-identical, lane_time within rtol 1e-5.
+     integer state must be bit-identical, lane_time within rtol 1e-5 and
+     the heats within rtol 1e-6.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -64,10 +75,28 @@ KERNEL_META = {
                   "src/repro/kernels/ts_gather.py:42"),
     "ts_install_max": ("src/repro_torch/csrc/ts_install.cu",
                        "src/repro/kernels/ts_install.py:43"),
+    "commit_install": ("src/repro_torch/csrc/occ_commit.cu",
+                       "src/repro/kernels/occ_commit.py:37"),
+    "claim_scatter": ("src/repro_torch/csrc/claim_scatter.cu",
+                      "src/repro/kernels/claim_scatter.py:44"),
+    "validate_dual": ("src/repro_torch/csrc/occ_validate.cu",
+                      "src/repro/kernels/occ_validate.py:122"),
+    "claim_probe": ("src/repro_torch/csrc/claim_probe.cu",
+                    "src/repro/kernels/claim_probe.py:82"),
 }
-MECH_OPS = {"occ": ("wave_commit", "segment_count"),
-            "tictoc": ("wave_commit", "segment_count", "ts_gather",
-                       "ts_install_max")}
+#: The kernels each mechanism's (fused) wave launches.
+_PROBE_OPS = ("wave_commit", "segment_count")
+MECH_OPS = {"occ": _PROBE_OPS,
+            "tictoc": _PROBE_OPS + ("ts_gather", "ts_install_max"),
+            "2pl": _PROBE_OPS, "swisstm": _PROBE_OPS, "adaptive": _PROBE_OPS,
+            "autogran": ("validate_dual", "claim_scatter", "commit_install",
+                         "segment_count")}
+PROBE_FAMILY = ("occ", "tictoc", "2pl", "swisstm", "adaptive")
+#: One granularity per probe-family mechanism for the unfused phases.
+UNFUSED = (("occ", 1), ("tictoc", 0), ("2pl", 0), ("swisstm", 1),
+           ("adaptive", 0))
+#: A wave whose claim tag 0xFFFF - wave has its top bit clear.
+HIGH_WAVE = 40_000
 
 
 def log(*a):
@@ -184,11 +213,21 @@ def _distinct(keys, groups, mask, G, N):
     return int(torch.unique(keys[ok].long() * G + groups[ok].long()).numel())
 
 
+def _distinct_rows(keys, mask, N):
+    """Distinct live records among the masked ops."""
+    return int(torch.unique(keys[mask & (keys >= 0) & (keys < N)]).numel())
+
+
 def kernel_phase(dev, shapes, wave=9):
     """Compare every kernel with its plain version over every flag
     combination at ``shapes``; time them at the first shape.  Returns
     ({name: KernelCheck}, {name: timing dict})."""
     from repro_torch import kernels as K
+    from repro_torch.core.claimword import claim_word
+    from repro_torch.kernels.claim_probe import claim_probe_plain
+    from repro_torch.kernels.claim_scatter import claim_scatter_plain
+    from repro_torch.kernels.occ_commit import commit_install_plain
+    from repro_torch.kernels.occ_validate import validate_dual_plain
     from repro_torch.kernels.segment_count import segment_count_plain
     from repro_torch.kernels.ts_gather import ts_gather_plain
     from repro_torch.kernels.ts_install import ts_install_max_plain
@@ -233,6 +272,32 @@ def kernel_phase(dev, shapes, wave=9):
                 K.ts_install_max(a, keys, groups, v, do_w, whole_row)
                 ts_install_max_plain(b, keys, groups, v, do_w, whole_row)
                 checks["ts_install_max"].compare([a], [b])
+        # The slice-2 kernels, at this wave and at one whose claim tag has
+        # its top bit clear, with and without live ops in the mask.
+        none = torch.zeros_like(do_w)
+        tables = {wave: (cw0, wts0),
+                  HIGH_WAVE: make_tables(N, G, HIGH_WAVE, dev, si + 7)[::2]}
+        for wv, (cw_, wts_) in tables.items():
+            for inst, chk in ((do_w, check_w), (none, none)):
+                a, b = wts_.clone(), wts_.clone()
+                K.commit_install(a, keys, groups, inst)
+                commit_install_plain(b, keys, groups, inst)
+                checks["commit_install"].compare([a], [b])
+                a, b = cw_.clone(), cw_.clone()
+                K.claim_scatter(a, keys, groups, prio, wv, inst)
+                claim_scatter_plain(b, keys, groups, prio, wv, inst)
+                checks["claim_scatter"].compare([a], [b])
+                checks["validate_dual"].compare(
+                    K.validate_dual(cw_, keys, groups, prio, chk, wv),
+                    validate_dual_plain(cw_, keys, groups, prio, chk, wv))
+                for fine in (True, False):
+                    a, b = cw_.clone(), cw_.clone()
+                    checks["claim_probe"].compare(
+                        [K.claim_probe(a, keys, groups, prio, wv, inst,
+                                       fine), a],
+                        [claim_probe_plain(b, keys, groups, prio, wv, inst,
+                                           fine), b])
+        del tables
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -267,6 +332,12 @@ def kernel_phase(dev, shapes, wave=9):
         ts_vals = (prio + 7).contiguous()
         ins_vals = ts_vals[do_w & ok]
         ts_flat = ts0.clone().view(-1)
+        wts_flat = wts0.clone().view(-1)
+        cw_flat = cw0.clone().view(-1)
+        ins_ones = torch.ones_like(ins_cells, dtype=torch.int32)
+        ins_words = _words(claim_word(wave, prio))[do_w & ok]
+        probed = _distinct(keys, groups, everyone, G, N)
+        checked_rows = _distinct_rows(keys, check_w, N)
         t = {
             "wave_commit": dict(
                 ms=time_ms(lambda: K.wave_commit(
@@ -303,10 +374,51 @@ def kernel_phase(dev, shapes, wave=9):
                 library_ms=time_ms(lambda: ts_flat.scatter_reduce_(
                     0, ins_cells, ins_vals, "amax"), dev),
                 bound=bound_ms(inst_bytes, 0)),
+            # Op vectors in (keys, groups: 4 B; do: 1 B), one word read and
+            # written per distinct bumped cell.
+            "commit_install": dict(
+                ms=time_ms(lambda: K.commit_install(wt, keys, groups, do_w),
+                           dev),
+                plain_ms=time_ms(lambda: commit_install_plain(
+                    wt, keys, groups, do_w), dev),
+                library_ms=time_ms(lambda: wts_flat.index_add_(
+                    0, ins_cells, ins_ones), dev),
+                bound=bound_ms(n * (4 + 4 + 1) + installs * 8, n)),
+            # Keys, groups, prio in, mask byte; a word read and written per
+            # distinct installed cell.  The library call's int32 amin is
+            # not the unsigned order: it stands for the same work only.
+            "claim_scatter": dict(
+                ms=time_ms(lambda: K.claim_scatter(
+                    cw, keys, groups, prio, wave, do_w), dev),
+                plain_ms=time_ms(lambda: claim_scatter_plain(
+                    cw, keys, groups, prio, wave, do_w), dev),
+                library_ms=time_ms(lambda: cw_flat.scatter_reduce_(
+                    0, ins_cells, ins_words, "amin"), dev),
+                bound=bound_ms(n * (4 + 4 + 4 + 1) + installs * 8, n)),
+            # Op vectors in, two verdict bytes out, one G-word row read per
+            # distinct checked record.
+            "validate_dual": dict(
+                ms=time_ms(lambda: K.validate_dual(
+                    cw, keys, groups, prio, check_w, wave), dev),
+                plain_ms=time_ms(lambda: validate_dual_plain(
+                    cw, keys, groups, prio, check_w, wave), dev),
+                library_ms=None,
+                bound=bound_ms(n * (4 + 4 + 4 + 1 + 2)
+                               + checked_rows * G * 4, n * G)),
+            # Fine probe: op vectors in, a 4-byte answer out, a word read
+            # per distinct probed cell and written per installed cell.
+            "claim_probe": dict(
+                ms=time_ms(lambda: K.claim_probe(
+                    cw, keys, groups, prio, wave, do_w, True), dev),
+                plain_ms=time_ms(lambda: claim_probe_plain(
+                    cw, keys, groups, prio, wave, do_w, True), dev),
+                library_ms=None,
+                bound=bound_ms(n * (4 + 4 + 4 + 1 + 4) + probed * 4
+                               + installs * 4, 2 * n)),
         }
         timings[label] = t
         for name, r in t.items():
-            log(f"  {label:5s} {name:15s} kernel {r['ms']:.4f} ms  plain "
+            log(f"  {label:5s} {name:15s} kernel {r['ms']:.6f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library "
                 f"{'-' if r['library_ms'] is None else '%.4f' % r['library_ms']}"
                 f" ms  bound {r['bound'][0]:.6f} ms ({r['bound'][1]})")
@@ -320,79 +432,187 @@ def kernel_phase(dev, shapes, wave=9):
 
 
 # --------------------------------------------------------------- main path
+def _name(r) -> str:
+    return f"{r['cc']}-{'fine' if r['granularity'] else 'coarse'}"
+
+
+def _log_row(workload, r):
+    log(f"  {workload} {_name(r):16s} commits {r['commits']:6d} aborts "
+        f"{r['aborts']:6d} thpt {r['throughput']:.4f} txn/us  "
+        f"{r['waves_per_s']:.1f} waves/s  "
+        f"{r['waves'] * r['lanes'] / r['wall_s']:.0f} lane-txns/s  "
+        f"causes {r['abort_causes']}  kernels {r['kernel_ops']}")
+    if sum(r["abort_causes"].values()) != r["aborts"]:
+        raise AssertionError(f"{_name(r)}: causes do not sum to aborts")
+    if r["commits"] + r["aborts"] != r["lanes"] * r["waves"]:
+        raise AssertionError(f"{_name(r)}: commits + aborts != T * waves")
+
+
 def main_path(workload, dev, waves=WAVES, lanes=LANES, **wl_kw):
-    """Drive the grid runner of the benchmark CLI: OCC and TicToc x coarse
-    and fine.  Returns (rows, launches during the run)."""
+    """Drive the grid runner of the benchmark CLI: the five probe-family
+    mechanisms x coarse and fine, then AutoGran coarse.  Returns ({name:
+    row}, launches during the run)."""
     from repro_torch import kernels as K
     from repro_torch.launch.txn_bench import run_grid
     K.reset_launches()
-    rows = run_grid(workload, ["occ", "tictoc"], (0, 1), [lanes], waves,
+    rows = run_grid(workload, list(PROBE_FAMILY), (0, 1), [lanes], waves,
                     device=dev, **wl_kw)
+    rows += run_grid(workload, ["autogran"], (0,), [lanes], waves,
+                     device=dev, **wl_kw)
     launches = K.launch_counts()
     by = {}
     for r in rows:
-        name = f"{r['cc']}-{'fine' if r['granularity'] else 'coarse'}"
-        by[name] = r
-        log(f"  {workload} {name:13s} commits {r['commits']:6d} aborts "
-            f"{r['aborts']:6d} thpt {r['throughput']:.4f} txn/us  "
-            f"{r['waves_per_s']:.1f} waves/s  "
-            f"{r['waves'] * r['lanes'] / r['wall_s']:.0f} lane-txns/s  "
-            f"causes {r['abort_causes']}  kernels {r['kernel_ops']}")
-        if sum(r["abort_causes"].values()) != r["aborts"]:
-            raise AssertionError(f"{name}: causes do not sum to aborts")
-        if r["commits"] + r["aborts"] != r["lanes"] * r["waves"]:
-            raise AssertionError(f"{name}: commits + aborts != T * waves")
-        want = {op: "cuda" for op in MECH_OPS[r["cc"]]}
+        by[_name(r)] = r
+        _log_row(workload, r)
+        # The mechanism's kernels launched; its other ported ops (the
+        # unfused bump on the fused route) never ran.
+        want = {op: "cuda" if op in MECH_OPS[r["cc"]] else "not_run"
+                for op in r["kernel_ops"]}
         if dev.type == "cuda" and r["kernel_ops"] != want:
-            raise AssertionError(f"{name}: kernels not all launched: "
-                                 f"{r['kernel_ops']}")
+            raise AssertionError(f"{_name(r)}: kernel_ops {r['kernel_ops']}"
+                                 f" != {want}")
     log(f"  {workload} launches {launches}")
-    if dev.type == "cuda" and min(launches.values()) <= 0:
+    path_ops = {op for ops in MECH_OPS.values() for op in ops}
+    if dev.type == "cuda" and min(launches[op] for op in path_ops) <= 0:
         raise AssertionError(f"{workload}: a kernel never launched")
     return by, launches
+
+
+def unfused_path(dev, fused, waves=WAVES, lanes=LANES, **wl_kw):
+    """The probe family's unfused route on TPC-C at full scale: each run
+    must launch claim_probe (and commit_install where it bumps), never
+    wave_commit, and end with the fused run's results (same seed, same
+    draws).  Returns ({name: row}, launches during the phase)."""
+    from repro_torch import kernels as K
+    from repro_torch.launch.txn_bench import run_grid
+    K.reset_launches()
+    by = {}
+    for cc, gran in UNFUSED:
+        before = K.launch_counts()
+        (r,) = run_grid("tpcc", [cc], (gran,), [lanes], waves, device=dev,
+                        fuse_wave=False, **wl_kw)
+        d = {op: n - before[op] for op, n in K.launch_counts().items()}
+        by[_name(r)] = r
+        _log_row("tpcc unfused", r)
+        bumps = cc != "tictoc"
+        if dev.type == "cuda" and not (
+                d["claim_probe"] > 0 and d["wave_commit"] == 0
+                and (d["commit_install"] > 0) == bumps):
+            raise AssertionError(f"unfused {_name(r)}: launches {d}")
+        ref = fused[_name(r)]
+        for key in ("commits", "aborts", "abort_causes", "throughput",
+                    "ext_events"):
+            if r.get(key) != ref.get(key):
+                raise AssertionError(f"unfused {_name(r)}: {key} "
+                                     f"{r.get(key)} != fused {ref.get(key)}")
+    launches = K.launch_counts()
+    log(f"  unfused launches {launches}")
+    return by, launches
+
+
+def _draws(wl, waves, lanes, seed=5):
+    """One set of draws made on the CPU: [(batch, ring tails, perm)]."""
+    g = torch.Generator()
+    g.manual_seed(seed)
+    tails = torch.zeros((wl.n_rings,), dtype=torch.int32)
+    out = []
+    for w in range(waves):
+        fresh, tails = wl.gen(g, w, lanes, tails)
+        out.append((fresh, tails, torch.randperm(lanes, generator=g)))
+    return out
+
+
+def _replay(cfg, wl, draws, d):
+    from repro_torch.core import engine as E
+    from repro_torch.core import types as t
+    st = t.engine_state_init(cfg, wl.init_store(d))
+    step = E.make_wave_step(cfg)
+    for fresh, tl, perm in draws:
+        fb = t.TxnBatch(**{f.name: getattr(fresh, f.name).to(d)
+                           for f in dataclasses.fields(t.TxnBatch)})
+        st = step(st, fb, tl.to(d), perm.to(d))
+    return st
+
+
+INT_STATE = ("commits", "aborts", "commits_by_type", "ext_events",
+             "abort_causes", "age", "pending_live")
+INT_TABLES = ("wts", "rts", "claim_w", "claim_r", "ring_tails", "pess_mode",
+              "fine_mode", "heat_wave")
+
+
+def _same_state(a, b, what, rtol_time=0.0, rtol_heat=0.0):
+    """Integer state bit-identical; lane_time and the heats within the
+    given rtol (0: bit-identical)."""
+    for name in INT_STATE:
+        if not torch.equal(getattr(a, name).cpu(), getattr(b, name).cpu()):
+            raise AssertionError(f"{what}: {name} differs")
+    for name in INT_TABLES:
+        if not torch.equal(getattr(a.store, name).cpu(),
+                           getattr(b.store, name).cpu()):
+            raise AssertionError(f"{what}: {name} differs")
+    torch.testing.assert_close(a.lane_time.cpu(), b.lane_time.cpu(),
+                               rtol=rtol_time, atol=0)
+    for name in ("abort_heat", "false_heat"):
+        torch.testing.assert_close(getattr(a.store, name).cpu(),
+                                   getattr(b.store, name).cpu(),
+                                   rtol=rtol_heat, atol=0)
+
+
+def fused_unfused(dev, waves=30, scale=0.1, ccs=UNFUSED):
+    """The same CPU-made draws through the fused route (wave_commit) and
+    the unfused route (claim_probe + commit_install) on ``dev`` must give
+    the same state, bit for bit."""
+    from repro_torch.launch.txn_bench import make_config
+    from repro_torch.workloads import TPCCWorkload
+    wl = TPCCWorkload.make(n_warehouses=8, scale=scale)
+    draws = _draws(wl, waves, LANES)
+    for cc, gran in ccs:
+        a, b = (_replay(make_config(wl, cc, gran, LANES, fuse), wl, draws,
+                        dev) for fuse in (True, False))
+        _same_state(a, b, f"fused/unfused {cc}")
+        log(f"  {cc}-{'fine' if gran else 'coarse'}: {waves} waves, commits "
+            f"{int(a.commits)} aborts {int(a.aborts)}: fused = unfused "
+            f"on {dev}")
 
 
 def cross_device(dev, waves=30, scale=0.1):
     """The same CPU-made draws through the wave step on ``dev`` (kernels)
     and on the CPU (plain versions) must give the same state."""
-    from repro_torch.core import engine as E
-    from repro_torch.core import types as t
     from repro_torch.launch.txn_bench import make_config
     from repro_torch.workloads import TPCCWorkload
     wl = TPCCWorkload.make(n_warehouses=8, scale=scale)
+    draws = _draws(wl, waves, LANES)
     cpu = torch.device("cpu")
-    for cc, gran in (("occ", 1), ("tictoc", 0)):
-        cfg = make_config(wl, cc, gran, LANES)
-        g = torch.Generator()
-        g.manual_seed(5)
-        tails = torch.zeros((wl.n_rings,), dtype=torch.int32)
-        draws = []
-        for w in range(waves):
-            fresh, tails = wl.gen(g, w, LANES, tails)
-            draws.append((fresh, tails, torch.randperm(LANES, generator=g)))
-        states = []
-        for d in (dev, cpu):
-            st = t.engine_state_init(cfg, wl.init_store(d))
-            step = E.make_wave_step(cfg)
-            for fresh, tl, perm in draws:
-                fb = t.TxnBatch(**{f.name: getattr(fresh, f.name).to(d)
-                                   for f in dataclasses.fields(t.TxnBatch)})
-                st = step(st, fb, tl.to(d), perm.to(d))
-            states.append(st)
-        a, b = states
-        for name in ("commits", "aborts", "commits_by_type", "ext_events",
-                     "abort_causes", "age", "pending_live"):
-            if not torch.equal(getattr(a, name).cpu(), getattr(b, name)):
-                raise AssertionError(f"cross-device {cc}: {name} differs")
-        for name in ("wts", "rts", "claim_w", "claim_r", "ring_tails"):
-            if not torch.equal(getattr(a.store, name).cpu(),
-                               getattr(b.store, name)):
-                raise AssertionError(f"cross-device {cc}: {name} differs")
-        torch.testing.assert_close(a.lane_time.cpu(), b.lane_time,
-                                   rtol=1e-5, atol=0)
-        log(f"  {cc}-{'fine' if gran else 'coarse'}: {waves} waves, "
-            f"commits {int(a.commits)} aborts {int(a.aborts)} ext "
-            f"{int(a.ext_events)}: identical on {dev} and cpu")
+    for cc, gran, fuse in (("occ", 1, True), ("tictoc", 0, True),
+                           ("2pl", 0, True), ("swisstm", 1, True),
+                           ("adaptive", 1, True), ("autogran", 0, True),
+                           ("adaptive", 0, False)):
+        cfg = make_config(wl, cc, gran, LANES, fuse)
+        a, b = (_replay(cfg, wl, draws, d) for d in (dev, cpu))
+        what = f"{cc}-{'fine' if gran else 'coarse'}" + ("" if fuse else
+                                                         " unfused")
+        _same_state(a, b, f"cross-device {what}", rtol_time=1e-5,
+                    rtol_heat=1e-6)
+        log(f"  {what}: {waves} waves, commits {int(a.commits)} aborts "
+            f"{int(a.aborts)} ext {int(a.ext_events)} pess "
+            f"{int(a.store.pess_mode.sum())} fine "
+            f"{int(a.store.fine_mode.sum())}: identical on {dev} and cpu")
+
+
+def ratios(workload, by):
+    """Log the paper's orderings: OCC-fine over OCC-coarse and
+    TicToc-coarse (quickstart), 2PL over TicToc coarse at T=128 (Fig 3a),
+    and AutoGran's share of the coarse-to-fine OCC gain
+    (benchmarks/auto_granularity.py)."""
+    th = {k: r["throughput"] for k, r in by.items()}
+    share = ((th["autogran-coarse"] - th["occ-coarse"])
+             / max(th["occ-fine"] - th["occ-coarse"], 1e-9))
+    log(f"  {workload}: OCC-fine / OCC-coarse "
+        f"{th['occ-fine'] / th['occ-coarse']:.4f}  OCC-fine / TicToc-coarse "
+        f"{th['occ-fine'] / th['tictoc-coarse']:.4f}  2PL / TicToc coarse "
+        f"{th['2pl-coarse'] / th['tictoc-coarse']:.4f}  AutoGran-coarse / "
+        f"OCC-coarse {th['autogran-coarse'] / th['occ-coarse']:.4f}, "
+        f"recovering {share:.4f} of the OCC fine gain")
 
 
 def card_line() -> str:
@@ -430,30 +650,38 @@ def main() -> int:
 
     log("main path, TPC-C:")
     tpcc, l_tpcc = main_path("tpcc", dev, scale=1.0)
+    ratios("tpcc", tpcc)
     occ_f = tpcc["occ-fine"]["throughput"]
     if not (occ_f > tpcc["occ-coarse"]["throughput"]
             and occ_f > tpcc["tictoc-coarse"]["throughput"]):
         raise AssertionError("quickstart ordering fails: OCC-fine must beat "
                              "OCC-coarse and TicToc-coarse on TPC-C")
-    log(f"  OCC-fine / OCC-coarse {occ_f / tpcc['occ-coarse']['throughput']:.3f}"
-        f"  OCC-fine / TicToc-coarse "
-        f"{occ_f / tpcc['tictoc-coarse']['throughput']:.3f}")
+    # The JAX reference orders them so at TPC-C scale 0.1, T=128 (its CLI,
+    # jnp backend, on the CPU).
+    if not tpcc["autogran-coarse"]["throughput"] > tpcc["occ-coarse"][
+            "throughput"]:
+        raise AssertionError("AutoGran-coarse must beat OCC-coarse on TPC-C")
 
     log("main path, YCSB:")
     ycsb, l_ycsb = main_path("ycsb", dev, n_keys=YCSB_N, theta=0.9,
                              write_frac=0.5)
-    y_f = ycsb["occ-fine"]["throughput"]
-    log(f"  OCC-fine / OCC-coarse {y_f / ycsb['occ-coarse']['throughput']:.3f}"
-        f"  OCC-fine / TicToc-coarse "
-        f"{y_f / ycsb['tictoc-coarse']['throughput']:.3f}")
+    ratios("ycsb", ycsb)
+
+    log("unfused route, TPC-C:")
+    _, l_unf = unfused_path(dev, tpcc, scale=1.0)
+
+    log("fused = unfused on the card:")
+    fused_unfused(dev)
 
     log("cross-device identity:")
     cross_device(dev)
 
-    waves_run = 4 * WAVES
-    per_wave = {op: {"tpcc": l_tpcc[op] / waves_run,
-                     "ycsb": l_ycsb[op] / waves_run} for op in l_tpcc}
-    log("launches per wave (mean over the four configurations): "
+    runs = {"tpcc": (l_tpcc, len(tpcc) * WAVES),
+            "ycsb": (l_ycsb, len(ycsb) * WAVES),
+            "tpcc_unfused": (l_unf, len(UNFUSED) * WAVES)}
+    per_wave = {op: {k: n[op] / w for k, (n, w) in runs.items()}
+                for op in l_tpcc}
+    log("launches per wave (mean over each phase's configurations): "
         + json.dumps(per_wave))
     log("kernel_times " + json.dumps(
         {label: {n: {k: (v if k != "bound" else list(v)) for k, v in r.items()}
@@ -464,7 +692,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": l_tpcc[name] + l_ycsb[name],
+            "launches": sum(n[name] for n, _ in runs.values()),
             "max_abs_err": checks[name].max_err,
             "equal": checks[name].equal,
             "ms": t["ms"], "plain_ms": t["plain_ms"],

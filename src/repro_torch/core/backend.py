@@ -27,9 +27,11 @@ SURFACE_OPS = ("validate", "validate_dual", "probe", "claim_probe",
 N_OPS = len(SURFACE_OPS)
 
 #: The surface ops each mechanism's wave routes through the backend in
-#: the JAX package.  In this port OCC and TicToc run fused point waves,
-#: so ``iterate_validate`` (scans) and ``commit_install`` (the unfused
-#: bump) are not reached.
+#: the JAX package.  The probe family's fused route (``fuse_wave=True``)
+#: runs its bumps inside ``wave_commit``, so ``commit_install`` is reached
+#: only by AutoGran and by the unfused route, which also runs
+#: ``claim_probe`` (listed for no mechanism, as in the JAX package).
+#: ``iterate_validate`` (scans) waits for ROADMAP A.7.
 CC_OPS = {
     t.CC_OCC: ("wave_commit", "iterate_validate", "commit_install",
                "segment_count"),
@@ -51,12 +53,8 @@ CC_OPS = {
 
 #: Where each op without a port waits (ROADMAP queue B).
 _WAITS = {
-    "commit_install": "ROADMAP B.5 (occ_commit)",
-    "claim_probe": "ROADMAP B.6 (claim_probe_fused)",
     "validate": "ROADMAP B.7 (occ_validate)",
-    "validate_dual": "ROADMAP B.7 (occ_validate_dual)",
     "probe": "ROADMAP B.7 (claim_probe)",
-    "claim_scatter": "ROADMAP B.8 (claim_scatter)",
     "iterate_validate": "ROADMAP B.9 (iterate_validate)",
     "mv_gather": "ROADMAP B.10 (mv_gather)",
     "mv_install": "ROADMAP B.11 (mv_install)",
@@ -76,13 +74,16 @@ def _waiting(op: str):
 
 
 class Backend:
-    """Device-dispatching backend: each op runs where its tensors are."""
-    wave_commit = staticmethod(kernels.wave_commit)
-    segment_count = staticmethod(kernels.segment_count)
-    ts_gather = staticmethod(kernels.ts_gather)
-    ts_install_max = staticmethod(kernels.ts_install_max)
+    """Device-dispatching backend: each op runs where its tensors are.
+
+    Signatures follow the JAX backend's argument order; tables are updated
+    in place, so ``commit_install`` and ``claim_scatter`` return None,
+    ``claim_probe`` returns wprio int32[T, K] and ``validate_dual``
+    returns (fine, coarse)."""
 
 
+for _op, _fn in kernels.WRAPPERS.items():
+    setattr(Backend, _op, staticmethod(_fn))
 for _op in _WAITS:
     setattr(Backend, _op, staticmethod(_waiting(_op)))
 
@@ -91,10 +92,18 @@ for _op in _WAITS:
 BACKEND = Backend()
 
 
-def kernel_coverage(cc: int, launches: dict) -> dict:
-    """{op: "cuda" | "torch"} for the ported ops of mechanism ``cc``:
-    "cuda" where ``launches`` (a delta of ``kernels.launch_counts()``
-    over the run) shows the op's kernel launched, "torch" where it ran as
-    its plain version."""
-    return {op: "cuda" if launches.get(op, 0) > 0 else "torch"
-            for op in CC_OPS[cc] if op in kernels.WRAPPERS}
+def kernel_coverage(cc: int, launches: dict, calls: dict) -> dict:
+    """{op: "cuda" | "torch" | "not_run"} for the ported ops of mechanism
+    ``cc``, from the deltas of ``kernels.launch_counts()`` and
+    ``kernels.call_counts()`` over a run: "cuda" where every call launched
+    the op's kernel, "torch" where a call ran its plain version, "not_run"
+    where the run never called it (``commit_install`` on the fused
+    route)."""
+    out = {}
+    for op in CC_OPS[cc]:
+        if op not in kernels.WRAPPERS:
+            continue
+        n = calls.get(op, 0)
+        out[op] = ("not_run" if n == 0 else
+                   "cuda" if launches.get(op, 0) == n else "torch")
+    return out

@@ -4,19 +4,20 @@ Each mechanism implements
 
     wave_validate(store, batch, prio, wave, cfg) -> (store, ValidationResult)
 
-The port runs OCC and TicToc; ``VALIDATORS`` raises ``NotImplementedError``
-for the others, naming the ROADMAP item they wait for.
+The port runs OCC, TicToc, 2PL, SwissTM, Adaptive and AutoGran;
+``VALIDATORS`` raises ``NotImplementedError`` for the multi-version pair,
+naming the ROADMAP item they wait for.
 """
 from repro_torch.core import types as _t
+from repro_torch.core.cc.adaptive import wave_validate as adaptive_validate
+from repro_torch.core.cc.autogran import wave_validate as autogran_validate
 from repro_torch.core.cc.base import ValidationResult
 from repro_torch.core.cc.occ import wave_validate as occ_validate
+from repro_torch.core.cc.swisstm import wave_validate as swisstm_validate
 from repro_torch.core.cc.tictoc import wave_validate as tictoc_validate
+from repro_torch.core.cc.two_pl import wave_validate as two_pl_validate
 
 _WAITS = {
-    _t.CC_2PL: "ROADMAP A.3 (two_pl, with commit_install and claim_probe)",
-    _t.CC_SWISS: "ROADMAP A.3 (swisstm)",
-    _t.CC_ADAPTIVE: "ROADMAP A.3 (adaptive)",
-    _t.CC_AUTOGRAN: "ROADMAP A.6 (AutoGran)",
     _t.CC_MVCC: "ROADMAP A.8 (multi-versioning)",
     _t.CC_MVOCC: "ROADMAP A.8 (multi-versioning)",
 }
@@ -36,7 +37,12 @@ class _Validators(dict):
 VALIDATORS = _Validators({
     _t.CC_OCC: occ_validate,
     _t.CC_TICTOC: tictoc_validate,
+    _t.CC_2PL: two_pl_validate,
+    _t.CC_SWISS: swisstm_validate,
+    _t.CC_ADAPTIVE: adaptive_validate,
+    _t.CC_AUTOGRAN: autogran_validate,
 })
 
-__all__ = ["ValidationResult", "VALIDATORS", "occ_validate",
-           "tictoc_validate"]
+__all__ = ["ValidationResult", "VALIDATORS", "adaptive_validate",
+           "autogran_validate", "occ_validate", "swisstm_validate",
+           "tictoc_validate", "two_pl_validate"]

@@ -1,9 +1,14 @@
 """Shared pieces of the CC mechanisms (port of ``repro/core/cc/base.py``).
 
-The probe family runs its whole claim -> verdict -> install chain through
-ONE backend op, ``wave_commit`` (``claim_probe_commit`` below).  The port
-runs the fused route only; ``EngineConfig`` refuses ``fuse_wave=False``
-and scans, whose routes wait for later slices.
+The probe family (OCC, TicToc, 2PL, SwissTM, Adaptive) runs its whole
+claim -> verdict -> install chain through ``claim_probe_commit`` below.
+``EngineConfig.fuse_wave`` picks the route: ONE backend op,
+``wave_commit`` (the default), or the unfused chain of ``claim_probe`` on
+each claim table, the verdict compare in tensor ops and ``commit_install``
+for the bumps.  Both routes evaluate the same mask algebra over the same
+primitives, so they are bit-identical.  AutoGran installs with
+``write_claims`` and bumps with ``bump_versions``.  Scans (interval ops)
+wait for ROADMAP A.7; ``EngineConfig`` refuses them.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import torch
 from repro_torch.core import backend as kb
 from repro_torch.core import claims
 from repro_torch.core import types as t
+from repro_torch.core.claimword import NO_PRIO
 from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 
 
@@ -33,7 +39,7 @@ class ValidationResult:
     def lane_cause(self) -> torch.Tensor:
         """Per-lane abort cause: min cause code over the lane's ops
         (CAUSE_NONE for committing lanes)."""
-        return self.cause_op.min(dim=1).values
+        return self.cause_op.amin(dim=1)
 
 
 def result_from_conflicts(batch: TxnBatch, conflict_op: torch.Tensor,
@@ -70,30 +76,101 @@ def my_prio_per_op(batch: TxnBatch, prio: torch.Tensor) -> torch.Tensor:
     return prio[:, None].expand(batch.op_key.shape).contiguous()
 
 
+def _point_ops_only(cfg: EngineConfig) -> None:
+    if cfg.max_extent > 1:
+        raise NotImplementedError(
+            "scans (max_extent > 1) are not ported to repro_torch yet: "
+            "they wait for ROADMAP A.7 (iterate_validate)")
+
+
+def bump_versions(store: StoreState, batch: TxnBatch, commit: torch.Tensor,
+                  cfg: EngineConfig) -> StoreState:
+    """+1 on ``wts`` per committed write op (backend ``commit_install``),
+    in place."""
+    w = batch.is_write() & batch.live() & commit[:, None]
+    kb.BACKEND.commit_install(store.wts, batch.op_key, batch.op_group, w)
+    return store
+
+
+def write_claims(store: StoreState, batch: TxnBatch, prio: torch.Tensor,
+                 wave: int, cfg: EngineConfig) -> StoreState:
+    """Write-set claims into the writer-claim table (backend
+    ``claim_scatter``), in place."""
+    kb.BACKEND.claim_scatter(store.claim_w, batch.op_key, batch.op_group,
+                             my_prio_per_op(batch, prio), wave,
+                             batch.is_write() & batch.live())
+    return store
+
+
+def phantom_validate(store: StoreState, batch: TxnBatch, prio: torch.Tensor,
+                     wave: int, cfg: EngineConfig,
+                     fine: Optional[bool] = None) -> torch.Tensor:
+    """Interval (scan) validation: all-False at ``max_extent == 1``, the
+    only setting the port runs."""
+    _point_ops_only(cfg)
+    return torch.zeros(batch.op_key.shape, dtype=torch.bool,
+                       device=batch.op_key.device)
+
+
 def claim_probe_commit(store: StoreState, batch: TxnBatch,
                        prio: torch.Tensor, wave: int, cfg: EngineConfig,
                        fine: Optional[bool] = None, *,
                        check_w: torch.Tensor,
                        check_w2: Optional[torch.Tensor] = None,
+                       check_r: Optional[torch.Tensor] = None,
+                       extra: Optional[torch.Tensor] = None,
+                       dual: bool = False,
+                       do_r_mask: Optional[torch.Tensor] = None,
                        bump: bool = True
                        ) -> tuple[StoreState, torch.Tensor]:
-    """The probe family's whole wave in one backend call: claim install +
-    probe + per-op conflicts (+ version bumps for committed writes).
+    """The probe family's wave: claim install + probe + per-op conflicts
+    (+ version bumps for committed writes).
 
       conflict = check_w  & (wprio < myprio)
                | check_w2 & (wprio != NO_PRIO != myprio)
+               | check_r  & (rprio < myprio)
+               | extra
 
-    OCC and TicToc need only the writer-claim channels; the kernel's
-    reader-claim (``dual``) and ``extra`` channels wait for the 2PL /
-    Adaptive slice.  The claim table (and ``wts`` when ``bump``) is updated
-    in place.  Returns ``(store, conflict bool[T, K])``."""
+    ``wprio``/``rprio`` are the post-install strongest-claimant probes of
+    the writer / reader claim tables; the reader channel rides only when
+    ``dual``, with live reads narrowed by ``do_r_mask`` as its install
+    mask.  ``bump`` adds 1 to ``wts`` per committed write op.  The tables
+    are updated in place.  ``cfg.fuse_wave`` picks the route (module
+    docstring).  Returns ``(store, conflict bool[T, K])``."""
+    _point_ops_only(cfg)
     if fine is None:
         fine = is_fine(cfg)
-    do_w = batch.is_write() & batch.live()
-    conflict, _ = kb.BACKEND.wave_commit(
-        store.claim_w, None, store.wts if bump else None, batch.op_key,
-        batch.op_group, my_prio_per_op(batch, prio), do_w, None, check_w,
-        check_w2, None, None, wave, fine, False, bump)
+    be = kb.BACKEND
+    keys, groups = batch.op_key, batch.op_group
+    live = batch.live()
+    do_w = batch.is_write() & live
+    do_r = None
+    if dual:
+        do_r = batch.is_read() & live
+        if do_r_mask is not None:
+            do_r = do_r & do_r_mask
+    myp = my_prio_per_op(batch, prio)
+
+    if cfg.fuse_wave:
+        conflict, _ = be.wave_commit(
+            store.claim_w, store.claim_r if dual else None,
+            store.wts if bump else None, keys, groups, myp, do_w, do_r,
+            check_w, check_w2, check_r, extra, wave, fine, dual, bump)
+        return store, conflict
+
+    # Unfused: the chain of the megakernel, term by term.
+    wprio = be.claim_probe(store.claim_w, keys, groups, myp, wave, do_w, fine)
+    conflict = check_w & (wprio < myp)
+    if check_w2 is not None:
+        conflict = conflict | (check_w2 & (wprio != NO_PRIO) & (wprio != myp))
+    if dual:
+        rprio = be.claim_probe(store.claim_r, keys, groups, myp, wave, do_r,
+                               fine)
+        conflict = conflict | (check_r & (rprio < myp))
+    if extra is not None:
+        conflict = conflict | extra
+    if bump:
+        bump_versions(store, batch, ~conflict.any(dim=1), cfg)
     return store, conflict
 
 

@@ -46,7 +46,7 @@ def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
     # commit_ts over live ops (0 when no ops).
     ts_term = torch.where(wr, (rts_op + 1) & U32_MASK,
                           torch.where(rd, wts_op, 0))
-    commit_ts = ts_term.max(dim=1).values  # [T]
+    commit_ts = ts_term.amax(dim=1)  # [T]
 
     # Reads that need room to time-travel; window-thinned checks of the
     # stronger-writer channel and of the failed-extension channel (any

@@ -4,8 +4,9 @@ Claim tables are reset-free thanks to the monotone wave tag of
 ``core/claimword.py``; installing and probing them is the job of the
 backend ops (``core/backend.py``).  What stays here is the per-wave
 arithmetic the mechanisms share: priorities, the stateless hash behind the
-overlap thinning, same-cell counts and first-conflict indices.  uint32
-arithmetic is done in int64 and masked to 32 bits.
+overlap thinning, same-cell counts, first-conflict indices and the lazily
+decayed per-record heats of Adaptive and AutoGran.  uint32 arithmetic is
+done in int64 and masked to 32 bits.
 """
 from __future__ import annotations
 
@@ -56,4 +57,41 @@ def first_true_index(flags: torch.Tensor, size: int) -> torch.Tensor:
     """Index of the first True along the last axis (int32), or ``size`` if
     none."""
     idx = torch.arange(size, dtype=torch.int32, device=flags.device)
-    return torch.where(flags, idx, size).min(dim=-1).values
+    return torch.where(flags, idx, size).amin(dim=-1)
+
+
+def record_index(keys: torch.Tensor, n: int):
+    """(index int64, valid bool) for per-record gathers and scatters:
+    keys outside [0, n) are masked (torch wraps negative indices and
+    raises on large ones, where the JAX package fills or drops)."""
+    valid = (keys >= 0) & (keys < n)
+    return torch.where(valid, keys, 0).to(torch.int64), valid
+
+
+def lazy_decayed(heat: torch.Tensor, heat_wave: torch.Tensor,
+                 keys: torch.Tensor, wave: int, decay: float) -> torch.Tensor:
+    """heat[keys] with the decay of the waves since its last touch applied,
+    heat * decay ** (wave - heat_wave), in float32; 0 for masked keys."""
+    k, valid = record_index(keys, heat.shape[0])
+    h = torch.where(valid, heat[k], 0.0)
+    lw = torch.where(valid, heat_wave[k], 0)
+    dt = torch.clamp(int(wave) - lw, min=0).to(torch.float32)
+    return h * torch.full_like(dt, decay).pow(dt)
+
+
+def touch_heat(heat: torch.Tensor, heat_wave: torch.Tensor,
+               keys: torch.Tensor, add: torch.Tensor, wave: int,
+               decay: float, mask: torch.Tensor) -> None:
+    """In place, for the masked ops' records: heat = decayed heat + the
+    sum of the ops' ``add``, heat_wave = wave.
+
+    As in the JAX package, the decayed base is set first (duplicate keys
+    write the same value) and the adds accumulate on it; adds of equal
+    values give the same float32 sums in any order."""
+    k, valid = record_index(keys, heat.shape[0])
+    ok = mask & valid
+    decayed = lazy_decayed(heat, heat_wave, keys, wave, decay)
+    kk = k[ok]
+    heat[kk] = decayed[ok]
+    heat.index_put_((kk,), add[ok].to(heat.dtype), accumulate=True)
+    heat_wave[kk] = int(wave)

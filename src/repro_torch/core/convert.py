@@ -4,6 +4,8 @@ Both packages can then hold the same database and replay the same waves.
 Word tables (uint32 in the JAX package) travel as their bit patterns:
 ``store_from_numpy`` reinterprets uint32 arrays as int32 tensors and
 ``store_to_numpy`` views them back as uint32, so comparisons are exact.
+The per-record tables (mode bits, heats, heat waves) travel with their
+own dtypes.
 """
 from __future__ import annotations
 
@@ -16,6 +18,9 @@ from repro_torch.core.types import (CostModel, EngineConfig, StoreState,
                                     TxnBatch)
 
 WORD_TABLES = ("wts", "rts", "claim_w", "claim_r")
+RECORD_TABLES = {"ring_tails": np.int32, "pess_mode": np.bool_,
+                 "abort_heat": np.float32, "fine_mode": np.bool_,
+                 "false_heat": np.float32, "heat_wave": np.int32}
 _INT_FIELDS = ("op_key", "op_group", "op_col", "op_kind", "txn_type",
                "n_ops", "op_extent")
 
@@ -26,19 +31,20 @@ def _words(a: np.ndarray, device) -> torch.Tensor:
 
 
 def store_from_numpy(arrays: dict, device) -> StoreState:
-    """StoreState from {field: array}; extra fields (the JAX store's
-    tables of later slices) are ignored."""
+    """StoreState from {field: array}; the JAX store's fields of later
+    slices (values, the multi-version ring) are ignored."""
     tables = {k: _words(arrays[k], device) for k in WORD_TABLES}
-    tails = torch.from_numpy(
-        np.asarray(arrays["ring_tails"]).astype(np.int32)).to(device)
-    return StoreState(ring_tails=tails, **tables)
+    for k, dtype in RECORD_TABLES.items():
+        tables[k] = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(arrays[k]).astype(dtype))).to(device)
+    return StoreState(**tables)
 
 
 def store_to_numpy(store: StoreState) -> dict:
     """{field: numpy array}, word tables as uint32."""
     out = {k: getattr(store, k).cpu().numpy().view(np.uint32)
            for k in WORD_TABLES}
-    out["ring_tails"] = store.ring_tails.cpu().numpy()
+    out.update({k: getattr(store, k).cpu().numpy() for k in RECORD_TABLES})
     return out
 
 

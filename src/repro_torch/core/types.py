@@ -168,19 +168,26 @@ class TxnBatch:
 
 @dataclasses.dataclass
 class StoreState:
-    """The database's version metadata and claim tables.
+    """The database's version metadata, claim tables and per-record CC
+    state.
 
-    Holds the tables the OCC/TicToc path touches; the JAX package's
-    per-record state of the later mechanisms (Adaptive's pessimistic mode
-    and abort heat, AutoGran's fine mode and false heat, the multi-version
-    ring, tracked values) joins with the slice that ports them.  All
-    word tables are updated in place by the backend ops.
+    Holds the tables of the point-op mechanisms (OCC, TicToc, 2PL,
+    SwissTM, Adaptive, AutoGran); the JAX package's multi-version ring and
+    tracked values join with the slice that ports them.  Every table is
+    updated in place: the word tables by the backend ops, the mode bits
+    and heats by the mechanisms.  Heats decay lazily: a record's heat is
+    multiplied by decay ** (wave - heat_wave) when it is next read.
     """
     wts: torch.Tensor         # int32[n_records, G]  write timestamps
     rts: torch.Tensor         # int32[n_records, G]  read timestamps
     claim_w: torch.Tensor     # int32[n_records, G]  writer claim table
     claim_r: torch.Tensor     # int32[n_records, G]  reader claim table
     ring_tails: torch.Tensor  # int32[n_rings]       append-ring cursors
+    pess_mode: torch.Tensor   # bool[n_records]  Adaptive: pessimistic mode
+    abort_heat: torch.Tensor  # f32[n_records]   Adaptive: abort EWMA
+    fine_mode: torch.Tensor   # bool[n_records]  AutoGran: fine timestamps
+    false_heat: torch.Tensor  # f32[n_records]   AutoGran: false-conflict EWMA
+    heat_wave: torch.Tensor   # int32[n_records] wave a heat was last touched
 
     @property
     def n_records(self) -> int:
@@ -325,8 +332,6 @@ class EngineConfig:
                 "have already drifted past")
         # Settings the port does not run yet.
         waits = [
-            (not self.fuse_wave, "fuse_wave=False",
-             "ROADMAP A.3 (the unfused claim_probe + commit_install chain)"),
             (self.max_extent > 1, f"max_extent={self.max_extent}",
              "ROADMAP A.7 (scans, iterate_validate)"),
             (self.mv_depth > 0, f"mv_depth={self.mv_depth}",
@@ -373,6 +378,9 @@ def store_init(n_records: int, n_groups: int, n_rings: int = 1,
         # NO_CLAIM's bit pattern is -1 as int32.
         return torch.full((n_records, G), fill, dtype=torch.int32,
                           device=dev)
+
+    def per_record(dtype) -> torch.Tensor:
+        return torch.zeros((n_records,), dtype=dtype, device=dev)
     return StoreState(
         wts=table(0),
         rts=table(0) if need_rts else torch.zeros((1, 1), dtype=torch.int32,
@@ -380,6 +388,11 @@ def store_init(n_records: int, n_groups: int, n_rings: int = 1,
         claim_w=table(-1),
         claim_r=table(-1),
         ring_tails=torch.zeros((n_rings,), dtype=torch.int32, device=dev),
+        pess_mode=per_record(torch.bool),
+        abort_heat=per_record(torch.float32),
+        fine_mode=per_record(torch.bool),
+        false_heat=per_record(torch.float32),
+        heat_wave=per_record(torch.int32),
     )
 
 

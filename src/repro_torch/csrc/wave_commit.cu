@@ -27,29 +27,12 @@
 // min and + are commutative, so the result does not depend on the order in
 // which blocks or atomics run.  Masked ops (key outside [0, N) or group
 // outside [0, G)) install nothing and probe NO_PRIO.
-#include <cuda_runtime.h>
+#include "claim.cuh"
 
 namespace {
 
-constexpr unsigned kNoPrio = 0xFFFFu;
-
-__device__ __forceinline__ unsigned live_prio(unsigned word, unsigned ivw) {
-  return (word >> 16) == ivw ? (word & 0xFFFFu) : kNoPrio;
-}
-
-__device__ __forceinline__ unsigned probe(const unsigned* __restrict__ table,
-                                          int key, int g, int N, int G,
-                                          unsigned ivw, int fine) {
-  if (key < 0 || key >= N) return kNoPrio;
-  const unsigned* row = table + (size_t)key * G;
-  if (fine) {
-    if (g < 0 || g >= G) return kNoPrio;
-    return live_prio(row[g], ivw);
-  }
-  unsigned best = kNoPrio;
-  for (int j = 0; j < G; ++j) best = min(best, live_prio(row[j], ivw));
-  return best;
-}
+using claim::kNoPrio;
+using claim::probe;
 
 __global__ void install_kernel(unsigned* __restrict__ claim_w,
                                unsigned* __restrict__ claim_r,
@@ -63,9 +46,9 @@ __global__ void install_kernel(unsigned* __restrict__ claim_w,
   if (i >= n) return;
   int key = keys[i];
   int g = groups[i];
-  if (key < 0 || key >= N || g < 0 || g >= G) return;
-  unsigned word = (ivw << 16) | ((unsigned)prio[i] & 0xFFFFu);
-  size_t cell = (size_t)key * G + g;
+  if (!claim::in_cell(key, g, N, G)) return;
+  const unsigned word = claim::word(ivw, prio[i]);
+  const size_t cell = (size_t)key * G + g;
   if (do_w[i]) atomicMin(claim_w + cell, word);
   if (dual && do_r[i]) atomicMin(claim_r + cell, word);
 }
@@ -109,8 +92,7 @@ __global__ void verdict_kernel(const unsigned* __restrict__ claim_w,
   // Every thread of the block reaches the barrier, padding threads too.
   const bool ok = __syncthreads_or(c) == 0;
   if (k == 0) commit[t] = ok;
-  if (bump && ok && k < K && do_w[i] && key >= 0 && key < N && g >= 0 &&
-      g < G)
+  if (bump && ok && k < K && do_w[i] && claim::in_cell(key, g, N, G))
     atomicAdd(wts + (size_t)key * G + g, 1u);
 }
 

@@ -1,11 +1,16 @@
 """Hand-written CUDA kernels of the port, each beside its plain version.
 
 Every module holds a kernel's plain PyTorch version, its wrapper and the
-wrapper's ``launches`` counter.  A wrapper runs the plain version for CPU
-tensors and launches the kernel (``csrc/<name>.cu``, built by
-``build.py``) for CUDA tensors; it never falls back.  ``launches`` grows by
-one per wrapper call that launched its kernel, and nowhere else.
+wrapper's two counters.  A wrapper runs the plain version for CPU tensors
+and launches the kernel (``csrc/<name>.cu``, built by ``build.py``) for
+CUDA tensors; it never falls back.  ``calls`` grows by one per wrapper
+call; ``launches`` grows by one per call that launched the kernel, and
+nowhere else.
 """
+from repro_torch.kernels.claim_probe import claim_probe
+from repro_torch.kernels.claim_scatter import claim_scatter
+from repro_torch.kernels.occ_commit import commit_install
+from repro_torch.kernels.occ_validate import validate_dual
 from repro_torch.kernels.segment_count import segment_count
 from repro_torch.kernels.ts_gather import ts_gather
 from repro_torch.kernels.ts_install import ts_install_max
@@ -17,6 +22,10 @@ WRAPPERS = {
     "segment_count": segment_count,
     "ts_gather": ts_gather,
     "ts_install_max": ts_install_max,
+    "commit_install": commit_install,
+    "claim_scatter": claim_scatter,
+    "validate_dual": validate_dual,
+    "claim_probe": claim_probe,
 }
 
 
@@ -25,6 +34,13 @@ def launch_counts() -> dict:
     return {op: w.launches for op, w in WRAPPERS.items()}
 
 
+def call_counts() -> dict:
+    """{op: wrapper calls so far, plain or kernel} for every ported op."""
+    return {op: w.calls for op, w in WRAPPERS.items()}
+
+
 def reset_launches() -> None:
+    """Set every wrapper's ``launches`` and ``calls`` to 0."""
     for w in WRAPPERS.values():
         w.launches = 0
+        w.calls = 0

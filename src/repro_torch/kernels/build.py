@@ -7,7 +7,8 @@ into its own shared library, loaded with ``ctypes``:
          -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so csrc/<name>.cu
 
 Libraries land in ``build/repro_torch/`` at the repository root, named by a
-hash of their source and flags, so an edited source rebuilds on first use.
+hash of their source, the shared headers of ``csrc/`` and the flags, so an
+edited source or header rebuilds on first use.
 ``build`` starts one ``nvcc`` per missing library, all at once, and waits
 for every one of them.  Without ``nvcc`` a CUDA call raises.
 
@@ -30,7 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("wave_commit", "segment_count", "ts_gather", "ts_install")
+SOURCES = ("wave_commit", "segment_count", "ts_gather", "ts_install",
+           "occ_commit", "claim_scatter", "occ_validate", "claim_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,6 +56,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

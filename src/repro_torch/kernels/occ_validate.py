@@ -1,0 +1,76 @@
+"""Dual-width read validation: fine and coarse verdicts from one row read.
+
+Replaces the TPU kernel ``occ_validate_dual_pallas``
+(src/repro/kernels/occ_validate.py); the semantics are the JAX oracle
+``ref.occ_validate_dual``: per op,
+
+  fine   = check & (live prio16 of the op's own cell        < myprio)
+  coarse = check & (min live prio16 over the record's row   < myprio)
+
+A masked key gives no conflict; an out-of-range group gives none on the
+fine side (the oracle's ``take_along_axis`` fill reads as no claimant).
+Returns ``(fine, coarse)``, two bool[T, K]; the table is only read.
+
+CUDA tensors launch ``csrc/occ_validate.cu`` (one thread per op reading
+its row once); CPU tensors take ``validate_dual_plain``.  The file's other
+two TPU kernels (``occ_validate_pallas``, ``claim_probe_pallas``) wait for
+the multi-version slice.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.claimword import NO_PRIO, inv_wave, live_prio, u32
+from repro_torch.kernels import build
+from repro_torch.kernels.scatter import gather_rows, pick_group
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIG = {"repro_validate_dual": [_P] * 7 + [_I] * 4 + [_P]}
+
+
+def validate_dual_plain(claim_w: torch.Tensor, keys: torch.Tensor,
+                        groups: torch.Tensor, myprio: torch.Tensor,
+                        check: torch.Tensor, wave: int):
+    rows, valid = gather_rows(claim_w, keys)
+    pr = torch.where(valid[..., None], live_prio(rows, inv_wave(wave)),
+                     NO_PRIO)
+    p = u32(myprio)
+    fine = check & (pick_group(pr, groups, NO_PRIO) < p)
+    coarse = check & (pr.amin(dim=-1) < p)
+    return fine, coarse
+
+
+def validate_dual(claim_w: torch.Tensor, keys: torch.Tensor,
+                  groups: torch.Tensor, myprio: torch.Tensor,
+                  check: torch.Tensor, wave: int):
+    """(fine, coarse) conflict flags, bool[T, K] each."""
+    validate_dual.calls += 1
+    if keys.device.type == "cpu":
+        return validate_dual_plain(claim_w, keys, groups, myprio, check, wave)
+    dev = build.launch_device(keys)
+    N, G = claim_w.shape
+    shape = tuple(keys.shape)
+    build.check("claim_w", claim_w, torch.int32, (N, G), dev)
+    build.check("keys", keys, torch.int32, shape, dev)
+    build.check("groups", groups, torch.int32, shape, dev)
+    build.check("myprio", myprio, torch.int32, shape, dev)
+    build.check("check", check, torch.bool, shape, dev)
+    fine = torch.empty(shape, dtype=torch.bool, device=dev)
+    coarse = torch.empty(shape, dtype=torch.bool, device=dev)
+    lib = build.load("occ_validate", _SIG)
+    with torch.cuda.device(dev):
+        rc = lib.repro_validate_dual(
+            build.ptr(claim_w), build.ptr(keys), build.ptr(groups),
+            build.ptr(myprio), build.ptr(check), build.ptr(fine),
+            build.ptr(coarse), keys.numel(), N, G, inv_wave(wave),
+            build.stream(dev))
+    build.raise_on_error("validate_dual", rc)
+    validate_dual.launches += 1
+    return fine, coarse
+
+
+validate_dual.launches = 0
+validate_dual.calls = 0

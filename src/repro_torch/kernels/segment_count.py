@@ -41,6 +41,7 @@ def segment_count_plain(keys: torch.Tensor, groups: torch.Tensor, G: int,
 def segment_count(keys: torch.Tensor, groups: torch.Tensor, G: int,
                   mask: torch.Tensor) -> torch.Tensor:
     """float32[T, K] same-cell op counts (0 where masked)."""
+    segment_count.calls += 1
     if keys.device.type == "cpu":
         return segment_count_plain(keys, groups, G, mask)
     dev = build.launch_device(keys)
@@ -60,3 +61,4 @@ def segment_count(keys: torch.Tensor, groups: torch.Tensor, G: int,
 
 
 segment_count.launches = 0
+segment_count.calls = 0

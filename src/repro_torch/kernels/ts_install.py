@@ -39,6 +39,7 @@ def ts_install_max(table: torch.Tensor, keys: torch.Tensor,
                    mask: torch.Tensor,
                    whole_row: bool = False) -> torch.Tensor:
     """In-place monotone scatter-max; returns ``table``."""
+    ts_install_max.calls += 1
     if keys.device.type == "cpu":
         return ts_install_max_plain(table, keys, groups, vals, mask,
                                     whole_row)
@@ -62,3 +63,4 @@ def ts_install_max(table: torch.Tensor, keys: torch.Tensor,
 
 
 ts_install_max.launches = 0
+ts_install_max.calls = 0

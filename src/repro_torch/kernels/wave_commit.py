@@ -45,7 +45,7 @@ def probe_plain(table: torch.Tensor, keys: torch.Tensor,
     unclaimed or masked (the JAX oracle ``ref.claim_probe``)."""
     rows, valid = gather_rows(table, keys)
     pr = live_prio(rows, ivw)
-    wp = pick_group(pr, groups, NO_PRIO) if fine else pr.min(dim=-1).values
+    wp = pick_group(pr, groups, NO_PRIO) if fine else pr.amin(dim=-1)
     return torch.where(valid, wp, NO_PRIO)
 
 
@@ -85,6 +85,7 @@ def wave_commit(claim_w: torch.Tensor, claim_r: Optional[torch.Tensor],
                 dual: bool, bump: bool):
     """The fused probe-family wave; returns (conflict, commit) and updates
     ``claim_w`` (``claim_r`` when dual, ``wts`` when bump) in place."""
+    wave_commit.calls += 1
     if keys.device.type == "cpu":
         return wave_commit_plain(claim_w, claim_r, wts, keys, groups, prio,
                                  do_w, do_r, check_w, check_w2, check_r,
@@ -129,3 +130,4 @@ def wave_commit(claim_w: torch.Tensor, claim_r: Optional[torch.Tensor],
 
 
 wave_commit.launches = 0
+wave_commit.calls = 0

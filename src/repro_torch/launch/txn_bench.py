@@ -1,16 +1,17 @@
 """Transaction-engine benchmark CLI on the port (the paper's experiments).
 
     PYTHONPATH=src python -m repro_torch.launch.txn_bench --workload tpcc \
-        --cc occ tictoc --granularity both --lanes 16 64 128 --waves 300
+        --cc occ tictoc 2pl swisstm adaptive --granularity both \
+        --lanes 16 64 128 --waves 300
 
 The grid is a loop of ``core/engine.run`` calls, one per (cc,
 granularity, lanes) point, on ``--device`` (CUDA by default; ``cpu`` runs
 the plain versions of the kernels).  Rows carry the JAX CLI's keys
 (``repro/launch/txn_bench.py``) plus ``abort_causes``; ``backend`` names
 the device, ``device_name`` the card, ``kernel_ops`` which ported ops ran
-as CUDA kernels (from the launch counters), and ``wall_s`` / ``waves_per_s``
-the wave loop's synchronized host time.  The JAX rows' cost-model columns
-wait for ROADMAP A.10.
+as CUDA kernels, as plain versions or not at all (from the wrappers'
+counters), and ``wall_s`` / ``waves_per_s`` the wave loop's synchronized
+host time.  The JAX rows' cost-model columns wait for ROADMAP A.10.
 """
 from __future__ import annotations
 
@@ -30,18 +31,25 @@ def make_workload(workload: str, *, scale: float = 1.0,
                              theta=theta)
 
 
-def make_config(wl, cc_name: str, gran: int, lanes: int):
+#: ``--cc`` choices: the mechanisms the port runs.
+CCS = ("occ", "tictoc", "2pl", "swisstm", "adaptive", "autogran")
+
+
+def make_config(wl, cc_name: str, gran: int, lanes: int,
+                fuse_wave: bool = True):
     from repro_torch.core import types as t
     return t.EngineConfig(
         cc=t.CC_IDS[cc_name], lanes=lanes, slots=wl.slots,
         n_records=wl.n_records, n_groups=wl.n_groups, n_cols=wl.n_cols,
         n_txn_types=wl.n_txn_types, granularity=gran, n_rings=wl.n_rings,
-        max_extent=wl.max_extent)
+        max_extent=wl.max_extent, fuse_wave=fuse_wave)
 
 
-def row(workload: str, cc_name: str, gran: int, res, launches: dict) -> dict:
-    """One JSON row for a finished run; ``launches`` is the run's delta of
-    ``kernels.launch_counts()``."""
+def row(workload: str, cc_name: str, gran: int, res, launches: dict,
+        calls: dict) -> dict:
+    """One JSON row for a finished run; ``launches`` and ``calls`` are the
+    run's deltas of ``kernels.launch_counts()`` and
+    ``kernels.call_counts()``."""
     from repro_torch.core import types as t
     from repro_torch.core.backend import kernel_coverage
     dev = torch.device(res.device)
@@ -59,7 +67,7 @@ def row(workload: str, cc_name: str, gran: int, res, launches: dict) -> dict:
         "backend": str(dev),
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
-        "kernel_ops": kernel_coverage(t.CC_IDS[cc_name], launches),
+        "kernel_ops": kernel_coverage(t.CC_IDS[cc_name], launches, calls),
         "max_extent": 1,
         "abort_causes": {t.CAUSE_NAMES[i]: n
                          for i, n in enumerate(res.abort_causes)},
@@ -69,8 +77,9 @@ def row(workload: str, cc_name: str, gran: int, res, launches: dict) -> dict:
 def run_grid(workload: str, ccs: list, grans, lanes: list, waves: int, *,
              scale: float = 1.0, n_keys: int = 1_000_000, seed: int = 0,
              write_frac: float = 0.5, theta: float = 0.9,
-             device=None) -> list:
-    """Run every (cc, granularity, lanes) point; returns row dicts."""
+             device=None, fuse_wave: bool = True) -> list:
+    """Run every (cc, granularity, lanes) point; returns row dicts.
+    ``fuse_wave=False`` takes the probe family's unfused route."""
     from repro_torch import kernels
     from repro_torch.core.engine import run
     wl = make_workload(workload, scale=scale, n_keys=n_keys,
@@ -79,20 +88,21 @@ def run_grid(workload: str, ccs: list, grans, lanes: list, waves: int, *,
     for g in grans:
         for cc in ccs:
             for T in lanes:
-                before = kernels.launch_counts()
-                res = run(make_config(wl, cc, g, T), wl, waves, seed=seed,
-                          device=device)
-                after = kernels.launch_counts()
-                delta = {op: after[op] - before[op] for op in after}
-                rows.append(row(workload, cc, g, res, delta))
+                before = (kernels.launch_counts(), kernels.call_counts())
+                res = run(make_config(wl, cc, g, T, fuse_wave), wl, waves,
+                          seed=seed, device=device)
+                after = (kernels.launch_counts(), kernels.call_counts())
+                launches, calls = ({op: a[op] - b[op] for op in a}
+                                   for a, b in zip(after, before))
+                rows.append(row(workload, cc, g, res, launches, calls))
     return rows
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", choices=("tpcc", "ycsb"), default="tpcc")
-    ap.add_argument("--cc", nargs="+", choices=("occ", "tictoc"),
-                    default=["occ", "tictoc"])
+    ap.add_argument("--cc", nargs="+", choices=CCS,
+                    default=["occ", "tictoc", "2pl", "swisstm", "adaptive"])
     ap.add_argument("--granularity", choices=("coarse", "fine", "both"),
                     default="both")
     ap.add_argument("--lanes", type=int, nargs="+", default=[16, 64, 128])

@@ -1,9 +1,10 @@
 """Where a wave's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.wave_profile \
-        --workload tpcc --lanes 128 --waves 50
+        --workload tpcc --cc occ tictoc 2pl --lanes 128 --waves 50
 
-For each (cc, granularity) of OCC and TicToc: the host wall time per wave
+For each (cc, granularity) of the ``--cc`` mechanisms (OCC and TicToc by
+default): the host wall time per wave
 (``core/engine.run_waves``, the wave loop of ``run``, synchronized, without
 the profiler), then one ``torch.profiler`` pass over the same number of waves
 giving the device kernels per wave, the device-busy time per wave (the
@@ -69,13 +70,15 @@ def profile(workload: str, cc: str, gran: int, lanes: int, waves: int,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", choices=("tpcc", "ycsb"), default="tpcc")
+    from repro_torch.launch.txn_bench import CCS
+    ap.add_argument("--cc", nargs="+", choices=CCS, default=["occ", "tictoc"])
     ap.add_argument("--lanes", type=int, default=128)
     ap.add_argument("--waves", type=int, default=50)
     ap.add_argument("--n-keys", type=int, default=10_000_000)
     args = ap.parse_args(argv)
     kw = {"n_keys": args.n_keys} if args.workload == "ycsb" else {}
     for gran in (0, 1):
-        for cc in ("occ", "tictoc"):
+        for cc in args.cc:
             print(json.dumps(profile(args.workload, cc, gran, args.lanes,
                                      args.waves, **kw)), flush=True)
 

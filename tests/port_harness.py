@@ -21,11 +21,12 @@ from repro_torch.core import convert
 from repro_torch.core import engine as pe
 
 
-def jax_config(wl, cc: int, gran: int, lanes: int) -> jt.EngineConfig:
+def jax_config(wl, cc: int, gran: int, lanes: int,
+               fuse_wave: bool = True) -> jt.EngineConfig:
     return jt.EngineConfig(
         cc=cc, lanes=lanes, slots=wl.slots, n_records=wl.n_records,
         n_groups=wl.n_groups, n_cols=wl.n_cols, n_txn_types=wl.n_txn_types,
-        granularity=gran, n_rings=wl.n_rings)
+        granularity=gran, n_rings=wl.n_rings, fuse_wave=fuse_wave)
 
 
 def jax_draws(wl, lanes: int, n_waves: int, seed: int = 0) -> list:
@@ -45,9 +46,17 @@ def jax_draws(wl, lanes: int, n_waves: int, seed: int = 0) -> list:
     return out
 
 
+#: Store fields compared bit for bit, and the float heats compared to
+#: rtol 1e-6 (``decay ** dt`` is a float32 pow, which CPU libraries may
+#: round an ulp apart).
+EXACT_TABLES = ("wts", "rts", "claim_w", "claim_r", "ring_tails",
+                "pess_mode", "fine_mode", "heat_wave")
+HEAT_TABLES = ("abort_heat", "false_heat")
+
+
 def store_arrays(store) -> dict:
     return {k: np.asarray(getattr(store, k))
-            for k in ("wts", "rts", "claim_w", "claim_r", "ring_tails")}
+            for k in EXACT_TABLES + HEAT_TABLES}
 
 
 def port_replay(cfg, store0: dict, draws: list, device="cpu"):
@@ -64,11 +73,12 @@ def port_replay(cfg, store0: dict, draws: list, device="cpu"):
 
 
 def assert_engine_parity(wl, cc: int, gran: int, lanes: int, draws: list,
-                         seed: int = 0) -> None:
-    """The port's replay of the JAX draws equals JAX ``run``: integer state
-    and counters bit-identical, lane_time and throughput to rtol 1e-5
-    (float32 sums reduced in another order)."""
-    jcfg = jax_config(wl, cc, gran, lanes)
+                         seed: int = 0, fuse_wave: bool = True):
+    """The port's replay of the JAX draws equals JAX ``run``: integer state,
+    mode bits and counters bit-identical, heats to rtol 1e-6, lane_time and
+    throughput to rtol 1e-5 (float32 sums reduced in another order).
+    Returns the port's final EngineState."""
+    jcfg = jax_config(wl, cc, gran, lanes, fuse_wave)
     n_waves = len(draws)
     ref = jax_run(jcfg, wl, n_waves=n_waves, seed=seed, keep_state=True)
     js = ref.final_state
@@ -83,12 +93,34 @@ def assert_engine_parity(wl, cc: int, gran: int, lanes: int, draws: list,
     assert res.ext_events == ref.ext_events
     assert sum(res.abort_causes) == res.aborts
     got = convert.store_to_numpy(state.store)
-    for k in ("wts", "rts", "claim_w", "ring_tails"):
+    for k in EXACT_TABLES:
         np.testing.assert_array_equal(got[k], np.asarray(getattr(js.store, k)),
                                       err_msg=k)
+    for k in HEAT_TABLES:
+        np.testing.assert_allclose(got[k], np.asarray(getattr(js.store, k)),
+                                   rtol=1e-6, err_msg=k)
     np.testing.assert_array_equal(state.age.numpy(), np.asarray(js.age))
     np.testing.assert_array_equal(state.pending_live.numpy(),
                                   np.asarray(js.pending_live))
     np.testing.assert_allclose(state.lane_time.numpy(),
                                np.asarray(js.lane_time), rtol=1e-5)
     np.testing.assert_allclose(res.throughput, ref.throughput, rtol=1e-5)
+    return state
+
+
+def assert_routes_identical(wl, cc: int, draws: list) -> None:
+    """The port's fused route (wave_commit) and unfused route (claim_probe
+    + verdict + commit_install) end in bit-identical state on the same
+    draws (coarse)."""
+    store0 = store_arrays(wl.init_store(False))
+    states = []
+    for fuse in (True, False):
+        cfg = convert.config_from_fields(dataclasses.asdict(
+            jax_config(wl, cc, 0, len(draws[0][2]), fuse)))
+        states.append(port_replay(cfg, store0, draws))
+    a, b = states
+    for f in ("commits", "aborts", "abort_causes", "commits_by_type",
+              "ext_events", "age", "pending_live", "lane_time"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for f in convert.store_to_numpy(a.store):
+        assert torch.equal(getattr(a.store, f), getattr(b.store, f)), f

@@ -2,7 +2,9 @@
 
 Bit-exact: the claim-word layout, priorities, the stateless hash (uint32
 wraparound included), same-cell counts, first-conflict indices and the
-abort-cause histogram, on the same numpy inputs.
+abort-cause histogram, on the same numpy inputs.  The lazily decayed heats
+of Adaptive and AutoGran match to rtol 1e-6 (``decay ** dt`` is a float32
+pow), their heat waves exactly.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -104,3 +106,46 @@ def test_cause_counts_matches_jax_and_sums_to_aborts():
     assert pt.CAUSE_NAMES == jt.CAUSE_NAMES
     assert (pt.N_ABORT_CAUSES, pt.CAUSE_NONE) == (jt.N_ABORT_CAUSES,
                                                    jt.CAUSE_NONE)
+
+
+def _heats(rng, n=12):
+    heat = (rng.random(n) * 3).astype(np.float32)
+    heat_wave = rng.integers(0, 40, n).astype(np.int32)
+    keys = rng.integers(-1, n, (8, 6)).astype(np.int32)  # dups and -1
+    keys[0, :3] = 4                                        # a hot record
+    return heat, heat_wave, keys
+
+
+@pytest.mark.parametrize("decay", [0.95, 0.97])
+def test_lazy_decayed_matches_jax(decay):
+    rng = np.random.default_rng(17)
+    heat, heat_wave, keys = _heats(rng)
+    wave = 37  # some heats were touched after it: dt clamps at 0
+    want = np.asarray(jcl.lazy_decayed(
+        jnp.asarray(heat), jnp.asarray(heat_wave), jnp.asarray(keys),
+        jnp.uint32(wave), decay))
+    got = cl.lazy_decayed(torch.from_numpy(heat), torch.from_numpy(heat_wave),
+                          torch.from_numpy(keys), wave, decay)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    assert (got.numpy()[keys < 0] == 0).all()
+
+
+def test_touch_heat_matches_jax():
+    rng = np.random.default_rng(19)
+    heat, heat_wave, keys = _heats(rng)
+    mask = rng.random(keys.shape) < 0.6
+    mask[0, :3] = True  # three adds on one record
+    add = np.ones(keys.shape, np.float32)
+    want_h, want_w = jcl.touch_heat(
+        jnp.asarray(heat), jnp.asarray(heat_wave), jnp.asarray(keys),
+        jnp.asarray(add), jnp.uint32(41), 0.95,
+        jnp.asarray(mask & (keys >= 0)))
+    th, tw = torch.from_numpy(heat.copy()), torch.from_numpy(heat_wave.copy())
+    assert cl.touch_heat(th, tw, torch.from_numpy(keys), torch.from_numpy(add),
+                         41, 0.95, torch.from_numpy(mask)) is None  # in place
+    np.testing.assert_allclose(th.numpy(), np.asarray(want_h), rtol=1e-6)
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(want_w))
+    assert th[4] > 2.0 and tw[4] == 41
+    untouched = ~np.isin(np.arange(12), keys[mask & (keys >= 0)])
+    np.testing.assert_array_equal(th.numpy()[untouched], heat[untouched])

@@ -1,12 +1,14 @@
-"""The plain versions of the port's four kernels against the JAX oracles.
+"""The plain versions of the port's kernels against the JAX oracles.
 
 Each plain version (the route a CPU tensor takes through the kernel
 wrapper) must be bit-identical to the ``repro.kernels.ref`` function of
 the same name on the same numpy inputs: duplicate cells, masked keys
-(-1), stale wave tags, both granularities, every flag.  ``segment_count``,
-``ts_gather`` and ``ts_install_max`` are also held against their Pallas
-kernels in interpret mode; ``wave_commit``'s Pallas kernel does not run on
-this JAX version, so ``ref`` is its reference.  The CUDA kernels are held
+(-1), stale wave tags, waves whose tag has its top bit clear, both
+granularities, every flag.  ``segment_count``, ``ts_gather``,
+``ts_install_max``, ``commit_install`` and ``claim_scatter`` are also held
+against their Pallas kernels in interpret mode; the Pallas kernels of
+``wave_commit``, ``claim_probe`` and ``validate_dual`` do not run on this
+JAX version, so ``ref`` is their reference.  The CUDA kernels are held
 against these plain versions in tests/test_torch_cuda.py.
 """
 import jax.numpy as jnp
@@ -175,3 +177,92 @@ def test_ts_install_max_plain_matches_ref_and_pallas(whole_row):
     np.testing.assert_array_equal(pallas, want)
     assert K.ts_install_max.launches == 0
 
+
+
+# Waves whose claim tag (inv_wave) has its top bit set (5) and clear
+# (40_000: the words are then positive as int32 bit patterns).
+WAVES = [5, 40_000]
+
+
+def _claim_ops(rng, wave):
+    """Ops with duplicate and masked keys, a claim table with stale, empty
+    and live words, and lane priorities."""
+    keys, groups = _ops(rng)
+    table = _claim_table(rng, wave)
+    lane_prio = ((63 << 10) | rng.permutation(T)).astype(np.uint32)
+    prio = np.broadcast_to(lane_prio[:, None], (T, KS)).copy()
+    return keys, groups, table, prio, rng.random((T, KS)) < 0.6
+
+
+def test_commit_install_plain_matches_ref_and_pallas():
+    rng = np.random.default_rng(41)
+    keys, groups = _ops(rng)
+    wts = rng.integers(0, 1 << 32, (N, G), dtype=np.uint64).astype(np.uint32)
+    do = rng.random((T, KS)) < 0.7
+    i = np.argwhere(do & (keys >= 0))[0]
+    wts[keys[tuple(i)], groups[tuple(i)]] = 0xFFFFFFFF  # its +1 wraps
+    args = (jnp.asarray(keys), jnp.asarray(groups), jnp.asarray(do))
+    want = np.asarray(ref.occ_commit(jnp.asarray(wts), *args))
+    pallas = np.asarray(ops.occ_commit(jnp.asarray(wts), *args,
+                                       use_pallas=True))
+    tw = _words_t(wts)
+    assert K.commit_install(tw, torch.from_numpy(keys),
+                            torch.from_numpy(groups),
+                            torch.from_numpy(do)) is None  # in place
+    np.testing.assert_array_equal(_u32(tw), want)
+    np.testing.assert_array_equal(pallas, want)
+    assert (want != wts).any()
+    assert K.commit_install.launches == 0
+
+
+@pytest.mark.parametrize("wave", WAVES)
+def test_claim_scatter_plain_matches_ref_and_pallas(wave):
+    rng = np.random.default_rng(51 + wave % 7)
+    keys, groups, table, prio, mask = _claim_ops(rng, wave)
+    args = (jnp.asarray(keys), jnp.asarray(groups), jnp.asarray(prio),
+            jnp.asarray(mask), jnp.uint32(wave))
+    want = np.asarray(ref.claim_scatter(jnp.asarray(table), *args))
+    pallas = np.asarray(ops.claim_scatter(jnp.asarray(table), *args,
+                                          use_pallas=True))
+    tt = _words_t(table)
+    K.claim_scatter(tt, torch.from_numpy(keys), torch.from_numpy(groups),
+                    _words_t(prio), wave, torch.from_numpy(mask))
+    np.testing.assert_array_equal(_u32(tt), want)
+    np.testing.assert_array_equal(pallas, want)
+    assert (want != table).any()
+    assert K.claim_scatter.launches == 0
+
+
+@pytest.mark.parametrize("wave", WAVES)
+def test_validate_dual_plain_matches_ref(wave):
+    rng = np.random.default_rng(61 + wave % 7)
+    keys, groups, table, prio, check = _claim_ops(rng, wave)
+    groups[0, :2] = G  # out of range: no conflict on the fine side
+    want_f, want_c = ref.occ_validate_dual(
+        jnp.asarray(table), jnp.asarray(keys), jnp.asarray(groups),
+        jnp.asarray(prio), jnp.asarray(check), jnp.uint32(
+            0xFFFF - (wave & 0xFFFF)))
+    fine, coarse = K.validate_dual(
+        _words_t(table), torch.from_numpy(keys), torch.from_numpy(groups),
+        _words_t(prio), torch.from_numpy(check), wave)
+    np.testing.assert_array_equal(fine.numpy(), np.asarray(want_f))
+    np.testing.assert_array_equal(coarse.numpy(), np.asarray(want_c))
+    assert np.asarray(want_c).any() and not np.array_equal(want_f, want_c)
+    assert K.validate_dual.launches == 0
+
+
+@pytest.mark.parametrize("wave", WAVES)
+@pytest.mark.parametrize("fine", [True, False], ids=["fine", "coarse"])
+def test_claim_probe_plain_matches_ref(fine, wave):
+    rng = np.random.default_rng(71 + wave % 7)
+    keys, groups, table, prio, mask = _claim_ops(rng, wave)
+    want_t, want_p = ref.claim_probe_fused(
+        jnp.asarray(table), jnp.asarray(keys), jnp.asarray(groups),
+        jnp.asarray(prio), jnp.asarray(mask), jnp.uint32(wave), fine)
+    tt = _words_t(table)
+    got = K.claim_probe(tt, torch.from_numpy(keys), torch.from_numpy(groups),
+                        _words_t(prio), wave, torch.from_numpy(mask), fine)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_u32(tt), np.asarray(want_t))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_p))
+    assert K.claim_probe.launches == 0

@@ -3,7 +3,8 @@
 - no repro_torch module, nor chip_smoke.py, loads jax or the JAX package;
 - entry points default to CUDA and raise without it;
 - kernel wrappers take the plain version only for CPU tensors and count
-  only kernel launches;
+  only kernel launches; ``kernel_coverage`` tells kernels, plain versions
+  and ops that did not run apart;
 - settings and mechanisms outside the slice raise NotImplementedError;
 - the benchmark CLI runs on the CPU and writes the JSON row schema.
 """
@@ -82,20 +83,41 @@ def test_run_defaults_to_cuda_and_raises_without_it(monkeypatch):
 def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
     K.reset_launches()
     wl = YCSBWorkload.make(n_keys=500)
-    for cc in ("occ", "tictoc"):
+    for cc in ("occ", "tictoc", "autogran"):
         res = run(txn_bench.make_config(wl, cc, 1, 8), wl, 3, device="cpu")
         assert res.commits + res.aborts == 24
         assert res.device == "cpu"
     assert K.launch_counts() == {op: 0 for op in K.WRAPPERS}
-    assert pb.kernel_coverage(pt.CC_TICTOC, K.launch_counts()) == {
+    assert K.call_counts()["wave_commit"] == 6
+    assert K.call_counts()["validate_dual"] == 3
+    assert pb.kernel_coverage(pt.CC_TICTOC, K.launch_counts(),
+                              K.call_counts()) == {
         "wave_commit": "torch", "ts_gather": "torch",
         "ts_install_max": "torch", "segment_count": "torch"}
     assert pb.kernel_coverage(pt.CC_OCC, {"wave_commit": 3,
-                                          "segment_count": 6}) == {
-        "wave_commit": "cuda", "segment_count": "cuda"}
+                                          "segment_count": 6},
+                              {"wave_commit": 3, "segment_count": 6}) == {
+        "wave_commit": "cuda", "commit_install": "not_run",
+        "segment_count": "cuda"}
+    K.reset_launches()
+    assert K.call_counts() == {op: 0 for op in K.WRAPPERS}
 
 
-@pytest.mark.parametrize("cc", ["occ", "tictoc"])
+def test_kernel_coverage_tells_cuda_torch_and_not_run_apart():
+    """A kernel that launched on every call is "cuda"; an op whose plain
+    version ran even once is "torch"; an op never called is "not_run"
+    (the unfused bump on the fused route) and never counts as either."""
+    launches = {"wave_commit": 0, "commit_install": 5, "segment_count": 9}
+    calls = {"wave_commit": 0, "commit_install": 5, "segment_count": 10}
+    assert pb.kernel_coverage(pt.CC_2PL, launches, calls) == {
+        "wave_commit": "not_run", "commit_install": "cuda",
+        "segment_count": "torch"}
+    assert pb.kernel_coverage(pt.CC_AUTOGRAN, {}, {}) == {
+        op: "not_run" for op in ("validate_dual", "claim_scatter",
+                                 "commit_install", "segment_count")}
+
+
+@pytest.mark.parametrize("cc", txn_bench.CCS)
 def test_run_waves_continues_the_loop_of_run(cc):
     """Two run_waves calls of 2 and 3 waves on one generator end in the
     state that run reaches in 5 waves with the same seed."""
@@ -113,7 +135,9 @@ def test_run_waves_continues_the_loop_of_run(cc):
     assert state.wave == want.wave == 5
     for name in ("commits", "aborts", "abort_causes", "lane_time"):
         assert torch.equal(getattr(state, name), getattr(want, name)), name
-    for name in ("wts", "rts", "claim_w", "ring_tails"):
+    for name in ("wts", "rts", "claim_w", "claim_r", "ring_tails",
+                 "pess_mode", "abort_heat", "fine_mode", "false_heat",
+                 "heat_wave"):
         assert torch.equal(getattr(state.store, name),
                            getattr(want.store, name)), name
 
@@ -126,6 +150,11 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel for device"):
         K.ts_gather(torch.zeros((4, 2), dtype=torch.int32, device="meta"),
                     keys, keys, True)
+    table = torch.zeros((4, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        K.commit_install(table, keys, keys, mask)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        K.claim_probe(table, keys, keys, keys, 3, mask, True)
 
 
 def test_launch_checks_refuse_what_the_kernels_do_not_take():
@@ -164,9 +193,12 @@ def test_every_kernel_has_a_cuda_source_and_a_counter():
         assert (build.CSRC / f"{name}.cu").exists()
         assert build.library_path(name).name.startswith(name + "-")
     assert set(K.WRAPPERS) == {"wave_commit", "segment_count", "ts_gather",
-                               "ts_install_max"}
+                               "ts_install_max", "commit_install",
+                               "claim_scatter", "validate_dual",
+                               "claim_probe"}
+    assert len(build.SOURCES) == len(K.WRAPPERS) == 8
     for w in K.WRAPPERS.values():
-        assert isinstance(w.launches, int)
+        assert isinstance(w.launches, int) and isinstance(w.calls, int)
 
 
 def test_surface_matches_the_jax_package():
@@ -188,11 +220,10 @@ def _cfg(**kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(fuse_wave=False), dict(max_extent=4), dict(mv_depth=2),
+    dict(max_extent=4), dict(mv_depth=2),
     dict(arrival_rate=2.0, queue_cap=8), dict(track_values=True),
     dict(track_conflicts=True), dict(cc=pt.CC_MVCC, mv_depth=4),
-], ids=["unfused", "scans", "mv", "open-loop", "values", "conflicts",
-        "mvcc"])
+], ids=["scans", "mv", "open-loop", "values", "conflicts", "mvcc"])
 def test_settings_outside_the_slice_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         _cfg(**kw)
@@ -212,8 +243,7 @@ def test_config_validation_matches_jax(kw):
                                   n_txn_types=1), **kw})
 
 
-@pytest.mark.parametrize("cc", [pt.CC_2PL, pt.CC_SWISS, pt.CC_ADAPTIVE,
-                                pt.CC_AUTOGRAN])
+@pytest.mark.parametrize("cc", [pt.CC_MVCC, pt.CC_MVOCC])
 def test_other_mechanisms_wait_for_their_slice(cc):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         VALIDATORS[cc]
@@ -223,9 +253,11 @@ def test_config_carried_across_from_jax_fields():
     from repro_torch.core.convert import config_from_fields
     jcfg = jt.EngineConfig(cc=jt.CC_TICTOC, lanes=8, slots=16,
                            n_records=100, n_groups=2, n_cols=10,
-                           n_txn_types=1, granularity=0, backend="pallas")
+                           n_txn_types=1, granularity=0, backend="pallas",
+                           fuse_wave=False)
     cfg = config_from_fields(dataclasses.asdict(jcfg))
     assert (cfg.cc, cfg.lanes, cfg.granularity) == (jt.CC_TICTOC, 8, 0)
+    assert cfg.fuse_wave is False
     assert dataclasses.asdict(cfg.cost) == dataclasses.asdict(jcfg.cost)
 
 
@@ -235,8 +267,15 @@ def test_store_round_trips_uint32_bit_patterns():
     arrays = {k: rng.integers(0, 1 << 32, (5, 2), dtype=np.uint64).astype(
         np.uint32) for k in ("wts", "rts", "claim_w", "claim_r")}
     arrays["ring_tails"] = np.arange(3, dtype=np.int32)
+    arrays["pess_mode"] = np.array([True, False, False, True, False])
+    arrays["fine_mode"] = ~arrays["pess_mode"]
+    arrays["abort_heat"] = rng.random(5).astype(np.float32)
+    arrays["false_heat"] = rng.random(5).astype(np.float32)
+    arrays["heat_wave"] = np.arange(5, dtype=np.int32) * 7
     back = store_to_numpy(store_from_numpy(arrays, "cpu"))
+    assert set(back) == set(arrays)
     for k, v in arrays.items():
+        assert back[k].dtype == v.dtype, k
         np.testing.assert_array_equal(back[k], v)
 
 
@@ -252,7 +291,8 @@ def test_txn_bench_cli_on_cpu(tmp_path, capsys):
         assert r["commits"] + r["aborts"] == 24
         assert sum(r["abort_causes"].values()) == r["aborts"]
         assert r["backend"] == "cpu" and r["device_name"] == "cpu"
-        assert set(r["kernel_ops"].values()) == {"torch"}
+        assert r["kernel_ops"]["wave_commit"] == "torch"
+        assert set(r["kernel_ops"].values()) <= {"torch", "not_run"}
         for key in ("workload", "cc", "granularity", "lanes", "waves",
                     "abort_rate", "ro_commits", "ro_aborts", "throughput",
                     "ext_events", "wall_s", "max_extent"):
@@ -260,3 +300,24 @@ def test_txn_bench_cli_on_cpu(tmp_path, capsys):
     assert "waves/s" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         txn_bench.main(["--workload", "tpcc", "--theta", "0.5"])
+
+
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
+def test_txn_bench_runs_every_mechanism_on_cpu(fuse):
+    """The grid runner takes all six mechanisms on either route; the
+    fused route never calls commit_install for the probe family, the
+    unfused route never calls wave_commit."""
+    rows = txn_bench.run_grid("ycsb", list(txn_bench.CCS), (0,), [8], 3,
+                              n_keys=2000, device="cpu", fuse_wave=fuse)
+    assert [r["cc"] for r in rows] == list(txn_bench.CCS)
+    for r in rows:
+        assert r["commits"] + r["aborts"] == 24
+        assert sum(r["abort_causes"].values()) == r["aborts"]
+        ops = r["kernel_ops"]
+        assert "cuda" not in ops.values()
+        if r["cc"] == "autogran":
+            assert set(ops.values()) == {"torch"}
+        elif r["cc"] != "tictoc":
+            assert ops["commit_install"] == ("not_run" if fuse else "torch")
+        if r["cc"] != "autogran":
+            assert ops["wave_commit"] == ("torch" if fuse else "not_run")
