@@ -2,18 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's eight CUDA kernels from src/repro_torch/csrc, then:
+Builds the port's twelve CUDA kernels (eleven sources) from
+src/repro_torch/csrc, then:
 
   1. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes (TPC-C: N = 2,450,808 records, T = 128 lanes,
-     K = 64 slots; YCSB: N = 10M, K = 16; G = 2), over every flag
-     combination, with hot, duplicated, masked (key -1) and stale-tag
-     inputs, masks with and without live ops, and a wave whose claim tag
-     has its top bit clear.  Outputs and updated tables must be
-     bit-identical.  Each is timed with CUDA events (warm-up, then the
-     median of 30 calls queued behind a device sleep so that host overhead
-     stays out of the device time) beside its plain version and, where one
-     PyTorch call computes the same function, that call;
+     K = 64 slots; YCSB: N = 10M, K = 16; G = 2; version rings of D = 4),
+     over every flag combination, with hot, duplicated, masked (key -1)
+     and stale-tag inputs, masks with and without live ops, and a wave
+     whose claim tag has its top bit clear; the scan kernel with point
+     ops among intervals that cross the table's end, fine and coarse,
+     buckets of 8 and 1; the ring kernels with empty slots, reclaimed
+     snapshots, stamps on both sides of 2**31, rings that wrap and D = 1.
+     Outputs and updated tables must be bit-identical.  Each is timed with
+     CUDA events (warm-up, then the median of 30 calls queued behind a
+     device sleep so that host overhead stays out of the device time)
+     beside its plain version and, where one PyTorch call computes the
+     same function, that call; the four scan and ring kernels on a wave
+     drawn by the scan-configured workload generator;
   2. the main path on TPC-C (full scale, T = 128, 200 waves) through the
      benchmark CLI's grid runner: OCC, TicToc, 2PL, SwissTM and Adaptive
      x coarse and fine, plus AutoGran coarse, with the launch counters set
@@ -30,10 +36,27 @@ Builds the port's eight CUDA kernels from src/repro_torch/csrc, then:
      fused run's results;
   5. fused = unfused on the card: one set of CPU-made draws through both
      routes, integer and float state bit-identical;
-  6. cross-device identity: one set of draws made on the CPU, run through
-     the wave step on the card (kernels) and on the CPU (plain versions);
-     integer state must be bit-identical, lane_time within rtol 1e-5 and
-     the heats within rtol 1e-6.
+  6. the scan path at full size: TPC-C with scan_len 200 (Stock-level
+     examines ~200 items, TPC-C 2.8) and YCSB workload E (10M keys,
+     theta 0.9, scanproportion 0.95, maxscanlength 100), T = 128, 200
+     waves: the five probe-family mechanisms and MVCC/MV-OCC x coarse and
+     fine, plus AutoGran.  MVCC must see no phantom, coarse must see at
+     least fine's phantoms for OCC, TicToc and MV-OCC, and every
+     mechanism's kernels (iterate_validate and commit_install included)
+     must have launched;
+  7. the multi-version path at full size: MVCC/MV-OCC x coarse and fine on
+     TPC-C, and OCC/MVCC/MV-OCC on YCSB with 80% writes and 20% read-only
+     transactions (benchmarks/abort_rates.py): read-only lanes never
+     abort under MVCC/MV-OCC and do under coarse OCC; one MVCC run whose
+     snapshots are 8 waves old (beyond the ring's 4) aborts as stale;
+  8. fused = unfused again with scans on (the bumps move out of
+     wave_commit);
+  9. cross-device identity: one set of draws made on the CPU, run through
+     the wave step on the card (kernels) and on the CPU (plain versions),
+     for every mechanism on the point mix, one scan configuration per
+     mechanism and the MV configurations; integer state (the version ring
+     included) must be bit-identical, lane_time within rtol 1e-5 and the
+     heats within rtol 1e-6.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -65,6 +88,12 @@ TPCC_N, YCSB_N = 2_450_808, 10_000_000
 SHAPES = {"tpcc": (TPCC_N, 2, 128, 64), "ycsb": (YCSB_N, 2, 128, 16)}
 WAVES = 200
 LANES = 128
+MV_DEPTH = 4
+#: The scan path's workload settings: TPC-C's Stock-level window and YCSB
+#: workload E (scanproportion 0.95, maxscanlength 100).
+SCAN_KW = {"tpcc": dict(scale=1.0, scan_len=200),
+           "ycsb": dict(n_keys=YCSB_N, theta=0.9, scan_frac=0.95,
+                        scan_len=100)}
 
 KERNEL_META = {
     "wave_commit": ("src/repro_torch/csrc/wave_commit.cu",
@@ -83,20 +112,56 @@ KERNEL_META = {
                       "src/repro/kernels/occ_validate.py:122"),
     "claim_probe": ("src/repro_torch/csrc/claim_probe.cu",
                     "src/repro/kernels/claim_probe.py:82"),
+    "validate": ("src/repro_torch/csrc/occ_validate.cu",
+                 "src/repro/kernels/occ_validate.py:86"),
+    "iterate_validate": ("src/repro_torch/csrc/iterate_validate.cu",
+                         "src/repro/kernels/iterate_validate.py:122"),
+    "mv_gather": ("src/repro_torch/csrc/mv_gather.cu",
+                  "src/repro/kernels/mv_gather.py:64"),
+    "mv_install": ("src/repro_torch/csrc/mv_install.cu",
+                   "src/repro/kernels/mv_install.py:60"),
 }
-#: The kernels each mechanism's (fused) wave launches.
+#: The kernels each mechanism's (fused) wave launches on the point mix.
 _PROBE_OPS = ("wave_commit", "segment_count")
+_MV_OPS = ("validate", "claim_scatter", "mv_gather", "mv_install",
+           "segment_count")
 MECH_OPS = {"occ": _PROBE_OPS,
             "tictoc": _PROBE_OPS + ("ts_gather", "ts_install_max"),
             "2pl": _PROBE_OPS, "swisstm": _PROBE_OPS, "adaptive": _PROBE_OPS,
             "autogran": ("validate_dual", "claim_scatter", "commit_install",
-                         "segment_count")}
+                         "segment_count"),
+            "mvcc": _MV_OPS, "mvocc": _MV_OPS}
+
+
+def mech_ops(cc: str, scans: bool) -> tuple:
+    """The kernels a mechanism's fused wave launches.  With scans every
+    mechanism but MVCC adds iterate_validate, and the bumping probe-family
+    mechanisms bump through commit_install after the phantom pass."""
+    ops = MECH_OPS[cc]
+    if scans and cc != "mvcc":
+        ops = ops + ("iterate_validate",)
+        if cc in ("occ", "2pl", "swisstm", "adaptive"):
+            ops = ops + ("commit_install",)
+    return ops
+
 PROBE_FAMILY = ("occ", "tictoc", "2pl", "swisstm", "adaptive")
 #: One granularity per probe-family mechanism for the unfused phases.
 UNFUSED = (("occ", 1), ("tictoc", 0), ("2pl", 0), ("swisstm", 1),
            ("adaptive", 0))
 #: A wave whose claim tag 0xFFFF - wave has its top bit clear.
 HIGH_WAVE = 40_000
+#: The abort-cause code of a lost interval validation (core/types.py).
+CAUSE_PHANTOM = 6
+#: Cross-device configurations (cc, granularity, fused): every mechanism
+#: on the point mix, one scan configuration per mechanism.
+POINT_CONFIGS = (("occ", 1, True), ("tictoc", 0, True), ("2pl", 0, True),
+                 ("swisstm", 1, True), ("adaptive", 1, True),
+                 ("autogran", 0, True), ("adaptive", 0, False),
+                 ("mvcc", 1, True), ("mvocc", 0, True))
+SCAN_CONFIGS = (("occ", 0, True), ("tictoc", 1, True), ("2pl", 0, True),
+                ("swisstm", 1, True), ("adaptive", 0, True),
+                ("autogran", 0, True), ("mvcc", 0, True), ("mvocc", 1, True),
+                ("2pl", 1, False))
 
 
 def log(*a):
@@ -298,6 +363,9 @@ def kernel_phase(dev, shapes, wave=9):
                         [claim_probe_plain(b, keys, groups, prio, wv, inst,
                                            fine), b])
         del tables
+        scan_mv_checks(checks, dev, N, G, keys, groups, prio, masks, wave,
+                       seed=si, ext_cap=SCAN_KW.get(label, {}).get(
+                           "scan_len", 9))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -416,6 +484,8 @@ def kernel_phase(dev, shapes, wave=9):
                 bound=bound_ms(n * (4 + 4 + 4 + 1 + 4) + probed * 4
                                + installs * 4, 2 * n)),
         }
+        t.update(scan_mv_timings(label, dev, N, G, T, Kk, keys, groups,
+                                 prio, do_w, wave))
         timings[label] = t
         for name, r in t.items():
             log(f"  {label:5s} {name:15s} kernel {r['ms']:.6f} ms  plain "
@@ -429,6 +499,218 @@ def kernel_phase(dev, shapes, wave=9):
             raise AssertionError(f"{c.name} disagrees with its plain "
                                  f"version (max_abs_err {c.max_err})")
     return checks, timings
+
+
+# ------------------------------------------- scan and ring kernel checks
+#: Install timestamps of the rings' second variant: they cross 2**31.
+HIGH_TS = 0x7FFFFFF8
+
+
+def scan_extents(keys, N, ext_cap, seed):
+    """Interval starts and extents for the ops of ``make_ops``: 40% point
+    ops, the rest scans of 2..ext_cap whose start moves back by up to its
+    extent (so hot records fall inside), plus intervals that cross the
+    table's end and one whose key lies past it."""
+    rng = np.random.default_rng(seed + 100)
+    k = keys.cpu().numpy().astype(np.int64)
+    ext = np.where(rng.random(k.shape) < 0.4, 1,
+                   rng.integers(2, ext_cap + 1, k.shape))
+    start = np.where((k >= 0) & (ext > 1),
+                     np.maximum(k - rng.integers(0, ext), 0), k)
+    start[0, :3] = [N - 3, N - 1, N + 1]
+    ext[0, :3] = ext_cap
+    dev = keys.device
+    return (torch.from_numpy(start.astype(np.int32)).to(dev),
+            torch.from_numpy(ext.astype(np.int32)).to(dev))
+
+
+def post_install_claims(N, G, wave, keys, groups, prio, do_w, dev, seed):
+    """A writer-claim table as the phantom pass sees it: words of earlier
+    waves everywhere, plus this wave's installed write claims."""
+    from repro_torch.kernels.claim_scatter import claim_scatter_plain
+    table = make_tables(N, G, max(wave - 4, 0), dev, seed)[0]
+    claim_scatter_plain(table, keys, groups, prio, wave, do_w)
+    return table
+
+
+def ring(N, D, G, keys, groups, do, dev, base=0, waves=12):
+    """A version ring after ``waves`` waves of installs (stamps base + 1,
+    base + 2, ...), each wave's ops rolled so that records differ: hot
+    records wrap, most keep empty slots."""
+    from repro_torch.core.mvstore import mv_init
+    from repro_torch.kernels.mv_install import mv_install_plain
+    begin, head, _ = mv_init(N, D, G, dev)
+    for w in range(1, waves + 1):
+        mv_install_plain(begin, head, torch.roll(keys, w), groups, do,
+                         base + w)
+    return begin, head
+
+
+def scan_mv_checks(checks, dev, N, G, keys, groups, prio, masks, wave, seed,
+                   ext_cap):
+    """The slice-3 kernels against their plain versions, every case."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.iterate_validate import iterate_validate_plain
+    from repro_torch.kernels.mv_gather import mv_gather_plain
+    from repro_torch.kernels.mv_install import mv_install_plain
+    from repro_torch.kernels.occ_validate import validate_plain
+    do_w, do_r, check_w, check_w2, check_r, extra = masks
+    none = torch.zeros_like(do_w)
+    starts, ext = scan_extents(keys, N, ext_cap, seed)
+    hits = []
+    for wv in (wave, HIGH_WAVE):
+        dense = make_tables(N, G, wv, dev, seed + 11)[0]
+        for fine in (True, False):
+            for chk in (check_w, none):
+                checks["validate"].compare(
+                    [K.validate(dense, keys, groups, prio, chk, wv, fine)],
+                    [validate_plain(dense, keys, groups, prio, chk, wv,
+                                    fine)])
+        table = post_install_claims(N, G, wv, keys, groups, prio, do_w, dev,
+                                    seed + 13)
+        for fine in (True, False):
+            for B in (8, 1):
+                for chk in (check_r, none):
+                    got = K.iterate_validate(table, starts, ext, groups,
+                                             prio, chk, wv, fine, B, ext_cap)
+                    checks["iterate_validate"].compare(
+                        [got], [iterate_validate_plain(
+                            table, starts, ext, groups, prio, chk, wv, fine,
+                            B, ext_cap)])
+                    hits.append(int(got.sum()))
+        del dense, table
+    log(f"  iterate_validate conflicts per case: {hits}")
+    if not max(hits) > 0:
+        raise AssertionError("iterate_validate: no case had a conflict")
+    groups_x = groups.clone()
+    groups_x[0, :4] = G             # out of range: reads begin 0 when fine
+    for base in (0, HIGH_TS):
+        begin, _ = ring(N, MV_DEPTH, G, keys, groups, do_w, dev, base)
+        for ts in (base + 12, base + 6, base + 3, 0):
+            for fine in (True, False):
+                checks["mv_gather"].compare(
+                    K.mv_gather(begin, keys, groups_x, ts, fine),
+                    mv_gather_plain(begin, keys, groups_x, ts, fine))
+        del begin
+    for D in (MV_DEPTH, 1):
+        begin, head = ring(N, D, G, keys, groups, do_w, dev)
+        hot = keys[keys >= 0][:4].long()
+        head[hot] = D - 1           # rings that wrap on this install
+        for do in (do_w, do_r, none):
+            a, b = (begin.clone(), head.clone()), (begin.clone(),
+                                                   head.clone())
+            K.mv_install(*a, keys, groups, do, 13)
+            mv_install_plain(*b, keys, groups, do, 13)
+            checks["mv_install"].compare(list(a), list(b))
+        del begin, head
+
+
+def _covered_rows(keys, ext, check, N, B, span):
+    """Distinct table rows that the checked ops' bucket-expanded (coarse)
+    intervals cover."""
+    act = check & (keys >= 0)
+    k = keys[act].long()
+    e = torch.clamp(ext[act], min=1).long()
+    start = (k // B) * B
+    width = ((k + e + B - 1) // B) * B - start
+    j = torch.arange(span, device=keys.device)
+    row = start[:, None] + j[None, :]
+    on = (j[None, :] < width[:, None]) & (row < N)
+    return int(torch.unique(row[on]).numel())
+
+
+def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave):
+    """Times of the slice-3 kernels on one wave of the scan path: the
+    scan-configured workload's draw at the main shapes, else the synthetic
+    ops.  Returns {name: timing dict}."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.iterate_validate import (iterate_validate_plain,
+                                                      scan_span)
+    from repro_torch.kernels.mv_gather import mv_gather_plain
+    from repro_torch.kernels.mv_install import mv_install_plain
+    from repro_torch.kernels.occ_validate import validate_plain
+    from repro_torch.launch.txn_bench import make_workload
+    ext_cap, ext = 9, None
+    if label in SCAN_KW:
+        wl = make_workload(label, **SCAN_KW[label])
+        if (wl.n_records, wl.slots) != (N, Kk):
+            raise ValueError(f"{label}: shape {(N, Kk)} is not the "
+                             f"workload's {(wl.n_records, wl.slots)}")
+        g = torch.Generator(device=dev)
+        g.manual_seed(7)
+        b, _ = wl.gen(g, wave, T, torch.zeros((wl.n_rings,),
+                                              dtype=torch.int32, device=dev))
+        keys, groups, ext = b.op_key, b.op_group, b.op_extent
+        live = b.live()
+        do_w = b.is_write() & live
+        scan = b.is_scan() & b.is_read() & live
+        reads = b.is_read() & live & ~b.is_scan()
+        ext_cap = wl.max_extent
+    else:
+        _, ext = scan_extents(keys, N, ext_cap, 0)
+        scan = (ext > 1) & (keys >= 0)
+        reads = ~scan & (keys >= 0)
+    n = T * Kk
+    span = scan_span(ext_cap, False, 8)
+    table = post_install_claims(N, G, wave, keys, groups, prio, do_w, dev, 5)
+    begin, head = ring(N, MV_DEPTH, G, keys, groups, do_w, dev, waves=6)
+    rows_read = _distinct_rows(keys, reads, N)
+    rows_scanned = _covered_rows(keys, ext, scan, N, 8, span)
+    rows_live = _distinct_rows(keys, torch.ones_like(do_w), N)
+    rows_written = _distinct_rows(keys, do_w, N)
+    ts = [100]
+
+    def install(fn):
+        # Each call stamps above the last, as successive waves do.
+        ts[0] += 1
+        fn(begin, head, keys, groups, do_w, ts[0])
+    log(f"  {label:5s} scan wave: {int(scan.sum())} scans over "
+        f"{rows_scanned} rows (coarse span {span}), {rows_written} written "
+        f"records")
+    return {
+        # Op vectors in (keys, groups, prio: 4 B; check: 1 B), a verdict
+        # byte out, one G-word row read per distinct checked record.
+        "validate": dict(
+            ms=time_ms(lambda: K.validate(table, keys, groups, prio, reads,
+                                          wave, True), dev),
+            plain_ms=time_ms(lambda: validate_plain(
+                table, keys, groups, prio, reads, wave, True), dev),
+            library_ms=None,
+            bound=bound_ms(n * (4 + 4 + 4 + 1 + 1) + rows_read * G * 4,
+                           n * G)),
+        # Coarse (the widest walk): op vectors in (keys, extents, groups,
+        # prio: 4 B; check: 1 B), a verdict byte out, each distinct row of
+        # the checked bucket-expanded intervals read once.
+        "iterate_validate": dict(
+            ms=time_ms(lambda: K.iterate_validate(
+                table, keys, ext, groups, prio, scan, wave, False, 8,
+                ext_cap), dev),
+            plain_ms=time_ms(lambda: iterate_validate_plain(
+                table, keys, ext, groups, prio, scan, wave, False, 8,
+                ext_cap), dev),
+            library_ms=None,
+            bound=bound_ms(n * (4 * 4 + 1 + 1) + rows_scanned * G * 4,
+                           rows_scanned * G)),
+        # Keys and groups in, a slot and a flag out, the D x G begin words
+        # of each distinct live record read once.
+        "mv_gather": dict(
+            ms=time_ms(lambda: K.mv_gather(begin, keys, groups, 7, True),
+                       dev),
+            plain_ms=time_ms(lambda: mv_gather_plain(
+                begin, keys, groups, 7, True), dev),
+            library_ms=None,
+            bound=bound_ms(n * (4 + 4 + 4 + 1)
+                           + rows_live * MV_DEPTH * G * 4,
+                           n * MV_DEPTH * G)),
+        # Keys, groups, mask in; per distinct written record the head read
+        # and written and one G-word slot read and one written.
+        "mv_install": dict(
+            ms=time_ms(lambda: install(K.mv_install), dev),
+            plain_ms=time_ms(lambda: install(mv_install_plain), dev),
+            library_ms=None,
+            bound=bound_ms(n * (4 + 4 + 1) + rows_written * (8 + 2 * G * 4),
+                           n)),
+    }
 
 
 # --------------------------------------------------------------- main path
@@ -448,6 +730,21 @@ def _log_row(workload, r):
         raise AssertionError(f"{_name(r)}: commits + aborts != T * waves")
 
 
+def _check_kernels(what, rows, launches, dev, scans):
+    """Each run launched exactly its mechanism's kernels ("cuda") and no
+    other ported op ("not_run"); every kernel of the phase launched."""
+    for r in rows:
+        want = {op: "cuda" if op in mech_ops(r["cc"], scans) else "not_run"
+                for op in r["kernel_ops"]}
+        if dev.type == "cuda" and r["kernel_ops"] != want:
+            raise AssertionError(f"{what} {_name(r)}: kernel_ops "
+                                 f"{r['kernel_ops']} != {want}")
+    log(f"  {what} launches {launches}")
+    path_ops = {op for r in rows for op in mech_ops(r["cc"], scans)}
+    if dev.type == "cuda" and min(launches[op] for op in path_ops) <= 0:
+        raise AssertionError(f"{what}: a kernel never launched")
+
+
 def main_path(workload, dev, waves=WAVES, lanes=LANES, **wl_kw):
     """Drive the grid runner of the benchmark CLI: the five probe-family
     mechanisms x coarse and fine, then AutoGran coarse.  Returns ({name:
@@ -460,21 +757,81 @@ def main_path(workload, dev, waves=WAVES, lanes=LANES, **wl_kw):
     rows += run_grid(workload, ["autogran"], (0,), [lanes], waves,
                      device=dev, **wl_kw)
     launches = K.launch_counts()
+    for r in rows:
+        _log_row(workload, r)
+    _check_kernels(workload, rows, launches, dev, scans=False)
+    return {_name(r): r for r in rows}, launches
+
+
+def scan_path(workload, dev, waves=WAVES, lanes=LANES, **wl_kw):
+    """The main path with the workload's scan classes on: the probe
+    family and MVCC/MV-OCC x coarse and fine, then AutoGran.  MVCC sees
+    no phantom; coarse sees at least fine's phantoms for OCC, TicToc and
+    MV-OCC (benchmarks/scan_mix.py).  Returns ({name: row}, launches)."""
+    from repro_torch import kernels as K
+    from repro_torch.launch.txn_bench import run_grid
+    K.reset_launches()
+    rows = run_grid(workload, list(PROBE_FAMILY) + ["mvcc", "mvocc"],
+                    (0, 1), [lanes], waves, mv_depth=MV_DEPTH, device=dev,
+                    **wl_kw)
+    rows += run_grid(workload, ["autogran"], (0,), [lanes], waves,
+                     device=dev, **wl_kw)
+    launches = K.launch_counts()
     by = {}
     for r in rows:
         by[_name(r)] = r
-        _log_row(workload, r)
-        # The mechanism's kernels launched; its other ported ops (the
-        # unfused bump on the fused route) never ran.
-        want = {op: "cuda" if op in MECH_OPS[r["cc"]] else "not_run"
-                for op in r["kernel_ops"]}
-        if dev.type == "cuda" and r["kernel_ops"] != want:
-            raise AssertionError(f"{_name(r)}: kernel_ops {r['kernel_ops']}"
-                                 f" != {want}")
-    log(f"  {workload} launches {launches}")
-    path_ops = {op for ops in MECH_OPS.values() for op in ops}
-    if dev.type == "cuda" and min(launches[op] for op in path_ops) <= 0:
-        raise AssertionError(f"{workload}: a kernel never launched")
+        _log_row(f"{workload} scans", r)
+        if r["max_extent"] != wl_kw["scan_len"]:
+            raise AssertionError(f"{_name(r)}: max_extent {r['max_extent']}")
+    _check_kernels(f"{workload} scans", rows, launches, dev, scans=True)
+    ph = {k: r["abort_causes"]["phantom"] for k, r in by.items()}
+    log(f"  {workload} phantom aborts: {ph}")
+    if ph["mvcc-coarse"] or ph["mvcc-fine"]:
+        raise AssertionError("MVCC scans must never abort as phantoms")
+    for cc in ("occ", "tictoc", "mvocc"):
+        if ph[f"{cc}-coarse"] < ph[f"{cc}-fine"]:
+            raise AssertionError(f"{cc}: coarse phantoms < fine phantoms")
+    return by, launches
+
+
+def mv_path(dev, waves=WAVES, lanes=LANES, tpcc_kw=None, ycsb_kw=None):
+    """The multi-version mechanisms at full size: MVCC/MV-OCC x coarse and
+    fine on point TPC-C; OCC/MVCC/MV-OCC x coarse and fine on YCSB with
+    80% writes and 20% read-only transactions; one MVCC run on YCSB with
+    snapshots 8 waves old.  Read-only lanes never abort under MVCC/MV-OCC
+    and do under coarse OCC; the aged snapshots abort as stale.  Returns
+    ({name: row}, launches)."""
+    from repro_torch import kernels as K
+    from repro_torch.launch.txn_bench import run_grid
+    tpcc_kw = dict(scale=1.0) if tpcc_kw is None else tpcc_kw
+    ycsb_kw = (dict(n_keys=YCSB_N, theta=0.9, write_frac=0.8, ro_frac=0.2)
+               if ycsb_kw is None else ycsb_kw)
+    K.reset_launches()
+    rows = run_grid("tpcc", ["mvcc", "mvocc"], (0, 1), [lanes], waves,
+                    mv_depth=MV_DEPTH, device=dev, **tpcc_kw)
+    rows += run_grid("ycsb", ["occ", "mvcc", "mvocc"], (0, 1), [lanes],
+                     waves, mv_depth=MV_DEPTH, device=dev, **ycsb_kw)
+    (aged,) = run_grid("ycsb", ["mvcc"], (1,), [lanes], waves,
+                       mv_depth=MV_DEPTH, snapshot_age=8, device=dev,
+                       **ycsb_kw)
+    launches = K.launch_counts()
+    by = {}
+    for r in rows + [aged]:
+        by[f"{r['workload']} {_name(r)}"] = r
+        _log_row(f"{r['workload']} mv", r)
+        log(f"    ro_commits {r['ro_commits']} ro_aborts {r['ro_aborts']}")
+    _check_kernels("mv", rows + [aged], launches, dev, scans=False)
+    for r in rows:
+        if r["cc"] in ("mvcc", "mvocc") and r["ro_aborts"] != 0:
+            raise AssertionError(f"{r['workload']} {_name(r)}: a read-only "
+                                 "lane aborted under multi-versioning")
+    if not by["ycsb occ-coarse"]["ro_aborts"] > 0:
+        raise AssertionError("coarse OCC must abort read-only lanes on the "
+                             "write-heavy YCSB mix")
+    stale = aged["abort_causes"]["stale_snapshot"]
+    log(f"  snapshot_age 8 (ring depth {MV_DEPTH}): {stale} stale aborts")
+    if not stale > 0:
+        raise AssertionError("snapshots older than the ring must abort")
     return by, launches
 
 
@@ -525,7 +882,7 @@ def _draws(wl, waves, lanes, seed=5):
 def _replay(cfg, wl, draws, d):
     from repro_torch.core import engine as E
     from repro_torch.core import types as t
-    st = t.engine_state_init(cfg, wl.init_store(d))
+    st = t.engine_state_init(cfg, wl.init_store(d, cfg.mv_depth))
     step = E.make_wave_step(cfg)
     for fresh, tl, perm in draws:
         fb = t.TxnBatch(**{f.name: getattr(fresh, f.name).to(d)
@@ -535,9 +892,10 @@ def _replay(cfg, wl, draws, d):
 
 
 INT_STATE = ("commits", "aborts", "commits_by_type", "ext_events",
-             "abort_causes", "age", "pending_live")
+             "abort_causes", "age", "pending_live", "ro_commits",
+             "ro_aborts")
 INT_TABLES = ("wts", "rts", "claim_w", "claim_r", "ring_tails", "pess_mode",
-              "fine_mode", "heat_wave")
+              "fine_mode", "heat_wave", "mv_begin", "mv_head")
 
 
 def _same_state(a, b, what, rtol_time=0.0, rtol_heat=0.0):
@@ -558,45 +916,51 @@ def _same_state(a, b, what, rtol_time=0.0, rtol_heat=0.0):
                                    rtol=rtol_heat, atol=0)
 
 
-def fused_unfused(dev, waves=30, scale=0.1, ccs=UNFUSED):
+def fused_unfused(dev, waves=30, scale=0.1, ccs=UNFUSED, scan_len=0):
     """The same CPU-made draws through the fused route (wave_commit) and
     the unfused route (claim_probe + commit_install) on ``dev`` must give
-    the same state, bit for bit."""
+    the same state, bit for bit; ``scan_len`` > 0 turns TPC-C's scans on,
+    which moves the fused route's bumps to commit_install."""
     from repro_torch.launch.txn_bench import make_config
     from repro_torch.workloads import TPCCWorkload
-    wl = TPCCWorkload.make(n_warehouses=8, scale=scale)
+    wl = TPCCWorkload.make(n_warehouses=8, scale=scale, scan_len=scan_len)
     draws = _draws(wl, waves, LANES)
     for cc, gran in ccs:
         a, b = (_replay(make_config(wl, cc, gran, LANES, fuse), wl, draws,
                         dev) for fuse in (True, False))
         _same_state(a, b, f"fused/unfused {cc}")
-        log(f"  {cc}-{'fine' if gran else 'coarse'}: {waves} waves, commits "
-            f"{int(a.commits)} aborts {int(a.aborts)}: fused = unfused "
-            f"on {dev}")
+        log(f"  {cc}-{'fine' if gran else 'coarse'}"
+            f"{' scans' if scan_len else ''}: {waves} waves, commits "
+            f"{int(a.commits)} aborts {int(a.aborts)} phantoms "
+            f"{int(a.abort_causes[CAUSE_PHANTOM])}: fused = unfused on "
+            f"{dev}")
 
 
-def cross_device(dev, waves=30, scale=0.1):
+def cross_device(dev, waves=30, scale=0.1, scan_len=0,
+                 configs=POINT_CONFIGS):
     """The same CPU-made draws through the wave step on ``dev`` (kernels)
-    and on the CPU (plain versions) must give the same state."""
+    and on the CPU (plain versions) must give the same state; TPC-C with
+    its scans on when ``scan_len`` > 0."""
     from repro_torch.launch.txn_bench import make_config
     from repro_torch.workloads import TPCCWorkload
-    wl = TPCCWorkload.make(n_warehouses=8, scale=scale)
+    wl = TPCCWorkload.make(n_warehouses=8, scale=scale, scan_len=scan_len)
     draws = _draws(wl, waves, LANES)
     cpu = torch.device("cpu")
-    for cc, gran, fuse in (("occ", 1, True), ("tictoc", 0, True),
-                           ("2pl", 0, True), ("swisstm", 1, True),
-                           ("adaptive", 1, True), ("autogran", 0, True),
-                           ("adaptive", 0, False)):
-        cfg = make_config(wl, cc, gran, LANES, fuse)
+    for cc, gran, fuse in configs:
+        cfg = make_config(wl, cc, gran, LANES, fuse, mv_depth=MV_DEPTH)
         a, b = (_replay(cfg, wl, draws, d) for d in (dev, cpu))
-        what = f"{cc}-{'fine' if gran else 'coarse'}" + ("" if fuse else
-                                                         " unfused")
+        what = (f"{cc}-{'fine' if gran else 'coarse'}"
+                + (" scans" if scan_len else "") + ("" if fuse else
+                                                    " unfused"))
         _same_state(a, b, f"cross-device {what}", rtol_time=1e-5,
                     rtol_heat=1e-6)
         log(f"  {what}: {waves} waves, commits {int(a.commits)} aborts "
             f"{int(a.aborts)} ext {int(a.ext_events)} pess "
             f"{int(a.store.pess_mode.sum())} fine "
-            f"{int(a.store.fine_mode.sum())}: identical on {dev} and cpu")
+            f"{int(a.store.fine_mode.sum())} phantoms "
+            f"{int(a.abort_causes[CAUSE_PHANTOM])} ring heads moved "
+            f"{int((a.store.mv_head != 0).sum())}: identical on {dev} and "
+            "cpu")
 
 
 def ratios(workload, by):
@@ -670,15 +1034,29 @@ def main() -> int:
     log("unfused route, TPC-C:")
     _, l_unf = unfused_path(dev, tpcc, scale=1.0)
 
+    log("scan path, TPC-C:")
+    tpcc_s, l_tpcc_s = scan_path("tpcc", dev, **SCAN_KW["tpcc"])
+    log("scan path, YCSB:")
+    ycsb_s, l_ycsb_s = scan_path("ycsb", dev, **SCAN_KW["ycsb"])
+
+    log("multi-version path:")
+    mv, l_mv = mv_path(dev)
+
     log("fused = unfused on the card:")
     fused_unfused(dev)
+    fused_unfused(dev, scan_len=SCAN_KW["tpcc"]["scan_len"])
 
     log("cross-device identity:")
     cross_device(dev)
+    cross_device(dev, waves=20, scan_len=SCAN_KW["tpcc"]["scan_len"],
+                 configs=SCAN_CONFIGS)
 
     runs = {"tpcc": (l_tpcc, len(tpcc) * WAVES),
             "ycsb": (l_ycsb, len(ycsb) * WAVES),
-            "tpcc_unfused": (l_unf, len(UNFUSED) * WAVES)}
+            "tpcc_unfused": (l_unf, len(UNFUSED) * WAVES),
+            "tpcc_scans": (l_tpcc_s, len(tpcc_s) * WAVES),
+            "ycsb_scans": (l_ycsb_s, len(ycsb_s) * WAVES),
+            "mv": (l_mv, len(mv) * WAVES)}
     per_wave = {op: {k: n[op] / w for k, (n, w) in runs.items()}
                 for op in l_tpcc}
     log("launches per wave (mean over each phase's configurations): "

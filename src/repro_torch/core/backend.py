@@ -6,7 +6,9 @@ them (XLA gather/scatter and Pallas).  The port keeps the same op names
 and one backend whose ops dispatch on the device of their tensors: CPU
 tensors run the plain PyTorch version, CUDA tensors launch the hand
 kernel (kernels/).  Ops that this port does not run yet raise
-``NotImplementedError`` naming the ROADMAP item they wait for.
+``NotImplementedError`` naming the ROADMAP item they wait for: ``probe``
+(no caller in the JAX package) and the sharded engine's ``route_pack`` and
+``verdict_pack``/``verdict_unpack``.
 
 All word tables are updated in place, so ops that install return only
 their per-op outputs (see each kernel module).
@@ -31,7 +33,9 @@ N_OPS = len(SURFACE_OPS)
 #: runs its bumps inside ``wave_commit``, so ``commit_install`` is reached
 #: only by AutoGran and by the unfused route, which also runs
 #: ``claim_probe`` (listed for no mechanism, as in the JAX package).
-#: ``iterate_validate`` (scans) waits for ROADMAP A.7.
+#: ``iterate_validate`` runs only where the config admits scans
+#: (``max_extent > 1``), and with scans the fused route moves its bumps
+#: to ``commit_install``.
 CC_OPS = {
     t.CC_OCC: ("wave_commit", "iterate_validate", "commit_install",
                "segment_count"),
@@ -53,11 +57,8 @@ CC_OPS = {
 
 #: Where each op without a port waits (ROADMAP queue B).
 _WAITS = {
-    "validate": "ROADMAP B.7 (occ_validate)",
-    "probe": "ROADMAP B.7 (claim_probe)",
-    "iterate_validate": "ROADMAP B.9 (iterate_validate)",
-    "mv_gather": "ROADMAP B.10 (mv_gather)",
-    "mv_install": "ROADMAP B.11 (mv_install)",
+    "probe": "ROADMAP B.7 (claim_probe_pallas; no caller in the JAX "
+             "package)",
     "route_pack": "ROADMAP B.12 (route_pack)",
     "verdict_pack": "ROADMAP B.13 (verdict_pack)",
     "verdict_unpack": "ROADMAP B.13 (verdict_unpack)",
@@ -77,9 +78,10 @@ class Backend:
     """Device-dispatching backend: each op runs where its tensors are.
 
     Signatures follow the JAX backend's argument order; tables are updated
-    in place, so ``commit_install`` and ``claim_scatter`` return None,
-    ``claim_probe`` returns wprio int32[T, K] and ``validate_dual``
-    returns (fine, coarse)."""
+    in place, so ``commit_install``, ``claim_scatter`` and ``mv_install``
+    return None, ``claim_probe`` returns wprio int32[T, K],
+    ``validate_dual`` returns (fine, coarse) and ``mv_gather`` returns
+    (slot, ok)."""
 
 
 for _op, _fn in kernels.WRAPPERS.items():
@@ -98,7 +100,7 @@ def kernel_coverage(cc: int, launches: dict, calls: dict) -> dict:
     ``kernels.call_counts()`` over a run: "cuda" where every call launched
     the op's kernel, "torch" where a call ran its plain version, "not_run"
     where the run never called it (``commit_install`` on the fused
-    route)."""
+    route of point configs, ``iterate_validate`` without scans)."""
     out = {}
     for op in CC_OPS[cc]:
         if op not in kernels.WRAPPERS:

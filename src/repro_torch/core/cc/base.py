@@ -7,8 +7,14 @@ claim -> verdict -> install chain through ``claim_probe_commit`` below.
 each claim table, the verdict compare in tensor ops and ``commit_install``
 for the bumps.  Both routes evaluate the same mask algebra over the same
 primitives, so they are bit-identical.  AutoGran installs with
-``write_claims`` and bumps with ``bump_versions``.  Scans (interval ops)
-wait for ROADMAP A.7; ``EngineConfig`` refuses them.
+``write_claims`` and bumps with ``bump_versions``; the multi-version pair
+installs with ``write_claims`` and ``plain_write_claims``.
+
+Scans (ops with ``op_extent > 1``, admitted by ``cfg.max_extent > 1``)
+ride no point channel: they validate only through ``phantom_validate``
+(the ``iterate_validate`` op) against the post-install writer-claim table,
+and the version bumps move after it, so a lane that loses a phantom never
+advances a version.
 """
 from __future__ import annotations
 
@@ -48,8 +54,9 @@ def result_from_conflicts(batch: TxnBatch, conflict_op: torch.Tensor,
                           ) -> ValidationResult:
     """Build a ValidationResult from per-op conflict flags; ``cause_op`` is
     one cause code for every conflicting op or an int32[T, K] of codes,
-    forced to CAUSE_NONE off the conflict mask (scan ops, were there any,
-    to CAUSE_PHANTOM)."""
+    forced to CAUSE_NONE off the conflict mask.  Scan ops validate only
+    through the interval pass, so a conflicting scan op carries
+    CAUSE_PHANTOM whatever the mechanism says."""
     T, K = batch.op_key.shape
     dev = conflict_op.device
     commit = ~conflict_op.any(dim=1)
@@ -76,13 +83,6 @@ def my_prio_per_op(batch: TxnBatch, prio: torch.Tensor) -> torch.Tensor:
     return prio[:, None].expand(batch.op_key.shape).contiguous()
 
 
-def _point_ops_only(cfg: EngineConfig) -> None:
-    if cfg.max_extent > 1:
-        raise NotImplementedError(
-            "scans (max_extent > 1) are not ported to repro_torch yet: "
-            "they wait for ROADMAP A.7 (iterate_validate)")
-
-
 def bump_versions(store: StoreState, batch: TxnBatch, commit: torch.Tensor,
                   cfg: EngineConfig) -> StoreState:
     """+1 on ``wts`` per committed write op (backend ``commit_install``),
@@ -102,14 +102,42 @@ def write_claims(store: StoreState, batch: TxnBatch, prio: torch.Tensor,
     return store
 
 
+def plain_write_claims(store: StoreState, batch: TxnBatch,
+                       prio: torch.Tensor, wave: int,
+                       cfg: EngineConfig) -> StoreState:
+    """Plain-WRITE claims into the reader-claim table (the MV mechanisms,
+    which take no read locks): an ADD probes this channel, so ADD-ADD
+    pairs commute.  In place."""
+    kb.BACKEND.claim_scatter(store.claim_r, batch.op_key, batch.op_group,
+                             my_prio_per_op(batch, prio), wave,
+                             batch.is_plain_write() & batch.live())
+    return store
+
+
 def phantom_validate(store: StoreState, batch: TxnBatch, prio: torch.Tensor,
                      wave: int, cfg: EngineConfig,
-                     fine: Optional[bool] = None) -> torch.Tensor:
-    """Interval (scan) validation: all-False at ``max_extent == 1``, the
-    only setting the port runs."""
-    _point_ops_only(cfg)
-    return torch.zeros(batch.op_key.shape, dtype=torch.bool,
-                       device=batch.op_key.device)
+                     fine: Optional[bool] = None, *,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Interval (scan) validation, the phantom check: a live scan READ
+    conflicts when a record of its interval (exact at its group when fine,
+    bucket-expanded over the whole row when coarse) carries a live claim
+    of this wave stronger than the lane in the post-install writer-claim
+    table.  Unthinned: an iterator's window spans the whole wave.
+    ``mask`` narrows the checked ops (MV-OCC: update lanes only).  Returns
+    conflict bool[T, K]; all-False without calling the backend when the
+    config admits no scans."""
+    if cfg.max_extent <= 1:
+        return torch.zeros(batch.op_key.shape, dtype=torch.bool,
+                           device=batch.op_key.device)
+    if fine is None:
+        fine = is_fine(cfg)
+    check = batch.is_scan() & batch.is_read() & batch.live()
+    if mask is not None:
+        check = check & mask
+    return kb.BACKEND.iterate_validate(
+        store.claim_w, batch.op_key, batch.op_extent, batch.op_group,
+        my_prio_per_op(batch, prio), check, wave, fine, cfg.bucket_size,
+        cfg.max_extent)
 
 
 def claim_probe_commit(store: StoreState, batch: TxnBatch,
@@ -136,26 +164,47 @@ def claim_probe_commit(store: StoreState, batch: TxnBatch,
     ``dual``, with live reads narrowed by ``do_r_mask`` as its install
     mask.  ``bump`` adds 1 to ``wts`` per committed write op.  The tables
     are updated in place.  ``cfg.fuse_wave`` picks the route (module
-    docstring).  Returns ``(store, conflict bool[T, K])``."""
-    _point_ops_only(cfg)
+    docstring).
+
+    With scans (``cfg.max_extent > 1``) the scan ops are carved out of
+    every point channel and of the reader-claim installs, the phantom pass
+    runs on the post-install writer-claim table, and the bumps follow it:
+    the fused route runs ``wave_commit`` without its bump and bumps
+    through ``commit_install``.  Returns ``(store, conflict bool[T, K])``.
+    """
     if fine is None:
         fine = is_fine(cfg)
     be = kb.BACKEND
     keys, groups = batch.op_key, batch.op_group
     live = batch.live()
     do_w = batch.is_write() & live
+    scan = batch.is_scan() if cfg.max_extent > 1 else None
+    if scan is not None:
+        check_w = check_w & ~scan
+        if check_w2 is not None:
+            check_w2 = check_w2 & ~scan
+        if check_r is not None:
+            check_r = check_r & ~scan
     do_r = None
     if dual:
         do_r = batch.is_read() & live
         if do_r_mask is not None:
             do_r = do_r & do_r_mask
+        if scan is not None:
+            do_r = do_r & ~scan
     myp = my_prio_per_op(batch, prio)
 
     if cfg.fuse_wave:
+        fuse_bump = bump and scan is None
         conflict, _ = be.wave_commit(
             store.claim_w, store.claim_r if dual else None,
-            store.wts if bump else None, keys, groups, myp, do_w, do_r,
-            check_w, check_w2, check_r, extra, wave, fine, dual, bump)
+            store.wts if fuse_bump else None, keys, groups, myp, do_w, do_r,
+            check_w, check_w2, check_r, extra, wave, fine, dual, fuse_bump)
+        if scan is not None:
+            conflict = conflict | phantom_validate(store, batch, prio, wave,
+                                                   cfg, fine)
+            if bump:
+                bump_versions(store, batch, ~conflict.any(dim=1), cfg)
         return store, conflict
 
     # Unfused: the chain of the megakernel, term by term.
@@ -169,6 +218,9 @@ def claim_probe_commit(store: StoreState, batch: TxnBatch,
         conflict = conflict | (check_r & (rprio < myp))
     if extra is not None:
         conflict = conflict | extra
+    if scan is not None:
+        conflict = conflict | phantom_validate(store, batch, prio, wave, cfg,
+                                               fine)
     if bump:
         bump_versions(store, batch, ~conflict.any(dim=1), cfg)
     return store, conflict

@@ -1,0 +1,88 @@
+"""MVCC: multi-version snapshot isolation with first-committer-wins
+(Hekaton-style; port of ``repro/core/cc/mvcc.py``).
+
+Reads never block and never abort on a writer: every read takes the
+newest version of its (record, group) visible at the transaction's
+snapshot from the version ring of ``core/mvstore.py`` (the ``mv_gather``
+op).  The only in-wave conflicts are write-write: of the concurrent
+writers of a cell the strongest lane commits, the rest abort, judged on
+the wave-scoped claim tables.  Blind ADDs commute: an ADD probes a second
+channel that holds plain WRITEs only (``base.plain_write_claims``).
+Granularity is the usual switch, one level down: fine makes both the
+write-write rule and version visibility per column group.
+
+A read aborts only when its snapshot predates every retained slot
+(``snapshot_age`` beyond the ring's depth): ``mv_gather``'s ok flag.
+Scans read a consistent cut of the snapshot and are never re-validated
+(snapshot isolation admits phantoms, as it admits write skew).  Committed
+writes claim one ring slot per record per wave (``mv_install``).
+The JAX package's ``track_values`` branch of ``mv_commit`` waits for
+ROADMAP A.4; the config refuses it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import backend as kb
+from repro_torch.core import claims, mvstore
+from repro_torch.core import types as t
+from repro_torch.core.cc import base
+from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
+
+
+def fcw_conflicts(store: StoreState, batch: TxnBatch, prio, wave: int,
+                  cfg: EngineConfig):
+    """(store, conflict bool[T, K]): first-committer-wins write-write
+    verdicts, shared by MVCC and MV-OCC.  Installs both claim channels,
+    then a plain WRITE conflicts with any stronger writer of its cell, an
+    ADD only with a stronger plain WRITE."""
+    be = kb.BACKEND
+    fine = base.is_fine(cfg)
+    live = batch.live()
+    pw = batch.is_plain_write() & live
+    ad = batch.is_add() & live
+    myp = base.my_prio_per_op(batch, prio)
+
+    store = base.write_claims(store, batch, prio, wave, cfg)   # all writes
+    store = base.plain_write_claims(store, batch, prio, wave, cfg)
+    cw = be.validate(store.claim_w, batch.op_key, batch.op_group, myp, pw,
+                     wave, fine)
+    ca = be.validate(store.claim_r, batch.op_key, batch.op_group, myp, ad,
+                     wave, fine)
+    return store, cw | ca
+
+
+def mv_commit(store: StoreState, batch: TxnBatch, commit: torch.Tensor,
+              prio, wave: int, cfg: EngineConfig) -> StoreState:
+    """Install the wave's committed writes into the version ring: one slot
+    per written record (``mv_install``), in place."""
+    do = batch.is_write() & batch.live() & commit[:, None]
+    kb.BACKEND.mv_install(store.mv_begin, store.mv_head, batch.op_key,
+                          batch.op_group, do, mvstore.install_ts(wave))
+    return store
+
+
+def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
+                  cfg: EngineConfig):
+    be = kb.BACKEND
+    fine = base.is_fine(cfg)
+    rd = batch.is_read() & batch.live()
+    T, K = batch.op_key.shape
+
+    store, conflict = fcw_conflicts(store, batch, prio, wave, cfg)
+    u = claims.hash01(wave, claims.lane_op_ids(T, K, batch.op_key.device))
+    conflict = conflict & (u < cfg.cost.opt_overlap)   # window thinning
+
+    # Snapshot visibility; a reclaimed snapshot aborts, unthinned (it is
+    # store state, not a racing window).
+    _, ok = be.mv_gather(store.mv_begin, batch.op_key, batch.op_group,
+                         mvstore.snapshot_ts(wave, cfg.snapshot_age), fine)
+    conflict = conflict | (rd & ~ok)
+
+    # Write ops lose first-committer-wins; the only read-side abort is
+    # ring reclamation.
+    cause = torch.where(rd & ~ok, t.CAUSE_STALE_SNAPSHOT, t.CAUSE_WW)
+    res = base.result_from_conflicts(batch, conflict, eager=False,
+                                     cause_op=cause)
+    store = mv_commit(store, batch, res.commit, prio, wave, cfg)
+    return store, res

@@ -1,11 +1,12 @@
 """State carried across from numpy: the database, a batch, a config.
 
 Both packages can then hold the same database and replay the same waves.
-Word tables (uint32 in the JAX package) travel as their bit patterns:
+Word tables (uint32 in the JAX package: the timestamp and claim tables and
+the version ring's begin stamps) travel as their bit patterns:
 ``store_from_numpy`` reinterprets uint32 arrays as int32 tensors and
 ``store_to_numpy`` views them back as uint32, so comparisons are exact.
-The per-record tables (mode bits, heats, heat waves) travel with their
-own dtypes.
+The per-record tables (mode bits, heats, heat waves, ring heads) travel
+with their own dtypes.
 """
 from __future__ import annotations
 
@@ -14,13 +15,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.mvstore import mv_placeholder
 from repro_torch.core.types import (CostModel, EngineConfig, StoreState,
                                     TxnBatch)
 
-WORD_TABLES = ("wts", "rts", "claim_w", "claim_r")
+WORD_TABLES = ("wts", "rts", "claim_w", "claim_r", "mv_begin")
 RECORD_TABLES = {"ring_tails": np.int32, "pess_mode": np.bool_,
                  "abort_heat": np.float32, "fine_mode": np.bool_,
-                 "false_heat": np.float32, "heat_wave": np.int32}
+                 "false_heat": np.float32, "heat_wave": np.int32,
+                 "mv_head": np.int32}
 _INT_FIELDS = ("op_key", "op_group", "op_col", "op_kind", "txn_type",
                "n_ops", "op_extent")
 
@@ -31,12 +34,13 @@ def _words(a: np.ndarray, device) -> torch.Tensor:
 
 
 def store_from_numpy(arrays: dict, device) -> StoreState:
-    """StoreState from {field: array}; the JAX store's fields of later
-    slices (values, the multi-version ring) are ignored."""
+    """StoreState from {field: array}; the JAX store's tracked values
+    (``values``, ``mv_vals``) are ignored (ROADMAP A.4)."""
     tables = {k: _words(arrays[k], device) for k in WORD_TABLES}
     for k, dtype in RECORD_TABLES.items():
         tables[k] = torch.from_numpy(np.ascontiguousarray(
             np.asarray(arrays[k]).astype(dtype))).to(device)
+    tables["mv_vals"] = mv_placeholder(device)[2]
     return StoreState(**tables)
 
 

@@ -43,7 +43,7 @@ class Workload(Protocol):
     n_txn_types: int
     slots: int
 
-    def init_store(self, device) -> StoreState: ...
+    def init_store(self, device, mv_depth: int = 0) -> StoreState: ...
 
     def gen(self, generator: torch.Generator, wave: int, lanes: int,
             ring_tails: torch.Tensor) -> tuple[TxnBatch, torch.Tensor]: ...
@@ -81,7 +81,10 @@ def _lane_cost(cfg: EngineConfig, batch: TxnBatch, commit: torch.Tensor,
     """Per-lane simulated microseconds for one wave -> (lane_dt f32[T],
     has_write bool[T]): committed lanes pay execution + install
     contention, aborted optimistic lanes waste their full execution, eager
-    mechanisms cut losses at the first conflict."""
+    mechanisms cut losses at the first conflict.  A scan op counts as
+    ``extent`` reads: it executes and validates every row of its
+    interval (only where the config admits scans, so point configs keep
+    the JAX package's float order exactly)."""
     c = cfg.cost
     kappa = _kappa(cfg, res)
     live = batch.live()
@@ -89,6 +92,12 @@ def _lane_cost(cfg: EngineConfig, batch: TxnBatch, commit: torch.Tensor,
     n_reads = (batch.is_read() & live).sum(dim=1).to(torch.float32)
     has_write = (batch.is_write() & live).any(dim=1)
     t_exec = c.c_txn + n_ops * c.c_op * kappa
+    if cfg.max_extent > 1:
+        rd = batch.is_read() & live
+        ext = batch.extent().to(torch.float32)
+        n_reads = torch.where(rd, ext, 0.0).sum(dim=1)
+        t_exec = (t_exec + torch.where(rd, ext - 1.0, 0.0).sum(dim=1)
+                  * c.c_op * kappa)
     if _optimistic(cfg):
         val_reads = n_reads
         if cfg.cc == t.CC_MVOCC:
@@ -249,7 +258,7 @@ def run(cfg: EngineConfig, workload: Workload, n_waves: int, seed: int = 0,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    state = engine_state_init(cfg, workload.init_store(dev))
+    state = engine_state_init(cfg, workload.init_store(dev, cfg.mv_depth))
     state, wall_s = run_waves(cfg, workload, state, make_wave_step(cfg), gen,
                               n_waves)
     return summarize(cfg, state, n_waves, wall_s, keep_state)

@@ -14,12 +14,12 @@ Operation encoding (T lanes x K op slots):
   op_col    int32[T, K]  column index
   op_kind   int32[T, K]  NOP / READ / WRITE / ADD
   op_val    f32[T, K]    value or delta for WRITE/ADD
-  op_extent int32[T, K]  interval width (1 = point op; this port runs
-                         point ops only)
+  op_extent int32[T, K]  interval width: 1 = point op, > 1 = a scan of
+                         [key, key + extent)
 
-Word-valued tables (wts, rts, claim_w, claim_r) hold uint32 bit patterns
-in int32 tensors, 4 bytes per cell as in the JAX package (see
-``core/claimword.py``).  The wave counter is a host integer.
+Word-valued tables (wts, rts, claim_w, claim_r, mv_begin) hold uint32
+bit patterns in int32 tensors, 4 bytes per cell as in the JAX package
+(see ``core/claimword.py``).  The wave counter is a host integer.
 """
 from __future__ import annotations
 
@@ -27,6 +27,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from repro_torch.core import mvstore
 
 # Operation kinds.
 NOP: int = 0
@@ -165,18 +167,22 @@ class TxnBatch:
     def is_scan(self) -> torch.Tensor:
         return self.op_extent > 1
 
+    def extent(self) -> torch.Tensor:
+        """Per-op interval width, clamped to >= 1."""
+        return torch.clamp(self.op_extent, min=1)
+
 
 @dataclasses.dataclass
 class StoreState:
     """The database's version metadata, claim tables and per-record CC
     state.
 
-    Holds the tables of the point-op mechanisms (OCC, TicToc, 2PL,
-    SwissTM, Adaptive, AutoGran); the JAX package's multi-version ring and
-    tracked values join with the slice that ports them.  Every table is
-    updated in place: the word tables by the backend ops, the mode bits
-    and heats by the mechanisms.  Heats decay lazily: a record's heat is
-    multiplied by decay ** (wave - heat_wave) when it is next read.
+    Every table is updated in place: the word tables and the version
+    ring by the backend ops, the mode bits and heats by the mechanisms.
+    Heats decay lazily: a record's heat is multiplied by
+    decay ** (wave - heat_wave) when it is next read.  The JAX package's
+    tracked values (``values``, ``mv_vals``) wait for ROADMAP A.4:
+    ``mv_vals`` is a placeholder.
     """
     wts: torch.Tensor         # int32[n_records, G]  write timestamps
     rts: torch.Tensor         # int32[n_records, G]  read timestamps
@@ -188,6 +194,11 @@ class StoreState:
     fine_mode: torch.Tensor   # bool[n_records]  AutoGran: fine timestamps
     false_heat: torch.Tensor  # f32[n_records]   AutoGran: false-conflict EWMA
     heat_wave: torch.Tensor   # int32[n_records] wave a heat was last touched
+    mv_begin: torch.Tensor    # int32[n_records, D, G] ring begin stamps
+                              #   (core/mvstore.py; [1, 1, 1] when the run
+                              #   has no ring, mv_depth=0)
+    mv_head: torch.Tensor     # int32[n_records] newest ring slot per record
+    mv_vals: torch.Tensor     # f32[1, 1, 1] placeholder (ROADMAP A.4)
 
     @property
     def n_records(self) -> int:
@@ -196,6 +207,11 @@ class StoreState:
     @property
     def n_groups(self) -> int:
         return self.wts.shape[1]
+
+    @property
+    def mv_depth(self) -> int:
+        """Ring depth D (1 without a ring: the placeholder's slot)."""
+        return self.mv_begin.shape[1]
 
 
 @dataclasses.dataclass
@@ -332,10 +348,6 @@ class EngineConfig:
                 "have already drifted past")
         # Settings the port does not run yet.
         waits = [
-            (self.max_extent > 1, f"max_extent={self.max_extent}",
-             "ROADMAP A.7 (scans, iterate_validate)"),
-            (self.mv_depth > 0, f"mv_depth={self.mv_depth}",
-             "ROADMAP A.8 (multi-versioning)"),
             (self.open_loop, f"arrival_rate={self.arrival_rate}",
              "ROADMAP A.9 (open loop)"),
             (self.track_values, "track_values=True",
@@ -370,7 +382,10 @@ def txn_batch_zeros(lanes: int, slots: int, device) -> TxnBatch:
 
 
 def store_init(n_records: int, n_groups: int, n_rings: int = 1,
-               need_rts: bool = True, device=None) -> StoreState:
+               need_rts: bool = True, device=None,
+               mv_depth: int = 0) -> StoreState:
+    """A fresh store on ``device``; ``mv_depth > 0`` allocates the
+    version ring (core/mvstore.py), else its placeholders."""
     dev = resolve_device(device)
     G = n_groups
 
@@ -381,6 +396,11 @@ def store_init(n_records: int, n_groups: int, n_rings: int = 1,
 
     def per_record(dtype) -> torch.Tensor:
         return torch.zeros((n_records,), dtype=dtype, device=dev)
+    if mv_depth > 0:
+        mv_begin, mv_head, mv_vals = mvstore.mv_init(n_records, mv_depth, G,
+                                                     dev)
+    else:
+        mv_begin, mv_head, mv_vals = mvstore.mv_placeholder(dev)
     return StoreState(
         wts=table(0),
         rts=table(0) if need_rts else torch.zeros((1, 1), dtype=torch.int32,
@@ -393,6 +413,9 @@ def store_init(n_records: int, n_groups: int, n_rings: int = 1,
         fine_mode=per_record(torch.bool),
         false_heat=per_record(torch.float32),
         heat_wave=per_record(torch.int32),
+        mv_begin=mv_begin,
+        mv_head=mv_head,
+        mv_vals=mv_vals,
     )
 
 

@@ -9,8 +9,11 @@ nowhere else.
 """
 from repro_torch.kernels.claim_probe import claim_probe
 from repro_torch.kernels.claim_scatter import claim_scatter
+from repro_torch.kernels.iterate_validate import iterate_validate
+from repro_torch.kernels.mv_gather import mv_gather
+from repro_torch.kernels.mv_install import mv_install
 from repro_torch.kernels.occ_commit import commit_install
-from repro_torch.kernels.occ_validate import validate_dual
+from repro_torch.kernels.occ_validate import validate, validate_dual
 from repro_torch.kernels.segment_count import segment_count
 from repro_torch.kernels.ts_gather import ts_gather
 from repro_torch.kernels.ts_install import ts_install_max
@@ -26,6 +29,10 @@ WRAPPERS = {
     "claim_scatter": claim_scatter,
     "validate_dual": validate_dual,
     "claim_probe": claim_probe,
+    "validate": validate,
+    "iterate_validate": iterate_validate,
+    "mv_gather": mv_gather,
+    "mv_install": mv_install,
 }
 
 

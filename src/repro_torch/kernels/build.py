@@ -32,7 +32,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("wave_commit", "segment_count", "ts_gather", "ts_install",
-           "occ_commit", "claim_scatter", "occ_validate", "claim_probe")
+           "occ_commit", "claim_scatter", "occ_validate", "claim_probe",
+           "iterate_validate", "mv_gather", "mv_install")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,102 @@
+"""Ring-slot claim and version publish on the multi-version ring.
+
+Replaces the TPU kernel ``mv_install_pallas``
+(src/repro/kernels/mv_install.py); the semantics are the JAX oracle
+``ref.mv_install``: for every record with at least one op whose ``do`` is
+set (key inside ``[0, N)``), resolved against the PRE-wave head:
+
+  h_new = (head[key] + 1) % D
+  begin[key, h_new, :] = begin[key, head[key], :]   (carry forward)
+  begin[key, h_new, g] = ts   for every such op's group g (in range)
+  head[key] = h_new
+
+so each written record gets exactly one new slot per wave, however many
+ops write it.  ``begin`` and ``head`` are updated in place.  Precondition
+(the engine keeps it): every begin of an installed-into record is
+``MV_EMPTY`` or below ``ts``; the plain version checks it and raises, as
+``ref.check_mv_begin_monotone`` does.
+
+CUDA tensors launch ``csrc/mv_install.cu`` (two launches: copy, then
+stamp); CPU tensors take ``mv_install_plain``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.claimword import U32_MASK, u32
+from repro_torch.core.mvstore import MV_EMPTY
+from repro_torch.kernels import build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIG = {"repro_mv_install": [_P] * 6 + [_I] * 4 + [ctypes.c_uint, _P]}
+
+
+def check_mv_begin_monotone(begin: torch.Tensor, keys: torch.Tensor,
+                            do: torch.Tensor, ts: int) -> None:
+    """Raise if a ring row that ``do`` installs into already holds a begin
+    >= ``ts`` (other than ``MV_EMPTY``)."""
+    N = begin.shape[0]
+    m = do & (keys >= 0) & (keys < N)
+    rows = u32(begin[keys[m].to(torch.int64)])
+    bad = (rows != MV_EMPTY) & (rows >= (int(ts) & U32_MASK))
+    if bool(bad.any()):
+        raise ValueError(
+            f"mv_install precondition violated: {int(bad.sum())} begin "
+            f"cell(s) in installed-into rows already hold >= ts={int(ts)}: "
+            "install timestamps must advance strictly per wave "
+            "(core/mvstore.install_ts)")
+
+
+def mv_install_plain(begin: torch.Tensor, head: torch.Tensor,
+                     keys: torch.Tensor, groups: torch.Tensor,
+                     do: torch.Tensor, ts: int) -> None:
+    check_mv_begin_monotone(begin, keys, do, ts)
+    N, D, G = begin.shape
+    m = do & (keys >= 0) & (keys < N)
+    k = keys[m].to(torch.int64)
+    g = groups[m].to(torch.int64)
+    h_old = head[k].to(torch.int64)
+    h_new = torch.remainder(h_old + 1, D)
+    # A head outside [0, D) reads a zero row, as the oracle's fill does.
+    hv = (h_old >= 0) & (h_old < D)
+    old = torch.where(hv[:, None], begin[k, torch.where(hv, h_old, 0)], 0)
+    # Duplicates of a record copy the same pre-wave row and stamp the same
+    # value, so the unordered writes are deterministic.
+    begin[k, h_new] = old
+    gv = (g >= 0) & (g < G)
+    begin[k[gv], h_new[gv], g[gv]] = ((int(ts) & U32_MASK) ^ 0x80000000) \
+        - 0x80000000  # the int32 bit pattern of ts
+    head[k] = h_new.to(torch.int32)
+
+
+def mv_install(begin: torch.Tensor, head: torch.Tensor, keys: torch.Tensor,
+               groups: torch.Tensor, do: torch.Tensor, ts: int) -> None:
+    """In place: one new ring slot per record that a ``do`` op writes,
+    stamped ``ts`` in the written groups."""
+    mv_install.calls += 1
+    if keys.device.type == "cpu":
+        return mv_install_plain(begin, head, keys, groups, do, ts)
+    dev = build.launch_device(keys)
+    N, D, G = begin.shape
+    shape = tuple(keys.shape)
+    build.check("begin", begin, torch.int32, (N, D, G), dev)
+    build.check("head", head, torch.int32, (N,), dev)
+    build.check("keys", keys, torch.int32, shape, dev)
+    build.check("groups", groups, torch.int32, shape, dev)
+    build.check("do", do, torch.bool, shape, dev)
+    h_new = torch.empty(shape, dtype=torch.int32, device=dev)
+    lib = build.load("mv_install", _SIG)
+    with torch.cuda.device(dev):
+        rc = lib.repro_mv_install(
+            build.ptr(begin), build.ptr(head), build.ptr(keys),
+            build.ptr(groups), build.ptr(do), build.ptr(h_new),
+            keys.numel(), N, D, G, int(ts) & U32_MASK, build.stream(dev))
+    build.raise_on_error("mv_install", rc)
+    mv_install.launches += 1
+
+
+mv_install.launches = 0
+mv_install.calls = 0

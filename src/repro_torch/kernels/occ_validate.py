@@ -1,20 +1,24 @@
-"""Dual-width read validation: fine and coarse verdicts from one row read.
+"""Read validation against a claim table: one verdict at one granularity
+(``validate``) or fine and coarse verdicts from one row read
+(``validate_dual``).
 
-Replaces the TPU kernel ``occ_validate_dual_pallas``
-(src/repro/kernels/occ_validate.py); the semantics are the JAX oracle
+Replaces the TPU kernels ``occ_validate_pallas`` and
+``occ_validate_dual_pallas`` (src/repro/kernels/occ_validate.py); the
+semantics are the JAX oracles ``ref.occ_validate`` and
 ``ref.occ_validate_dual``: per op,
 
   fine   = check & (live prio16 of the op's own cell        < myprio)
   coarse = check & (min live prio16 over the record's row   < myprio)
 
-A masked key gives no conflict; an out-of-range group gives none on the
-fine side (the oracle's ``take_along_axis`` fill reads as no claimant).
-Returns ``(fine, coarse)``, two bool[T, K]; the table is only read.
+``validate`` returns the one its ``fine`` flag names, ``validate_dual``
+both.  A masked key gives no conflict; an out-of-range group gives none
+on the fine side (the oracle's fill reads as no claimant).  The table is
+only read.
 
 CUDA tensors launch ``csrc/occ_validate.cu`` (one thread per op reading
-its row once); CPU tensors take ``validate_dual_plain``.  The file's other
-two TPU kernels (``occ_validate_pallas``, ``claim_probe_pallas``) wait for
-the multi-version slice.
+its row once); CPU tensors take the plain versions.  The file's third TPU
+kernel, ``claim_probe_pallas`` (the ``probe`` op), has no caller in the
+JAX package and stays queued (ROADMAP B.7).
 """
 from __future__ import annotations
 
@@ -28,7 +32,53 @@ from repro_torch.kernels.scatter import gather_rows, pick_group
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"repro_validate_dual": [_P] * 7 + [_I] * 4 + [_P]}
+_SIG = {"repro_validate_dual": [_P] * 7 + [_I] * 4 + [_P],
+        "repro_validate": [_P] * 6 + [_I] * 5 + [_P]}
+
+
+def validate_plain(claim_w: torch.Tensor, keys: torch.Tensor,
+                   groups: torch.Tensor, myprio: torch.Tensor,
+                   check: torch.Tensor, wave: int,
+                   fine: bool) -> torch.Tensor:
+    rows, valid = gather_rows(claim_w, keys)
+    pr = torch.where(valid[..., None], live_prio(rows, inv_wave(wave)),
+                     NO_PRIO)
+    wprio = pick_group(pr, groups, NO_PRIO) if fine else pr.amin(dim=-1)
+    return check & (wprio < u32(myprio))
+
+
+def validate(claim_w: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
+             myprio: torch.Tensor, check: torch.Tensor, wave: int,
+             fine: bool) -> torch.Tensor:
+    """Conflict flags bool[T, K]: checked ops whose cell (fine) or row
+    (coarse) a strictly stronger lane claimed this wave."""
+    validate.calls += 1
+    if keys.device.type == "cpu":
+        return validate_plain(claim_w, keys, groups, myprio, check, wave,
+                              fine)
+    dev = build.launch_device(keys)
+    N, G = claim_w.shape
+    shape = tuple(keys.shape)
+    build.check("claim_w", claim_w, torch.int32, (N, G), dev)
+    build.check("keys", keys, torch.int32, shape, dev)
+    build.check("groups", groups, torch.int32, shape, dev)
+    build.check("myprio", myprio, torch.int32, shape, dev)
+    build.check("check", check, torch.bool, shape, dev)
+    out = torch.empty(shape, dtype=torch.bool, device=dev)
+    lib = build.load("occ_validate", _SIG)
+    with torch.cuda.device(dev):
+        rc = lib.repro_validate(
+            build.ptr(claim_w), build.ptr(keys), build.ptr(groups),
+            build.ptr(myprio), build.ptr(check), build.ptr(out),
+            keys.numel(), N, G, inv_wave(wave), int(bool(fine)),
+            build.stream(dev))
+    build.raise_on_error("validate", rc)
+    validate.launches += 1
+    return out
+
+
+validate.launches = 0
+validate.calls = 0
 
 
 def validate_dual_plain(claim_w: torch.Tensor, keys: torch.Tensor,

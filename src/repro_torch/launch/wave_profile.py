@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.wave_profile \
         --workload tpcc --cc occ tictoc 2pl --lanes 128 --waves 50
+    PYTHONPATH=src python -m repro_torch.launch.wave_profile \
+        --workload ycsb --cc occ mvcc --scan-frac 0.95 --scan-len 100
 
 For each (cc, granularity) of the ``--cc`` mechanisms (OCC and TicToc by
 default): the host wall time per wave
@@ -9,8 +11,10 @@ default): the host wall time per wave
 the profiler), then one ``torch.profiler`` pass over the same number of waves
 giving the device kernels per wave, the device-busy time per wave (the
 union of kernel and copy intervals), the idle share of the profiled wall
-time, and the kernels that take the most device time.  Prints one JSON
-line per configuration and needs a CUDA device.
+time, and the kernels that take the most device time.  The workload
+flags are txn_bench's (scans, read-only share, write share); the
+multi-version mechanisms get txn_bench's default ring of 4 slots.
+Prints one JSON line per configuration and needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ def profile(workload: str, cc: str, gran: int, lanes: int, waves: int,
     cfg = make_config(wl, cc, gran, lanes)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    state = engine_state_init(cfg, wl.init_store(dev))
+    state = engine_state_init(cfg, wl.init_store(dev, cfg.mv_depth))
     step = make_wave_step(cfg)
     state, _ = run_waves(cfg, wl, state, step, gen, warmup)
     state, wall = run_waves(cfg, wl, state, step, gen, waves)
@@ -54,7 +58,8 @@ def profile(workload: str, cc: str, gran: int, lanes: int, waves: int,
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {
         "workload": workload, "cc": cc, "granularity": gran,
-        "lanes": lanes, "waves": waves,
+        "lanes": lanes, "waves": waves, "max_extent": cfg.max_extent,
+        "workload_kw": wl_kw,
         "device_name": torch.cuda.get_device_name(dev),
         "wall_ms_per_wave": wall / waves * 1e3,
         "wall_ms_per_wave_profiled": wall_prof / waves * 1e3,
@@ -75,8 +80,17 @@ def main(argv=None):
     ap.add_argument("--lanes", type=int, default=128)
     ap.add_argument("--waves", type=int, default=50)
     ap.add_argument("--n-keys", type=int, default=10_000_000)
+    ap.add_argument("--write-frac", type=float, default=0.5)
+    ap.add_argument("--ro-frac", type=float, default=0.0)
+    ap.add_argument("--scan-frac", type=float, default=0.0)
+    ap.add_argument("--scan-len", type=int, default=0,
+                    help="TPC-C: switches its scans on at this stock "
+                         "window; YCSB: the scan class's width")
     args = ap.parse_args(argv)
-    kw = {"n_keys": args.n_keys} if args.workload == "ycsb" else {}
+    kw = {"scan_len": args.scan_len}
+    if args.workload == "ycsb":
+        kw.update(n_keys=args.n_keys, write_frac=args.write_frac,
+                  ro_frac=args.ro_frac, scan_frac=args.scan_frac)
     for gran in (0, 1):
         for cc in args.cc:
             print(json.dumps(profile(args.workload, cc, gran, args.lanes,

@@ -1,6 +1,7 @@
 """TPC-C (New-order, Payment, Order-status — 92% of the standard mix, the
-three the paper implements), laid out for wave execution (port of
-``repro/workloads/tpcc.py``).
+three the paper implements; ``scan_len > 0`` adds a Stock-level-style
+fourth type and turns Order-status's order-line reads into one interval
+scan), laid out for wave execution (port of ``repro/workloads/tpcc.py``).
 
 Tables live in one flat record space:
 
@@ -12,8 +13,7 @@ false conflicts, the paper's central observation.  Fine granularity gives
 W/D/C rows two timestamps (group 0 = rarely-updated fields, group 1 = the
 rest).  YTD/balance updates are blind commutative ADDs; order ids and
 insert slots come from per-district append rings whose cursors advance by
-a wave prefix sum, outside CC.  The JAX package's scan classes
-(``scan_len``) wait for ROADMAP A.7.
+a wave prefix sum, outside CC.
 """
 from __future__ import annotations
 
@@ -25,9 +25,12 @@ from repro_torch.core import types as t
 from repro_torch.core.types import StoreState, TxnBatch, store_init
 from repro_torch.workloads.zipf import nurand
 
-NEW_ORDER, PAYMENT, ORDER_STATUS = 0, 1, 2
+NEW_ORDER, PAYMENT, ORDER_STATUS, STOCK_LEVEL = 0, 1, 2, 3
 # Renormalized standard mix (45/43/4 out of the 92% the paper implements).
 MIX = (45 / 92, 43 / 92, 4 / 92)
+# With the scan classes on (scan_len > 0): Stock-level joins at its
+# standard 4% weight, 45/43/4/4 renormalized.
+MIX_SCAN = (45 / 96, 43 / 96, 4 / 96, 4 / 96)
 
 MAX_ITEMS = 15
 SLOTS = 64
@@ -49,18 +52,34 @@ class TPCCWorkload:
     n_cust_per_d: int = 3000
     n_items: int = 100_000
     o_cap: int = 1024
+    #: 0 = the three-type point-op mix.  > 0 turns on the scan classes:
+    #: Order-status reads its order lines as ONE interval of extent
+    #: MAX_ITEMS (the keys are consecutive), and a Stock-level type scans
+    #: ``scan_len`` consecutive stock rows of the home warehouse.
+    scan_len: int = 0
 
     n_groups: int = 2
     n_txn_types: int = 3
 
+    def __post_init__(self):
+        if self.scan_len > 0:
+            if self.scan_len > self.n_items:
+                raise ValueError(
+                    f"scan_len {self.scan_len} exceeds n_items "
+                    f"{self.n_items}")
+            if self.n_txn_types < 4:
+                object.__setattr__(self, "n_txn_types", 4)
+
     @staticmethod
-    def make(n_warehouses: int = 8, scale: float = 1.0) -> "TPCCWorkload":
+    def make(n_warehouses: int = 8, scale: float = 1.0,
+             scan_len: int = 0) -> "TPCCWorkload":
         """scale < 1 shrinks the per-warehouse tables (for tests)."""
         return TPCCWorkload(
             n_warehouses=n_warehouses,
             n_cust_per_d=max(int(3000 * scale), 8),
             n_items=max(int(100_000 * scale), 16),
             o_cap=max(int(1024 * scale), 16),
+            scan_len=scan_len,
         )
 
     # ---- layout ----
@@ -110,11 +129,14 @@ class TPCCWorkload:
 
     @property
     def max_extent(self) -> int:
-        return 1
+        """Widest interval an op carries: the order-line scan (MAX_ITEMS)
+        or the Stock-level window; 1 without scans."""
+        return max(MAX_ITEMS, self.scan_len) if self.scan_len > 0 else 1
 
-    def init_store(self, device=None) -> StoreState:
+    def init_store(self, device=None, mv_depth: int = 0) -> StoreState:
         return store_init(self.n_records, self.n_groups,
-                          n_rings=self.n_rings, device=device)
+                          n_rings=self.n_rings, device=device,
+                          mv_depth=mv_depth)
 
     # ---- key helpers ----
     def d_key(self, w, d):
@@ -142,7 +164,8 @@ class TPCCWorkload:
         def randint(lo, hi, shape):
             return torch.randint(lo, hi, shape, generator=gen, device=dev)
 
-        mix = torch.tensor(MIX, dtype=torch.float32, device=dev)
+        mix = torch.tensor(MIX_SCAN if self.scan_len > 0 else MIX,
+                           dtype=torch.float32, device=dev)
         txn_type = torch.multinomial(mix, T, replacement=True,
                                      generator=gen).to(torch.int32)
         w = randint(0, self.n_warehouses, (T,))
@@ -179,6 +202,9 @@ class TPCCWorkload:
             self._gen_payment(T, dev, w, d, c_w, c_d, c),
             self._gen_order_status(T, dev, w, d, c, ring, tails64),
         ]
+        if self.scan_len > 0:
+            i0 = randint(0, self.n_items - self.scan_len + 1, (T,))
+            variants.append(self._gen_stock_level(T, dev, w, d, i0))
         lane = torch.arange(T, device=dev)
         sel = txn_type.to(torch.int64)
         out = {}
@@ -256,8 +282,26 @@ class TPCCWorkload:
         self._set(f, 0, ck, C_INFO, t.READ, G_RARE)
         self._set(f, 1, ck, C_BAL, t.READ, G_HOT)
         self._set(f, 2, self.o_key(ring, last), 0, t.READ, G_RARE)
-        olk = self.ol_key(ring[:, None], last[:, None],
-                          torch.arange(MAX_ITEMS, device=dev)[None, :])
-        self._set(f, slice(3, 18), olk, 0, t.READ, G_RARE)
+        if self.scan_len > 0:
+            # The order's MAX_ITEMS order-line keys are consecutive, so
+            # the point reads collapse into ONE interval scan.
+            self._set(f, 3, self.ol_key(ring, last, 0), 0, t.READ, G_RARE)
+            f["op_extent"][:, 3] = MAX_ITEMS
+            n_ops = 4
+        else:
+            olk = self.ol_key(ring[:, None], last[:, None],
+                              torch.arange(MAX_ITEMS, device=dev)[None, :])
+            self._set(f, slice(3, 18), olk, 0, t.READ, G_RARE)
+            n_ops = 18
         return self._batch(f, T, dev, ORDER_STATUS,
-                           torch.full((T,), 18, device=dev))
+                           torch.full((T,), n_ops, device=dev))
+
+    def _gen_stock_level(self, T, dev, w, d, i0):
+        """Stock-level style: read the district, then scan ``scan_len``
+        consecutive stock rows of the home warehouse.  Read-only."""
+        f = self._empty(T, dev)
+        self._set(f, 0, self.d_key(w, d), D_TAX, t.READ, G_RARE)
+        self._set(f, 1, self.s_key(w, i0), S_QTY, t.READ, G_RARE)
+        f["op_extent"][:, 1] = self.scan_len
+        return self._batch(f, T, dev, STOCK_LEVEL,
+                           torch.full((T,), 2, device=dev))

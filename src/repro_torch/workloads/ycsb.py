@@ -7,8 +7,13 @@
   - fine granularity = one timestamp for even columns, one for odd
     (group = column % 2).
 
-``ro_frac`` mixes in read-only transactions (txn_type 1).  The JAX
-package's range-scan class (``scan_frac``) waits for ROADMAP A.7.
+``ro_frac`` mixes in read-only transactions (txn_type 1).  ``scan_frac``
+mixes in short-range scan transactions (YCSB workload E), their own
+txn_type after the read-only class: op 0 is one interval READ of
+``scan_len`` consecutive keys (a Zipfian start, clamped to stay in the
+table), op 1 a point WRITE, the other slots masked.  Scan lanes are update
+transactions, so every serializable mechanism must phantom-protect the
+interval.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ class YCSBWorkload:
     ops_per_txn: int = 16
     write_frac: float = 0.5
     ro_frac: float = 0.0
+    scan_frac: float = 0.0
+    scan_len: int = 8
     theta: float = 0.9
     zipf: ZipfSampler = None  # type: ignore[assignment]
 
@@ -36,17 +43,22 @@ class YCSBWorkload:
     n_txn_types: int = 1
 
     def __post_init__(self):
-        n_types = 1 + (self.ro_frac > 0)
+        n_types = 1 + (self.ro_frac > 0) + (self.scan_frac > 0)
         if self.n_txn_types < n_types:
             object.__setattr__(self, "n_txn_types", n_types)
+        if self.scan_frac > 0 and not 1 <= self.scan_len <= self.n_keys:
+            raise ValueError(
+                f"scan_len must be in [1, n_keys], got {self.scan_len}")
 
     @staticmethod
     def make(n_keys: int = 10_000_000, theta: float = 0.9,
              ops_per_txn: int = 16, write_frac: float = 0.5,
-             ro_frac: float = 0.0) -> "YCSBWorkload":
+             ro_frac: float = 0.0, scan_frac: float = 0.0,
+             scan_len: int = 8) -> "YCSBWorkload":
         return YCSBWorkload(n_keys=n_keys, theta=theta,
                             ops_per_txn=ops_per_txn, write_frac=write_frac,
-                            ro_frac=ro_frac,
+                            ro_frac=ro_frac, scan_frac=scan_frac,
+                            scan_len=scan_len,
                             zipf=ZipfSampler.make(n_keys, theta))
 
     @property
@@ -63,11 +75,13 @@ class YCSBWorkload:
 
     @property
     def max_extent(self) -> int:
-        return 1
+        """Widest interval an op carries: scan_len with the scan class."""
+        return self.scan_len if self.scan_frac > 0 else 1
 
-    def init_store(self, device=None) -> StoreState:
+    def init_store(self, device=None, mv_depth: int = 0) -> StoreState:
         return store_init(self.n_records, self.n_groups,
-                          n_rings=self.n_rings, device=device)
+                          n_rings=self.n_rings, device=device,
+                          mv_depth=mv_depth)
 
     def gen(self, gen: torch.Generator, wave: int, lanes: int,
             ring_tails: torch.Tensor):
@@ -84,13 +98,39 @@ class YCSBWorkload:
         is_w = torch.rand((lanes, K), generator=gen,
                           device=dev) < self.write_frac
         is_w = is_w & ~is_ro[:, None]
+        op_key = keys
+        op_kind = torch.where(is_w, t.WRITE, t.READ).to(torch.int32)
+        op_extent = torch.ones((lanes, K), dtype=torch.int32, device=dev)
+        n_ops = torch.full((lanes,), K, dtype=torch.int32, device=dev)
+        txn_type = is_ro.to(torch.int32)
+        if self.scan_frac > 0:
+            is_sc = (torch.rand((lanes,), generator=gen, device=dev)
+                     < self.scan_frac) & ~is_ro
+            # Op 0: the interval READ (clamped in the table); op 1: a
+            # point WRITE; the rest masked.
+            col = torch.arange(K, device=dev)[None, :]
+            sc = is_sc[:, None]
+            start = torch.clamp(keys[:, :1], max=self.n_keys - self.scan_len)
+            op_key = torch.where(
+                sc, torch.where(col == 0, start,
+                                torch.where(col == 1, keys[:, 1:2], -1)),
+                op_key).to(torch.int32)
+            op_kind = torch.where(
+                sc & (col == 1), t.WRITE,
+                torch.where(sc, t.READ, op_kind)).to(torch.int32)
+            op_extent = torch.where(sc & (col == 0), self.scan_len,
+                                    op_extent).to(torch.int32)
+            n_ops = torch.where(is_sc, 2, n_ops).to(torch.int32)
+            txn_type = torch.where(is_sc, 1 + int(self.ro_frac > 0),
+                                   txn_type).to(torch.int32)
         batch = TxnBatch(
-            op_key=keys,
+            op_key=op_key,
             op_group=cols % 2,  # the paper's parity split
             op_col=cols,
-            op_kind=torch.where(is_w, t.WRITE, t.READ).to(torch.int32),
+            op_kind=op_kind,
             op_val=torch.rand((lanes, K), generator=gen, device=dev),
-            txn_type=is_ro.to(torch.int32),
-            n_ops=torch.full((lanes,), K, dtype=torch.int32, device=dev),
+            txn_type=txn_type,
+            n_ops=n_ops,
+            op_extent=op_extent,
         )
         return batch, ring_tails

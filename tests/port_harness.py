@@ -22,11 +22,15 @@ from repro_torch.core import engine as pe
 
 
 def jax_config(wl, cc: int, gran: int, lanes: int,
-               fuse_wave: bool = True) -> jt.EngineConfig:
+               fuse_wave: bool = True, **kw) -> jt.EngineConfig:
+    """The JAX config of a run: the workload's max_extent, a ring of depth
+    4 for the multi-version mechanisms, and ``kw`` (snapshot_age, ...)."""
+    kw.setdefault("mv_depth", 4 if cc in jt.MV_CCS else 0)
     return jt.EngineConfig(
         cc=cc, lanes=lanes, slots=wl.slots, n_records=wl.n_records,
         n_groups=wl.n_groups, n_cols=wl.n_cols, n_txn_types=wl.n_txn_types,
-        granularity=gran, n_rings=wl.n_rings, fuse_wave=fuse_wave)
+        granularity=gran, n_rings=wl.n_rings, fuse_wave=fuse_wave,
+        max_extent=wl.max_extent, **kw)
 
 
 def jax_draws(wl, lanes: int, n_waves: int, seed: int = 0) -> list:
@@ -46,11 +50,11 @@ def jax_draws(wl, lanes: int, n_waves: int, seed: int = 0) -> list:
     return out
 
 
-#: Store fields compared bit for bit, and the float heats compared to
-#: rtol 1e-6 (``decay ** dt`` is a float32 pow, which CPU libraries may
-#: round an ulp apart).
+#: Store fields compared bit for bit (the version ring included), and the
+#: float heats compared to rtol 1e-6 (``decay ** dt`` is a float32 pow,
+#: which CPU libraries may round an ulp apart).
 EXACT_TABLES = ("wts", "rts", "claim_w", "claim_r", "ring_tails",
-                "pess_mode", "fine_mode", "heat_wave")
+                "pess_mode", "fine_mode", "heat_wave", "mv_begin", "mv_head")
 HEAT_TABLES = ("abort_heat", "false_heat")
 
 
@@ -72,22 +76,29 @@ def port_replay(cfg, store0: dict, draws: list, device="cpu"):
     return state
 
 
+def initial_store(wl, jcfg) -> dict:
+    """The JAX workload's fresh store, with the config's ring, as numpy."""
+    return store_arrays(wl.init_store(False, mv_depth=jcfg.mv_depth))
+
+
 def assert_engine_parity(wl, cc: int, gran: int, lanes: int, draws: list,
-                         seed: int = 0, fuse_wave: bool = True):
+                         seed: int = 0, fuse_wave: bool = True, **kw):
     """The port's replay of the JAX draws equals JAX ``run``: integer state,
-    mode bits and counters bit-identical, heats to rtol 1e-6, lane_time and
-    throughput to rtol 1e-5 (float32 sums reduced in another order).
-    Returns the port's final EngineState."""
-    jcfg = jax_config(wl, cc, gran, lanes, fuse_wave)
+    version ring, mode bits and counters bit-identical, heats to rtol
+    1e-6, lane_time and throughput to rtol 1e-5 (float32 sums reduced in
+    another order).  ``kw`` goes to the config.  Returns the port's final
+    EngineState."""
+    jcfg = jax_config(wl, cc, gran, lanes, fuse_wave, **kw)
     n_waves = len(draws)
     ref = jax_run(jcfg, wl, n_waves=n_waves, seed=seed, keep_state=True)
     js = ref.final_state
     cfg = convert.config_from_fields(dataclasses.asdict(jcfg))
-    state = port_replay(cfg, store_arrays(wl.init_store(False)), draws)
+    state = port_replay(cfg, initial_store(wl, jcfg), draws)
     res = pe.summarize(cfg, state, n_waves)
 
     assert res.commits == ref.commits
     assert res.aborts == ref.aborts
+    assert (res.ro_commits, res.ro_aborts) == (ref.ro_commits, ref.ro_aborts)
     assert res.abort_causes == ref.abort_causes
     assert res.commits_by_type == ref.commits_by_type
     assert res.ext_events == ref.ext_events
@@ -112,12 +123,11 @@ def assert_routes_identical(wl, cc: int, draws: list) -> None:
     """The port's fused route (wave_commit) and unfused route (claim_probe
     + verdict + commit_install) end in bit-identical state on the same
     draws (coarse)."""
-    store0 = store_arrays(wl.init_store(False))
     states = []
     for fuse in (True, False):
-        cfg = convert.config_from_fields(dataclasses.asdict(
-            jax_config(wl, cc, 0, len(draws[0][2]), fuse)))
-        states.append(port_replay(cfg, store0, draws))
+        jcfg = jax_config(wl, cc, 0, len(draws[0][2]), fuse)
+        cfg = convert.config_from_fields(dataclasses.asdict(jcfg))
+        states.append(port_replay(cfg, initial_store(wl, jcfg), draws))
     a, b = states
     for f in ("commits", "aborts", "abort_causes", "commits_by_type",
               "ext_events", "age", "pending_live", "lane_time"):

@@ -25,9 +25,9 @@ def _cuda() -> torch.device:
                                    (50, 1, 3, 5)],
                          ids=["tpcc-like", "ycsb-like", "ragged"])
 def test_kernels_bit_identical_to_plain_versions(shape):
-    """All eight kernels, every flag combination, hot/duplicate/masked
-    ops, stale claim tags: chip_smoke's kernel phase raises on any
-    difference."""
+    """All twelve kernels, every flag combination, hot/duplicate/masked
+    ops, stale claim tags, scans across the table's end, rings that wrap
+    and D = 1: chip_smoke's kernel phase raises on any difference."""
     checks, _ = chip_smoke.kernel_phase(_cuda(), {"case": shape})
     assert set(checks) == set(chip_smoke.KERNEL_META)
     for c in checks.values():
@@ -46,3 +46,41 @@ def test_fused_and_unfused_routes_identical_on_card():
     that runs both claim tables and bumps."""
     chip_smoke.fused_unfused(_cuda(), waves=5, scale=0.01,
                              ccs=(("adaptive", 0),))
+
+
+@pytest.mark.cuda
+def test_wave_step_with_scans_and_rings_identical_on_card_and_cpu():
+    """One scan configuration per mechanism (TPC-C's scan classes), the
+    version ring included."""
+    chip_smoke.cross_device(_cuda(), waves=5, scale=0.01, scan_len=16,
+                            configs=chip_smoke.SCAN_CONFIGS)
+
+
+@pytest.mark.cuda
+def test_fused_and_unfused_routes_identical_with_scans_on_card():
+    """Under scans the fused route bumps through commit_install after the
+    phantom pass."""
+    chip_smoke.fused_unfused(_cuda(), waves=5, scale=0.01,
+                             ccs=(("occ", 0), ("2pl", 1)), scan_len=16)
+
+
+@pytest.mark.cuda
+def test_mv_install_resolves_every_op_on_one_record():
+    """Every op of the wave on one record, in both groups, and a head at
+    D-1: one new slot, both groups stamped, as the plain version."""
+    from repro_torch import kernels as K
+    from repro_torch.core.mvstore import mv_init
+    from repro_torch.kernels.mv_install import mv_install_plain
+    dev = _cuda()
+    begin, head, _ = mv_init(64, 4, 2, dev)
+    head[7] = 3
+    keys = torch.full((128, 16), 7, dtype=torch.int32, device=dev)
+    groups = (torch.arange(128 * 16, device=dev) % 2).to(
+        torch.int32).view(128, 16)
+    do = torch.ones((128, 16), dtype=torch.bool, device=dev)
+    a, b = (begin.clone(), head.clone()), (begin.clone(), head.clone())
+    K.mv_install(*a, keys, groups, do, 5)
+    mv_install_plain(*b, keys, groups, do, 5)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert int(a[1][7]) == 0 and a[0][7, 0].tolist() == [5, 5]

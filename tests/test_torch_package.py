@@ -5,7 +5,8 @@
 - kernel wrappers take the plain version only for CPU tensors and count
   only kernel launches; ``kernel_coverage`` tells kernels, plain versions
   and ops that did not run apart;
-- settings and mechanisms outside the slice raise NotImplementedError;
+- settings outside the slices raise NotImplementedError, and the ones
+  the slices retired (scans, the version ring, MVCC/MV-OCC) build;
 - the benchmark CLI runs on the CPU and writes the JSON row schema.
 """
 import dataclasses
@@ -92,13 +93,14 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
     assert K.call_counts()["validate_dual"] == 3
     assert pb.kernel_coverage(pt.CC_TICTOC, K.launch_counts(),
                               K.call_counts()) == {
-        "wave_commit": "torch", "ts_gather": "torch",
-        "ts_install_max": "torch", "segment_count": "torch"}
+        "wave_commit": "torch", "iterate_validate": "not_run",
+        "ts_gather": "torch", "ts_install_max": "torch",
+        "segment_count": "torch"}
     assert pb.kernel_coverage(pt.CC_OCC, {"wave_commit": 3,
                                           "segment_count": 6},
                               {"wave_commit": 3, "segment_count": 6}) == {
-        "wave_commit": "cuda", "commit_install": "not_run",
-        "segment_count": "cuda"}
+        "wave_commit": "cuda", "iterate_validate": "not_run",
+        "commit_install": "not_run", "segment_count": "cuda"}
     K.reset_launches()
     assert K.call_counts() == {op: 0 for op in K.WRAPPERS}
 
@@ -110,11 +112,12 @@ def test_kernel_coverage_tells_cuda_torch_and_not_run_apart():
     launches = {"wave_commit": 0, "commit_install": 5, "segment_count": 9}
     calls = {"wave_commit": 0, "commit_install": 5, "segment_count": 10}
     assert pb.kernel_coverage(pt.CC_2PL, launches, calls) == {
-        "wave_commit": "not_run", "commit_install": "cuda",
-        "segment_count": "torch"}
+        "wave_commit": "not_run", "iterate_validate": "not_run",
+        "commit_install": "cuda", "segment_count": "torch"}
     assert pb.kernel_coverage(pt.CC_AUTOGRAN, {}, {}) == {
-        op: "not_run" for op in ("validate_dual", "claim_scatter",
-                                 "commit_install", "segment_count")}
+        op: "not_run" for op in ("validate_dual", "iterate_validate",
+                                 "claim_scatter", "commit_install",
+                                 "segment_count")}
 
 
 @pytest.mark.parametrize("cc", txn_bench.CCS)
@@ -126,7 +129,7 @@ def test_run_waves_continues_the_loop_of_run(cc):
     whole = run(cfg, wl, 5, seed=3, device="cpu", keep_state=True)
     gen = torch.Generator()
     gen.manual_seed(3)
-    state = pt.engine_state_init(cfg, wl.init_store("cpu"))
+    state = pt.engine_state_init(cfg, wl.init_store("cpu", cfg.mv_depth))
     step = make_wave_step(cfg)
     for n in (2, 3):
         state, wall_s = run_waves(cfg, wl, state, step, gen, n)
@@ -137,7 +140,7 @@ def test_run_waves_continues_the_loop_of_run(cc):
         assert torch.equal(getattr(state, name), getattr(want, name)), name
     for name in ("wts", "rts", "claim_w", "claim_r", "ring_tails",
                  "pess_mode", "abort_heat", "fine_mode", "false_heat",
-                 "heat_wave"):
+                 "heat_wave", "mv_begin", "mv_head"):
         assert torch.equal(getattr(state.store, name),
                            getattr(want.store, name)), name
 
@@ -195,8 +198,10 @@ def test_every_kernel_has_a_cuda_source_and_a_counter():
     assert set(K.WRAPPERS) == {"wave_commit", "segment_count", "ts_gather",
                                "ts_install_max", "commit_install",
                                "claim_scatter", "validate_dual",
-                               "claim_probe"}
-    assert len(build.SOURCES) == len(K.WRAPPERS) == 8
+                               "claim_probe", "validate", "iterate_validate",
+                               "mv_gather", "mv_install"}
+    # validate and validate_dual share csrc/occ_validate.cu.
+    assert len(build.SOURCES) == 11 and len(K.WRAPPERS) == 12
     for w in K.WRAPPERS.values():
         assert isinstance(w.launches, int) and isinstance(w.calls, int)
 
@@ -220,13 +225,34 @@ def _cfg(**kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(max_extent=4), dict(mv_depth=2),
     dict(arrival_rate=2.0, queue_cap=8), dict(track_values=True),
-    dict(track_conflicts=True), dict(cc=pt.CC_MVCC, mv_depth=4),
-], ids=["scans", "mv", "open-loop", "values", "conflicts", "mvcc"])
+    dict(track_conflicts=True),
+], ids=["open-loop", "values", "conflicts"])
 def test_settings_outside_the_slice_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         _cfg(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(max_extent=4), dict(mv_depth=2), dict(cc=pt.CC_MVCC, mv_depth=4),
+    dict(cc=pt.CC_MVOCC, mv_depth=1, max_extent=8),
+    dict(cc=pt.CC_MVCC, mv_depth=4, snapshot_age=8),
+], ids=["scans", "mv", "mvcc", "mvocc-scans", "mvcc-aged"])
+def test_settings_of_the_slices_build(kw):
+    """Scans, the version ring and the multi-version mechanisms build a
+    config whose mechanism resolves and runs one wave on the CPU."""
+    cfg = _cfg(**kw)
+    validator = VALIDATORS[cfg.cc]
+    store = pt.store_init(cfg.n_records, cfg.n_groups, device="cpu",
+                          mv_depth=cfg.mv_depth)
+    assert store.mv_depth == max(cfg.mv_depth, 1)
+    batch = pt.txn_batch_zeros(cfg.lanes, cfg.slots, "cpu")
+    batch.op_key[:, 0] = torch.arange(cfg.lanes, dtype=torch.int32)
+    batch.op_kind[:, 0] = pt.READ
+    batch.op_extent[:, 0] = cfg.max_extent
+    prio = torch.arange(cfg.lanes, dtype=torch.int32)
+    _, res = validator(store, batch, prio, 1, cfg)
+    assert bool(res.commit.all())
 
 
 @pytest.mark.parametrize("kw", [
@@ -243,10 +269,13 @@ def test_config_validation_matches_jax(kw):
                                   n_txn_types=1), **kw})
 
 
-@pytest.mark.parametrize("cc", [pt.CC_MVCC, pt.CC_MVOCC])
-def test_other_mechanisms_wait_for_their_slice(cc):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        VALIDATORS[cc]
+@pytest.mark.parametrize("cc", [pt.CC_MVCC, pt.CC_MVOCC],
+                         ids=["mvcc", "mvocc"])
+def test_multi_version_mechanisms_resolve(cc):
+    """Every mechanism of the JAX package has a validator in the port."""
+    assert set(VALIDATORS) == set(jt.CC_NAMES)
+    assert VALIDATORS[cc].__module__ == (
+        f"repro_torch.core.cc.{pt.CC_NAMES[cc]}")
 
 
 def test_config_carried_across_from_jax_fields():
@@ -272,6 +301,10 @@ def test_store_round_trips_uint32_bit_patterns():
     arrays["abort_heat"] = rng.random(5).astype(np.float32)
     arrays["false_heat"] = rng.random(5).astype(np.float32)
     arrays["heat_wave"] = np.arange(5, dtype=np.int32) * 7
+    arrays["mv_begin"] = rng.integers(0, 1 << 32, (5, 3, 2),
+                                      dtype=np.uint64).astype(np.uint32)
+    arrays["mv_begin"][0, 1:] = 0xFFFFFFFF  # empty slots
+    arrays["mv_head"] = np.array([0, 2, 1, 0, 2], dtype=np.int32)
     back = store_to_numpy(store_from_numpy(arrays, "cpu"))
     assert set(back) == set(arrays)
     for k, v in arrays.items():
@@ -304,20 +337,22 @@ def test_txn_bench_cli_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
 def test_txn_bench_runs_every_mechanism_on_cpu(fuse):
-    """The grid runner takes all six mechanisms on either route; the
+    """The grid runner takes all eight mechanisms on either route; the
     fused route never calls commit_install for the probe family, the
-    unfused route never calls wave_commit."""
+    unfused route never calls wave_commit; without scans no mechanism
+    calls iterate_validate."""
     rows = txn_bench.run_grid("ycsb", list(txn_bench.CCS), (0,), [8], 3,
                               n_keys=2000, device="cpu", fuse_wave=fuse)
     assert [r["cc"] for r in rows] == list(txn_bench.CCS)
     for r in rows:
         assert r["commits"] + r["aborts"] == 24
         assert sum(r["abort_causes"].values()) == r["aborts"]
-        ops = r["kernel_ops"]
+        ops = dict(r["kernel_ops"])
         assert "cuda" not in ops.values()
-        if r["cc"] == "autogran":
+        assert ops.pop("iterate_validate", "not_run") == "not_run"
+        if r["cc"] in ("autogran", "mvcc", "mvocc"):
             assert set(ops.values()) == {"torch"}
-        elif r["cc"] != "tictoc":
+            continue
+        if r["cc"] != "tictoc":
             assert ops["commit_install"] == ("not_run" if fuse else "torch")
-        if r["cc"] != "autogran":
-            assert ops["wave_commit"] == ("torch" if fuse else "not_run")
+        assert ops["wave_commit"] == ("torch" if fuse else "not_run")
