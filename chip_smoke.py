@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's twelve CUDA kernels (eleven sources) from
+Builds the port's fifteen CUDA kernels (thirteen sources) from
 src/repro_torch/csrc, then:
 
   1. kernels: each kernel against its plain PyTorch version on the card, at
@@ -19,7 +19,12 @@ src/repro_torch/csrc, then:
      device sleep so that host overhead stays out of the device time)
      beside its plain version and, where one PyTorch call computes the
      same function, that call; the four scan and ring kernels on a wave
-     drawn by the scan-configured workload generator;
+     drawn by the scan-configured workload generator.  The sharded
+     engine's kernels at its own shapes (256 lanes of 16 slots, x 2 with
+     scans, routed to 1 and 8 shards at DistConfig's capacity, a forced
+     drop, a skewed wave, masked owners; verdict rows of ragged length
+     and words with bit 31 set), and wave_commit on rows of up to 32,768
+     ops; these timed at the one-card shapes;
   2. the main path on TPC-C (full scale, T = 128, 200 waves) through the
      benchmark CLI's grid runner: OCC, TicToc, 2PL, SwissTM and Adaptive
      x coarse and fine, plus AutoGran coarse, with the launch counters set
@@ -56,7 +61,21 @@ src/repro_torch/csrc, then:
      for every mechanism on the point mix, one scan configuration per
      mechanism and the MV configurations; integer state (the version ring
      included) must be bit-identical, lane_time within rtol 1e-5 and the
-     heats within rtol 1e-6.
+     heats within rtol 1e-6;
+ 10. the sharded engine (core/distributed.py) on a one-rank NCCL group:
+     YCSB and TPC-C at the main path's sizes and YCSB workload E, 256
+     lanes, 200 waves, OCC/MVCC/MV-OCC x coarse and fine and OCC fine
+     unfused (workload E: OCC and MV-OCC fine).  Every op of the
+     mechanism launches its kernel, causes sum to aborts, MVCC sees no
+     phantom, MVCC/MV-OCC abort no read-only lane, the collective carries
+     the modelled wire bytes, each run commits exactly the lanes the local
+     validator commits on the same draws and prio (tables too), and the
+     fused and unfused OCC routes agree; waves/s, device operations per
+     wave and collective bytes per wave are printed;
+ 11. the sharded engine on the card (NCCL) against the CPU (gloo) for 30
+     waves at reduced sizes: commit masks, tables and stats bit-identical;
+ 12. the scaling rows of repro_torch.launch.txn_scaling (the local anchor
+     and sharded OCC and MVCC on the JAX benchmark's draws).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -88,6 +107,9 @@ TPCC_N, YCSB_N = 2_450_808, 10_000_000
 SHAPES = {"tpcc": (TPCC_N, 2, 128, 64), "ycsb": (YCSB_N, 2, 128, 16)}
 WAVES = 200
 LANES = 128
+#: Global lanes of the sharded engine's benchmark (benchmarks/txn_scaling.py)
+#: and of the sharded phase.
+DIST_LANES = 256
 MV_DEPTH = 4
 #: The scan path's workload settings: TPC-C's Stock-level window and YCSB
 #: workload E (scanproportion 0.95, maxscanlength 100).
@@ -120,7 +142,16 @@ KERNEL_META = {
                   "src/repro/kernels/mv_gather.py:64"),
     "mv_install": ("src/repro_torch/csrc/mv_install.cu",
                    "src/repro/kernels/mv_install.py:60"),
+    "route_pack": ("src/repro_torch/csrc/route_pack.cu",
+                   "src/repro/kernels/route_pack.py:49"),
+    "verdict_pack": ("src/repro_torch/csrc/verdict_pack.cu",
+                     "src/repro/kernels/verdict_pack.py:50"),
+    "verdict_unpack": ("src/repro_torch/csrc/verdict_pack.cu",
+                       "src/repro/kernels/verdict_pack.py:65"),
 }
+#: The kernels that only the sharded engine launches; the kernel phase
+#: times them at the sharded wave's shapes.
+DIST_KERNELS = ("route_pack", "verdict_pack", "verdict_unpack")
 #: The kernels each mechanism's (fused) wave launches on the point mix.
 _PROBE_OPS = ("wave_commit", "segment_count")
 _MV_OPS = ("validate", "claim_scatter", "mv_gather", "mv_install",
@@ -283,10 +314,12 @@ def _distinct_rows(keys, mask, N):
     return int(torch.unique(keys[mask & (keys >= 0) & (keys < N)]).numel())
 
 
-def kernel_phase(dev, shapes, wave=9):
+def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES):
     """Compare every kernel with its plain version over every flag
-    combination at ``shapes``; time them at the first shape.  Returns
-    ({name: KernelCheck}, {name: timing dict})."""
+    combination at ``shapes``, and the sharded wave's kernels at its
+    shapes for ``dist_lanes`` lanes; time them.  Returns ({name:
+    KernelCheck}, {label: {name: timing dict}}), the sharded wave's
+    kernels under the label "dist"."""
     from repro_torch import kernels as K
     from repro_torch.core.claimword import claim_word
     from repro_torch.kernels.claim_probe import claim_probe_plain
@@ -487,11 +520,14 @@ def kernel_phase(dev, shapes, wave=9):
         t.update(scan_mv_timings(label, dev, N, G, T, Kk, keys, groups,
                                  prio, do_w, wave))
         timings[label] = t
+    dist_kernel_checks(checks, dev, dist_lanes)
+    timings["dist"] = dist_kernel_timings(dev, dist_lanes)
+    for label, t in timings.items():
         for name, r in t.items():
-            log(f"  {label:5s} {name:15s} kernel {r['ms']:.6f} ms  plain "
+            log(f"  {label:5s} {name:16s} kernel {r['ms']:.6f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library "
                 f"{'-' if r['library_ms'] is None else '%.4f' % r['library_ms']}"
-                f" ms  bound {r['bound'][0]:.6f} ms ({r['bound'][1]})")
+                f" ms  bound {r['bound'][0]:.7f} ms ({r['bound'][1]})")
     for c in checks.values():
         log(f"  {c.name:15s} {c.cases} cases vs plain: equal={c.equal} "
             f"max_abs_err={c.max_err}")
@@ -710,6 +746,195 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave):
             library_ms=None,
             bound=bound_ms(n * (4 + 4 + 1) + rows_written * (8 + 2 * G * 4),
                            n)),
+    }
+
+
+# ------------------------------------------- sharded-wave kernel checks
+def _dist_cap(lanes, slots, n_dest, scans):
+    """DistConfig's automatic capacity for one rank routing ``lanes``
+    lanes to ``n_dest`` shards."""
+    from repro_torch.core.distributed import DistConfig
+    return DistConfig(n_records=1 << 20, lanes_per_shard=lanes, slots=slots,
+                      max_extent=2 if scans else 1).cap(n_dest)
+
+
+def _route_inputs(M, n_dest, dev, seed, skew=False):
+    """Owners (a tenth masked: n_dest, -1 or past n_dest; ``skew`` sends
+    every live op to destination 0) and three int32 channels."""
+    rng = np.random.default_rng(seed)
+    owner = rng.integers(0, n_dest, M)
+    if skew:
+        owner[:] = 0
+    pick = rng.random(M)
+    owner = np.where(pick < 0.1, rng.choice([n_dest, -1, n_dest + 5], M),
+                     owner)
+    vals = rng.integers(-2 ** 31, 2 ** 31, (3, M), dtype=np.int64)
+    return (torch.from_numpy(owner.astype(np.int32)).to(dev),
+            torch.from_numpy(vals.astype(np.int32)).to(dev))
+
+
+def _verdict_bytes(D, M, dev, seed):
+    """int8 verdict rows with every 2-bit pattern, and negative bytes."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-128, 128, (D, M)).astype(
+        np.int8)).to(dev)
+
+
+def _wide_ops(N, G, T, K, dev, seed):
+    """make_ops' wave reshaped to [T, K] rows of many lanes each, with a
+    prio per op, as the sharded owner's rows of one source shard."""
+    keys, groups, _, masks, _ = make_ops(N, G, T, K, dev, seed)
+    rng = np.random.default_rng(seed + 1)
+    prio = torch.from_numpy(rng.integers(0, 1 << 16, (T, K)).astype(
+        np.int32)).to(dev)
+    return keys, groups, prio, masks
+
+
+def dist_kernel_checks(checks, dev, lanes=DIST_LANES, slots=16):
+    """route_pack, verdict_pack, verdict_unpack and wide-row wave_commit
+    against their plain versions at the sharded wave's shapes: M = lanes
+    x slots ops (x 2 with scans) routed to 1 and 8 shards at DistConfig's
+    capacity, a forced drop (cap 16) and a skewed wave that overflows its
+    destination, masked owners; verdict rows whose length is not a
+    multiple of 16 and words with bit 31 set; wave_commit on one row of
+    the one-card capacity (16,384 ops; 32,768 with scans) and on 8 rows."""
+    from repro_torch import kernels as K
+    from repro_torch.core.distributed import LANE_FILL, META_FILL, NO_OP
+    from repro_torch.kernels.route_pack import route_pack_plain
+    from repro_torch.kernels.verdict_pack import (verdict_pack_plain,
+                                                  verdict_unpack_plain)
+    from repro_torch.kernels.wave_commit import wave_commit_plain
+    fills = (NO_OP, META_FILL, LANE_FILL)
+    dropped, negative = [], 0
+    for scans in (False, True):
+        M = lanes * slots * (2 if scans else 1)
+        for n_dest in (1, 8):
+            cap = _dist_cap(lanes, slots, n_dest, scans)
+            for case, (c, skew) in enumerate(((cap, False), (16, False),
+                                              (cap, True))):
+                owner, vals = _route_inputs(M, n_dest, dev, 31 * case + M,
+                                            skew)
+                got = K.route_pack(owner, vals, n_dest, c, fills)
+                checks["route_pack"].compare(
+                    got, route_pack_plain(owner, vals, n_dest, c, fills))
+                dropped.append(int((~got[2] & (owner >= 0)
+                                    & (owner < n_dest)).sum()))
+            for D in {1, n_dest}:
+                for m in (cap, cap - 5, 37):
+                    v = _verdict_bytes(D, m, dev, m + D)
+                    words = K.verdict_pack(v)
+                    negative += int((words < 0).sum())
+                    checks["verdict_pack"].compare(
+                        [words], [verdict_pack_plain(v)])
+                    checks["verdict_unpack"].compare(
+                        [K.verdict_unpack(words, m)],
+                        [verdict_unpack_plain(words, m)])
+                rng = np.random.default_rng(cap + D)
+                words = torch.from_numpy(rng.integers(
+                    -2 ** 31, 2 ** 31, (D, cap // 16)).astype(np.int32)).to(
+                        dev)
+                for n in (cap, cap - 3):
+                    checks["verdict_unpack"].compare(
+                        [K.verdict_unpack(words, n)],
+                        [verdict_unpack_plain(words, n)])
+    log(f"  route_pack dropped ops per case: {dropped}; verdict words with "
+        f"bit 31 set: {negative}")
+    if not (min(dropped) == 0 and max(dropped) > 0 and negative > 0):
+        raise AssertionError("route_pack/verdict_pack cases must include "
+                             "drops, drop-free waves and bit 31")
+    N, G, wave = 1 << 20, 2, 9
+    cw0, cr0, wts0, _ = make_tables(N, G, wave, dev, seed=3)
+    for T, Kk in ((1, _dist_cap(lanes, slots, 1, False)),
+                  (1, _dist_cap(lanes, slots, 1, True)),
+                  (8, _dist_cap(lanes, slots, 8, False))):
+        keys, groups, prio, masks = _wide_ops(N, G, T, Kk, dev, T + Kk)
+        do_w, do_r, check_w, check_w2, check_r, extra = masks
+        for fine in (True, False):
+            for dual, bump in ((False, False), (True, True), (False, True)):
+                outs = []
+                for fn in (K.wave_commit, wave_commit_plain):
+                    cw, cr, wt = cw0.clone(), cr0.clone(), wts0.clone()
+                    conflict, commit = fn(
+                        cw, cr, wt, keys, groups, prio, do_w, do_r, check_w,
+                        check_w2, check_r if dual else None, None, wave,
+                        fine, dual, bump)
+                    outs.append((conflict, commit, cw, cr, wt))
+                checks["wave_commit"].compare(*outs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dist_kernel_timings(dev, lanes=DIST_LANES, slots=16, wave=9):
+    """Times of the sharded wave's kernels at the one-card shapes (one
+    destination, M = lanes x slots ops, cap 16,384), and of wave_commit on
+    that one wide row.  Returns {name: timing dict}."""
+    from repro_torch import kernels as K
+    from repro_torch.core.distributed import LANE_FILL, META_FILL, NO_OP
+    from repro_torch.kernels.route_pack import route_pack_plain
+    from repro_torch.kernels.verdict_pack import (verdict_pack_plain,
+                                                  verdict_unpack_plain)
+    from repro_torch.kernels.wave_commit import wave_commit_plain
+    fills = (NO_OP, META_FILL, LANE_FILL)
+    M, cap = lanes * slots, _dist_cap(lanes, slots, 1, False)
+    owner, vals = _route_inputs(M, 1, dev, 5)
+    live = int(((owner >= 0) & (owner < 1)).sum())
+    cap8 = _dist_cap(lanes, slots, 8, False)
+    owner8, vals8 = _route_inputs(M, 8, dev, 7)
+    v = _verdict_bytes(1, cap, dev, 6)
+    words = K.verdict_pack(v)
+    N, G = YCSB_N, 2
+    cw0, _, wts0, _ = make_tables(N, G, wave, dev, seed=4)
+    keys, groups, prio, masks = _wide_ops(N, G, 1, cap, dev, 8)
+    do_w, check_w = masks[0], masks[2]
+    cw = cw0.clone()
+    everyone = torch.ones_like(do_w)
+    wave_bytes = (cap * (4 + 4 + 4 + 1 + 1 + 1) + 1
+                  + _distinct(keys, groups, everyone, G, N) * 4
+                  + _distinct(keys, groups, do_w, G, N) * 4)
+    return {
+        # Owner and three channels in, the buffer, pos and took out; one
+        # compare per op.
+        "route_pack": dict(
+            ms=time_ms(lambda: K.route_pack(owner, vals, 1, cap, fills),
+                       dev),
+            plain_ms=time_ms(lambda: route_pack_plain(owner, vals, 1, cap,
+                                                      fills), dev),
+            library_ms=None,
+            bound=bound_ms(M * 4 + 3 * M * 4 + 3 * cap * 4 + M * 4 + M, M),
+            live_ops=live, shape=f"M={M} n_dest=1 cap={cap} W=3"),
+        # The same wave routed to 8 shards (one block each).
+        "route_pack_8": dict(
+            ms=time_ms(lambda: K.route_pack(owner8, vals8, 8, cap8, fills),
+                       dev),
+            plain_ms=time_ms(lambda: route_pack_plain(owner8, vals8, 8,
+                                                      cap8, fills), dev),
+            library_ms=None,
+            bound=bound_ms(M * 4 + 3 * M * 4 + 3 * 8 * cap8 * 4 + M * 4 + M,
+                           M),
+            shape=f"M={M} n_dest=8 cap={cap8} W=3"),
+        "verdict_pack": dict(
+            ms=time_ms(lambda: K.verdict_pack(v), dev),
+            plain_ms=time_ms(lambda: verdict_pack_plain(v), dev),
+            library_ms=None,
+            bound=bound_ms(cap + cap // 16 * 4, cap),
+            shape=f"[1, {cap}] int8"),
+        "verdict_unpack": dict(
+            ms=time_ms(lambda: K.verdict_unpack(words, cap), dev),
+            plain_ms=time_ms(lambda: verdict_unpack_plain(words, cap), dev),
+            library_ms=None,
+            bound=bound_ms(cap // 16 * 4 + cap, cap),
+            shape=f"[1, {cap // 16}] int32"),
+        # The owner's fused claim on one wide row, without bump (as the
+        # sharded owner calls it).
+        "wave_commit_wide": dict(
+            ms=time_ms(lambda: K.wave_commit(
+                cw, None, None, keys, groups, prio, do_w, None, check_w,
+                None, None, None, wave, True, False, False), dev),
+            plain_ms=time_ms(lambda: wave_commit_plain(
+                cw, None, None, keys, groups, prio, do_w, None, check_w,
+                None, None, None, wave, True, False, False), dev),
+            library_ms=None, bound=bound_ms(wave_bytes, 10 * cap),
+            shape=f"[1, {cap}]"),
     }
 
 
@@ -963,6 +1188,260 @@ def cross_device(dev, waves=30, scale=0.1, scan_len=0,
             "cpu")
 
 
+# ------------------------------------------------------------ sharded path
+#: The sharded phase's sources: the main path's YCSB and TPC-C and YCSB
+#: workload E, at their own sizes.
+DIST_SOURCES = {
+    "ycsb": ("ycsb", dict(n_keys=YCSB_N, theta=0.9, write_frac=0.5)),
+    "tpcc": ("tpcc", dict(scale=1.0)),
+    "ycsb_e": ("ycsb", dict(n_keys=YCSB_N, theta=0.9, **{
+        k: v for k, v in SCAN_KW["ycsb"].items() if k.startswith("scan")})),
+}
+#: (cc, granularity, fused) per source: OCC, MVCC and MV-OCC at both
+#: granularities and OCC fine unfused on the point mixes; OCC and MV-OCC
+#: fine on workload E.
+_DIST_POINT = (("occ", 0, True), ("occ", 1, True), ("mvcc", 0, True),
+               ("mvcc", 1, True), ("mvocc", 0, True), ("mvocc", 1, True),
+               ("occ", 1, False))
+DIST_CONFIGS = {"ycsb": _DIST_POINT, "tpcc": _DIST_POINT,
+                "ycsb_e": (("occ", 1, True), ("mvocc", 1, True))}
+#: The card = CPU check's reduced sources and configurations.
+DIST_CROSS_SOURCES = {
+    "ycsb": ("ycsb", dict(n_keys=100_000, theta=0.9, write_frac=0.5)),
+    "tpcc": ("tpcc", dict(scale=0.05)),
+    "ycsb_e": ("ycsb", dict(n_keys=100_000, theta=0.9, scan_frac=0.95,
+                            scan_len=100)),
+}
+DIST_CROSS_CONFIGS = {
+    "ycsb": (("occ", 0, True), ("occ", 1, False), ("mvcc", 1, True),
+             ("mvocc", 0, True)),
+    "tpcc": (("occ", 1, True), ("mvcc", 0, True), ("mvocc", 1, True)),
+    "ycsb_e": (("occ", 0, True), ("mvcc", 1, True), ("mvocc", 1, True)),
+}
+
+
+def dist_config(wl, cc, gran, fuse, lanes):
+    from repro_torch.core.distributed import DistConfig
+    return DistConfig(n_records=wl.n_records, n_groups=wl.n_groups,
+                      lanes_per_shard=lanes, slots=wl.slots,
+                      granularity=gran, cc=cc,
+                      mv_depth=MV_DEPTH if cc != "occ" else 0,
+                      max_extent=wl.max_extent, fuse_wave=fuse)
+
+
+def dist_draws(wl, waves, lanes, dev, seed=13):
+    """``waves`` fresh batches from the workload's generator on ``dev``, each
+    with a lane permutation as its prio: ([(batch, prio)], the stacked
+    wire inputs (keys, groups, kinds, prio)); kinds pack each op's extent
+    (``kind | extent << 2``) when the workload scans."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    tails = torch.zeros((wl.n_rings,), dtype=torch.int32, device=dev)
+    out = []
+    for w in range(waves):
+        b, tails = wl.gen(g, w, lanes, tails)
+        out.append((b, torch.randperm(lanes, generator=g, device=dev).to(
+            torch.int32)))
+    kinds = [b.op_kind | (b.op_extent << 2) if wl.max_extent > 1
+             else b.op_kind for b, _ in out]
+    return out, (torch.stack([b.op_key for b, _ in out]),
+                 torch.stack([b.op_group for b, _ in out]),
+                 torch.stack(kinds), torch.stack([p for _, p in out]))
+
+
+def run_sharded(cfg, group, stacked, dev):
+    """One run of the sharded engine over the stacked draws on fresh
+    tables: (commit [waves, T], tables, stats [waves, STATS_LEN], host
+    seconds, bytes handed to the collective)."""
+    from repro_torch.core import distributed as D
+    waves = stacked[0].shape[0]
+    tables = D.init_tables(cfg, group, dev)
+    run = D.make_run_fn(cfg, waves, group)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    commit, tables, stats = run(*stacked, tables)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return (commit, tables, stats, time.perf_counter() - t0,
+            run.exchange.bytes_sent)
+
+
+def local_replay(wl, cc, gran, lanes, draws, dev):
+    """The local validator of ``cc`` on the same draws and prio, without
+    window thinning: (commit [waves, T], its tables in the sharded
+    engine's order)."""
+    from repro_torch.core import types as t
+    from repro_torch.core.cc import VALIDATORS
+    from repro_torch.launch.txn_bench import make_config
+    cfg = dataclasses.replace(
+        make_config(wl, cc, gran, lanes, mv_depth=MV_DEPTH),
+        cost=t.CostModel(opt_overlap=1.0, phase_overlap=1.0))
+    store = t.store_init(wl.n_records, wl.n_groups, wl.n_rings, device=dev,
+                         mv_depth=cfg.mv_depth)
+    commits = []
+    for w, (batch, prio) in enumerate(draws):
+        store, res = VALIDATORS[cfg.cc](store, batch, prio, w, cfg)
+        commits.append(res.commit)
+    tables = ((store.claim_w, store.claim_r, store.mv_begin, store.mv_head)
+              if cfg.cc in t.MV_CCS else (store.wts, store.claim_w))
+    return torch.stack(commits), tables
+
+
+def _same_run(a, b, what):
+    """Commit masks, tables and stats (where both have them)
+    bit-identical."""
+    for name, x, y in (("commit", a[0], b[0]), ("stats", a[2], b[2])):
+        if x is not None and y is not None and not torch.equal(x.cpu(),
+                                                               y.cpu()):
+            raise AssertionError(f"{what}: {name} differs")
+    for i, (x, y) in enumerate(zip(a[1], b[1])):
+        if not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f"{what}: table {i} differs")
+
+
+def _profile_run(cfg, group, stacked, dev, n=20):
+    """Device events, busy ms, idle share and top kernels per wave over
+    ``n`` waves (the card only)."""
+    if dev.type != "cuda":
+        return {}
+    from repro_torch.launch.wave_profile import profile_device
+    head = tuple(x[:n] for x in stacked)
+    r = profile_device(lambda: run_sharded(cfg, group, head, dev), n)
+    return {k: r[k] for k in ("device_events_per_wave",
+                              "device_busy_ms_per_wave",
+                              "device_idle_share", "top_device")}
+
+
+def sharded_path(dev, group=None, waves=WAVES, lanes=DIST_LANES,
+                 sources=DIST_SOURCES, configs=DIST_CONFIGS):
+    """The sharded engine (core/distributed.make_run_fn) on ``group``'s
+    shards over the port's generators: every configuration's kernels
+    launch ("cuda" for every op, iterate_validate only with scans), the
+    causes sum to the aborts, MVCC sees no phantom and MVCC/MV-OCC abort
+    no read-only lane; at one shard each run commits exactly the lanes the
+    local validator commits, with the same tables; fused = unfused.  The
+    launch counters are set to 0 just before each run and read just
+    after.  Returns ({name: row}, launches over the runs, runs)."""
+    from repro_torch import kernels as K
+    from repro_torch.core import distributed as D
+    from repro_torch.core import types as t
+    from repro_torch.core.backend import dist_kernel_coverage
+    from repro_torch.launch.txn_bench import make_workload
+    ns = D.n_shards(group)
+    total = {op: 0 for op in K.WRAPPERS}
+    by, path_ops = {}, set()
+    for src, (kind, kw) in sources.items():
+        wl = make_workload(kind, **kw)
+        draws, stacked = dist_draws(wl, waves, lanes, dev)
+        fused = {}
+        # A short run first, so that no configuration's pace pays for the
+        # first use of the collective and the kernels.
+        run_sharded(dist_config(wl, *configs[src][0], lanes), group,
+                    tuple(x[:3] for x in stacked), dev)
+        for cc, gran, fuse in configs[src]:
+            cfg = dist_config(wl, cc, gran, fuse, lanes)
+            name = (f"{src} {cc}-{'fine' if gran else 'coarse'}"
+                    + ("" if fuse else " unfused"))
+            K.reset_launches()
+            out = run_sharded(cfg, group, stacked, dev)
+            launches, calls = K.launch_counts(), K.call_counts()
+            for op in total:
+                total[op] += launches[op]
+            commit, tables, stats, secs, sent = out
+            s = stats.to(torch.int64).sum(dim=0).cpu().tolist()
+            cov = dist_kernel_coverage(cc, launches, calls, fuse)
+            scans = cfg.max_extent > 1
+            want = {op: ("not_run" if op == "iterate_validate" and not scans
+                         else "cuda" if dev.type == "cuda" else "torch")
+                    for op in cov}
+            row = {"commits": s[D.STAT_COMMITS], "aborts": s[D.STAT_ABORTS],
+                   "ro_commits": s[D.STAT_RO_COMMITS],
+                   "ro_aborts": s[D.STAT_RO_ABORTS],
+                   "dropped_ops": s[D.STAT_DROPPED_OPS],
+                   "abort_causes": {t.CAUSE_NAMES[i]: n for i, n in
+                                    enumerate(s[D.STAT_CAUSES])},
+                   "waves_per_s": waves / secs,
+                   "coll_bytes_per_wave": sent / waves,
+                   "wire_bytes_per_wave": D.wire_bytes_per_wave(
+                       cfg, ns)["wire_bytes_per_wave"],
+                   "cap": cfg.cap(ns), "kernel_ops": cov,
+                   **_profile_run(cfg, group, stacked, dev)}
+            by[name] = row
+            log(f"  {name:24s} commits {row['commits']:6d} aborts "
+                f"{row['aborts']:6d} ro {row['ro_commits']}/"
+                f"{row['ro_aborts']}  {row['waves_per_s']:.1f} waves/s  "
+                f"coll {row['coll_bytes_per_wave']:.0f} B/wave  device ops/"
+                f"wave {row.get('device_events_per_wave', 'not measured')}"
+                f"  busy ms/wave "
+                f"{row.get('device_busy_ms_per_wave', 'not measured')}"
+                f"  idle {row.get('device_idle_share', 'not measured')}  "
+                f"causes {row['abort_causes']}  kernels {cov}  top "
+                f"{row.get('top_device', [])[:3]}")
+            path_ops |= {op for op, v in want.items() if v != "not_run"}
+            if cov != want:                                        # (a)
+                raise AssertionError(f"sharded {name}: kernel_ops {cov} != "
+                                     f"{want}")
+            if sum(s[D.STAT_CAUSES]) != s[D.STAT_ABORTS]:          # (e)
+                raise AssertionError(f"sharded {name}: causes do not sum "
+                                     "to aborts")
+            if s[D.STAT_COMMITS] + s[D.STAT_ABORTS] != lanes * ns * waves:
+                raise AssertionError(f"sharded {name}: commits + aborts != "
+                                     "lanes x waves")
+            if cc == "mvcc" and s[D.STAT_CAUSE0 + CAUSE_PHANTOM]:
+                raise AssertionError(f"sharded {name}: MVCC saw a phantom")
+            if cc != "occ" and s[D.STAT_RO_ABORTS]:
+                raise AssertionError(f"sharded {name}: a read-only lane "
+                                     "aborted under multi-versioning")
+            if row["coll_bytes_per_wave"] != row["wire_bytes_per_wave"]:
+                raise AssertionError(f"sharded {name}: collective bytes "
+                                     "differ from the wire model")
+            if ns == 1:                                            # (b)
+                lc, lt = local_replay(wl, cc, gran, lanes, draws, dev)
+                _same_run((commit, tables, None), (lc, lt, None),
+                          f"sharded {name} vs the local validator")
+            if cc == "occ" and gran == 1:
+                fused[fuse] = out[:3]
+        if len(fused) == 2:                                        # (d)
+            _same_run(fused[True], fused[False], f"{src} fused/unfused")
+            log(f"  {src}: OCC fine fused = unfused")
+        if ns == 1:
+            log(f"  {src}: one shard = the local validator in every "
+                "configuration")
+    log(f"  sharded launches {total}")
+    if dev.type == "cuda" and min(total[op] for op in path_ops) <= 0:
+        raise AssertionError("sharded path: a kernel never launched")
+    return by, total, sum(len(c) for c in configs.values())
+
+
+def sharded_cross_device(dev, group=None, cpu_group=None, waves=30,
+                         lanes=DIST_LANES, sources=DIST_CROSS_SOURCES,
+                         configs=DIST_CROSS_CONFIGS):
+    """The same CPU-made draws through the sharded engine on ``dev`` (the
+    kernels, over ``group``) and on the CPU (the plain versions, over the
+    gloo ``cpu_group``): commit masks, tables and stats bit-identical."""
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.txn_bench import make_workload
+    cpu = torch.device("cpu")
+    for src, (kind, kw) in sources.items():
+        wl = make_workload(kind, **kw)
+        _, stacked = dist_draws(wl, waves, lanes, cpu)
+        on_dev = tuple(x.to(dev) for x in stacked)
+        for cc, gran, fuse in configs[src]:
+            cfg = dist_config(wl, cc, gran, fuse, lanes)
+            a = run_sharded(cfg, group, on_dev, dev)
+            b = run_sharded(cfg, cpu_group, stacked, cpu)
+            what = (f"{src} {cc}-{'fine' if gran else 'coarse'}"
+                    + ("" if fuse else " unfused"))
+            _same_run(a[:3], b[:3], f"sharded cross-device {what}")
+            st = a[2].to(torch.int64).sum(dim=0).tolist()
+            log(f"  {what}: {waves} waves, commits {st[D.STAT_COMMITS]} "
+                f"aborts {st[D.STAT_ABORTS]} "
+                f"dropped ops {st[D.STAT_DROPPED_OPS]} phantoms "
+                f"{st[D.STAT_CAUSE0 + CAUSE_PHANTOM]}: "
+                f"identical on {dev} and cpu")
+
+
 def ratios(workload, by):
     """Log the paper's orderings: OCC-fine over OCC-coarse and
     TicToc-coarse (quickstart), 2PL over TicToc coarse at T=128 (Fig 3a),
@@ -992,6 +1471,7 @@ def main() -> int:
               "test needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import kernels as K
     from repro_torch.kernels import build
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -1051,12 +1531,33 @@ def main() -> int:
     cross_device(dev, waves=20, scan_len=SCAN_KW["tpcc"]["scan_len"],
                  configs=SCAN_CONFIGS)
 
+    log("sharded engine, one-rank NCCL group:")
+    import torch.distributed as dist
+    from repro_torch.launch import txn_scaling
+    from repro_torch.launch.mesh import close_shards, init_shards
+    shards = init_shards(dev)
+    try:
+        dist_rows, l_dist, n_dist = sharded_path(dev)
+        log("sharded engine, card = CPU (gloo group for the CPU run):")
+        sharded_cross_device(dev, cpu_group=dist.new_group(backend="gloo"))
+        log("sharded scaling rows (repro_torch.launch.txn_scaling):")
+        K.reset_launches()
+        scaling = txn_scaling.scaling_rows(shards, waves=30)
+        l_scale = K.launch_counts()
+        for r in scaling:
+            log("  " + json.dumps(r))
+    finally:
+        close_shards(shards)
+
     runs = {"tpcc": (l_tpcc, len(tpcc) * WAVES),
             "ycsb": (l_ycsb, len(ycsb) * WAVES),
             "tpcc_unfused": (l_unf, len(UNFUSED) * WAVES),
             "tpcc_scans": (l_tpcc_s, len(tpcc_s) * WAVES),
             "ycsb_scans": (l_ycsb_s, len(ycsb_s) * WAVES),
-            "mv": (l_mv, len(mv) * WAVES)}
+            "mv": (l_mv, len(mv) * WAVES),
+            "sharded": (l_dist, n_dist * WAVES),
+            "scaling": (l_scale, (30 + txn_scaling.WARMUP_WAVES)
+                        * len(scaling))}
     per_wave = {op: {k: n[op] / w for k, (n, w) in runs.items()}
                 for op in l_tpcc}
     log("launches per wave (mean over each phase's configurations): "
@@ -1066,7 +1567,7 @@ def main() -> int:
                  for n, r in t.items()} for label, t in timings.items()}))
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
-        t = timings["tpcc"][name]
+        t = timings["dist" if name in DIST_KERNELS else "tpcc"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -1076,7 +1577,7 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
-            "shape": "tpcc T=128 K=64 N=2450808 G=2",
+            "shape": t.get("shape", "tpcc T=128 K=64 N=2450808 G=2"),
         })
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

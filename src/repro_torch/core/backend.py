@@ -6,9 +6,8 @@ them (XLA gather/scatter and Pallas).  The port keeps the same op names
 and one backend whose ops dispatch on the device of their tensors: CPU
 tensors run the plain PyTorch version, CUDA tensors launch the hand
 kernel (kernels/).  Ops that this port does not run yet raise
-``NotImplementedError`` naming the ROADMAP item they wait for: ``probe``
-(no caller in the JAX package) and the sharded engine's ``route_pack`` and
-``verdict_pack``/``verdict_unpack``.
+``NotImplementedError`` naming the ROADMAP item they wait for: only
+``probe`` (no caller in the JAX package).
 
 All word tables are updated in place, so ops that install return only
 their per-op outputs (see each kernel module).
@@ -55,13 +54,26 @@ CC_OPS = {
                  "mv_gather", "mv_install", "segment_count"),
 }
 
+#: The surface ops one shard-local wave of the sharded engine
+#: (core/distributed.py) routes through the backend, per mechanism: the
+#: stable exchange pack, the verdict bit-pack/unpack pair of the verdict
+#: and commit return trips, and the owner-side claim step with its
+#: install.  OCC claims through the fused ``wave_commit`` (through
+#: ``claim_probe`` when ``fuse_wave`` is off) and bumps through
+#: ``commit_install``; MVCC/MV-OCC claim two channels through
+#: ``claim_probe``, read the ring through ``mv_gather`` and publish through
+#: ``mv_install``.  Scan fragments validate through ``iterate_validate``
+#: on their owner shard, except under MVCC, whose scans never re-validate.
+DIST_OPS = ("route_pack", "verdict_pack", "verdict_unpack", "wave_commit",
+            "iterate_validate", "commit_install")
+DIST_MV_OPS = ("route_pack", "verdict_pack", "verdict_unpack",
+               "claim_probe", "mv_gather", "mv_install")
+DIST_MVOCC_OPS = DIST_MV_OPS + ("iterate_validate",)
+
 #: Where each op without a port waits (ROADMAP queue B).
 _WAITS = {
     "probe": "ROADMAP B.7 (claim_probe_pallas; no caller in the JAX "
              "package)",
-    "route_pack": "ROADMAP B.12 (route_pack)",
-    "verdict_pack": "ROADMAP B.13 (verdict_pack)",
-    "verdict_unpack": "ROADMAP B.13 (verdict_unpack)",
 }
 
 
@@ -94,6 +106,17 @@ for _op in _WAITS:
 BACKEND = Backend()
 
 
+def _coverage(ops, launches: dict, calls: dict) -> dict:
+    out = {}
+    for op in ops:
+        if op not in kernels.WRAPPERS:
+            continue
+        n = calls.get(op, 0)
+        out[op] = ("not_run" if n == 0 else
+                   "cuda" if launches.get(op, 0) == n else "torch")
+    return out
+
+
 def kernel_coverage(cc: int, launches: dict, calls: dict) -> dict:
     """{op: "cuda" | "torch" | "not_run"} for the ported ops of mechanism
     ``cc``, from the deltas of ``kernels.launch_counts()`` and
@@ -101,11 +124,17 @@ def kernel_coverage(cc: int, launches: dict, calls: dict) -> dict:
     the op's kernel, "torch" where a call ran its plain version, "not_run"
     where the run never called it (``commit_install`` on the fused
     route of point configs, ``iterate_validate`` without scans)."""
-    out = {}
-    for op in CC_OPS[cc]:
-        if op not in kernels.WRAPPERS:
-            continue
-        n = calls.get(op, 0)
-        out[op] = ("not_run" if n == 0 else
-                   "cuda" if launches.get(op, 0) == n else "torch")
-    return out
+    return _coverage(CC_OPS[cc], launches, calls)
+
+
+def dist_kernel_coverage(cc: str, launches: dict, calls: dict,
+                         fuse_wave: bool = True) -> dict:
+    """The same attribution for the sharded wave's ops of mechanism ``cc``
+    ("occ", "mvcc" or "mvocc"): OCC's unfused route claims through
+    ``claim_probe`` in place of ``wave_commit``, and "not_run" marks
+    ``iterate_validate`` without scans."""
+    ops = {"mvcc": DIST_MV_OPS, "mvocc": DIST_MVOCC_OPS}.get(cc, DIST_OPS)
+    if cc == "occ" and not fuse_wave:
+        ops = tuple("claim_probe" if op == "wave_commit" else op
+                    for op in ops)
+    return _coverage(ops, launches, calls)

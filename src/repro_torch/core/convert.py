@@ -6,7 +6,9 @@ the version ring's begin stamps) travel as their bit patterns:
 ``store_from_numpy`` reinterprets uint32 arrays as int32 tensors and
 ``store_to_numpy`` views them back as uint32, so comparisons are exact.
 The per-record tables (mode bits, heats, heat waves, ring heads) travel
-with their own dtypes.
+with their own dtypes.  The sharded engine's tables (core/distributed.py)
+travel as global arrays: ``dist_tables_from_numpy`` gives each rank its
+``rec_per`` rows, ``dist_tables_to_numpy`` gathers them back.
 """
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.core.distributed import DistConfig, n_shards
 from repro_torch.core.mvstore import mv_placeholder
 from repro_torch.core.types import (CostModel, EngineConfig, StoreState,
                                     TxnBatch)
@@ -72,3 +76,43 @@ def config_from_fields(fields: dict) -> EngineConfig:
     if isinstance(f.get("cost"), dict):
         f["cost"] = CostModel(**f["cost"])
     return EngineConfig(**f)
+
+
+def dist_config_from_fields(fields: dict) -> DistConfig:
+    """DistConfig from the JAX DistConfig's fields (``dataclasses.asdict``):
+    its TPU-only ``backend`` and ``lane_block`` are dropped."""
+    return DistConfig(**{k: v for k, v in fields.items()
+                         if k not in ("backend", "lane_block")})
+
+
+def _dist_words(cfg: DistConfig) -> tuple:
+    """Which of the mechanism's tables hold uint32 words: all but the MV
+    ring's heads."""
+    return (True, True, True, False) if cfg.is_mv else (True, True)
+
+
+def dist_tables_from_numpy(cfg: DistConfig, arrays, rank: int, ns: int,
+                           device) -> tuple:
+    """Rank ``rank``'s slice (rows ``[rank * rec_per, (rank + 1) *
+    rec_per)``) of the global tables ``arrays`` (the JAX ``init_tables``
+    layout, padded to ``ns * rec_per`` records), on ``device``."""
+    rec_per = -(-cfg.n_records // ns)
+    out = []
+    for a, word in zip(arrays, _dist_words(cfg)):
+        a = np.asarray(a)[rank * rec_per:(rank + 1) * rec_per]
+        out.append(_words(a, device) if word else torch.from_numpy(
+            np.ascontiguousarray(a.astype(np.int32))).to(device))
+    return tuple(out)
+
+
+def dist_tables_to_numpy(cfg: DistConfig, tables, group=None) -> tuple:
+    """The global tables, gathered from every rank of ``group`` (word
+    tables as uint32)."""
+    ns = n_shards(group)
+    out = []
+    for x, word in zip(tables, _dist_words(cfg)):
+        parts = [torch.empty_like(x) for _ in range(ns)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        a = torch.cat(parts).cpu().numpy()
+        out.append(a.view(np.uint32) if word else a)
+    return tuple(out)

@@ -19,11 +19,15 @@
 // on Hopper run in no order, so the wave is two launches on one stream:
 //   1. install: one thread per op atomicMin's its claim word
 //      (inv_wave << 16 | prio16) into claim_w (and claim_r when dual);
-//   2. verdict: one block per lane, one thread per op.  The launch boundary
-//      is the grid-wide barrier, so every probe reads the post-install
-//      table, which is exactly ref.claim_probe_fused's answer.  The block
-//      reduces the lane verdict with __syncthreads_or, and committed
-//      writers then atomicAdd 1 to their wts cell (bump).
+//   2. verdict: one block per lane, its threads striding over the lane's
+//      ops (one op each up to 1,024 ops; the sharded owner's rows of one
+//      source shard hold up to 4 x the fair share, 16,384 ops at one shard
+//      with 256 lanes of 16).  The launch boundary is the grid-wide
+//      barrier, so every probe reads the post-install table, which is
+//      exactly ref.claim_probe_fused's answer.  Each thread ORs its ops'
+//      verdicts, the block reduces them with __syncthreads_or, and
+//      committed writers then atomicAdd 1 to their wts cell (bump) in a
+//      second stride over the lane.
 // min and + are commutative, so the result does not depend on the order in
 // which blocks or atomics run.  Masked ops (key outside [0, N) or group
 // outside [0, G)) install nothing and probe NO_PRIO.
@@ -69,17 +73,15 @@ __global__ void verdict_kernel(const unsigned* __restrict__ claim_w,
                                int G, unsigned ivw, int fine, int dual,
                                int bump) {
   const int t = blockIdx.x;
-  const int k = threadIdx.x;
-  const size_t i = (size_t)t * K + k;
-  bool c = false;
-  int key = -1;
-  int g = 0;
-  if (k < K) {
-    key = keys[i];
-    g = groups[i];
+  const size_t row = (size_t)t * K;
+  bool any = false;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const size_t i = row + k;
+    const int key = keys[i];
+    const int g = groups[i];
     const unsigned p = (unsigned)prio[i];
     const unsigned wp = probe(claim_w, key, g, N, G, ivw, fine);
-    c = check_w[i] && wp < p;
+    bool c = check_w[i] && wp < p;
     if (check_w2 != nullptr)
       c = c || (check_w2[i] && wp != kNoPrio && wp != p);
     if (dual && check_r != nullptr) {
@@ -88,12 +90,19 @@ __global__ void verdict_kernel(const unsigned* __restrict__ claim_w,
     }
     if (extra != nullptr) c = c || extra[i];
     conflict[i] = c;
+    any = any || c;
   }
-  // Every thread of the block reaches the barrier, padding threads too.
-  const bool ok = __syncthreads_or(c) == 0;
-  if (k == 0) commit[t] = ok;
-  if (bump && ok && k < K && do_w[i] && claim::in_cell(key, g, N, G))
-    atomicAdd(wts + (size_t)key * G + g, 1u);
+  // Every thread of the block reaches the barrier, idle threads too.
+  const bool ok = __syncthreads_or(any) == 0;
+  if (threadIdx.x == 0) commit[t] = ok;
+  if (!(bump && ok)) return;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const size_t i = row + k;
+    const int key = keys[i];
+    const int g = groups[i];
+    if (do_w[i] && claim::in_cell(key, g, N, G))
+      atomicAdd(wts + (size_t)key * G + g, 1u);
+  }
 }
 
 }  // namespace
@@ -114,7 +123,7 @@ extern "C" int repro_wave_commit(
         static_cast<const bool*>(do_r), n, N, G, (unsigned)ivw, dual);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    const int threads = ((K + 31) / 32) * 32;
+    const int threads = K < 1024 ? ((K + 31) / 32) * 32 : 1024;
     verdict_kernel<<<T, threads, 0, s>>>(
         static_cast<const unsigned*>(claim_w),
         static_cast<const unsigned*>(claim_r), static_cast<unsigned*>(wts),

@@ -14,9 +14,11 @@ from repro_torch.kernels.mv_gather import mv_gather
 from repro_torch.kernels.mv_install import mv_install
 from repro_torch.kernels.occ_commit import commit_install
 from repro_torch.kernels.occ_validate import validate, validate_dual
+from repro_torch.kernels.route_pack import route_pack
 from repro_torch.kernels.segment_count import segment_count
 from repro_torch.kernels.ts_gather import ts_gather
 from repro_torch.kernels.ts_install import ts_install_max
+from repro_torch.kernels.verdict_pack import verdict_pack, verdict_unpack
 from repro_torch.kernels.wave_commit import wave_commit
 
 #: Backend surface op -> kernel wrapper.
@@ -33,6 +35,9 @@ WRAPPERS = {
     "iterate_validate": iterate_validate,
     "mv_gather": mv_gather,
     "mv_install": mv_install,
+    "route_pack": route_pack,
+    "verdict_pack": verdict_pack,
+    "verdict_unpack": verdict_unpack,
 }
 
 

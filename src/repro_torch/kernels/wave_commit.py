@@ -20,7 +20,8 @@ Replaces the TPU kernel ``wave_commit_pallas``
 The tables are updated in place; the wrapper returns ``(conflict bool[T, K],
 commit bool[T])``.  CUDA tensors launch ``csrc/wave_commit.cu`` (an
 atomicMin install launch, then a probe/verdict/bump launch with one block
-per lane); CPU tensors take ``wave_commit_plain``.
+per lane, whose threads stride over rows of any width); CPU tensors take
+``wave_commit_plain``.
 """
 from __future__ import annotations
 
@@ -93,9 +94,6 @@ def wave_commit(claim_w: torch.Tensor, claim_r: Optional[torch.Tensor],
     dev = build.launch_device(keys)
     T, K = keys.shape
     N, G = claim_w.shape
-    if K > 1024:
-        raise ValueError(f"wave_commit holds one lane per block: K={K} "
-                         "exceeds 1024 threads")
     build.check("claim_w", claim_w, torch.int32, (N, G), dev)
     if dual:
         build.check("claim_r", claim_r, torch.int32, (N, G), dev)

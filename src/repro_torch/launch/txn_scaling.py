@@ -1,0 +1,192 @@
+"""Sharded-engine scaling on the port (counterpart of the closed-loop rows
+of benchmarks/txn_scaling.py).
+
+    PYTHONPATH=src python -m repro_torch.launch.txn_scaling --waves 30
+    PYTHONPATH=src torchrun --nproc-per-node 4 \
+        -m repro_torch.launch.txn_scaling --waves 30 --json build/scaling.json
+
+A ``shards=0`` anchor row first runs the local engine (core/engine.run)
+on YCSB at the same global lane count, OCC fine.  Then, on this process
+group's shards (one when run alone), the synchronous sharded wave
+(core/distributed.make_run_fn, pipeline depth 1) runs OCC and MVCC (ring
+depth 4) on the JAX benchmark's draws: ``--n-keys`` uniform keys, 2
+groups, READ/WRITE ops, the global lanes split evenly over the ranks, one
+batch for every wave and a fresh lane permutation per wave.  Rows carry
+the JAX rows' keys (``shards``, ``cc``, ``commits``, ``waves_per_s``,
+``pipeline_depth``, ``ro_commits``, ``ro_aborts``, ``abort_causes``,
+``kernel_ops``, the ``wire_bytes_per_wave`` fields) plus ``device_name``;
+``coll_bytes_per_wave`` is what this rank handed to
+``all_to_all_single`` per wave, counted by the port.  ``waves_per_s`` is
+the slowest rank's synchronized host time of the timed run, after a
+warm-up run.  ``--device`` defaults to CUDA (one card per rank, NCCL);
+``cpu`` runs the plain versions over gloo.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+#: The JAX benchmark's sizes: global lanes, slots, records.
+GLOBAL_LANES, SLOTS, N_KEYS = 256, 16, 1_000_000
+WARMUP_WAVES = 3
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _deltas(before: tuple) -> tuple:
+    from repro_torch import kernels
+    after = (kernels.launch_counts(), kernels.call_counts())
+    return tuple({op: a[op] - b[op] for op in a}
+                 for a, b in zip(after, before))
+
+
+def anchor_row(dev: torch.device, waves: int, lanes: int,
+               n_keys: int) -> dict:
+    """The local engine's OCC-fine run on YCSB at ``lanes`` lanes."""
+    from repro_torch import kernels
+    from repro_torch.core import types as t
+    from repro_torch.core.backend import kernel_coverage
+    from repro_torch.core.engine import run
+    from repro_torch.launch.txn_bench import make_config, make_workload
+    wl = make_workload("ycsb", n_keys=n_keys)
+    cfg = make_config(wl, "occ", 1, lanes)
+    run(cfg, wl, WARMUP_WAVES, device=dev)
+    before = (kernels.launch_counts(), kernels.call_counts())
+    res = run(cfg, wl, waves, device=dev)
+    launches, calls = _deltas(before)
+    return {"shards": 0, "cc": "occ", "commits": res.commits,
+            "waves_per_s": waves / res.wall_s, "coll_bytes_per_wave": 0,
+            "ro_commits": res.ro_commits, "ro_aborts": res.ro_aborts,
+            "abort_causes": res.abort_causes, "backend": dev.type,
+            "kernel_ops": kernel_coverage(t.CC_OCC, launches, calls),
+            "device_name": _device_name(dev)}
+
+
+def draws(waves: int, lanes: int, slots: int, n_keys: int, rank: int,
+          ns: int, dev: torch.device) -> tuple:
+    """This rank's slice of the JAX benchmark's draws: (keys, groups,
+    kinds [waves, T, K], prio [waves, T])."""
+    from repro_torch.core import types as t
+    rng = np.random.default_rng(0)
+    keys = rng.integers(0, n_keys, (lanes, slots), dtype=np.int32)
+    groups = rng.integers(0, 2, (lanes, slots), dtype=np.int32)
+    kinds = rng.choice([t.READ, t.WRITE], (lanes, slots)).astype(np.int32)
+    prio = np.stack([np.random.default_rng(w).permutation(lanes)
+                     for w in range(waves)]).astype(np.int32)
+    T = lanes // ns
+    mine = slice(rank * T, (rank + 1) * T)
+
+    def stack(a):
+        a = np.ascontiguousarray(np.broadcast_to(a[mine],
+                                                 (waves, T, slots)))
+        return torch.from_numpy(a).to(dev)
+    return (stack(keys), stack(groups), stack(kinds),
+            torch.from_numpy(np.ascontiguousarray(prio[:, mine])).to(dev))
+
+
+def sharded_row(cc: str, shards, waves: int, lanes: int, slots: int,
+                n_keys: int) -> dict:
+    """One sharded run of ``cc`` on every rank of the group; every rank
+    returns the row (counts summed over ranks)."""
+    from repro_torch import kernels
+    from repro_torch.core import distributed as D
+    from repro_torch.core.backend import dist_kernel_coverage
+    dev, ns = shards.device, shards.size
+    cfg = D.DistConfig(n_records=n_keys, n_groups=2,
+                       lanes_per_shard=lanes // ns, slots=slots, cc=cc,
+                       mv_depth=4 if cc != "occ" else 0)
+    keys, groups, kinds, prio = draws(waves, lanes, slots, n_keys,
+                                      shards.rank, ns, dev)
+    n = min(WARMUP_WAVES, waves)
+    D.make_run_fn(cfg, n)(keys[:n], groups[:n], kinds[:n], prio[:n],
+                          D.init_tables(cfg, None, dev))
+    run = D.make_run_fn(cfg, waves)
+    tables = D.init_tables(cfg, None, dev)
+    before = (kernels.launch_counts(), kernels.call_counts())
+    dist.barrier()
+    _sync(dev)
+    t0 = time.perf_counter()
+    commit, tables, stats = run(keys, groups, kinds, prio, tables)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    launches, calls = _deltas(before)
+    total = stats.to(torch.int64).sum(dim=0)
+    dist.all_reduce(total)
+    slowest = torch.tensor([dt], dtype=torch.float64, device=dev)
+    dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+    s = total.cpu().tolist()
+    return {"shards": ns, "cc": cc, "commits": s[D.STAT_COMMITS],
+            "aborts": s[D.STAT_ABORTS], "waves": waves,
+            "waves_per_s": waves / float(slowest),
+            "pipeline_depth": cfg.depth(ns),
+            "coll_bytes_per_wave": run.exchange.bytes_sent / waves,
+            "ro_commits": s[D.STAT_RO_COMMITS],
+            "ro_aborts": s[D.STAT_RO_ABORTS],
+            "abort_causes": s[D.STAT_CAUSES],
+            "dropped_ops": s[D.STAT_DROPPED_OPS], "backend": dev.type,
+            "kernel_ops": dist_kernel_coverage(cc, launches, calls),
+            "device_name": _device_name(dev),
+            **D.wire_bytes_per_wave(cfg, ns)}
+
+
+def scaling_rows(shards, waves: int = 30, lanes: int = GLOBAL_LANES,
+                 slots: int = SLOTS, n_keys: int = N_KEYS) -> list:
+    """The anchor row (rank 0 only) and the sharded OCC and MVCC rows."""
+    if lanes % shards.size:
+        raise ValueError(f"{lanes} global lanes do not split over "
+                         f"{shards.size} shards")
+    rows = []
+    if shards.rank == 0:
+        rows.append(anchor_row(shards.device, waves, lanes, n_keys))
+    for cc in ("occ", "mvcc"):
+        rows.append(sharded_row(cc, shards, waves, lanes, slots, n_keys))
+    return rows
+
+
+def main(argv=None):
+    from repro_torch.launch.mesh import close_shards, init_shards
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--waves", type=int, default=30)
+    ap.add_argument("--lanes", type=int, default=GLOBAL_LANES,
+                    help="global lanes, split evenly over the ranks")
+    ap.add_argument("--n-keys", type=int, default=N_KEYS)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="cpu runs the plain versions over gloo")
+    ap.add_argument("--json", default=None)
+    args = ap.parse_args(argv)
+    if args.waves < 1:
+        ap.error(f"--waves must be >= 1, got {args.waves}")
+    shards = init_shards(args.device)
+    try:
+        rows = scaling_rows(shards, args.waves, args.lanes,
+                            n_keys=args.n_keys)
+    finally:
+        close_shards(shards)
+    if shards.rank:
+        return
+    for r in rows:
+        print(f"{r['cc']:4s} shards={r['shards']}: "
+              f"{r['waves_per_s']:8.1f} waves/s  {r['commits']} commits  "
+              f"ro={r['ro_commits']}/{r['ro_aborts']}  coll/wave="
+              f"{r['coll_bytes_per_wave'] / 1024:.1f} KiB on "
+              f"{r['device_name']}")
+    print("JSON:" + json.dumps(rows))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(rows, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -20,30 +20,26 @@ from __future__ import annotations
 
 import argparse
 import json
+import time
 from collections import defaultdict
 
 import torch
 
 
-def profile(workload: str, cc: str, gran: int, lanes: int, waves: int,
-            warmup: int = 10, top: int = 8, **wl_kw) -> dict:
+def profile_device(fn, n: int, top: int = 8) -> dict:
+    """Run ``fn()`` (``n`` waves) once under ``torch.profiler``: device
+    events per wave, device-busy ms per wave (the union of kernel and copy
+    intervals), the idle share of the profiled, synchronized wall time and
+    the kernels that take the most device time."""
     from torch.autograd import DeviceType
-    from repro_torch.core.engine import make_wave_step, run_waves
-    from repro_torch.core.types import engine_state_init, resolve_device
-    from repro_torch.launch.txn_bench import make_config, make_workload
-    dev = resolve_device("cuda")
-    wl = make_workload(workload, **wl_kw)
-    cfg = make_config(wl, cc, gran, lanes)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    state = engine_state_init(cfg, wl.init_store(dev, cfg.mv_depth))
-    step = make_wave_step(cfg)
-    state, _ = run_waves(cfg, wl, state, step, gen, warmup)
-    state, wall = run_waves(cfg, wl, state, step, gen, waves)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        state, wall_prof = run_waves(cfg, wl, state, step, gen, waves)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, end = 0.0, float("-inf")
@@ -57,18 +53,38 @@ def profile(workload: str, cc: str, gran: int, lanes: int, waves: int,
         by_name[e.name][1] += 1
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {
+        "wall_ms_per_wave_profiled": wall / n * 1e3,
+        "device_events_per_wave": len(kern) / n,
+        "device_busy_ms_per_wave": busy / n / 1e3,
+        "device_idle_share": 1.0 - busy / 1e6 / wall,
+        "top_device": [
+            {"name": k[:80], "ms_per_wave": us / n / 1e3, "per_wave": c / n}
+            for k, (us, c) in ranked],
+    }
+
+
+def profile(workload: str, cc: str, gran: int, lanes: int, waves: int,
+            warmup: int = 10, top: int = 8, **wl_kw) -> dict:
+    from repro_torch.core.engine import make_wave_step, run_waves
+    from repro_torch.core.types import engine_state_init, resolve_device
+    from repro_torch.launch.txn_bench import make_config, make_workload
+    dev = resolve_device("cuda")
+    wl = make_workload(workload, **wl_kw)
+    cfg = make_config(wl, cc, gran, lanes)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = engine_state_init(cfg, wl.init_store(dev, cfg.mv_depth))
+    step = make_wave_step(cfg)
+    state, _ = run_waves(cfg, wl, state, step, gen, warmup)
+    state, wall = run_waves(cfg, wl, state, step, gen, waves)
+    return {
         "workload": workload, "cc": cc, "granularity": gran,
         "lanes": lanes, "waves": waves, "max_extent": cfg.max_extent,
         "workload_kw": wl_kw,
         "device_name": torch.cuda.get_device_name(dev),
         "wall_ms_per_wave": wall / waves * 1e3,
-        "wall_ms_per_wave_profiled": wall_prof / waves * 1e3,
-        "device_events_per_wave": len(kern) / waves,
-        "device_busy_ms_per_wave": busy / waves / 1e3,
-        "device_idle_share": 1.0 - busy / 1e6 / wall_prof,
-        "top_device": [
-            {"name": n[:80], "ms_per_wave": us / waves / 1e3,
-             "per_wave": c / waves} for n, (us, c) in ranked],
+        **profile_device(lambda: run_waves(cfg, wl, state, step, gen, waves),
+                         waves, top),
     }
 
 

@@ -84,3 +84,57 @@ def test_mv_install_resolves_every_op_on_one_record():
     torch.cuda.synchronize(dev)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert int(a[1][7]) == 0 and a[0][7, 0].tolist() == [5, 5]
+
+
+@pytest.mark.cuda
+def test_sharded_wave_kernels_bit_identical_to_plain_versions():
+    """route_pack (1 and 8 destinations, drops, skew, masked owners),
+    verdict_pack / verdict_unpack (ragged rows, bit 31) and wave_commit on
+    rows of 4,096 ops, at 64 lanes of 16 slots."""
+    names = ("route_pack", "verdict_pack", "verdict_unpack", "wave_commit")
+    checks = {n: chip_smoke.KernelCheck(n) for n in names}
+    chip_smoke.dist_kernel_checks(checks, _cuda(), lanes=64)
+    for c in checks.values():
+        assert c.equal and c.max_err == 0.0 and c.cases > 0, c.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4096), (3, 2500), (2, 1025)])
+def test_wave_commit_takes_rows_wider_than_1024_ops(shape):
+    from repro_torch import kernels as K
+    from repro_torch.kernels.wave_commit import wave_commit_plain
+    dev = _cuda()
+    T, Kk = shape
+    cw0, cr0, wts0, _ = chip_smoke.make_tables(5000, 2, 3, dev, seed=1)
+    keys, groups, prio, masks = chip_smoke._wide_ops(5000, 2, T, Kk, dev, 2)
+    do_w, do_r, check_w, check_w2, check_r, extra = masks
+    outs = []
+    for fn in (K.wave_commit, wave_commit_plain):
+        cw, cr, wt = cw0.clone(), cr0.clone(), wts0.clone()
+        outs.append(fn(cw, cr, wt, keys, groups, prio, do_w, do_r, check_w,
+                       check_w2, check_r, extra, 3, False, True, True)
+                    + (cw, cr, wt))
+    torch.cuda.synchronize(dev)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sharded_wave_identical_on_card_and_cpu():
+    """A one-rank NCCL group on the card against a gloo group on the CPU,
+    at small sizes: commit masks, tables and stats bit-identical."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import close_shards, init_shards
+    dev = _cuda()
+    shards = init_shards(dev)
+    try:
+        sources = {
+            "ycsb": ("ycsb", dict(n_keys=5000, theta=0.9)),
+            "tpcc": ("tpcc", dict(scale=0.01)),
+            "ycsb_e": ("ycsb", dict(n_keys=5000, theta=0.9, scan_frac=0.95,
+                                    scan_len=16))}
+        chip_smoke.sharded_cross_device(
+            dev, cpu_group=dist.new_group(backend="gloo"), waves=4,
+            lanes=32, sources=sources)
+    finally:
+        close_shards(shards)

@@ -199,9 +199,11 @@ def test_every_kernel_has_a_cuda_source_and_a_counter():
                                "ts_install_max", "commit_install",
                                "claim_scatter", "validate_dual",
                                "claim_probe", "validate", "iterate_validate",
-                               "mv_gather", "mv_install"}
-    # validate and validate_dual share csrc/occ_validate.cu.
-    assert len(build.SOURCES) == 11 and len(K.WRAPPERS) == 12
+                               "mv_gather", "mv_install", "route_pack",
+                               "verdict_pack", "verdict_unpack"}
+    # validate and validate_dual share csrc/occ_validate.cu, verdict_pack
+    # and verdict_unpack csrc/verdict_pack.cu.
+    assert len(build.SOURCES) == 13 and len(K.WRAPPERS) == 15
     for w in K.WRAPPERS.values():
         assert isinstance(w.launches, int) and isinstance(w.calls, int)
 
