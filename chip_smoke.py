@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's fifteen CUDA kernels (thirteen sources) from
+Builds the port's eighteen CUDA kernels (sixteen sources) from
 src/repro_torch/csrc, then:
 
   1. kernels: each kernel against its plain PyTorch version on the card, at
@@ -75,7 +75,27 @@ src/repro_torch/csrc, then:
  11. the sharded engine on the card (NCCL) against the CPU (gloo) for 30
      waves at reduced sizes: commit masks, tables and stats bit-identical;
  12. the scaling rows of repro_torch.launch.txn_scaling (the local anchor
-     and sharded OCC and MVCC on the JAX benchmark's draws).
+     and sharded OCC and MVCC on the JAX benchmark's draws);
+ 13. LM serving: flash_attention, rglru and rwkv6 against their plain
+     versions at the full-width prefill shapes (recurrentgemma-9b: B 4,
+     S 3,072, D 4,096; Hq 16 over Hkv 1, D 256, window 2,048; rwkv6-3b:
+     B 4, H 48, S 3,072, Dk = Dv = 64), at S = 1 and at edge cases
+     (ragged lengths, sk_valid < Sk, sq_valid < Sq, GQA ratios 1 to 16,
+     every head width, float32 and bfloat16): float32 within rtol 1e-5 /
+     atol 1e-5, bfloat16 within 2 ulps; each timed at the prefill shape
+     beside its plain version, its bound and, for flash_attention,
+     F.scaled_dot_product_attention with the same mask.  Then
+     recurrentgemma-9b and rwkv6-3b at full width (random bf16 weights
+     from a seed) through repro_torch.launch.serve.serve: 4 requests of
+     3,072-token prompts, 32 tokens each, the launch counters set to 0
+     just before and read just after: per prefill one flash_attention per
+     attention layer (12) and one rglru (26) or rwkv6 (32) per recurrent
+     layer, per decode step the recurrent ones only.  The same weights
+     and prompt through the plain route, and both routes on the float32
+     model of the same weights: the float32 routes' last-position logits
+     of the prefill and of the first decode step within relative L2 1e-2;
+     the bf16 routes' distance printed beside that bound (bf16 rounding
+     of the residual stream puts two correct evaluations farther apart).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -1442,6 +1462,449 @@ def sharded_cross_device(dev, group=None, cpu_group=None, waves=30,
                 f"identical on {dev} and cpu")
 
 
+# ------------------------------------------------------------- LM serving
+#: The language-model kernels (slice 5): source and the TPU kernel each
+#: replaces.
+LM_KERNEL_META = {
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:80"),
+    "rglru": ("src/repro_torch/csrc/rglru.cu",
+              "src/repro/kernels/rglru_scan.py:38"),
+    "rwkv6": ("src/repro_torch/csrc/rwkv6.cu",
+              "src/repro/kernels/rwkv6_scan.py:43"),
+}
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet).
+PEAK_BF16_OPS_PER_S = 989e12
+#: The served models at full width, and their traffic: 4 requests of
+#: 3,072-token prompts (longer than recurrentgemma's 2,048 window and the
+#: JAX kernels' 2,048-step chunk), 32 tokens each.
+LM_ARCHS = ("recurrentgemma-9b", "rwkv6-3b")
+LM_TRAFFIC = dict(n_requests=4, prompt_len=3072, gen=32)
+#: Relative L2 error allowed between the kernel route's and the plain
+#: route's last-position logits on the card (the float32 model; the bf16
+#: model's is reported against it, see lm_serve_path).
+LM_ROUTE_RTOL = 1e-2
+#: Kernel-check cases: (label, shape dict, dtype).  The first of each is
+#: the full-width prefill shape, the second decode (S = 1).
+FLASH_CASES = (
+    ("rg9b-prefill", dict(B=4, Hq=16, Hkv=1, Sq=3072, Sk=3072, D=256,
+                          causal=True, window=2048), torch.bfloat16),
+    ("S=1", dict(B=4, Hq=16, Hkv=1, Sq=1, Sk=2048, D=256, causal=False,
+                 window=None), torch.bfloat16),
+    ("ragged sk_valid rep4", dict(B=2, Hq=8, Hkv=2, Sq=100, Sk=300, D=64,
+                                  causal=True, window=64, sk_valid=250),
+     torch.float32),
+    ("rep1 D128", dict(B=1, Hq=4, Hkv=4, Sq=200, Sk=200, D=128,
+                       causal=True, window=None), torch.float32),
+    ("rep16 window", dict(B=1, Hq=16, Hkv=1, Sq=130, Sk=130, D=256,
+                          causal=True, window=50), torch.bfloat16),
+    ("full D64", dict(B=2, Hq=4, Hkv=1, Sq=70, Sk=70, D=64, causal=False,
+                      window=None), torch.bfloat16),
+    ("sq_valid", dict(B=1, Hq=4, Hkv=2, Sq=64, Sk=100, D=128, causal=True,
+                      window=None, sq_valid=40, sk_valid=90),
+     torch.float32),
+    ("D16", dict(B=2, Hq=4, Hkv=2, Sq=45, Sk=45, D=16, causal=True,
+                 window=32), torch.float32),
+    ("D32", dict(B=2, Hq=2, Hkv=1, Sq=77, Sk=77, D=32, causal=True,
+                 window=32), torch.bfloat16),
+)
+RGLRU_CASES = (
+    ("rg9b-prefill", dict(B=4, S=3072, D=4096), torch.bfloat16),
+    ("S=1", dict(B=4, S=1, D=4096), torch.bfloat16),
+    ("ragged f32", dict(B=2, S=1000, D=300), torch.float32),
+    ("short bf16", dict(B=3, S=17, D=4096), torch.bfloat16),
+)
+RWKV_CASES = (
+    ("rwkv6-3b-prefill", dict(B=4, H=48, S=3072, Dk=64, Dv=64),
+     torch.bfloat16),
+    ("S=1", dict(B=4, H=48, S=1, Dk=64, Dv=64), torch.bfloat16),
+    ("f32", dict(B=2, H=3, S=100, Dk=64, Dv=64), torch.float32),
+    ("Dk16", dict(B=2, H=4, S=37, Dk=16, Dv=16), torch.float32),
+    ("Dk32 Dv48", dict(B=1, H=2, S=20, Dk=32, Dv=48), torch.bfloat16),
+    ("Dk128", dict(B=1, H=2, S=9, Dk=128, Dv=128), torch.float32),
+)
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance of two bfloat16 tensors in units in the last
+    place."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i >= 0, i, -(i & 0x7FFF))
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+class LMCheck:
+    """A kernel against its plain version: float32 within rtol 1e-5 /
+    atol 1e-5; bfloat16 within 2 bf16 ulps (values within 1e-5 of each
+    other pass: near 0 one float32 rounding step spans many ulps)."""
+
+    def __init__(self, name):
+        self.name, self.cases, self.max_err, self.max_ulps = name, 0, 0.0, 0
+
+    def compare(self, label, got, want):
+        for i, (a, b) in enumerate(zip(got, want)):
+            what = f"{self.name} {label} output {i}"
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"{what}: {a.dtype}{tuple(a.shape)} "
+                                     f"vs {b.dtype}{tuple(b.shape)}")
+            if not bool(torch.isfinite(a.float()).all()):
+                raise AssertionError(f"{what}: not finite")
+            err = (a.float() - b.float()).abs()
+            self.max_err = max(self.max_err, float(err.max()))
+            if a.dtype == torch.bfloat16:
+                far = err > 1e-5
+                ulps = bf16_ulps(a[far], b[far])
+                self.max_ulps = max(self.max_ulps, ulps)
+                if ulps > 2:
+                    raise AssertionError(f"{what}: {ulps} bf16 ulps apart")
+            elif not bool((err <= 1e-5 + 1e-5 * b.float().abs()).all()):
+                raise AssertionError(f"{what}: beyond rtol/atol 1e-5 (max "
+                                     f"abs err {float(err.max())})")
+        self.cases += 1
+
+
+def _randn(shape, dev, gen, scale=1.0, dtype=torch.float32):
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+
+def flash_inputs(s, dtype, dev, gen):
+    D = s["D"]
+    q = _randn((s["B"], s["Hq"], s["Sq"], D), dev, gen, D ** -0.25, dtype)
+    k = _randn((s["B"], s["Hkv"], s["Sk"], D), dev, gen, D ** -0.25, dtype)
+    v = _randn((s["B"], s["Hkv"], s["Sk"], D), dev, gen, 1.0, dtype)
+    kw = dict(causal=s["causal"], window=s["window"],
+              sq_valid=s.get("sq_valid"), sk_valid=s.get("sk_valid"))
+    return (q, k, v), kw
+
+
+def rglru_inputs(s, dtype, dev, gen):
+    B, S, D = s["B"], s["S"], s["D"]
+    # log_a as the model makes it: -8 softplus(lam) sigmoid(.) in [-0.1, 0)
+    log_a = -0.1 * torch.rand((B, S, D), generator=gen, device=dev)
+    return (log_a, _randn((B, S, D), dev, gen, 1.0, dtype),
+            _randn((B, D), dev, gen)), {}
+
+
+def rwkv_inputs(s, dtype, dev, gen):
+    B, H, S, Dk, Dv = s["B"], s["H"], s["S"], s["Dk"], s["Dv"]
+    r = _randn((B, H, S, Dk), dev, gen, 0.5, dtype)
+    k = _randn((B, H, S, Dk), dev, gen, 0.5, dtype)
+    v = _randn((B, H, S, Dv), dev, gen, 1.0, dtype)
+    w = torch.rand((B, H, S, Dk), generator=gen, device=dev) * 0.9 + 0.05
+    u = _randn((H, Dk), dev, gen)
+    s0 = _randn((B, H, Dk, Dv), dev, gen)
+    return (r, k, v, w, u, s0), {}
+
+
+def flash_work(s, dtype, dev) -> tuple[float, float, float]:
+    """(bytes, operations, peak rate) of one call: q, k, v read once and
+    out written once; 4 D flops per visible (q, k) pair of this mask."""
+    from repro_torch.kernels.flash_attention import attention_mask
+    Sq, Sk = s["Sq"], s["Sk"]
+    mask = attention_mask(Sq, Sk, causal=s["causal"], window=s["window"],
+                          sq_valid=s.get("sq_valid") or Sq,
+                          sk_valid=s.get("sk_valid") or Sk, device=dev)
+    pairs = int(mask.sum()) * s["B"] * s["Hq"]
+    el = torch.finfo(dtype).bits // 8
+    n_bytes = el * s["D"] * (2 * s["B"] * s["Hq"] * Sq
+                             + 2 * s["B"] * s["Hkv"] * Sk)
+    rate = PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 else PEAK_OPS_PER_S
+    return n_bytes, 4.0 * s["D"] * pairs, rate
+
+
+def rglru_work(s, dtype, dev):
+    n = s["B"] * s["S"] * s["D"]
+    el = torch.finfo(dtype).bits // 8
+    # log_a (f32) and x read, h written; h0 read and h_last written (f32);
+    # an exp, a sqrt and five flops an element.
+    return (n * (4 + 2 * el) + 8 * s["B"] * s["D"], 7.0 * n,
+            PEAK_OPS_PER_S)
+
+
+def rwkv_work(s, dtype, dev):
+    B, H, S, Dk, Dv = s["B"], s["H"], s["S"], s["Dk"], s["Dv"]
+    el = torch.finfo(dtype).bits // 8
+    n_bytes = (el * B * H * S * (2 * Dk + 2 * Dv) + 4 * B * H * S * Dk
+               + 4 * H * Dk + 8 * B * H * Dk * Dv)
+    return n_bytes, 4.0 * B * H * S * Dk * Dv, PEAK_OPS_PER_S
+
+
+def _flash_library(args, kw):
+    """One PyTorch call computing the same function: scaled dot-product
+    attention with the same boolean mask (kv heads repeated first,
+    outside the timing).  A yardstick only; the port never calls it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import attention_mask
+    q, k, v = args
+    rep = q.shape[1] // k.shape[1]
+    kk, vv = (k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1))
+    Sq, Sk = q.shape[2], k.shape[2]
+    mask = attention_mask(Sq, Sk, causal=kw["causal"], window=kw["window"],
+                          sq_valid=kw["sq_valid"] or Sq,
+                          sk_valid=kw["sk_valid"] or Sk, device=q.device)
+    return lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def lm_kernel_phase(dev, seed=21, cases=None):
+    """Each LM kernel against its plain version on the card over its
+    cases (full-width prefill shape, S = 1 and the edges), then timed at
+    the first case's shape (the full-width prefill) beside its plain
+    version, its bound and, for flash_attention, the PyTorch yardstick.
+    ``cases`` ({name: cases}) replaces the default cases (a rehearsal on
+    the CPU at small shapes).  Returns ({name: LMCheck}, {name: timing
+    row})."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.rglru import rglru_plain
+    from repro_torch.kernels.rwkv6 import rwkv6_plain
+    table = {
+        "flash_attention": (K.flash_attention, flash_attention_plain,
+                            FLASH_CASES, flash_inputs, flash_work),
+        "rglru": (K.rglru, rglru_plain, RGLRU_CASES, rglru_inputs,
+                  rglru_work),
+        "rwkv6": (K.rwkv6, rwkv6_plain, RWKV_CASES, rwkv_inputs,
+                  rwkv_work),
+    }
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    checks, timings = {}, {}
+    for name, (kernel, plain, default, inputs, work) in table.items():
+        chk = checks[name] = LMCheck(name)
+        for i, (label, s, dtype) in enumerate((cases or {}).get(name,
+                                                                default)):
+            args, kw = inputs(s, dtype, dev, gen)
+            got, want = kernel(*args, **kw), plain(*args, **kw)
+            _sync(dev)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            chk.compare(label, got, want)
+            if i:
+                continue
+            n_bytes, n_ops, rate = work(s, dtype, dev)
+            tb, to = n_bytes / PEAK_BYTES_PER_S, n_ops / rate
+            row = {"ms": time_ms(lambda: kernel(*args, **kw), dev),
+                   "plain_ms": time_ms(lambda: plain(*args, **kw), dev, n=3,
+                                       warmup=1),
+                   "bound": (max(tb, to) * 1e3,
+                             "bytes" if tb >= to else "operations"),
+                   "library_ms": None, "bytes": n_bytes, "ops": n_ops,
+                   "shape": f"{label} "
+                            + " ".join(f"{k}={v}" for k, v in s.items())
+                            + f" {str(dtype).split('.')[-1]}"}
+            if name == "flash_attention":
+                row["library_ms"] = time_ms(_flash_library(args, kw), dev)
+            timings[name] = row
+            del args, got, want
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        log(f"  {name:15s} {chk.cases} cases vs plain: max_abs_err "
+            f"{chk.max_err:.3g}, max bf16 ulps {chk.max_ulps}")
+        r = timings[name]
+        log(f"  {name:15s} kernel {r['ms']:.6f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  library "
+            f"{'-' if r['library_ms'] is None else '%.4f' % r['library_ms']}"
+            f" ms  bound {r['bound'][0]:.6f} ms ({r['bound'][1]}; "
+            f"{r['bytes'] / 1e6:.1f} MB, {r['ops'] / 1e9:.2f} Gop)  "
+            f"[{r['shape']}]")
+    return checks, timings
+
+
+def _lm_profiles(cfg, params, prompt, first, s_cache, n_decode=4):
+    """torch.profiler over one prefill and ``n_decode`` decode steps of the
+    kernel route: wall and device-busy ms, idle share, device events and
+    the top kernels, per prefill and per decode step."""
+    from repro_torch.launch.wave_profile import profile_device
+    from repro_torch.models import steps
+    prefill = steps.build_prefill_step(cfg, s_cache)
+    decode = steps.build_decode_step(cfg)
+    state = {}
+
+    def run_prefill():
+        state["cache"], _ = prefill(params, {"tokens": prompt})
+
+    def run_decode():
+        for i in range(n_decode):
+            _, state["cache"] = decode(params, state["cache"], first,
+                                       prompt.shape[1] + i)
+
+    return {"prefill": profile_device(run_prefill, 1),
+            "decode step": profile_device(run_decode, n_decode)}
+
+
+def _route_logits(cfg, params, prompt, first, s_cache, plain):
+    """Last-position logits of the prefill of ``prompt`` and of one
+    decode step on ``first``, float32 on the host."""
+    from repro_torch.models import steps
+    cache, prefill = steps.build_prefill_step(cfg, s_cache, plain=plain)(
+        params, {"tokens": prompt})
+    decode, _ = steps.build_decode_step(cfg, plain=plain)(
+        params, cache, first, prompt.shape[1])
+    return prefill.float().cpu(), decode.float().cpu()
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def lm_serve_path(dev, arch, seed=0, smoke=False, **traffic):
+    """``arch`` at full width through repro_torch.launch.serve.serve, the
+    kernels' launch counters set to 0 just before and read just after:
+    flash_attention once per attention layer in the prefill and never in
+    decode, rglru and rwkv6 once per recurrent layer in the prefill and
+    in every decode step, nothing else.  Then the same weights and prompt
+    through the plain route (prefill and one decode step on the kernel
+    route's first token), and both routes on the float32 model of the
+    same weights.  Checked: the float32 routes' last-position logits
+    within relative L2 LM_ROUTE_RTOL, and the bf16 kernel route at most
+    twice as far from the float32 model as the bf16 plain route (plus
+    LM_ROUTE_RTOL): both round the same model to bf16, where a wrong
+    kernel is off by the logits' whole scale.  The bf16 routes' distance
+    to each other is reported against LM_ROUTE_RTOL, not checked: bf16
+    rounding of the residual stream turns any last-bit difference of a
+    kernel's output into 1-ulp changes of many of the next residual's
+    elements, layer after layer, so two correct evaluations of the bf16
+    model can differ by more than that bound.  ``smoke`` serves the smoke
+    configuration (a rehearsal on the CPU, where nothing launches).
+    Returns (summary row, launches of the served run)."""
+    import gc
+    from repro_torch import configs
+    from repro_torch import kernels as K
+    from repro_torch.data.pipeline import tokens as draw_tokens
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.common import flatten, tree_map
+    traffic = {**LM_TRAFFIC, **traffic}
+    B, S, G = traffic["n_requests"], traffic["prompt_len"], traffic["gen"]
+    cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    t0 = time.perf_counter()
+    params = model_mod.init_params(cfg, seed, dev)
+    n_params = sum(t.numel() for _, t in flatten(params))
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    prompt = draw_tokens(g, (B, S), cfg.vocab)
+    _sync(dev)
+    log(f"  {arch}: {n_params / 1e9:.3f} B parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    K.reset_launches()
+    res = serve(cfg, seed=seed, device=dev, tokens=prompt, params=params,
+                **traffic)
+    launches = K.launch_counts()
+    types = cfg.layer_types()
+    per_layer = {}          # the CPU launches no kernel
+    if dev.type == "cuda":
+        per_layer = {"flash_attention": types.count("attn"),
+                     "rglru": types.count("rec"),
+                     "rwkv6": types.count("rwkv")}
+    want_prefill = {op: per_layer.get(op, 0) for op in K.WRAPPERS}
+    want_decode = dict(want_prefill, flash_attention=0)
+    if len(res.launches) != G or res.launches[0] != want_prefill:
+        raise AssertionError(f"{arch} prefill launches {res.launches[0]}, "
+                             f"want {want_prefill}")
+    for i, step in enumerate(res.launches[1:]):
+        if step != want_decode:
+            raise AssertionError(f"{arch} decode step {i} launches {step}, "
+                                 f"want {want_decode}")
+    if launches != {op: want_prefill[op] + (G - 1) * want_decode[op]
+                    for op in K.WRAPPERS}:
+        raise AssertionError(f"{arch}: launches over the run {launches}")
+    toks = torch.from_numpy(res.tokens)
+    if (res.tokens.shape != (B, G) or int(toks.min()) < 0
+            or int(toks.max()) >= cfg.vocab):
+        raise AssertionError(f"{arch}: tokens {res.tokens.shape} out of "
+                             f"range")
+    for what, lg in (("prefill", res.prefill_logits),
+                     ("decode", res.decode_logits)):
+        if lg.shape != (B, cfg.vocab) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{arch} {what} logits {lg.shape} not "
+                                 f"finite")
+
+    # Where the device time goes: one prefill and 4 decode steps of the
+    # served (kernel) route under torch.profiler.
+    first = toks[:, :1].to(dev)
+    profiles = {}
+    if dev.type == "cuda":
+        profiles = _lm_profiles(cfg, params, prompt, first, S + G)
+
+    # The plain route on the same weights, prompt and first token; then
+    # both routes on the float32 model of the same weights.
+    logits = {("bf16", "kernel"): (res.prefill_logits, res.decode_logits),
+              ("bf16", "plain"): _route_logits(cfg, params, prompt, first,
+                                               S + G, plain=True)}
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    params = tree_map(lambda t: t.float(), params)
+    for route in ("kernel", "plain"):
+        logits[("f32", route)] = _route_logits(cfg32, params, prompt, first,
+                                               S + G, plain=route == "plain")
+    errs = {}
+    for i, step in enumerate(("prefill", "decode")):
+        def e(a, b):
+            return rel_l2(logits[a][i], logits[b][i])
+        errs[step] = {
+            "bf16 kernel vs plain": e(("bf16", "kernel"), ("bf16", "plain")),
+            "f32 kernel vs plain": e(("f32", "kernel"), ("f32", "plain")),
+            "bf16 kernel vs f32 plain": e(("bf16", "kernel"),
+                                          ("f32", "plain")),
+            "bf16 plain vs f32 plain": e(("bf16", "plain"),
+                                         ("f32", "plain"))}
+    same_first = bool((logits[("bf16", "plain")][0].argmax(-1)
+                       == toks[:, 0]).all())
+    row = {"arch": arch, "params": n_params, "requests": B,
+           "prompt_len": S, "gen": G,
+           "prefill_ms": res.prefill_s * 1e3,
+           "decode_tok_per_s": res.decode_tokens_per_s,
+           "decode_ms_per_step": res.decode_s * 1e3 / max(G - 1, 1),
+           "peak_gib": res.peak_bytes / 2**30,
+           "route_rel_l2": errs, "plain_first_token_same": same_first,
+           "bf16_routes_within_bound": all(
+               v["bf16 kernel vs plain"] <= LM_ROUTE_RTOL
+               for v in errs.values()),
+           "tokens_request0": res.tokens[0].tolist(),
+           "launches": {op: n for op, n in launches.items() if n},
+           "profile": profiles}
+    log(f"  {arch}: prefill {row['prefill_ms']:.3f} ms, decode "
+        f"{row['decode_tok_per_s']:.2f} tok/s "
+        f"({row['decode_ms_per_step']:.3f} ms a step), peak "
+        f"{row['peak_gib']:.3f} GiB (torch.cuda.max_memory_allocated)")
+    for step, v in errs.items():
+        log(f"  {arch}: {step} logits, relative L2: "
+            + ", ".join(f"{k} {x:.4g}" for k, x in v.items()))
+    log(f"  {arch}: bf16 kernel vs plain route within {LM_ROUTE_RTOL}: "
+        f"{row['bf16_routes_within_bound']}; same first token: "
+        f"{same_first}")
+    for step, pr in profiles.items():
+        log(f"  {arch} profiled {step}: {pr['wall_ms_per_wave_profiled']:.3f}"
+            f" ms wall, {pr['device_busy_ms_per_wave']:.3f} ms device-busy, "
+            f"idle share {pr['device_idle_share']:.4f}, "
+            f"{pr['device_events_per_wave']:.1f} device events; top: "
+            + "; ".join(f"{t['name'][:48]} {t['ms_per_wave']:.3f} ms "
+                        f"x{t['per_wave']:.0f}" for t in pr["top_device"][:5]))
+    log(f"  {arch}: greedy tokens of request 0: {row['tokens_request0']}")
+    log(f"  {arch}: launches {row['launches']}")
+    for step, v in errs.items():
+        if not v["f32 kernel vs plain"] <= LM_ROUTE_RTOL:
+            raise AssertionError(f"{arch} {step}: float32 kernel and plain "
+                                 f"routes differ by relative L2 "
+                                 f"{v['f32 kernel vs plain']}")
+        if not (v["bf16 kernel vs f32 plain"]
+                <= 2 * v["bf16 plain vs f32 plain"] + LM_ROUTE_RTOL):
+            raise AssertionError(f"{arch} {step}: the bf16 kernel route is "
+                                 f"more than twice as far from the float32 "
+                                 f"model as the plain route: {v}")
+    del params, res, logits, prompt
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return row, launches
+
+
 def ratios(workload, by):
     """Log the paper's orderings: OCC-fine over OCC-coarse and
     TicToc-coarse (quickstart), 2PL over TicToc coarse at T=128 (Fig 3a),
@@ -1549,6 +2012,17 @@ def main() -> int:
     finally:
         close_shards(shards)
 
+    log("LM serving:")
+    torch.cuda.empty_cache()
+    lm_checks, lm_timings = lm_kernel_phase(dev)
+    lm_rows, lm_launches = [], {op: 0 for op in K.WRAPPERS}
+    for arch in LM_ARCHS:
+        row, launched = lm_serve_path(dev, arch)
+        lm_rows.append(row)
+        for op, n in launched.items():
+            lm_launches[op] += n
+    log("lm_serving " + json.dumps(lm_rows))
+
     runs = {"tpcc": (l_tpcc, len(tpcc) * WAVES),
             "ycsb": (l_ycsb, len(ycsb) * WAVES),
             "tpcc_unfused": (l_unf, len(UNFUSED) * WAVES),
@@ -1559,7 +2033,7 @@ def main() -> int:
             "scaling": (l_scale, (30 + txn_scaling.WARMUP_WAVES)
                         * len(scaling))}
     per_wave = {op: {k: n[op] / w for k, (n, w) in runs.items()}
-                for op in l_tpcc}
+                for op in KERNEL_META}
     log("launches per wave (mean over each phase's configurations): "
         + json.dumps(per_wave))
     log("kernel_times " + json.dumps(
@@ -1578,6 +2052,17 @@ def main() -> int:
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
             "shape": t.get("shape", "tpcc T=128 K=64 N=2450808 G=2"),
+        })
+    for name, (src, replaces) in LM_KERNEL_META.items():
+        t = lm_timings[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": lm_launches[name],
+            "max_abs_err": lm_checks[name].max_err,
+            "max_bf16_ulps": lm_checks[name].max_ulps,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"], "shape": t["shape"],
         })
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -1,0 +1,21 @@
+import dataclasses
+
+from repro_torch.configs.base import ModelConfig
+
+# Qwen2-7B [arXiv:2407.10671]: GQA kv=4, QKV bias.  28 heads pad to 32.
+CONFIG = ModelConfig(
+    name="qwen2-7b",
+    family="dense",
+    n_layers=28, d_model=3584, n_heads_raw=28, n_kv=4, d_head=128,
+    d_ff=18944, vocab_raw=152_064,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    n_micro=4,
+        fsdp_params=False,   # ZeRO-2: TP slice fits HBM
+    skip_notes="long_500k skipped: full attention (quadratic decode).",
+)
+
+SMOKE = dataclasses.replace(
+    CONFIG, head_pad=1, param_dtype="float32",
+        grad_dtype="float32", adam_master_f32=False, adam_moment_dtype="float32", n_layers=3, d_model=64, n_heads_raw=4, n_kv=2, d_head=16,
+    d_ff=128, vocab_raw=512, n_micro=1)

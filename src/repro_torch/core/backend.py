@@ -96,8 +96,9 @@ class Backend:
     (slot, ok)."""
 
 
-for _op, _fn in kernels.WRAPPERS.items():
-    setattr(Backend, _op, staticmethod(_fn))
+for _op in SURFACE_OPS:
+    if _op in kernels.WRAPPERS:
+        setattr(Backend, _op, staticmethod(kernels.WRAPPERS[_op]))
 for _op in _WAITS:
     setattr(Backend, _op, staticmethod(_waiting(_op)))
 

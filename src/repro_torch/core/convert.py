@@ -8,7 +8,10 @@ the version ring's begin stamps) travel as their bit patterns:
 The per-record tables (mode bits, heats, heat waves, ring heads) travel
 with their own dtypes.  The sharded engine's tables (core/distributed.py)
 travel as global arrays: ``dist_tables_from_numpy`` gives each rank its
-``rec_per`` rows, ``dist_tables_to_numpy`` gathers them back.
+``rec_per`` rows, ``dist_tables_to_numpy`` gathers them back.  A language
+model's parameters and decode cache travel from the JAX package's stacked
+stages to the port's per-layer lists (``lm_params_from_jax``,
+``lm_cache_from_jax``); bfloat16 arrays keep their bit patterns.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from repro_torch.core.distributed import DistConfig, n_shards
 from repro_torch.core.mvstore import mv_placeholder
 from repro_torch.core.types import (CostModel, EngineConfig, StoreState,
                                     TxnBatch)
+from repro_torch.models.common import tree_map
 
 WORD_TABLES = ("wts", "rts", "claim_w", "claim_r", "mv_begin")
 RECORD_TABLES = {"ring_tails": np.int32, "pess_mode": np.bool_,
@@ -116,3 +120,46 @@ def dist_tables_to_numpy(cfg: DistConfig, tables, group=None) -> tuple:
         a = torch.cat(parts).cpu().numpy()
         out.append(a.view(np.uint32) if word else a)
     return tuple(out)
+
+
+# ------------------------------------------------------------ language models
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """A tensor holding numpy array ``a``; ml_dtypes' bfloat16 arrays (the
+    JAX package's) travel as their 16-bit patterns."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _unstack(cfg, stages: list, device) -> list:
+    """Per-layer trees from the JAX stacked stages: stage ``si``, key
+    ``str(i)``, repeat ``j`` is decoder layer ``offset_si + j *
+    len(pattern) + i``."""
+    layers = [None] * cfg.n_layers
+    offset = 0
+    for si, (pattern, n) in enumerate(cfg.stage_split()):
+        for i in range(len(pattern)):
+            for j in range(n):
+                layers[offset + j * len(pattern) + i] = tree_map(
+                    lambda a: tensor_from_numpy(np.asarray(a)[j], device),
+                    stages[si][str(i)])
+        offset += n * len(pattern)
+    assert all(x is not None for x in layers)
+    return layers
+
+
+def lm_params_from_jax(cfg, tree, device="cpu") -> dict:
+    """The port's parameters (``models/model.py``) from the JAX
+    ``init_params`` tree, as numpy arrays."""
+    out = {k: tree_map(lambda a: tensor_from_numpy(a, device), tree[k])
+           for k in ("embed", "final_norm", "head") if k in tree}
+    out["layers"] = _unstack(cfg, tree["stages"], device)
+    return out
+
+
+def lm_cache_from_jax(cfg, stages: list, device="cpu") -> list:
+    """The port's per-layer decode cache from the JAX cache (one stacked
+    tree per stage), as numpy arrays."""
+    return _unstack(cfg, stages, device)

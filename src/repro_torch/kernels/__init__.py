@@ -9,19 +9,23 @@ nowhere else.
 """
 from repro_torch.kernels.claim_probe import claim_probe
 from repro_torch.kernels.claim_scatter import claim_scatter
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.iterate_validate import iterate_validate
 from repro_torch.kernels.mv_gather import mv_gather
 from repro_torch.kernels.mv_install import mv_install
 from repro_torch.kernels.occ_commit import commit_install
 from repro_torch.kernels.occ_validate import validate, validate_dual
+from repro_torch.kernels.rglru import rglru
 from repro_torch.kernels.route_pack import route_pack
+from repro_torch.kernels.rwkv6 import rwkv6
 from repro_torch.kernels.segment_count import segment_count
 from repro_torch.kernels.ts_gather import ts_gather
 from repro_torch.kernels.ts_install import ts_install_max
 from repro_torch.kernels.verdict_pack import verdict_pack, verdict_unpack
 from repro_torch.kernels.wave_commit import wave_commit
 
-#: Backend surface op -> kernel wrapper.
+#: Op -> kernel wrapper: the backend surface's ops, then the language
+#: models' (flash_attention, rglru, rwkv6).
 WRAPPERS = {
     "wave_commit": wave_commit,
     "segment_count": segment_count,
@@ -38,6 +42,9 @@ WRAPPERS = {
     "route_pack": route_pack,
     "verdict_pack": verdict_pack,
     "verdict_unpack": verdict_unpack,
+    "flash_attention": flash_attention,
+    "rglru": rglru,
+    "rwkv6": rwkv6,
 }
 
 

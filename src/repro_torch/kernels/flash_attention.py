@@ -1,0 +1,135 @@
+"""Masked softmax attention: causal, sliding window, GQA, end-aligned.
+
+Replaces the TPU kernel ``flash_attention_pallas``
+(src/repro/kernels/flash_attention.py); the semantics are the JAX oracle
+``ref.attention`` with the Pallas kernel's ``sk_valid`` masking and end
+alignment.  q is [B, Hq, Sq, D], k and v [B, Hkv, Sk, D] with
+Hq % Hkv == 0; query head h reads kv head ``h // (Hq // Hkv)``.  Query row
+i sits at absolute position ``i + sk_valid - sq_valid``; key j is visible
+to it when ``j < sk_valid``, ``j <= pos`` (causal) and
+``j > pos - window`` (window).  Scores are ``q.k * scale`` in float32; the
+output is the softmax-weighted sum of v in float32, cast to q's dtype.  A
+row that sees no key gives 0, as the Pallas kernel does.
+
+The model's prefill self-attention (``models/attention._flash``) runs it
+with q already scaled and ``scale=1.0``.
+
+CUDA tensors launch ``csrc/flash_attention.cu`` (one block per 64 query
+rows of one head, online softmax over 64-key tiles in shared memory,
+key tiles outside the causal band or the window skipped whole); CPU
+tensors take ``flash_attention_plain``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIG = {"repro_flash_attention": [_P] * 4 + [_I] * 6 + [_I, _I, _I]
+        + [ctypes.c_float, _I, _I, _I, _P]}
+
+NEG_INF = -1e30
+#: Head widths the kernel is compiled for.
+HEAD_DIMS = (16, 32, 64, 128, 256)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _valid(Sq: int, Sk: int, sq_valid, sk_valid) -> tuple[int, int]:
+    sq_valid = Sq if sq_valid is None else int(sq_valid)
+    sk_valid = Sk if sk_valid is None else int(sk_valid)
+    if not (0 < sq_valid <= Sq and 0 <= sk_valid <= Sk):
+        raise ValueError(f"need 0 < sq_valid <= {Sq} and 0 <= sk_valid <= "
+                         f"{Sk}, got {sq_valid}, {sk_valid}")
+    return sq_valid, sk_valid
+
+
+def attention_mask(Sq: int, Sk: int, *, causal: bool, window: Optional[int],
+                   sq_valid: int, sk_valid: int,
+                   device=None) -> torch.Tensor:
+    """bool[Sq, Sk]: which keys each query row sees."""
+    qi = torch.arange(Sq, device=device)[:, None] + (sk_valid - sq_valid)
+    ki = torch.arange(Sk, device=device)[None, :]
+    mask = ki < sk_valid
+    if causal:
+        mask = mask & (ki <= qi)
+    if window is not None:
+        mask = mask & (ki > qi - window)
+    return mask
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None,
+                          sq_valid: Optional[int] = None,
+                          sk_valid: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version: ``ref.attention``'s float32 masked softmax
+    over the whole score matrix; rows that see no key give 0."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    sq_valid, sk_valid = _valid(Sq, Sk, sq_valid, sk_valid)
+    rep = Hq // Hkv
+    kf, vf = k.float(), v.float()
+    if rep > 1:
+        kf = kf.repeat_interleave(rep, dim=1)
+        vf = vf.repeat_interleave(rep, dim=1)
+    s = scale if scale is not None else 1.0 / (D ** 0.5)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * s
+    mask = attention_mask(Sq, Sk, causal=causal, window=window,
+                          sq_valid=sq_valid, sk_valid=sk_valid,
+                          device=q.device)
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(mask.any(dim=-1, keepdim=True), p, 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None,
+                    sq_valid: Optional[int] = None,
+                    sk_valid: Optional[int] = None) -> torch.Tensor:
+    """[B, Hq, Sq, D] attention output in q's dtype."""
+    flash_attention.calls += 1
+    kw = dict(causal=causal, window=window, scale=scale, sq_valid=sq_valid,
+              sk_valid=sk_valid)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, **kw)
+    dev = build.launch_device(q)
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head width {D} not in "
+                         f"{HEAD_DIMS}")
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"flash_attention: {Hq} query heads over {Hkv} kv "
+                         f"heads")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    sq_valid, sk_valid = _valid(Sq, Sk, sq_valid, sk_valid)
+    build.check("q", q, q.dtype, (B, Hq, Sq, D), dev)
+    build.check("k", k, q.dtype, (B, Hkv, Sk, D), dev)
+    build.check("v", v, q.dtype, (B, Hkv, Sk, D), dev)
+    out = torch.empty_like(q)
+    s = scale if scale is not None else 1.0 / (D ** 0.5)
+    lib = build.load("flash_attention", _SIG)
+    with torch.cuda.device(dev):
+        rc = lib.repro_flash_attention(
+            build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
+            B, Hq, Hkv, Sq, Sk, D, int(causal), int(window is not None),
+            int(window or 0), ctypes.c_float(s), sq_valid, sk_valid,
+            DTYPE_CODES[q.dtype], build.stream(dev))
+    build.raise_on_error("flash_attention", rc)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+flash_attention.calls = 0

@@ -138,3 +138,64 @@ def test_sharded_wave_identical_on_card_and_cpu():
             lanes=32, sources=sources)
     finally:
         close_shards(shards)
+
+
+#: Small cases of the language-model kernels: ragged lengths, GQA ratios
+#: 1, 4 and 16, sk_valid < Sk and sq_valid < Sq, every head width, both
+#: dtypes, decode (S = 1).
+LM_SMALL_CASES = {
+    "flash_attention": [
+        ("window rep16", dict(B=1, Hq=16, Hkv=1, Sq=200, Sk=200, D=256,
+                              causal=True, window=70), torch.bfloat16),
+        ("S=1", dict(B=2, Hq=4, Hkv=1, Sq=1, Sk=130, D=128, causal=False,
+                     window=None), torch.bfloat16),
+        ("valid", dict(B=2, Hq=8, Hkv=2, Sq=50, Sk=150, D=64, causal=True,
+                       window=40, sq_valid=45, sk_valid=120),
+         torch.float32),
+        ("rep1 full", dict(B=1, Hq=2, Hkv=2, Sq=65, Sk=65, D=32,
+                           causal=False, window=None), torch.float32),
+        ("D16", dict(B=1, Hq=2, Hkv=1, Sq=31, Sk=31, D=16, causal=True,
+                     window=None), torch.bfloat16),
+    ],
+    "rglru": [
+        ("bf16", dict(B=2, S=77, D=300), torch.bfloat16),
+        ("S=1", dict(B=3, S=1, D=130), torch.float32),
+        ("f32", dict(B=1, S=40, D=64), torch.float32),
+    ],
+    "rwkv6": [
+        ("bf16", dict(B=2, H=3, S=40, Dk=64, Dv=64), torch.bfloat16),
+        ("S=1", dict(B=1, H=2, S=1, Dk=64, Dv=64), torch.float32),
+        ("Dk16", dict(B=1, H=2, S=19, Dk=16, Dv=16), torch.float32),
+        ("Dk32 Dv48", dict(B=1, H=1, S=8, Dk=32, Dv=48), torch.bfloat16),
+        ("Dk128", dict(B=1, H=1, S=5, Dk=128, Dv=128), torch.float32),
+    ],
+}
+
+
+@pytest.mark.cuda
+def test_lm_kernels_match_their_plain_versions():
+    """flash_attention, rglru and rwkv6 against their plain versions:
+    float32 within rtol 1e-5 / atol 1e-5, bfloat16 within 2 ulps
+    (chip_smoke.LMCheck raises otherwise)."""
+    checks, timings = chip_smoke.lm_kernel_phase(_cuda(),
+                                                 cases=LM_SMALL_CASES)
+    for name, c in checks.items():
+        assert c.cases == len(LM_SMALL_CASES[name]), name
+        assert c.max_ulps <= 2, name
+    assert timings["flash_attention"]["library_ms"] is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-3b"])
+def test_lm_serving_launches_its_kernels_and_matches_the_plain_route(arch):
+    """The smoke configuration (float32) served on the card: exactly one
+    launch per recurrent layer per step and per attention layer in the
+    prefill, and the kernel route's logits within relative L2 1e-2 of the
+    plain route's (chip_smoke.lm_serve_path raises otherwise)."""
+    row, launches = chip_smoke.lm_serve_path(
+        _cuda(), arch, smoke=True, n_requests=2, prompt_len=40, gen=4)
+    assert sum(launches.values()) > 0
+    for step in ("prefill", "decode"):
+        errs = row["route_rel_l2"][step]
+        assert errs["f32 kernel vs plain"] <= chip_smoke.LM_ROUTE_RTOL
+        assert errs["bf16 kernel vs plain"] <= chip_smoke.LM_ROUTE_RTOL

@@ -200,10 +200,11 @@ def test_every_kernel_has_a_cuda_source_and_a_counter():
                                "claim_scatter", "validate_dual",
                                "claim_probe", "validate", "iterate_validate",
                                "mv_gather", "mv_install", "route_pack",
-                               "verdict_pack", "verdict_unpack"}
+                               "verdict_pack", "verdict_unpack",
+                               "flash_attention", "rglru", "rwkv6"}
     # validate and validate_dual share csrc/occ_validate.cu, verdict_pack
     # and verdict_unpack csrc/verdict_pack.cu.
-    assert len(build.SOURCES) == 13 and len(K.WRAPPERS) == 15
+    assert len(build.SOURCES) == 16 and len(K.WRAPPERS) == 18
     for w in K.WRAPPERS.values():
         assert isinstance(w.launches, int) and isinstance(w.calls, int)
 
