@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's eighteen CUDA kernels (sixteen sources) from
+Builds the port's nineteen CUDA kernels (sixteen sources) from
 src/repro_torch/csrc, then:
 
   1. kernels: each kernel against its plain PyTorch version on the card, at
@@ -24,7 +24,10 @@ src/repro_torch/csrc, then:
      scans, routed to 1 and 8 shards at DistConfig's capacity, a forced
      drop, a skewed wave, masked owners; verdict rows of ragged length
      and words with bit 31 set), and wave_commit on rows of up to 32,768
-     ops; these timed at the one-card shapes;
+     ops; these timed at the one-card shapes.  The backend op probe at
+     both shapes, fine and coarse, on keys that are masked, past the
+     table's end or hot, over unclaimed, stale and live words, at both
+     waves;
   2. the main path on TPC-C (full scale, T = 128, 200 waves) through the
      benchmark CLI's grid runner: OCC, TicToc, 2PL, SwissTM and Adaptive
      x coarse and fine, plus AutoGran coarse, with the launch counters set
@@ -62,6 +65,26 @@ src/repro_torch/csrc, then:
      mechanism and the MV configurations; integer state (the version ring
      included) must be bit-identical, lane_time within rtol 1e-5 and the
      heats within rtol 1e-6;
+ 9b. the backend op probe on a table wave_commit has just installed into
+     (TPC-C shape): one launch each, equal to the plain version, every
+     installed claim seen;
+ 9c. examples/quickstart_torch.py's main as it ships (TPC-C 8 warehouses,
+     scale 0.5, T = 96, 200 waves): OCC-fine beats OCC-coarse and
+     TicToc-coarse;
+ 9d. fig3's grid through the grid runner (the port's sweep): TPC-C scale
+     1.0, OCC, TicToc, 2PL and MV-OCC x coarse and fine x lanes 64, 96,
+     128 (one bucket: 64 and 96 run padded to 128), 200 waves; every
+     point's commits + aborts == T x waves, causes sum to aborts, every
+     kernel launched; fig3's ratio lines printed beside the paper's, and
+     OCC-fine@96 must beat TicToc-coarse@96;
+ 9e. cross-device identity of a padded point (T = 96 of 128) and of one
+     open-loop configuration (queue, counters and histogram included);
+ 9f. the open loop: YCSB (10M keys, theta 0.9, 50% writes), OCC and MVCC x
+     coarse and fine, T = 128, 200 waves, arrivals at 96 a wave into a
+     queue of 512 with 8 incarnations: admitted == commits + queued +
+     inc_drops, offered == admitted + arrival_drops, reenq_drops == 0 and
+     inc_cap aborts == inc_drops, exactly; goodput and p50/p99
+     time-to-commit printed;
  10. the sharded engine (core/distributed.py) on a one-rank NCCL group:
      YCSB and TPC-C at the main path's sizes and YCSB workload E, 256
      lanes, 200 waves, OCC/MVCC/MV-OCC x coarse and fine and OCC fine
@@ -154,6 +177,8 @@ KERNEL_META = {
                       "src/repro/kernels/occ_validate.py:122"),
     "claim_probe": ("src/repro_torch/csrc/claim_probe.cu",
                     "src/repro/kernels/claim_probe.py:82"),
+    "probe": ("src/repro_torch/csrc/claim_probe.cu",
+              "src/repro/kernels/occ_validate.py:155"),
     "validate": ("src/repro_torch/csrc/occ_validate.cu",
                  "src/repro/kernels/occ_validate.py:86"),
     "iterate_validate": ("src/repro_torch/csrc/iterate_validate.cu",
@@ -342,6 +367,7 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES):
     kernels under the label "dist"."""
     from repro_torch import kernels as K
     from repro_torch.core.claimword import claim_word
+    from repro_torch.core.claimword import inv_wave
     from repro_torch.kernels.claim_probe import claim_probe_plain
     from repro_torch.kernels.claim_scatter import claim_scatter_plain
     from repro_torch.kernels.occ_commit import commit_install_plain
@@ -349,7 +375,8 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES):
     from repro_torch.kernels.segment_count import segment_count_plain
     from repro_torch.kernels.ts_gather import ts_gather_plain
     from repro_torch.kernels.ts_install import ts_install_max_plain
-    from repro_torch.kernels.wave_commit import wave_commit_plain
+    from repro_torch.kernels.wave_commit import probe_plain, \
+        wave_commit_plain
     checks = {n: KernelCheck(n) for n in KERNEL_META}
     timings = {}
     for si, (label, (N, G, T, Kk)) in enumerate(shapes.items()):
@@ -415,6 +442,15 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES):
                                        fine), a],
                         [claim_probe_plain(b, keys, groups, prio, wv, inst,
                                            fine), b])
+            # The probe alone, on the unclaimed, stale and live words of
+            # this wave's table and on keys past the table's end.
+            past = torch.where(check_w2, N + 5, keys)
+            for k in (keys, past):
+                for fine in (True, False):
+                    checks["probe"].compare(
+                        [K.probe(cw_, k, groups, wv, fine)],
+                        [probe_plain(cw_, k, groups, inv_wave(wv),
+                                     fine).to(torch.int32)])
         del tables
         scan_mv_checks(checks, dev, N, G, keys, groups, prio, masks, wave,
                        seed=si, ext_cap=SCAN_KW.get(label, {}).get(
@@ -526,6 +562,15 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES):
                 library_ms=None,
                 bound=bound_ms(n * (4 + 4 + 4 + 1 + 2)
                                + checked_rows * G * 4, n * G)),
+            # Keys and groups in, a 4-byte answer out, a word read per
+            # distinct probed cell.
+            "probe": dict(
+                ms=time_ms(lambda: K.probe(cw, keys, groups, wave, True),
+                           dev),
+                plain_ms=time_ms(lambda: probe_plain(
+                    cw, keys, groups, inv_wave(wave), True), dev),
+                library_ms=None,
+                bound=bound_ms(n * (4 + 4 + 4) + probed * 4, n)),
             # Fine probe: op vectors in, a 4-byte answer out, a word read
             # per distinct probed cell and written per installed cell.
             "claim_probe": dict(
@@ -1124,15 +1169,33 @@ def _draws(wl, waves, lanes, seed=5):
     return out
 
 
-def _replay(cfg, wl, draws, d):
+def _replay(cfg, wl, draws, d, active_lanes=None):
+    """The wave step on ``d`` over ``draws``; ``active_lanes`` < T masks
+    the lanes past it as the sweep runner pads a point."""
     from repro_torch.core import engine as E
     from repro_torch.core import types as t
     st = t.engine_state_init(cfg, wl.init_store(d, cfg.mv_depth))
-    step = E.make_wave_step(cfg)
+    active = (None if active_lanes is None else
+              torch.arange(cfg.lanes, device=d) < active_lanes)
+    step = E.make_wave_step(cfg, active)
     for fresh, tl, perm in draws:
         fb = t.TxnBatch(**{f.name: getattr(fresh, f.name).to(d)
                            for f in dataclasses.fields(t.TxnBatch)})
         st = step(st, fb, tl.to(d), perm.to(d))
+    return st
+
+
+def _replay_open(cfg, wl, draws, offered, d):
+    """The open-loop wave step on ``d`` over ``draws`` and the arrival
+    counts ``offered``."""
+    from repro_torch.core import engine as E
+    from repro_torch.core import types as t
+    st = t.engine_state_init(cfg, wl.init_store(d, cfg.mv_depth))
+    step = E.make_open_wave_step(cfg)
+    for (fresh, tl, perm), n in zip(draws, offered):
+        fb = t.TxnBatch(**{f.name: getattr(fresh, f.name).to(d)
+                           for f in dataclasses.fields(t.TxnBatch)})
+        st, _ = step(st, fb, tl.to(d), perm.to(d), n.to(d))
     return st
 
 
@@ -1206,6 +1269,200 @@ def cross_device(dev, waves=30, scale=0.1, scan_len=0,
             f"{int(a.abort_causes[CAUSE_PHANTOM])} ring heads moved "
             f"{int((a.store.mv_head != 0).sum())}: identical on {dev} and "
             "cpu")
+
+
+# ------------------------------------------------ backend op and figures
+def backend_probe_path(dev, wave=9):
+    """The backend op ``probe`` on the card: ``wave_commit`` installs one
+    wave's write claims at the TPC-C shape (OCC-fine, through the
+    backend), then ``Backend.probe`` reads the installed table.  Counters
+    set to 0 just before, read just after: one launch each.  Returns the
+    launches."""
+    from repro_torch import kernels as K
+    from repro_torch.core.backend import BACKEND
+    from repro_torch.core.claimword import NO_PRIO, inv_wave
+    from repro_torch.kernels.wave_commit import probe_plain
+    N, G, T, Kk = SHAPES["tpcc"]
+    cw, _, wts, _ = make_tables(N, G, wave, dev, seed=31)
+    keys, groups, prio, masks, _ = make_ops(N, G, T, Kk, dev, seed=31)
+    do_w, _, check_w = masks[:3]
+    K.reset_launches()
+    _, commit = BACKEND.wave_commit(cw, None, wts, keys, groups, prio, do_w,
+                                    None, check_w, None, None, None, wave,
+                                    True, False, True)
+    got = BACKEND.probe(cw, keys, groups, wave, True)
+    launches = K.launch_counts()
+    want = probe_plain(cw, keys, groups, inv_wave(wave), True)
+    claimed = do_w & (keys >= 0)
+    log(f"  wave_commit committed {int(commit.sum())} of {T} lanes; probe "
+        f"of the installed table: {int((got != NO_PRIO).sum())} ops see a "
+        f"live claimant; launches {launches}")
+    if not torch.equal(got, want.to(torch.int32)):
+        raise AssertionError("Backend.probe disagrees with probe_plain on "
+                             "the installed table")
+    if bool((got[claimed] == NO_PRIO).any()):
+        raise AssertionError("probe missed a claim wave_commit installed")
+    if dev.type == "cuda" and not (launches["probe"] == 1
+                                   and launches["wave_commit"] == 1):
+        raise AssertionError(f"backend probe: launches {launches}")
+    return launches
+
+
+def quickstart_path(dev):
+    """examples/quickstart_torch.py's main as it ships (TPC-C 8
+    warehouses, scale 0.5, T = 96, 200 waves) on ``dev``: OCC-fine must
+    beat OCC-coarse and TicToc-coarse.  Returns ({name: SimResult},
+    launches)."""
+    import importlib.util
+    from repro_torch import kernels as K
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", os.path.join(ROOT, "examples",
+                                         "quickstart_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    K.reset_launches()
+    res = mod.main(["--device", dev.type])
+    launches = K.launch_counts()
+    th = {k: r.throughput for k, r in res.items()}
+    log(f"  quickstart: OCC-fine / OCC-coarse "
+        f"{th['occ-fine'] / th['occ-coarse']:.4f}  OCC-fine / "
+        f"TicToc-coarse {th['occ-fine'] / th['tictoc-coarse']:.4f} "
+        f"(paper: 1.37x at 96 threads); launches {launches}")
+    if not th["occ-fine"] > max(th["occ-coarse"], th["tictoc-coarse"]):
+        raise AssertionError("quickstart: OCC-fine must beat OCC-coarse "
+                             "and TicToc-coarse")
+    if dev.type == "cuda" and min(launches[op] for op in MECH_OPS["tictoc"]
+                                  ) <= 0:
+        raise AssertionError("quickstart: a kernel never launched")
+    return res, launches
+
+
+#: The figures phase's grid: fig3's mechanisms of the paper's headline
+#: (and MV-OCC) x coarse and fine x one lane bucket, so 64 and 96 run
+#: padded to 128 under the mask.
+FIG3_CCS = ("occ", "tictoc", "2pl", "mvocc")
+FIG3_LANES = (64, 96, 128)
+
+
+def figures_path(dev, waves=WAVES, **wl_kw):
+    """fig3's grid through the benchmark CLI's grid runner (the port's
+    sweep): every padded point's commits + aborts == T x waves and causes
+    sum to aborts; every kernel of each mechanism launched; fig3's ratio
+    lines printed, OCC-fine@96 > TicToc-coarse@96 (the paper's headline).
+    Returns (rows, launches, ratios)."""
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks.fig3_tpcc import report
+    from repro_torch.launch.txn_bench import run_grid
+    K.reset_launches()
+    rows = run_grid("tpcc", list(FIG3_CCS), (0, 1), list(FIG3_LANES), waves,
+                    mv_depth=MV_DEPTH, device=dev, **wl_kw)
+    launches = K.launch_counts()
+    for r in rows:
+        _log_row(f"fig3 T={r['lanes']}/{r['lanes_run']}", r)
+        if r["lanes_run"] != max(FIG3_LANES):
+            raise AssertionError(f"{_name(r)}@{r['lanes']}: ran at "
+                                 f"{r['lanes_run']} lanes")
+    _check_kernels("fig3", rows, launches, dev, scans=False)
+    ratios = report(rows)
+    if not ratios["occ-fine@96/tictoc-coarse@96"] > 1.0:
+        raise AssertionError("fig3: OCC-fine@96 must beat TicToc-coarse@96")
+    return rows, launches, ratios
+
+
+#: The open-loop phase's traffic: YCSB at the main path's size, arrivals
+#: at 3/4 of the lane width (as benchmarks/scan_mix.py's open loop);
+#: txn_bench.make_config gives the queue (4 x 128 lanes = 512 entries) and
+#: the 8 incarnations.
+OPEN_KW = dict(n_keys=YCSB_N, theta=0.9, write_frac=0.5, arrival_rate=96.0)
+
+
+def open_loop_path(dev, waves=WAVES, lanes=LANES, **kw):
+    """OCC and MVCC x coarse and fine, open-loop, through the grid runner:
+    the admission identities hold exactly.  Returns (rows, launches)."""
+    from repro_torch import kernels as K
+    from repro_torch.launch.txn_bench import run_grid
+    K.reset_launches()
+    rows = run_grid("ycsb", ["occ", "mvcc"], (0, 1), [lanes], waves,
+                    mv_depth=MV_DEPTH, device=dev, **{**OPEN_KW, **kw})
+    launches = K.launch_counts()
+    for r in rows:
+        log(f"  open {_name(r):12s} goodput {r['goodput']:.4f} txn/us  "
+            f"p50 {r['p50_ttc_waves']} p99 {r['p99_ttc_waves']} waves  "
+            f"offered {r['offered']} admitted {r['admitted']} commits "
+            f"{r['commits']} queued {r['queued_final']} inc_drops "
+            f"{r['inc_drops']} arrival_drops {r['arrival_drops']} "
+            f"reenq_drops {r['reenq_drops']}  {r['waves_per_s']:.1f} "
+            f"waves/s  causes {r['abort_causes']}")
+        if not (r["admitted"] == r["commits"] + r["queued_final"]
+                + r["inc_drops"]
+                and r["offered"] == r["admitted"] + r["arrival_drops"]
+                and r["reenq_drops"] == 0
+                and r["abort_causes"]["inc_cap"] == r["inc_drops"]
+                and sum(r["abort_causes"].values()) == r["aborts"]):
+            raise AssertionError(f"open loop {_name(r)}: an admission "
+                                 "identity fails")
+    _check_kernels("open loop", rows, launches, dev, scans=False)
+    return rows, launches
+
+
+def cross_device_padded(dev, waves=30, scale=0.1, active_lanes=96,
+                        configs=(("occ", 1), ("tictoc", 0), ("mvocc", 1))):
+    """One point below its bucket maximum (``active_lanes`` of LANES) from
+    CPU-made draws through the masked wave step on ``dev`` and on the CPU:
+    integer state bit-identical, lane_time within rtol 1e-5; padding
+    lanes never count."""
+    from repro_torch.launch.txn_bench import make_config
+    from repro_torch.workloads import TPCCWorkload
+    wl = TPCCWorkload.make(n_warehouses=8, scale=scale)
+    draws = _draws(wl, waves, LANES)
+    cpu = torch.device("cpu")
+    for cc, gran in configs:
+        cfg = make_config(wl, cc, gran, LANES, mv_depth=MV_DEPTH)
+        a, b = (_replay(cfg, wl, draws, d, active_lanes) for d in (dev, cpu))
+        what = f"{cc}-{'fine' if gran else 'coarse'} T={active_lanes}"
+        _same_state(a, b, f"cross-device padded {what}", rtol_time=1e-5,
+                    rtol_heat=1e-6)
+        if int(a.commits + a.aborts) != active_lanes * waves:
+            raise AssertionError(f"{what}: padding lanes counted")
+        log(f"  {what} of {LANES}: {waves} waves, commits {int(a.commits)} "
+            f"aborts {int(a.aborts)}: identical on {dev} and cpu")
+
+
+def cross_device_open(dev, waves=30, n_keys=100_000, configs=(("mvcc", 1),)):
+    """One open-loop configuration from CPU-made draws and arrival counts
+    through the open step on ``dev`` and on the CPU: integer state, the
+    admission counters, the histogram and the queue bit-identical."""
+    from repro_torch.launch.txn_bench import make_config, make_workload
+    from repro_torch.workloads.arrivals import poisson_offered
+    rate = OPEN_KW["arrival_rate"]
+    wl = make_workload("ycsb", n_keys=n_keys, theta=0.9)
+    draws = _draws(wl, waves, LANES)
+    g = torch.Generator()
+    g.manual_seed(6)
+    offered = [poisson_offered(g, rate, LANES) for _ in range(waves)]
+    cpu = torch.device("cpu")
+    for cc, gran in configs:
+        cfg = make_config(wl, cc, gran, LANES, mv_depth=MV_DEPTH,
+                          arrival_rate=rate)
+        a, b = (_replay_open(cfg, wl, draws, offered, d) for d in (dev, cpu))
+        what = f"open {cc}-{'fine' if gran else 'coarse'}"
+        _same_state(a, b, f"cross-device {what}", rtol_time=1e-5,
+                    rtol_heat=1e-6)
+        for name in ("next_id", "offered", "admitted", "arrival_drops",
+                     "inc_drops", "reenq_drops", "lat_hist"):
+            if not torch.equal(getattr(a.ol, name).cpu(),
+                               getattr(b.ol, name).cpu()):
+                raise AssertionError(f"cross-device {what}: {name} differs")
+        for f in dataclasses.fields(a.ol.queue):
+            if not torch.equal(getattr(a.ol.queue, f.name).cpu(),
+                               getattr(b.ol.queue, f.name).cpu()):
+                raise AssertionError(f"cross-device {what}: queue "
+                                     f"{f.name} differs")
+        log(f"  {what} (queue {cfg.queue_cap}, {cfg.max_incarnations} "
+            f"incarnations): {waves} waves, offered {int(a.ol.offered)} "
+            f"commits {int(a.commits)} queued {int(a.ol.queue.size)} inc_drops "
+            f"{int(a.ol.inc_drops)}: identical on {dev} and cpu")
+
 
 
 # ------------------------------------------------------------ sharded path
@@ -1994,6 +2251,20 @@ def main() -> int:
     cross_device(dev, waves=20, scan_len=SCAN_KW["tpcc"]["scan_len"],
                  configs=SCAN_CONFIGS)
 
+    log("backend op probe on the card:")
+    l_probe = backend_probe_path(dev)
+    log("quickstart (examples/quickstart_torch.py):")
+    _, l_quick = quickstart_path(dev)
+    log("figures: fig3's grid through the port's sweep:")
+    fig_rows, l_fig, fig_ratios = figures_path(dev, scale=1.0)
+    log("fig3_ratios " + json.dumps(fig_ratios))
+    log("cross-device identity with padding:")
+    cross_device_padded(dev)
+    log("open loop, YCSB:")
+    open_rows, l_open = open_loop_path(dev)
+    log("cross-device identity, open loop:")
+    cross_device_open(dev)
+
     log("sharded engine, one-rank NCCL group:")
     import torch.distributed as dist
     from repro_torch.launch import txn_scaling
@@ -2029,6 +2300,10 @@ def main() -> int:
             "tpcc_scans": (l_tpcc_s, len(tpcc_s) * WAVES),
             "ycsb_scans": (l_ycsb_s, len(ycsb_s) * WAVES),
             "mv": (l_mv, len(mv) * WAVES),
+            "backend_probe": (l_probe, 1),
+            "quickstart": (l_quick, 3 * WAVES),
+            "fig3": (l_fig, len(fig_rows) * WAVES),
+            "open_loop": (l_open, len(open_rows) * WAVES),
             "sharded": (l_dist, n_dist * WAVES),
             "scaling": (l_scale, (30 + txn_scaling.WARMUP_WAVES)
                         * len(scaling))}

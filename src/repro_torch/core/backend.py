@@ -5,9 +5,8 @@ The JAX package names ``N_OPS`` surface ops and keeps two backends behind
 them (XLA gather/scatter and Pallas).  The port keeps the same op names
 and one backend whose ops dispatch on the device of their tensors: CPU
 tensors run the plain PyTorch version, CUDA tensors launch the hand
-kernel (kernels/).  Ops that this port does not run yet raise
-``NotImplementedError`` naming the ROADMAP item they wait for: only
-``probe`` (no caller in the JAX package).
+kernel (kernels/).  Every op of the surface is ported; ``probe`` has no
+caller in either package's engine.
 
 All word tables are updated in place, so ops that install return only
 their per-op outputs (see each kernel module).
@@ -70,37 +69,19 @@ DIST_MV_OPS = ("route_pack", "verdict_pack", "verdict_unpack",
                "claim_probe", "mv_gather", "mv_install")
 DIST_MVOCC_OPS = DIST_MV_OPS + ("iterate_validate",)
 
-#: Where each op without a port waits (ROADMAP queue B).
-_WAITS = {
-    "probe": "ROADMAP B.7 (claim_probe_pallas; no caller in the JAX "
-             "package)",
-}
-
-
-def _waiting(op: str):
-    def missing(*args, **kwargs):
-        raise NotImplementedError(
-            f"backend op {op!r} is not ported to repro_torch yet: it waits "
-            f"for {_WAITS[op]}")
-    missing.__name__ = op
-    return missing
-
 
 class Backend:
     """Device-dispatching backend: each op runs where its tensors are.
 
     Signatures follow the JAX backend's argument order; tables are updated
     in place, so ``commit_install``, ``claim_scatter`` and ``mv_install``
-    return None, ``claim_probe`` returns wprio int32[T, K],
+    return None, ``claim_probe`` and ``probe`` return wprio int32[T, K],
     ``validate_dual`` returns (fine, coarse) and ``mv_gather`` returns
     (slot, ok)."""
 
 
 for _op in SURFACE_OPS:
-    if _op in kernels.WRAPPERS:
-        setattr(Backend, _op, staticmethod(kernels.WRAPPERS[_op]))
-for _op in _WAITS:
-    setattr(Backend, _op, staticmethod(_waiting(_op)))
+    setattr(Backend, _op, staticmethod(kernels.WRAPPERS[_op]))
 
 #: The one backend: every config uses it; the tensors' device picks the
 #: route.
@@ -110,8 +91,6 @@ BACKEND = Backend()
 def _coverage(ops, launches: dict, calls: dict) -> dict:
     out = {}
     for op in ops:
-        if op not in kernels.WRAPPERS:
-            continue
         n = calls.get(op, 0)
         out[op] = ("not_run" if n == 0 else
                    "cuda" if launches.get(op, 0) == n else "torch")

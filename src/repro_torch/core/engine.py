@@ -10,7 +10,17 @@ draws as arguments:
 
 so the draws can come from the port's own generators (``run``) or be fed
 in from elsewhere (the parity tests replay the JAX engine's draws; the
-chip smoke test feeds one draw to the CPU and the card).
+chip smoke test feeds one draw to the CPU and the card).  The open loop's
+step (``make_open_wave_step``) also takes the wave's Poisson arrival
+count and returns the wave's lane forensics beside the state:
+
+    state, lanes = step(state, fresh_batch, ring_tails, perm, offered)
+
+``sweep`` runs a benchmark grid point by point; each point runs at its
+lane bucket's widest lane count with the padding lanes masked, as the
+JAX sweep does (there is no one-program grid to share here, so the
+padding only keeps points below their bucket maximum the same
+experiment as the JAX package's).
 
 Throughput model: each lane accrues simulated microseconds from the
 CostModel; reported throughput = commits / (sum(lane_time) / T), committed
@@ -21,10 +31,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional, Protocol
+from typing import Callable, Optional, Protocol, Sequence
 
+import numpy as np
 import torch
 
+from repro_torch import kernels
+from repro_torch.core import admission
 from repro_torch.core import backend as kb
 from repro_torch.core import claims
 from repro_torch.core import types as t
@@ -32,6 +45,7 @@ from repro_torch.core.cc import VALIDATORS, ValidationResult
 from repro_torch.core.types import (EngineConfig, EngineState, StoreState,
                                     TxnBatch, engine_state_init,
                                     resolve_device)
+from repro_torch.workloads.arrivals import poisson_offered
 
 
 class Workload(Protocol):
@@ -134,19 +148,36 @@ def select_batch(sel: torch.Tensor, pending: TxnBatch,
     return TxnBatch(**out)
 
 
-def make_wave_step(cfg: EngineConfig) -> Callable:
+def _pad(batch: TxnBatch, active: Optional[torch.Tensor]) -> TxnBatch:
+    """Padding lanes (``~active``) run empty transactions: no ops, so no
+    claims and no conflicts."""
+    if active is None:
+        return batch
+    return dataclasses.replace(
+        batch,
+        op_key=torch.where(active[:, None], batch.op_key, -1),
+        op_kind=torch.where(active[:, None], batch.op_kind, t.NOP),
+        n_ops=torch.where(active, batch.n_ops, 0))
+
+
+def make_wave_step(cfg: EngineConfig,
+                   active: Optional[torch.Tensor] = None) -> Callable:
     """Build the wave step ``step(state, fresh, tails, perm) -> state``.
 
     ``fresh`` is the workload's batch for this wave, ``tails`` its
     advanced ring cursors and ``perm`` a permutation of the T lanes (the
-    in-wave serialization order).  The store is updated in place."""
+    in-wave serialization order).  The store is updated in place.
+    ``active`` (bool[T] or None) marks live lanes: ``sweep`` pads a point
+    to its bucket's lane count and masks the padding here.  Inactive lanes
+    carry empty transactions and are excluded from every metric; None
+    means every lane is live."""
     validator = VALIDATORS[cfg.cc]
 
     def step(state: EngineState, fresh: TxnBatch, tails: torch.Tensor,
              perm: torch.Tensor) -> EngineState:
         wave = state.wave
         sel = state.pending_live
-        batch = select_batch(sel, state.pending, fresh)
+        batch = _pad(select_batch(sel, state.pending, fresh), active)
         age = torch.where(sel, state.age, 0)
         store = dataclasses.replace(state.store, ring_tails=tails)
         prio = claims.prio16(age, perm, use_age=(cfg.cc == t.CC_SWISS))
@@ -155,10 +186,16 @@ def make_wave_step(cfg: EngineConfig) -> Callable:
         commit = res.commit
         lane_dt, has_write = _lane_cost(cfg, batch, commit, res)
 
-        committed, aborted = commit, ~commit
+        if active is None:
+            committed, aborted = commit, ~commit
+        else:
+            committed, aborted = commit & active, ~commit & active
+            lane_dt = torch.where(active, lane_dt, 0.0)
         causes_wave = t.cause_counts(res.lane_cause(), aborted)
         commits_by_type = state.commits_by_type.index_add(
             0, batch.txn_type.to(torch.int64), committed.to(torch.int64))
+        # Padding lanes are empty and so read-only, but committed/aborted
+        # already mask them out.
         ro = ~has_write
         return EngineState(
             wave=wave + 1,
@@ -176,7 +213,108 @@ def make_wave_step(cfg: EngineConfig) -> Callable:
             ro_commits=state.ro_commits + (committed & ro).sum(),
             ro_aborts=state.ro_aborts + (aborted & ro).sum(),
             abort_causes=state.abort_causes + causes_wave,
+            ol=state.ol,
         )
+
+    return step
+
+
+def make_open_wave_step(cfg: EngineConfig,
+                        active: Optional[torch.Tensor] = None) -> Callable:
+    """Build the OPEN-LOOP wave step ``step(state, fresh, tails, perm,
+    offered) -> (state, lanes)``.
+
+    Instead of the closed loop's one-transaction-per-lane retry buffer,
+    lanes are filled each wave from the admission queue
+    (core/admission.py): the wave's first ``offered`` fresh transactions
+    (its Poisson arrival count, capped at the live lanes) enqueue first,
+    with overflow drops counted; the queue then fills up to T lanes FIFO,
+    the wave runs, and aborted lanes re-enqueue the SAME transaction with
+    incarnation + 1, or drop (counted, cause ``inc_cap``) past
+    ``cfg.max_incarnations``.  Committed lanes record time-to-commit =
+    commit_wave - admit_wave + 1 waves into the per-class histogram.
+    ``active`` is ``sweep``'s live-lane prefix mask, as in
+    make_wave_step.  ``lanes`` is the wave's lane forensics: (txn_id,
+    incarnation, got, admit_wave, op_key, op_kind, commit)."""
+    validator = VALIDATORS[cfg.cc]
+    T = cfg.lanes
+    n_active = T if active is None else int(active.sum())
+
+    def step(state: EngineState, fresh: TxnBatch, tails: torch.Tensor,
+             perm: torch.Tensor, offered) -> tuple:
+        wave = state.wave
+        ol = state.ol
+        dev = state.lane_time.device
+        lane = torch.arange(T, device=dev)
+
+        # ---- arrivals: the wave's fresh transactions, Poisson-thinned ---
+        fresh = _pad(fresh, active)
+        offered = torch.as_tensor(offered, device=dev).to(
+            torch.int64).clamp(max=n_active)
+        queue, n_adm, n_ovf = admission.enqueue(
+            ol.queue, fresh, torch.full((T,), wave, device=dev),
+            torch.zeros((T,), dtype=torch.int64, device=dev),
+            ol.next_id + lane, lane < offered)
+
+        # ---- admit: fill the lane grid FIFO from the queue -------------
+        queue, batch, admit_w, incarn, txn_id, got = admission.dequeue(
+            queue, T, n_active)
+        store = dataclasses.replace(state.store, ring_tails=tails)
+        prio = claims.prio16(incarn, perm, use_age=(cfg.cc == t.CC_SWISS))
+
+        store, res = validator(store, batch, prio, wave, cfg)
+        commit = res.commit & got
+        lane_dt, has_write = _lane_cost(cfg, batch, commit, res)
+        lane_dt = torch.where(got, lane_dt, 0.0)
+
+        # ---- retry incarnations / latency accounting -------------------
+        aborted = got & ~commit
+        retry = aborted & (incarn < cfg.max_incarnations)
+        inc_drop = aborted & ~retry
+        # The terminal abort of a transaction at its incarnation cap is
+        # reclassified CAUSE_INC_CAP, so cause[inc_cap] == inc_drops
+        # exactly and the causes still sum to aborts.
+        lane_cause = torch.where(inc_drop, t.CAUSE_INC_CAP,
+                                 res.lane_cause())
+        causes_wave = t.cause_counts(lane_cause, aborted)
+        # Arrivals enqueued before the dequeue freed these lanes, so the
+        # re-enqueue never overflows: reenq_drops stays 0.
+        queue, _, n_re_ovf = admission.enqueue(
+            queue, batch, admit_w, incarn + 1, txn_id, retry)
+        new_ol = admission.record_commits(
+            dataclasses.replace(
+                ol, queue=queue,
+                next_id=ol.next_id + offered,
+                offered=ol.offered + offered,
+                admitted=ol.admitted + n_adm,
+                arrival_drops=ol.arrival_drops + n_ovf,
+                inc_drops=ol.inc_drops + inc_drop.sum(),
+                reenq_drops=ol.reenq_drops + n_re_ovf),
+            batch.txn_type, wave - admit_w + 1, commit)
+
+        commits_by_type = state.commits_by_type.index_add(
+            0, batch.txn_type.to(torch.int64), commit.to(torch.int64))
+        ro = ~has_write
+        new_state = EngineState(
+            wave=wave + 1,
+            store=store,
+            pending=state.pending,            # unused in the open loop:
+            pending_live=state.pending_live,  # the queue owns every retry
+            age=state.age,
+            lane_time=state.lane_time + lane_dt,
+            commits=state.commits + commit.sum(),
+            aborts=state.aborts + aborted.sum(),
+            commits_by_type=commits_by_type,
+            wasted_time=(state.wasted_time
+                         + torch.where(commit, 0.0, lane_dt).sum()),
+            ext_events=state.ext_events + res.ext_count,
+            ro_commits=state.ro_commits + (commit & ro).sum(),
+            ro_aborts=state.ro_aborts + (aborted & ro).sum(),
+            abort_causes=state.abort_causes + causes_wave,
+            ol=new_ol,
+        )
+        return new_state, (txn_id, incarn, got, admit_w, batch.op_key,
+                           batch.op_kind, commit)
 
     return step
 
@@ -199,13 +337,42 @@ class SimResult:
     wall_s: float = 0.0        # host seconds of the wave loop, synchronized
     device: str = "cpu"
     final_state: Optional[EngineState] = None
+    # ---- open-loop front-end (cfg.open_loop) ----
+    open_loop: bool = False
+    goodput: float = 0.0       # unique committed txns per simulated us
+    offered: int = 0           # Poisson arrivals offered (post lane cap)
+    admitted: int = 0          # arrivals accepted into the admission queue
+    arrival_drops: int = 0     # arrivals lost to a full queue
+    inc_drops: int = 0         # txns dropped past max_incarnations
+    reenq_drops: int = 0       # re-enqueue overflow (structurally 0)
+    queued_final: int = 0      # entries still queued at the end of the run
+    p50_ttc: Optional[list] = None  # per-txn-class time-to-commit (waves)
+    p99_ttc: Optional[list] = None
+    lat_hist: Optional[np.ndarray] = None  # int64[n_txn_types, lat_bins]
+    trace: Optional[tuple] = None  # per-wave lane forensics (run(trace=True))
 
 
 def summarize(cfg: EngineConfig, state: EngineState, n_waves: int,
-              wall_s: float = 0.0, keep_state: bool = False) -> SimResult:
+              wall_s: float = 0.0, keep_state: bool = False,
+              trace: Optional[list] = None) -> SimResult:
     commits, aborts = int(state.commits), int(state.aborts)
     ro_c, ro_a = int(state.ro_commits), int(state.ro_aborts)
     wall = float(state.lane_time.sum()) / cfg.lanes if cfg.lanes else 0.0
+    extra = {}
+    if cfg.open_loop:
+        ol = state.ol
+        p50, p99 = admission.ttc_percentiles(ol.lat_hist)
+        extra = dict(
+            open_loop=True, goodput=commits / max(wall, 1e-9),
+            offered=int(ol.offered), admitted=int(ol.admitted),
+            arrival_drops=int(ol.arrival_drops),
+            inc_drops=int(ol.inc_drops), reenq_drops=int(ol.reenq_drops),
+            queued_final=int(ol.queue.size), p50_ttc=p50, p99_ttc=p99,
+            lat_hist=ol.lat_hist.cpu().numpy())
+        if trace:
+            extra["trace"] = tuple(
+                np.stack([w[i].cpu().numpy() for w in trace])
+                for i in range(len(trace[0])))
     return SimResult(
         commits=commits,
         aborts=aborts,
@@ -223,15 +390,18 @@ def summarize(cfg: EngineConfig, state: EngineState, n_waves: int,
         wall_s=wall_s,
         device=str(state.lane_time.device),
         final_state=state if keep_state else None,
+        **extra,
     )
 
 
 def run_waves(cfg: EngineConfig, workload: Workload, state: EngineState,
-              step: Callable, gen: torch.Generator,
-              n_waves: int) -> tuple[EngineState, float]:
+              step: Callable, gen: torch.Generator, n_waves: int,
+              trace: Optional[list] = None) -> tuple[EngineState, float]:
     """Continue ``state`` for ``n_waves`` waves, drawing each wave's batch,
-    ring tails and lane permutation from ``gen``.  Returns the new state and
-    the loop's host seconds, synchronized with the device."""
+    ring tails and lane permutation from ``gen`` (and, in the open loop,
+    its arrival count, after them).  ``trace`` (a list) collects the open
+    step's per-wave lane forensics.  Returns the new state and the loop's
+    host seconds, synchronized with the device."""
     dev = state.lane_time.device
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -240,25 +410,174 @@ def run_waves(cfg: EngineConfig, workload: Workload, state: EngineState,
         fresh, tails = workload.gen(gen, state.wave, cfg.lanes,
                                     state.store.ring_tails)
         perm = torch.randperm(cfg.lanes, generator=gen, device=dev)
-        state = step(state, fresh, tails, perm)
+        if cfg.open_loop:
+            offered = poisson_offered(gen, cfg.arrival_rate, cfg.lanes)
+            state, lanes = step(state, fresh, tails, perm, offered)
+            if trace is not None:
+                trace.append(lanes)
+        else:
+            state = step(state, fresh, tails, perm)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return state, time.perf_counter() - t0
 
 
-def run(cfg: EngineConfig, workload: Workload, n_waves: int, seed: int = 0,
-        device=None, keep_state: bool = False) -> SimResult:
-    """Run ``n_waves`` closed-loop waves and summarize.
-
-    Draws come from the workload's generator and a ``torch.Generator`` on
-    the run's device, seeded with ``seed`` (a stream of its own: it does
-    not reproduce the JAX package's draws).  ``device`` defaults to CUDA
-    and raises without it; ``wall_s`` covers the wave loop up to a device
-    synchronize."""
-    dev = resolve_device(device)
+def _drive(cfg: EngineConfig, workload: Workload, n_waves: int, seed: int,
+           dev: torch.device, active: Optional[torch.Tensor] = None,
+           trace: Optional[list] = None) -> tuple[EngineState, float]:
+    """One run of ``n_waves`` waves from a fresh store, on ``dev``."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     state = engine_state_init(cfg, workload.init_store(dev, cfg.mv_depth))
-    state, wall_s = run_waves(cfg, workload, state, make_wave_step(cfg), gen,
-                              n_waves)
-    return summarize(cfg, state, n_waves, wall_s, keep_state)
+    mk = make_open_wave_step if cfg.open_loop else make_wave_step
+    return run_waves(cfg, workload, state, mk(cfg, active), gen, n_waves,
+                     trace)
+
+
+def run(cfg: EngineConfig, workload: Workload, n_waves: int, seed: int = 0,
+        device=None, keep_state: bool = False,
+        trace: bool = False) -> SimResult:
+    """Run ``n_waves`` waves and summarize.
+
+    Draws come from the workload's generator and a ``torch.Generator`` on
+    the run's device, seeded with ``seed`` (a stream of its own: it does
+    not reproduce the JAX package's draws).  ``cfg.open_loop`` selects the
+    open-loop step; ``trace=True`` (open loop only) returns per-wave lane
+    forensics, each int[waves, T], in ``SimResult.trace``.  ``device``
+    defaults to CUDA and raises without it; ``wall_s`` covers the wave
+    loop up to a device synchronize."""
+    dev = resolve_device(device)
+    lanes = [] if trace else None
+    state, wall_s = _drive(cfg, workload, n_waves, seed, dev, trace=lanes)
+    return summarize(cfg, state, n_waves, wall_s, keep_state, lanes)
+
+
+@dataclasses.dataclass
+class SweepPoint:
+    """One datapoint of a sweep grid: the JAX package's SweepPoint (less
+    its per-wave timeline, which waits for ROADMAP A.10) plus where and
+    how fast the point ran."""
+    cc: int
+    granularity: int
+    lanes: int
+    seed: int
+    commits: int
+    aborts: int
+    abort_rate: float
+    throughput: float          # committed txns per simulated microsecond
+    sim_time_us: float
+    ext_events: int
+    waves: int
+    ro_commits: int = 0
+    ro_aborts: int = 0
+    ro_abort_rate: float = 0.0
+    # ---- open-loop front-end (cfg.open_loop) ----
+    open_loop: bool = False
+    goodput: float = 0.0
+    offered: int = 0
+    admitted: int = 0
+    arrival_drops: int = 0
+    inc_drops: int = 0
+    queued_final: int = 0
+    p50_ttc: Optional[list] = None  # per-txn-class time-to-commit (waves)
+    p99_ttc: Optional[list] = None
+    abort_causes: Optional[list] = None  # int[N_ABORT_CAUSES] (types.CAUSE_*)
+    # ---- the port's additions ----
+    reenq_drops: int = 0       # open loop: re-enqueue overflow (always 0)
+    lanes_run: int = 0         # the bucket's lane count the point ran at
+    wall_s: float = 0.0        # host seconds of its wave loop, synchronized
+    device: str = "cpu"
+    kernel_launches: Optional[dict] = None  # {op: launches} over the point
+    kernel_calls: Optional[dict] = None     # {op: wrapper calls}
+
+
+def lane_buckets(lane_counts: Sequence[int],
+                 ratio: Optional[float] = 2.0) -> list[list[int]]:
+    """Group lane counts so padding waste stays bounded.
+
+    Every count in a bucket is padded to the bucket's max, so the
+    masked-work waste for a count T is bucket_max / T.  Greedy ascending
+    grouping keeps that factor <= ``ratio``.  ``ratio=None`` puts every
+    count in one bucket padded to the global max."""
+    uniq = sorted(set(lane_counts))
+    if ratio is None:
+        return [uniq]
+    buckets: list[list[int]] = []
+    for T in uniq:
+        if buckets and T <= ratio * buckets[-1][0]:
+            buckets[-1].append(T)
+        else:
+            buckets.append([T])
+    return buckets
+
+
+def sweep(cfg: EngineConfig, workload: Workload, n_waves: int, *,
+          ccs: Sequence[int], grans: Sequence[int] = (0, 1),
+          lane_counts: Sequence[int] = (16, 64, 128),
+          seeds: Sequence[int] = (0,),
+          lane_bucket_ratio: Optional[float] = 2.0,
+          per_wave: bool = False, device=None) -> list[SweepPoint]:
+    """Run a benchmark grid, ccs x grans x lane_counts x seeds, point by
+    point; returns the points in the JAX sweep's grid order (granularity,
+    then mechanism, then lane count, then seed).
+
+    Lane counts are grouped by ``lane_buckets``; each point runs at its
+    bucket's widest lane count ``T_pad``, on draws of ``T_pad`` lanes from
+    the port's generator seeded with ``seed``, with the lanes past its own
+    count masked (``make_wave_step``'s ``active``).  A point at its
+    bucket's maximum is ``run(replace(cfg, cc=cc, granularity=g,
+    lanes=T), workload, n_waves, seed)`` exactly.  ``sim_time_us`` divides
+    the lanes' time by the point's own lane count; ``wall_s`` is the
+    point's wave loop, at ``T_pad`` lanes.  Only the multi-version
+    mechanisms get ``cfg.mv_depth``'s ring.  ``cfg.open_loop`` runs every
+    point open-loop.  The per-wave timeline (``per_wave``) waits for
+    ROADMAP A.10."""
+    if per_wave:
+        raise NotImplementedError(
+            "sweep(per_wave=True) is not ported to repro_torch yet: the "
+            "per-wave timeline waits for ROADMAP A.10 (observability)")
+    dev = resolve_device(device)
+    pad = {T: max(b) for b in lane_buckets(lane_counts, lane_bucket_ratio)
+           for T in b}
+    points = []
+    for g in grans:
+        for cc in ccs:
+            for T in lane_counts:
+                T_pad = pad[T]
+                ccfg = dataclasses.replace(
+                    cfg, cc=cc, granularity=g, lanes=T_pad,
+                    mv_depth=cfg.mv_depth if cc in t.MV_CCS else 0)
+                active = (None if T == T_pad else
+                          torch.arange(T_pad, device=dev) < T)
+                for sd in seeds:
+                    before = (kernels.launch_counts(), kernels.call_counts())
+                    state, wall_s = _drive(ccfg, workload, n_waves, sd, dev,
+                                           active)
+                    points.append(_point(ccfg, state, T, sd, n_waves, wall_s,
+                                         before))
+    return points
+
+
+#: The SweepPoint fields a point's SimResult carries as they are.
+_POINT_FIELDS = ("commits", "aborts", "abort_rate", "throughput",
+                 "sim_time_us", "ext_events", "waves", "ro_commits",
+                 "ro_aborts", "ro_abort_rate", "open_loop", "goodput",
+                 "offered", "admitted", "arrival_drops", "inc_drops",
+                 "queued_final", "p50_ttc", "p99_ttc", "abort_causes",
+                 "reenq_drops", "wall_s", "device")
+
+
+def _point(cfg: EngineConfig, state: EngineState, lanes: int, seed: int,
+           n_waves: int, wall_s: float, before: tuple) -> SweepPoint:
+    """A finished point, summarized over its own ``lanes`` (the lanes past
+    them were padding) with the kernel counters' deltas since
+    ``before``."""
+    res = summarize(dataclasses.replace(cfg, lanes=lanes), state, n_waves,
+                    wall_s)
+    launches, calls = ({op: n - b[op] for op, n in now.items()}
+                       for now, b in zip((kernels.launch_counts(),
+                                          kernels.call_counts()), before))
+    return SweepPoint(
+        cc=cfg.cc, granularity=cfg.granularity, lanes=lanes, seed=seed,
+        lanes_run=cfg.lanes, kernel_launches=launches, kernel_calls=calls,
+        **{f: getattr(res, f) for f in _POINT_FIELDS})

@@ -24,11 +24,14 @@ bit patterns in int32 tensors, 4 bytes per cell as in the JAX package
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import torch
 
 from repro_torch.core import mvstore
+
+if TYPE_CHECKING:
+    from repro_torch.core.admission import OpenLoopState
 
 # Operation kinds.
 NOP: int = 0
@@ -232,6 +235,8 @@ class EngineState:
     ro_commits: torch.Tensor    # int64 scalar
     ro_aborts: torch.Tensor     # int64 scalar
     abort_causes: torch.Tensor  # int64[N_ABORT_CAUSES]; sums to aborts
+    # The open-loop front-end (core/admission.py); None in a closed loop.
+    ol: Optional["OpenLoopState"] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -348,8 +353,6 @@ class EngineConfig:
                 "have already drifted past")
         # Settings the port does not run yet.
         waits = [
-            (self.open_loop, f"arrival_rate={self.arrival_rate}",
-             "ROADMAP A.9 (open loop)"),
             (self.track_values, "track_values=True",
              "ROADMAP A.4 (apply_values)"),
             (self.track_conflicts, "track_conflicts=True",
@@ -420,6 +423,9 @@ def store_init(n_records: int, n_groups: int, n_rings: int = 1,
 
 
 def engine_state_init(cfg: EngineConfig, store: StoreState) -> EngineState:
+    """A run's first state; open-loop configs get an empty admission
+    queue of ``queue_cap`` entries."""
+    from repro_torch.core.admission import open_loop_init
     T = cfg.lanes
     dev = store.wts.device
 
@@ -440,4 +446,6 @@ def engine_state_init(cfg: EngineConfig, store: StoreState) -> EngineState:
         ro_commits=zero(),
         ro_aborts=zero(),
         abort_causes=zero(N_ABORT_CAUSES),
+        ol=(open_loop_init(cfg.queue_cap, cfg.slots, cfg.n_txn_types,
+                           cfg.lat_bins, dev) if cfg.open_loop else None),
     )

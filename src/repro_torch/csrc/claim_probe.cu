@@ -1,10 +1,13 @@
 // claim_probe: claim install + post-install strongest-claimant probe on one
-// claim table, for Hopper (sm_90a).
+// claim table, and the probe alone, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel claim_probe_fused_pallas in
+// repro_claim_probe replaces the TPU kernel claim_probe_fused_pallas in
 // src/repro/kernels/claim_probe.py; holds against the JAX oracle
 // ref.claim_probe_fused and the plain PyTorch version claim_probe_plain
-// (src/repro_torch/kernels/claim_probe.py).  It min-installs the claim word
+// (src/repro_torch/kernels/claim_probe.py).  repro_probe replaces the TPU
+// kernel claim_probe_pallas in src/repro/kernels/occ_validate.py (the
+// backend op probe); it holds against ref.claim_probe and probe_plain
+// (src/repro_torch/kernels/wave_commit.py) and launches probe_kernel only.  It min-installs the claim word
 // (inv_wave << 16) | prio16 of every masked op, then returns for EVERY op
 // the strongest live claimant prio16 of the post-install table: the op's own
 // cell (fine) or the min over its row (coarse), kNoPrio where the key or
@@ -14,7 +17,9 @@
 // key, a group, a priority and a mask byte (13 B) and writes a 4-byte
 // answer; each distinct probed cell (a row when coarse) is read once and
 // each distinct installed cell written once: at T=128, K=64 under 250 KB,
-// under 0.08 us at 3.35 TB/s.  Launch latency sets the time.
+// under 0.08 us at 3.35 TB/s.  Launch latency sets the time.  The probe
+// alone reads 12 B an op (key, group, answer) plus each distinct probed
+// cell or row: under 200 KB at T=128, K=64, one launch.
 //
 // Design.  The Pallas kernel answers from one row DMA plus an all-pairs
 // in-VMEM wave term, which relies on the TPU's sequential grid and on the
@@ -71,5 +76,17 @@ extern "C" int repro_claim_probe(void* table, const void* keys,
         static_cast<const int*>(groups), static_cast<int*>(out), n, N, G,
         (unsigned)ivw, fine);
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_probe(const void* table, const void* keys,
+                           const void* groups, void* out, int n, int N,
+                           int G, int ivw, int fine, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > 0)
+    probe_kernel<<<(n + 255) / 256, 256, 0, s>>>(
+        static_cast<const unsigned*>(table), static_cast<const int*>(keys),
+        static_cast<const int*>(groups), static_cast<int*>(out), n, N, G,
+        (unsigned)ivw, fine);
   return (int)cudaGetLastError();
 }

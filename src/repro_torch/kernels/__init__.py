@@ -7,7 +7,7 @@ CUDA tensors; it never falls back.  ``calls`` grows by one per wrapper
 call; ``launches`` grows by one per call that launched the kernel, and
 nowhere else.
 """
-from repro_torch.kernels.claim_probe import claim_probe
+from repro_torch.kernels.claim_probe import claim_probe, probe
 from repro_torch.kernels.claim_scatter import claim_scatter
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.iterate_validate import iterate_validate
@@ -35,6 +35,7 @@ WRAPPERS = {
     "claim_scatter": claim_scatter,
     "validate_dual": validate_dual,
     "claim_probe": claim_probe,
+    "probe": probe,
     "validate": validate,
     "iterate_validate": iterate_validate,
     "mv_gather": mv_gather,

@@ -1,6 +1,7 @@
-"""Claim install + post-install strongest-claimant probe on one table.
+"""Claim install + post-install strongest-claimant probe on one table, and
+the probe alone.
 
-Replaces the TPU kernel ``claim_probe_fused_pallas``
+``claim_probe`` replaces the TPU kernel ``claim_probe_fused_pallas``
 (src/repro/kernels/claim_probe.py); the semantics are the JAX oracle
 ``ref.claim_probe_fused``:
 
@@ -17,6 +18,12 @@ wrapper returns ``wprio`` int32[T, K] (values up to 0xFFFF).
 
 CUDA tensors launch ``csrc/claim_probe.cu`` (an atomicMin install launch,
 then a probe launch); CPU tensors take ``claim_probe_plain``.
+
+``probe`` (the backend op ``probe``) replaces the TPU kernel
+``claim_probe_pallas`` (src/repro/kernels/occ_validate.py); its semantics
+are step 2 alone, the JAX oracle ``ref.claim_probe``, on a table it does
+not change.  CUDA tensors launch the same source's probe launch alone
+(``repro_probe``, one thread per op); CPU tensors take ``probe_plain``.
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ from repro_torch.kernels.wave_commit import probe_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"repro_claim_probe": [_P] * 6 + [_I] * 5 + [_P]}
+_SIG = {"repro_claim_probe": [_P] * 6 + [_I] * 5 + [_P],
+        "repro_probe": [_P] * 4 + [_I] * 5 + [_P]}
 
 
 def claim_probe_plain(table: torch.Tensor, keys: torch.Tensor,
@@ -71,3 +79,33 @@ def claim_probe(table: torch.Tensor, keys: torch.Tensor,
 
 claim_probe.launches = 0
 claim_probe.calls = 0
+
+
+def probe(table: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
+          wave: int, fine: bool) -> torch.Tensor:
+    """Strongest live claimant prio16 per op of ``table`` at ``wave``:
+    int32[T, K], NO_PRIO where unclaimed or where the key is masked."""
+    probe.calls += 1
+    if keys.device.type == "cpu":
+        return probe_plain(table, keys, groups, inv_wave(wave),
+                           fine).to(torch.int32)
+    dev = build.launch_device(keys)
+    N, G = table.shape
+    shape = tuple(keys.shape)
+    build.check("table", table, torch.int32, (N, G), dev)
+    build.check("keys", keys, torch.int32, shape, dev)
+    build.check("groups", groups, torch.int32, shape, dev)
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    lib = build.load("claim_probe", _SIG)
+    with torch.cuda.device(dev):
+        rc = lib.repro_probe(
+            build.ptr(table), build.ptr(keys), build.ptr(groups),
+            build.ptr(out), keys.numel(), N, G, inv_wave(wave), int(fine),
+            build.stream(dev))
+    build.raise_on_error("probe", rc)
+    probe.launches += 1
+    return out
+
+
+probe.launches = 0
+probe.calls = 0

@@ -4,23 +4,33 @@
         --cc occ tictoc 2pl swisstm adaptive mvcc mvocc --granularity both \
         --lanes 16 64 128 --waves 300
 
-The grid is a loop of ``core/engine.run`` calls, one per (cc,
-granularity, lanes) point, on ``--device`` (CUDA by default; ``cpu`` runs
-the plain versions of the kernels).  ``--scan-len`` switches on TPC-C's
+The grid runs through ``core/engine.sweep``, point by point, on
+``--device`` (CUDA by default; ``cpu`` runs the plain versions of the
+kernels): lane counts are grouped into buckets, and a point below its
+bucket's widest lane count runs at that width with its padding lanes
+masked, as in the JAX package.  ``--scan-len`` switches on TPC-C's
 scan classes (Order-status's order-line interval and a Stock-level scan);
 ``--scan-frac``/``--scan-len`` add YCSB's scan class.  The multi-version
 mechanisms get a version ring of ``--mv-depth`` slots (only they allocate
 one); ``--snapshot-age`` ages their snapshots and needs an all-MV grid.
+``--arrival-rate`` switches every point to the open-loop front-end
+(Poisson arrivals into an admission queue of ``--queue-cap`` entries,
+default 4x the widest lane count; aborts retry up to
+``--max-incarnations`` times, default 8).
 Rows carry the JAX CLI's keys (``repro/launch/txn_bench.py``) plus
 ``abort_causes``; ``backend`` names the device, ``device_name`` the card,
 ``kernel_ops`` which ported ops ran as CUDA kernels, as plain versions or
-not at all (from the wrappers' counters), and ``wall_s`` /
-``waves_per_s`` the wave loop's synchronized host time.  The JAX rows'
-cost-model columns wait for ROADMAP A.10.
+not at all (from the wrappers' counters around the point), and ``wall_s``
+/ ``waves_per_s`` the point's wave loop's synchronized host time at
+``lanes_run`` lanes (its bucket's width).  Open-loop rows add goodput,
+the admission counters (``reenq_drops`` too) and the per-class
+time-to-commit percentiles.  The JAX rows' cost-model columns wait for
+ROADMAP A.10.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import torch
@@ -48,47 +58,67 @@ CCS = ("occ", "tictoc", "2pl", "swisstm", "adaptive", "autogran", "mvcc",
 
 def make_config(wl, cc_name: str, gran: int, lanes: int,
                 fuse_wave: bool = True, *, mv_depth: int = 4,
-                snapshot_age: int = 0):
+                snapshot_age: int = 0, arrival_rate: float = 0.0,
+                queue_cap: int | None = None,
+                max_incarnations: int | None = None):
     """The run's EngineConfig.  Only the multi-version mechanisms get a
-    version ring (``mv_depth`` slots)."""
+    version ring (``mv_depth`` slots); ``arrival_rate > 0`` makes it an
+    open-loop run, whose queue holds 4x ``lanes`` entries and whose
+    transactions get 8 incarnations unless ``queue_cap`` /
+    ``max_incarnations`` say otherwise (0 incarnations drops every
+    abort)."""
     from repro_torch.core import types as t
     cc = t.CC_IDS[cc_name]
+    if queue_cap is None:
+        queue_cap = 4 * lanes if arrival_rate > 0 else 0
+    if max_incarnations is None:
+        max_incarnations = 8 if arrival_rate > 0 else 0
     return t.EngineConfig(
         cc=cc, lanes=lanes, slots=wl.slots,
         n_records=wl.n_records, n_groups=wl.n_groups, n_cols=wl.n_cols,
         n_txn_types=wl.n_txn_types, granularity=gran, n_rings=wl.n_rings,
         max_extent=wl.max_extent, fuse_wave=fuse_wave,
         mv_depth=mv_depth if cc in t.MV_CCS else 0,
-        snapshot_age=snapshot_age)
+        snapshot_age=snapshot_age, arrival_rate=arrival_rate,
+        queue_cap=queue_cap, max_incarnations=max_incarnations)
 
 
-def row(workload: str, cc_name: str, gran: int, res, launches: dict,
-        calls: dict, max_extent: int = 1) -> dict:
-    """One JSON row for a finished run; ``launches`` and ``calls`` are the
-    run's deltas of ``kernels.launch_counts()`` and
-    ``kernels.call_counts()``."""
+def row(workload: str, p, max_extent: int = 1) -> dict:
+    """One JSON row for a finished sweep point ``p``."""
     from repro_torch.core import types as t
     from repro_torch.core.backend import kernel_coverage
-    dev = torch.device(res.device)
-    return {
-        "workload": workload, "cc": cc_name, "granularity": gran,
-        "lanes": res.lanes, "waves": res.waves,
-        "commits": res.commits, "aborts": res.aborts,
-        "abort_rate": round(res.abort_rate, 4),
-        "ro_commits": res.ro_commits, "ro_aborts": res.ro_aborts,
-        "ro_abort_rate": round(res.ro_abort_rate, 4),
-        "throughput": round(res.throughput, 4),
-        "ext_events": res.ext_events,
-        "wall_s": res.wall_s,
-        "waves_per_s": res.waves / res.wall_s if res.wall_s else None,
+    dev = torch.device(p.device)
+    cc_name = t.CC_NAMES[p.cc]
+    r = {
+        "workload": workload, "cc": cc_name, "granularity": p.granularity,
+        "lanes": p.lanes, "waves": p.waves,
+        "commits": p.commits, "aborts": p.aborts,
+        "abort_rate": round(p.abort_rate, 4),
+        "ro_commits": p.ro_commits, "ro_aborts": p.ro_aborts,
+        "ro_abort_rate": round(p.ro_abort_rate, 4),
+        "throughput": round(p.throughput, 4),
+        "ext_events": p.ext_events,
+        "wall_s": p.wall_s,
+        "waves_per_s": p.waves / p.wall_s if p.wall_s else None,
+        "lanes_run": p.lanes_run,
         "backend": str(dev),
         "device_name": (torch.cuda.get_device_name(dev)
                         if dev.type == "cuda" else "cpu"),
-        "kernel_ops": kernel_coverage(t.CC_IDS[cc_name], launches, calls),
+        "kernel_ops": kernel_coverage(p.cc, p.kernel_launches,
+                                      p.kernel_calls),
         "max_extent": max_extent,
         "abort_causes": {t.CAUSE_NAMES[i]: n
-                         for i, n in enumerate(res.abort_causes)},
+                         for i, n in enumerate(p.abort_causes)},
     }
+    if p.open_loop:
+        r.update({
+            "open_loop": True, "goodput": round(p.goodput, 4),
+            "offered": p.offered, "admitted": p.admitted,
+            "arrival_drops": p.arrival_drops, "inc_drops": p.inc_drops,
+            "reenq_drops": p.reenq_drops, "queued_final": p.queued_final,
+            "p50_ttc_waves": p.p50_ttc, "p99_ttc_waves": p.p99_ttc,
+        })
+    return r
 
 
 def run_grid(workload: str, ccs: list, grans, lanes: list, waves: int, *,
@@ -96,13 +126,17 @@ def run_grid(workload: str, ccs: list, grans, lanes: list, waves: int, *,
              write_frac: float = 0.5, theta: float = 0.9,
              ro_frac: float = 0.0, scan_frac: float = 0.0,
              scan_len: int = 0, mv_depth: int = 4, snapshot_age: int = 0,
-             device=None, fuse_wave: bool = True) -> list:
-    """Run every (cc, granularity, lanes) point; returns row dicts.
-    ``fuse_wave=False`` takes the probe family's unfused route;
-    ``snapshot_age > 0`` needs an all-MV ``ccs``."""
-    from repro_torch import kernels
+             arrival_rate: float = 0.0, queue_cap: int | None = None,
+             max_incarnations: int | None = None, device=None,
+             fuse_wave: bool = True) -> list:
+    """Run the (cc, granularity, lanes) grid through ``engine.sweep``;
+    returns row dicts in the JAX grid order.  ``fuse_wave=False`` takes
+    the probe family's unfused route; ``snapshot_age > 0`` needs an
+    all-MV ``ccs``; ``arrival_rate > 0`` runs every point open-loop, with
+    ``make_config``'s queue and incarnation defaults at the widest lane
+    count."""
     from repro_torch.core import types as t
-    from repro_torch.core.engine import run
+    from repro_torch.core.engine import sweep
     if snapshot_age and not all(t.CC_IDS[c] in t.MV_CCS for c in ccs):
         raise ValueError("snapshot_age > 0 needs an all-MV cc grid "
                          "(mvcc/mvocc): single-version mechanisms have no "
@@ -110,21 +144,19 @@ def run_grid(workload: str, ccs: list, grans, lanes: list, waves: int, *,
     wl = make_workload(workload, scale=scale, n_keys=n_keys,
                        write_frac=write_frac, theta=theta, ro_frac=ro_frac,
                        scan_frac=scan_frac, scan_len=scan_len)
-    rows = []
-    for g in grans:
-        for cc in ccs:
-            for T in lanes:
-                cfg = make_config(wl, cc, g, T, fuse_wave,
-                                  mv_depth=mv_depth,
-                                  snapshot_age=snapshot_age)
-                before = (kernels.launch_counts(), kernels.call_counts())
-                res = run(cfg, wl, waves, seed=seed, device=device)
-                after = (kernels.launch_counts(), kernels.call_counts())
-                launches, calls = ({op: a[op] - b[op] for op in a}
-                                   for a, b in zip(after, before))
-                rows.append(row(workload, cc, g, res, launches, calls,
-                                cfg.max_extent))
-    return rows
+    need_mv = any(t.CC_IDS[c] in t.MV_CCS for c in ccs)
+    # The base config anchors on the first mechanism, so an aged-snapshot
+    # grid (all-MV) validates; sweep sets each point's cc and ring.
+    base = dataclasses.replace(
+        make_config(wl, ccs[0], 0, max(lanes), fuse_wave,
+                    mv_depth=mv_depth, snapshot_age=snapshot_age,
+                    arrival_rate=arrival_rate, queue_cap=queue_cap,
+                    max_incarnations=max_incarnations),
+        mv_depth=mv_depth if need_mv else 0)
+    points = sweep(base, wl, waves, ccs=[t.CC_IDS[c] for c in ccs],
+                   grans=tuple(grans), lane_counts=tuple(lanes),
+                   seeds=(seed,), device=device)
+    return [row(workload, p, base.max_extent) for p in points]
 
 
 def main(argv=None):
@@ -160,6 +192,18 @@ def main(argv=None):
     ap.add_argument("--snapshot-age", type=int, default=0,
                     help="pin MV reader snapshots this many waves in the "
                          "past (needs an all-mvcc/mvocc --cc list)")
+    ap.add_argument("--arrival-rate", type=float, default=None,
+                    help="open-loop traffic: expected Poisson arrivals per "
+                         "wave (capped at the lane width); switches every "
+                         "grid point from the closed-loop retry buffer to "
+                         "the admission queue")
+    ap.add_argument("--queue-cap", type=int, default=None,
+                    help="admission-queue ring capacity (open loop only; "
+                         "default 4x the widest --lanes)")
+    ap.add_argument("--max-incarnations", type=int, default=None,
+                    help="re-executions allowed per transaction before it "
+                         "is dropped and counted (open loop only; "
+                         "default 8)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cpu runs the plain PyTorch versions of the "
@@ -187,6 +231,14 @@ def main(argv=None):
                                      for c in args.cc):
         ap.error("--snapshot-age only ages multi-version snapshots: use it "
                  "with an all-mvcc/mvocc --cc list")
+    if args.arrival_rate is None:
+        if args.queue_cap is not None or args.max_incarnations is not None:
+            ap.error("--queue-cap/--max-incarnations shape the open-loop "
+                     "admission queue only: set --arrival-rate > 0 (the "
+                     "open-loop switch) to use them")
+    elif args.arrival_rate <= 0:
+        ap.error(f"--arrival-rate must be > 0 (got {args.arrival_rate}); "
+                 "omit the flag for the closed-loop retry buffer")
     grans = {"coarse": (0,), "fine": (1,), "both": (0, 1)}[args.granularity]
     rows = run_grid(
         args.workload, args.cc, grans, args.lanes, args.waves,
@@ -195,13 +247,21 @@ def main(argv=None):
         theta=0.9 if args.theta is None else args.theta,
         ro_frac=args.ro_frac or 0.0, scan_frac=args.scan_frac or 0.0,
         scan_len=args.scan_len or 0, mv_depth=args.mv_depth,
-        snapshot_age=args.snapshot_age, device=args.device)
+        snapshot_age=args.snapshot_age,
+        arrival_rate=args.arrival_rate or 0.0,
+        queue_cap=args.queue_cap, max_incarnations=args.max_incarnations,
+        device=args.device)
     for r in rows:
-        print(f"{r['workload']} {r['cc']:9s} "
-              f"{'fine' if r['granularity'] else 'coarse'} "
-              f"T={r['lanes']:4d}: thpt={r['throughput']:8.3f} txn/us  "
-              f"abort={100 * r['abort_rate']:6.2f}%  "
-              f"{r['waves_per_s']:8.1f} waves/s on {r['device_name']}")
+        line = (f"{r['workload']} {r['cc']:9s} "
+                f"{'fine' if r['granularity'] else 'coarse'} "
+                f"T={r['lanes']:4d}: thpt={r['throughput']:8.3f} txn/us  "
+                f"abort={100 * r['abort_rate']:6.2f}%")
+        if r.get("open_loop"):
+            line += (f"  goodput={r['goodput']:8.3f} txn/us  "
+                     f"p50/p99 ttc={max(r['p50_ttc_waves']):g}/"
+                     f"{max(r['p99_ttc_waves']):g} waves")
+        print(line + f"  {r['waves_per_s']:8.1f} waves/s at "
+              f"T={r['lanes_run']} on {r['device_name']}")
     if args.json:
         with open(args.json, "w") as f:
             json.dump(rows, f, indent=1)

@@ -4,6 +4,8 @@
         --workload tpcc --cc occ tictoc 2pl --lanes 128 --waves 50
     PYTHONPATH=src python -m repro_torch.launch.wave_profile \
         --workload ycsb --cc occ mvcc --scan-frac 0.95 --scan-len 100
+    PYTHONPATH=src python -m repro_torch.launch.wave_profile \
+        --workload ycsb --cc occ mvcc --arrival-rate 96
 
 For each (cc, granularity) of the ``--cc`` mechanisms (OCC and TicToc by
 default): the host wall time per wave
@@ -12,8 +14,10 @@ the profiler), then one ``torch.profiler`` pass over the same number of waves
 giving the device kernels per wave, the device-busy time per wave (the
 union of kernel and copy intervals), the idle share of the profiled wall
 time, and the kernels that take the most device time.  The workload
-flags are txn_bench's (scans, read-only share, write share); the
-multi-version mechanisms get txn_bench's default ring of 4 slots.
+flags are txn_bench's (scans, read-only share, write share), and so is
+``--arrival-rate`` (the open loop, with ``txn_bench.make_config``'s
+queue and incarnations); the multi-version mechanisms get txn_bench's
+default ring of 4 slots.
 Prints one JSON line per configuration and needs a CUDA device.
 """
 from __future__ import annotations
@@ -64,23 +68,26 @@ def profile_device(fn, n: int, top: int = 8) -> dict:
 
 
 def profile(workload: str, cc: str, gran: int, lanes: int, waves: int,
-            warmup: int = 10, top: int = 8, **wl_kw) -> dict:
-    from repro_torch.core.engine import make_wave_step, run_waves
+            warmup: int = 10, top: int = 8, arrival_rate: float = 0.0,
+            **wl_kw) -> dict:
+    """``arrival_rate > 0`` makes the run open-loop."""
+    from repro_torch.core.engine import (make_open_wave_step, make_wave_step,
+                                         run_waves)
     from repro_torch.core.types import engine_state_init, resolve_device
     from repro_torch.launch.txn_bench import make_config, make_workload
     dev = resolve_device("cuda")
     wl = make_workload(workload, **wl_kw)
-    cfg = make_config(wl, cc, gran, lanes)
+    cfg = make_config(wl, cc, gran, lanes, arrival_rate=arrival_rate)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     state = engine_state_init(cfg, wl.init_store(dev, cfg.mv_depth))
-    step = make_wave_step(cfg)
+    step = (make_open_wave_step if cfg.open_loop else make_wave_step)(cfg)
     state, _ = run_waves(cfg, wl, state, step, gen, warmup)
     state, wall = run_waves(cfg, wl, state, step, gen, waves)
     return {
         "workload": workload, "cc": cc, "granularity": gran,
         "lanes": lanes, "waves": waves, "max_extent": cfg.max_extent,
-        "workload_kw": wl_kw,
+        "workload_kw": wl_kw, "arrival_rate": arrival_rate,
         "device_name": torch.cuda.get_device_name(dev),
         "wall_ms_per_wave": wall / waves * 1e3,
         **profile_device(lambda: run_waves(cfg, wl, state, step, gen, waves),
@@ -102,6 +109,8 @@ def main(argv=None):
     ap.add_argument("--scan-len", type=int, default=0,
                     help="TPC-C: switches its scans on at this stock "
                          "window; YCSB: the scan class's width")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="open loop: expected Poisson arrivals per wave")
     args = ap.parse_args(argv)
     kw = {"scan_len": args.scan_len}
     if args.workload == "ycsb":
@@ -110,7 +119,9 @@ def main(argv=None):
     for gran in (0, 1):
         for cc in args.cc:
             print(json.dumps(profile(args.workload, cc, gran, args.lanes,
-                                     args.waves, **kw)), flush=True)
+                                     args.waves,
+                                     arrival_rate=args.arrival_rate, **kw)),
+                  flush=True)
 
 
 if __name__ == "__main__":

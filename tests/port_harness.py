@@ -4,7 +4,10 @@ The JAX engine draws every wave's batch and lane permutation inside its
 scan (``repro/core/engine.py`` make_wave_step); torch cannot reproduce
 ``jax.random``.  ``jax_draws`` replays those draws outside the engine,
 exactly as the scan makes them, and ``port_replay`` feeds them into the
-port's wave step on a store carried across from the JAX store.
+port's wave step on a store carried across from the JAX store.  The open
+loop's scan splits its key four ways and adds a Poisson arrival count:
+``jax_open_draws`` replays that, and ``port_open_replay`` feeds it into
+the port's open-loop step.
 """
 from __future__ import annotations
 
@@ -63,12 +66,51 @@ def store_arrays(store) -> dict:
             for k in EXACT_TABLES + HEAT_TABLES}
 
 
-def port_replay(cfg, store0: dict, draws: list, device="cpu"):
-    """Run the port's wave step over ``draws`` from the store ``store0``
-    ({field: numpy array}); returns the final EngineState."""
+def jax_open_draws(wl, lanes: int, n_waves: int, rate: float,
+                   seed: int = 0) -> list:
+    """[(fresh batch fields, ring tails, perm, offered)] per wave, as
+    numpy: the four-way split -> gen -> permutation -> Poisson chain of
+    the JAX open-loop wave step, replayed."""
+    from repro.workloads.arrivals import poisson_offered
+    gen = jax.jit(wl.gen, static_argnums=(2,))
+    rng = jax.random.PRNGKey(seed)
+    tails = jnp.zeros((wl.n_rings,), jnp.int32)
+    out = []
+    for w in range(n_waves):
+        rng, rng_gen, rng_perm, rng_arr = jax.random.split(rng, 4)
+        fresh, tails = gen(rng_gen, jnp.uint32(w), lanes, tails)
+        perm = jax.random.permutation(rng_perm, lanes).astype(jnp.uint32)
+        offered = poisson_offered(rng_arr, rate, lanes)
+        fields = {f.name: np.asarray(getattr(fresh, f.name))
+                  for f in dataclasses.fields(fresh)}
+        out.append((fields, np.asarray(tails), np.asarray(perm),
+                    int(offered)))
+    return out
+
+
+def port_open_replay(cfg, store0: dict, draws: list, device="cpu",
+                     active=None):
+    """Run the port's open-loop step over ``jax_open_draws`` from the store
+    ``store0``; returns the final EngineState.  ``active`` masks padding
+    lanes as the sweep runner does."""
     from repro_torch.core.types import engine_state_init
     state = engine_state_init(cfg, convert.store_from_numpy(store0, device))
-    step = pe.make_wave_step(cfg)
+    step = pe.make_open_wave_step(cfg, active)
+    for fresh, tails, perm, offered in draws:
+        state, _ = step(state, convert.batch_from_numpy(fresh, device),
+                        torch.from_numpy(tails.astype(np.int32)).to(device),
+                        torch.from_numpy(perm.astype(np.int64)).to(device),
+                        offered)
+    return state
+
+
+def port_replay(cfg, store0: dict, draws: list, device="cpu", active=None):
+    """Run the port's wave step over ``draws`` from the store ``store0``
+    ({field: numpy array}); returns the final EngineState.  ``active``
+    (bool[T] or None) masks padding lanes as the sweep runner does."""
+    from repro_torch.core.types import engine_state_init
+    state = engine_state_init(cfg, convert.store_from_numpy(store0, device))
+    step = pe.make_wave_step(cfg, active)
     for fresh, tails, perm in draws:
         state = step(state, convert.batch_from_numpy(fresh, device),
                      torch.from_numpy(tails.astype(np.int32)).to(device),

@@ -57,6 +57,15 @@ def test_wave_step_with_scans_and_rings_identical_on_card_and_cpu():
 
 
 @pytest.mark.cuda
+def test_padded_and_open_loop_steps_identical_on_card_and_cpu():
+    """A sweep point below its bucket maximum (96 of 128 lanes) and an
+    open-loop configuration (queue, counters, histogram)."""
+    dev = _cuda()
+    chip_smoke.cross_device_padded(dev, waves=5, scale=0.01)
+    chip_smoke.cross_device_open(dev, waves=5, n_keys=2000)
+
+
+@pytest.mark.cuda
 def test_fused_and_unfused_routes_identical_with_scans_on_card():
     """Under scans the fused route bumps through commit_install after the
     phantom pass."""

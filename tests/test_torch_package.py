@@ -158,6 +158,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
         K.commit_install(table, keys, keys, mask)
     with pytest.raises(ValueError, match="no kernel for device"):
         K.claim_probe(table, keys, keys, keys, 3, mask, True)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        K.probe(table, keys, keys, 3, True)
 
 
 def test_launch_checks_refuse_what_the_kernels_do_not_take():
@@ -198,13 +200,15 @@ def test_every_kernel_has_a_cuda_source_and_a_counter():
     assert set(K.WRAPPERS) == {"wave_commit", "segment_count", "ts_gather",
                                "ts_install_max", "commit_install",
                                "claim_scatter", "validate_dual",
-                               "claim_probe", "validate", "iterate_validate",
+                               "claim_probe", "probe", "validate",
+                               "iterate_validate",
                                "mv_gather", "mv_install", "route_pack",
                                "verdict_pack", "verdict_unpack",
                                "flash_attention", "rglru", "rwkv6"}
     # validate and validate_dual share csrc/occ_validate.cu, verdict_pack
-    # and verdict_unpack csrc/verdict_pack.cu.
-    assert len(build.SOURCES) == 16 and len(K.WRAPPERS) == 18
+    # and verdict_unpack csrc/verdict_pack.cu, claim_probe and probe
+    # csrc/claim_probe.cu.
+    assert len(build.SOURCES) == 16 and len(K.WRAPPERS) == 19
     for w in K.WRAPPERS.values():
         assert isinstance(w.launches, int) and isinstance(w.calls, int)
 
@@ -215,9 +219,8 @@ def test_surface_matches_the_jax_package():
     assert pb.CC_OPS == jbackend.CC_OPS
     for op in pb.SURFACE_OPS:
         assert hasattr(pb.BACKEND, op), op
-    for op in set(pb.SURFACE_OPS) - set(K.WRAPPERS):
-        with pytest.raises(NotImplementedError, match="ROADMAP B"):
-            getattr(pb.BACKEND, op)()
+    # Every op of the surface is ported: none waits on queue B.
+    assert set(pb.SURFACE_OPS) <= set(K.WRAPPERS)
 
 
 def _cfg(**kw):
@@ -228,9 +231,8 @@ def _cfg(**kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(arrival_rate=2.0, queue_cap=8), dict(track_values=True),
-    dict(track_conflicts=True),
-], ids=["open-loop", "values", "conflicts"])
+    dict(track_values=True), dict(track_conflicts=True),
+], ids=["values", "conflicts"])
 def test_settings_outside_the_slice_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         _cfg(**kw)
@@ -240,10 +242,12 @@ def test_settings_outside_the_slice_raise(kw):
     dict(max_extent=4), dict(mv_depth=2), dict(cc=pt.CC_MVCC, mv_depth=4),
     dict(cc=pt.CC_MVOCC, mv_depth=1, max_extent=8),
     dict(cc=pt.CC_MVCC, mv_depth=4, snapshot_age=8),
-], ids=["scans", "mv", "mvcc", "mvocc-scans", "mvcc-aged"])
+    dict(arrival_rate=2.0, queue_cap=8),
+], ids=["scans", "mv", "mvcc", "mvocc-scans", "mvcc-aged", "open-loop"])
 def test_settings_of_the_slices_build(kw):
-    """Scans, the version ring and the multi-version mechanisms build a
-    config whose mechanism resolves and runs one wave on the CPU."""
+    """Scans, the version ring, the multi-version mechanisms and the open
+    loop build a config whose mechanism resolves and runs one wave on the
+    CPU."""
     cfg = _cfg(**kw)
     validator = VALIDATORS[cfg.cc]
     store = pt.store_init(cfg.n_records, cfg.n_groups, device="cpu",
