@@ -27,7 +27,11 @@ src/repro_torch/csrc, then:
      ops; these timed at the one-card shapes.  The backend op probe at
      both shapes, fine and coarse, on keys that are masked, past the
      table's end or hot, over unclaimed, stale and live words, at both
-     waves;
+     waves.  segment_count's edges on both of its kernels (the
+     shared-memory hash up to 8,192 ops, the all-pairs count above): one
+     op, every op masked out or in, every op on one cell, a Zipf-hot
+     YCSB wave, cells near 10M x 2, G = 1 with zero groups, n = 8,192,
+     8,193 and 20,000; the Zipf wave and n = 20,000 timed too;
   2. the main path on TPC-C (full scale, T = 128, 200 waves) through the
      benchmark CLI's grid runner: OCC, TicToc, 2PL, SwissTM and Adaptive
      x coarse and fine, plus AutoGran coarse, with the launch counters set
@@ -104,8 +108,11 @@ src/repro_torch/csrc, then:
      S 3,072, D 4,096; Hq 16 over Hkv 1, D 256, window 2,048; rwkv6-3b:
      B 4, H 48, S 3,072, Dk = Dv = 64), at S = 1 and at edge cases
      (ragged lengths, sk_valid < Sk, sq_valid < Sq, GQA ratios 1 to 16,
-     every head width, float32 and bfloat16): float32 within rtol 1e-5 /
-     atol 1e-5, bfloat16 within 2 ulps; each timed at the prefill shape
+     every head width, float32 and bfloat16; the bfloat16 tensor-core
+     kernel at Sq = 65 and Sq = 1 with D 256, a window of 16 inside one
+     key tile, GQA 16 with sk_valid < Sk, D 16 and D 32 with rows that see
+     no key): float32 within rtol 1e-5 / atol 1e-5, bfloat16 within 2
+     ulps; each timed at the prefill shape
      beside its plain version, its bound and, for flash_attention,
      F.scaled_dot_product_attention with the same mask.  Then
      recurrentgemma-9b and rwkv6-3b at full width (random bf16 weights
@@ -359,6 +366,85 @@ def _distinct_rows(keys, mask, N):
     return int(torch.unique(keys[mask & (keys >= 0) & (keys < N)]).numel())
 
 
+def zipf_keys(rng, n_keys, theta, shape):
+    """YCSB's Zipfian key draw (rank r with weight r**-theta, rank 1 the
+    hottest key 0), by the inverse of the continuous power law's CDF."""
+    a = 1.0 - theta
+    u = rng.random(shape)
+    r = (u * ((n_keys + 1.0) ** a - 1.0) + 1.0) ** (1.0 / a)
+    return np.minimum(r.astype(np.int64) - 1, n_keys - 1)
+
+
+def segment_count_cases(seed=31):
+    """segment_count's edge cases, made with numpy from ``seed``: [(label,
+    keys int32, groups int32, G, mask bool)].  One op; every op masked out
+    and every op masked in; every op on one cell; a Zipf-hot YCSB wave
+    (10M keys, theta 0.9, 128 x 16); cells near 10M x 2; G = 1 with zero
+    groups, as the engine calls it; n = 8,192 (the hash kernel's largest
+    wave, keys -1 among the masked ops) and n = 8,193 and 20,000 (the
+    all-pairs kernel)."""
+    rng = np.random.default_rng(seed)
+
+    def wave(shape, n_keys, G, p_mask=0.5, dup=0.3):
+        keys = rng.integers(0, n_keys, shape)
+        hot = rng.integers(0, n_keys, 8)
+        keys = np.where(rng.random(shape) < dup,
+                        hot[rng.integers(0, 8, shape)], keys)
+        return (keys.astype(np.int32),
+                rng.integers(0, G, shape).astype(np.int32), G,
+                rng.random(shape) < p_mask)
+
+    T, K = 128, 16
+    z = zipf_keys(rng, YCSB_N, 0.9, (T, K)).astype(np.int32)
+    near = (YCSB_N - 1 - rng.integers(0, 40, (T, K))).astype(np.int32)
+    big = wave((128, 64), TPCC_N, 2)
+    big_keys = np.where(rng.random((128, 64)) < 0.05, -1, big[0])
+    ones = np.ones((T, K), bool)
+    return [
+        ("n=1", np.array([[7]], np.int32), np.array([[1]], np.int32), 2,
+         np.array([[True]])),
+        ("all masked out",) + wave((T, K), 1000, 2, p_mask=0.0),
+        ("all masked in",) + wave((T, K), 1000, 2, p_mask=1.0),
+        ("one cell", np.full((T, 64), 123_456, np.int32),
+         np.ones((T, 64), np.int32), 2, np.ones((T, 64), bool)),
+        ("zipf ycsb", z, rng.integers(0, 2, (T, K)).astype(np.int32), 2,
+         rng.random((T, K)) < 0.5),
+        ("cells near 10M x 2", near,
+         rng.integers(0, 2, (T, K)).astype(np.int32), 2, ones),
+        ("G=1 zero groups", z, np.zeros((T, K), np.int32), 1,
+         rng.random((T, K)) < 0.7),
+        ("n=8192", big_keys.astype(np.int32), big[1], 2, big[3]),
+        ("n=8193",) + wave((3, 2731), 5000, 2),
+        ("n=20000",) + wave((125, 160), 20000, 2, p_mask=0.7),
+    ]
+
+
+def segment_count_case_checks(check, dev):
+    """segment_count against its plain version on segment_count_cases;
+    returns timing rows of the Zipf wave (hash kernel, hot keys) and of
+    n = 20,000 (all-pairs kernel)."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.segment_count import segment_count_plain
+    timings = {}
+    for label, keys, groups, G, mask in segment_count_cases():
+        a = [torch.from_numpy(x).to(dev) for x in (keys, groups, mask)]
+        check.compare([K.segment_count(a[0], a[1], G, a[2])],
+                      [segment_count_plain(a[0], a[1], G, a[2])])
+        if label in ("zipf ycsb", "n=20000"):
+            n = keys.size
+            cells = torch.where(a[2], a[0].long() * G + a[1].long(),
+                                -1).reshape(-1)
+            timings[f"segment_count {label}"] = dict(
+                ms=time_ms(lambda: K.segment_count(a[0], a[1], G, a[2]),
+                           dev),
+                plain_ms=time_ms(lambda: segment_count_plain(
+                    a[0], a[1], G, a[2]), dev),
+                library_ms=time_ms(lambda: torch.unique(
+                    cells, return_inverse=True, return_counts=True), dev),
+                bound=bound_ms(n * (4 + 4 + 1 + 4), n * math.log2(n)))
+    return timings
+
+
 def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES):
     """Compare every kernel with its plain version over every flag
     combination at ``shapes``, and the sharded wave's kernels at its
@@ -585,6 +671,8 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES):
         t.update(scan_mv_timings(label, dev, N, G, T, Kk, keys, groups,
                                  prio, do_w, wave))
         timings[label] = t
+    timings["seg"] = segment_count_case_checks(checks["segment_count"],
+                                               dev)
     dist_kernel_checks(checks, dev, dist_lanes)
     timings["dist"] = dist_kernel_timings(dev, dist_lanes)
     for label, t in timings.items():
@@ -1765,6 +1853,28 @@ FLASH_CASES = (
     ("D32", dict(B=2, Hq=2, Hkv=1, Sq=77, Sk=77, D=32, causal=True,
                  window=32), torch.bfloat16),
 )
+#: Edges of the bfloat16 tensor-core kernel: Sq = 65 (a ragged 128-row
+#: block) and Sq = 1 at D 256, a window of 16 inside one 64-key tile, GQA
+#: 16 with sk_valid < Sk, D 16 and D 32 with rows that see no key.
+FLASH_BF16_EDGE_CASES = (
+    ("bf16 Sq=65 D256", dict(B=1, Hq=2, Hkv=1, Sq=65, Sk=65, D=256,
+                             causal=True, window=None), torch.bfloat16),
+    ("bf16 Sq=1 D256 causal", dict(B=2, Hq=4, Hkv=1, Sq=1, Sk=300, D=256,
+                                   causal=True, window=None),
+     torch.bfloat16),
+    ("bf16 window 16", dict(B=1, Hq=4, Hkv=1, Sq=150, Sk=150, D=64,
+                            causal=True, window=16), torch.bfloat16),
+    ("bf16 rep16 sk_valid", dict(B=1, Hq=16, Hkv=1, Sq=100, Sk=200, D=128,
+                                 causal=True, window=None, sk_valid=170),
+     torch.bfloat16),
+    ("bf16 D16", dict(B=2, Hq=4, Hkv=2, Sq=90, Sk=90, D=16, causal=True,
+                      window=40), torch.bfloat16),
+    ("bf16 D32 rows without keys", dict(B=1, Hq=4, Hkv=1, Sq=70, Sk=130,
+                                        D=32, causal=True, window=None,
+                                        sq_valid=60, sk_valid=40),
+     torch.bfloat16),
+)
+FLASH_CASES = FLASH_CASES + FLASH_BF16_EDGE_CASES
 RGLRU_CASES = (
     ("rg9b-prefill", dict(B=4, S=3072, D=4096), torch.bfloat16),
     ("S=1", dict(B=4, S=1, D=4096), torch.bfloat16),

@@ -18,18 +18,50 @@
 // cores' 989 TFLOP/s; the bytes (q, k, v read once, out written once,
 // 213 MB) take 0.064 ms.
 //
-// Design.  One block of 256 threads per (b, h) and 64 query rows, the
-// rows loaded into shared memory once; the block walks 64-key tiles from
-// the first that the window reaches to the last that the causal band
-// reaches (the Pallas kernel's whole-block skip), each tile loaded into
-// shared memory as float32 (K transposed), so D = 256 takes 210 KB of
-// dynamic shared memory and one block an SM.  Thread (ty, tx) computes
-// the scores of rows ty + 16i and keys tx + 16j (i, j < 4) with scalar
-// FMAs, the row's max and sum reduced over the 16 lanes of the row with
-// shuffles; it keeps running max, sum and the output rows ty + 16i,
-// columns tx + 16c, in registers (online softmax, float32).  Scalar
-// float32 FMAs run at most at 67 TFLOP/s, 1/15 of the tensor cores' bf16
-// rate: this kernel is right first; wgmma and TMA are later work.
+// Two kernels, chosen by dtype:
+//
+// bfloat16 (the served dtype): the tensor cores through wgmma (sm_90a).
+// One block of two warpgroups per (b, h) and 128 query rows, each
+// warpgroup owning 64 rows.  Q is loaded into shared memory once; K and V
+// tiles of 64 keys go through a two-stage ring filled by cp.async (the
+// next tile's loads run under this tile's products), every tile stored
+// as 128-byte column chunks with the 128-byte swizzle that wgmma's shared
+// memory descriptors read: 192 KB at D = 256 (Q 64 KB, 2 x (K + V) 128
+// KB).  S = Q.K^T is D / 16 wgmma m64n64k16 with both operands in shared
+// memory, its 64 x 64 accumulator in registers; the online softmax runs
+// there in float32, row max and sum reduced over the 4 lanes that hold a
+// row.  P.V is wgmma m64nDk16 with P from registers (the accumulator's
+// layout is the A fragments' for 16-bit A) and V transposed from shared
+// memory; the 64 x D output accumulator (128 registers a thread at D =
+// 256) stays in registers across the key loop.  Key tiles outside the
+// causal band or the window are skipped whole, per block, and per
+// warpgroup where none of its 64 rows sees the tile; the per-element
+// mask runs only on tiles that straddle an edge.  P in bf16: q.k
+// products of bf16 values are exact in float32, but P is not a bf16
+// value, and rounding it costs up to 2^-9 of each term, which breaks the
+// 2-ulp gate against the float32 plain version on outputs near 0.  So P
+// is split into hi = bf16(P) and lo = bf16(P - hi) and both go through
+// the tensor cores (1.5x the products of Q.K^T + P.V; about 2^-17 of
+// each term).  Blocks are issued longest first (the
+// causal band grows with the row), and consecutive blocks are heads of
+// one batch row, which share a kv head under GQA, so K and V come from
+// L2.  Head widths 16 and 32 are padded to 64 in shared memory.  What it
+// leaves: the two warpgroups run in step (two barriers a tile), so the
+// tensor cores idle through the softmax.  Ping-pong scheduling of the two
+// warpgroups needs registers this kernel has not got at D = 256 (o, s and
+// P live across phases; ptxas then serializes the wgmma); a producer warp
+// with TMA and setmaxnreg, as FlashAttention-3, frees them.
+//
+// float32 (the smoke models, and the gate at rtol 1e-5, which TF32 would
+// not hold): scalar float32 FMAs.  One block of 256 threads per (b, h)
+// and 64 query rows, the rows in shared memory; the block walks 64-key
+// tiles from the first that the window reaches to the last that the
+// causal band reaches, each tile in shared memory (K transposed), so
+// D = 256 takes 210 KB of dynamic shared memory and one block an SM.
+// Thread (ty, tx) computes the scores of rows ty + 16i and keys tx + 16j
+// (i, j < 4), the row's max and sum reduced over the 16 lanes of the row
+// with shuffles, and keeps running max, sum and the output rows ty + 16i,
+// columns tx + 16c, in registers.
 #include <cuda_runtime.h>
 
 #include "lm_dtype.cuh"
@@ -199,13 +231,13 @@ flash_kernel(const X* __restrict__ q, const X* __restrict__ k,
   }
 }
 
-template <typename X, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int Sq, int Sk, int causal, int has_window,
-           int window, float scale, int delta, int sk_valid,
-           cudaStream_t s) {
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               int B, int Hq, int Hkv, int Sq, int Sk, int causal,
+               int has_window, int window, float scale, int delta,
+               int sk_valid, cudaStream_t s) {
   constexpr size_t smem = smem_bytes<D>();
-  auto kern = flash_kernel<X, D>;
+  auto kern = flash_kernel<float, D>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -213,31 +245,492 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   }
   const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + kBQ - 1) / kBQ));
   kern<<<grid, kThreads, smem, s>>>(
-      static_cast<const X*>(q), static_cast<const X*>(k),
-      static_cast<const X*>(v), static_cast<X*>(out), Hq, Hkv, Sq, Sk,
-      causal, has_window, window, scale, delta, sk_valid);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, Sq,
+      Sk, causal, has_window, window, scale, delta, sk_valid);
   return (int)cudaGetLastError();
 }
 
-template <typename X>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int Hq, int Hkv, int Sq, int Sk, int D, int causal,
-             int has_window, int window, float scale, int delta,
-             int sk_valid, cudaStream_t s) {
-#define REPRO_FLASH_CASE(DD)                                                 \
-  case DD:                                                                   \
-    return launch<X, DD>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal,           \
-                         has_window, window, scale, delta, sk_valid, s);
-  switch (D) {
-    REPRO_FLASH_CASE(16)
-    REPRO_FLASH_CASE(32)
-    REPRO_FLASH_CASE(64)
-    REPRO_FLASH_CASE(128)
-    REPRO_FLASH_CASE(256)
-  }
-#undef REPRO_FLASH_CASE
-  return (int)cudaErrorInvalidValue;
+// ------------------------------------------ bfloat16: warpgroup products
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kGroups = 2;                // consumer warpgroups a block
+constexpr int kThreads = 128 * kGroups;
+constexpr int kBQ = 64 * kGroups;         // 64 query rows a warpgroup
+constexpr int kBK = 64;                   // keys a tile
+constexpr unsigned kRow = 128;            // bytes of a swizzled row
+
+// Columns held in smem and registers: 64-column (128-byte) chunks.
+template <int D>
+constexpr int kPadded = D < 64 ? 64 : D;
+
+// Q, 2 x (K + V), and 1 KB to align the tiles to the swizzle's period.
+template <int D>
+constexpr size_t smem_bytes() {
+  return 1024 + (size_t)(kBQ + 4 * kBK) * kPadded<D> * sizeof(bf16);
 }
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !pred.
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ unsigned pack(__nv_bfloat162 x) {
+  return *reinterpret_cast<unsigned*>(&x);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// A tile of R rows x kPadded<D> columns, stored as column chunks of
+// R x 128 bytes with the 128-byte swizzle (16-byte unit u of row r at
+// unit u ^ (r % 8)), the layout wgmma's B128 descriptors read; columns
+// past D and rows past n_rows are zeros.
+template <int D, int R>
+__device__ __forceinline__ void load_tile(unsigned dst, const bf16* src,
+                                          int row0, int n_rows, int tid) {
+  constexpr int U = kPadded<D> / 8;  // 16-byte units a row
+  for (int c = tid; c < R * U; c += kThreads) {
+    const int r = c / U, u = c % U;
+    const bool ok = row0 + r < n_rows && u * 8 < D;
+    const unsigned off = (unsigned)(u / 8) * (R * kRow) + r * kRow
+                         + ((unsigned)((u % 8) ^ (r % 8)) << 4);
+    cp_async16(dst + off,
+               src + (ok ? (long long)(row0 + r) * D + u * 8 : 0), ok);
+  }
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride
+// byte offsets, 128-byte swizzle.
+__device__ __forceinline__ unsigned long long desc(unsigned addr,
+                                                   unsigned lbo,
+                                                   unsigned sbo) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4)
+         | ((unsigned long long)(lbo >> 4) << 16)
+         | ((unsigned long long)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pin registers in place around wgmma: no access moves across.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+__device__ __forceinline__ void fence_regs(unsigned (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
+}
+
+// d (64 x 64, float32) (+)= A (64 x 16 from smem) . B (16 x 64 from
+// smem), both K-major; d is overwritten where scale_d is 0.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], unsigned long long da,
+                                         unsigned long long db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N, float32) += A (64 x 16, bf16 fragments in registers) . B
+// (16 x N from smem, MN-major: transposed); N = 64, 128 or 256.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2],
+                                           const unsigned (&a)[4],
+                                           unsigned long long db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_t<64>(float (&d)[32],
+                                               const unsigned (&a)[4],
+                                               unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_t<128>(float (&d)[64],
+                                               const unsigned (&a)[4],
+                                               unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_t<256>(float (&d)[128],
+                                               const unsigned (&a)[4],
+                                               unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Accumulator layout of m64nNk16 (PTX ISA): warp w of the warpgroup holds
+// rows 16 w + g and 16 w + g + 8 (lane = 4 g + t), d[4 j + e] at column
+// 8 j + 2 t + (e & 1), row + 8 for e >= 2: for 16-bit A the same layout
+// as A's register fragments, so P goes from S's registers to P.V's A.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ out,
+                   int Hq, int Hkv, int Sq, int Sk, int causal,
+                   int has_window, int window, float scale_log2, int delta,
+                   int sk_valid) {
+  constexpr int DP = kPadded<D>;
+  constexpr int NC = DP / 64;                 // 64-column chunks
+  constexpr unsigned QB = kBQ * DP * 2;       // bytes of the Q tile
+  constexpr unsigned KB = kBK * DP * 2;       // bytes of a K or V tile
+  extern __shared__ float4 smem4[];
+  const unsigned Qs = (smem_addr(smem4) + 1023u) & ~1023u;
+  const unsigned Ks = Qs + QB;                // [2] K tiles
+  const unsigned Vs = Ks + 2 * KB;            // [2] V tiles
+
+  const int tid = threadIdx.x, wgi = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const long long bh = blockIdx.x;
+  const long long b = bh / Hq, h = bh % Hq;
+  const long long kvh = b * Hkv + h / (Hq / Hkv);
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kBQ;  // longest first
+  const bf16* qb = q + bh * Sq * D;
+  const bf16* kb = k + kvh * Sk * D;
+  const bf16* vb = v + kvh * Sk * D;
+
+  // Key tiles any row of the block sees.
+  const int rows = min(kBQ, Sq - q0);
+  int k_end = sk_valid;
+  if (causal) k_end = min(k_end, q0 + rows - 1 + delta + 1);
+  int k_begin = 0;
+  if (has_window) k_begin = max(0, q0 + delta - window + 1);
+  const int t_begin = k_begin / kBK;
+  const int n_tiles = k_end > k_begin ? (k_end - 1) / kBK - t_begin + 1 : 0;
+
+  if (n_tiles > 0) {
+    load_tile<D, kBQ>(Qs, qb, q0, Sq, tid);
+    load_tile<D, kBK>(Ks, kb, t_begin * kBK, Sk, tid);
+    load_tile<D, kBK>(Vs, vb, t_begin * kBK, Sk, tid);
+  }
+  cp_async_commit();
+
+  // The warpgroup's 64 rows and their positions; this thread's two rows.
+  const int wq0 = q0 + 64 * wgi;
+  const int wlo = wq0 + delta, whi = wlo + 63;
+  const int pos[2] = {wlo + 16 * warp + g, wlo + 16 * warp + g + 8};
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < n_tiles) {
+      const int k1 = (t_begin + t + 1) * kBK;
+      load_tile<D, kBK>(Ks + (stage ^ 1) * KB, kb, k1, Sk, tid);
+      load_tile<D, kBK>(Vs + (stage ^ 1) * KB, vb, k1, Sk, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();  // cp.async's writes, seen by wgmma's reads
+    __syncthreads();
+    const int k0 = (t_begin + t) * kBK;
+    const bool any = wq0 < Sq && k0 < sk_valid
+                     && (!causal || k0 <= whi)
+                     && (!has_window || k0 + kBK - 1 > wlo - window);
+    if (any) {  // uniform over the warpgroup
+      const bool full = k0 + kBK <= sk_valid
+                        && (!causal || k0 + kBK - 1 <= wlo)
+                        && (!has_window || k0 > whi - window);
+      const unsigned kt = Ks + stage * KB, vt = Vs + stage * KB;
+
+      // S = Q.K^T, 64 rows x 64 keys, D / 16 steps of 16 columns.
+      float s[32];
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const unsigned col = (kk % 4) * 32u;
+        wgmma_ss(s,
+                 desc(Qs + (kk / 4) * (kBQ * kRow) + wgi * 64 * kRow + col,
+                      16, 1024),
+                 desc(kt + (kk / 4) * (kBK * kRow) + col, 16, 1024),
+                 kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(s);
+
+      // Scores in log2 units; the per-element mask on edge tiles only.
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[4 * j + e] * scale_log2;
+          if (!full) {
+            const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
+            const int qp = pos[e / 2];
+            const bool ok = kp < sk_valid && (!causal || kp <= qp)
+                            && (!has_window || kp > qp - window);
+            x = ok ? x : kNegInf;
+          }
+          s[4 * j + e] = x;
+          mx[e / 2] = fmaxf(mx[e / 2], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        alpha[r] = exp2f(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+
+      // P = exp2(S - m) in float32, split into bf16 hi + lo, as the A
+      // fragments of P.V's four 16-key steps.
+      unsigned ph[4][4], pl[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[4 * j + e];
+          p[e] = x == kNegInf ? 0.f : exp2f(x - m[e / 2]);
+          l[e / 2] += p[e];
+        }
+        const __nv_bfloat162 h01 = __floats2bfloat162_rn(p[0], p[1]);
+        const __nv_bfloat162 h23 = __floats2bfloat162_rn(p[2], p[3]);
+        const float2 f01 = __bfloat1622float2(h01);
+        const float2 f23 = __bfloat1622float2(h23);
+        ph[j / 2][2 * (j % 2)] = pack(h01);
+        ph[j / 2][2 * (j % 2) + 1] = pack(h23);
+        pl[j / 2][2 * (j % 2)] =
+            pack(__floats2bfloat162_rn(p[0] - f01.x, p[1] - f01.y));
+        pl[j / 2][2 * (j % 2) + 1] =
+            pack(__floats2bfloat162_rn(p[2] - f23.x, p[3] - f23.y));
+      }
+
+      // O += P.V: per 16-key step, V's 16 x DP block (MN-major).
+      fence_regs(o);
+      fence_regs(ph);
+      fence_regs(pl);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        // V is B transposed: the stride of 8-key groups is the stride
+        // byte offset (1,024), that of 64-column chunks the leading one.
+        const unsigned long long dv =
+            desc(vt + ks * 16 * kRow, kBK * kRow, 1024);
+        wgmma_rs_t<DP>(o, ph[ks], dv);
+        wgmma_rs_t<DP>(o, pl[ks], dv);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(o);
+    }
+    __syncthreads();
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+  const int row = wq0 + 16 * warp + g;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * c + 8 * j + 2 * t4;
+      if (col >= D) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (row + 8 * r < Sq) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + (bh * Sq + row + 8 * r) * D + col) =
+              __floats2bfloat162_rn(o[32 * c + 4 * j + 2 * r] * inv[r],
+                                    o[32 * c + 4 * j + 2 * r + 1] * inv[r]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Hq, int Hkv, int Sq, int Sk, int causal, int has_window,
+           int window, float scale, int delta, int sk_valid,
+           cudaStream_t s) {
+  constexpr size_t smem = smem_bytes<D>();
+  auto kern = flash_wgmma_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + kBQ - 1) / kBQ));
+  kern<<<grid, kThreads, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), Hq, Hkv, Sq, Sk,
+      causal, has_window, window, scale * 1.4426950408889634f, delta,
+      sk_valid);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
+#define REPRO_FLASH_DISPATCH(FN)                                             \
+  switch (D) {                                                               \
+    case 16: return FN<16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal,         \
+                           has_window, window, scale, delta, sk_valid, s);   \
+    case 32: return FN<32>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal,         \
+                           has_window, window, scale, delta, sk_valid, s);   \
+    case 64: return FN<64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal,         \
+                           has_window, window, scale, delta, sk_valid, s);   \
+    case 128: return FN<128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal,       \
+                             has_window, window, scale, delta, sk_valid, s); \
+    case 256: return FN<256>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal,       \
+                             has_window, window, scale, delta, sk_valid, s); \
+  }
 
 }  // namespace
 
@@ -251,10 +744,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (B * Hq == 0 || Sq == 0) return (int)cudaGetLastError();
   const int delta = sk_valid - sq_valid;
   if (dtype == lm::kBF16) {
-    return dispatch<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D,
-                                   causal, has_window, window, scale, delta,
-                                   sk_valid, s);
+    REPRO_FLASH_DISPATCH(wg::launch)
+  } else {
+    REPRO_FLASH_DISPATCH(launch_f32)
   }
-  return dispatch<float>(q, k, v, out, B, Hq, Hkv, Sq, Sk, D, causal,
-                         has_window, window, scale, delta, sk_valid, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -14,9 +14,15 @@ row that sees no key gives 0, as the Pallas kernel does.
 The model's prefill self-attention (``models/attention._flash``) runs it
 with q already scaled and ``scale=1.0``.
 
-CUDA tensors launch ``csrc/flash_attention.cu`` (one block per 64 query
-rows of one head, online softmax over 64-key tiles in shared memory,
-key tiles outside the causal band or the window skipped whole); CPU
+CUDA tensors launch ``csrc/flash_attention.cu``, whose kernel is chosen
+by dtype.  bfloat16: the tensor cores through ``wgmma``, one block of two
+warpgroups per 128 query rows of one head (64 rows a warpgroup), Q in
+shared memory once, 64-key K/V tiles through a two-stage ``cp.async``
+ring in the 128-byte-swizzled layout ``wgmma`` reads, scores, online
+softmax and output in float32 registers, P split into bf16 hi + lo for
+P.V; 193 KB of shared memory at D = 256 (head widths 16 and 32 padded to
+64).  float32: scalar FMAs, one block of 256 threads per 64 query rows.
+Both skip key tiles outside the causal band or the window whole.  CPU
 tensors take ``flash_attention_plain``.
 """
 from __future__ import annotations
@@ -117,6 +123,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     build.check("q", q, q.dtype, (B, Hq, Sq, D), dev)
     build.check("k", k, q.dtype, (B, Hkv, Sk, D), dev)
     build.check("v", v, q.dtype, (B, Hkv, Sk, D), dev)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name} must start on a "
+                                 f"16-byte boundary (cp.async rows)")
     out = torch.empty_like(q)
     s = scale if scale is not None else 1.0 / (D ** 0.5)
     lib = build.load("flash_attention", _SIG)

@@ -7,8 +7,13 @@ masked ops of the wave whose cell ``key * G + group`` equals its own, as
 float32, 0 where the op is masked.  TicToc's rts-extension and install
 chains and the engine's install-contention cost model read it.
 
-CUDA tensors launch ``csrc/segment_count.cu`` (one thread per op, the
-wave's cells staged through shared memory in tiles); CPU tensors take
+CUDA tensors launch ``csrc/segment_count.cu``, whose kernel is chosen by
+the wave's size n.  Up to ``HASH_MAX_OPS`` (8,192) ops, every wave the
+engines run: 16 blocks of 1,024 threads, each counting the cells whose
+hash falls in its sixteenth, through an open-addressing hash table in
+shared memory (4 slots an op up to 16,384; 224 KB with the list of the
+block's ops).  Above: the all-pairs count over a grid of 256-op blocks x
+1,024-op chunks, partial counts added with atomics.  CPU tensors take
 ``segment_count_plain``.
 """
 from __future__ import annotations
@@ -21,7 +26,11 @@ from repro_torch.kernels import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"repro_segment_count": [_P] * 4 + [_I] * 2 + [_P]}
+_SIG = {"repro_segment_count_hash": [_P] * 4 + [_I] * 2 + [_P],
+        "repro_segment_count_pairs": [_P] * 4 + [_I] * 2 + [_P]}
+#: Largest wave the shared-memory hash kernel takes; larger waves take the
+#: all-pairs kernel.
+HASH_MAX_OPS = 8192
 
 # Cell id of masked ops; no real key * G + group reaches it.
 _MASKED_CELL = -(1 << 62)
@@ -51,10 +60,12 @@ def segment_count(keys: torch.Tensor, groups: torch.Tensor, G: int,
     build.check("mask", mask, torch.bool, shape, dev)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     lib = build.load("segment_count", _SIG)
+    n = keys.numel()
+    fn = (lib.repro_segment_count_hash if n <= HASH_MAX_OPS
+          else lib.repro_segment_count_pairs)
     with torch.cuda.device(dev):
-        rc = lib.repro_segment_count(
-            build.ptr(keys), build.ptr(groups), build.ptr(mask),
-            build.ptr(out), keys.numel(), int(G), build.stream(dev))
+        rc = fn(build.ptr(keys), build.ptr(groups), build.ptr(mask),
+                build.ptr(out), n, int(G), build.stream(dev))
     build.raise_on_error("segment_count", rc)
     segment_count.launches += 1
     return out

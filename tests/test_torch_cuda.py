@@ -151,7 +151,7 @@ def test_sharded_wave_identical_on_card_and_cpu():
 
 #: Small cases of the language-model kernels: ragged lengths, GQA ratios
 #: 1, 4 and 16, sk_valid < Sk and sq_valid < Sq, every head width, both
-#: dtypes, decode (S = 1).
+#: dtypes, decode (S = 1); and the bfloat16 tensor-core kernel's edges.
 LM_SMALL_CASES = {
     "flash_attention": [
         ("window rep16", dict(B=1, Hq=16, Hkv=1, Sq=200, Sk=200, D=256,
@@ -165,6 +165,7 @@ LM_SMALL_CASES = {
                            causal=False, window=None), torch.float32),
         ("D16", dict(B=1, Hq=2, Hkv=1, Sq=31, Sk=31, D=16, causal=True,
                      window=None), torch.bfloat16),
+        *chip_smoke.FLASH_BF16_EDGE_CASES,
     ],
     "rglru": [
         ("bf16", dict(B=2, S=77, D=300), torch.bfloat16),
