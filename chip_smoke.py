@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch + CUDA port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the port's nineteen CUDA kernels (sixteen sources) from
 src/repro_torch/csrc, then:
@@ -111,10 +111,17 @@ src/repro_torch/csrc, then:
      every head width, float32 and bfloat16; the bfloat16 tensor-core
      kernel at Sq = 65 and Sq = 1 with D 256, a window of 16 inside one
      key tile, GQA 16 with sk_valid < Sk, D 16 and D 32 with rows that see
-     no key): float32 within rtol 1e-5 / atol 1e-5, bfloat16 within 2
-     ulps; each timed at the prefill shape
-     beside its plain version, its bound and, for flash_attention,
-     F.scaled_dot_product_attention with the same mask.  Then
+     no key; rglru's staged walk at a = 1, at log_a <= -20, with S and D
+     off its tiles, rows that are not 16-byte aligned, and fewer channels
+     than a block; rwkv6's chunked kernel on the model's decay
+     distribution at the prefill shape, with w = 0 and 1 exactly, at S =
+     63 (the recurrent kernel), 64, 65 and 1,000, and at Dk 16, 32 and
+     128, each case's line naming the rwkv6 kernel that served it):
+     float32 within rtol 1e-5 / atol 1e-5, bfloat16 within 2 ulps; each
+     timed at the prefill shape beside its plain version, its bound and,
+     for flash_attention, F.scaled_dot_product_attention with the same
+     mask, and with --parent DIR beside the rglru and rwkv6 kernels of the
+     commit unpacked in DIR, built from its sources.  Then
      recurrentgemma-9b and rwkv6-3b at full width (random bf16 weights
      from a seed) through repro_torch.launch.serve.serve: 4 requests of
      3,072-token prompts, 32 tokens each, the launch counters set to 0
@@ -1880,7 +1887,22 @@ RGLRU_CASES = (
     ("S=1", dict(B=4, S=1, D=4096), torch.bfloat16),
     ("ragged f32", dict(B=2, S=1000, D=300), torch.float32),
     ("short bf16", dict(B=3, S=17, D=4096), torch.bfloat16),
+) + (
+    # The staged walk's edges: a = 1 (log_a = 0) and a below 2e-9 (log_a
+    # <= -20); S not a multiple of its 64-step tile; D not a multiple of its
+    # 64-channel tile, with 16-byte rows (4,104) and without (300, the
+    # element-wise copies); B * D smaller than one block.
+    ("log_a=0", dict(B=2, S=300, D=512, log_a="zero"), torch.bfloat16),
+    ("log_a<=-20", dict(B=2, S=300, D=512, log_a="deep"), torch.bfloat16),
+    ("S=1000", dict(B=2, S=1000, D=4096), torch.bfloat16),
+    ("D=4104", dict(B=2, S=130, D=4104), torch.bfloat16),
+    ("D=300 bf16", dict(B=3, S=200, D=300), torch.bfloat16),
+    ("B*D<block", dict(B=1, S=77, D=40), torch.bfloat16),
 )
+#: rwkv6's decay inputs: "uniform" w in [0.05, 0.95]; "model" w =
+#: exp(-exp(z)) with z uniform in [-6, 4], as models/recurrent.py makes it
+#: (1.9e-24 to 0.9975); "edge" the model's draw with a tenth of the steps
+#: at w = 0 exactly and a tenth at w = 1 exactly.
 RWKV_CASES = (
     ("rwkv6-3b-prefill", dict(B=4, H=48, S=3072, Dk=64, Dv=64),
      torch.bfloat16),
@@ -1889,8 +1911,29 @@ RWKV_CASES = (
     ("Dk16", dict(B=2, H=4, S=37, Dk=16, Dv=16), torch.float32),
     ("Dk32 Dv48", dict(B=1, H=2, S=20, Dk=32, Dv=48), torch.bfloat16),
     ("Dk128", dict(B=1, H=2, S=9, Dk=128, Dv=128), torch.float32),
+) + (
+    # The chunked kernel's edges (64-token chunks, bf16): the model's decay
+    # at the prefill shape, w = 0 and 1 exactly, S = L - 1 (the recurrent
+    # kernel), L, L + 1 and 1,000, and every key width at S >= L.
+    ("prefill model decay", dict(B=4, H=48, S=3072, Dk=64, Dv=64,
+                                 decay="model"), torch.bfloat16),
+    ("w 0 and 1", dict(B=2, H=4, S=300, Dk=64, Dv=64, decay="edge"),
+     torch.bfloat16),
+    ("S=L-1", dict(B=2, H=4, S=63, Dk=64, Dv=64, decay="model"),
+     torch.bfloat16),
+    ("S=L", dict(B=2, H=4, S=64, Dk=64, Dv=64, decay="model"),
+     torch.bfloat16),
+    ("S=L+1", dict(B=2, H=4, S=65, Dk=64, Dv=64, decay="model"),
+     torch.bfloat16),
+    ("S=1000", dict(B=2, H=4, S=1000, Dk=64, Dv=64, decay="model"),
+     torch.bfloat16),
+    ("chunked Dk16", dict(B=2, H=3, S=200, Dk=16, Dv=16, decay="model"),
+     torch.bfloat16),
+    ("chunked Dk32 Dv48", dict(B=1, H=2, S=130, Dk=32, Dv=48,
+                               decay="model"), torch.bfloat16),
+    ("chunked Dk128 Dv128", dict(B=1, H=2, S=150, Dk=128, Dv=128,
+                                 decay="model"), torch.bfloat16),
 )
-
 
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest distance of two bfloat16 tensors in units in the last
@@ -1910,6 +1953,9 @@ class LMCheck:
         self.name, self.cases, self.max_err, self.max_ulps = name, 0, 0.0, 0
 
     def compare(self, label, got, want):
+        """Raise unless ``got`` meets ``want``; returns this case's (max abs
+        error, max bf16 ulps)."""
+        case_err, case_ulps = 0.0, 0
         for i, (a, b) in enumerate(zip(got, want)):
             what = f"{self.name} {label} output {i}"
             if a.dtype != b.dtype or a.shape != b.shape:
@@ -1918,17 +1964,21 @@ class LMCheck:
             if not bool(torch.isfinite(a.float()).all()):
                 raise AssertionError(f"{what}: not finite")
             err = (a.float() - b.float()).abs()
-            self.max_err = max(self.max_err, float(err.max()))
+            if err.numel():
+                case_err = max(case_err, float(err.max()))
             if a.dtype == torch.bfloat16:
                 far = err > 1e-5
                 ulps = bf16_ulps(a[far], b[far])
-                self.max_ulps = max(self.max_ulps, ulps)
+                case_ulps = max(case_ulps, ulps)
                 if ulps > 2:
                     raise AssertionError(f"{what}: {ulps} bf16 ulps apart")
             elif not bool((err <= 1e-5 + 1e-5 * b.float().abs()).all()):
                 raise AssertionError(f"{what}: beyond rtol/atol 1e-5 (max "
                                      f"abs err {float(err.max())})")
+        self.max_err = max(self.max_err, case_err)
+        self.max_ulps = max(self.max_ulps, case_ulps)
         self.cases += 1
+        return case_err, case_ulps
 
 
 def _randn(shape, dev, gen, scale=1.0, dtype=torch.float32):
@@ -1947,10 +1997,26 @@ def flash_inputs(s, dtype, dev, gen):
 
 def rglru_inputs(s, dtype, dev, gen):
     B, S, D = s["B"], s["S"], s["D"]
-    # log_a as the model makes it: -8 softplus(lam) sigmoid(.) in [-0.1, 0)
-    log_a = -0.1 * torch.rand((B, S, D), generator=gen, device=dev)
+    # log_a as the model makes it: -8 softplus(lam) sigmoid(.) in [-0.1, 0);
+    # "zero": a = 1; "deep": log_a in [-30, -20].
+    log_a = torch.rand((B, S, D), generator=gen, device=dev)
+    log_a = {None: -0.1 * log_a, "zero": 0.0 * log_a,
+             "deep": -20.0 - 10.0 * log_a}[s.get("log_a")]
     return (log_a, _randn((B, S, D), dev, gen, 1.0, dtype),
             _randn((B, D), dev, gen)), {}
+
+
+def rwkv_decay(shape, mode, dev, gen):
+    """w of RWKV_CASES' decay ``mode`` ("uniform", "model" or "edge")."""
+    if mode == "uniform":
+        return torch.rand(shape, generator=gen, device=dev) * 0.9 + 0.05
+    z = torch.rand(shape, generator=gen, device=dev) * 10.0 - 6.0
+    w = torch.exp(-torch.exp(z))
+    if mode == "edge":
+        pick = torch.rand(shape, generator=gen, device=dev)
+        w = torch.where(pick < 0.1, torch.zeros_like(w), w)
+        w = torch.where(pick > 0.9, torch.ones_like(w), w)
+    return w
 
 
 def rwkv_inputs(s, dtype, dev, gen):
@@ -1958,7 +2024,7 @@ def rwkv_inputs(s, dtype, dev, gen):
     r = _randn((B, H, S, Dk), dev, gen, 0.5, dtype)
     k = _randn((B, H, S, Dk), dev, gen, 0.5, dtype)
     v = _randn((B, H, S, Dv), dev, gen, 1.0, dtype)
-    w = torch.rand((B, H, S, Dk), generator=gen, device=dev) * 0.9 + 0.05
+    w = rwkv_decay((B, H, S, Dk), s.get("decay", "uniform"), dev, gen)
     u = _randn((H, Dk), dev, gen)
     s0 = _randn((B, H, Dk, Dv), dev, gen)
     return (r, k, v, w, u, s0), {}
@@ -2018,18 +2084,75 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def lm_kernel_phase(dev, seed=21, cases=None):
+def parent_kernels(parent_root: str) -> dict:
+    """{name: fn(*inputs)} launching another build of rglru and rwkv6 (a
+    parent commit's, unpacked at ``parent_root``): its csrc sources built
+    with the port's nvcc flags into build/parent_kernels and bound with the
+    same C signatures, so lm_kernel_phase times both builds on the same
+    inputs in one process."""
+    import ctypes
+    import importlib
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import DTYPE_CODES
+    out_dir = os.path.join(ROOT, "build", "parent_kernels")
+    os.makedirs(out_dir, exist_ok=True)
+    csrc = os.path.join(parent_root, "src", "repro_torch", "csrc")
+    procs = {n: subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+         os.path.join(out_dir, f"{n}.so"), os.path.join(csrc, f"{n}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for n in ("rglru", "rwkv6")}
+    fns = {}
+    for n, p in procs.items():
+        text, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {csrc}/{n}.cu:\n{text}")
+        fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"{n}.so")),
+                     f"repro_{n}")
+        fn.argtypes = importlib.import_module(
+            f"repro_torch.kernels.{n}")._SIG[f"repro_{n}"]
+        fn.restype = ctypes.c_int
+        fns[n] = fn
+
+    def run_rglru(log_a, x, h0):
+        B, S, D = x.shape
+        h = torch.empty_like(x)
+        h_last = torch.empty((B, D), dtype=torch.float32, device=x.device)
+        build.raise_on_error("parent rglru", fns["rglru"](
+            *(build.ptr(t) for t in (log_a, x, h0, h, h_last)), B, S, D,
+            DTYPE_CODES[x.dtype], build.stream(x.device)))
+
+    def run_rwkv6(r, k, v, w, u, s0):
+        B, H, S, Dk = r.shape
+        Dv = v.shape[-1]
+        out = torch.empty_like(v)
+        s_last = torch.empty((B, H, Dk, Dv), dtype=torch.float32,
+                             device=r.device)
+        build.raise_on_error("parent rwkv6", fns["rwkv6"](
+            *(build.ptr(t) for t in (r, k, v, w, u, s0, out, s_last)), B, H,
+            S, Dk, Dv, DTYPE_CODES[r.dtype], build.stream(r.device)))
+
+    return {"rglru": run_rglru, "rwkv6": run_rwkv6}
+
+
+def lm_kernel_phase(dev, seed=21, cases=None, parent=None):
     """Each LM kernel against its plain version on the card over its
-    cases (full-width prefill shape, S = 1 and the edges), then timed at
-    the first case's shape (the full-width prefill) beside its plain
-    version, its bound and, for flash_attention, the PyTorch yardstick.
-    ``cases`` ({name: cases}) replaces the default cases (a rehearsal on
-    the CPU at small shapes).  Returns ({name: LMCheck}, {name: timing
-    row})."""
+    cases (full-width prefill shape, S = 1 and the edges; a line per case,
+    naming the rwkv6 kernel that served it), then timed at the first
+    case's shape (the full-width prefill) beside its plain version, its
+    bound and, for flash_attention, the PyTorch yardstick.  ``cases``
+    ({name: cases}) replaces the default cases (a rehearsal on the CPU at
+    small shapes); ``parent`` ({name: fn}, see parent_kernels) times
+    another build of a kernel on the same inputs.  Returns ({name:
+    LMCheck}, {name: timing row})."""
     from repro_torch import kernels as K
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.rglru import rglru_plain
-    from repro_torch.kernels.rwkv6 import rwkv6_plain
+    from repro_torch.kernels.rwkv6 import route, rwkv6_plain
+    def served(name, s, dtype):   # the CPU launches no kernel
+        if name != "rwkv6" or dev.type != "cuda":
+            return ""
+        return f" ({route(dtype, s['S'])} kernel)"
     table = {
         "flash_attention": (K.flash_attention, flash_attention_plain,
                             FLASH_CASES, flash_inputs, flash_work),
@@ -2050,7 +2173,9 @@ def lm_kernel_phase(dev, seed=21, cases=None):
             _sync(dev)
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
-            chk.compare(label, got, want)
+            err, ulps = chk.compare(label, got, want)
+            log(f"    {name} {label}{served(name, s, dtype)}: max_abs_err "
+                f"{err:.3g}, bf16 ulps {ulps}")
             if i:
                 continue
             n_bytes, n_ops, rate = work(s, dtype, dev)
@@ -2066,6 +2191,8 @@ def lm_kernel_phase(dev, seed=21, cases=None):
                             + f" {str(dtype).split('.')[-1]}"}
             if name == "flash_attention":
                 row["library_ms"] = time_ms(_flash_library(args, kw), dev)
+            if parent and name in parent:
+                row["parent_ms"] = time_ms(lambda: parent[name](*args), dev)
             timings[name] = row
             del args, got, want
         if dev.type == "cuda":
@@ -2077,8 +2204,12 @@ def lm_kernel_phase(dev, seed=21, cases=None):
             f"{r['plain_ms']:.4f} ms  library "
             f"{'-' if r['library_ms'] is None else '%.4f' % r['library_ms']}"
             f" ms  bound {r['bound'][0]:.6f} ms ({r['bound'][1]}; "
-            f"{r['bytes'] / 1e6:.1f} MB, {r['ops'] / 1e9:.2f} Gop)  "
+            f"{r['bytes'] / 1e6:.1f} MB, {r['ops'] / 1e9:.2f} Gop; "
+            f"{r['bound'][0] / r['ms']:.1%} of the kernel's time)  "
             f"[{r['shape']}]")
+        if "parent_ms" in r:
+            log(f"  {name:15s} parent kernel {r['parent_ms']:.6f} ms on the "
+                f"same inputs ({r['parent_ms'] / r['ms']:.2f}x this one)")
     return checks, timings
 
 
@@ -2295,7 +2426,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a parent commit unpacked in DIR: time its rglru "
+                         "and rwkv6 kernels beside this checkout's on the "
+                         "same inputs")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -2395,7 +2533,8 @@ def main() -> int:
 
     log("LM serving:")
     torch.cuda.empty_cache()
-    lm_checks, lm_timings = lm_kernel_phase(dev)
+    lm_checks, lm_timings = lm_kernel_phase(
+        dev, parent=parent_kernels(args.parent) if args.parent else None)
     lm_rows, lm_launches = [], {op: 0 for op in K.WRAPPERS}
     for arch in LM_ARCHS:
         row, launched = lm_serve_path(dev, arch)
@@ -2448,6 +2587,7 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"], "shape": t["shape"],
+            "parent_ms": t.get("parent_ms"),
         })
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -9,8 +9,13 @@ when None).  Returns (h [B, S, D] in x's dtype, h_last [B, D] float32),
 for any S in one launch: the JAX wrapper's 2,048-step chunks are a VMEM
 limit of the TPU, and its padded steps are identity steps.
 
-CUDA tensors launch ``csrc/rglru.cu`` (one thread per (b, d) channel
-walking t); CPU tensors take ``rglru_plain``.
+CUDA tensors launch ``csrc/rglru.cu``: each channel stays one sequential
+chain with the plain version's separately rounded operations, so h and
+h_last are bit-identical to ``rglru_plain``; a block of 64 channels streams
+64-step tiles of log_a and x through a three-stage cp.async ring in shared
+memory, computes a and g * x of a whole tile in parallel, walks the two-op
+h chain a thread a channel, and writes h back in coalesced rows.  CPU
+tensors take ``rglru_plain``.
 """
 from __future__ import annotations
 

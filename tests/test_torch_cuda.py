@@ -171,6 +171,8 @@ LM_SMALL_CASES = {
         ("bf16", dict(B=2, S=77, D=300), torch.bfloat16),
         ("S=1", dict(B=3, S=1, D=130), torch.float32),
         ("f32", dict(B=1, S=40, D=64), torch.float32),
+        ("bf16 ragged tiles", dict(B=2, S=130, D=72), torch.bfloat16),
+        ("log_a=0", dict(B=1, S=70, D=64, log_a="zero"), torch.bfloat16),
     ],
     "rwkv6": [
         ("bf16", dict(B=2, H=3, S=40, Dk=64, Dv=64), torch.bfloat16),
@@ -178,6 +180,10 @@ LM_SMALL_CASES = {
         ("Dk16", dict(B=1, H=2, S=19, Dk=16, Dv=16), torch.float32),
         ("Dk32 Dv48", dict(B=1, H=1, S=8, Dk=32, Dv=48), torch.bfloat16),
         ("Dk128", dict(B=1, H=1, S=5, Dk=128, Dv=128), torch.float32),
+        ("bf16 chunked", dict(B=1, H=2, S=130, Dk=64, Dv=64, decay="edge"),
+         torch.bfloat16),
+        ("bf16 chunked Dk128", dict(B=1, H=1, S=70, Dk=128, Dv=128,
+                                    decay="model"), torch.bfloat16),
     ],
 }
 
