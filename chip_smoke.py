@@ -31,7 +31,19 @@ src/repro_torch/csrc, then:
      shared-memory hash up to 8,192 ops, the all-pairs count above): one
      op, every op masked out or in, every op on one cell, a Zipf-hot
      YCSB wave, cells near 10M x 2, G = 1 with zero groups, n = 8,192,
-     8,193 and 20,000; the Zipf wave and n = 20,000 timed too;
+     8,193 and 20,000; the Zipf wave and n = 20,000 timed too.
+     iterate_validate's edges (iterate_validate_cases): walks of 1, 31,
+     32, 33, 128, 129 and 208 rows, fine and coarse, B = 8 and 1, G = 1
+     to 3, a stronger claim only in a span's last row and one past an
+     interval's width, a warp of scans only and one with nothing to
+     walk, keys -1 and past the end, extents <= 0, both tag halves;
+     wave_commit's (wave_commit_cases): K = 1, 33 and 1,024, rows of
+     2,048 to 32,768 ops, T above any co-resident grid, every op on one
+     cell, masked keys and groups, every optional mask, bump on and
+     off.  With --parent DIR
+     iterate_validate, wave_commit (and the LM kernels, below) are timed
+     beside the kernels of the commit unpacked in DIR, built from its
+     sources;
   2. the main path on TPC-C (full scale, T = 128, 200 waves) through the
      benchmark CLI's grid runner: OCC, TicToc, 2PL, SwissTM and Adaptive
      x coarse and fine, plus AutoGran coarse, with the launch counters set
@@ -121,7 +133,7 @@ src/repro_torch/csrc, then:
      timed at the prefill shape beside its plain version, its bound and,
      for flash_attention, F.scaled_dot_product_attention with the same
      mask, and with --parent DIR beside the rglru and rwkv6 kernels of the
-     commit unpacked in DIR, built from its sources.  Then
+     parent commit.  Then
      recurrentgemma-9b and rwkv6-3b at full width (random bf16 weights
      from a seed) through repro_torch.launch.serve.serve: 4 requests of
      3,072-token prompts, 32 tokens each, the launch counters set to 0
@@ -452,7 +464,270 @@ def segment_count_case_checks(check, dev):
     return timings
 
 
-def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES):
+def claim_words(rng, N, G, wave, live_share):
+    """uint32[N, G] claim words as a probe sees them: the empty word,
+    words of the last three waves and a share of live words of ``wave``
+    (never a newer wave: the monotone-tag precondition)."""
+    def tag(w):
+        return (0xFFFF - (w & 0xFFFF)).astype(np.uint64) << 16
+    old = np.maximum(wave - rng.integers(1, 4, (N, G)), 0)
+    stale = tag(old) | rng.integers(0, 1 << 16, (N, G)).astype(np.uint64)
+    live = tag(np.full((N, G), wave)) | rng.integers(
+        0, 1 << 16, (N, G)).astype(np.uint64)
+    pick = rng.random((N, G))
+    return np.where(pick < 0.2, 0xFFFFFFFF, np.where(
+        pick < 0.2 + live_share, live, stale)).astype(np.uint32)
+
+
+def _live_word(wave, prio):
+    return np.uint32(((0xFFFF - (wave & 0xFFFF)) << 16) | prio)
+
+
+#: The iterate_validate cases' ext_cap values: walks of 1, 31, 32, 33, 128
+#: and 129 rows around the kernel's warp (32) and batch (128 rows), and
+#: TPC-C's 200 (a coarse span of 208 at B = 8) and 208.
+SCAN_EXT_CAPS = (1, 31, 32, 33, 128, 129, 200, 208)
+
+
+def iterate_validate_cases(seed=41):
+    """iterate_validate's edge cases, made with numpy from ``seed``:
+    [(label, dict)] with the wrapper's arguments (``table`` and ``myprio``
+    as uint32) and the flat indices of two planted ops.  For every ext_cap
+    of SCAN_EXT_CAPS, fine and coarse, B = 8 and 1, waves whose claim tag
+    has its top bit set (9) and clear (HIGH_WAVE) in turn, G = 2, and four
+    more at G = 3 and G = 1: T = 4 lanes of K = 32 ops on N = 1,001 rows,
+    one warp a lane:
+      lane 0: every op a scan; op 0 (``last_row_op``) walks the whole span
+        and its only stronger claim lies in the span's last row (weaker
+        and equal claims before it); op 1 (``past_width_op``) has a
+        stronger claim in the first row past its width but inside the
+        span, which must not count;
+      lane 1: no op needs a walk (check clear);
+      lane 2: key -1 with check set, extents 0 and -5, intervals that
+        cross the table's end, a key past it, a group out of range;
+      lane 3: point ops (extent 1), every check set."""
+    rng = np.random.default_rng(seed)
+    from repro_torch.kernels.iterate_validate import scan_span
+    N, T, K = 1001, 4, 32
+    cases = []
+    modes = ((True, 8), (True, 1), (False, 8), (False, 1))
+    configs = [(e, f, B, 2) for e in SCAN_EXT_CAPS for f, B in modes] + [
+        (129, True, 8, 3), (129, False, 8, 3), (33, True, 8, 1),
+        (33, False, 1, 1)]
+    for ci, (ext_cap, fine, B, G) in enumerate(configs):
+        wave = 9 if ci % 2 == 0 else HIGH_WAVE
+        span = scan_span(ext_cap, fine, B)
+        share = min(0.3, 1.4 / (G * max(1.0, ext_cap / 2)))
+        table = claim_words(rng, N, G, wave, share)
+        keys = rng.integers(0, N, (T, K))
+        hi = max(ext_cap, 2)
+        ext = rng.integers(2, hi + 1, (T, K)) if ext_cap > 1 else \
+            np.ones((T, K), np.int64)
+        groups = rng.integers(0, G, (T, K))
+        prio = rng.integers(0, 0xFFFF, (T, K))
+        check = np.ones((T, K), bool)
+        check[1] = False
+        keys[1, rng.random(K) < 0.3] = -1
+        keys[2] = np.where(rng.random(K) < 0.15, -1, keys[2])
+        keys[2, :8] = [-1, 17, 23, N - 3, N - 1, N + 3, 40, N + 3]
+        ext[2, :8] = [ext_cap, 0, -5, ext_cap, ext_cap, ext_cap, ext_cap, 1]
+        groups[2, 6] = G
+        check[2, 8:] = rng.random(K - 8) < 0.8
+        ext[3] = 1
+        # op 0: its walk covers the whole span [s, s + span) and only the
+        # last row holds a stronger claim.
+        s = 64
+        keys[0, 0] = s if fine else s + B - 1
+        ext[0, 0] = ext_cap
+        prio[0, 0] = 0x8000
+        g0 = groups[0, 0]
+        stale = _live_word(max(wave - 2, 0), 0x0123)
+        table[s:s + span] = stale
+        weak = rng.random((span, G)) < 0.3
+        table[s:s + span][weak] = [_live_word(wave, p) for p in
+                                   rng.integers(0x8000, 0xFFFF, weak.sum())]
+        table[s + span - 1, g0 if fine else G - 1] = _live_word(wave,
+                                                               0x1234)
+        # op 1: a stronger claim in the first row past its width.
+        past = None
+        s1 = 504
+        e1 = max(1, ext_cap // 3)
+        width = e1 if fine else -(-e1 // B) * B
+        if width < span:
+            past = 1
+            keys[0, 1], ext[0, 1], prio[0, 1] = s1, e1, 0x8000
+            table[s1:s1 + span] = stale
+            table[s1 + width, groups[0, 1]] = _live_word(wave, 0x0042)
+        cases.append((
+            f"ext_cap={ext_cap} {'fine' if fine else 'coarse'} B={B} "
+            f"G={G} wave={wave}",
+            dict(table=table, keys=keys.astype(np.int32),
+                 extents=ext.astype(np.int32),
+                 groups=groups.astype(np.int32),
+                 myprio=prio.astype(np.uint32), check=check, wave=wave,
+                 fine=fine, bucket_size=B, ext_cap=ext_cap,
+                 last_row_op=0, past_width_op=past)))
+    return cases
+
+
+def iterate_validate_case_checks(check, dev):
+    """iterate_validate against its plain version on
+    iterate_validate_cases; the planted ops must answer as planted."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.iterate_validate import iterate_validate_plain
+    hits = []
+    for label, c in iterate_validate_cases():
+        a = [torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32
+                              else x).to(dev)
+             for x in (c["table"], c["keys"], c["extents"], c["groups"],
+                       c["myprio"], c["check"])]
+        args = (*a, c["wave"], c["fine"], c["bucket_size"], c["ext_cap"])
+        got = K.iterate_validate(*args)
+        check.compare([got], [iterate_validate_plain(*args)])
+        flat = got.reshape(-1)
+        if not bool(flat[c["last_row_op"]]) or (
+                c["past_width_op"] is not None
+                and bool(flat[c["past_width_op"]])):
+            raise AssertionError(f"iterate_validate {label}: a planted "
+                                 f"claim answered wrongly")
+        hits.append(int(got.sum()))
+    log(f"  iterate_validate edge cases: {len(hits)}, conflicts "
+        f"{min(hits)}..{max(hits)} of 128 ops")
+
+
+#: Threads an H100 holds on one SM, and its SMs: wave_commit's
+#: co-resident grid for blocks of b threads is at most min(32, 2048 / b)
+#: blocks an SM.
+SM_BLOCKS, SM_THREADS, H100_SMS = 32, 2048, 132
+
+
+def wave_commit_cases(seed=43):
+    """wave_commit's edge cases, made with numpy from ``seed``: [(label,
+    dict)] with the wrapper's arguments (tables and prio as uint32; None
+    where a mask or table is not passed).  K = 1, 33 and 1,024; rows of
+    2,048, 16,384 and 32,768 ops (T = 1 and 2: lanes over several blocks);
+    T above any co-resident grid (8,192 lanes of 4; 136 lanes of 2,048 in
+    16 chunks each); every op on one cell; masked keys (-1, N and past)
+    and groups (G and past); dual with check_r, check_w2 and extra, and
+    without the optional masks; bump on and off; a wave whose claim tag
+    has its top bit clear (HIGH_WAVE).  Lanes take three roles in turn
+    (from ``shift``): quiet (prio 0, no check_w2, check_r or extra: it
+    commits, so its writers bump), late (quiet but for extra on its last
+    op, so only the last block of a wide lane sees the conflict) and
+    random.  Out-of-range groups carry no
+    check_w2: the oracle's take_along_axis fill reads 0xFFFFFFFF there,
+    which check_w2 counts as a claimant, where the port reads NO_PRIO (as
+    claim_probe pins); the engine makes no such group."""
+    rng = np.random.default_rng(seed)
+
+    def case(label, T, K, fine, dual, bump, N=1 << 14, G=2, wave=9,
+             optional=True, one_cell=False, masked=False, shift=0):
+        keys = rng.integers(0, N, (T, K))
+        hot = rng.integers(0, N, 8)
+        keys = np.where(rng.random((T, K)) < 0.3,
+                        hot[rng.integers(0, 8, (T, K))], keys)
+        keys[rng.random((T, K)) < 0.05] = -1
+        groups = rng.integers(0, G, (T, K))
+        if K > 1024:        # the sharded owner's rows: a prio per op
+            prio = rng.integers(0, 0xFFFF, (T, K))
+        else:
+            prio = np.broadcast_to(rng.permutation(0xFFFF)[:T, None],
+                                   (T, K)).copy()
+        m = [rng.random((T, K)) < p for p in (0.5, 0.5, 0.6, 0.4, 0.5)]
+        extra = rng.random((T, K)) < 0.02
+        if one_cell:
+            keys[:], groups[:] = 7, 1
+            m[0][:] = True
+        if masked:
+            pick = rng.random((T, K))
+            keys = np.where(pick < 0.2, -1, keys)
+            keys = np.where((pick >= 0.2) & (pick < 0.3),
+                            rng.choice([N, N + 5, 2 ** 31 - 1], (T, K)),
+                            keys)
+            off = rng.random((T, K)) < 0.2
+            groups = np.where(off, rng.choice([G, G + 3], (T, K)), groups)
+            m[3] &= ~off
+        role = (np.arange(T) + shift) % 3
+        prio[role < 2] = 0
+        for x in (m[3], m[4], extra):
+            x[role < 2] = False
+        extra[role == 1, K - 1] = True
+        wts = rng.integers(0, 1 << 32, (N, G), dtype=np.uint64).astype(
+            np.uint32)
+        wts[7, 1] = wts[hot[0], 0] = 0xFFFFFFFF     # the bump wraps
+        do_w, do_r, check_w, check_w2, check_r = m
+        if not optional:
+            check_w2 = extra = None
+        return (label, dict(
+            claim_w=claim_words(rng, N, G, wave, 0.15),
+            claim_r=claim_words(rng, N, G, wave, 0.15) if dual else None,
+            wts=wts if bump else None, keys=keys.astype(np.int32),
+            groups=groups.astype(np.int32), prio=prio.astype(np.uint32),
+            do_w=do_w, do_r=do_r if dual else None, check_w=check_w,
+            check_w2=check_w2, check_r=check_r if dual else None,
+            extra=extra, wave=wave, fine=fine, dual=dual, bump=bump))
+
+    return [
+        case("K=1", 64, 1, True, True, True),
+        case("K=33", 16, 33, False, False, True),
+        case("K=1024", 4, 1024, True, True, True),
+        case("[1, 2048]", 1, 2048, False, True, True),
+        case("[1, 2048] late", 1, 2048, True, True, True, shift=1),
+        case("[2, 2048]", 2, 2048, True, False, False),
+        case("[1, 16384]", 1, 16384, True, False, False),
+        case("[1, 16384] late", 1, 16384, False, False, True, shift=1),
+        case("[2, 16384]", 2, 16384, False, True, True),
+        case("[1, 32768]", 1, 32768, True, True, True),
+        case("[2, 32768]", 2, 32768, False, False, True, shift=1),
+        case("T=8192 x K=4", 8192, 4, True, True, True, N=4096),
+        case("T=136 x K=2048", 136, 2048, False, False, True, N=4096),
+        case("one cell", 128, 64, True, True, True, one_cell=True),
+        case("one cell, coarse", 128, 16, False, False, True,
+             one_cell=True),
+        case("one cell, [1, 4096]", 1, 4096, True, False, True,
+             one_cell=True),
+        case("masked keys and groups", 128, 64, True, True, True,
+             masked=True),
+        case("masked keys and groups, [4, 2048]", 4, 2048, False, True,
+             True, masked=True),
+        case("no optional masks", 128, 64, True, True, True,
+             optional=False),
+        case("bump off", 128, 64, False, False, False),
+        case("HIGH_WAVE", 128, 16, True, True, True, wave=HIGH_WAVE),
+        case("HIGH_WAVE, [1, 16384]", 1, 16384, False, False, True,
+             wave=HIGH_WAVE),
+    ]
+
+
+def wave_commit_case_checks(check, dev):
+    """wave_commit against its plain version on wave_commit_cases: the
+    verdicts and every updated table."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.wave_commit import wave_commit_plain
+
+    def t(x):
+        if x is None:
+            return None
+        return torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32
+                                else x).to(dev, copy=True)
+    commits = []
+    for label, c in wave_commit_cases():
+        outs = []
+        for fn in (K.wave_commit, wave_commit_plain):
+            tabs = [t(c[n]) for n in ("claim_w", "claim_r", "wts")]
+            conflict, commit = fn(
+                *tabs, *(t(c[n]) for n in (
+                    "keys", "groups", "prio", "do_w", "do_r", "check_w",
+                    "check_w2", "check_r", "extra")),
+                c["wave"], c["fine"], c["dual"], c["bump"])
+            outs.append((conflict, commit, *tabs))
+        check.compare(*outs)
+        commits.append(f"{label}: {int(outs[0][1].sum())}/"
+                       f"{outs[0][1].numel()}")
+    log("  wave_commit edge cases (lanes committed): " + "; ".join(commits))
+
+
+def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
     """Compare every kernel with its plain version over every flag
     combination at ``shapes``, and the sharded wave's kernels at its
     shapes for ``dist_lanes`` lanes; time them.  Returns ({name:
@@ -675,19 +950,29 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES):
                 bound=bound_ms(n * (4 + 4 + 4 + 1 + 4) + probed * 4
                                + installs * 4, 2 * n)),
         }
+        if parent:
+            t["wave_commit"]["parent_ms"] = time_ms(lambda: parent[
+                "wave_commit"](cw, None, wt, keys, groups, prio, do_w, None,
+                               check_w, None, None, None, wave, True, False,
+                               True), dev)
         t.update(scan_mv_timings(label, dev, N, G, T, Kk, keys, groups,
-                                 prio, do_w, wave))
+                                 prio, do_w, wave, parent))
         timings[label] = t
     timings["seg"] = segment_count_case_checks(checks["segment_count"],
                                                dev)
+    iterate_validate_case_checks(checks["iterate_validate"], dev)
+    wave_commit_case_checks(checks["wave_commit"], dev)
     dist_kernel_checks(checks, dev, dist_lanes)
-    timings["dist"] = dist_kernel_timings(dev, dist_lanes)
+    timings["dist"] = dist_kernel_timings(dev, dist_lanes, parent=parent)
     for label, t in timings.items():
         for name, r in t.items():
             log(f"  {label:5s} {name:16s} kernel {r['ms']:.6f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library "
                 f"{'-' if r['library_ms'] is None else '%.4f' % r['library_ms']}"
-                f" ms  bound {r['bound'][0]:.7f} ms ({r['bound'][1]})")
+                f" ms  bound {r['bound'][0]:.7f} ms ({r['bound'][1]})"
+                + (f"  parent kernel {r['parent_ms']:.6f} ms "
+                   f"({r['parent_ms'] / r['ms']:.2f}x this one)"
+                   if "parent_ms" in r else ""))
     for c in checks.values():
         log(f"  {c.name:15s} {c.cases} cases vs plain: equal={c.equal} "
             f"max_abs_err={c.max_err}")
@@ -815,10 +1100,12 @@ def _covered_rows(keys, ext, check, N, B, span):
     return int(torch.unique(row[on]).numel())
 
 
-def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave):
+def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
+                    parent=None):
     """Times of the slice-3 kernels on one wave of the scan path: the
     scan-configured workload's draw at the main shapes, else the synthetic
-    ops.  Returns {name: timing dict}."""
+    ops; with ``parent`` (see parent_kernels) iterate_validate's parent
+    build too.  Returns {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.kernels.iterate_validate import (iterate_validate_plain,
                                                       scan_span)
@@ -863,7 +1150,9 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave):
     log(f"  {label:5s} scan wave: {int(scan.sum())} scans over "
         f"{rows_scanned} rows (coarse span {span}), {rows_written} written "
         f"records")
-    return {
+    scan_args = (table, keys, ext, groups, prio, scan, wave, False, 8,
+                 ext_cap)
+    out = {
         # Op vectors in (keys, groups, prio: 4 B; check: 1 B), a verdict
         # byte out, one G-word row read per distinct checked record.
         "validate": dict(
@@ -878,12 +1167,9 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave):
         # prio: 4 B; check: 1 B), a verdict byte out, each distinct row of
         # the checked bucket-expanded intervals read once.
         "iterate_validate": dict(
-            ms=time_ms(lambda: K.iterate_validate(
-                table, keys, ext, groups, prio, scan, wave, False, 8,
-                ext_cap), dev),
-            plain_ms=time_ms(lambda: iterate_validate_plain(
-                table, keys, ext, groups, prio, scan, wave, False, 8,
-                ext_cap), dev),
+            ms=time_ms(lambda: K.iterate_validate(*scan_args), dev),
+            plain_ms=time_ms(lambda: iterate_validate_plain(*scan_args),
+                             dev),
             library_ms=None,
             bound=bound_ms(n * (4 * 4 + 1 + 1) + rows_scanned * G * 4,
                            rows_scanned * G)),
@@ -907,6 +1193,10 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave):
             bound=bound_ms(n * (4 + 4 + 1) + rows_written * (8 + 2 * G * 4),
                            n)),
     }
+    if parent:
+        out["iterate_validate"]["parent_ms"] = time_ms(
+            lambda: parent["iterate_validate"](*scan_args), dev)
+    return out
 
 
 # ------------------------------------------- sharded-wave kernel checks
@@ -1024,10 +1314,12 @@ def dist_kernel_checks(checks, dev, lanes=DIST_LANES, slots=16):
         torch.cuda.synchronize(dev)
 
 
-def dist_kernel_timings(dev, lanes=DIST_LANES, slots=16, wave=9):
+def dist_kernel_timings(dev, lanes=DIST_LANES, slots=16, wave=9,
+                        parent=None):
     """Times of the sharded wave's kernels at the one-card shapes (one
     destination, M = lanes x slots ops, cap 16,384), and of wave_commit on
-    that one wide row.  Returns {name: timing dict}."""
+    that one wide row (with ``parent``, its parent build too).  Returns
+    {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.core.distributed import LANE_FILL, META_FILL, NO_OP
     from repro_torch.kernels.route_pack import route_pack_plain
@@ -1051,7 +1343,9 @@ def dist_kernel_timings(dev, lanes=DIST_LANES, slots=16, wave=9):
     wave_bytes = (cap * (4 + 4 + 4 + 1 + 1 + 1) + 1
                   + _distinct(keys, groups, everyone, G, N) * 4
                   + _distinct(keys, groups, do_w, G, N) * 4)
-    return {
+    wide_args = (cw, None, None, keys, groups, prio, do_w, None, check_w,
+                 None, None, None, wave, True, False, False)
+    out = {
         # Owner and three channels in, the buffer, pos and took out; one
         # compare per op.
         "route_pack": dict(
@@ -1087,15 +1381,15 @@ def dist_kernel_timings(dev, lanes=DIST_LANES, slots=16, wave=9):
         # The owner's fused claim on one wide row, without bump (as the
         # sharded owner calls it).
         "wave_commit_wide": dict(
-            ms=time_ms(lambda: K.wave_commit(
-                cw, None, None, keys, groups, prio, do_w, None, check_w,
-                None, None, None, wave, True, False, False), dev),
-            plain_ms=time_ms(lambda: wave_commit_plain(
-                cw, None, None, keys, groups, prio, do_w, None, check_w,
-                None, None, None, wave, True, False, False), dev),
+            ms=time_ms(lambda: K.wave_commit(*wide_args), dev),
+            plain_ms=time_ms(lambda: wave_commit_plain(*wide_args), dev),
             library_ms=None, bound=bound_ms(wave_bytes, 10 * cap),
             shape=f"[1, {cap}]"),
     }
+    if parent:
+        out["wave_commit_wide"]["parent_ms"] = time_ms(
+            lambda: parent["wave_commit"](*wide_args), dev)
+    return out
 
 
 # --------------------------------------------------------------- main path
@@ -2084,12 +2378,17 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
+#: The kernels whose parent build ``--parent`` times beside this one.
+PARENT_KERNELS = ("iterate_validate", "wave_commit", "rglru", "rwkv6")
+
+
 def parent_kernels(parent_root: str) -> dict:
-    """{name: fn(*inputs)} launching another build of rglru and rwkv6 (a
+    """{name: fn(*inputs)} launching another build of PARENT_KERNELS (a
     parent commit's, unpacked at ``parent_root``): its csrc sources built
     with the port's nvcc flags into build/parent_kernels and bound with the
-    same C signatures, so lm_kernel_phase times both builds on the same
-    inputs in one process."""
+    same C signatures; each fn takes its wrapper's arguments, so
+    kernel_phase and lm_kernel_phase time both builds on the same inputs
+    in one process."""
     import ctypes
     import importlib
     from repro_torch.kernels import build
@@ -2101,7 +2400,7 @@ def parent_kernels(parent_root: str) -> dict:
         [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
          os.path.join(out_dir, f"{n}.so"), os.path.join(csrc, f"{n}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for n in ("rglru", "rwkv6")}
+        for n in PARENT_KERNELS}
     fns = {}
     for n, p in procs.items():
         text, _ = p.communicate()
@@ -2132,7 +2431,41 @@ def parent_kernels(parent_root: str) -> dict:
             *(build.ptr(t) for t in (r, k, v, w, u, s0, out, s_last)), B, H,
             S, Dk, Dv, DTYPE_CODES[r.dtype], build.stream(r.device)))
 
-    return {"rglru": run_rglru, "rwkv6": run_rwkv6}
+    def run_iterate_validate(table, keys, extents, groups, myprio, check,
+                             wave, fine, bucket_size, ext_cap):
+        from repro_torch.core.claimword import inv_wave
+        from repro_torch.kernels.iterate_validate import scan_span
+        out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+        N, G = table.shape
+        build.raise_on_error("parent iterate_validate", fns[
+            "iterate_validate"](
+            *(build.ptr(t) for t in (table, keys, extents, groups, myprio,
+                                     check, out)), keys.numel(), N, G,
+            inv_wave(wave), int(bool(fine)), bucket_size,
+            scan_span(ext_cap, fine, bucket_size),
+            build.stream(keys.device)))
+        return out
+
+    def run_wave_commit(claim_w, claim_r, wts, keys, groups, prio, do_w,
+                        do_r, check_w, check_w2, check_r, extra, wave, fine,
+                        dual, bump):
+        from repro_torch.core.claimword import inv_wave
+        T, K = keys.shape
+        N, G = claim_w.shape
+        conflict = torch.empty((T, K), dtype=torch.bool, device=keys.device)
+        commit = torch.empty((T,), dtype=torch.bool, device=keys.device)
+        build.raise_on_error("parent wave_commit", fns["wave_commit"](
+            *(build.ptr(t) for t in (
+                claim_w, claim_r if dual else None, wts if bump else None,
+                keys, groups, prio, do_w, do_r if dual else None, check_w,
+                check_w2, check_r if dual else None, extra, conflict,
+                commit)), T, K, N, G, inv_wave(wave), int(fine), int(dual),
+            int(bump), build.stream(keys.device)))
+        return conflict, commit
+
+    return {"rglru": run_rglru, "rwkv6": run_rwkv6,
+            "iterate_validate": run_iterate_validate,
+            "wave_commit": run_wave_commit}
 
 
 def lm_kernel_phase(dev, seed=21, cases=None, parent=None):
@@ -2430,9 +2763,10 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="a parent commit unpacked in DIR: time its rglru "
-                         "and rwkv6 kernels beside this checkout's on the "
-                         "same inputs")
+                    help="a parent commit unpacked in DIR: time its "
+                         "iterate_validate, wave_commit, rglru and rwkv6 "
+                         "kernels beside this checkout's on the same "
+                         "inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
@@ -2457,8 +2791,9 @@ def main(argv=None) -> int:
                     or "error" in line.lower()):
                 log(f"  {name}: {line.strip()}")
 
+    parent = parent_kernels(args.parent) if args.parent else None
     log("kernels vs plain versions:")
-    checks, timings = kernel_phase(dev, SHAPES)
+    checks, timings = kernel_phase(dev, SHAPES, parent=parent)
 
     log("main path, TPC-C:")
     tpcc, l_tpcc = main_path("tpcc", dev, scale=1.0)
@@ -2533,8 +2868,7 @@ def main(argv=None) -> int:
 
     log("LM serving:")
     torch.cuda.empty_cache()
-    lm_checks, lm_timings = lm_kernel_phase(
-        dev, parent=parent_kernels(args.parent) if args.parent else None)
+    lm_checks, lm_timings = lm_kernel_phase(dev, parent=parent)
     lm_rows, lm_launches = [], {op: 0 for op in K.WRAPPERS}
     for arch in LM_ARCHS:
         row, launched = lm_serve_path(dev, arch)
@@ -2576,6 +2910,7 @@ def main(argv=None) -> int:
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
             "shape": t.get("shape", "tpcc T=128 K=64 N=2450808 G=2"),
+            "parent_ms": t.get("parent_ms"),
         })
     for name, (src, replaces) in LM_KERNEL_META.items():
         t = lm_timings[name]

@@ -11,98 +11,207 @@
 // op vectors (~14 B x 8192 ops), one claim word per op (a row of 8 B when
 // coarse) and writes at most one claim word and one conflict byte per op,
 // plus one version word read and written per committed write: under
-// 200 KB, i.e. well under 0.1 us at 3.35 TB/s.  Launch latency and
-// the dependent row loads set the time.
+// 200 KB, i.e. well under 0.1 us at 3.35 TB/s.  Launch latency, the
+// barrier between install and probe and the dependent loads set the time.
 //
 // Design.  The Pallas kernel answers every probe from one row fetch plus an
 // all-pairs wave term, which relies on the TPU's sequential grid.  Blocks
-// on Hopper run in no order, so the wave is two launches on one stream:
-//   1. install: one thread per op atomicMin's its claim word
-//      (inv_wave << 16 | prio16) into claim_w (and claim_r when dual);
-//   2. verdict: one block per lane, its threads striding over the lane's
-//      ops (one op each up to 1,024 ops; the sharded owner's rows of one
-//      source shard hold up to 4 x the fair share, 16,384 ops at one shard
-//      with 256 lanes of 16).  The launch boundary is the grid-wide
-//      barrier, so every probe reads the post-install table, which is
-//      exactly ref.claim_probe_fused's answer.  Each thread ORs its ops'
-//      verdicts, the block reduces them with __syncthreads_or, and
-//      committed writers then atomicAdd 1 to their wts cell (bump) in a
-//      second stride over the lane.
-// min and + are commutative, so the result does not depend on the order in
-// which blocks or atomics run.  Masked ops (key outside [0, N) or group
-// outside [0, G)) install nothing and probe NO_PRIO.
+// on Hopper run in no order, so every probe must wait for every install.
+// The wave is one cooperative launch, its grid no larger than what is
+// co-resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, queried
+// once per device and block size), and grid.sync() is that barrier.  A
+// unit of work is a lane's ops, or for a lane wider than 1,024 ops a chunk
+// of kWideBlock of them (the sharded owner's rows of one source shard: up
+// to 4 x the fair share, 16,384 ops at one shard with 256 lanes of 16);
+// blocks stride over the units, so any T runs, one op a thread a unit.
+//   1. install: each thread loads its op (key, group, prio, masks) into
+//      registers once and atomicMin's its claim word (inv_wave << 16 |
+//      prio16) into claim_w (and claim_r when dual);
+//   2. grid.sync();
+//   3. probe and verdict from the same registers (a block's later units
+//      reload theirs).  claim_w/claim_r were written in this launch, so
+//      they are read through L2 (__ldcg), never the non-coherent path.
+//      The lane's conflicts are OR-ed with __syncthreads_or;
+//   4. a lane of one block (K <= 1,024) writes commit and its committed
+//      writers atomicAdd 1 to their wts cell (bump) at once: the bumps
+//      touch no table a probe reads, so no second barrier is needed;
+//   5. a lane over several blocks keeps its verdict in commit itself: set
+//      in phase 1, cleared by any block of the lane that saw a conflict in
+//      phase 3, read after a second grid.sync() by the bumps.  The
+//      16,384-op row thus spreads over 128 SMs instead of one.
+// Every loop over units is uniform across a block and the barriers are
+// reached by every thread.  min and + are commutative, so the result does
+// not depend on the order in which blocks or atomics run.  Masked ops (key
+// outside [0, N) or group outside [0, G)) install nothing and probe
+// NO_PRIO.
+#include <cooperative_groups.h>
+
 #include "claim.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using claim::kNoPrio;
-using claim::probe;
+using claim::live_prio;
 
-__global__ void install_kernel(unsigned* __restrict__ claim_w,
-                               unsigned* __restrict__ claim_r,
-                               const int* __restrict__ keys,
-                               const int* __restrict__ groups,
-                               const int* __restrict__ prio,
-                               const bool* __restrict__ do_w,
-                               const bool* __restrict__ do_r, int n, int N,
-                               int G, unsigned ivw, int dual) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int key = keys[i];
-  int g = groups[i];
-  if (!claim::in_cell(key, g, N, G)) return;
-  const unsigned word = claim::word(ivw, prio[i]);
-  const size_t cell = (size_t)key * G + g;
-  if (do_w[i]) atomicMin(claim_w + cell, word);
-  if (dual && do_r[i]) atomicMin(claim_r + cell, word);
+constexpr int kMaxBlock = 1024;   // the widest lane one block takes
+constexpr int kWideBlock = 128;   // a block's chunk of a wider lane
+constexpr int kMaxDevices = 64;
+
+struct Args {
+  unsigned* claim_w;
+  unsigned* claim_r;
+  unsigned* wts;
+  const int* keys;
+  const int* groups;
+  const int* prio;
+  const bool* do_w;
+  const bool* do_r;
+  const bool* check_w;
+  const bool* check_w2;
+  const bool* check_r;
+  const bool* extra;
+  bool* conflict;
+  bool* commit;
+  int T, K, N, G;
+  unsigned ivw;
+  int fine, dual, bump;
+  int chunks;  // blocks a lane spans; each takes blockDim.x of its ops
+};
+
+enum : unsigned { kW = 1, kR = 2, kCw = 4, kCw2 = 8, kCr = 16, kX = 32 };
+
+struct Op {
+  size_t i;     // flat op index
+  int key, g;
+  unsigned p;
+  unsigned f;   // kW | kR | ... as loaded
+  bool live;    // the thread has an op in this unit
+};
+
+__device__ __forceinline__ Op load_op(const Args& a, int unit) {
+  Op op{};
+  const int t = unit / a.chunks;
+  const int k = (unit % a.chunks) * blockDim.x + threadIdx.x;
+  op.live = k < a.K;
+  if (!op.live) return op;
+  op.i = (size_t)t * a.K + k;
+  op.key = a.keys[op.i];
+  op.g = a.groups[op.i];
+  op.p = (unsigned)a.prio[op.i];
+  unsigned f = (a.do_w[op.i] ? kW : 0u) | (a.check_w[op.i] ? kCw : 0u);
+  if (a.dual && a.do_r[op.i]) f |= kR;
+  if (a.check_w2 != nullptr && a.check_w2[op.i]) f |= kCw2;
+  if (a.dual && a.check_r != nullptr && a.check_r[op.i]) f |= kCr;
+  if (a.extra != nullptr && a.extra[op.i]) f |= kX;
+  op.f = f;
+  return op;
 }
 
-__global__ void verdict_kernel(const unsigned* __restrict__ claim_w,
-                               const unsigned* __restrict__ claim_r,
-                               unsigned* __restrict__ wts,
-                               const int* __restrict__ keys,
-                               const int* __restrict__ groups,
-                               const int* __restrict__ prio,
-                               const bool* __restrict__ do_w,
-                               const bool* __restrict__ check_w,
-                               const bool* __restrict__ check_w2,
-                               const bool* __restrict__ check_r,
-                               const bool* __restrict__ extra,
-                               bool* __restrict__ conflict,
-                               bool* __restrict__ commit, int K, int N,
-                               int G, unsigned ivw, int fine, int dual,
-                               int bump) {
-  const int t = blockIdx.x;
-  const size_t row = (size_t)t * K;
-  bool any = false;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const size_t i = row + k;
-    const int key = keys[i];
-    const int g = groups[i];
-    const unsigned p = (unsigned)prio[i];
-    const unsigned wp = probe(claim_w, key, g, N, G, ivw, fine);
-    bool c = check_w[i] && wp < p;
-    if (check_w2 != nullptr)
-      c = c || (check_w2[i] && wp != kNoPrio && wp != p);
-    if (dual && check_r != nullptr) {
-      const unsigned rp = probe(claim_r, key, g, N, G, ivw, fine);
-      c = c || (check_r[i] && rp < p);
+__device__ __forceinline__ void install(const Args& a, const Op& op) {
+  if (!op.live || !claim::in_cell(op.key, op.g, a.N, a.G)) return;
+  const unsigned word = claim::word(a.ivw, (int)op.p);
+  const size_t cell = (size_t)op.key * a.G + op.g;
+  if (op.f & kW) atomicMin(a.claim_w + cell, word);
+  if (op.f & kR) atomicMin(a.claim_r + cell, word);
+}
+
+// claim::probe through L2: the words were written by this launch.
+__device__ __forceinline__ unsigned probe_cg(const unsigned* table,
+                                             const Args& a, const Op& op) {
+  if (op.key < 0 || op.key >= a.N) return kNoPrio;
+  const unsigned* row = table + (size_t)op.key * a.G;
+  if (a.fine) {
+    if (op.g < 0 || op.g >= a.G) return kNoPrio;
+    return live_prio(__ldcg(row + op.g), a.ivw);
+  }
+  unsigned best = kNoPrio;
+  for (int j = 0; j < a.G; ++j)
+    best = min(best, live_prio(__ldcg(row + j), a.ivw));
+  return best;
+}
+
+// The op's conflict, written to conflict[i]; false for an idle thread.
+__device__ __forceinline__ bool verdict(const Args& a, const Op& op) {
+  if (!op.live) return false;
+  bool c = false;
+  if (op.f & (kCw | kCw2)) {
+    const unsigned wp = probe_cg(a.claim_w, a, op);
+    c = (op.f & kCw) && wp < op.p;
+    c = c || ((op.f & kCw2) && wp != kNoPrio && wp != op.p);
+  }
+  if (op.f & kCr) c = c || probe_cg(a.claim_r, a, op) < op.p;
+  c = c || (op.f & kX);
+  a.conflict[op.i] = c;
+  return c;
+}
+
+__device__ __forceinline__ void bump(const Args& a, const Op& op) {
+  if (op.live && (op.f & kW) && claim::in_cell(op.key, op.g, a.N, a.G))
+    atomicAdd(a.wts + (size_t)op.key * a.G + op.g, 1u);
+}
+
+__global__ void __launch_bounds__(kMaxBlock)
+    wave_commit_kernel(const Args a) {
+  cg::grid_group grid = cg::this_grid();
+  const int units = a.T * a.chunks;
+  const bool wide = a.chunks > 1;
+  const int first = blockIdx.x;  // < units: the grid is at most units
+  // 1. install; the first unit's op stays in registers.
+  const Op held = load_op(a, first);
+  for (int u = first; u < units; u += gridDim.x) {
+    const Op op = u == first ? held : load_op(a, u);
+    install(a, op);
+    if (wide && u % a.chunks == 0 && threadIdx.x == 0)
+      a.commit[u / a.chunks] = true;
+  }
+  // 2. every install before any probe.
+  grid.sync();
+  // 3.-4. probe, verdict, lane reduction; one-block lanes bump here.
+  for (int u = first; u < units; u += gridDim.x) {
+    const Op op = u == first ? held : load_op(a, u);
+    const bool any = __syncthreads_or(verdict(a, op)) != 0;
+    const int t = u / a.chunks;
+    if (wide) {
+      if (any && threadIdx.x == 0) a.commit[t] = false;
+    } else {
+      if (threadIdx.x == 0) a.commit[t] = !any;
+      if (a.bump && !any) bump(a, op);
     }
-    if (extra != nullptr) c = c || extra[i];
-    conflict[i] = c;
-    any = any || c;
   }
-  // Every thread of the block reaches the barrier, idle threads too.
-  const bool ok = __syncthreads_or(any) == 0;
-  if (threadIdx.x == 0) commit[t] = ok;
-  if (!(bump && ok)) return;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const size_t i = row + k;
-    const int key = keys[i];
-    const int g = groups[i];
-    if (do_w[i] && claim::in_cell(key, g, N, G))
-      atomicAdd(wts + (size_t)key * G + g, 1u);
+  if (!wide || !a.bump) return;  // the same for every thread of the grid
+  // 5. wide lanes: every block's verdict before any bump.
+  grid.sync();
+  const unsigned char* commit =
+      reinterpret_cast<const unsigned char*>(a.commit);
+  for (int u = first; u < units; u += gridDim.x) {
+    const Op op = u == first ? held : load_op(a, u);
+    if (__ldcg(commit + u / a.chunks)) bump(a, op);
   }
+}
+
+// Co-resident blocks of wave_commit_kernel for one block size, per device;
+// 0 until queried.
+int g_grid[kMaxDevices][kMaxBlock / 32 + 1];
+
+cudaError_t grid_limit(int block, int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int* slot = dev < kMaxDevices ? &g_grid[dev][block / 32] : nullptr;
+  if (slot != nullptr && *slot > 0) {
+    *out = *slot;
+    return cudaSuccess;
+  }
+  int per_sm = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, wave_commit_kernel, block, 0);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  *out = per_sm * sms;
+  if (slot != nullptr) *slot = *out;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -113,26 +222,30 @@ extern "C" int repro_wave_commit(
     const void* check_w, const void* check_w2, const void* check_r,
     const void* extra, void* conflict, void* commit, int T, int K, int N,
     int G, int ivw, int fine, int dual, int bump, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n = T * K;
-  if (n > 0) {
-    install_kernel<<<(n + 255) / 256, 256, 0, s>>>(
-        static_cast<unsigned*>(claim_w), static_cast<unsigned*>(claim_r),
-        static_cast<const int*>(keys), static_cast<const int*>(groups),
-        static_cast<const int*>(prio), static_cast<const bool*>(do_w),
-        static_cast<const bool*>(do_r), n, N, G, (unsigned)ivw, dual);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    const int threads = K < 1024 ? ((K + 31) / 32) * 32 : 1024;
-    verdict_kernel<<<T, threads, 0, s>>>(
-        static_cast<const unsigned*>(claim_w),
-        static_cast<const unsigned*>(claim_r), static_cast<unsigned*>(wts),
-        static_cast<const int*>(keys), static_cast<const int*>(groups),
-        static_cast<const int*>(prio), static_cast<const bool*>(do_w),
-        static_cast<const bool*>(check_w), static_cast<const bool*>(check_w2),
-        static_cast<const bool*>(check_r), static_cast<const bool*>(extra),
-        static_cast<bool*>(conflict), static_cast<bool*>(commit), K, N, G,
-        (unsigned)ivw, fine, dual, bump);
+  if (T <= 0 || K <= 0) return (int)cudaGetLastError();
+  Args a{static_cast<unsigned*>(claim_w), static_cast<unsigned*>(claim_r),
+         static_cast<unsigned*>(wts), static_cast<const int*>(keys),
+         static_cast<const int*>(groups), static_cast<const int*>(prio),
+         static_cast<const bool*>(do_w), static_cast<const bool*>(do_r),
+         static_cast<const bool*>(check_w),
+         static_cast<const bool*>(check_w2),
+         static_cast<const bool*>(check_r), static_cast<const bool*>(extra),
+         static_cast<bool*>(conflict), static_cast<bool*>(commit), T, K, N,
+         G, (unsigned)ivw, fine, dual, bump, 1};
+  int block = ((K + 31) / 32) * 32;
+  if (K > kMaxBlock) {
+    block = kWideBlock;
+    a.chunks = (K + kWideBlock - 1) / kWideBlock;
   }
+  int limit = 0;
+  cudaError_t e = grid_limit(block, &limit);
+  if (e != cudaSuccess) return (int)e;
+  const long long units = (long long)T * a.chunks;
+  const int blocks = (int)(units < limit ? units : limit);
+  void* params[] = {&a};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(wave_commit_kernel), dim3(blocks), dim3(block),
+      params, 0, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -14,8 +14,9 @@ Only the first ``scan_span(ext_cap, fine, B)`` rows are walked; rows past
 the table's edge read as no claimant.  Returns bool[T, K]; the table is
 only read.
 
-CUDA tensors launch ``csrc/iterate_validate.cu`` (one thread per op,
-looping over its rows); CPU tensors take ``iterate_validate_plain``.
+CUDA tensors launch ``csrc/iterate_validate.cu`` (a warp walks its ops'
+intervals one op after another, 128 rows a batch with every load in
+flight before a test); CPU tensors take ``iterate_validate_plain``.
 """
 from __future__ import annotations
 

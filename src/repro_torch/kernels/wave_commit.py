@@ -18,10 +18,11 @@ Replaces the TPU kernel ``wave_commit_pallas``
   5. ``bump``: +1 on ``wts`` per committed ``do_w`` op.
 
 The tables are updated in place; the wrapper returns ``(conflict bool[T, K],
-commit bool[T])``.  CUDA tensors launch ``csrc/wave_commit.cu`` (an
-atomicMin install launch, then a probe/verdict/bump launch with one block
-per lane, whose threads stride over rows of any width); CPU tensors take
-``wave_commit_plain``.
+commit bool[T])``.  CUDA tensors launch ``csrc/wave_commit.cu``: one
+cooperative launch whose blocks atomicMin-install, meet at a grid barrier,
+then probe, reduce each lane's verdict and bump (a lane wider than 1,024
+ops spread over several blocks, with a second barrier before its bumps);
+CPU tensors take ``wave_commit_plain``.
 """
 from __future__ import annotations
 

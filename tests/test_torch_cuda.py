@@ -129,6 +129,30 @@ def test_wave_commit_takes_rows_wider_than_1024_ops(shape):
 
 
 @pytest.mark.cuda
+def test_iterate_validate_edge_cases_bit_identical_to_plain_version():
+    """The warp-cooperative walk on chip_smoke.iterate_validate_cases:
+    walks at the warp's and the batch's edges, several batches, a claim in
+    a span's last row and one past an interval's width."""
+    check = chip_smoke.KernelCheck("iterate_validate")
+    chip_smoke.iterate_validate_case_checks(check, _cuda())
+    torch.cuda.synchronize()
+    assert check.equal and check.max_err == 0.0
+    assert check.cases == len(chip_smoke.iterate_validate_cases())
+
+
+@pytest.mark.cuda
+def test_wave_commit_edge_cases_bit_identical_to_plain_version():
+    """The one-launch wave on chip_smoke.wave_commit_cases: lanes of one
+    op to 32,768, more lanes than one co-resident grid, one hot cell,
+    masked keys and groups, every mask, bump on and off."""
+    check = chip_smoke.KernelCheck("wave_commit")
+    chip_smoke.wave_commit_case_checks(check, _cuda())
+    torch.cuda.synchronize()
+    assert check.equal and check.max_err == 0.0
+    assert check.cases == len(chip_smoke.wave_commit_cases())
+
+
+@pytest.mark.cuda
 def test_sharded_wave_identical_on_card_and_cpu():
     """A one-rank NCCL group on the card against a gloo group on the CPU,
     at small sizes: commit masks, tables and stats bit-identical."""
