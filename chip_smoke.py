@@ -40,10 +40,20 @@ src/repro_torch/csrc, then:
      wave_commit's (wave_commit_cases): K = 1, 33 and 1,024, rows of
      2,048 to 32,768 ops, T above any co-resident grid, every op on one
      cell, masked keys and groups, every optional mask, bump on and
-     off.  With --parent DIR
-     iterate_validate, wave_commit (and the LM kernels, below) are timed
-     beside the kernels of the commit unpacked in DIR, built from its
-     sources;
+     off; validate's two-channel form (validate_pair_cases): the
+     multi-version waves' disjoint masks, overlapping masks, one channel
+     alone, none, fine and coarse, G = 1 to 3, keys -1 and past the end,
+     groups past G, ties, both tag halves; route_pack's
+     (route_pack_cases): M off the 256-op tile, one op and none, n_dest
+     1, 3, 8 and 1,024, cap 0, 16 and DistConfig's, skewed overflows, W
+     1 to 8, more tiles than resident blocks, and a buffer of more than
+     2**31 words.  validate is timed on the masks the MVCC and MV-OCC
+     waves build (TPC-C and the multi-version YCSB mix) as one
+     two-channel launch beside the one-channel launches the waves made
+     before.  With --parent DIR iterate_validate,
+     wave_commit, validate, route_pack (and the LM kernels, below) are
+     timed beside the kernels of the commit unpacked in DIR, built from
+     its sources;
   2. the main path on TPC-C (full scale, T = 128, 200 waves) through the
      benchmark CLI's grid runner: OCC, TicToc, 2PL, SwissTM and Adaptive
      x coarse and fine, plus AutoGran coarse, with the launch counters set
@@ -73,6 +83,7 @@ src/repro_torch/csrc, then:
      transactions (benchmarks/abort_rates.py): read-only lanes never
      abort under MVCC/MV-OCC and do under coarse OCC; one MVCC run whose
      snapshots are 8 waves old (beyond the ring's 4) aborts as stale;
+     every MVCC and MV-OCC wave launches validate once;
   8. fused = unfused again with scans on (the bumps move out of
      wave_commit);
   9. cross-device identity: one set of draws made on the CPU, run through
@@ -153,6 +164,7 @@ non-zero before printing a result.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -727,6 +739,179 @@ def wave_commit_case_checks(check, dev):
     log("  wave_commit edge cases (lanes committed): " + "; ".join(commits))
 
 
+#: validate's two-channel mask modes: the multi-version waves' (plain
+#: writes and update-transaction reads on claim_w, ADDs on claim_r:
+#: disjoint), independent masks that overlap, one channel alone, none.
+PAIR_MODES = ("waves", "overlap", "w_only", "r_only", "none")
+
+
+def validate_pair_cases(seed=47):
+    """validate's two-channel edge cases, made with numpy from ``seed``:
+    [(label, dict)] with the wrapper's arguments (tables and ``myprio`` as
+    uint32).  Every mask mode of PAIR_MODES, fine and coarse, at waves
+    whose claim tag has its top bit set (9) and clear (HIGH_WAVE), G = 2,
+    and four more at G = 1 and 3: T = 8 lanes of K = 40 ops (320, not a
+    multiple of the 256-thread block) on N = 997 rows, with hot keys, keys
+    -1 and past the table's end, groups G and G + 2 (no conflict on the
+    fine side; a negative group, which no wave makes, the JAX oracle would
+    wrap), and priorities equal to a live claim's (a tie is no
+    conflict)."""
+    rng = np.random.default_rng(seed)
+    N, T, K = 997, 8, 40
+    configs = [(m, f, 2) for m in PAIR_MODES for f in (True, False)] + [
+        ("waves", True, 1), ("overlap", False, 1), ("waves", False, 3),
+        ("overlap", True, 3)]
+    cases = []
+    for ci, (mode, fine, G) in enumerate(configs * 2):
+        wave = 9 if ci < len(configs) else HIGH_WAVE
+        claim_w = claim_words(rng, N, G, wave, 0.3)
+        claim_r = claim_words(rng, N, G, wave, 0.3)
+        keys = rng.integers(0, N, (T, K))
+        hot = rng.random((T, K)) < 0.2
+        keys[hot] = rng.integers(0, 4, hot.sum())
+        pick = rng.random((T, K))
+        keys = np.where(pick < 0.05, -1, np.where(pick > 0.96, N + 3, keys))
+        groups = rng.integers(0, G, (T, K))
+        odd = rng.random((T, K))
+        groups = np.where(odd < 0.04, G + 2, np.where(odd > 0.96, G, groups))
+        prio = rng.integers(0, 0xFFFF, (T, K))
+        prio[0, :4] = claim_w[keys[0, :4] % N, 0] & 0xFFFF   # ties
+        kind = rng.integers(0, 3, (T, K))    # 0 read, 1 plain write, 2 ADD
+        has_write = (kind > 0).any(axis=1)
+        has_write[1] = False                 # a read-only lane
+        kind[1] = 0
+        if mode == "waves":
+            check = (kind == 1) | ((kind == 0) & has_write[:, None])
+            check_r = kind == 2
+        else:
+            check = rng.random((T, K)) < (0.0 if mode == "r_only" else 0.6)
+            check_r = rng.random((T, K)) < (0.0 if mode == "w_only" else 0.6)
+            if mode == "none":
+                check[:], check_r[:] = False, False
+        cases.append((
+            f"{mode} {'fine' if fine else 'coarse'} G={G} wave={wave}",
+            dict(claim_w=claim_w, claim_r=claim_r,
+                 keys=keys.astype(np.int32), groups=groups.astype(np.int32),
+                 myprio=prio.astype(np.uint32), check=check,
+                 check_r=check_r, wave=wave, fine=fine)))
+    return cases
+
+
+def _pair_args(c, dev):
+    """The two-channel validate's arguments for a validate_pair_cases
+    case, on ``dev``."""
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(
+            x.view(np.int32) if x.dtype == np.uint32 else x)).to(dev)
+    return ((t(c["claim_w"]), t(c["keys"]), t(c["groups"]), t(c["myprio"]),
+             t(c["check"]), c["wave"], c["fine"]),
+            dict(claim_r=t(c["claim_r"]), check_r=t(c["check_r"])))
+
+
+def validate_pair_case_checks(check, dev):
+    """The two-channel validate against its plain version on
+    validate_pair_cases; some case must flag a conflict on each
+    channel alone."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.occ_validate import validate_plain
+    only = {"w": 0, "r": 0}
+    cases = validate_pair_cases()
+    for label, c in cases:
+        args, pair = _pair_args(c, dev)
+        got = K.validate(*args, **pair)
+        check.compare([got], [validate_plain(*args, **pair)])
+        w = validate_plain(*args)
+        r = validate_plain(pair["claim_r"], *args[1:4], pair["check_r"],
+                           *args[5:])
+        only["w"] += int((w & ~r).sum())
+        only["r"] += int((r & ~w).sum())
+    log(f"  validate two-channel edge cases: {len(cases)}, "
+        f"conflicts on claim_w alone {only['w']}, on claim_r alone "
+        f"{only['r']}")
+    if not (only["w"] and only["r"]):
+        raise AssertionError("validate: the pair cases must conflict on "
+                             "each channel alone")
+
+
+#: route_pack's edge cases (M, n_dest, cap, W, skew): the one-card wave
+#: (4,096 ops), with scans (8,192) and TPC-C's (16,384; 32,768 with
+#: scans); M off the 256-op tile, one op, none; n_dest 1, 3, 8 and
+#: MAX_DESTINATIONS; cap 0, 16 (forced drops) and DistConfig's (None);
+#: skewed waves that overflow a destination; W 1, 3 and MAX_CHANNELS; a
+#: wave of more tiles than an H100 keeps resident blocks (several tiles a
+#: block).
+ROUTE_CASES = (
+    (4096, 1, None, 3, False), (4096 + 37, 3, None, 3, False),
+    (4096, 8, None, 3, True), (8192, 1, None, 3, False),
+    (8192, 8, 16, 3, False), (300, 3, 0, 3, False), (1, 1, 16, 1, False),
+    (0, 3, 16, 3, False), (1000, "max", 8, 8, False),
+    (5003, 8, None, 8, True), (16384, 8, None, 3, False),
+    (16384 + 5, 3, None, 3, False), (32768, 1, None, 3, True),
+    (40013, 3, 16, 1, True), (300007, 8, None, 3, False),
+    (20000, "max", 16, 2, False))
+#: The case whose buffer holds more than 2**31 words (W 1, 2 destinations
+#: of 2**30 + 8 cells, 8.6 GB): cell indices past int32.  The card only.
+ROUTE_HUGE_CASE = (3000, 2, (1 << 30) + 8, 1, False)
+
+
+def route_pack_cases(seed=53, huge=False):
+    """route_pack's edge cases, made with numpy from ``seed``: [(label,
+    dict(owner int32[M], vals int32[W, M], n_dest, cap, fills))] for
+    ROUTE_CASES (and ROUTE_HUGE_CASE with ``huge``).  A tenth of the
+    owners are masked (-1, n_dest, n_dest + 5); a skewed wave sends every
+    live op to its last destination."""
+    from repro_torch.kernels.route_pack import (MAX_CHANNELS,
+                                                MAX_DESTINATIONS)
+    rng = np.random.default_rng(seed)
+    out = []
+    for M, n_dest, cap, W, skew in ROUTE_CASES + (
+            (ROUTE_HUGE_CASE,) if huge else ()):
+        n_dest = MAX_DESTINATIONS if n_dest == "max" else n_dest
+        cap = _dist_cap(M, 1, n_dest, False) if cap is None else cap
+        W = min(W, MAX_CHANNELS)
+        owner = rng.integers(0, n_dest, M)
+        if skew:
+            owner[:] = n_dest - 1
+        owner = np.where(rng.random(M) < 0.1,
+                         rng.choice([-1, n_dest, n_dest + 5], M), owner)
+        vals = rng.integers(-2 ** 31, 2 ** 31, (W, M), dtype=np.int64)
+        fills = tuple(int(f) for f in rng.integers(-2 ** 31, 2 ** 31, W))
+        out.append((f"M={M} n_dest={n_dest} cap={cap} W={W}"
+                    + (" skewed" if skew else ""),
+                    dict(owner=owner.astype(np.int32),
+                         vals=vals.astype(np.int32), n_dest=n_dest,
+                         cap=cap, fills=fills)))
+    return out
+
+
+def route_pack_case_checks(check, dev):
+    """route_pack against its plain version on route_pack_cases, the
+    buffer of more than 2**31 words included on the card (compared with
+    torch.equal: a float difference of it would not fit)."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.route_pack import route_pack_plain
+    dropped = []
+    for label, c in route_pack_cases(huge=dev.type == "cuda"):
+        owner = torch.from_numpy(c["owner"]).to(dev)
+        vals = torch.from_numpy(c["vals"]).to(dev)
+        args = (owner, vals, c["n_dest"], c["cap"], c["fills"])
+        got = K.route_pack(*args)
+        want = route_pack_plain(*args)
+        if got[0].numel() >= 1 << 31:
+            if not torch.equal(got[0], want[0]):
+                raise AssertionError(f"route_pack {label}: the buffer "
+                                     "differs from the plain version's")
+            got, want = got[1:], want[1:]
+        check.compare(got, want)
+        live = (owner >= 0) & (owner < c["n_dest"])
+        dropped.append(int((live & ~got[-1]).sum()))
+        del got, want
+    log(f"  route_pack edge cases: {len(dropped)}, dropped ops {dropped}")
+    if not (min(dropped) == 0 and max(dropped) > 0):
+        raise AssertionError("route_pack cases must include drops and "
+                             "drop-free waves")
+
+
 def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
     """Compare every kernel with its plain version over every flag
     combination at ``shapes``, and the sharded wave's kernels at its
@@ -957,12 +1142,16 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
                                True), dev)
         t.update(scan_mv_timings(label, dev, N, G, T, Kk, keys, groups,
                                  prio, do_w, wave, parent))
+        t.update(validate_pair_timings(label, dev, N, G, T, Kk, keys,
+                                       groups, prio, masks, wave, parent))
         timings[label] = t
     timings["seg"] = segment_count_case_checks(checks["segment_count"],
                                                dev)
     iterate_validate_case_checks(checks["iterate_validate"], dev)
     wave_commit_case_checks(checks["wave_commit"], dev)
+    validate_pair_case_checks(checks["validate"], dev)
     dist_kernel_checks(checks, dev, dist_lanes)
+    route_pack_case_checks(checks["route_pack"], dev)
     timings["dist"] = dist_kernel_timings(dev, dist_lanes, parent=parent)
     for label, t in timings.items():
         for name, r in t.items():
@@ -970,6 +1159,8 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
                 f"{r['plain_ms']:.4f} ms  library "
                 f"{'-' if r['library_ms'] is None else '%.4f' % r['library_ms']}"
                 f" ms  bound {r['bound'][0]:.7f} ms ({r['bound'][1]})"
+                + (f"  split launches {r['split_ms']:.6f} ms"
+                   if "split_ms" in r else "")
                 + (f"  parent kernel {r['parent_ms']:.6f} ms "
                    f"({r['parent_ms'] / r['ms']:.2f}x this one)"
                    if "parent_ms" in r else ""))
@@ -1040,13 +1231,22 @@ def scan_mv_checks(checks, dev, N, G, keys, groups, prio, masks, wave, seed,
     starts, ext = scan_extents(keys, N, ext_cap, seed)
     hits = []
     for wv in (wave, HIGH_WAVE):
-        dense = make_tables(N, G, wv, dev, seed + 11)[0]
+        dense, dense_r = make_tables(N, G, wv, dev, seed + 11)[:2]
         for fine in (True, False):
             for chk in (check_w, none):
                 checks["validate"].compare(
                     [K.validate(dense, keys, groups, prio, chk, wv, fine)],
                     [validate_plain(dense, keys, groups, prio, chk, wv,
                                     fine)])
+            # Two channels: overlapping masks, disjoint ones, one empty.
+            for cw_, cr_ in ((check_w, check_r), (check_w & ~check_r,
+                                                  check_r), (none, check_r)):
+                pair = dict(claim_r=dense_r, check_r=cr_)
+                checks["validate"].compare(
+                    [K.validate(dense, keys, groups, prio, cw_, wv, fine,
+                                **pair)],
+                    [validate_plain(dense, keys, groups, prio, cw_, wv,
+                                    fine, **pair)])
         table = post_install_claims(N, G, wv, keys, groups, prio, do_w, dev,
                                     seed + 13)
         for fine in (True, False):
@@ -1059,7 +1259,7 @@ def scan_mv_checks(checks, dev, N, G, keys, groups, prio, masks, wave, seed,
                             table, starts, ext, groups, prio, chk, wv, fine,
                             B, ext_cap)])
                     hits.append(int(got.sum()))
-        del dense, table
+        del dense, dense_r, table
     log(f"  iterate_validate conflicts per case: {hits}")
     if not max(hits) > 0:
         raise AssertionError("iterate_validate: no case had a conflict")
@@ -1102,16 +1302,15 @@ def _covered_rows(keys, ext, check, N, B, span):
 
 def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
                     parent=None):
-    """Times of the slice-3 kernels on one wave of the scan path: the
-    scan-configured workload's draw at the main shapes, else the synthetic
-    ops; with ``parent`` (see parent_kernels) iterate_validate's parent
-    build too.  Returns {name: timing dict}."""
+    """Times of iterate_validate, mv_gather and mv_install on one wave of
+    the scan path: the scan-configured workload's draw at the main shapes,
+    else the synthetic ops; with ``parent`` (see parent_kernels)
+    iterate_validate's parent build too.  Returns {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.kernels.iterate_validate import (iterate_validate_plain,
                                                       scan_span)
     from repro_torch.kernels.mv_gather import mv_gather_plain
     from repro_torch.kernels.mv_install import mv_install_plain
-    from repro_torch.kernels.occ_validate import validate_plain
     from repro_torch.launch.txn_bench import make_workload
     ext_cap, ext = 9, None
     if label in SCAN_KW:
@@ -1127,17 +1326,14 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
         live = b.live()
         do_w = b.is_write() & live
         scan = b.is_scan() & b.is_read() & live
-        reads = b.is_read() & live & ~b.is_scan()
         ext_cap = wl.max_extent
     else:
         _, ext = scan_extents(keys, N, ext_cap, 0)
         scan = (ext > 1) & (keys >= 0)
-        reads = ~scan & (keys >= 0)
     n = T * Kk
     span = scan_span(ext_cap, False, 8)
     table = post_install_claims(N, G, wave, keys, groups, prio, do_w, dev, 5)
     begin, head = ring(N, MV_DEPTH, G, keys, groups, do_w, dev, waves=6)
-    rows_read = _distinct_rows(keys, reads, N)
     rows_scanned = _covered_rows(keys, ext, scan, N, 8, span)
     rows_live = _distinct_rows(keys, torch.ones_like(do_w), N)
     rows_written = _distinct_rows(keys, do_w, N)
@@ -1153,16 +1349,6 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
     scan_args = (table, keys, ext, groups, prio, scan, wave, False, 8,
                  ext_cap)
     out = {
-        # Op vectors in (keys, groups, prio: 4 B; check: 1 B), a verdict
-        # byte out, one G-word row read per distinct checked record.
-        "validate": dict(
-            ms=time_ms(lambda: K.validate(table, keys, groups, prio, reads,
-                                          wave, True), dev),
-            plain_ms=time_ms(lambda: validate_plain(
-                table, keys, groups, prio, reads, wave, True), dev),
-            library_ms=None,
-            bound=bound_ms(n * (4 + 4 + 4 + 1 + 1) + rows_read * G * 4,
-                           n * G)),
         # Coarse (the widest walk): op vectors in (keys, extents, groups,
         # prio: 4 B; check: 1 B), a verdict byte out, each distinct row of
         # the checked bucket-expanded intervals read once.
@@ -1196,6 +1382,86 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
     if parent:
         out["iterate_validate"]["parent_ms"] = time_ms(
             lambda: parent["iterate_validate"](*scan_args), dev)
+    return out
+
+
+#: The multi-version path's workloads (benchmarks/abort_rates.py's YCSB
+#: mix: 80% writes, 20% read-only transactions).
+MV_KW = {"tpcc": dict(scale=1.0),
+         "ycsb": dict(n_keys=YCSB_N, theta=0.9, write_frac=0.8,
+                      ro_frac=0.2)}
+
+
+def validate_pair_timings(label, dev, N, G, T, Kk, keys, groups, prio,
+                          masks, wave, parent=None):
+    """Times of validate on the masks the multi-version waves build: one
+    two-channel launch (MV-OCC's: plain writes and update-transaction
+    point reads on claim_w, ADDs on claim_r; MVCC's without the reads),
+    beside this build's one-channel kernel launched once a mask (3 and 2
+    times, ``split_ms``) and, with ``parent``, the parent's one-channel
+    kernel launched the same way.  The multi-version workload's draw at the main shapes, else
+    the synthetic ops.  Returns {name: timing dict}."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.occ_validate import validate_plain
+    from repro_torch.launch.txn_bench import make_workload
+    if label in MV_KW:
+        wl = make_workload(label, **MV_KW[label])
+        if (wl.n_records, wl.slots) != (N, Kk):
+            raise ValueError(f"{label}: shape {(N, Kk)} is not the "
+                             f"workload's {(wl.n_records, wl.slots)}")
+        g = torch.Generator(device=dev)
+        g.manual_seed(11)
+        b, _ = wl.gen(g, wave, T, torch.zeros((wl.n_rings,),
+                                              dtype=torch.int32, device=dev))
+        keys, groups = b.op_key, b.op_group
+        live = b.live()
+        do_w = b.is_write() & live
+        pw = b.is_plain_write() & live
+        ad = b.is_add() & live
+        has_write = do_w.any(dim=1)
+        reads = b.is_read() & live & ~b.is_scan() & has_write[:, None]
+    else:
+        do_w, do_r, check_w, _, check_r, _ = masks
+        pw, ad = check_w & do_w, check_r & ~do_w
+        do_w = pw | ad
+        reads = do_r & ~do_w
+    n = T * Kk
+    claim_w = post_install_claims(N, G, wave, keys, groups, prio, do_w, dev,
+                                  5)
+    claim_r = post_install_claims(N, G, wave, keys, groups, prio, pw, dev, 6)
+    pair = dict(claim_r=claim_r, check_r=ad)
+    out = {}
+    for name, check_w in (("validate", pw | reads), ("validate_mvcc", pw)):
+        args = (claim_w, keys, groups, prio, check_w, wave, True)
+        # One launch a mask: claim_w on the plain writes, claim_r on the
+        # ADDs, and MV-OCC's reads on claim_w.
+        split = [(claim_w, pw), (claim_r, ad)] + (
+            [(claim_w, reads)] if name == "validate" else [])
+
+        def run_split(fn, split=split):
+            for table, chk in split:
+                fn(table, keys, groups, prio, chk, wave, True)
+        # Op vectors in (keys, groups, prio: 4 B; two checks: 1 B each), a
+        # verdict byte out, one G-word row read per distinct record each
+        # channel checks.
+        rows = (_distinct_rows(keys, check_w, N)
+                + _distinct_rows(keys, ad, N))
+        out[name] = dict(
+            ms=time_ms(lambda: K.validate(*args, **pair), dev),
+            plain_ms=time_ms(lambda: validate_plain(*args, **pair), dev),
+            split_ms=time_ms(lambda: run_split(K.validate), dev),
+            library_ms=None,
+            bound=bound_ms(n * (4 + 4 + 4 + 1 + 1 + 1) + rows * G * 4,
+                           2 * n),
+            shape=(f"{label} {'MV-OCC' if name == 'validate' else 'MVCC'} "
+                   f"wave masks, T={T} K={Kk} N={N} G={G}, fine"),
+            checked=[int(check_w.sum()), int(ad.sum())])
+        if parent:
+            out[name]["parent_ms"] = time_ms(
+                lambda: run_split(parent["validate"]), dev)
+    log(f"  {label:5s} MV wave masks: {int(pw.sum())} plain writes, "
+        f"{int(ad.sum())} ADDs, {int(reads.sum())} update-transaction "
+        "point reads")
     return out
 
 
@@ -1356,7 +1622,7 @@ def dist_kernel_timings(dev, lanes=DIST_LANES, slots=16, wave=9,
             library_ms=None,
             bound=bound_ms(M * 4 + 3 * M * 4 + 3 * cap * 4 + M * 4 + M, M),
             live_ops=live, shape=f"M={M} n_dest=1 cap={cap} W=3"),
-        # The same wave routed to 8 shards (one block each).
+        # The same wave routed to 8 shards.
         "route_pack_8": dict(
             ms=time_ms(lambda: K.route_pack(owner8, vals8, 8, cap8, fills),
                        dev),
@@ -1389,7 +1655,12 @@ def dist_kernel_timings(dev, lanes=DIST_LANES, slots=16, wave=9,
     if parent:
         out["wave_commit_wide"]["parent_ms"] = time_ms(
             lambda: parent["wave_commit"](*wide_args), dev)
+        out["route_pack"]["parent_ms"] = time_ms(
+            lambda: parent["route_pack"](owner, vals, 1, cap, fills), dev)
+        out["route_pack_8"]["parent_ms"] = time_ms(
+            lambda: parent["route_pack"](owner8, vals8, 8, cap8, fills), dev)
     return out
+
 
 
 # --------------------------------------------------------------- main path
@@ -1478,28 +1749,48 @@ def mv_path(dev, waves=WAVES, lanes=LANES, tpcc_kw=None, ycsb_kw=None):
     fine on point TPC-C; OCC/MVCC/MV-OCC x coarse and fine on YCSB with
     80% writes and 20% read-only transactions; one MVCC run on YCSB with
     snapshots 8 waves old.  Read-only lanes never abort under MVCC/MV-OCC
-    and do under coarse OCC; the aged snapshots abort as stale.  Returns
-    ({name: row}, launches)."""
+    and do under coarse OCC; the aged snapshots abort as stale; every
+    MVCC and MV-OCC wave launches validate once.  Returns ({name: row},
+    {phase: (launches, waves)}), the phases "mv_occ", "mv_mvcc",
+    "mv_mvocc" and "mv_aged"."""
     from repro_torch import kernels as K
     from repro_torch.launch.txn_bench import run_grid
-    tpcc_kw = dict(scale=1.0) if tpcc_kw is None else tpcc_kw
-    ycsb_kw = (dict(n_keys=YCSB_N, theta=0.9, write_frac=0.8, ro_frac=0.2)
-               if ycsb_kw is None else ycsb_kw)
+    tpcc_kw = MV_KW["tpcc"] if tpcc_kw is None else tpcc_kw
+    ycsb_kw = MV_KW["ycsb"] if ycsb_kw is None else ycsb_kw
     K.reset_launches()
-    rows = run_grid("tpcc", ["mvcc", "mvocc"], (0, 1), [lanes], waves,
-                    mv_depth=MV_DEPTH, device=dev, **tpcc_kw)
-    rows += run_grid("ycsb", ["occ", "mvcc", "mvocc"], (0, 1), [lanes],
-                     waves, mv_depth=MV_DEPTH, device=dev, **ycsb_kw)
-    (aged,) = run_grid("ycsb", ["mvcc"], (1,), [lanes], waves,
-                       mv_depth=MV_DEPTH, snapshot_age=8, device=dev,
-                       **ycsb_kw)
-    launches = K.launch_counts()
+    phases = {}
+
+    def run(phase, *args, **kw):
+        before = K.launch_counts()
+        rows = run_grid(*args, mv_depth=MV_DEPTH, device=dev, **kw)
+        n, w = phases.get(phase, ({op: 0 for op in before}, 0))
+        phases[phase] = ({op: n[op] + c - before[op]
+                          for op, c in K.launch_counts().items()},
+                         w + len(rows) * waves)
+        return rows
+    rows = []
+    for cc in ("mvcc", "mvocc"):
+        rows += run(f"mv_{cc}", "tpcc", [cc], (0, 1), [lanes], waves,
+                    **tpcc_kw)
+    for cc in ("occ", "mvcc", "mvocc"):
+        rows += run(f"mv_{cc}", "ycsb", [cc], (0, 1), [lanes], waves,
+                    **ycsb_kw)
+    (aged,) = run("mv_aged", "ycsb", ["mvcc"], (1,), [lanes], waves,
+                  snapshot_age=8, **ycsb_kw)
+    launches = {op: sum(n[op] for n, _ in phases.values())
+                for op in K.WRAPPERS}
     by = {}
     for r in rows + [aged]:
         by[f"{r['workload']} {_name(r)}"] = r
         _log_row(f"{r['workload']} mv", r)
         log(f"    ro_commits {r['ro_commits']} ro_aborts {r['ro_aborts']}")
     _check_kernels("mv", rows + [aged], launches, dev, scans=False)
+    per_wave = {ph: n["validate"] / w for ph, (n, w) in phases.items()}
+    log("  validate launches per wave " + json.dumps(per_wave))
+    if dev.type == "cuda" and not all(
+            per_wave[ph] == 1 for ph in ("mv_mvcc", "mv_mvocc", "mv_aged")):
+        raise AssertionError("an MVCC or MV-OCC wave must launch validate "
+                             f"once: {per_wave}")
     for r in rows:
         if r["cc"] in ("mvcc", "mvocc") and r["ro_aborts"] != 0:
             raise AssertionError(f"{r['workload']} {_name(r)}: a read-only "
@@ -1511,7 +1802,7 @@ def mv_path(dev, waves=WAVES, lanes=LANES, tpcc_kw=None, ycsb_kw=None):
     log(f"  snapshot_age 8 (ring depth {MV_DEPTH}): {stale} stale aborts")
     if not stale > 0:
         raise AssertionError("snapshots older than the ring must abort")
-    return by, launches
+    return by, phases
 
 
 def unfused_path(dev, fused, waves=WAVES, lanes=LANES, **wl_kw):
@@ -2378,8 +2669,18 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-#: The kernels whose parent build ``--parent`` times beside this one.
-PARENT_KERNELS = ("iterate_validate", "wave_commit", "rglru", "rwkv6")
+#: The kernels whose parent build ``--parent`` times beside this one, each
+#: with its source (csrc/<source>.cu) and module (kernels/<source>.py).
+PARENT_KERNELS = {"iterate_validate": "iterate_validate",
+                  "wave_commit": "wave_commit", "rglru": "rglru",
+                  "rwkv6": "rwkv6", "validate": "occ_validate",
+                  "route_pack": "route_pack"}
+
+
+#: C signatures of parent kernels whose entry this checkout changed: the
+#: earlier one-block-a-destination route_pack took no scratch.
+PARENT_SIGNATURES = {"route_pack": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                     + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]}
 
 
 def parent_kernels(parent_root: str) -> dict:
@@ -2389,7 +2690,6 @@ def parent_kernels(parent_root: str) -> dict:
     same C signatures; each fn takes its wrapper's arguments, so
     kernel_phase and lm_kernel_phase time both builds on the same inputs
     in one process."""
-    import ctypes
     import importlib
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import DTYPE_CODES
@@ -2398,18 +2698,20 @@ def parent_kernels(parent_root: str) -> dict:
     csrc = os.path.join(parent_root, "src", "repro_torch", "csrc")
     procs = {n: subprocess.Popen(
         [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-         os.path.join(out_dir, f"{n}.so"), os.path.join(csrc, f"{n}.cu")],
+         os.path.join(out_dir, f"{src}.so"), os.path.join(csrc,
+                                                          f"{src}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for n in PARENT_KERNELS}
+        for n, src in PARENT_KERNELS.items()}
     fns = {}
     for n, p in procs.items():
+        src = PARENT_KERNELS[n]
         text, _ = p.communicate()
         if p.returncode:
-            raise RuntimeError(f"nvcc failed for {csrc}/{n}.cu:\n{text}")
-        fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"{n}.so")),
+            raise RuntimeError(f"nvcc failed for {csrc}/{src}.cu:\n{text}")
+        fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"{src}.so")),
                      f"repro_{n}")
-        fn.argtypes = importlib.import_module(
-            f"repro_torch.kernels.{n}")._SIG[f"repro_{n}"]
+        fn.argtypes = PARENT_SIGNATURES.get(n) or importlib.import_module(
+            f"repro_torch.kernels.{src}")._SIG[f"repro_{n}"]
         fn.restype = ctypes.c_int
         fns[n] = fn
 
@@ -2463,9 +2765,32 @@ def parent_kernels(parent_root: str) -> dict:
             int(bump), build.stream(keys.device)))
         return conflict, commit
 
+    def run_validate(claim_w, keys, groups, myprio, check, wave, fine):
+        from repro_torch.core.claimword import inv_wave
+        out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+        N, G = claim_w.shape
+        build.raise_on_error("parent validate", fns["validate"](
+            *(build.ptr(t) for t in (claim_w, keys, groups, myprio, check,
+                                     out)), keys.numel(), N, G,
+            inv_wave(wave), int(bool(fine)), build.stream(keys.device)))
+        return out
+
+    def run_route_pack(owner, vals, n_dest, cap, fills):
+        W, M = vals.shape
+        buf = torch.empty((W, n_dest, cap), dtype=torch.int32,
+                          device=owner.device)
+        pos = torch.empty((M,), dtype=torch.int32, device=owner.device)
+        took = torch.empty((M,), dtype=torch.bool, device=owner.device)
+        c_fills = (ctypes.c_int * 8)(*[int(f) for f in fills])
+        build.raise_on_error("parent route_pack", fns["route_pack"](
+            *(build.ptr(t) for t in (owner, vals, buf, pos, took)), M, W,
+            n_dest, cap, c_fills, build.stream(owner.device)))
+        return buf, pos, took
+
     return {"rglru": run_rglru, "rwkv6": run_rwkv6,
             "iterate_validate": run_iterate_validate,
-            "wave_commit": run_wave_commit}
+            "wave_commit": run_wave_commit, "validate": run_validate,
+            "route_pack": run_route_pack}
 
 
 def lm_kernel_phase(dev, seed=21, cases=None, parent=None):
@@ -2764,9 +3089,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="a parent commit unpacked in DIR: time its "
-                         "iterate_validate, wave_commit, rglru and rwkv6 "
-                         "kernels beside this checkout's on the same "
-                         "inputs")
+                         "iterate_validate, wave_commit, validate, "
+                         "route_pack, rglru and rwkv6 kernels beside this "
+                         "checkout's on the same inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
@@ -2823,7 +3148,7 @@ def main(argv=None) -> int:
     ycsb_s, l_ycsb_s = scan_path("ycsb", dev, **SCAN_KW["ycsb"])
 
     log("multi-version path:")
-    mv, l_mv = mv_path(dev)
+    mv, mv_phases = mv_path(dev)
 
     log("fused = unfused on the card:")
     fused_unfused(dev)
@@ -2882,7 +3207,7 @@ def main(argv=None) -> int:
             "tpcc_unfused": (l_unf, len(UNFUSED) * WAVES),
             "tpcc_scans": (l_tpcc_s, len(tpcc_s) * WAVES),
             "ycsb_scans": (l_ycsb_s, len(ycsb_s) * WAVES),
-            "mv": (l_mv, len(mv) * WAVES),
+            **mv_phases,
             "backend_probe": (l_probe, 1),
             "quickstart": (l_quick, 3 * WAVES),
             "fig3": (l_fig, len(fig_rows) * WAVES),

@@ -31,25 +31,28 @@ from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 
 
 def fcw_conflicts(store: StoreState, batch: TxnBatch, prio, wave: int,
-                  cfg: EngineConfig):
+                  cfg: EngineConfig, read_check=None):
     """(store, conflict bool[T, K]): first-committer-wins write-write
     verdicts, shared by MVCC and MV-OCC.  Installs both claim channels,
     then a plain WRITE conflicts with any stronger writer of its cell, an
-    ADD only with a stronger plain WRITE."""
+    ADD only with a stronger plain WRITE.  ``read_check`` (MV-OCC's
+    update-transaction point reads) adds ops checked against the writer
+    channel as plain WRITEs are; the masks are disjoint by op kind, so all
+    of it is one ``validate`` call."""
     be = kb.BACKEND
     fine = base.is_fine(cfg)
     live = batch.live()
-    pw = batch.is_plain_write() & live
+    check_w = batch.is_plain_write() & live
+    if read_check is not None:
+        check_w = check_w | read_check
     ad = batch.is_add() & live
     myp = base.my_prio_per_op(batch, prio)
 
     store = base.write_claims(store, batch, prio, wave, cfg)   # all writes
     store = base.plain_write_claims(store, batch, prio, wave, cfg)
-    cw = be.validate(store.claim_w, batch.op_key, batch.op_group, myp, pw,
-                     wave, fine)
-    ca = be.validate(store.claim_r, batch.op_key, batch.op_group, myp, ad,
-                     wave, fine)
-    return store, cw | ca
+    conflict = be.validate(store.claim_w, batch.op_key, batch.op_group, myp,
+                           check_w, wave, fine, claim_r=store.claim_r, check_r=ad)
+    return store, conflict
 
 
 def mv_commit(store: StoreState, batch: TxnBatch, commit: torch.Tensor,

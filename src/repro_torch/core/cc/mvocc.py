@@ -27,16 +27,15 @@ def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
     fine = base.is_fine(cfg)
     live = batch.live()
     rd = batch.is_read() & live
-    myp = base.my_prio_per_op(batch, prio)
     T, K = batch.op_key.shape
 
-    store, conflict = mvcc.fcw_conflicts(store, batch, prio, wave, cfg)
-
-    # Commit-time read validation, update transactions only.
+    # Commit-time read validation, update transactions only: the point
+    # reads ride the write-write check's validate call on the writer
+    # channel.
     has_write = (batch.is_write() & live).any(dim=1)
-    crd = be.validate(store.claim_w, batch.op_key, batch.op_group, myp,
-                      rd & ~batch.is_scan(), wave, fine)
-    conflict = conflict | (crd & has_write[:, None])
+    store, conflict = mvcc.fcw_conflicts(
+        store, batch, prio, wave, cfg,
+        read_check=rd & ~batch.is_scan() & has_write[:, None])
     u = claims.hash01(wave, claims.lane_op_ids(T, K, batch.op_key.device))
     conflict = conflict & (u < cfg.cost.opt_overlap)   # window thinning
     # Scans of update transactions re-validate unthinned; read-only lanes

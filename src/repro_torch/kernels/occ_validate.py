@@ -1,6 +1,6 @@
-"""Read validation against a claim table: one verdict at one granularity
-(``validate``) or fine and coarse verdicts from one row read
-(``validate_dual``).
+"""Read validation against claim tables: one verdict at one granularity
+(``validate``, on one table or, per op, on one or two of a pair of
+tables) or fine and coarse verdicts from one row read (``validate_dual``).
 
 Replaces the TPU kernels ``occ_validate_pallas`` and
 ``occ_validate_dual_pallas`` (src/repro/kernels/occ_validate.py); the
@@ -12,17 +12,25 @@ semantics are the JAX oracles ``ref.occ_validate`` and
 
 ``validate`` returns the one its ``fine`` flag names, ``validate_dual``
 both.  A masked key gives no conflict; an out-of-range group gives none
-on the fine side (the oracle's fill reads as no claimant).  The table is
-only read.
+on the fine side (the oracle's fill reads as no claimant).  The tables
+are only read.
+
+``validate`` takes an optional second channel (``claim_r``,
+``check_r``): it then returns ``(check & verdict(claim_w)) | (check_r &
+verdict(claim_r))`` per op, in one launch.  The multi-version waves
+validate their writes against both claim tables, and MV-OCC its reads
+against the writer table, with this one call (``cc/mvcc.py``,
+``cc/mvocc.py``).
 
 CUDA tensors launch ``csrc/occ_validate.cu`` (one thread per op reading
-its row once); CPU tensors take the plain versions.  The file's third TPU
-kernel, ``claim_probe_pallas`` (the ``probe`` op), has no caller in the
-JAX package and stays queued (ROADMAP B.7).
+the rows its checks name); CPU tensors take the plain versions.  The
+file's third TPU kernel, ``claim_probe_pallas``, is the ``probe`` op
+(``kernels/claim_probe.py``).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -33,13 +41,20 @@ from repro_torch.kernels.scatter import gather_rows, pick_group
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"repro_validate_dual": [_P] * 7 + [_I] * 4 + [_P],
-        "repro_validate": [_P] * 6 + [_I] * 5 + [_P]}
+        "repro_validate": [_P] * 6 + [_I] * 5 + [_P],
+        "repro_validate_pair": [_P] * 8 + [_I] * 5 + [_P]}
 
 
 def validate_plain(claim_w: torch.Tensor, keys: torch.Tensor,
                    groups: torch.Tensor, myprio: torch.Tensor,
-                   check: torch.Tensor, wave: int,
-                   fine: bool) -> torch.Tensor:
+                   check: torch.Tensor, wave: int, fine: bool,
+                   claim_r: Optional[torch.Tensor] = None,
+                   check_r: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if claim_r is not None:
+        return (validate_plain(claim_w, keys, groups, myprio, check, wave,
+                               fine)
+                | validate_plain(claim_r, keys, groups, myprio, check_r,
+                                 wave, fine))
     rows, valid = gather_rows(claim_w, keys)
     pr = torch.where(valid[..., None], live_prio(rows, inv_wave(wave)),
                      NO_PRIO)
@@ -49,13 +64,18 @@ def validate_plain(claim_w: torch.Tensor, keys: torch.Tensor,
 
 def validate(claim_w: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
              myprio: torch.Tensor, check: torch.Tensor, wave: int,
-             fine: bool) -> torch.Tensor:
+             fine: bool, claim_r: Optional[torch.Tensor] = None,
+             check_r: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Conflict flags bool[T, K]: checked ops whose cell (fine) or row
-    (coarse) a strictly stronger lane claimed this wave."""
+    (coarse) a strictly stronger lane claimed this wave in ``claim_w``,
+    or, with the second channel, ``check_r`` ops whose cell or row a
+    stronger lane claimed in ``claim_r``."""
     validate.calls += 1
+    if (claim_r is None) != (check_r is None):
+        raise ValueError("validate: claim_r and check_r come together")
     if keys.device.type == "cpu":
         return validate_plain(claim_w, keys, groups, myprio, check, wave,
-                              fine)
+                              fine, claim_r, check_r)
     dev = build.launch_device(keys)
     N, G = claim_w.shape
     shape = tuple(keys.shape)
@@ -67,11 +87,20 @@ def validate(claim_w: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
     out = torch.empty(shape, dtype=torch.bool, device=dev)
     lib = build.load("occ_validate", _SIG)
     with torch.cuda.device(dev):
-        rc = lib.repro_validate(
-            build.ptr(claim_w), build.ptr(keys), build.ptr(groups),
-            build.ptr(myprio), build.ptr(check), build.ptr(out),
-            keys.numel(), N, G, inv_wave(wave), int(bool(fine)),
-            build.stream(dev))
+        if claim_r is None:
+            rc = lib.repro_validate(
+                build.ptr(claim_w), build.ptr(keys), build.ptr(groups),
+                build.ptr(myprio), build.ptr(check), build.ptr(out),
+                keys.numel(), N, G, inv_wave(wave), int(bool(fine)),
+                build.stream(dev))
+        else:
+            build.check("claim_r", claim_r, torch.int32, (N, G), dev)
+            build.check("check_r", check_r, torch.bool, shape, dev)
+            rc = lib.repro_validate_pair(
+                build.ptr(claim_w), build.ptr(claim_r), build.ptr(keys),
+                build.ptr(groups), build.ptr(myprio), build.ptr(check),
+                build.ptr(check_r), build.ptr(out), keys.numel(), N, G,
+                inv_wave(wave), int(bool(fine)), build.stream(dev))
     build.raise_on_error("validate", rc)
     validate.launches += 1
     return out

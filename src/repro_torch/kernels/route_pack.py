@@ -12,9 +12,13 @@ bool[M])``: ``took`` is False for dropped and masked ops (owner outside
 ``[0, n_dest)``), ``pos`` keeps the rank of a dropped op and is 0 for a
 masked one, and cells no op fills hold ``fills[w]``.
 
-CUDA tensors launch ``csrc/route_pack.cu`` (one block per destination
-walking the ops in order with a block-wide scan; at most 8 channels);
-CPU tensors take ``route_pack_plain``.
+CUDA tensors launch ``csrc/route_pack.cu``, one cooperative launch: a
+grid of 256-op tiles (at most as many blocks as the card keeps resident)
+counts its ops per destination, sums the counts after one grid barrier,
+ranks its tiles with warp match masks and writes a share of the fill
+cells.  The kernel takes at most ``MAX_CHANNELS`` channels and
+``MAX_DESTINATIONS`` destinations.  CPU tensors take
+``route_pack_plain``.
 """
 from __future__ import annotations
 
@@ -27,10 +31,13 @@ from repro_torch.kernels import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"repro_route_pack": [_P] * 5 + [_I] * 4
-        + [ctypes.POINTER(ctypes.c_int), _P]}
+_SIG = {"repro_route_pack": [_P] * 6 + [_I] * 4
+        + [ctypes.POINTER(ctypes.c_int), _I, _P],
+        "repro_route_pack_blocks": [_I, _I, ctypes.POINTER(ctypes.c_int)]}
 #: Payload channels the kernel takes.
 MAX_CHANNELS = 8
+#: Destinations the kernel takes: its shared memory holds ten words each.
+MAX_DESTINATIONS = 1024
 
 
 def route_pack_plain(owner: torch.Tensor, vals: torch.Tensor, n_dest: int,
@@ -68,6 +75,10 @@ def route_pack(owner: torch.Tensor, vals: torch.Tensor, n_dest: int,
     if W > MAX_CHANNELS:
         raise ValueError(f"route_pack: the kernel takes at most "
                          f"{MAX_CHANNELS} channels, got {W}")
+    if n_dest > MAX_DESTINATIONS:
+        raise ValueError(f"route_pack: the kernel takes at most "
+                         f"MAX_DESTINATIONS={MAX_DESTINATIONS} "
+                         f"destinations, got {n_dest}")
     build.check("owner", owner, torch.int32, (M,), dev)
     build.check("vals", vals, torch.int32, (W, M), dev)
     buf = torch.empty((W, n_dest, cap), dtype=torch.int32, device=dev)
@@ -75,10 +86,16 @@ def route_pack(owner: torch.Tensor, vals: torch.Tensor, n_dest: int,
     took = torch.empty((M,), dtype=torch.bool, device=dev)
     c_fills = (ctypes.c_int * MAX_CHANNELS)(*[int(f) for f in fills])
     lib = build.load("route_pack", _SIG)
+    blocks = ctypes.c_int(0)
     with torch.cuda.device(dev):
+        build.raise_on_error("route_pack", lib.repro_route_pack_blocks(
+            M, n_dest, ctypes.byref(blocks)))
+        counts = torch.empty((blocks.value, n_dest), dtype=torch.int32,
+                             device=dev)
         rc = lib.repro_route_pack(
             build.ptr(owner), build.ptr(vals), build.ptr(buf), build.ptr(pos),
-            build.ptr(took), M, W, n_dest, cap, c_fills, build.stream(dev))
+            build.ptr(took), build.ptr(counts), M, W, n_dest, cap, c_fills,
+            blocks.value, build.stream(dev))
     build.raise_on_error("route_pack", rc)
     route_pack.launches += 1
     return buf, pos, took

@@ -10,12 +10,13 @@
 For each (cc, granularity) of the ``--cc`` mechanisms (OCC and TicToc by
 default): the host wall time per wave
 (``core/engine.run_waves``, the wave loop of ``run``, synchronized, without
-the profiler), then one ``torch.profiler`` pass over the same number of waves
-giving the device kernels per wave, the device-busy time per wave (the
-union of kernel and copy intervals), the idle share of the profiled wall
-time, and the kernels that take the most device time.  The workload
-flags are txn_bench's (scans, read-only share, write share), and so is
-``--arrival-rate`` (the open loop, with ``txn_bench.make_config``'s
+the profiler) and the port's kernel launches per wave in that run (the
+wrappers' counters), then one ``torch.profiler`` pass over the same
+number of waves giving the device kernels per wave, the device-busy time
+per wave (the union of kernel and copy intervals), the idle share of the
+profiled wall time, and the kernels that take the most device time.  The
+workload flags are txn_bench's (scans, read-only share, write share), and
+so is ``--arrival-rate`` (the open loop, with ``txn_bench.make_config``'s
 queue and incarnations); the multi-version mechanisms get txn_bench's
 default ring of 4 slots.
 Prints one JSON line per configuration and needs a CUDA device.
@@ -71,6 +72,7 @@ def profile(workload: str, cc: str, gran: int, lanes: int, waves: int,
             warmup: int = 10, top: int = 8, arrival_rate: float = 0.0,
             **wl_kw) -> dict:
     """``arrival_rate > 0`` makes the run open-loop."""
+    from repro_torch import kernels as K
     from repro_torch.core.engine import (make_open_wave_step, make_wave_step,
                                          run_waves)
     from repro_torch.core.types import engine_state_init, resolve_device
@@ -83,13 +85,17 @@ def profile(workload: str, cc: str, gran: int, lanes: int, waves: int,
     state = engine_state_init(cfg, wl.init_store(dev, cfg.mv_depth))
     step = (make_open_wave_step if cfg.open_loop else make_wave_step)(cfg)
     state, _ = run_waves(cfg, wl, state, step, gen, warmup)
+    before = K.launch_counts()
     state, wall = run_waves(cfg, wl, state, step, gen, waves)
+    launched = {op: (n - before[op]) / waves
+                for op, n in K.launch_counts().items() if n > before[op]}
     return {
         "workload": workload, "cc": cc, "granularity": gran,
         "lanes": lanes, "waves": waves, "max_extent": cfg.max_extent,
         "workload_kw": wl_kw, "arrival_rate": arrival_rate,
         "device_name": torch.cuda.get_device_name(dev),
         "wall_ms_per_wave": wall / waves * 1e3,
+        "kernel_launches_per_wave": launched,
         **profile_device(lambda: run_waves(cfg, wl, state, step, gen, waves),
                          waves, top),
     }

@@ -153,6 +153,41 @@ def test_wave_commit_edge_cases_bit_identical_to_plain_version():
 
 
 @pytest.mark.cuda
+def test_validate_pair_edge_cases_bit_identical_to_plain_version():
+    """validate's one launch a multi-version wave on
+    chip_smoke.validate_pair_cases: the waves' disjoint masks, overlapping
+    masks, one channel alone, none; masked keys, groups past G, ties, both
+    halves of the claim tag."""
+    check = chip_smoke.KernelCheck("validate")
+    chip_smoke.validate_pair_case_checks(check, _cuda())
+    torch.cuda.synchronize()
+    assert check.equal and check.max_err == 0.0
+    assert check.cases == len(chip_smoke.validate_pair_cases())
+
+
+@pytest.mark.cuda
+def test_route_pack_edge_cases_bit_identical_to_plain_version():
+    """The tiled pack on chip_smoke.route_pack_cases, both routes (direct
+    and two-level), and a buffer of more than 2**31 words."""
+    check = chip_smoke.KernelCheck("route_pack")
+    chip_smoke.route_pack_case_checks(check, _cuda())
+    torch.cuda.synchronize()
+    assert check.equal and check.max_err == 0.0
+    assert check.cases == len(chip_smoke.route_pack_cases(huge=True))
+
+
+@pytest.mark.cuda
+def test_route_pack_refuses_more_destinations_than_the_kernel_takes():
+    from repro_torch import kernels as K
+    from repro_torch.kernels.route_pack import MAX_DESTINATIONS
+    dev = _cuda()
+    owner = torch.zeros((8,), dtype=torch.int32, device=dev)
+    vals = torch.zeros((3, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="MAX_DESTINATIONS"):
+        K.route_pack(owner, vals, MAX_DESTINATIONS + 1, 16, (0, 0, 0))
+
+
+@pytest.mark.cuda
 def test_sharded_wave_identical_on_card_and_cpu():
     """A one-rank NCCL group on the card against a gloo group on the CPU,
     at small sizes: commit masks, tables and stats bit-identical."""
