@@ -43,17 +43,27 @@ src/repro_torch/csrc, then:
      off; validate's two-channel form (validate_pair_cases): the
      multi-version waves' disjoint masks, overlapping masks, one channel
      alone, none, fine and coarse, G = 1 to 3, keys -1 and past the end,
-     groups past G, ties, both tag halves; route_pack's
+     groups past G, ties, both tag halves; validate with the
+     multi-version wave's claim installs (validate_install_cases): the
+     waves' masks, ops with both, one or neither install and check,
+     installs alone, checks alone, nothing, duplicate cells in both
+     tables, fine and coarse, G = 1 to 3, and a wave of more ops than an
+     H100 keeps co-resident threads, verdicts and both tables compared;
+     mv_install's (mv_install_cases): D = 4 and 1, G = 1 to 3, duplicate
+     writers of a record in one group and in several, keys and groups out
+     of range, heads at D - 1, D, D + 3 and -1, empty and full masks,
+     every op on one record, stamps on both sides of 2**31, and a wave
+     past the kernel's one-op-a-thread capacity; route_pack's
      (route_pack_cases): M off the 256-op tile, one op and none, n_dest
      1, 3, 8 and 1,024, cap 0, 16 and DistConfig's, skewed overflows, W
      1 to 8, more tiles than resident blocks, and a buffer of more than
      2**31 words.  validate is timed on the masks the MVCC and MV-OCC
-     waves build (TPC-C and the multi-version YCSB mix) as one
-     two-channel launch beside the one-channel launches the waves made
-     before.  With --parent DIR iterate_validate,
-     wave_commit, validate, route_pack (and the LM kernels, below) are
-     timed beside the kernels of the commit unpacked in DIR, built from
-     its sources;
+     waves build (TPC-C and the multi-version YCSB mix) as one launch
+     that installs both claim tables and checks, beside claim_scatter
+     twice and the two-channel validate, the launches the waves made
+     before.  With --parent DIR validate (as the parent's claim_scatter
+     twice and two-channel validate) and mv_install are timed beside the
+     kernels of the commit unpacked in DIR, built from its sources;
   2. the main path on TPC-C (full scale, T = 128, 200 waves) through the
      benchmark CLI's grid runner: OCC, TicToc, 2PL, SwissTM and Adaptive
      x coarse and fine, plus AutoGran coarse, with the launch counters set
@@ -83,7 +93,8 @@ src/repro_torch/csrc, then:
      transactions (benchmarks/abort_rates.py): read-only lanes never
      abort under MVCC/MV-OCC and do under coarse OCC; one MVCC run whose
      snapshots are 8 waves old (beyond the ring's 4) aborts as stale;
-     every MVCC and MV-OCC wave launches validate once;
+     every MVCC and MV-OCC wave launches validate (both claim installs
+     and the check) once, mv_install once and claim_scatter never;
   8. fused = unfused again with scans on (the bumps move out of
      wave_commit);
   9. cross-device identity: one set of draws made on the CPU, run through
@@ -143,8 +154,7 @@ src/repro_torch/csrc, then:
      float32 within rtol 1e-5 / atol 1e-5, bfloat16 within 2 ulps; each
      timed at the prefill shape beside its plain version, its bound and,
      for flash_attention, F.scaled_dot_product_attention with the same
-     mask, and with --parent DIR beside the rglru and rwkv6 kernels of the
-     parent commit.  Then
+     mask.  Then
      recurrentgemma-9b and rwkv6-3b at full width (random bf16 weights
      from a seed) through repro_torch.launch.serve.serve: 4 requests of
      3,072-token prompts, 32 tokens each, the launch counters set to 0
@@ -154,8 +164,12 @@ src/repro_torch/csrc, then:
      and prompt through the plain route, and both routes on the float32
      model of the same weights: the float32 routes' last-position logits
      of the prefill and of the first decode step within relative L2 1e-2;
-     the bf16 routes' distance printed beside that bound (bf16 rounding
-     of the residual stream puts two correct evaluations farther apart).
+     the bf16 kernel route at most twice as far from the float32 plain
+     route as the bf16 plain route (plus 1e-2); the bf16 routes' distance
+     printed beside that bound (bf16 rounding of the residual stream puts
+     two correct evaluations farther apart).  The bf16 plain route also
+     decodes its own 32 greedy tokens; how many of each request's tokens
+     equal the kernel route's, up to the first difference, is printed.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -237,8 +251,7 @@ KERNEL_META = {
 DIST_KERNELS = ("route_pack", "verdict_pack", "verdict_unpack")
 #: The kernels each mechanism's (fused) wave launches on the point mix.
 _PROBE_OPS = ("wave_commit", "segment_count")
-_MV_OPS = ("validate", "claim_scatter", "mv_gather", "mv_install",
-           "segment_count")
+_MV_OPS = ("validate", "mv_gather", "mv_install", "segment_count")
 MECH_OPS = {"occ": _PROBE_OPS,
             "tictoc": _PROBE_OPS + ("ts_gather", "ts_install_max"),
             "2pl": _PROBE_OPS, "swisstm": _PROBE_OPS, "adaptive": _PROBE_OPS,
@@ -833,6 +846,202 @@ def validate_pair_case_checks(check, dev):
                              "each channel alone")
 
 
+#: validate's install modes: the multi-version waves' masks (every write
+#: installs into claim_w, plain writes into claim_r; plain writes and
+#: update-transaction reads checked on claim_w, ADDs on claim_r),
+#: independent masks (an op with both, one or neither install and check),
+#: installs without checks, checks without installs, and nothing.
+INSTALL_MODES = ("waves", "overlap", "install_only", "check_only", "none")
+#: The install cases' wave of more ops than an H100 keeps co-resident
+#: threads (H100_SMS x SM_THREADS = 270,336): lanes x slots.
+INSTALL_BIG = (2048, 160)
+
+
+def validate_install_cases(seed=59):
+    """validate's install-and-check edge cases (the multi-version wave's
+    one launch), made with numpy from ``seed``: [(label, dict)] with the
+    wrapper's arguments (pre-install tables as uint32, the lane priority
+    ``prio`` int32[T]).  Every mode of INSTALL_MODES, fine and coarse, at
+    waves whose claim tag has its top bit set (9) and clear (HIGH_WAVE),
+    G = 2, and four more at G = 1 and 3: T = 8 lanes of K = 40 ops (320,
+    off the 256-thread block) on N = 997 rows, a fifth of the ops on four
+    hot rows (duplicate cells in both tables), keys -1 and past the
+    table's end, groups G and G + 2, a lane whose priority equals a live
+    claim's (a tie is no conflict) and a read-only lane; and one
+    MV-OCC-masked wave of INSTALL_BIG ops on 2**16 rows: more ops than
+    one a co-resident thread, so the kernel's threads stride."""
+    rng = np.random.default_rng(seed)
+    configs = [(m, f, 2) for m in INSTALL_MODES for f in (True, False)] + [
+        ("waves", True, 1), ("overlap", False, 1), ("waves", False, 3),
+        ("overlap", True, 3)]
+    shapes = [(997, 8, 40)] * (2 * len(configs))
+    waves = [9] * len(configs) + [HIGH_WAVE] * len(configs)
+    configs = configs * 2 + [("waves", True, 2)]
+    shapes.append((1 << 16, *INSTALL_BIG))
+    waves.append(9)
+    cases = []
+    for (mode, fine, G), (N, T, K), wave in zip(configs, shapes, waves):
+        claim_w = claim_words(rng, N, G, wave, 0.3)
+        claim_r = claim_words(rng, N, G, wave, 0.3)
+        keys = rng.integers(0, N, (T, K))
+        hot = rng.random((T, K)) < 0.2
+        keys[hot] = rng.integers(0, 4, hot.sum())
+        pick = rng.random((T, K))
+        keys = np.where(pick < 0.05, -1, np.where(pick > 0.96, N + 3, keys))
+        groups = rng.integers(0, G, (T, K))
+        odd = rng.random((T, K))
+        groups = np.where(odd < 0.04, G + 2, np.where(odd > 0.96, G, groups))
+        prio = rng.permutation(1 << 16)[:T]
+        prio[0] = claim_w[keys[0, 0] % N, 0] & 0xFFFF   # a tie
+        kind = rng.integers(0, 3, (T, K))    # 0 read, 1 plain write, 2 ADD
+        kind[1] = 0                          # a read-only lane
+        has_write = (kind > 0).any(axis=1)
+        if mode == "waves":
+            install_w, install_r = kind > 0, kind == 1
+            check = (kind == 1) | ((kind == 0) & has_write[:, None])
+            check_r = kind == 2
+        else:
+            install_w, install_r, check, check_r = (
+                rng.random((T, K)) < 0.5 for _ in range(4))
+            if mode in ("check_only", "none"):
+                install_w[:], install_r[:] = False, False
+            if mode in ("install_only", "none"):
+                check[:], check_r[:] = False, False
+        cases.append((
+            f"{mode} {'fine' if fine else 'coarse'} G={G} wave={wave} "
+            f"T={T} K={K}",
+            dict(claim_w=claim_w, claim_r=claim_r,
+                 keys=keys.astype(np.int32), groups=groups.astype(np.int32),
+                 prio=prio.astype(np.int32), install_w=install_w,
+                 install_r=install_r, check=check, check_r=check_r,
+                 wave=wave, fine=fine)))
+    return cases
+
+
+def _install_args(c, dev):
+    """validate's install-and-check arguments for a
+    validate_install_cases case, on ``dev``, the tables fresh copies."""
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(
+            x.view(np.int32) if x.dtype == np.uint32 else x)).to(dev).clone()
+    return ((t(c["claim_w"]), t(c["keys"]), t(c["groups"]), t(c["prio"]),
+             t(c["check"]), c["wave"], c["fine"]),
+            dict(claim_r=t(c["claim_r"]), check_r=t(c["check_r"]),
+                 install_w=t(c["install_w"]), install_r=t(c["install_r"])))
+
+
+def validate_install_case_checks(check, dev):
+    """validate with installs against its plain version on
+    validate_install_cases, verdicts and both installed tables; some
+    case must flag a conflict on each channel alone."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.occ_validate import validate_plain
+    only = {"w": 0, "r": 0}
+    cases = validate_install_cases()
+    for label, c in cases:
+        (cw, *rest), kw = _install_args(c, dev)
+        got = K.validate(cw, *rest, **kw)
+        (pcw, *prest), pkw = _install_args(c, dev)
+        want = validate_plain(pcw, *prest, **pkw)
+        check.compare([got, cw, kw["claim_r"]],
+                      [want, pcw, pkw["claim_r"]])
+        myp = prest[2][:, None].expand(prest[0].shape)
+        w = validate_plain(pcw, prest[0], prest[1], myp, prest[3],
+                           *prest[4:])
+        r = validate_plain(pkw["claim_r"], prest[0], prest[1], myp,
+                           pkw["check_r"], *prest[4:])
+        only["w"] += int((w & ~r).sum())
+        only["r"] += int((r & ~w).sum())
+    log(f"  validate install-and-check edge cases: {len(cases)} (the "
+        f"largest {max(c['keys'].size for _, c in cases)} ops), conflicts "
+        f"on claim_w alone {only['w']}, on claim_r alone {only['r']}")
+    if not (only["w"] and only["r"]):
+        raise AssertionError("validate: the install cases must conflict on "
+                             "each channel alone")
+
+
+def mv_install_cases(seed=61):
+    """mv_install's edge cases, made with numpy from ``seed``: [(label,
+    dict)] with the wrapper's arguments (``begin`` uint32[N, D, G], ``head``
+    int32[N], keys, groups, ``do``, ``ts``).  D = 4 and 1, G = 1 to 3,
+    T = 8 lanes of K = 40 ops on N = 64 records (duplicate writers of one
+    record in one group and in different groups), keys -1 and past the
+    table's end, groups G and G + 2, heads at D - 1 (the ring wraps), D,
+    D + 3 and -1 (outside [0, D): a zero row carried forward), masks
+    empty, full and half; every op on one record; stamps below and above
+    2**31, every begin of the ring below the stamp or empty; and one
+    wave of INSTALL_BIG ops on 2**16 records: more ops
+    than one a co-resident thread, so the kernel keeps the later ops' new
+    slots in its scratch vector."""
+    rng = np.random.default_rng(seed)
+    configs = [(D, G, mode) for D in (4, 1) for G in (1, 2, 3)
+               for mode in ("half", "full", "none", "one_record")]
+    configs.append((4, 2, "half"))
+    shapes = [(64, 8, 40)] * (len(configs) - 1) + [(1 << 16, *INSTALL_BIG)]
+    cases = []
+    for ci, ((D, G, mode), (N, T, K)) in enumerate(zip(configs, shapes)):
+        ts = 0x80000005 if ci % 2 else 1000
+        begin = rng.integers(0, ts, (N, D, G)).astype(np.uint32)
+        begin[rng.random((N, D, G)) < 0.3] = 0xFFFFFFFF   # empty slots
+        head = rng.integers(0, D, N)
+        odd = rng.integers(0, N, 4)
+        head[odd] = [D - 1, D, D + 3, -1]
+        keys = rng.integers(0, N, (T, K))
+        sel = rng.random((T, K)) < 0.3
+        keys[sel] = odd[rng.integers(0, 4, sel.sum())]
+        pick = rng.random((T, K))
+        keys = np.where(pick < 0.05, -1, np.where(pick > 0.96, N + 2, keys))
+        groups = rng.integers(0, G, (T, K))
+        g_odd = rng.random((T, K))
+        groups = np.where(g_odd < 0.04, G + 2,
+                          np.where(g_odd > 0.96, G, groups))
+        do = rng.random((T, K)) < 0.5
+        if mode == "full":
+            do[:] = True
+        elif mode == "none":
+            do[:] = False
+        elif mode == "one_record":
+            keys[:] = odd[0]
+            do[:] = True
+        cases.append((
+            f"{mode} D={D} G={G} T={T} K={K} ts={ts:#x}",
+            dict(begin=begin, head=head.astype(np.int32),
+                 keys=keys.astype(np.int32), groups=groups.astype(np.int32),
+                 do=do, ts=ts)))
+    return cases
+
+
+def mv_install_case_checks(check, dev):
+    """mv_install against its plain version on mv_install_cases, ring and
+    heads; the largest case must exceed the kernel's one-op-a-thread
+    capacity on the card."""
+    import importlib
+    from repro_torch import kernels as K
+    from repro_torch.kernels import build
+    mod = importlib.import_module("repro_torch.kernels.mv_install")
+    cases = mv_install_cases()
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(
+            x.view(np.int32) if x.dtype == np.uint32 else x)).to(dev).clone()
+    for label, c in cases:
+        args = [t(c[n]) for n in ("keys", "groups", "do")]
+        a = (t(c["begin"]), t(c["head"]))
+        b = (t(c["begin"]), t(c["head"]))
+        K.mv_install(*a, *args, c["ts"])
+        mod.mv_install_plain(*b, *args, c["ts"])
+        check.compare(list(a), list(b))
+    cap = None
+    if dev.type == "cuda":
+        cap = mod.capacity(build.load("mv_install", mod._SIG), dev)
+        if not max(c["keys"].size for _, c in cases) > cap:
+            raise AssertionError(f"mv_install: no case exceeds the "
+                                 f"kernel's capacity of {cap} ops")
+    log(f"  mv_install edge cases: {len(cases)} (the largest "
+        f"{max(c['keys'].size for _, c in cases)} ops; one launch takes "
+        f"{cap} ops without scratch)")
+
+
 #: route_pack's edge cases (M, n_dest, cap, W, skew): the one-card wave
 #: (4,096 ops), with scans (8,192) and TPC-C's (16,384; 32,768 with
 #: scans); M off the 256-op tile, one op, none; n_dest 1, 3, 8 and
@@ -1135,24 +1344,21 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
                 bound=bound_ms(n * (4 + 4 + 4 + 1 + 4) + probed * 4
                                + installs * 4, 2 * n)),
         }
-        if parent:
-            t["wave_commit"]["parent_ms"] = time_ms(lambda: parent[
-                "wave_commit"](cw, None, wt, keys, groups, prio, do_w, None,
-                               check_w, None, None, None, wave, True, False,
-                               True), dev)
         t.update(scan_mv_timings(label, dev, N, G, T, Kk, keys, groups,
                                  prio, do_w, wave, parent))
-        t.update(validate_pair_timings(label, dev, N, G, T, Kk, keys,
-                                       groups, prio, masks, wave, parent))
+        t.update(validate_install_timings(label, dev, N, G, T, Kk, keys,
+                                          groups, prio, masks, wave, parent))
         timings[label] = t
     timings["seg"] = segment_count_case_checks(checks["segment_count"],
                                                dev)
     iterate_validate_case_checks(checks["iterate_validate"], dev)
     wave_commit_case_checks(checks["wave_commit"], dev)
     validate_pair_case_checks(checks["validate"], dev)
+    validate_install_case_checks(checks["validate"], dev)
+    mv_install_case_checks(checks["mv_install"], dev)
     dist_kernel_checks(checks, dev, dist_lanes)
     route_pack_case_checks(checks["route_pack"], dev)
-    timings["dist"] = dist_kernel_timings(dev, dist_lanes, parent=parent)
+    timings["dist"] = dist_kernel_timings(dev, dist_lanes)
     for label, t in timings.items():
         for name, r in t.items():
             log(f"  {label:5s} {name:16s} kernel {r['ms']:.6f} ms  plain "
@@ -1247,6 +1453,21 @@ def scan_mv_checks(checks, dev, N, G, keys, groups, prio, masks, wave, seed,
                                 **pair)],
                     [validate_plain(dense, keys, groups, prio, cw_, wv,
                                     fine, **pair)])
+            # The installs and the check in one call: both installs and
+            # both checks, installs into one table only with one check,
+            # and nothing at all.
+            lane = prio[:, 0].contiguous()
+            for iw, ir, cw_, cr_ in ((do_w, do_w & check_w, check_w,
+                                      check_r),
+                                     (do_w, none, none, check_r),
+                                     (none, none, none, none)):
+                outs = []
+                for fn in (K.validate, validate_plain):
+                    a, b = dense.clone(), dense_r.clone()
+                    outs.append([fn(a, keys, groups, lane, cw_, wv, fine,
+                                    claim_r=b, check_r=cr_, install_w=iw,
+                                    install_r=ir), a, b])
+                checks["validate"].compare(*outs)
         table = post_install_claims(N, G, wv, keys, groups, prio, do_w, dev,
                                     seed + 13)
         for fine in (True, False):
@@ -1304,8 +1525,8 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
                     parent=None):
     """Times of iterate_validate, mv_gather and mv_install on one wave of
     the scan path: the scan-configured workload's draw at the main shapes,
-    else the synthetic ops; with ``parent`` (see parent_kernels)
-    iterate_validate's parent build too.  Returns {name: timing dict}."""
+    else the synthetic ops; with ``parent`` (see parent_kernels) the
+    parent build of mv_install too.  Returns {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.kernels.iterate_validate import (iterate_validate_plain,
                                                       scan_span)
@@ -1380,8 +1601,8 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
                            n)),
     }
     if parent:
-        out["iterate_validate"]["parent_ms"] = time_ms(
-            lambda: parent["iterate_validate"](*scan_args), dev)
+        out["mv_install"]["parent_ms"] = time_ms(
+            lambda: install(parent["mv_install"]), dev)
     return out
 
 
@@ -1392,15 +1613,19 @@ MV_KW = {"tpcc": dict(scale=1.0),
                       ro_frac=0.2)}
 
 
-def validate_pair_timings(label, dev, N, G, T, Kk, keys, groups, prio,
-                          masks, wave, parent=None):
-    """Times of validate on the masks the multi-version waves build: one
-    two-channel launch (MV-OCC's: plain writes and update-transaction
-    point reads on claim_w, ADDs on claim_r; MVCC's without the reads),
-    beside this build's one-channel kernel launched once a mask (3 and 2
-    times, ``split_ms``) and, with ``parent``, the parent's one-channel
-    kernel launched the same way.  The multi-version workload's draw at the main shapes, else
-    the synthetic ops.  Returns {name: timing dict}."""
+def validate_install_timings(label, dev, N, G, T, Kk, keys, groups, prio,
+                             masks, wave, parent=None):
+    """Times of validate with the wave's claim installs, on the masks the
+    multi-version waves build: one launch (MV-OCC's masks: every write
+    installs into claim_w and plain writes into claim_r; plain writes and
+    update-transaction point reads are checked on claim_w, ADDs on
+    claim_r; MVCC's without the reads), beside this build's
+    claim_scatter twice and two-channel validate (the launches the waves
+    made before, ``split_ms``) and, with ``parent``, the parent's same
+    three launches.  The multi-version workload's draw at the main
+    shapes, else the synthetic ops; every call installs into the same
+    tables (min is idempotent, so each call sees the tables of the
+    first).  Returns {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.kernels.occ_validate import validate_plain
     from repro_torch.launch.txn_bench import make_workload
@@ -1426,42 +1651,45 @@ def validate_pair_timings(label, dev, N, G, T, Kk, keys, groups, prio,
         do_w = pw | ad
         reads = do_r & ~do_w
     n = T * Kk
-    claim_w = post_install_claims(N, G, wave, keys, groups, prio, do_w, dev,
-                                  5)
-    claim_r = post_install_claims(N, G, wave, keys, groups, prio, pw, dev, 6)
-    pair = dict(claim_r=claim_r, check_r=ad)
+    lane = prio[:, 0].contiguous()
+    tables = make_tables(N, G, max(wave - 4, 0), dev, 5)[:2]
     out = {}
     for name, check_w in (("validate", pw | reads), ("validate_mvcc", pw)):
-        args = (claim_w, keys, groups, prio, check_w, wave, True)
-        # One launch a mask: claim_w on the plain writes, claim_r on the
-        # ADDs, and MV-OCC's reads on claim_w.
-        split = [(claim_w, pw), (claim_r, ad)] + (
-            [(claim_w, reads)] if name == "validate" else [])
+        cw, cr = (t.clone() for t in tables)
+        inst = dict(claim_r=cr, check_r=ad, install_w=do_w, install_r=pw)
+        args = (cw, keys, groups, lane, check_w, wave, True)
 
-        def run_split(fn, split=split):
-            for table, chk in split:
-                fn(table, keys, groups, prio, chk, wave, True)
-        # Op vectors in (keys, groups, prio: 4 B; two checks: 1 B each), a
-        # verdict byte out, one G-word row read per distinct record each
-        # channel checks.
+        def run_split(scatter, check, cw=cw, cr=cr, check_w=check_w):
+            scatter(cw, keys, groups, prio, wave, do_w)
+            scatter(cr, keys, groups, prio, wave, pw)
+            check(cw, keys, groups, prio, check_w, wave, True, cr, ad)
+        # Op vectors in (keys, groups: 4 B; four masks: 1 B each), the lane
+        # priority (4 B a lane), a verdict byte out; a word read and
+        # written per distinct installed cell of each table, one G-word
+        # row read per distinct record each channel checks.
+        cells = (_distinct(keys, groups, do_w, G, N)
+                 + _distinct(keys, groups, pw, G, N))
         rows = (_distinct_rows(keys, check_w, N)
                 + _distinct_rows(keys, ad, N))
         out[name] = dict(
-            ms=time_ms(lambda: K.validate(*args, **pair), dev),
-            plain_ms=time_ms(lambda: validate_plain(*args, **pair), dev),
-            split_ms=time_ms(lambda: run_split(K.validate), dev),
+            ms=time_ms(lambda: K.validate(*args, **inst), dev),
+            plain_ms=time_ms(lambda: validate_plain(*args, **inst), dev),
+            split_ms=time_ms(lambda: run_split(K.claim_scatter, K.validate),
+                             dev),
             library_ms=None,
-            bound=bound_ms(n * (4 + 4 + 4 + 1 + 1 + 1) + rows * G * 4,
-                           2 * n),
+            bound=bound_ms(n * (4 + 4 + 4 * 1 + 1) + 4 * T + cells * 8
+                           + rows * G * 4, 4 * n),
             shape=(f"{label} {'MV-OCC' if name == 'validate' else 'MVCC'} "
                    f"wave masks, T={T} K={Kk} N={N} G={G}, fine"),
+            installed=[int(do_w.sum()), int(pw.sum())],
             checked=[int(check_w.sum()), int(ad.sum())])
         if parent:
             out[name]["parent_ms"] = time_ms(
-                lambda: run_split(parent["validate"]), dev)
-    log(f"  {label:5s} MV wave masks: {int(pw.sum())} plain writes, "
-        f"{int(ad.sum())} ADDs, {int(reads.sum())} update-transaction "
-        "point reads")
+                lambda: run_split(parent["claim_scatter"],
+                                  parent["validate_pair"]), dev)
+    log(f"  {label:5s} MV wave masks: {int(do_w.sum())} writes, "
+        f"{int(pw.sum())} plain writes, {int(ad.sum())} ADDs, "
+        f"{int(reads.sum())} update-transaction point reads")
     return out
 
 
@@ -1580,12 +1808,10 @@ def dist_kernel_checks(checks, dev, lanes=DIST_LANES, slots=16):
         torch.cuda.synchronize(dev)
 
 
-def dist_kernel_timings(dev, lanes=DIST_LANES, slots=16, wave=9,
-                        parent=None):
+def dist_kernel_timings(dev, lanes=DIST_LANES, slots=16, wave=9):
     """Times of the sharded wave's kernels at the one-card shapes (one
     destination, M = lanes x slots ops, cap 16,384), and of wave_commit on
-    that one wide row (with ``parent``, its parent build too).  Returns
-    {name: timing dict}."""
+    that one wide row.  Returns {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.core.distributed import LANE_FILL, META_FILL, NO_OP
     from repro_torch.kernels.route_pack import route_pack_plain
@@ -1652,13 +1878,6 @@ def dist_kernel_timings(dev, lanes=DIST_LANES, slots=16, wave=9,
             library_ms=None, bound=bound_ms(wave_bytes, 10 * cap),
             shape=f"[1, {cap}]"),
     }
-    if parent:
-        out["wave_commit_wide"]["parent_ms"] = time_ms(
-            lambda: parent["wave_commit"](*wide_args), dev)
-        out["route_pack"]["parent_ms"] = time_ms(
-            lambda: parent["route_pack"](owner, vals, 1, cap, fills), dev)
-        out["route_pack_8"]["parent_ms"] = time_ms(
-            lambda: parent["route_pack"](owner8, vals8, 8, cap8, fills), dev)
     return out
 
 
@@ -1750,7 +1969,8 @@ def mv_path(dev, waves=WAVES, lanes=LANES, tpcc_kw=None, ycsb_kw=None):
     80% writes and 20% read-only transactions; one MVCC run on YCSB with
     snapshots 8 waves old.  Read-only lanes never abort under MVCC/MV-OCC
     and do under coarse OCC; the aged snapshots abort as stale; every
-    MVCC and MV-OCC wave launches validate once.  Returns ({name: row},
+    MVCC and MV-OCC wave launches validate (its claim installs and check)
+    once, mv_install once and claim_scatter never.  Returns ({name: row},
     {phase: (launches, waves)}), the phases "mv_occ", "mv_mvcc",
     "mv_mvocc" and "mv_aged"."""
     from repro_torch import kernels as K
@@ -1785,12 +2005,15 @@ def mv_path(dev, waves=WAVES, lanes=LANES, tpcc_kw=None, ycsb_kw=None):
         _log_row(f"{r['workload']} mv", r)
         log(f"    ro_commits {r['ro_commits']} ro_aborts {r['ro_aborts']}")
     _check_kernels("mv", rows + [aged], launches, dev, scans=False)
-    per_wave = {ph: n["validate"] / w for ph, (n, w) in phases.items()}
-    log("  validate launches per wave " + json.dumps(per_wave))
-    if dev.type == "cuda" and not all(
-            per_wave[ph] == 1 for ph in ("mv_mvcc", "mv_mvocc", "mv_aged")):
-        raise AssertionError("an MVCC or MV-OCC wave must launch validate "
-                             f"once: {per_wave}")
+    for op, want in (("validate", 1), ("mv_install", 1),
+                     ("claim_scatter", 0)):
+        per_wave = {ph: n[op] / w for ph, (n, w) in phases.items()}
+        log(f"  {op} launches per wave " + json.dumps(per_wave))
+        if dev.type == "cuda" and not all(
+                per_wave[ph] == want
+                for ph in ("mv_mvcc", "mv_mvocc", "mv_aged")):
+            raise AssertionError(f"an MVCC or MV-OCC wave must launch {op} "
+                                 f"{want} times: {per_wave}")
     for r in rows:
         if r["cc"] in ("mvcc", "mvocc") and r["ro_aborts"] != 0:
             raise AssertionError(f"{r['workload']} {_name(r)}: a read-only "
@@ -2669,18 +2892,14 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-#: The kernels whose parent build ``--parent`` times beside this one, each
-#: with its source (csrc/<source>.cu) and module (kernels/<source>.py).
-PARENT_KERNELS = {"iterate_validate": "iterate_validate",
-                  "wave_commit": "wave_commit", "rglru": "rglru",
-                  "rwkv6": "rwkv6", "validate": "occ_validate",
-                  "route_pack": "route_pack"}
-
-
-#: C signatures of parent kernels whose entry this checkout changed: the
-#: earlier one-block-a-destination route_pack took no scratch.
-PARENT_SIGNATURES = {"route_pack": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                     + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]}
+#: The C entries (repro_<name>) whose parent build ``--parent`` times
+#: beside this checkout's kernels, each with its source (csrc/<source>.cu)
+#: and module (kernels/<source>.py): the multi-version wave's launches
+#: before this checkout folded them into one (claim_scatter twice and the
+#: two-channel validate) and mv_install's two launches.
+PARENT_KERNELS = {"validate_pair": "occ_validate",
+                  "claim_scatter": "claim_scatter",
+                  "mv_install": "mv_install"}
 
 
 def parent_kernels(parent_root: str) -> dict:
@@ -2688,120 +2907,70 @@ def parent_kernels(parent_root: str) -> dict:
     parent commit's, unpacked at ``parent_root``): its csrc sources built
     with the port's nvcc flags into build/parent_kernels and bound with the
     same C signatures; each fn takes its wrapper's arguments, so
-    kernel_phase and lm_kernel_phase time both builds on the same inputs
-    in one process."""
+    kernel_phase times both builds on the same inputs in one process."""
     import importlib
+    from repro_torch.core.claimword import U32_MASK, inv_wave
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import DTYPE_CODES
     out_dir = os.path.join(ROOT, "build", "parent_kernels")
     os.makedirs(out_dir, exist_ok=True)
     csrc = os.path.join(parent_root, "src", "repro_torch", "csrc")
-    procs = {n: subprocess.Popen(
+    procs = {src: subprocess.Popen(
         [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
          os.path.join(out_dir, f"{src}.so"), os.path.join(csrc,
                                                           f"{src}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for n, src in PARENT_KERNELS.items()}
-    fns = {}
-    for n, p in procs.items():
-        src = PARENT_KERNELS[n]
+        for src in set(PARENT_KERNELS.values())}
+    for src, p in procs.items():
         text, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {csrc}/{src}.cu:\n{text}")
+    fns = {}
+    for n, src in PARENT_KERNELS.items():
         fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"{src}.so")),
                      f"repro_{n}")
-        fn.argtypes = PARENT_SIGNATURES.get(n) or importlib.import_module(
+        fn.argtypes = importlib.import_module(
             f"repro_torch.kernels.{src}")._SIG[f"repro_{n}"]
         fn.restype = ctypes.c_int
         fns[n] = fn
 
-    def run_rglru(log_a, x, h0):
-        B, S, D = x.shape
-        h = torch.empty_like(x)
-        h_last = torch.empty((B, D), dtype=torch.float32, device=x.device)
-        build.raise_on_error("parent rglru", fns["rglru"](
-            *(build.ptr(t) for t in (log_a, x, h0, h, h_last)), B, S, D,
-            DTYPE_CODES[x.dtype], build.stream(x.device)))
-
-    def run_rwkv6(r, k, v, w, u, s0):
-        B, H, S, Dk = r.shape
-        Dv = v.shape[-1]
-        out = torch.empty_like(v)
-        s_last = torch.empty((B, H, Dk, Dv), dtype=torch.float32,
-                             device=r.device)
-        build.raise_on_error("parent rwkv6", fns["rwkv6"](
-            *(build.ptr(t) for t in (r, k, v, w, u, s0, out, s_last)), B, H,
-            S, Dk, Dv, DTYPE_CODES[r.dtype], build.stream(r.device)))
-
-    def run_iterate_validate(table, keys, extents, groups, myprio, check,
-                             wave, fine, bucket_size, ext_cap):
-        from repro_torch.core.claimword import inv_wave
-        from repro_torch.kernels.iterate_validate import scan_span
+    def run_validate_pair(claim_w, keys, groups, myprio, check, wave,
+                          fine, claim_r, check_r):
         out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+        N, G = claim_w.shape
+        build.raise_on_error("parent validate", fns["validate_pair"](
+            *(build.ptr(t) for t in (claim_w, claim_r, keys, groups, myprio,
+                                     check, check_r, out)), keys.numel(), N,
+            G, inv_wave(wave), int(bool(fine)), build.stream(keys.device)))
+        return out
+
+    def run_claim_scatter(table, keys, groups, prio, wave, mask):
         N, G = table.shape
-        build.raise_on_error("parent iterate_validate", fns[
-            "iterate_validate"](
-            *(build.ptr(t) for t in (table, keys, extents, groups, myprio,
-                                     check, out)), keys.numel(), N, G,
-            inv_wave(wave), int(bool(fine)), bucket_size,
-            scan_span(ext_cap, fine, bucket_size),
+        build.raise_on_error("parent claim_scatter", fns["claim_scatter"](
+            *(build.ptr(t) for t in (table, keys, groups, prio, mask)),
+            keys.numel(), N, G, inv_wave(wave), build.stream(keys.device)))
+
+    def run_mv_install(begin, head, keys, groups, do, ts):
+        N, D, G = begin.shape
+        h_new = torch.empty(keys.shape, dtype=torch.int32,
+                            device=keys.device)
+        build.raise_on_error("parent mv_install", fns["mv_install"](
+            *(build.ptr(t) for t in (begin, head, keys, groups, do, h_new)),
+            keys.numel(), N, D, G, int(ts) & U32_MASK,
             build.stream(keys.device)))
-        return out
 
-    def run_wave_commit(claim_w, claim_r, wts, keys, groups, prio, do_w,
-                        do_r, check_w, check_w2, check_r, extra, wave, fine,
-                        dual, bump):
-        from repro_torch.core.claimword import inv_wave
-        T, K = keys.shape
-        N, G = claim_w.shape
-        conflict = torch.empty((T, K), dtype=torch.bool, device=keys.device)
-        commit = torch.empty((T,), dtype=torch.bool, device=keys.device)
-        build.raise_on_error("parent wave_commit", fns["wave_commit"](
-            *(build.ptr(t) for t in (
-                claim_w, claim_r if dual else None, wts if bump else None,
-                keys, groups, prio, do_w, do_r if dual else None, check_w,
-                check_w2, check_r if dual else None, extra, conflict,
-                commit)), T, K, N, G, inv_wave(wave), int(fine), int(dual),
-            int(bump), build.stream(keys.device)))
-        return conflict, commit
-
-    def run_validate(claim_w, keys, groups, myprio, check, wave, fine):
-        from repro_torch.core.claimword import inv_wave
-        out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
-        N, G = claim_w.shape
-        build.raise_on_error("parent validate", fns["validate"](
-            *(build.ptr(t) for t in (claim_w, keys, groups, myprio, check,
-                                     out)), keys.numel(), N, G,
-            inv_wave(wave), int(bool(fine)), build.stream(keys.device)))
-        return out
-
-    def run_route_pack(owner, vals, n_dest, cap, fills):
-        W, M = vals.shape
-        buf = torch.empty((W, n_dest, cap), dtype=torch.int32,
-                          device=owner.device)
-        pos = torch.empty((M,), dtype=torch.int32, device=owner.device)
-        took = torch.empty((M,), dtype=torch.bool, device=owner.device)
-        c_fills = (ctypes.c_int * 8)(*[int(f) for f in fills])
-        build.raise_on_error("parent route_pack", fns["route_pack"](
-            *(build.ptr(t) for t in (owner, vals, buf, pos, took)), M, W,
-            n_dest, cap, c_fills, build.stream(owner.device)))
-        return buf, pos, took
-
-    return {"rglru": run_rglru, "rwkv6": run_rwkv6,
-            "iterate_validate": run_iterate_validate,
-            "wave_commit": run_wave_commit, "validate": run_validate,
-            "route_pack": run_route_pack}
+    return {"validate_pair": run_validate_pair,
+            "claim_scatter": run_claim_scatter,
+            "mv_install": run_mv_install}
 
 
-def lm_kernel_phase(dev, seed=21, cases=None, parent=None):
+def lm_kernel_phase(dev, seed=21, cases=None):
     """Each LM kernel against its plain version on the card over its
     cases (full-width prefill shape, S = 1 and the edges; a line per case,
     naming the rwkv6 kernel that served it), then timed at the first
     case's shape (the full-width prefill) beside its plain version, its
     bound and, for flash_attention, the PyTorch yardstick.  ``cases``
     ({name: cases}) replaces the default cases (a rehearsal on the CPU at
-    small shapes); ``parent`` ({name: fn}, see parent_kernels) times
-    another build of a kernel on the same inputs.  Returns ({name:
+    small shapes).  Returns ({name:
     LMCheck}, {name: timing row})."""
     from repro_torch import kernels as K
     from repro_torch.kernels.flash_attention import flash_attention_plain
@@ -2849,8 +3018,6 @@ def lm_kernel_phase(dev, seed=21, cases=None, parent=None):
                             + f" {str(dtype).split('.')[-1]}"}
             if name == "flash_attention":
                 row["library_ms"] = time_ms(_flash_library(args, kw), dev)
-            if parent and name in parent:
-                row["parent_ms"] = time_ms(lambda: parent[name](*args), dev)
             timings[name] = row
             del args, got, want
         if dev.type == "cuda":
@@ -2865,9 +3032,6 @@ def lm_kernel_phase(dev, seed=21, cases=None, parent=None):
             f"{r['bytes'] / 1e6:.1f} MB, {r['ops'] / 1e9:.2f} Gop; "
             f"{r['bound'][0] / r['ms']:.1%} of the kernel's time)  "
             f"[{r['shape']}]")
-        if "parent_ms" in r:
-            log(f"  {name:15s} parent kernel {r['parent_ms']:.6f} ms on the "
-                f"same inputs ({r['parent_ms'] / r['ms']:.2f}x this one)")
     return checks, timings
 
 
@@ -2904,6 +3068,31 @@ def _route_logits(cfg, params, prompt, first, s_cache, plain):
     return prefill.float().cpu(), decode.float().cpu()
 
 
+def _plain_greedy(cfg, params, prompt, gen):
+    """The plain route's own greedy tokens [B, gen]: prefill, then gen - 1
+    decode steps, each on the previous step's argmax."""
+    from repro_torch.launch.serve import greedy
+    from repro_torch.models import steps
+    S = prompt.shape[1]
+    cache, logits = steps.build_prefill_step(cfg, S + gen, plain=True)(
+        params, {"tokens": prompt})
+    decode = steps.build_decode_step(cfg, plain=True)
+    out = [greedy(logits)[:, None]]
+    for i in range(gen - 1):
+        logits, cache = decode(params, cache, out[-1], S + i)
+        out.append(greedy(logits)[:, None])
+    return torch.cat(out, dim=1).cpu()
+
+
+def greedy_agreement(a: torch.Tensor, b: torch.Tensor) -> list:
+    """Per request, how many leading greedy tokens of ``a`` and ``b``
+    [B, gen] are equal (up to the first difference)."""
+    diff = (a != b).int()
+    first = torch.where(diff.any(dim=1), diff.argmax(dim=1),
+                        torch.full((a.shape[0],), a.shape[1]))
+    return [int(x) for x in first]
+
+
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.double(), b.double()
     return float((a - b).norm() / b.norm().clamp_min(1e-300))
@@ -2926,7 +3115,10 @@ def lm_serve_path(dev, arch, seed=0, smoke=False, **traffic):
     rounding of the residual stream turns any last-bit difference of a
     kernel's output into 1-ulp changes of many of the next residual's
     elements, layer after layer, so two correct evaluations of the bf16
-    model can differ by more than that bound.  ``smoke`` serves the smoke
+    model can differ by more than that bound.  The bf16 plain route also
+    decodes its own ``gen`` greedy tokens, and the row reports how many of
+    each request's equal the kernel route's (``plain_greedy_agree``), for
+    the same reason unchecked.  ``smoke`` serves the smoke
     configuration (a rehearsal on the CPU, where nothing launches).
     Returns (summary row, launches of the served run)."""
     import gc
@@ -2994,6 +3186,8 @@ def lm_serve_path(dev, arch, seed=0, smoke=False, **traffic):
     logits = {("bf16", "kernel"): (res.prefill_logits, res.decode_logits),
               ("bf16", "plain"): _route_logits(cfg, params, prompt, first,
                                                S + G, plain=True)}
+    # Reported, not checked: bf16 rounding lets two correct routes part.
+    agree = greedy_agreement(toks, _plain_greedy(cfg, params, prompt, G))
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     params = tree_map(lambda t: t.float(), params)
     for route in ("kernel", "plain"):
@@ -3019,6 +3213,7 @@ def lm_serve_path(dev, arch, seed=0, smoke=False, **traffic):
            "decode_ms_per_step": res.decode_s * 1e3 / max(G - 1, 1),
            "peak_gib": res.peak_bytes / 2**30,
            "route_rel_l2": errs, "plain_first_token_same": same_first,
+           "plain_greedy_agree": agree,
            "bf16_routes_within_bound": all(
                v["bf16 kernel vs plain"] <= LM_ROUTE_RTOL
                for v in errs.values()),
@@ -3035,6 +3230,8 @@ def lm_serve_path(dev, arch, seed=0, smoke=False, **traffic):
     log(f"  {arch}: bf16 kernel vs plain route within {LM_ROUTE_RTOL}: "
         f"{row['bf16_routes_within_bound']}; same first token: "
         f"{same_first}")
+    log(f"  {arch}: greedy tokens equal on the bf16 kernel and plain "
+        f"routes, per request up to the first difference: {agree} of {G}")
     for step, pr in profiles.items():
         log(f"  {arch} profiled {step}: {pr['wall_ms_per_wave_profiled']:.3f}"
             f" ms wall, {pr['device_busy_ms_per_wave']:.3f} ms device-busy, "
@@ -3089,9 +3286,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="a parent commit unpacked in DIR: time its "
-                         "iterate_validate, wave_commit, validate, "
-                         "route_pack, rglru and rwkv6 kernels beside this "
-                         "checkout's on the same inputs")
+                         "claim_scatter and two-channel validate (the "
+                         "multi-version wave's three launches) and its "
+                         "mv_install beside this checkout's kernels on the "
+                         "same inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
@@ -3193,7 +3391,7 @@ def main(argv=None) -> int:
 
     log("LM serving:")
     torch.cuda.empty_cache()
-    lm_checks, lm_timings = lm_kernel_phase(dev, parent=parent)
+    lm_checks, lm_timings = lm_kernel_phase(dev)
     lm_rows, lm_launches = [], {op: 0 for op in K.WRAPPERS}
     for arch in LM_ARCHS:
         row, launched = lm_serve_path(dev, arch)

@@ -33,7 +33,10 @@ N_OPS = len(SURFACE_OPS)
 #: ``claim_probe`` (listed for no mechanism, as in the JAX package).
 #: ``iterate_validate`` runs only where the config admits scans
 #: (``max_extent > 1``), and with scans the fused route moves its bumps
-#: to ``commit_install``.
+#: to ``commit_install``.  MVCC and MV-OCC install both claim channels
+#: inside their one ``validate`` call a wave, so the port reports
+#: ``claim_scatter`` as "not_run" for them (the JAX package's waves call
+#: it twice); AutoGran still calls it.
 CC_OPS = {
     t.CC_OCC: ("wave_commit", "iterate_validate", "commit_install",
                "segment_count"),
@@ -73,11 +76,12 @@ DIST_MVOCC_OPS = DIST_MV_OPS + ("iterate_validate",)
 class Backend:
     """Device-dispatching backend: each op runs where its tensors are.
 
-    Signatures follow the JAX backend's argument order; tables are updated
-    in place, so ``commit_install``, ``claim_scatter`` and ``mv_install``
-    return None, ``claim_probe`` and ``probe`` return wprio int32[T, K],
-    ``validate_dual`` returns (fine, coarse) and ``mv_gather`` returns
-    (slot, ok)."""
+    Signatures follow the JAX backend's argument order (``validate``
+    takes the multi-version waves' claim installs as optional keywords);
+    tables are updated in place, so ``commit_install``, ``claim_scatter``
+    and ``mv_install`` return None, ``claim_probe`` and ``probe`` return
+    wprio int32[T, K], ``validate_dual`` returns (fine, coarse) and
+    ``mv_gather`` returns (slot, ok)."""
 
 
 for _op in SURFACE_OPS:
@@ -103,7 +107,8 @@ def kernel_coverage(cc: int, launches: dict, calls: dict) -> dict:
     ``kernels.call_counts()`` over a run: "cuda" where every call launched
     the op's kernel, "torch" where a call ran its plain version, "not_run"
     where the run never called it (``commit_install`` on the fused
-    route of point configs, ``iterate_validate`` without scans)."""
+    route of point configs, ``iterate_validate`` without scans,
+    ``claim_scatter`` under MVCC and MV-OCC)."""
     return _coverage(CC_OPS[cc], launches, calls)
 
 

@@ -8,7 +8,8 @@ each claim table, the verdict compare in tensor ops and ``commit_install``
 for the bumps.  Both routes evaluate the same mask algebra over the same
 primitives, so they are bit-identical.  AutoGran installs with
 ``write_claims`` and bumps with ``bump_versions``; the multi-version pair
-installs with ``write_claims`` and ``plain_write_claims``.
+installs both claim channels inside its one ``validate`` call
+(``cc/mvcc.py``).
 
 Scans (ops with ``op_extent > 1``, admitted by ``cfg.max_extent > 1``)
 ride no point channel: they validate only through ``phantom_validate``
@@ -99,18 +100,6 @@ def write_claims(store: StoreState, batch: TxnBatch, prio: torch.Tensor,
     kb.BACKEND.claim_scatter(store.claim_w, batch.op_key, batch.op_group,
                              my_prio_per_op(batch, prio), wave,
                              batch.is_write() & batch.live())
-    return store
-
-
-def plain_write_claims(store: StoreState, batch: TxnBatch,
-                       prio: torch.Tensor, wave: int,
-                       cfg: EngineConfig) -> StoreState:
-    """Plain-WRITE claims into the reader-claim table (the MV mechanisms,
-    which take no read locks): an ADD probes this channel, so ADD-ADD
-    pairs commute.  In place."""
-    kb.BACKEND.claim_scatter(store.claim_r, batch.op_key, batch.op_group,
-                             my_prio_per_op(batch, prio), wave,
-                             batch.is_plain_write() & batch.live())
     return store
 
 

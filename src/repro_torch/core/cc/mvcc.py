@@ -7,7 +7,8 @@ snapshot from the version ring of ``core/mvstore.py`` (the ``mv_gather``
 op).  The only in-wave conflicts are write-write: of the concurrent
 writers of a cell the strongest lane commits, the rest abort, judged on
 the wave-scoped claim tables.  Blind ADDs commute: an ADD probes a second
-channel that holds plain WRITEs only (``base.plain_write_claims``).
+channel, the reader-claim table, into which only plain WRITEs install
+(the MV mechanisms take no read locks).
 Granularity is the usual switch, one level down: fine makes both the
 write-write rule and version visibility per column group.
 
@@ -33,25 +34,22 @@ from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 def fcw_conflicts(store: StoreState, batch: TxnBatch, prio, wave: int,
                   cfg: EngineConfig, read_check=None):
     """(store, conflict bool[T, K]): first-committer-wins write-write
-    verdicts, shared by MVCC and MV-OCC.  Installs both claim channels,
-    then a plain WRITE conflicts with any stronger writer of its cell, an
-    ADD only with a stronger plain WRITE.  ``read_check`` (MV-OCC's
-    update-transaction point reads) adds ops checked against the writer
-    channel as plain WRITEs are; the masks are disjoint by op kind, so all
-    of it is one ``validate`` call."""
-    be = kb.BACKEND
-    fine = base.is_fine(cfg)
+    verdicts, shared by MVCC and MV-OCC.  Installs both claim channels
+    (every write into the writer table, plain WRITEs into the reader
+    table), then a plain WRITE conflicts with any stronger writer of its
+    cell, an ADD only with a stronger plain WRITE.  ``read_check``
+    (MV-OCC's update-transaction point reads) adds ops checked against
+    the writer channel as plain WRITEs are; the masks are disjoint by op
+    kind.  The installs and the checks are one ``validate`` call, which
+    takes the lane priority itself; the tables are updated in place."""
     live = batch.live()
-    check_w = batch.is_plain_write() & live
-    if read_check is not None:
-        check_w = check_w | read_check
-    ad = batch.is_add() & live
-    myp = base.my_prio_per_op(batch, prio)
-
-    store = base.write_claims(store, batch, prio, wave, cfg)   # all writes
-    store = base.plain_write_claims(store, batch, prio, wave, cfg)
-    conflict = be.validate(store.claim_w, batch.op_key, batch.op_group, myp,
-                           check_w, wave, fine, claim_r=store.claim_r, check_r=ad)
+    pw = batch.is_plain_write() & live
+    check_w = pw if read_check is None else pw | read_check
+    conflict = kb.BACKEND.validate(
+        store.claim_w, batch.op_key, batch.op_group, prio, check_w, wave,
+        base.is_fine(cfg), claim_r=store.claim_r,
+        check_r=batch.is_add() & live, install_w=batch.is_write() & live,
+        install_r=pw)
     return store, conflict
 
 

@@ -43,4 +43,22 @@ __device__ __forceinline__ unsigned probe(const unsigned* __restrict__ table,
   return best;
 }
 
+// probe() through L2 (__ldcg), for a kernel that wrote the table itself
+// before a grid barrier: the non-coherent read-only path and L1 may hold
+// words from before the barrier.
+__device__ __forceinline__ unsigned probe_l2(const unsigned* table, int key,
+                                             int g, int N, int G,
+                                             unsigned ivw, int fine) {
+  if (key < 0 || key >= N) return kNoPrio;
+  const unsigned* row = table + (size_t)key * G;
+  if (fine) {
+    if (g < 0 || g >= G) return kNoPrio;
+    return live_prio(__ldcg(row + g), ivw);
+  }
+  unsigned best = kNoPrio;
+  for (int j = 0; j < G; ++j)
+    best = min(best, live_prio(__ldcg(row + j), ivw));
+  return best;
+}
+
 }  // namespace claim

@@ -32,9 +32,136 @@
 // kinds and are disjoint in the engine, but an op with both checks set
 // reads both rows, so the kernel is exact for any masks.  Its two row
 // reads do not depend on each other and are in flight together.
+//
+// validate_install: the multi-version wave's two claim installs and its
+// two-channel check as one launch.  The waves scattered their write claims
+// into claim_w and their plain-write claims into claim_r (claim_scatter,
+// twice) and then ran validate_pair on the same ops: three launches and
+// three [T, K] copies of the lane priority.  Here, for T lanes of K ops:
+//   1. every op with install_w (install_r) set and its cell in the table
+//      atomicMin's (inv_wave << 16) | prio16 into claim_w (claim_r), the
+//      lane priority read as prio[i / K]: min is commutative and
+//      idempotent, so any order gives the sequential grid's tables;
+//   2. one grid barrier (grid.sync(), as wave_commit's): every install
+//      before any check;
+//   3. validate_pair's verdict per op, the rows read through L2 (__ldcg),
+//      since this launch wrote them.
+// One cooperative launch, its grid at most the co-resident blocks
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, queried once per
+// device); each thread keeps its first op in registers across the
+// barrier, and a wave of more ops than the grid has threads strides, a
+// later op reloaded after the barrier: no op carries state across it, so
+// the kernel is exact for any number of ops.  The bytes are the
+// one-channel kernels' (claim_scatter twice, validate_pair once), so the
+// bound is theirs; the launch (4.8 us empty) and the barrier (~1.1 us in
+// wave_commit) set the time.
+#include <cooperative_groups.h>
+
 #include "claim.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 256;
+constexpr int kMaxDevices = 64;
+
+struct InstallArgs {
+  unsigned* claim_w;
+  unsigned* claim_r;
+  const int* keys;
+  const int* groups;
+  const int* prio;  // int32[T], the lane priority
+  const bool* install_w;
+  const bool* install_r;
+  const bool* check;
+  const bool* check_r;
+  bool* out;
+  int n, K, N, G;
+  unsigned ivw;
+  int fine;
+};
+
+enum : unsigned { kIw = 1, kIr = 2, kCw = 4, kCr = 8 };
+
+struct Op {
+  int key, g;
+  unsigned p;
+  unsigned f;  // kIw | kIr | kCw | kCr as loaded
+};
+
+__device__ __forceinline__ Op load_op(const InstallArgs& a, int i) {
+  Op op{};
+  op.f = (a.install_w[i] ? kIw : 0u) | (a.install_r[i] ? kIr : 0u) |
+         (a.check[i] ? kCw : 0u) | (a.check_r[i] ? kCr : 0u);
+  if (op.f == 0) return op;  // nothing to install or check
+  op.key = a.keys[i];
+  op.g = a.groups[i];
+  op.p = (unsigned)a.prio[i / a.K];
+  return op;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    validate_install_kernel(const InstallArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const int stride = gridDim.x * kThreads;
+  const int first = blockIdx.x * kThreads + threadIdx.x;
+  const Op held = first < a.n ? load_op(a, first) : Op{};
+  // 1. both installs.
+  for (int i = first; i < a.n; i += stride) {
+    const Op op = i == first ? held : load_op(a, i);
+    if (!(op.f & (kIw | kIr)) || !claim::in_cell(op.key, op.g, a.N, a.G))
+      continue;
+    const unsigned word = claim::word(a.ivw, (int)op.p);
+    const size_t cell = (size_t)op.key * a.G + op.g;
+    if (op.f & kIw) atomicMin(a.claim_w + cell, word);
+    if (op.f & kIr) atomicMin(a.claim_r + cell, word);
+  }
+  // 2. every install before any check.
+  grid.sync();
+  // 3. the two-channel verdict.
+  for (int i = first; i < a.n; i += stride) {
+    const Op op = i == first ? held : load_op(a, i);
+    bool c = false;
+    if (op.f & (kCw | kCr)) {
+      const unsigned wp =
+          (op.f & kCw) ? claim::probe_l2(a.claim_w, op.key, op.g, a.N, a.G,
+                                         a.ivw, a.fine)
+                       : claim::kNoPrio;
+      const unsigned rp =
+          (op.f & kCr) ? claim::probe_l2(a.claim_r, op.key, op.g, a.N, a.G,
+                                         a.ivw, a.fine)
+                       : claim::kNoPrio;
+      c = ((op.f & kCw) && wp < op.p) || ((op.f & kCr) && rp < op.p);
+    }
+    a.out[i] = c;
+  }
+}
+
+// Co-resident blocks of validate_install_kernel per device; 0 until
+// queried.
+int g_grid[kMaxDevices];
+
+cudaError_t grid_limit(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int* slot = dev < kMaxDevices ? &g_grid[dev] : nullptr;
+  if (slot != nullptr && *slot > 0) {
+    *out = *slot;
+    return cudaSuccess;
+  }
+  int per_sm = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, validate_install_kernel, kThreads, 0);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  if (per_sm * sms < 1) return cudaErrorInvalidConfiguration;
+  *out = per_sm * sms;
+  if (slot != nullptr) *slot = *out;
+  return cudaSuccess;
+}
 
 __global__ void validate_dual_kernel(const unsigned* __restrict__ claim_w,
                                      const int* __restrict__ keys,
@@ -155,5 +282,40 @@ extern "C" int repro_validate_pair(const void* claim_w, const void* claim_r,
         static_cast<const bool*>(check), static_cast<const bool*>(check_r),
         static_cast<bool*>(out), n, N, G, (unsigned)ivw, fine);
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_validate_install(
+    void* claim_w, void* claim_r, const void* keys, const void* groups,
+    const void* prio, const void* install_w, const void* install_r,
+    const void* check, const void* check_r, void* out, int T, int K, int N,
+    int G, int ivw, int fine, void* stream) {
+  if (T <= 0 || K <= 0) return (int)cudaGetLastError();
+  InstallArgs a{static_cast<unsigned*>(claim_w),
+                static_cast<unsigned*>(claim_r),
+                static_cast<const int*>(keys),
+                static_cast<const int*>(groups),
+                static_cast<const int*>(prio),
+                static_cast<const bool*>(install_w),
+                static_cast<const bool*>(install_r),
+                static_cast<const bool*>(check),
+                static_cast<const bool*>(check_r),
+                static_cast<bool*>(out),
+                T * K,
+                K,
+                N,
+                G,
+                (unsigned)ivw,
+                fine};
+  int limit = 0;
+  cudaError_t e = grid_limit(&limit);
+  if (e != cudaSuccess) return (int)e;
+  const int need = (a.n + kThreads - 1) / kThreads;
+  const int blocks = need < limit ? need : limit;
+  void* params[] = {&a};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(validate_install_kernel), dim3(blocks),
+      dim3(kThreads), params, 0, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

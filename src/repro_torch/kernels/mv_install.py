@@ -16,8 +16,8 @@ ops write it.  ``begin`` and ``head`` are updated in place.  Precondition
 ``MV_EMPTY`` or below ``ts``; the plain version checks it and raises, as
 ``ref.check_mv_begin_monotone`` does.
 
-CUDA tensors launch ``csrc/mv_install.cu`` (two launches: copy, then
-stamp); CPU tensors take ``mv_install_plain``.
+CUDA tensors launch ``csrc/mv_install.cu`` (one cooperative launch:
+copy, a grid barrier, stamp); CPU tensors take ``mv_install_plain``.
 """
 from __future__ import annotations
 
@@ -31,7 +31,8 @@ from repro_torch.kernels import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"repro_mv_install": [_P] * 6 + [_I] * 4 + [ctypes.c_uint, _P]}
+_SIG = {"repro_mv_install": [_P] * 6 + [_I] * 4 + [ctypes.c_uint, _P],
+        "repro_mv_install_capacity": [ctypes.POINTER(ctypes.c_int)]}
 
 
 def check_mv_begin_monotone(begin: torch.Tensor, keys: torch.Tensor,
@@ -87,16 +88,32 @@ def mv_install(begin: torch.Tensor, head: torch.Tensor, keys: torch.Tensor,
     build.check("keys", keys, torch.int32, shape, dev)
     build.check("groups", groups, torch.int32, shape, dev)
     build.check("do", do, torch.bool, shape, dev)
-    h_new = torch.empty(shape, dtype=torch.int32, device=dev)
     lib = build.load("mv_install", _SIG)
+    n = keys.numel()
     with torch.cuda.device(dev):
+        # A wave of more ops than the co-resident grid has threads keeps
+        # the later ops' new slots in a scratch vector.
+        scratch = None
+        if n > capacity(lib, dev):
+            scratch = torch.empty(shape, dtype=torch.int32, device=dev)
         rc = lib.repro_mv_install(
             build.ptr(begin), build.ptr(head), build.ptr(keys),
-            build.ptr(groups), build.ptr(do), build.ptr(h_new),
-            keys.numel(), N, D, G, int(ts) & U32_MASK, build.stream(dev))
+            build.ptr(groups), build.ptr(do), build.ptr(scratch), n, N, D,
+            G, int(ts) & U32_MASK, build.stream(dev))
     build.raise_on_error("mv_install", rc)
     mv_install.launches += 1
 
 
 mv_install.launches = 0
 mv_install.calls = 0
+
+
+def capacity(lib: ctypes.CDLL, dev: torch.device) -> int:
+    """Ops one launch of the kernel takes on ``dev`` without scratch: the
+    threads of its co-resident grid (the library queries the occupancy
+    once per device)."""
+    ops = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        build.raise_on_error("mv_install", lib.repro_mv_install_capacity(
+            ctypes.byref(ops)))
+    return ops.value

@@ -17,15 +17,23 @@ are only read.
 
 ``validate`` takes an optional second channel (``claim_r``,
 ``check_r``): it then returns ``(check & verdict(claim_w)) | (check_r &
-verdict(claim_r))`` per op, in one launch.  The multi-version waves
-validate their writes against both claim tables, and MV-OCC its reads
-against the writer table, with this one call (``cc/mvcc.py``,
-``cc/mvocc.py``).
+verdict(claim_r))`` per op, in one launch.  With the second channel it
+also takes the wave's two claim installs (``install_w``, ``install_r``):
+first, for every op with ``install_w`` (``install_r``) set and its cell
+in the table, ``claim_w`` (``claim_r``) ``[key, group] = min(...,
+(inv_wave << 16) | prio16)`` in place, as ``claim_scatter`` does; then
+the check on the installed tables.  ``myprio`` is then the lane priority
+int32[T] (op i of lane t is checked against ``myprio[t]``), not the
+per-op int32[T, K].  The multi-version waves install both claim channels
+and validate their writes against both, and MV-OCC its reads against
+the writer table, with this one call (``cc/mvcc.py``, ``cc/mvocc.py``).
 
-CUDA tensors launch ``csrc/occ_validate.cu`` (one thread per op reading
-the rows its checks name); CPU tensors take the plain versions.  The
-file's third TPU kernel, ``claim_probe_pallas``, is the ``probe`` op
-(``kernels/claim_probe.py``).
+CUDA tensors launch ``csrc/occ_validate.cu``: one thread per op reading
+the rows its checks name, and with the installs one cooperative launch
+(installs, a grid barrier, the check); CPU tensors take the plain
+versions (with the installs: ``claim_scatter_plain`` on each table, then
+the check).  The file's third TPU kernel, ``claim_probe_pallas``, is the
+``probe`` op (``kernels/claim_probe.py``).
 """
 from __future__ import annotations
 
@@ -36,20 +44,28 @@ import torch
 
 from repro_torch.core.claimword import NO_PRIO, inv_wave, live_prio, u32
 from repro_torch.kernels import build
+from repro_torch.kernels.claim_scatter import claim_scatter_plain
 from repro_torch.kernels.scatter import gather_rows, pick_group
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"repro_validate_dual": [_P] * 7 + [_I] * 4 + [_P],
         "repro_validate": [_P] * 6 + [_I] * 5 + [_P],
-        "repro_validate_pair": [_P] * 8 + [_I] * 5 + [_P]}
+        "repro_validate_pair": [_P] * 8 + [_I] * 5 + [_P],
+        "repro_validate_install": [_P] * 10 + [_I] * 6 + [_P]}
 
 
 def validate_plain(claim_w: torch.Tensor, keys: torch.Tensor,
                    groups: torch.Tensor, myprio: torch.Tensor,
                    check: torch.Tensor, wave: int, fine: bool,
                    claim_r: Optional[torch.Tensor] = None,
-                   check_r: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   check_r: Optional[torch.Tensor] = None,
+                   install_w: Optional[torch.Tensor] = None,
+                   install_r: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if install_w is not None:
+        myprio = myprio[:, None].expand(keys.shape)
+        claim_scatter_plain(claim_w, keys, groups, myprio, wave, install_w)
+        claim_scatter_plain(claim_r, keys, groups, myprio, wave, install_r)
     if claim_r is not None:
         return (validate_plain(claim_w, keys, groups, myprio, check, wave,
                                fine)
@@ -65,29 +81,51 @@ def validate_plain(claim_w: torch.Tensor, keys: torch.Tensor,
 def validate(claim_w: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
              myprio: torch.Tensor, check: torch.Tensor, wave: int,
              fine: bool, claim_r: Optional[torch.Tensor] = None,
-             check_r: Optional[torch.Tensor] = None) -> torch.Tensor:
+             check_r: Optional[torch.Tensor] = None,
+             install_w: Optional[torch.Tensor] = None,
+             install_r: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Conflict flags bool[T, K]: checked ops whose cell (fine) or row
     (coarse) a strictly stronger lane claimed this wave in ``claim_w``,
     or, with the second channel, ``check_r`` ops whose cell or row a
-    stronger lane claimed in ``claim_r``."""
+    stronger lane claimed in ``claim_r``.  With ``install_w`` and
+    ``install_r`` the call first installs those ops' claims into the two
+    tables (in place) and ``myprio`` is the lane priority int32[T]."""
     validate.calls += 1
     if (claim_r is None) != (check_r is None):
         raise ValueError("validate: claim_r and check_r come together")
+    installs = install_w is not None
+    if installs != (install_r is not None) or (installs and claim_r is None):
+        raise ValueError("validate: install_w and install_r come together, "
+                         "with claim_r and check_r")
+    if installs and keys.dim() != 2:
+        raise ValueError("validate: the installs take keys of shape [T, K]")
     if keys.device.type == "cpu":
         return validate_plain(claim_w, keys, groups, myprio, check, wave,
-                              fine, claim_r, check_r)
+                              fine, claim_r, check_r, install_w, install_r)
     dev = build.launch_device(keys)
     N, G = claim_w.shape
     shape = tuple(keys.shape)
     build.check("claim_w", claim_w, torch.int32, (N, G), dev)
     build.check("keys", keys, torch.int32, shape, dev)
     build.check("groups", groups, torch.int32, shape, dev)
-    build.check("myprio", myprio, torch.int32, shape, dev)
+    build.check("myprio", myprio, torch.int32,
+                shape[:1] if installs else shape, dev)
     build.check("check", check, torch.bool, shape, dev)
     out = torch.empty(shape, dtype=torch.bool, device=dev)
     lib = build.load("occ_validate", _SIG)
     with torch.cuda.device(dev):
-        if claim_r is None:
+        if installs:
+            build.check("claim_r", claim_r, torch.int32, (N, G), dev)
+            build.check("check_r", check_r, torch.bool, shape, dev)
+            build.check("install_w", install_w, torch.bool, shape, dev)
+            build.check("install_r", install_r, torch.bool, shape, dev)
+            rc = lib.repro_validate_install(
+                build.ptr(claim_w), build.ptr(claim_r), build.ptr(keys),
+                build.ptr(groups), build.ptr(myprio), build.ptr(install_w),
+                build.ptr(install_r), build.ptr(check), build.ptr(check_r),
+                build.ptr(out), shape[0], shape[1], N, G, inv_wave(wave),
+                int(bool(fine)), build.stream(dev))
+        elif claim_r is None:
             rc = lib.repro_validate(
                 build.ptr(claim_w), build.ptr(keys), build.ptr(groups),
                 build.ptr(myprio), build.ptr(check), build.ptr(out),

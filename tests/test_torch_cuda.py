@@ -166,6 +166,51 @@ def test_validate_pair_edge_cases_bit_identical_to_plain_version():
 
 
 @pytest.mark.cuda
+def test_validate_install_edge_cases_bit_identical_to_plain_version():
+    """The multi-version wave's one launch (both claim installs, a grid
+    barrier, the two-channel check) on chip_smoke.validate_install_cases:
+    verdicts and both installed tables, ops with both, one or neither
+    install and check, duplicate cells, and a wave of more ops than the
+    co-resident grid has threads."""
+    check = chip_smoke.KernelCheck("validate")
+    chip_smoke.validate_install_case_checks(check, _cuda())
+    torch.cuda.synchronize()
+    assert check.equal and check.max_err == 0.0
+    assert check.cases == len(chip_smoke.validate_install_cases())
+
+
+@pytest.mark.cuda
+def test_mv_install_edge_cases_bit_identical_to_plain_version():
+    """mv_install's one launch on chip_smoke.mv_install_cases: D = 1,
+    heads outside [0, D), duplicate writers, masked keys and groups, and a
+    wave past the kernel's one-op-a-thread capacity (its scratch vector)."""
+    check = chip_smoke.KernelCheck("mv_install")
+    chip_smoke.mv_install_case_checks(check, _cuda())
+    torch.cuda.synchronize()
+    assert check.equal and check.max_err == 0.0
+    assert check.cases == len(chip_smoke.mv_install_cases())
+
+
+@pytest.mark.cuda
+def test_mv_waves_launch_validate_and_mv_install_once_a_wave():
+    """A local MVCC and MV-OCC run on the card: one validate launch (both
+    claim installs and the check) and one mv_install launch a wave, no
+    claim_scatter, and the plain route's state."""
+    from repro_torch import kernels as K
+    dev = _cuda()
+    by, phases = chip_smoke.mv_path(
+        dev, waves=6, lanes=16, tpcc_kw=dict(scale=0.01),
+        ycsb_kw=dict(n_keys=2000, theta=0.9, write_frac=0.8, ro_frac=0.2))
+    for ph in ("mv_mvcc", "mv_mvocc"):
+        n, w = phases[ph]
+        assert n["validate"] == w and n["mv_install"] == w
+        assert n["claim_scatter"] == 0
+    assert K.claim_scatter.launches == 0
+    chip_smoke.cross_device(dev, waves=5, scale=0.01,
+                            configs=(("mvcc", 0, True), ("mvocc", 1, True)))
+
+
+@pytest.mark.cuda
 def test_route_pack_edge_cases_bit_identical_to_plain_version():
     """The tiled pack on chip_smoke.route_pack_cases, both routes (direct
     and two-level), and a buffer of more than 2**31 words."""
