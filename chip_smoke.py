@@ -57,27 +57,46 @@ src/repro_torch/csrc, then:
      (route_pack_cases): M off the 256-op tile, one op and none, n_dest
      1, 3, 8 and 1,024, cap 0, 16 and DistConfig's, skewed overflows, W
      1 to 8, more tiles than resident blocks, and a buffer of more than
-     2**31 words.  validate is timed on the masks the MVCC and MV-OCC
-     waves build (TPC-C and the multi-version YCSB mix) as one launch
-     that installs both claim tables and checks, beside claim_scatter
-     twice and the two-channel validate, the launches the waves made
-     before.  With --parent DIR validate (as the parent's claim_scatter
-     twice and two-channel validate) and mv_install are timed beside the
-     kernels of the commit unpacked in DIR, built from its sources;
+     2**31 words; ts_install_max's folded form (ts_install_cases):
+     TicToc's three installs with the chained stamps computed in the
+     kernel, masks half, full and empty, fine and coarse extensions, G =
+     1 to 3, keys -1 and past the end, groups past G, words and stamps on
+     both sides of 2**31 and past 2**32, and a wave past the resident
+     grid, both tables compared; claim_probe on
+     one and two tables (claim_probe_cases): masks half, full and empty,
+     fine and coarse, G = 1 to 3, both tag halves, duplicate cells, keys
+     -1 and past the end, groups past G, a tie, and a wave past the
+     kernel's co-resident grid, answers and tables compared.  validate is
+     timed on the masks the MVCC and MV-OCC waves build (TPC-C and the
+     multi-version YCSB mix) as one launch that installs both claim
+     tables and checks, beside claim_scatter twice and the two-channel
+     validate, the launches the waves made before; TicToc's three
+     installs as one ts_install_max launch, with the fine and the coarse
+     extension, beside the one-table launch three times; claim_probe (one
+     cooperative launch) on one table, and on two tables beside two
+     calls.
+     With --parent DIR validate (as the parent's claim_scatter twice and
+     two-channel validate), mv_install, ts_install_max (the parent's
+     one-table launch three times) and claim_probe (the parent's two
+     launches, once a table) are timed beside the kernels of the commit
+     unpacked in DIR, built from its sources;
   2. the main path on TPC-C (full scale, T = 128, 200 waves) through the
      benchmark CLI's grid runner: OCC, TicToc, 2PL, SwissTM and Adaptive
      x coarse and fine, plus AutoGran coarse, with the launch counters set
      to 0 just before and read just after.  Every kernel of each
      mechanism must have launched, aborts must sum over causes, every
-     lane-wave must commit or abort, and OCC-fine must beat OCC-coarse and
-     TicToc-coarse (the paper's quickstart ordering), and AutoGran-coarse
-     must beat OCC-coarse (the paper's section 5 proposal);
+     lane-wave must commit or abort, every TicToc wave must launch
+     ts_install_max once (its three installs), and OCC-fine must beat
+     OCC-coarse and TicToc-coarse (the paper's quickstart ordering), and
+     AutoGran-coarse must beat OCC-coarse (the paper's section 5
+     proposal);
   3. the same main path on YCSB (10M keys, theta 0.9, 50% writes);
   4. the unfused route (claim_probe + commit_install) of the five
      probe-family mechanisms on TPC-C at full scale, counters reset just
-     before: claim_probe must launch, commit_install too where the
-     mechanism bumps, wave_commit never, and each run must end with the
-     fused run's results;
+     before: claim_probe must launch once a wave (both claim tables in
+     one launch on 2PL's and Adaptive's dual waves), commit_install too
+     where the mechanism bumps, wave_commit never, and each run must end
+     with the fused run's results;
   5. fused = unfused on the card: one set of CPU-made draws through both
      routes, integer and float state bit-identical;
   6. the scan path at full size: TPC-C with scan_len 200 (Stock-level
@@ -127,12 +146,14 @@ src/repro_torch/csrc, then:
      YCSB and TPC-C at the main path's sizes and YCSB workload E, 256
      lanes, 200 waves, OCC/MVCC/MV-OCC x coarse and fine and OCC fine
      unfused (workload E: OCC and MV-OCC fine).  Every op of the
-     mechanism launches its kernel, causes sum to aborts, MVCC sees no
-     phantom, MVCC/MV-OCC abort no read-only lane, the collective carries
-     the modelled wire bytes, each run commits exactly the lanes the local
-     validator commits on the same draws and prio (tables too), and the
-     fused and unfused OCC routes agree; waves/s, device operations per
-     wave and collective bytes per wave are printed;
+     mechanism launches its kernel, claim_probe once a wave where the
+     wave calls it (both claim channels of an MV wave in one launch),
+     causes sum to aborts, MVCC sees no phantom, MVCC/MV-OCC abort no
+     read-only lane, the collective carries the modelled wire bytes, each
+     run commits exactly the lanes the local validator commits on the
+     same draws and prio (tables too), and the fused and unfused OCC
+     routes agree; waves/s, device operations per wave and collective
+     bytes per wave are printed;
  11. the sharded engine on the card (NCCL) against the CPU (gloo) for 30
      waves at reduced sizes: commit masks, tables and stats bit-identical;
  12. the scaling rows of repro_torch.launch.txn_scaling (the local anchor
@@ -246,6 +267,13 @@ KERNEL_META = {
     "verdict_unpack": ("src/repro_torch/csrc/verdict_pack.cu",
                        "src/repro/kernels/verdict_pack.py:65"),
 }
+#: The other call forms the kernel phase times beside a kernel's main-path
+#: form, listed under "forms" in the kernels line: ts_install_max's three
+#: installs with the coarse extension and the one-table install,
+#: claim_probe on two tables.
+KERNEL_FORMS = {"ts_install_max": ("ts_install_max_coarse",
+                                   "ts_install_max_one"),
+                "claim_probe": ("claim_probe_pair",)}
 #: The kernels that only the sharded engine launches; the kernel phase
 #: times them at the sharded wave's shapes.
 DIST_KERNELS = ("route_pack", "verdict_pack", "verdict_unpack")
@@ -1042,6 +1070,186 @@ def mv_install_case_checks(check, dev):
         f"{cap} ops without scratch)")
 
 
+#: The install masks of the ts and claim_probe cases.
+CASE_MASKS = ("half", "full", "none")
+
+
+def _hot_keys(rng, N, T, K, past=3):
+    """[T, K] keys on N rows, a fifth on four hot rows (duplicate cells),
+    keys -1 and N + ``past``."""
+    keys = rng.integers(0, N, (T, K))
+    hot = rng.random((T, K)) < 0.2
+    keys[hot] = rng.integers(0, 4, hot.sum())
+    pick = rng.random((T, K))
+    return np.where(pick < 0.05, -1, np.where(pick > 0.96, N + past, keys))
+
+
+def _odd_groups(rng, G, T, K):
+    """[T, K] groups in [0, G), with G and G + 2 among them."""
+    groups = rng.integers(0, G, (T, K))
+    odd = rng.random((T, K))
+    return np.where(odd < 0.04, G + 2, np.where(odd > 0.96, G, groups))
+
+
+def _case_masks(rng, mode, T, K, n):
+    """``n`` bool[T, K] masks: independent halves (overlapping), all set
+    or none set."""
+    if mode == "full":
+        return [np.ones((T, K), bool) for _ in range(n)]
+    if mode == "none":
+        return [np.zeros((T, K), bool) for _ in range(n)]
+    return [rng.random((T, K)) < 0.5 for _ in range(n)]
+
+
+def ts_install_cases(seed=67):
+    """ts_install_max's three-install edge cases, made with numpy from
+    ``seed``: [(label, dict)] with the wrapper's arguments: wts and rts
+    uint32[N, G], keys, groups, mask, ext, ext_whole_row, commit_ts
+    int64[T] and n_chain float32[T, K].
+    Every mask mode of CASE_MASKS, fine (ext installs one cell) and
+    coarse (ext raises the whole row), G = 2; three more at G = 1 and 3:
+    T = 8 lanes of K = 40 ops (320, off the 256-thread block) on N = 997
+    rows, a fifth of the ops on four hot rows (duplicate cells, cells
+    both masks install into), keys -1 and past the table's end, groups G
+    and G + 2, table words on both sides of 2**31, commit_ts up to
+    2**32 - 1 with chains of 0 to 5 writers (stamps on both sides of
+    2**31 and stamps that wrap past 2**32); and one wave of INSTALL_BIG
+    ops on 2**16 rows, more than one a co-resident thread."""
+    rng = np.random.default_rng(seed)
+    configs = [(m, coarse, 2) for m in CASE_MASKS
+               for coarse in (False, True)]
+    configs += [("half", True, 1), ("half", False, 1), ("full", True, 3),
+                ("half", False, 2)]
+    shapes = [(997, 8, 40)] * (len(configs) - 1) + [(1 << 16, *INSTALL_BIG)]
+    cases = []
+    for (mode, coarse, G), (N, T, K) in zip(configs, shapes):
+        def table():
+            return rng.integers(0, 1 << 32, (N, G), dtype=np.uint64).astype(
+                np.uint32)
+        keys = _hot_keys(rng, N, T, K)
+        groups = _odd_groups(rng, G, T, K)
+        mask, ext = _case_masks(rng, mode, T, K, 2)
+        commit_ts = rng.integers(0, 1 << 32, T, dtype=np.int64)
+        commit_ts[0] = (1 << 32) - 1
+        cases.append((
+            f"{mode} {'coarse' if coarse else 'fine'} G={G} T={T} K={K}",
+            dict(wts=table(), rts=table(), keys=keys.astype(np.int32),
+                 groups=groups.astype(np.int32), mask=mask, ext=ext,
+                 ext_whole_row=coarse, commit_ts=commit_ts,
+                 n_chain=rng.integers(0, 6, (T, K)).astype(np.float32))))
+    return cases
+
+
+def _case_tensors(c, dev):
+    """A case dict's arrays on ``dev`` (uint32 as int32 bit patterns,
+    tables fresh copies); other values as they are."""
+    def t(x):
+        if not isinstance(x, np.ndarray):
+            return x
+        return torch.from_numpy(np.ascontiguousarray(
+            x.view(np.int32) if x.dtype == np.uint32 else x)).to(dev).clone()
+    return {k: t(v) for k, v in c.items()}
+
+
+def ts_install_case_checks(check, dev):
+    """ts_install_max's three-install form against
+    ts_install_tictoc_plain (the three plain installs in the JAX order)
+    on ts_install_cases, both tables compared."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.ts_install import ts_install_tictoc_plain
+    cases = ts_install_cases()
+    for label, c in cases:
+        a, b = _case_tensors(c, dev), _case_tensors(c, dev)
+        kw = ("rts", "ext", "ext_whole_row", "commit_ts", "n_chain")
+        K.ts_install_max(a["wts"], a["keys"], a["groups"], None, a["mask"],
+                         **{k: a[k] for k in kw})
+        ts_install_tictoc_plain(b["wts"], b["keys"], b["groups"], b["mask"],
+                                *(b[k] for k in kw))
+        check.compare([a["wts"], a["rts"]], [b["wts"], b["rts"]])
+    log(f"  ts_install_max edge cases: {len(cases)} (the largest "
+        f"{max(c['keys'].size for _, c in cases)} ops)")
+
+
+def claim_probe_cases(seed=71):
+    """claim_probe's edge cases on one and two tables, made with numpy
+    from ``seed``: [(label, dict)] with the wrapper's arguments:
+    pre-install tables claim_w and claim_r uint32[N, G] (claim_r None
+    with one table), keys, groups, the per-op priority prio int32[T, K],
+    mask, mask_r (None with one table), wave, fine.  One and two tables x
+    CASE_MASKS x fine and coarse, G = 2, at waves whose claim tag has its
+    top bit set (9) and clear (HIGH_WAVE), and four more at G = 1 and 3:
+    T = 8 lanes of K = 40 ops on N = 997 rows, a fifth of the ops on four
+    hot rows (duplicate cells in both tables), keys -1 and past the end,
+    groups G and G + 2, stale, empty and live words of the wave (never a
+    newer one), a lane whose priority equals a live claim's; and one
+    two-table wave of INSTALL_BIG ops on 2**16 rows, more ops than one a
+    co-resident thread, so the kernel's threads stride."""
+    rng = np.random.default_rng(seed)
+    configs = [(two, m, fine, 2) for two in (False, True)
+               for m in CASE_MASKS for fine in (True, False)]
+    configs += [(True, "half", True, 1), (False, "half", False, 1),
+                (True, "half", False, 3), (True, "full", True, 3)]
+    waves = [9] * len(configs) + [HIGH_WAVE] * len(configs) + [9]
+    configs = configs * 2 + [(True, "half", True, 2)]
+    shapes = [(997, 8, 40)] * (len(configs) - 1) + [(1 << 16, *INSTALL_BIG)]
+    cases = []
+    for (two, mode, fine, G), (N, T, K), wave in zip(configs, shapes,
+                                                     waves):
+        claim_w = claim_words(rng, N, G, wave, 0.3)
+        claim_r = claim_words(rng, N, G, wave, 0.3)
+        keys = _hot_keys(rng, N, T, K)
+        groups = _odd_groups(rng, G, T, K)
+        lane = rng.permutation(1 << 16)[:T]
+        lane[0] = claim_w[keys[0, 0] % N, 0] & 0xFFFF   # a tie
+        prio = np.broadcast_to(lane[:, None], (T, K)).astype(np.int32)
+        mask, mask_r = _case_masks(rng, mode, T, K, 2)
+        cases.append((
+            f"{'two tables' if two else 'one table'} {mode} "
+            f"{'fine' if fine else 'coarse'} G={G} wave={wave} T={T} K={K}",
+            dict(claim_w=claim_w, claim_r=claim_r if two else None,
+                 keys=keys.astype(np.int32), groups=groups.astype(np.int32),
+                 prio=prio, mask=mask, mask_r=mask_r if two else None,
+                 wave=wave, fine=fine)))
+    return cases
+
+
+def claim_probe_case_checks(check, dev):
+    """claim_probe on one and two tables against claim_probe_plain once
+    per table (the JAX order) on claim_probe_cases, answers and installed
+    tables; on the card the largest case must exceed the threads its SMs
+    can hold, so the cooperative grid strides."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.claim_probe import claim_probe_plain
+    cases = claim_probe_cases()
+    for label, c in cases:
+        a, b = _case_tensors(c, dev), _case_tensors(c, dev)
+        args = [a[k] for k in ("keys", "groups", "prio")]
+        got = K.claim_probe(a["claim_w"], *args, c["wave"], a["mask"],
+                            c["fine"], claim_r=a["claim_r"],
+                            mask_r=a["mask_r"])
+        want = [claim_probe_plain(b["claim_w"], *args, c["wave"], b["mask"],
+                                  c["fine"])]
+        if c["claim_r"] is None:
+            got = [got]
+        else:
+            want.append(claim_probe_plain(b["claim_r"], *args, c["wave"],
+                                          b["mask_r"], c["fine"]))
+        check.compare([*got, a["claim_w"], a["claim_r"]],
+                      [*want, b["claim_w"], b["claim_r"]])
+    cap = None
+    if dev.type == "cuda":
+        # The co-resident grid holds at most the SMs' thread slots.
+        props = torch.cuda.get_device_properties(dev)
+        cap = props.multi_processor_count * getattr(
+            props, "max_threads_per_multi_processor", SM_THREADS)
+        if not max(c["keys"].size for _, c in cases) > cap:
+            raise AssertionError(f"claim_probe: no case exceeds the "
+                                 f"card's {cap} resident threads")
+    log(f"  claim_probe edge cases: {len(cases)} (the largest "
+        f"{max(c['keys'].size for _, c in cases)} ops; the card holds at "
+        f"most {cap} resident threads)")
+
+
 #: route_pack's edge cases (M, n_dest, cap, W, skew): the one-card wave
 #: (4,096 ops), with scans (8,192) and TPC-C's (16,384; 32,768 with
 #: scans); M off the 256-op tile, one op, none; n_dest 1, 3, 8 and
@@ -1136,7 +1344,8 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
     from repro_torch.kernels.occ_validate import validate_dual_plain
     from repro_torch.kernels.segment_count import segment_count_plain
     from repro_torch.kernels.ts_gather import ts_gather_plain
-    from repro_torch.kernels.ts_install import ts_install_max_plain
+    from repro_torch.kernels.ts_install import (ts_install_max_plain,
+                                                ts_install_tictoc_plain)
     from repro_torch.kernels.wave_commit import probe_plain, \
         wave_commit_plain
     checks = {n: KernelCheck(n) for n in KERNEL_META}
@@ -1214,6 +1423,34 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
                         [probe_plain(cw_, k, groups, inv_wave(wv),
                                      fine).to(torch.int32)])
         del tables
+        # The folded forms at this shape: TicToc's three installs (the
+        # stamps from commit_ts and the chain counts) and claim_probe on
+        # both claim tables, at both tag halves.
+        g = torch.Generator(device=dev)
+        g.manual_seed(si)
+        chain = dict(commit_ts=torch.randint(0, 1 << 32, (T,), generator=g,
+                                             device=dev),
+                     n_chain=segment_count_plain(keys, groups, G, do_w))
+        for fine in (True, False):
+            a, b = [wts0.clone(), ts0.clone()], [wts0.clone(), ts0.clone()]
+            K.ts_install_max(a[0], keys, groups, None, do_w, rts=a[1],
+                             ext=check_r, ext_whole_row=not fine, **chain)
+            ts_install_tictoc_plain(b[0], keys, groups, do_w, b[1], check_r,
+                                    not fine, **chain)
+            checks["ts_install_max"].compare(a, b)
+        pairs = {wave: (cw0, cr0),
+                 HIGH_WAVE: make_tables(N, G, HIGH_WAVE, dev, si + 7)[:2]}
+        for wv, (cw_, cr_) in pairs.items():
+            for fine in (True, False):
+                a, b = [cw_.clone(), cr_.clone()], [cw_.clone(), cr_.clone()]
+                got = K.claim_probe(a[0], keys, groups, prio, wv, do_w, fine,
+                                    claim_r=a[1], mask_r=do_r)
+                want = [claim_probe_plain(b[0], keys, groups, prio, wv, do_w,
+                                          fine),
+                        claim_probe_plain(b[1], keys, groups, prio, wv, do_r,
+                                          fine)]
+                checks["claim_probe"].compare([*got, *a], [*want, *b])
+        del pairs
         scan_mv_checks(checks, dev, N, G, keys, groups, prio, masks, wave,
                        seed=si, ext_cap=SCAN_KW.get(label, {}).get(
                            "scan_len", 9))
@@ -1285,7 +1522,10 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
                 library_ms=time_ms(lambda: torch.take(ts0, cells_live),
                                    dev),
                 bound=bound_ms(gather_bytes, 0)),
-            "ts_install_max": dict(
+            # One table, the values given (the parent's TicToc made three
+            # such calls a wave).
+            "ts_install_max_one": dict(
+                form="one table, the values given",
                 ms=time_ms(lambda: K.ts_install_max(
                     ts0, keys, groups, ts_vals, do_w, False), dev),
                 plain_ms=time_ms(lambda: ts_install_max_plain(
@@ -1333,21 +1573,13 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
                     cw, keys, groups, inv_wave(wave), True), dev),
                 library_ms=None,
                 bound=bound_ms(n * (4 + 4 + 4) + probed * 4, n)),
-            # Fine probe: op vectors in, a 4-byte answer out, a word read
-            # per distinct probed cell and written per installed cell.
-            "claim_probe": dict(
-                ms=time_ms(lambda: K.claim_probe(
-                    cw, keys, groups, prio, wave, do_w, True), dev),
-                plain_ms=time_ms(lambda: claim_probe_plain(
-                    cw, keys, groups, prio, wave, do_w, True), dev),
-                library_ms=None,
-                bound=bound_ms(n * (4 + 4 + 4 + 1 + 4) + probed * 4
-                               + installs * 4, 2 * n)),
         }
         t.update(scan_mv_timings(label, dev, N, G, T, Kk, keys, groups,
                                  prio, do_w, wave, parent))
         t.update(validate_install_timings(label, dev, N, G, T, Kk, keys,
                                           groups, prio, masks, wave, parent))
+        t.update(tictoc_probe_timings(label, dev, N, G, T, Kk, keys, groups,
+                                      prio, masks, wave, parent))
         timings[label] = t
     timings["seg"] = segment_count_case_checks(checks["segment_count"],
                                                dev)
@@ -1356,6 +1588,8 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
     validate_pair_case_checks(checks["validate"], dev)
     validate_install_case_checks(checks["validate"], dev)
     mv_install_case_checks(checks["mv_install"], dev)
+    ts_install_case_checks(checks["ts_install_max"], dev)
+    claim_probe_case_checks(checks["claim_probe"], dev)
     dist_kernel_checks(checks, dev, dist_lanes)
     route_pack_case_checks(checks["route_pack"], dev)
     timings["dist"] = dist_kernel_timings(dev, dist_lanes)
@@ -1693,6 +1927,124 @@ def validate_install_timings(label, dev, N, G, T, Kk, keys, groups, prio,
     return out
 
 
+def tictoc_probe_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
+                         wave, parent=None):
+    """Times of the two folded forms on the synthetic wave: TicToc's three
+    installs as one ts_install_max launch (the stamps computed in the
+    kernel from commit_ts and the chain counts; committed writes at do_w,
+    extensions at do_r & ~do_w), with the fine extension and with the
+    coarse one (``ts_install_max_coarse``: every group of the record),
+    beside this build's one-table launch three times on the precomputed
+    stamps (``split_ms``) and the parent's (``parent_ms``); claim_probe
+    on one table (one cooperative launch) beside the parent's two
+    launches; claim_probe on two tables (``claim_probe_pair``: writer
+    claims at do_w, reader claims at do_r) beside this build's one-table
+    launch twice (``split_ms``) and the parent's two launches twice.
+    Every timed claim call installs into the same tables (min is
+    idempotent), every ts call into the same (max is).  Returns {name:
+    timing dict}."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.claim_probe import claim_probe_plain
+    from repro_torch.kernels.ts_install import (chain_stamps,
+                                                ts_install_tictoc_plain)
+    do_w, do_r = masks[0], masks[1]
+    ext = (do_r & ~do_w).contiguous()
+    n = T * Kk
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    commit_ts = torch.randint(0, 1 << 32, (T,), generator=g, device=dev)
+    n_chain = K.segment_count(keys, groups, G, do_w)
+    stamps = chain_stamps(commit_ts, n_chain)
+    cw0, cr0, wts, ts = make_tables(N, G, wave, dev, 23)
+    rts = ts.clone()
+    wcells = _distinct(keys, groups, do_w, G, N)
+    out = {}
+    for name, coarse in (("ts_install_max", False),
+                         ("ts_install_max_coarse", True)):
+        tt = (rts, ext, coarse, commit_ts, n_chain)
+
+        def split_ts(fn, coarse=coarse):
+            fn(wts, keys, groups, stamps, do_w, False)
+            fn(rts, keys, groups, stamps, do_w, False)
+            fn(rts, keys, groups, stamps, ext, coarse)
+        # rts cells installed into: the committed writes' cells, and the
+        # extensions' cells (fine) or every cell of their rows (coarse).
+        ok = ext & (keys >= 0) & (keys < N)
+        ext_cells = (keys[ok].long()[:, None] * G
+                     + torch.arange(G, device=dev)) if coarse else \
+            keys[ok].long() * G + groups[ok].long()
+        wok = do_w & (keys >= 0) & (keys < N)
+        rcells = int(torch.unique(torch.cat(
+            [keys[wok].long() * G + groups[wok].long(),
+             ext_cells.reshape(-1)])).numel())
+        out[name] = dict(
+            ms=time_ms(lambda tt=tt: K.ts_install_max(
+                wts, keys, groups, None, do_w, rts=tt[0], ext=tt[1],
+                ext_whole_row=tt[2], commit_ts=tt[3], n_chain=tt[4]), dev),
+            plain_ms=time_ms(lambda tt=tt: ts_install_tictoc_plain(
+                wts, keys, groups, do_w, *tt), dev),
+            split_ms=time_ms(lambda f=split_ts: f(K.ts_install_max), dev),
+            # No one PyTorch call installs into two tables.
+            library_ms=None,
+            # Keys, groups, chain counts (4 B), two mask bytes an op,
+            # commit_ts (8 B a lane); a word read and written per distinct
+            # wts cell and rts cell installed into.
+            bound=bound_ms(n * (4 + 4 + 4 + 1 + 1) + 8 * T
+                           + 8 * (wcells + rcells), 0),
+            form=("TicToc's three installs in one launch: wts and rts at "
+                  "the committed writes, rts at the extensions"
+                  + (", each extension's whole row" if coarse else "")),
+            shape=(f"{label} T={T} K={Kk} N={N} G={G}, "
+                   f"{'coarse' if coarse else 'fine'}"),
+            installed=[int(do_w.sum()), int(ext.sum())])
+        if parent:
+            out[name]["parent_ms"] = time_ms(
+                lambda f=split_ts: f(parent["ts_install_max"]), dev)
+
+    cw, cr = cw0.clone(), cr0.clone()
+    probed = _distinct(keys, groups, torch.ones_like(do_w), G, N)
+    one = dict(
+        ms=time_ms(lambda: K.claim_probe(cw, keys, groups, prio, wave, do_w,
+                                         True), dev),
+        plain_ms=time_ms(lambda: claim_probe_plain(
+            cw, keys, groups, prio, wave, do_w, True), dev),
+        library_ms=None,
+        # Fine probe: op vectors in, a 4-byte answer out, a word read per
+        # distinct probed cell and written per installed cell.
+        bound=bound_ms(n * (4 + 4 + 4 + 1 + 4) + probed * 4
+                       + _distinct(keys, groups, do_w, G, N) * 4, 2 * n),
+        shape=f"{label} T={T} K={Kk} N={N} G={G}, fine")
+    pair = dict(
+        ms=time_ms(lambda: K.claim_probe(cw, keys, groups, prio, wave, do_w,
+                                         True, claim_r=cr, mask_r=do_r),
+                   dev),
+        plain_ms=time_ms(lambda: (
+            claim_probe_plain(cw, keys, groups, prio, wave, do_w, True),
+            claim_probe_plain(cr, keys, groups, prio, wave, do_r, True)),
+            dev),
+        split_ms=time_ms(lambda: (
+            K.claim_probe(cw, keys, groups, prio, wave, do_w, True),
+            K.claim_probe(cr, keys, groups, prio, wave, do_r, True)), dev),
+        library_ms=None,
+        # Keys, groups, prio, two mask bytes and two answers an op; per
+        # table a word read per distinct probed cell and written per
+        # installed cell.
+        bound=bound_ms(n * (4 + 4 + 4 + 1 + 1 + 4 + 4) + 2 * probed * 4
+                       + (_distinct(keys, groups, do_w, G, N)
+                          + _distinct(keys, groups, do_r, G, N)) * 4, 4 * n),
+        shape=f"{label} two tables, T={T} K={Kk} N={N} G={G}, fine")
+    if parent:
+        one["parent_ms"] = time_ms(lambda: parent["claim_probe"](
+            cw, keys, groups, prio, wave, do_w, True), dev)
+        pair["parent_ms"] = time_ms(lambda: (
+            parent["claim_probe"](cw, keys, groups, prio, wave, do_w, True),
+            parent["claim_probe"](cr, keys, groups, prio, wave, do_r, True)),
+            dev)
+    out["claim_probe"] = one
+    out["claim_probe_pair"] = pair
+    return out
+
+
 # ------------------------------------------- sharded-wave kernel checks
 def _dist_cap(lanes, slots, n_dest, scans):
     """DistConfig's automatic capacity for one rank routing ``lanes``
@@ -1912,6 +2264,13 @@ def _check_kernels(what, rows, launches, dev, scans):
     path_ops = {op for r in rows for op in mech_ops(r["cc"], scans)}
     if dev.type == "cuda" and min(launches[op] for op in path_ops) <= 0:
         raise AssertionError(f"{what}: a kernel never launched")
+    # TicToc's three timestamp installs are one launch a wave.
+    tictoc_waves = sum(r["waves"] for r in rows if r["cc"] == "tictoc")
+    log(f"  {what} ts_install_max launches {launches['ts_install_max']} "
+        f"over {tictoc_waves} TicToc waves")
+    if dev.type == "cuda" and launches["ts_install_max"] != tictoc_waves:
+        raise AssertionError(f"{what}: a TicToc wave must launch "
+                             "ts_install_max once")
 
 
 def main_path(workload, dev, waves=WAVES, lanes=LANES, **wl_kw):
@@ -2030,9 +2389,11 @@ def mv_path(dev, waves=WAVES, lanes=LANES, tpcc_kw=None, ycsb_kw=None):
 
 def unfused_path(dev, fused, waves=WAVES, lanes=LANES, **wl_kw):
     """The probe family's unfused route on TPC-C at full scale: each run
-    must launch claim_probe (and commit_install where it bumps), never
-    wave_commit, and end with the fused run's results (same seed, same
-    draws).  Returns ({name: row}, launches during the phase)."""
+    must launch claim_probe once a wave (both claim tables in that launch
+    on 2PL's and Adaptive's dual waves) and commit_install where it
+    bumps, never wave_commit, and end with the fused run's results (same
+    seed, same draws).  Returns ({name: row}, launches during the
+    phase)."""
     from repro_torch import kernels as K
     from repro_torch.launch.txn_bench import run_grid
     K.reset_launches()
@@ -2045,8 +2406,10 @@ def unfused_path(dev, fused, waves=WAVES, lanes=LANES, **wl_kw):
         by[_name(r)] = r
         _log_row("tpcc unfused", r)
         bumps = cc != "tictoc"
+        # One claim_probe launch a wave, on two tables where the wave is
+        # dual (2PL, Adaptive).
         if dev.type == "cuda" and not (
-                d["claim_probe"] > 0 and d["wave_commit"] == 0
+                d["claim_probe"] == r["waves"] and d["wave_commit"] == 0
                 and (d["commit_install"] > 0) == bumps):
             raise AssertionError(f"unfused {_name(r)}: launches {d}")
         ref = fused[_name(r)]
@@ -2562,6 +2925,15 @@ def sharded_path(dev, group=None, waves=WAVES, lanes=DIST_LANES,
             if cov != want:                                        # (a)
                 raise AssertionError(f"sharded {name}: kernel_ops {cov} != "
                                      f"{want}")
+            # One claim_probe call a wave: both claim channels of an MV
+            # wave, the writer table of an unfused OCC wave.
+            if "claim_probe" in cov and (
+                    calls["claim_probe"] != waves or dev.type == "cuda"
+                    and launches["claim_probe"] != waves):
+                raise AssertionError(f"sharded {name}: claim_probe calls "
+                                     f"{calls['claim_probe']}, launches "
+                                     f"{launches['claim_probe']} over "
+                                     f"{waves} waves")
             if sum(s[D.STAT_CAUSES]) != s[D.STAT_ABORTS]:          # (e)
                 raise AssertionError(f"sharded {name}: causes do not sum "
                                      "to aborts")
@@ -2895,11 +3267,20 @@ def _sync(dev):
 #: The C entries (repro_<name>) whose parent build ``--parent`` times
 #: beside this checkout's kernels, each with its source (csrc/<source>.cu)
 #: and module (kernels/<source>.py): the multi-version wave's launches
-#: before this checkout folded them into one (claim_scatter twice and the
-#: two-channel validate) and mv_install's two launches.
+#: before they were folded into one (claim_scatter twice and the
+#: two-channel validate), mv_install, the one-table ts_install_max (the
+#: parent's TicToc called it three times a wave) and the two-launch
+#: claim_probe (once a table).
 PARENT_KERNELS = {"validate_pair": "occ_validate",
                   "claim_scatter": "claim_scatter",
-                  "mv_install": "mv_install"}
+                  "mv_install": "mv_install",
+                  "ts_install_max": "ts_install",
+                  "claim_probe": "claim_probe"}
+#: C signatures of parent entries that this commit's modules no longer
+#: bind: the two-launch repro_claim_probe (table, keys, groups, prio,
+#: mask, out, n, N, G, inv_wave, fine, stream).
+PARENT_SIGS = {"claim_probe": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+               + [ctypes.c_void_p]}
 
 
 def parent_kernels(parent_root: str) -> dict:
@@ -2928,7 +3309,7 @@ def parent_kernels(parent_root: str) -> dict:
     for n, src in PARENT_KERNELS.items():
         fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"{src}.so")),
                      f"repro_{n}")
-        fn.argtypes = importlib.import_module(
+        fn.argtypes = PARENT_SIGS.get(n) or importlib.import_module(
             f"repro_torch.kernels.{src}")._SIG[f"repro_{n}"]
         fn.restype = ctypes.c_int
         fns[n] = fn
@@ -2958,9 +3339,26 @@ def parent_kernels(parent_root: str) -> dict:
             keys.numel(), N, D, G, int(ts) & U32_MASK,
             build.stream(keys.device)))
 
+    def run_ts_install_max(table, keys, groups, vals, mask, whole_row):
+        N, G = table.shape
+        build.raise_on_error("parent ts_install_max", fns["ts_install_max"](
+            *(build.ptr(t) for t in (table, keys, groups, vals, mask)),
+            keys.numel(), N, G, int(whole_row), build.stream(keys.device)))
+
+    def run_claim_probe(table, keys, groups, prio, wave, mask, fine):
+        out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+        N, G = table.shape
+        build.raise_on_error("parent claim_probe", fns["claim_probe"](
+            *(build.ptr(t) for t in (table, keys, groups, prio, mask, out)),
+            keys.numel(), N, G, inv_wave(wave), int(bool(fine)),
+            build.stream(keys.device)))
+        return out
+
     return {"validate_pair": run_validate_pair,
             "claim_scatter": run_claim_scatter,
-            "mv_install": run_mv_install}
+            "mv_install": run_mv_install,
+            "ts_install_max": run_ts_install_max,
+            "claim_probe": run_claim_probe}
 
 
 def lm_kernel_phase(dev, seed=21, cases=None):
@@ -3287,9 +3685,10 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", metavar="DIR",
                     help="a parent commit unpacked in DIR: time its "
                          "claim_scatter and two-channel validate (the "
-                         "multi-version wave's three launches) and its "
-                         "mv_install beside this checkout's kernels on the "
-                         "same inputs")
+                         "multi-version wave's three launches), its "
+                         "mv_install, its one-table ts_install_max three "
+                         "times and its claim_probe once and twice beside "
+                         "this checkout's kernels on the same inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
@@ -3433,7 +3832,12 @@ def main(argv=None) -> int:
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
             "shape": t.get("shape", "tpcc T=128 K=64 N=2450808 G=2"),
-            "parent_ms": t.get("parent_ms"),
+            "form": t.get("form"),
+            "parent_ms": t.get("parent_ms"), "split_ms": t.get("split_ms"),
+            "forms": {f: {k: v for k, v in timings["tpcc"][f].items()
+                          if k == "ms" or k.endswith("_ms")
+                          or k in ("shape", "form")}
+                      for f in KERNEL_FORMS.get(name, ())},
         })
     for name, (src, replaces) in LM_KERNEL_META.items():
         t = lm_timings[name]

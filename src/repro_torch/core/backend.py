@@ -36,7 +36,10 @@ N_OPS = len(SURFACE_OPS)
 #: to ``commit_install``.  MVCC and MV-OCC install both claim channels
 #: inside their one ``validate`` call a wave, so the port reports
 #: ``claim_scatter`` as "not_run" for them (the JAX package's waves call
-#: it twice); AutoGran still calls it.
+#: it twice); AutoGran still calls it.  The port's TicToc makes its three
+#: timestamp installs in one ``ts_install_max`` call a wave, and the
+#: unfused route's dual waves (2PL, Adaptive) probe both claim tables in
+#: one ``claim_probe`` call (the JAX package calls each table's).
 CC_OPS = {
     t.CC_OCC: ("wave_commit", "iterate_validate", "commit_install",
                "segment_count"),
@@ -62,10 +65,11 @@ CC_OPS = {
 #: and commit return trips, and the owner-side claim step with its
 #: install.  OCC claims through the fused ``wave_commit`` (through
 #: ``claim_probe`` when ``fuse_wave`` is off) and bumps through
-#: ``commit_install``; MVCC/MV-OCC claim two channels through
-#: ``claim_probe``, read the ring through ``mv_gather`` and publish through
-#: ``mv_install``.  Scan fragments validate through ``iterate_validate``
-#: on their owner shard, except under MVCC, whose scans never re-validate.
+#: ``commit_install``; MVCC/MV-OCC claim two channels through one
+#: ``claim_probe`` call, read the ring through ``mv_gather`` and publish
+#: through ``mv_install``.  Scan fragments validate through
+#: ``iterate_validate`` on their owner shard, except under MVCC, whose
+#: scans never re-validate.
 DIST_OPS = ("route_pack", "verdict_pack", "verdict_unpack", "wave_commit",
             "iterate_validate", "commit_install")
 DIST_MV_OPS = ("route_pack", "verdict_pack", "verdict_unpack",
@@ -76,12 +80,16 @@ DIST_MVOCC_OPS = DIST_MV_OPS + ("iterate_validate",)
 class Backend:
     """Device-dispatching backend: each op runs where its tensors are.
 
-    Signatures follow the JAX backend's argument order (``validate``
-    takes the multi-version waves' claim installs as optional keywords);
-    tables are updated in place, so ``commit_install``, ``claim_scatter``
-    and ``mv_install`` return None, ``claim_probe`` and ``probe`` return
-    wprio int32[T, K], ``validate_dual`` returns (fine, coarse) and
-    ``mv_gather`` returns (slot, ok)."""
+    Signatures follow the JAX backend's argument order, with optional
+    keywords that fold several of its calls into one: ``validate`` takes
+    the multi-version waves' claim installs, ``claim_probe`` a second
+    claim table (``claim_r``, ``mask_r``) and ``ts_install_max`` TicToc's
+    second table, its extension mask and the stamps' inputs (``rts``,
+    ``ext``, ``commit_ts``, ``n_chain``).  Tables are updated in place,
+    so ``commit_install``, ``claim_scatter`` and ``mv_install`` return
+    None, ``claim_probe`` and ``probe`` return wprio int32[T, K] (with
+    ``claim_r``, (wprio, rprio)), ``validate_dual`` returns (fine,
+    coarse) and ``mv_gather`` returns (slot, ok)."""
 
 
 for _op in SURFACE_OPS:

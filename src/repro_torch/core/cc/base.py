@@ -4,12 +4,12 @@ The probe family (OCC, TicToc, 2PL, SwissTM, Adaptive) runs its whole
 claim -> verdict -> install chain through ``claim_probe_commit`` below.
 ``EngineConfig.fuse_wave`` picks the route: ONE backend op,
 ``wave_commit`` (the default), or the unfused chain of ``claim_probe`` on
-each claim table, the verdict compare in tensor ops and ``commit_install``
-for the bumps.  Both routes evaluate the same mask algebra over the same
-primitives, so they are bit-identical.  AutoGran installs with
-``write_claims`` and bumps with ``bump_versions``; the multi-version pair
-installs both claim channels inside its one ``validate`` call
-(``cc/mvcc.py``).
+the claim tables (both in one call on a dual wave), the verdict compare in
+tensor ops and ``commit_install`` for the bumps.  Both routes evaluate the
+same mask algebra over the same primitives, so they are bit-identical.
+AutoGran installs with ``write_claims`` and bumps with ``bump_versions``;
+the multi-version pair installs both claim channels inside its one
+``validate`` call (``cc/mvcc.py``).
 
 Scans (ops with ``op_extent > 1``, admitted by ``cfg.max_extent > 1``)
 ride no point channel: they validate only through ``phantom_validate``
@@ -196,14 +196,19 @@ def claim_probe_commit(store: StoreState, batch: TxnBatch,
                 bump_versions(store, batch, ~conflict.any(dim=1), cfg)
         return store, conflict
 
-    # Unfused: the chain of the megakernel, term by term.
-    wprio = be.claim_probe(store.claim_w, keys, groups, myp, wave, do_w, fine)
+    # Unfused: the chain of the megakernel, term by term; a dual wave
+    # installs and probes both claim tables in one claim_probe call.
+    if dual:
+        wprio, rprio = be.claim_probe(store.claim_w, keys, groups, myp, wave,
+                                      do_w, fine, claim_r=store.claim_r,
+                                      mask_r=do_r)
+    else:
+        wprio = be.claim_probe(store.claim_w, keys, groups, myp, wave, do_w,
+                               fine)
     conflict = check_w & (wprio < myp)
     if check_w2 is not None:
         conflict = conflict | (check_w2 & (wprio != NO_PRIO) & (wprio != myp))
     if dual:
-        rprio = be.claim_probe(store.claim_r, keys, groups, myp, wave, do_r,
-                               fine)
         conflict = conflict | (check_r & (rprio < myp))
     if extra is not None:
         conflict = conflict | extra

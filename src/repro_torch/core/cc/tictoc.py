@@ -9,8 +9,9 @@ and a read aborts only when a stronger lane writes its cell this wave and
 commit_ts exceeds the cell's rts, or when its rts-extension CAS meets
 another writer's lock.  Extensions and installs are charged by same-cell
 chain length (``segment_count``); timestamps move by monotone scatter-max
-(``ts_install_max``); the observation is ``ts_gather`` (coarse = row max);
-the claim/verdict pass is the fused ``wave_commit`` without bumps.
+(``ts_install_max``, the wave's three installs in one call); the
+observation is ``ts_gather`` (coarse = row max); the claim/verdict pass is
+the fused ``wave_commit`` without bumps.
 
 Timestamps are uint32 words; the arithmetic runs in int64 on their
 unsigned values and is masked back to 32 bits.
@@ -25,7 +26,7 @@ from repro_torch.core import backend as kb
 from repro_torch.core import claims
 from repro_torch.core import types as t
 from repro_torch.core.cc import base
-from repro_torch.core.claimword import U32_MASK, to_i32, u32
+from repro_torch.core.claimword import U32_MASK, u32
 from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 
 
@@ -80,17 +81,15 @@ def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
         0.0)
     ext_penalty = per_op.sum(dim=1)
 
-    # Timestamp installs: n same-cell committed writers chain their
-    # installs, so the surviving wts/rts advance by ~n per wave.
+    # Timestamp installs, one call: committed writes raise wts and rts, and
+    # the extensions rts (the whole row's read horizon when coarse).  n
+    # same-cell committed writers chain their installs, so the surviving
+    # wts/rts advance by ~n per wave (the stamps of ``chain_stamps``).
     wmask = wr & commit[:, None]
     n_wcell = be.segment_count(keys, groups, G, wmask)
-    cts = (commit_ts[:, None]
-           + 2 * (torch.clamp(n_wcell, min=1.0).to(torch.int64) - 1))
-    cts = to_i32(cts)
-    be.ts_install_max(store.wts, keys, groups, cts, wmask)
-    be.ts_install_max(store.rts, keys, groups, cts, wmask)
-    # Coarse extension raises the whole row's read horizon.
-    be.ts_install_max(store.rts, keys, groups, cts, ext, whole_row=not fine)
+    be.ts_install_max(store.wts, keys, groups, None, wmask, rts=store.rts,
+                      ext=ext, ext_whole_row=not fine, commit_ts=commit_ts,
+                      n_chain=n_wcell)
 
     res = dataclasses.replace(res, ext_penalty=ext_penalty,
                               ext_count=ext_count, ext_mask=ext)

@@ -14,9 +14,10 @@ One wave is four shard-local phases joined by three exchanges:
               into at most two fragments.
   2. claim    owners install the routed write claims and probe them:
               OCC through the fused ``wave_commit`` (or ``claim_probe``
-              when ``fuse_wave`` is off), MVCC/MV-OCC through
-              ``claim_probe`` on two channels plus ``mv_gather`` on the
-              version ring; scan fragments through ``iterate_validate``.
+              when ``fuse_wave`` is off), MVCC/MV-OCC through one
+              ``claim_probe`` call on both claim channels plus
+              ``mv_gather`` on the version ring; scan fragments through
+              ``iterate_validate``.
               The per-op verdicts go back 2 bits an op (``verdict_pack``).
   3. commit   senders unpack the verdicts (``verdict_unpack``), gather
               them by each op's routing coordinates, decide their lanes
@@ -425,10 +426,9 @@ def _make_phases(cfg: DistConfig, ns: int):
             claim_w, claim_r, mv_begin, mv_head = tables
             is_pw = (r_live & (r_kind == t.WRITE)).contiguous()
             is_ad = r_live & (r_kind == t.ADD)
-            wprio_w = be.claim_probe(claim_w, rk, r_grp, r_prio, wave, is_w,
-                                     fine)
-            wprio_r = be.claim_probe(claim_r, rk, r_grp, r_prio, wave, is_pw,
-                                     fine)
+            wprio_w, wprio_r = be.claim_probe(
+                claim_w, rk, r_grp, r_prio, wave, is_w, fine,
+                claim_r=claim_r, mask_r=is_pw)
             _, ok = be.mv_gather(
                 mv_begin, rk, r_grp,
                 mvstore.snapshot_ts(wave, cfg.snapshot_age), fine)

@@ -1,5 +1,5 @@
-"""Claim install + post-install strongest-claimant probe on one table, and
-the probe alone.
+"""Claim install + post-install strongest-claimant probe on one claim
+table or on two, and the probe alone.
 
 ``claim_probe`` replaces the TPU kernel ``claim_probe_fused_pallas``
 (src/repro/kernels/claim_probe.py); the semantics are the JAX oracle
@@ -14,10 +14,15 @@ the probe alone.
 An out-of-range group probes NO_PRIO on the fine side, where the oracle's
 ``take_along_axis`` fill reads 0xFFFFFFFF; both mean no claimant, and the
 engine never makes such a group.  The table is updated in place; the
-wrapper returns ``wprio`` int32[T, K] (values up to 0xFFFF).
+wrapper returns ``wprio`` int32[T, K] (values up to 0xFFFF).  With a
+second table ``claim_r`` and its mask ``mask_r`` one call does the same on
+both tables, on the same keys, groups and priorities, and returns
+``(wprio, rprio)``: the JAX package's two ``claim_probe_fused`` calls of
+the sharded multi-version wave and of the dual unfused wave.
 
-CUDA tensors launch ``csrc/claim_probe.cu`` (an atomicMin install launch,
-then a probe launch); CPU tensors take ``claim_probe_plain``.
+CUDA tensors launch ``csrc/claim_probe.cu``: one cooperative launch
+(the atomicMin installs into one or both tables, a grid barrier, the
+probes); CPU tensors take ``claim_probe_plain``, once per table.
 
 ``probe`` (the backend op ``probe``) replaces the TPU kernel
 ``claim_probe_pallas`` (src/repro/kernels/occ_validate.py); its semantics
@@ -28,6 +33,7 @@ not change.  CUDA tensors launch the same source's probe launch alone
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -38,7 +44,7 @@ from repro_torch.kernels.wave_commit import probe_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"repro_claim_probe": [_P] * 6 + [_I] * 5 + [_P],
+_SIG = {"repro_claim_probe_coop": [_P] * 9 + [_I] * 5 + [_P],
         "repro_probe": [_P] * 4 + [_I] * 5 + [_P]}
 
 
@@ -52,11 +58,21 @@ def claim_probe_plain(table: torch.Tensor, keys: torch.Tensor,
 
 def claim_probe(table: torch.Tensor, keys: torch.Tensor,
                 groups: torch.Tensor, prio: torch.Tensor, wave: int,
-                mask: torch.Tensor, fine: bool) -> torch.Tensor:
-    """Install the masked ops' claims in place; returns wprio int32[T, K]."""
+                mask: torch.Tensor, fine: bool, *,
+                claim_r: Optional[torch.Tensor] = None,
+                mask_r: Optional[torch.Tensor] = None):
+    """Install the masked ops' claims in place; returns wprio int32[T, K],
+    or with ``claim_r`` and ``mask_r`` (wprio, rprio), one per table."""
     claim_probe.calls += 1
+    if (claim_r is None) != (mask_r is None):
+        raise ValueError("claim_probe: claim_r and mask_r come together")
     if keys.device.type == "cpu":
-        return claim_probe_plain(table, keys, groups, prio, wave, mask, fine)
+        wprio = claim_probe_plain(table, keys, groups, prio, wave, mask,
+                                  fine)
+        if claim_r is None:
+            return wprio
+        return wprio, claim_probe_plain(claim_r, keys, groups, prio, wave,
+                                        mask_r, fine)
     dev = build.launch_device(keys)
     N, G = table.shape
     shape = tuple(keys.shape)
@@ -66,15 +82,22 @@ def claim_probe(table: torch.Tensor, keys: torch.Tensor,
     build.check("prio", prio, torch.int32, shape, dev)
     build.check("mask", mask, torch.bool, shape, dev)
     out = torch.empty(shape, dtype=torch.int32, device=dev)
+    out_r = None
+    if claim_r is not None:
+        build.check("claim_r", claim_r, torch.int32, (N, G), dev)
+        build.check("mask_r", mask_r, torch.bool, shape, dev)
+        out_r = torch.empty(shape, dtype=torch.int32, device=dev)
     lib = build.load("claim_probe", _SIG)
     with torch.cuda.device(dev):
-        rc = lib.repro_claim_probe(
-            build.ptr(table), build.ptr(keys), build.ptr(groups),
-            build.ptr(prio), build.ptr(mask), build.ptr(out), keys.numel(),
-            N, G, inv_wave(wave), int(fine), build.stream(dev))
+        rc = lib.repro_claim_probe_coop(
+            build.ptr(table), build.ptr(claim_r), build.ptr(keys),
+            build.ptr(groups), build.ptr(prio), build.ptr(mask),
+            build.ptr(mask_r), build.ptr(out), build.ptr(out_r),
+            keys.numel(), N, G, inv_wave(wave), int(bool(fine)),
+            build.stream(dev))
     build.raise_on_error("claim_probe", rc)
     claim_probe.launches += 1
-    return out
+    return out if claim_r is None else (out, out_r)
 
 
 claim_probe.launches = 0

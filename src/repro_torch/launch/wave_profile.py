@@ -6,6 +6,8 @@
         --workload ycsb --cc occ mvcc --scan-frac 0.95 --scan-len 100
     PYTHONPATH=src python -m repro_torch.launch.wave_profile \
         --workload ycsb --cc occ mvcc --arrival-rate 96
+    PYTHONPATH=src python -m repro_torch.launch.wave_profile \
+        --workload tpcc --cc 2pl adaptive --unfused
 
 For each (cc, granularity) of the ``--cc`` mechanisms (OCC and TicToc by
 default): the host wall time per wave
@@ -17,8 +19,9 @@ per wave (the union of kernel and copy intervals), the idle share of the
 profiled wall time, and the kernels that take the most device time.  The
 workload flags are txn_bench's (scans, read-only share, write share), and
 so is ``--arrival-rate`` (the open loop, with ``txn_bench.make_config``'s
-queue and incarnations); the multi-version mechanisms get txn_bench's
-default ring of 4 slots.
+queue and incarnations); ``--unfused`` takes the probe family's unfused
+route; the multi-version mechanisms get txn_bench's default ring of 4
+slots.
 Prints one JSON line per configuration and needs a CUDA device.
 """
 from __future__ import annotations
@@ -70,8 +73,9 @@ def profile_device(fn, n: int, top: int = 8) -> dict:
 
 def profile(workload: str, cc: str, gran: int, lanes: int, waves: int,
             warmup: int = 10, top: int = 8, arrival_rate: float = 0.0,
-            **wl_kw) -> dict:
-    """``arrival_rate > 0`` makes the run open-loop."""
+            fuse_wave: bool = True, **wl_kw) -> dict:
+    """``arrival_rate > 0`` makes the run open-loop; ``fuse_wave=False``
+    takes the probe family's unfused route."""
     from repro_torch import kernels as K
     from repro_torch.core.engine import (make_open_wave_step, make_wave_step,
                                          run_waves)
@@ -79,7 +83,8 @@ def profile(workload: str, cc: str, gran: int, lanes: int, waves: int,
     from repro_torch.launch.txn_bench import make_config, make_workload
     dev = resolve_device("cuda")
     wl = make_workload(workload, **wl_kw)
-    cfg = make_config(wl, cc, gran, lanes, arrival_rate=arrival_rate)
+    cfg = make_config(wl, cc, gran, lanes, fuse_wave,
+                      arrival_rate=arrival_rate)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     state = engine_state_init(cfg, wl.init_store(dev, cfg.mv_depth))
@@ -93,6 +98,7 @@ def profile(workload: str, cc: str, gran: int, lanes: int, waves: int,
         "workload": workload, "cc": cc, "granularity": gran,
         "lanes": lanes, "waves": waves, "max_extent": cfg.max_extent,
         "workload_kw": wl_kw, "arrival_rate": arrival_rate,
+        "fuse_wave": fuse_wave,
         "device_name": torch.cuda.get_device_name(dev),
         "wall_ms_per_wave": wall / waves * 1e3,
         "kernel_launches_per_wave": launched,
@@ -117,6 +123,9 @@ def main(argv=None):
                          "window; YCSB: the scan class's width")
     ap.add_argument("--arrival-rate", type=float, default=0.0,
                     help="open loop: expected Poisson arrivals per wave")
+    ap.add_argument("--unfused", action="store_true",
+                    help="the probe family's unfused route (claim_probe "
+                         "and commit_install in place of wave_commit)")
     args = ap.parse_args(argv)
     kw = {"scan_len": args.scan_len}
     if args.workload == "ycsb":
@@ -126,7 +135,8 @@ def main(argv=None):
         for cc in args.cc:
             print(json.dumps(profile(args.workload, cc, gran, args.lanes,
                                      args.waves,
-                                     arrival_rate=args.arrival_rate, **kw)),
+                                     arrival_rate=args.arrival_rate,
+                                     fuse_wave=not args.unfused, **kw)),
                   flush=True)
 
 

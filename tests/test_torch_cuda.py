@@ -211,6 +211,44 @@ def test_mv_waves_launch_validate_and_mv_install_once_a_wave():
 
 
 @pytest.mark.cuda
+def test_ts_install_forms_bit_identical_to_plain_version():
+    """TicToc's three installs in one launch, the stamps computed in the
+    kernel, on chip_smoke.ts_install_cases: both tables, masks empty and
+    full, fine and coarse extensions, stamps past 2**32, and a wave past
+    the resident grid."""
+    check = chip_smoke.KernelCheck("ts_install_max")
+    chip_smoke.ts_install_case_checks(check, _cuda())
+    torch.cuda.synchronize()
+    assert check.equal and check.max_err == 0.0
+    assert check.cases == len(chip_smoke.ts_install_cases())
+
+
+@pytest.mark.cuda
+def test_claim_probe_one_and_two_tables_bit_identical_to_plain_version():
+    """claim_probe's one cooperative launch on one and two tables, on
+    chip_smoke.claim_probe_cases: answers and installed tables, both tag
+    halves, and a wave of more ops than the kernel's co-resident grid has
+    threads."""
+    check = chip_smoke.KernelCheck("claim_probe")
+    chip_smoke.claim_probe_case_checks(check, _cuda())
+    torch.cuda.synchronize()
+    assert check.equal and check.max_err == 0.0
+    assert check.cases == len(chip_smoke.claim_probe_cases())
+
+
+@pytest.mark.cuda
+def test_tictoc_and_dual_unfused_waves_launch_once_a_wave():
+    """A TicToc wave launches ts_install_max once; an unfused wave,
+    dual (2PL, Adaptive) or not, launches claim_probe once; the routes
+    end in the fused runs' results."""
+    dev = _cuda()
+    fused, launches = chip_smoke.main_path("tpcc", dev, waves=4, lanes=16,
+                                           scale=0.01)
+    assert launches["ts_install_max"] == 2 * 4
+    chip_smoke.unfused_path(dev, fused, waves=4, lanes=16, scale=0.01)
+
+
+@pytest.mark.cuda
 def test_route_pack_edge_cases_bit_identical_to_plain_version():
     """The tiled pack on chip_smoke.route_pack_cases, both routes (direct
     and two-level), and a buffer of more than 2**31 words."""
