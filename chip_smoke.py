@@ -66,27 +66,41 @@ src/repro_torch/csrc, then:
      one and two tables (claim_probe_cases): masks half, full and empty,
      fine and coarse, G = 1 to 3, both tag halves, duplicate cells, keys
      -1 and past the end, groups past G, a tie, and a wave past the
-     kernel's co-resident grid, answers and tables compared.  validate is
-     timed on the masks the MVCC and MV-OCC waves build (TPC-C and the
-     multi-version YCSB mix) as one launch that installs both claim
-     tables and checks, beside claim_scatter twice and the two-channel
-     validate, the launches the waves made before; TicToc's three
-     installs as one ts_install_max launch, with the fine and the coarse
-     extension, beside the one-table launch three times; claim_probe (one
-     cooperative launch) on one table, and on two tables beside two
-     calls.
-     With --parent DIR validate (as the parent's claim_scatter twice and
-     two-channel validate), mv_install, ts_install_max (the parent's
-     one-table launch three times) and claim_probe (the parent's two
-     launches, once a table) are timed beside the kernels of the commit
-     unpacked in DIR, built from its sources;
+     kernel's co-resident grid, answers and tables compared; ts_gather's
+     TicToc form (ts_gather_cases: both tables to commit_ts and
+     ext_need): fine and coarse, G = 1 to 3, K = 1, 40, 300 (wider than
+     the block) and 1,030, rts words of 0xFFFFFFFF (a write's rts + 1
+     wraps to 0), overlapping and empty masks, scan extents, keys -1 and
+     past the end, groups past G; the ring folds of validate and
+     claim_probe (ring_fold_cases): D = 4 and 1, G = 1 to 3, empty slots,
+     records all empty or all newer than the snapshot (reclaimed), stamps
+     on both sides of 2**31, and a wave past the resident grid, verdicts
+     or answers, ok and both tables compared.  validate is timed on the
+     masks the MVCC and MV-OCC waves build (TPC-C and the multi-version
+     YCSB mix) as one launch that installs both claim tables, checks and
+     reads the ring, beside the same call without the ring and beside
+     the install form and mv_gather, the launches the waves made before;
+     TicToc's observation as one ts_gather launch on a main-path TicToc
+     wave, fine and coarse, beside the one-table launch twice and the
+     torch arithmetic; TicToc's three installs as one ts_install_max
+     launch, with the fine and the coarse extension, beside the one-table
+     launch three times; claim_probe (one cooperative launch) on one
+     table, on two tables beside two calls, and on two tables with the
+     ring read beside the call without it and beside two-table
+     claim_probe and mv_gather.
+     With --parent DIR ts_gather (the parent's one-table launch twice and
+     the torch arithmetic), mv_gather, validate (the parent's install
+     form and mv_gather) and the ring form of claim_probe (the parent's
+     two-table launch and mv_gather) are timed beside the kernels of the
+     commit unpacked in DIR, built from its sources;
   2. the main path on TPC-C (full scale, T = 128, 200 waves) through the
      benchmark CLI's grid runner: OCC, TicToc, 2PL, SwissTM and Adaptive
      x coarse and fine, plus AutoGran coarse, with the launch counters set
      to 0 just before and read just after.  Every kernel of each
      mechanism must have launched, aborts must sum over causes, every
      lane-wave must commit or abort, every TicToc wave must launch
-     ts_install_max once (its three installs), and OCC-fine must beat
+     ts_install_max once (its three installs) and ts_gather once (its two
+     reads and commit_ts), and OCC-fine must beat
      OCC-coarse and TicToc-coarse (the paper's quickstart ordering), and
      AutoGran-coarse must beat OCC-coarse (the paper's section 5
      proposal);
@@ -112,8 +126,9 @@ src/repro_torch/csrc, then:
      transactions (benchmarks/abort_rates.py): read-only lanes never
      abort under MVCC/MV-OCC and do under coarse OCC; one MVCC run whose
      snapshots are 8 waves old (beyond the ring's 4) aborts as stale;
-     every MVCC and MV-OCC wave launches validate (both claim installs
-     and the check) once, mv_install once and claim_scatter never;
+     every MVCC and MV-OCC wave launches validate (both claim installs,
+     the check and the ring read) once, mv_install once and
+     claim_scatter and mv_gather never;
   8. fused = unfused again with scans on (the bumps move out of
      wave_commit);
   9. cross-device identity: one set of draws made on the CPU, run through
@@ -122,9 +137,11 @@ src/repro_torch/csrc, then:
      mechanism and the MV configurations; integer state (the version ring
      included) must be bit-identical, lane_time within rtol 1e-5 and the
      heats within rtol 1e-6;
- 9b. the backend op probe on a table wave_commit has just installed into
-     (TPC-C shape): one launch each, equal to the plain version, every
-     installed claim seen;
+ 9b. the backend ops without an engine caller: probe on a table
+     wave_commit has just installed into (TPC-C shape), and mv_gather on
+     a ring mv_install has just published that wave's writes into, at
+     the next wave's snapshot: one launch each, equal to the plain
+     versions, every installed claim and every published version seen;
  9c. examples/quickstart_torch.py's main as it ships (TPC-C 8 warehouses,
      scale 0.5, T = 96, 200 waves): OCC-fine beats OCC-coarse and
      TicToc-coarse;
@@ -147,7 +164,8 @@ src/repro_torch/csrc, then:
      lanes, 200 waves, OCC/MVCC/MV-OCC x coarse and fine and OCC fine
      unfused (workload E: OCC and MV-OCC fine).  Every op of the
      mechanism launches its kernel, claim_probe once a wave where the
-     wave calls it (both claim channels of an MV wave in one launch),
+     wave calls it (both claim channels and the ring read of an MV wave
+     in one launch; mv_gather never),
      causes sum to aborts, MVCC sees no phantom, MVCC/MV-OCC abort no
      read-only lane, the collective carries the modelled wire bytes, each
      run commits exactly the lanes the local validator commits on the
@@ -268,18 +286,23 @@ KERNEL_META = {
                        "src/repro/kernels/verdict_pack.py:65"),
 }
 #: The other call forms the kernel phase times beside a kernel's main-path
-#: form, listed under "forms" in the kernels line: ts_install_max's three
-#: installs with the coarse extension and the one-table install,
-#: claim_probe on two tables.
-KERNEL_FORMS = {"ts_install_max": ("ts_install_max_coarse",
+#: form, listed under "forms" in the kernels line: ts_gather's TicToc form
+#: coarse and the one-table gather, ts_install_max's three installs with
+#: the coarse extension and the one-table install, validate's ring form on
+#: MVCC's masks, claim_probe on two tables and on two tables with the
+#: ring read.
+KERNEL_FORMS = {"ts_gather": ("ts_gather_coarse", "ts_gather_one"),
+                "ts_install_max": ("ts_install_max_coarse",
                                    "ts_install_max_one"),
-                "claim_probe": ("claim_probe_pair",)}
+                "validate": ("validate_mvcc",),
+                "claim_probe": ("claim_probe_pair", "claim_probe_ring")}
 #: The kernels that only the sharded engine launches; the kernel phase
 #: times them at the sharded wave's shapes.
 DIST_KERNELS = ("route_pack", "verdict_pack", "verdict_unpack")
 #: The kernels each mechanism's (fused) wave launches on the point mix.
+#: The MV waves read the ring inside their validate launch: no mv_gather.
 _PROBE_OPS = ("wave_commit", "segment_count")
-_MV_OPS = ("validate", "mv_gather", "mv_install", "segment_count")
+_MV_OPS = ("validate", "mv_install", "segment_count")
 MECH_OPS = {"occ": _PROBE_OPS,
             "tictoc": _PROBE_OPS + ("ts_gather", "ts_install_max"),
             "2pl": _PROBE_OPS, "swisstm": _PROBE_OPS, "adaptive": _PROBE_OPS,
@@ -1250,6 +1273,190 @@ def claim_probe_case_checks(check, dev):
         f"most {cap} resident threads)")
 
 
+#: The TicToc observe cases' lane widths: K off the 32-thread warp, one op,
+#: K wider than the kernel's 256-thread block (its threads stride) and
+#: several strides.
+OBSERVE_WIDTHS = (40, 1, 300, 1030)
+
+
+def ts_gather_cases(seed=73):
+    """ts_gather's TicToc-form edge cases, made with numpy from ``seed``:
+    [(label, dict)] with the wrapper's arguments: wts and rts uint32[N,
+    G], keys, groups, rd and wr bool[T, K], extent int32[T, K], fine.
+    Fine and coarse x the lane widths of OBSERVE_WIDTHS at G = 2, and at G =
+    1 and 3 with K = 40 and 300; T = 6 lanes on N = 997 rows: a fifth of the
+    ops on four hot rows, whose rts words are 0xFFFFFFFF in row 0 and in
+    some groups of the others (a write's rts + 1 wraps to 0), table words on
+    both sides of 2**31, keys -1 and past the end, groups G and G + 2; the
+    wave's disjoint masks (an op reads, writes or neither) in most lanes,
+    overlapping ones (an op both) in lane 1, none in lane 2 (commit_ts 0);
+    extents 1, 0 and -2 (point ops) and 2 to 9 (scans)."""
+    rng = np.random.default_rng(seed)
+    N, T = 997, 6
+    configs = [(fine, 2, K) for fine in (True, False)
+               for K in OBSERVE_WIDTHS]
+    configs += [(fine, G, K) for fine in (True, False) for G in (1, 3)
+                for K in OBSERVE_WIDTHS[::2]]
+    cases = []
+    for fine, G, K in configs:
+        def table():
+            return rng.integers(0, 1 << 32, (N, G),
+                                dtype=np.uint64).astype(np.uint32)
+        wts, rts = table(), table()
+        rts[0] = 0xFFFFFFFF
+        hot = rts[1:4]
+        hot[rng.random(hot.shape) < 0.5] = 0xFFFFFFFF
+        kind = rng.integers(0, 3, (T, K))  # 0 read, 1 write, 2 nop
+        rd, wr = kind == 0, kind == 1
+        rd[1], wr[1] = rng.random(K) < 0.6, rng.random(K) < 0.6
+        rd[2], wr[2] = False, False
+        extent = np.where(rng.random((T, K)) < 0.7, 1,
+                          rng.integers(2, 10, (T, K)))
+        extent[0, :2] = (0, -2)[:K]
+        keys = _hot_keys(rng, N, T, K)
+        keys[3, 0], keys[4, -1] = -1, N + 3
+        groups = _odd_groups(rng, G, T, K)
+        groups[5, 0] = G + 2
+        cases.append((
+            f"{'fine' if fine else 'coarse'} G={G} T={T} K={K}",
+            dict(wts=wts, rts=rts, keys=keys.astype(np.int32),
+                 groups=groups.astype(np.int32), rd=rd, wr=wr,
+                 extent=extent.astype(np.int32), fine=fine)))
+    return cases
+
+
+def ts_gather_case_checks(check, dev):
+    """ts_gather's TicToc form against tictoc_observe_plain (the two plain
+    gathers and TicToc's arithmetic) on ts_gather_cases, commit_ts and
+    ext_need; some case must wrap a write's rts + 1 and need an
+    extension."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.ts_gather import tictoc_observe_plain
+    cases = ts_gather_cases()
+    need = 0
+    for label, c in cases:
+        a = _case_tensors(c, dev)
+        args = [a[k] for k in ("keys", "groups")]
+        kw = {k: a[k] for k in ("rd", "wr", "extent")}
+        got = K.ts_gather(a["wts"], *args, c["fine"], rts=a["rts"], **kw)
+        want = tictoc_observe_plain(a["wts"], a["rts"], *args, c["fine"],
+                                    **kw)
+        check.compare(got, want)
+        need += int(want[1].sum())
+    log(f"  ts_gather TicToc edge cases: {len(cases)} (K up to "
+        f"{max(OBSERVE_WIDTHS)}), {need} reads need an extension")
+    if not need:
+        raise AssertionError("ts_gather: no case needs an extension")
+
+
+def ring_fold_cases(seed=79):
+    """The multi-version waves' folded ring reads, made with numpy from
+    ``seed``: [(label, dict)] with validate's install-and-check arguments
+    as validate_install_cases makes them (claim_w, claim_r uint32[N, G],
+    keys, groups, the lane priority prio int32[T], install_w, install_r,
+    check, check_r, wave, fine) plus the version ring ``begin`` uint32[N,
+    D, G] and the snapshot ``snap_ts``; claim_probe's ring form takes the
+    same tables and ops (mask = install_w, mask_r = install_r, the lane
+    priority per op).  Fine and coarse x D = 4 with G = 1 to 3 and D = 1
+    with G = 2, T = 8 lanes of K = 40 ops on N = 997 rows, at claim-tag
+    halves and ring
+    stamps that alternate (stamps from 1 and from 0x7FFFFFF8 + 1: both
+    sides of 2**31), the waves' masks and overlapping ones in turn: ring
+    slots empty (MV_EMPTY) at random, a record whose every slot is empty,
+    one whose every stamp postdates the snapshot (reclaimed), hot rows,
+    keys -1 and past the end, groups G and G + 2, a tie; and one wave of
+    INSTALL_BIG ops on 2**16 rows, more than one a co-resident thread."""
+    rng = np.random.default_rng(seed)
+    configs = [(fine, D, G) for fine in (True, False)
+               for D, G in ((4, 1), (4, 2), (4, 3), (1, 2))] + [(True, 4, 2)]
+    shapes = [(997, 8, 40)] * (len(configs) - 1) + [(1 << 16,
+                                                      *INSTALL_BIG)]
+    cases = []
+    for ci, ((fine, D, G), (N, T, K)) in enumerate(zip(configs, shapes)):
+        wave = HIGH_WAVE if ci % 2 else 9
+        base = HIGH_TS if ci % 4 >= 2 else 0
+        snap = base + 10
+        begin = rng.integers(base + 1, base + 21, (N, D, G)).astype(
+            np.uint32)
+        begin[rng.random((N, D, G)) < 0.3] = 0xFFFFFFFF
+        begin[1] = base + 11 + np.arange(D * G).reshape(D, G)  # reclaimed
+        begin[2] = 0xFFFFFFFF                                  # all empty
+        keys = _hot_keys(rng, N, T, K)
+        groups = _odd_groups(rng, G, T, K)
+        claim_w = claim_words(rng, N, G, wave, 0.3)
+        claim_r = claim_words(rng, N, G, wave, 0.3)
+        prio = rng.permutation(1 << 16)[:T]
+        prio[0] = claim_w[keys[0, 0] % N, 0] & 0xFFFF       # a tie
+        if ci % 3 == 2:
+            install_w, install_r, check, check_r = (
+                rng.random((T, K)) < 0.5 for _ in range(4))
+            mode = "overlap"
+        else:
+            kind = rng.integers(0, 3, (T, K))  # 0 read, 1 write, 2 ADD
+            has_write = (kind > 0).any(axis=1)
+            install_w, install_r = kind > 0, kind == 1
+            check = (kind == 1) | ((kind == 0) & has_write[:, None])
+            check_r = kind == 2
+            mode = "waves"
+        cases.append((
+            f"{mode} {'fine' if fine else 'coarse'} D={D} G={G} "
+            f"wave={wave} ts={snap:#x} T={T} K={K}",
+            dict(claim_w=claim_w, claim_r=claim_r,
+                 keys=keys.astype(np.int32), groups=groups.astype(np.int32),
+                 prio=prio.astype(np.int32), install_w=install_w,
+                 install_r=install_r, check=check, check_r=check_r,
+                 wave=wave, fine=fine, begin=begin, snap_ts=snap)))
+    return cases
+
+
+def ring_fold_case_checks(checks, dev):
+    """validate's and claim_probe's ring forms against their plain
+    versions (the parent's calls in the parent's order: the installs and
+    check or probes, then mv_gather_plain) on ring_fold_cases: verdicts or
+    answers, both installed tables and ok; some case must see a
+    reclaimed snapshot and some a visible one."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.claim_probe import claim_probe_plain
+    from repro_torch.kernels.mv_gather import mv_gather_plain
+    from repro_torch.kernels.occ_validate import validate_plain
+    cases = ring_fold_cases()
+    seen = {True: 0, False: 0}
+    for label, c in cases:
+        outs = []
+        for fn in (K.validate, validate_plain):
+            a = _case_tensors(c, dev)
+            res = fn(a["claim_w"], a["keys"], a["groups"], a["prio"],
+                     a["check"], c["wave"], c["fine"], claim_r=a["claim_r"],
+                     check_r=a["check_r"], install_w=a["install_w"],
+                     install_r=a["install_r"], begin=a["begin"],
+                     snap_ts=c["snap_ts"])
+            outs.append([*res, a["claim_w"], a["claim_r"]])
+        checks["validate"].compare(*outs)
+        for v in (True, False):
+            seen[v] += int((outs[1][1] == v).sum())
+        a, b = _case_tensors(c, dev), _case_tensors(c, dev)
+        args = [a["keys"], a["groups"],
+                a["prio"][:, None].expand(a["keys"].shape).contiguous()]
+        got = K.claim_probe(a["claim_w"], *args, c["wave"], a["install_w"],
+                            c["fine"], claim_r=a["claim_r"],
+                            mask_r=a["install_r"], begin=a["begin"],
+                            snap_ts=c["snap_ts"])
+        want = (claim_probe_plain(b["claim_w"], *args, c["wave"],
+                                  b["install_w"], c["fine"]),
+                claim_probe_plain(b["claim_r"], *args, c["wave"],
+                                  b["install_r"], c["fine"]),
+                mv_gather_plain(b["begin"], *args[:2], c["snap_ts"],
+                                c["fine"])[1])
+        checks["claim_probe"].compare([*got, a["claim_w"], a["claim_r"]],
+                                      [*want, b["claim_w"], b["claim_r"]])
+    log(f"  ring-fold edge cases (validate and claim_probe): {len(cases)} "
+        f"(the largest {max(c['keys'].size for _, c in cases)} ops), "
+        f"{seen[True]} ops see a version, {seen[False]} none")
+    if not (seen[True] and seen[False]):
+        raise AssertionError("ring folds: the cases must see visible and "
+                             "reclaimed snapshots")
+
+
 #: route_pack's edge cases (M, n_dest, cap, W, skew): the one-card wave
 #: (4,096 ops), with scans (8,192) and TPC-C's (16,384; 32,768 with
 #: scans); M off the 256-op tile, one op, none; n_dest 1, 3, 8 and
@@ -1343,7 +1550,8 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
     from repro_torch.kernels.occ_commit import commit_install_plain
     from repro_torch.kernels.occ_validate import validate_dual_plain
     from repro_torch.kernels.segment_count import segment_count_plain
-    from repro_torch.kernels.ts_gather import ts_gather_plain
+    from repro_torch.kernels.ts_gather import (tictoc_observe_plain,
+                                               ts_gather_plain)
     from repro_torch.kernels.ts_install import (ts_install_max_plain,
                                                 ts_install_tictoc_plain)
     from repro_torch.kernels.wave_commit import probe_plain, \
@@ -1382,6 +1590,15 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
                  K.ts_gather(wts0, keys, groups, fine)],
                 [ts_gather_plain(ts0, keys, groups, fine),
                  ts_gather_plain(wts0, keys, groups, fine)])
+        # TicToc's form: reads at do_r, writes at do_w (overlapping), scan
+        # extents, both table orders.
+        obs = dict(rd=do_r, wr=do_w,
+                   extent=scan_extents(keys, N, 9, si)[1])
+        for fine in (True, False):
+            for w_, r_ in ((wts0, ts0), (ts0, wts0)):
+                checks["ts_gather"].compare(
+                    K.ts_gather(w_, keys, groups, fine, rts=r_, **obs),
+                    tictoc_observe_plain(w_, r_, keys, groups, fine, **obs))
         for whole_row in (False, True):
             for v in (vals, _words(prio.long() + 7)):
                 a, b = ts0.clone(), ts0.clone()
@@ -1514,7 +1731,8 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
                     dev),
                 # A sort-based count: n log2 n compares.
                 bound=bound_ms(seg_bytes, n * math.log2(n))),
-            "ts_gather": dict(
+            "ts_gather_one": dict(
+                form="one table",
                 ms=time_ms(lambda: K.ts_gather(ts0, keys, groups, True),
                            dev),
                 plain_ms=time_ms(lambda: ts_gather_plain(
@@ -1579,7 +1797,9 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
         t.update(validate_install_timings(label, dev, N, G, T, Kk, keys,
                                           groups, prio, masks, wave, parent))
         t.update(tictoc_probe_timings(label, dev, N, G, T, Kk, keys, groups,
-                                      prio, masks, wave, parent))
+                                      prio, masks, wave))
+        t.update(gather_fold_timings(label, dev, N, G, T, Kk, keys, groups,
+                                     prio, masks, wave, parent))
         timings[label] = t
     timings["seg"] = segment_count_case_checks(checks["segment_count"],
                                                dev)
@@ -1590,6 +1810,8 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
     mv_install_case_checks(checks["mv_install"], dev)
     ts_install_case_checks(checks["ts_install_max"], dev)
     claim_probe_case_checks(checks["claim_probe"], dev)
+    ts_gather_case_checks(checks["ts_gather"], dev)
+    ring_fold_case_checks(checks, dev)
     dist_kernel_checks(checks, dev, dist_lanes)
     route_pack_case_checks(checks["route_pack"], dev)
     timings["dist"] = dist_kernel_timings(dev, dist_lanes)
@@ -1599,6 +1821,8 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
                 f"{r['plain_ms']:.4f} ms  library "
                 f"{'-' if r['library_ms'] is None else '%.4f' % r['library_ms']}"
                 f" ms  bound {r['bound'][0]:.7f} ms ({r['bound'][1]})"
+                + (f"  without the ring {r['noring_ms']:.6f} ms"
+                   if "noring_ms" in r else "")
                 + (f"  split launches {r['split_ms']:.6f} ms"
                    if "split_ms" in r else "")
                 + (f"  parent kernel {r['parent_ms']:.6f} ms "
@@ -1662,12 +1886,14 @@ def scan_mv_checks(checks, dev, N, G, keys, groups, prio, masks, wave, seed,
                    ext_cap):
     """The slice-3 kernels against their plain versions, every case."""
     from repro_torch import kernels as K
+    from repro_torch.kernels.claim_probe import claim_probe_plain
     from repro_torch.kernels.iterate_validate import iterate_validate_plain
     from repro_torch.kernels.mv_gather import mv_gather_plain
     from repro_torch.kernels.mv_install import mv_install_plain
     from repro_torch.kernels.occ_validate import validate_plain
     do_w, do_r, check_w, check_w2, check_r, extra = masks
     none = torch.zeros_like(do_w)
+    lane = prio[:, 0].contiguous()
     starts, ext = scan_extents(keys, N, ext_cap, seed)
     hits = []
     for wv in (wave, HIGH_WAVE):
@@ -1690,7 +1916,6 @@ def scan_mv_checks(checks, dev, N, G, keys, groups, prio, masks, wave, seed,
             # The installs and the check in one call: both installs and
             # both checks, installs into one table only with one check,
             # and nothing at all.
-            lane = prio[:, 0].contiguous()
             for iw, ir, cw_, cr_ in ((do_w, do_w & check_w, check_w,
                                       check_r),
                                      (do_w, none, none, check_r),
@@ -1720,6 +1945,7 @@ def scan_mv_checks(checks, dev, N, G, keys, groups, prio, masks, wave, seed,
         raise AssertionError("iterate_validate: no case had a conflict")
     groups_x = groups.clone()
     groups_x[0, :4] = G             # out of range: reads begin 0 when fine
+    pw = (do_w & check_w).contiguous()
     for base in (0, HIGH_TS):
         begin, _ = ring(N, MV_DEPTH, G, keys, groups, do_w, dev, base)
         for ts in (base + 12, base + 6, base + 3, 0):
@@ -1727,7 +1953,30 @@ def scan_mv_checks(checks, dev, N, G, keys, groups, prio, masks, wave, seed,
                 checks["mv_gather"].compare(
                     K.mv_gather(begin, keys, groups_x, ts, fine),
                     mv_gather_plain(begin, keys, groups_x, ts, fine))
-        del begin
+        # The ring read folded into the MV waves' validate (installs, check)
+        # and the sharded owner's two-table claim_probe.
+        ring_kw = dict(begin=begin, snap_ts=base + 6)
+        cw0, cr0 = make_tables(N, G, wave, dev, seed + 17)[:2]
+        for fine in (True, False):
+            outs = []
+            for fn in (K.validate, validate_plain):
+                a, b = cw0.clone(), cr0.clone()
+                res = fn(a, keys, groups_x, lane, check_w, wave, fine,
+                         claim_r=b, check_r=check_r, install_w=do_w,
+                         install_r=pw, **ring_kw)
+                outs.append([*res, a, b])
+            checks["validate"].compare(*outs)
+            a, b = [cw0.clone(), cr0.clone()], [cw0.clone(), cr0.clone()]
+            got = K.claim_probe(a[0], keys, groups_x, prio, wave, do_w, fine,
+                                claim_r=a[1], mask_r=pw, **ring_kw)
+            want = (claim_probe_plain(b[0], keys, groups_x, prio, wave, do_w,
+                                      fine),
+                    claim_probe_plain(b[1], keys, groups_x, prio, wave, pw,
+                                      fine),
+                    mv_gather_plain(begin, keys, groups_x, base + 6,
+                                    fine)[1])
+            checks["claim_probe"].compare([*got, *a], [*want, *b])
+        del begin, cw0, cr0
     for D in (MV_DEPTH, 1):
         begin, head = ring(N, D, G, keys, groups, do_w, dev)
         hot = keys[keys >= 0][:4].long()
@@ -1760,7 +2009,7 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
     """Times of iterate_validate, mv_gather and mv_install on one wave of
     the scan path: the scan-configured workload's draw at the main shapes,
     else the synthetic ops; with ``parent`` (see parent_kernels) the
-    parent build of mv_install too.  Returns {name: timing dict}."""
+    parent build of mv_gather too.  Returns {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.kernels.iterate_validate import (iterate_validate_plain,
                                                       scan_span)
@@ -1835,8 +2084,8 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
                            n)),
     }
     if parent:
-        out["mv_install"]["parent_ms"] = time_ms(
-            lambda: install(parent["mv_install"]), dev)
+        out["mv_gather"]["parent_ms"] = time_ms(
+            lambda: parent["mv_gather"](begin, keys, groups, 7, True), dev)
     return out
 
 
@@ -1849,16 +2098,17 @@ MV_KW = {"tpcc": dict(scale=1.0),
 
 def validate_install_timings(label, dev, N, G, T, Kk, keys, groups, prio,
                              masks, wave, parent=None):
-    """Times of validate with the wave's claim installs, on the masks the
-    multi-version waves build: one launch (MV-OCC's masks: every write
-    installs into claim_w and plain writes into claim_r; plain writes and
-    update-transaction point reads are checked on claim_w, ADDs on
-    claim_r; MVCC's without the reads), beside this build's
-    claim_scatter twice and two-channel validate (the launches the waves
-    made before, ``split_ms``) and, with ``parent``, the parent's same
-    three launches.  The multi-version workload's draw at the main
-    shapes, else the synthetic ops; every call installs into the same
-    tables (min is idempotent, so each call sees the tables of the
+    """Times of validate with the wave's claim installs and ring read, on
+    the masks the multi-version waves build: one launch (MV-OCC's masks:
+    every write installs into claim_w and plain writes into claim_r; plain
+    writes and update-transaction point reads are checked on claim_w,
+    ADDs on claim_r; MVCC's without the reads; every op reads the ring at
+    the wave's snapshot), beside the same call without the ring
+    (``noring_ms``), this build's install form and mv_gather (the launches
+    the waves made before, ``split_ms``) and, with ``parent``, the
+    parent's same two launches.  The multi-version workload's draw at the
+    main shapes, else the synthetic ops; every call installs into the
+    same tables (min is idempotent, so each call sees the tables of the
     first).  Returns {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.kernels.occ_validate import validate_plain
@@ -1887,40 +2137,50 @@ def validate_install_timings(label, dev, N, G, T, Kk, keys, groups, prio,
     n = T * Kk
     lane = prio[:, 0].contiguous()
     tables = make_tables(N, G, max(wave - 4, 0), dev, 5)[:2]
+    begin, _ = ring(N, MV_DEPTH, G, keys, groups, do_w, dev, waves=6)
+    snap = 3
+    rows_live = _distinct_rows(keys, torch.ones_like(do_w), N)
     out = {}
     for name, check_w in (("validate", pw | reads), ("validate_mvcc", pw)):
         cw, cr = (t.clone() for t in tables)
         inst = dict(claim_r=cr, check_r=ad, install_w=do_w, install_r=pw)
+        ring_kw = dict(begin=begin, snap_ts=snap)
         args = (cw, keys, groups, lane, check_w, wave, True)
 
-        def run_split(scatter, check, cw=cw, cr=cr, check_w=check_w):
-            scatter(cw, keys, groups, prio, wave, do_w)
-            scatter(cr, keys, groups, prio, wave, pw)
-            check(cw, keys, groups, prio, check_w, wave, True, cr, ad)
+        def run_split(install, gather, args=args, inst=inst):
+            install(*args, **inst)
+            gather(begin, keys, groups, snap, True)
         # Op vectors in (keys, groups: 4 B; four masks: 1 B each), the lane
-        # priority (4 B a lane), a verdict byte out; a word read and
-        # written per distinct installed cell of each table, one G-word
-        # row read per distinct record each channel checks.
+        # priority (4 B a lane), a verdict and a flag byte out; a word read
+        # and written per distinct installed cell of each table, one G-word
+        # row read per distinct record each channel checks, the D x G ring
+        # words of each distinct live record read once.
         cells = (_distinct(keys, groups, do_w, G, N)
                  + _distinct(keys, groups, pw, G, N))
         rows = (_distinct_rows(keys, check_w, N)
                 + _distinct_rows(keys, ad, N))
         out[name] = dict(
-            ms=time_ms(lambda: K.validate(*args, **inst), dev),
-            plain_ms=time_ms(lambda: validate_plain(*args, **inst), dev),
-            split_ms=time_ms(lambda: run_split(K.claim_scatter, K.validate),
+            ms=time_ms(lambda: K.validate(*args, **inst, **ring_kw), dev),
+            plain_ms=time_ms(lambda: validate_plain(*args, **inst,
+                                                    **ring_kw), dev),
+            noring_ms=time_ms(lambda: K.validate(*args, **inst), dev),
+            split_ms=time_ms(lambda: run_split(K.validate, K.mv_gather),
                              dev),
             library_ms=None,
-            bound=bound_ms(n * (4 + 4 + 4 * 1 + 1) + 4 * T + cells * 8
-                           + rows * G * 4, 4 * n),
+            bound=bound_ms(n * (4 + 4 + 4 * 1 + 2) + 4 * T + cells * 8
+                           + rows * G * 4 + rows_live * MV_DEPTH * G * 4,
+                           4 * n + n * MV_DEPTH * G),
+            form=("the multi-version wave's one launch: both claim "
+                  "installs, the two-channel check and the ring read"),
             shape=(f"{label} {'MV-OCC' if name == 'validate' else 'MVCC'} "
-                   f"wave masks, T={T} K={Kk} N={N} G={G}, fine"),
+                   f"wave masks, T={T} K={Kk} N={N} G={G} D={MV_DEPTH}, "
+                   f"fine"),
             installed=[int(do_w.sum()), int(pw.sum())],
             checked=[int(check_w.sum()), int(ad.sum())])
         if parent:
             out[name]["parent_ms"] = time_ms(
-                lambda: run_split(parent["claim_scatter"],
-                                  parent["validate_pair"]), dev)
+                lambda: run_split(parent["validate_install"],
+                                  parent["mv_gather"]), dev)
     log(f"  {label:5s} MV wave masks: {int(do_w.sum())} writes, "
         f"{int(pw.sum())} plain writes, {int(ad.sum())} ADDs, "
         f"{int(reads.sum())} update-transaction point reads")
@@ -1928,21 +2188,19 @@ def validate_install_timings(label, dev, N, G, T, Kk, keys, groups, prio,
 
 
 def tictoc_probe_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
-                         wave, parent=None):
-    """Times of the two folded forms on the synthetic wave: TicToc's three
+                         wave):
+    """Times of two folded forms on the synthetic wave: TicToc's three
     installs as one ts_install_max launch (the stamps computed in the
     kernel from commit_ts and the chain counts; committed writes at do_w,
     extensions at do_r & ~do_w), with the fine extension and with the
     coarse one (``ts_install_max_coarse``: every group of the record),
     beside this build's one-table launch three times on the precomputed
-    stamps (``split_ms``) and the parent's (``parent_ms``); claim_probe
-    on one table (one cooperative launch) beside the parent's two
-    launches; claim_probe on two tables (``claim_probe_pair``: writer
+    stamps (``split_ms``); claim_probe on one table (one cooperative
+    launch); claim_probe on two tables (``claim_probe_pair``: writer
     claims at do_w, reader claims at do_r) beside this build's one-table
-    launch twice (``split_ms``) and the parent's two launches twice.
-    Every timed claim call installs into the same tables (min is
-    idempotent), every ts call into the same (max is).  Returns {name:
-    timing dict}."""
+    launch twice (``split_ms``).  Every timed claim call installs into
+    the same tables (min is idempotent), every ts call into the same (max
+    is).  Returns {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.kernels.claim_probe import claim_probe_plain
     from repro_torch.kernels.ts_install import (chain_stamps,
@@ -1997,9 +2255,6 @@ def tictoc_probe_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
             shape=(f"{label} T={T} K={Kk} N={N} G={G}, "
                    f"{'coarse' if coarse else 'fine'}"),
             installed=[int(do_w.sum()), int(ext.sum())])
-        if parent:
-            out[name]["parent_ms"] = time_ms(
-                lambda f=split_ts: f(parent["ts_install_max"]), dev)
 
     cw, cr = cw0.clone(), cr0.clone()
     probed = _distinct(keys, groups, torch.ones_like(do_w), G, N)
@@ -2033,15 +2288,119 @@ def tictoc_probe_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
                        + (_distinct(keys, groups, do_w, G, N)
                           + _distinct(keys, groups, do_r, G, N)) * 4, 4 * n),
         shape=f"{label} two tables, T={T} K={Kk} N={N} G={G}, fine")
-    if parent:
-        one["parent_ms"] = time_ms(lambda: parent["claim_probe"](
-            cw, keys, groups, prio, wave, do_w, True), dev)
-        pair["parent_ms"] = time_ms(lambda: (
-            parent["claim_probe"](cw, keys, groups, prio, wave, do_w, True),
-            parent["claim_probe"](cr, keys, groups, prio, wave, do_r, True)),
-            dev)
     out["claim_probe"] = one
     out["claim_probe_pair"] = pair
+    return out
+
+
+#: The main path's workload settings (its TicToc wave in the kernel phase).
+MAIN_KW = {"tpcc": dict(scale=1.0),
+           "ycsb": dict(n_keys=YCSB_N, theta=0.9, write_frac=0.5)}
+
+
+def gather_fold_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
+                        wave, parent=None):
+    """Times of the gather folds: TicToc's observation (ts_gather's TicToc
+    form: both tables to commit_ts and ext_need in one launch), fine and
+    coarse (``ts_gather_coarse``), on a TicToc wave of the main path's
+    workload at the main shapes (else the synthetic ops: reads at do_r,
+    writes at do_w), beside this build's one-table ts_gather twice and
+    TicToc's torch arithmetic (what the wave ran before, ``split_ms``)
+    and the parent's gathers with the same arithmetic (``parent_ms``);
+    claim_probe on two tables with the ring read (``claim_probe_ring``,
+    the sharded MV owner's one launch: writer claims at do_w, reader
+    claims at do_r, every op's snapshot read) beside the same call
+    without the ring (``noring_ms``), this build's two-table launch and
+    mv_gather (``split_ms``) and the parent's (``parent_ms``).  Returns
+    {name: timing dict}."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.claim_probe import claim_probe_plain
+    from repro_torch.kernels.mv_gather import mv_gather_plain
+    from repro_torch.kernels.ts_gather import tictoc_observe_plain
+    from repro_torch.launch.txn_bench import make_workload
+    do_w, do_r = masks[0], masks[1]
+    n = T * Kk
+    cw0, cr0, wts, rts = make_tables(N, G, wave, dev, 29)
+    if label in MAIN_KW:
+        wl = make_workload(label, **MAIN_KW[label])
+        if (wl.n_records, wl.slots) != (N, Kk):
+            raise ValueError(f"{label}: shape {(N, Kk)} is not the "
+                             f"workload's {(wl.n_records, wl.slots)}")
+        g = torch.Generator(device=dev)
+        g.manual_seed(13)
+        b, _ = wl.gen(g, wave, T, torch.zeros((wl.n_rings,),
+                                              dtype=torch.int32, device=dev))
+        okeys, ogroups, extent = b.op_key, b.op_group, b.op_extent
+        live = b.live()
+        rd, wr = b.is_read() & live, b.is_write() & live
+    else:
+        okeys, ogroups, extent = keys, groups, torch.ones_like(keys)
+        rd, wr = do_r, do_w
+    obs = dict(rd=rd, wr=wr, extent=extent)
+    everyone = torch.ones_like(do_w)
+    out = {}
+    for name, fine in (("ts_gather", True), ("ts_gather_coarse", False)):
+        gargs = (wts, rts, okeys, ogroups, fine)
+        # Keys, groups, extents (4 B) and two mask bytes in, a flag byte
+        # out an op, commit_ts 8 B a lane; a word (fine) or a row (coarse)
+        # of each table read per distinct live cell or record.
+        words = (_distinct(okeys, ogroups, everyone, G, N) if fine else
+                 _distinct_rows(okeys, everyone, N) * G)
+        out[name] = dict(
+            ms=time_ms(lambda f=fine: K.ts_gather(wts, okeys, ogroups, f,
+                                                  rts=rts, **obs), dev),
+            plain_ms=time_ms(lambda a=gargs: tictoc_observe_plain(*a, **obs),
+                             dev),
+            split_ms=time_ms(lambda a=gargs: tictoc_observe_plain(
+                *a, **obs, gather=K.ts_gather), dev),
+            library_ms=None,
+            bound=bound_ms(n * (4 + 4 + 4 + 1 + 1 + 1) + 8 * T
+                           + 2 * words * 4, 4 * n),
+            form=("TicToc's observation: wts and rts to commit_ts and "
+                  "ext_need in one launch"),
+            shape=(f"{label} TicToc wave, T={T} K={Kk} N={N} G={G}, "
+                   f"{'fine' if fine else 'coarse'}"),
+            ops=[int(rd.sum()), int(wr.sum())])
+        if parent:
+            out[name]["parent_ms"] = time_ms(
+                lambda a=gargs: tictoc_observe_plain(
+                    *a, **obs, gather=parent["ts_gather"]), dev)
+
+    begin, _ = ring(N, MV_DEPTH, G, keys, groups, do_w, dev, waves=6)
+    snap = 3
+    cw, cr = cw0.clone(), cr0.clone()
+    args = (cw, keys, groups, prio, wave, do_w, True)
+    pair = dict(claim_r=cr, mask_r=do_r)
+    ring_kw = dict(begin=begin, snap_ts=snap)
+
+    def split(probe, gather):
+        probe(*args, **pair)
+        gather(begin, keys, groups, snap, True)
+    probed = _distinct(keys, groups, everyone, G, N)
+    out["claim_probe_ring"] = dict(
+        ms=time_ms(lambda: K.claim_probe(*args, **pair, **ring_kw), dev),
+        plain_ms=time_ms(lambda: (
+            claim_probe_plain(cw, keys, groups, prio, wave, do_w, True),
+            claim_probe_plain(cr, keys, groups, prio, wave, do_r, True),
+            mv_gather_plain(begin, keys, groups, snap, True)), dev),
+        noring_ms=time_ms(lambda: K.claim_probe(*args, **pair), dev),
+        split_ms=time_ms(lambda: split(K.claim_probe, K.mv_gather), dev),
+        library_ms=None,
+        # The two-table form's bytes, a flag byte an op and the D x G ring
+        # words of each distinct live record.
+        bound=bound_ms(n * (4 + 4 + 4 + 1 + 1 + 4 + 4 + 1) + 2 * probed * 4
+                       + (_distinct(keys, groups, do_w, G, N)
+                          + _distinct(keys, groups, do_r, G, N)) * 4
+                       + _distinct_rows(keys, everyone, N) * MV_DEPTH * G * 4,
+                       4 * n + n * MV_DEPTH * G),
+        form=("two claim tables and the ring read in one launch (the "
+              "sharded MV owner's claim step)"),
+        shape=(f"{label} two tables and the ring, T={T} K={Kk} N={N} G={G} "
+               f"D={MV_DEPTH}, fine"))
+    if parent:
+        out["claim_probe_ring"]["parent_ms"] = time_ms(
+            lambda: split(parent["claim_probe_coop"], parent["mv_gather"]),
+            dev)
     return out
 
 
@@ -2264,13 +2623,20 @@ def _check_kernels(what, rows, launches, dev, scans):
     path_ops = {op for r in rows for op in mech_ops(r["cc"], scans)}
     if dev.type == "cuda" and min(launches[op] for op in path_ops) <= 0:
         raise AssertionError(f"{what}: a kernel never launched")
-    # TicToc's three timestamp installs are one launch a wave.
+    # TicToc's three timestamp installs are one launch a wave, and so are
+    # its two timestamp reads with commit_ts; the MV waves read the ring
+    # inside validate.
     tictoc_waves = sum(r["waves"] for r in rows if r["cc"] == "tictoc")
-    log(f"  {what} ts_install_max launches {launches['ts_install_max']} "
-        f"over {tictoc_waves} TicToc waves")
-    if dev.type == "cuda" and launches["ts_install_max"] != tictoc_waves:
+    mv_waves = sum(r["waves"] for r in rows if r["cc"] in ("mvcc", "mvocc"))
+    log(f"  {what} ts_install_max launches {launches['ts_install_max']}, "
+        f"ts_gather {launches['ts_gather']} over {tictoc_waves} TicToc "
+        f"waves; mv_gather {launches['mv_gather']} over {mv_waves} MV waves")
+    if dev.type == "cuda" and not (
+            launches["ts_install_max"] == launches["ts_gather"]
+            == tictoc_waves and launches["mv_gather"] == 0):
         raise AssertionError(f"{what}: a TicToc wave must launch "
-                             "ts_install_max once")
+                             "ts_install_max and ts_gather once, an MV "
+                             "wave mv_gather never")
 
 
 def main_path(workload, dev, waves=WAVES, lanes=LANES, **wl_kw):
@@ -2328,8 +2694,9 @@ def mv_path(dev, waves=WAVES, lanes=LANES, tpcc_kw=None, ycsb_kw=None):
     80% writes and 20% read-only transactions; one MVCC run on YCSB with
     snapshots 8 waves old.  Read-only lanes never abort under MVCC/MV-OCC
     and do under coarse OCC; the aged snapshots abort as stale; every
-    MVCC and MV-OCC wave launches validate (its claim installs and check)
-    once, mv_install once and claim_scatter never.  Returns ({name: row},
+    MVCC and MV-OCC wave launches validate (its claim installs, check and
+    ring read) once, mv_install once and claim_scatter and mv_gather
+    never.  Returns ({name: row},
     {phase: (launches, waves)}), the phases "mv_occ", "mv_mvcc",
     "mv_mvocc" and "mv_aged"."""
     from repro_torch import kernels as K
@@ -2365,7 +2732,7 @@ def mv_path(dev, waves=WAVES, lanes=LANES, tpcc_kw=None, ycsb_kw=None):
         log(f"    ro_commits {r['ro_commits']} ro_aborts {r['ro_aborts']}")
     _check_kernels("mv", rows + [aged], launches, dev, scans=False)
     for op, want in (("validate", 1), ("mv_install", 1),
-                     ("claim_scatter", 0)):
+                     ("claim_scatter", 0), ("mv_gather", 0)):
         per_wave = {ph: n[op] / w for ph, (n, w) in phases.items()}
         log(f"  {op} launches per wave " + json.dumps(per_wave))
         if dev.type == "cuda" and not all(
@@ -2539,25 +2906,46 @@ def cross_device(dev, waves=30, scale=0.1, scan_len=0,
 
 # ------------------------------------------------ backend op and figures
 def backend_probe_path(dev, wave=9):
-    """The backend op ``probe`` on the card: ``wave_commit`` installs one
-    wave's write claims at the TPC-C shape (OCC-fine, through the
-    backend), then ``Backend.probe`` reads the installed table.  Counters
-    set to 0 just before, read just after: one launch each.  Returns the
-    launches."""
+    """The backend ops without an engine caller on the card: ``probe`` after
+    ``wave_commit`` installs one wave's write claims at the TPC-C shape
+    (OCC-fine, through the backend) reads the installed table, and
+    ``mv_gather`` after ``mv_install`` publishes that wave's writes into a
+    version ring reads the ring at the next wave's snapshot (the
+    multi-version waves run its select inside their validate and claim_probe
+    launches). Counters set to 0 just before, read just after: one launch
+    each. Returns the launches."""
     from repro_torch import kernels as K
+    from repro_torch.core import mvstore
     from repro_torch.core.backend import BACKEND
     from repro_torch.core.claimword import NO_PRIO, inv_wave
+    from repro_torch.kernels.mv_gather import mv_gather_plain
     from repro_torch.kernels.wave_commit import probe_plain
     N, G, T, Kk = SHAPES["tpcc"]
     cw, _, wts, _ = make_tables(N, G, wave, dev, seed=31)
     keys, groups, prio, masks, _ = make_ops(N, G, T, Kk, dev, seed=31)
     do_w, _, check_w = masks[:3]
+    begin, head, _ = mvstore.mv_init(N, MV_DEPTH, G, dev)
     K.reset_launches()
     _, commit = BACKEND.wave_commit(cw, None, wts, keys, groups, prio, do_w,
                                     None, check_w, None, None, None, wave,
                                     True, False, True)
     got = BACKEND.probe(cw, keys, groups, wave, True)
+    BACKEND.mv_install(begin, head, keys, groups, do_w,
+                       mvstore.install_ts(wave))
+    snap = mvstore.snapshot_ts(wave + 1)
+    slot, ok = BACKEND.mv_gather(begin, keys, groups, snap, True)
     launches = K.launch_counts()
+    want_slot, want_ok = mv_gather_plain(begin, keys, groups, snap, True)
+    fresh = do_w & (keys >= 0)
+    log(f"  mv_gather of the ring after mv_install: {int(ok.sum())} ops "
+        f"see a version, {int((slot[fresh] != 0).sum())} of "
+        f"{int(fresh.sum())} writes their new slot")
+    if not (torch.equal(slot, want_slot) and torch.equal(ok, want_ok)):
+        raise AssertionError("Backend.mv_gather disagrees with "
+                             "mv_gather_plain on the installed ring")
+    if not bool((slot[fresh] != 0).all()):
+        raise AssertionError("mv_gather missed a version mv_install "
+                             "published")
     want = probe_plain(cw, keys, groups, inv_wave(wave), True)
     claimed = do_w & (keys >= 0)
     log(f"  wave_commit committed {int(commit.sum())} of {T} lanes; probe "
@@ -2568,8 +2956,9 @@ def backend_probe_path(dev, wave=9):
                              "the installed table")
     if bool((got[claimed] == NO_PRIO).any()):
         raise AssertionError("probe missed a claim wave_commit installed")
-    if dev.type == "cuda" and not (launches["probe"] == 1
-                                   and launches["wave_commit"] == 1):
+    if dev.type == "cuda" and not all(
+            launches[op] == 1
+            for op in ("probe", "wave_commit", "mv_install", "mv_gather")):
         raise AssertionError(f"backend probe: launches {launches}")
     return launches
 
@@ -2925,8 +3314,9 @@ def sharded_path(dev, group=None, waves=WAVES, lanes=DIST_LANES,
             if cov != want:                                        # (a)
                 raise AssertionError(f"sharded {name}: kernel_ops {cov} != "
                                      f"{want}")
-            # One claim_probe call a wave: both claim channels of an MV
-            # wave, the writer table of an unfused OCC wave.
+            # One claim_probe call a wave: both claim channels and the
+            # ring read of an MV wave, the writer table of an unfused OCC
+            # wave; no mv_gather.
             if "claim_probe" in cov and (
                     calls["claim_probe"] != waves or dev.type == "cuda"
                     and launches["claim_probe"] != waves):
@@ -2934,6 +3324,9 @@ def sharded_path(dev, group=None, waves=WAVES, lanes=DIST_LANES,
                                      f"{calls['claim_probe']}, launches "
                                      f"{launches['claim_probe']} over "
                                      f"{waves} waves")
+            if calls["mv_gather"]:
+                raise AssertionError(f"sharded {name}: mv_gather called "
+                                     f"{calls['mv_gather']} times")
             if sum(s[D.STAT_CAUSES]) != s[D.STAT_ABORTS]:          # (e)
                 raise AssertionError(f"sharded {name}: causes do not sum "
                                      "to aborts")
@@ -3266,28 +3659,30 @@ def _sync(dev):
 
 #: The C entries (repro_<name>) whose parent build ``--parent`` times
 #: beside this checkout's kernels, each with its source (csrc/<source>.cu)
-#: and module (kernels/<source>.py): the multi-version wave's launches
-#: before they were folded into one (claim_scatter twice and the
-#: two-channel validate), mv_install, the one-table ts_install_max (the
-#: parent's TicToc called it three times a wave) and the two-launch
-#: claim_probe (once a table).
-PARENT_KERNELS = {"validate_pair": "occ_validate",
-                  "claim_scatter": "claim_scatter",
-                  "mv_install": "mv_install",
-                  "ts_install_max": "ts_install",
-                  "claim_probe": "claim_probe"}
-#: C signatures of parent entries that this commit's modules no longer
-#: bind: the two-launch repro_claim_probe (table, keys, groups, prio,
-#: mask, out, n, N, G, inv_wave, fine, stream).
-PARENT_SIGS = {"claim_probe": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-               + [ctypes.c_void_p]}
+#: and module (kernels/<source>.py): the launches the folds of this
+#: checkout replace, the one-table ts_gather (the parent's TicToc called
+#: it twice a wave), mv_gather, and validate's install form and
+#: claim_probe's cooperative launch without the ring.
+PARENT_KERNELS = {"ts_gather": "ts_gather",
+                  "mv_gather": "mv_gather",
+                  "validate_install": "occ_validate",
+                  "claim_probe_coop": "claim_probe"}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: C signatures of parent entries that differ from this checkout's: the
+#: install-form validate (claim_w, claim_r, keys, groups, prio, install_w,
+#: install_r, check, check_r, out, T, K, N, G, inv_wave, fine, stream) and
+#: the cooperative claim_probe (table, table_r, keys, groups, prio, mask,
+#: mask_r, out, out_r, n, N, G, inv_wave, fine, stream), neither with a
+#: ring.
+PARENT_SIGS = {"validate_install": [_P] * 10 + [_I] * 6 + [_P],
+               "claim_probe_coop": [_P] * 9 + [_I] * 5 + [_P]}
 
 
 def parent_kernels(parent_root: str) -> dict:
     """{name: fn(*inputs)} launching another build of PARENT_KERNELS (a
     parent commit's, unpacked at ``parent_root``): its csrc sources built
-    with the port's nvcc flags into build/parent_kernels and bound with the
-    same C signatures; each fn takes its wrapper's arguments, so
+    with the port's nvcc flags into build/parent_kernels and bound with
+    their C signatures; each fn takes its wrapper's arguments, so
     kernel_phase times both builds on the same inputs in one process."""
     import importlib
     from repro_torch.core.claimword import U32_MASK, inv_wave
@@ -3314,51 +3709,50 @@ def parent_kernels(parent_root: str) -> dict:
         fn.restype = ctypes.c_int
         fns[n] = fn
 
-    def run_validate_pair(claim_w, keys, groups, myprio, check, wave,
-                          fine, claim_r, check_r):
-        out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
-        N, G = claim_w.shape
-        build.raise_on_error("parent validate", fns["validate_pair"](
-            *(build.ptr(t) for t in (claim_w, claim_r, keys, groups, myprio,
-                                     check, check_r, out)), keys.numel(), N,
-            G, inv_wave(wave), int(bool(fine)), build.stream(keys.device)))
-        return out
-
-    def run_claim_scatter(table, keys, groups, prio, wave, mask):
-        N, G = table.shape
-        build.raise_on_error("parent claim_scatter", fns["claim_scatter"](
-            *(build.ptr(t) for t in (table, keys, groups, prio, mask)),
-            keys.numel(), N, G, inv_wave(wave), build.stream(keys.device)))
-
-    def run_mv_install(begin, head, keys, groups, do, ts):
-        N, D, G = begin.shape
-        h_new = torch.empty(keys.shape, dtype=torch.int32,
-                            device=keys.device)
-        build.raise_on_error("parent mv_install", fns["mv_install"](
-            *(build.ptr(t) for t in (begin, head, keys, groups, do, h_new)),
-            keys.numel(), N, D, G, int(ts) & U32_MASK,
-            build.stream(keys.device)))
-
-    def run_ts_install_max(table, keys, groups, vals, mask, whole_row):
-        N, G = table.shape
-        build.raise_on_error("parent ts_install_max", fns["ts_install_max"](
-            *(build.ptr(t) for t in (table, keys, groups, vals, mask)),
-            keys.numel(), N, G, int(whole_row), build.stream(keys.device)))
-
-    def run_claim_probe(table, keys, groups, prio, wave, mask, fine):
+    def run_ts_gather(table, keys, groups, fine):
         out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
         N, G = table.shape
-        build.raise_on_error("parent claim_probe", fns["claim_probe"](
-            *(build.ptr(t) for t in (table, keys, groups, prio, mask, out)),
-            keys.numel(), N, G, inv_wave(wave), int(bool(fine)),
-            build.stream(keys.device)))
+        build.raise_on_error("parent ts_gather", fns["ts_gather"](
+            *(build.ptr(t) for t in (table, keys, groups, out)),
+            keys.numel(), N, G, int(bool(fine)), build.stream(keys.device)))
         return out
 
-    return {"validate_pair": run_validate_pair,
-            "claim_scatter": run_claim_scatter,
-            "mv_install": run_mv_install,
-            "ts_install_max": run_ts_install_max,
-            "claim_probe": run_claim_probe}
+    def run_mv_gather(begin, keys, groups, ts, fine):
+        slot = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+        ok = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+        N, D, G = begin.shape
+        build.raise_on_error("parent mv_gather", fns["mv_gather"](
+            *(build.ptr(t) for t in (begin, keys, groups, slot, ok)),
+            keys.numel(), N, D, G, int(bool(fine)), int(ts) & U32_MASK,
+            build.stream(keys.device)))
+        return slot, ok
+
+    def run_validate_install(claim_w, keys, groups, myprio, check, wave,
+                             fine, claim_r, check_r, install_w, install_r):
+        out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+        (T, K), (N, G) = keys.shape, claim_w.shape
+        build.raise_on_error("parent validate", fns["validate_install"](
+            *(build.ptr(t) for t in (claim_w, claim_r, keys, groups, myprio,
+                                     install_w, install_r, check, check_r,
+                                     out)), T, K, N, G, inv_wave(wave),
+            int(bool(fine)), build.stream(keys.device)))
+        return out
+
+    def run_claim_probe_coop(table, keys, groups, prio, wave, mask, fine,
+                             claim_r, mask_r):
+        out, out_r = (torch.empty(keys.shape, dtype=torch.int32,
+                                  device=keys.device) for _ in range(2))
+        N, G = table.shape
+        build.raise_on_error("parent claim_probe", fns["claim_probe_coop"](
+            *(build.ptr(t) for t in (table, claim_r, keys, groups, prio,
+                                     mask, mask_r, out, out_r)),
+            keys.numel(), N, G, inv_wave(wave), int(bool(fine)),
+            build.stream(keys.device)))
+        return out, out_r
+
+    return {"ts_gather": run_ts_gather, "mv_gather": run_mv_gather,
+            "validate_install": run_validate_install,
+            "claim_probe_coop": run_claim_probe_coop}
 
 
 def lm_kernel_phase(dev, seed=21, cases=None):
@@ -3684,11 +4078,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="a parent commit unpacked in DIR: time its "
-                         "claim_scatter and two-channel validate (the "
-                         "multi-version wave's three launches), its "
-                         "mv_install, its one-table ts_install_max three "
-                         "times and its claim_probe once and twice beside "
-                         "this checkout's kernels on the same inputs")
+                         "one-table ts_gather twice with TicToc's torch "
+                         "arithmetic, its mv_gather, and its install-form "
+                         "validate and two-table claim_probe each with its "
+                         "mv_gather, beside this checkout's folded "
+                         "launches on the same inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
@@ -3718,7 +4112,7 @@ def main(argv=None) -> int:
     checks, timings = kernel_phase(dev, SHAPES, parent=parent)
 
     log("main path, TPC-C:")
-    tpcc, l_tpcc = main_path("tpcc", dev, scale=1.0)
+    tpcc, l_tpcc = main_path("tpcc", dev, **MAIN_KW["tpcc"])
     ratios("tpcc", tpcc)
     occ_f = tpcc["occ-fine"]["throughput"]
     if not (occ_f > tpcc["occ-coarse"]["throughput"]
@@ -3732,8 +4126,7 @@ def main(argv=None) -> int:
         raise AssertionError("AutoGran-coarse must beat OCC-coarse on TPC-C")
 
     log("main path, YCSB:")
-    ycsb, l_ycsb = main_path("ycsb", dev, n_keys=YCSB_N, theta=0.9,
-                             write_frac=0.5)
+    ycsb, l_ycsb = main_path("ycsb", dev, **MAIN_KW["ycsb"])
     ratios("ycsb", ycsb)
 
     log("unfused route, TPC-C:")
@@ -3834,6 +4227,7 @@ def main(argv=None) -> int:
             "shape": t.get("shape", "tpcc T=128 K=64 N=2450808 G=2"),
             "form": t.get("form"),
             "parent_ms": t.get("parent_ms"), "split_ms": t.get("split_ms"),
+            "noring_ms": t.get("noring_ms"),
             "forms": {f: {k: v for k, v in timings["tpcc"][f].items()
                           if k == "ms" or k.endswith("_ms")
                           or k in ("shape", "form")}

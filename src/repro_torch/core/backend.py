@@ -33,13 +33,18 @@ N_OPS = len(SURFACE_OPS)
 #: ``claim_probe`` (listed for no mechanism, as in the JAX package).
 #: ``iterate_validate`` runs only where the config admits scans
 #: (``max_extent > 1``), and with scans the fused route moves its bumps
-#: to ``commit_install``.  MVCC and MV-OCC install both claim channels
-#: inside their one ``validate`` call a wave, so the port reports
-#: ``claim_scatter`` as "not_run" for them (the JAX package's waves call
-#: it twice); AutoGran still calls it.  The port's TicToc makes its three
-#: timestamp installs in one ``ts_install_max`` call a wave, and the
-#: unfused route's dual waves (2PL, Adaptive) probe both claim tables in
-#: one ``claim_probe`` call (the JAX package calls each table's).
+#: to ``commit_install``.  The lists stay the JAX package's; where the
+#: port folds an op into another op's call, ``kernel_coverage`` reports
+#: it "not_run".  MVCC and MV-OCC install both claim channels and read
+#: the version ring inside their one ``validate`` call a wave, so the
+#: port reports ``claim_scatter`` and ``mv_gather`` as "not_run" for them
+#: (the JAX package's waves call ``claim_scatter`` twice and
+#: ``mv_gather`` once); AutoGran still calls ``claim_scatter``.  The
+#: port's TicToc reads both timestamp tables and derives ``commit_ts`` in
+#: one ``ts_gather`` call a wave (JAX: two) and makes its three timestamp
+#: installs in one ``ts_install_max`` call; the unfused route's dual
+#: waves (2PL, Adaptive) probe both claim tables in one ``claim_probe``
+#: call (the JAX package calls each table's).
 CC_OPS = {
     t.CC_OCC: ("wave_commit", "iterate_validate", "commit_install",
                "segment_count"),
@@ -65,15 +70,15 @@ CC_OPS = {
 #: and commit return trips, and the owner-side claim step with its
 #: install.  OCC claims through the fused ``wave_commit`` (through
 #: ``claim_probe`` when ``fuse_wave`` is off) and bumps through
-#: ``commit_install``; MVCC/MV-OCC claim two channels through one
-#: ``claim_probe`` call, read the ring through ``mv_gather`` and publish
-#: through ``mv_install``.  Scan fragments validate through
-#: ``iterate_validate`` on their owner shard, except under MVCC, whose
-#: scans never re-validate.
+#: ``commit_install``; MVCC/MV-OCC claim two channels and read the ring
+#: through one ``claim_probe`` call and publish through ``mv_install``
+#: (the JAX package's wave reads the ring through ``mv_gather``).  Scan
+#: fragments validate through ``iterate_validate`` on their owner shard,
+#: except under MVCC, whose scans never re-validate.
 DIST_OPS = ("route_pack", "verdict_pack", "verdict_unpack", "wave_commit",
             "iterate_validate", "commit_install")
 DIST_MV_OPS = ("route_pack", "verdict_pack", "verdict_unpack",
-               "claim_probe", "mv_gather", "mv_install")
+               "claim_probe", "mv_install")
 DIST_MVOCC_OPS = DIST_MV_OPS + ("iterate_validate",)
 
 
@@ -82,14 +87,19 @@ class Backend:
 
     Signatures follow the JAX backend's argument order, with optional
     keywords that fold several of its calls into one: ``validate`` takes
-    the multi-version waves' claim installs, ``claim_probe`` a second
-    claim table (``claim_r``, ``mask_r``) and ``ts_install_max`` TicToc's
-    second table, its extension mask and the stamps' inputs (``rts``,
-    ``ext``, ``commit_ts``, ``n_chain``).  Tables are updated in place,
-    so ``commit_install``, ``claim_scatter`` and ``mv_install`` return
-    None, ``claim_probe`` and ``probe`` return wprio int32[T, K] (with
-    ``claim_r``, (wprio, rprio)), ``validate_dual`` returns (fine,
-    coarse) and ``mv_gather`` returns (slot, ok)."""
+    the multi-version waves' claim installs and their version ring
+    (``begin``, ``snap_ts``), ``claim_probe`` a second claim table
+    (``claim_r``, ``mask_r``) and the ring, ``ts_gather`` TicToc's second
+    table, masks and extents (``rts``, ``rd``, ``wr``, ``extent``) and
+    ``ts_install_max`` TicToc's second table, its extension mask and the
+    stamps' inputs (``rts``, ``ext``, ``commit_ts``, ``n_chain``).
+    Tables are updated in place, so ``commit_install``, ``claim_scatter``
+    and ``mv_install`` return None, ``claim_probe`` and ``probe`` return
+    wprio int32[T, K] (with ``claim_r``, (wprio, rprio); with the ring,
+    (wprio, rprio, ok)), ``validate`` returns conflict flags (with the
+    ring, (conflict, ok)), ``ts_gather`` timestamps (TicToc's form,
+    (commit_ts, ext_need)), ``validate_dual`` returns (fine, coarse) and
+    ``mv_gather`` returns (slot, ok)."""
 
 
 for _op in SURFACE_OPS:
@@ -116,7 +126,7 @@ def kernel_coverage(cc: int, launches: dict, calls: dict) -> dict:
     the op's kernel, "torch" where a call ran its plain version, "not_run"
     where the run never called it (``commit_install`` on the fused
     route of point configs, ``iterate_validate`` without scans,
-    ``claim_scatter`` under MVCC and MV-OCC)."""
+    ``claim_scatter`` and ``mv_gather`` under MVCC and MV-OCC)."""
     return _coverage(CC_OPS[cc], launches, calls)
 
 

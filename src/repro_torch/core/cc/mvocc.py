@@ -14,8 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import backend as kb
-from repro_torch.core import claims, mvstore
+from repro_torch.core import claims
 from repro_torch.core import types as t
 from repro_torch.core.cc import base, mvcc
 from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
@@ -23,7 +22,6 @@ from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 
 def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
                   cfg: EngineConfig):
-    be = kb.BACKEND
     fine = base.is_fine(cfg)
     live = batch.live()
     rd = batch.is_read() & live
@@ -33,7 +31,7 @@ def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
     # reads ride the write-write check's validate call on the writer
     # channel.
     has_write = (batch.is_write() & live).any(dim=1)
-    store, conflict = mvcc.fcw_conflicts(
+    store, conflict, ok = mvcc.fcw_conflicts(
         store, batch, prio, wave, cfg,
         read_check=rd & ~batch.is_scan() & has_write[:, None])
     u = claims.hash01(wave, claims.lane_op_ids(T, K, batch.op_key.device))
@@ -43,9 +41,7 @@ def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
     conflict = conflict | base.phantom_validate(store, batch, prio, wave,
                                                 cfg, fine,
                                                 mask=has_write[:, None])
-
-    _, ok = be.mv_gather(store.mv_begin, batch.op_key, batch.op_group,
-                         mvstore.snapshot_ts(wave, cfg.snapshot_age), fine)
+    # Snapshot visibility (the validate call's ring read).
     conflict = conflict | (rd & ~ok)
 
     # Disjoint channels: reclaimed snapshots (read, ~ok), first-committer-

@@ -10,8 +10,10 @@ commit_ts exceeds the cell's rts, or when its rts-extension CAS meets
 another writer's lock.  Extensions and installs are charged by same-cell
 chain length (``segment_count``); timestamps move by monotone scatter-max
 (``ts_install_max``, the wave's three installs in one call); the
-observation is ``ts_gather`` (coarse = row max); the claim/verdict pass is
-the fused ``wave_commit`` without bumps.
+observation is ``ts_gather`` (coarse = row max), whose TicToc form reads
+both tables and returns ``commit_ts`` and the reads that need an
+extension in one call; the claim/verdict pass is the fused
+``wave_commit`` without bumps.
 
 Timestamps are uint32 words; the arithmetic runs in int64 on their
 unsigned values and is masked back to 32 bits.
@@ -26,7 +28,7 @@ from repro_torch.core import backend as kb
 from repro_torch.core import claims
 from repro_torch.core import types as t
 from repro_torch.core.cc import base
-from repro_torch.core.claimword import U32_MASK, u32
+from repro_torch.core.claimword import U32_MASK
 from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 
 
@@ -40,19 +42,15 @@ def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
     rd = batch.is_read() & live
     wr = batch.is_write() & live
 
-    # (wts, rts) observation of the pre-wave tables; coarse = row max.
-    wts_op = u32(be.ts_gather(store.wts, keys, groups, fine))
-    rts_op = u32(be.ts_gather(store.rts, keys, groups, fine))
+    # (wts, rts) observation of the pre-wave tables (coarse = row max),
+    # commit_ts over live ops (0 when no ops) and the point reads that need
+    # room to time-travel (commit_ts > their rts), in one call.
+    commit_ts, ext_need = be.ts_gather(store.wts, keys, groups, fine,
+                                       rts=store.rts, rd=rd, wr=wr,
+                                       extent=batch.op_extent)
 
-    # commit_ts over live ops (0 when no ops).
-    ts_term = torch.where(wr, (rts_op + 1) & U32_MASK,
-                          torch.where(rd, wts_op, 0))
-    commit_ts = ts_term.amax(dim=1)  # [T]
-
-    # Reads that need room to time-travel; window-thinned checks of the
-    # stronger-writer channel and of the failed-extension channel (any
-    # other writer holding the cell's lock).
-    ext_need = rd & (commit_ts[:, None] > rts_op) & ~batch.is_scan()
+    # Window-thinned checks of the stronger-writer channel and of the
+    # failed-extension channel (any other writer holding the cell's lock).
     ids = claims.lane_op_ids(T, K, keys.device)
     u = claims.hash01(wave, ids)
     check_w = ext_need & (u < cfg.cost.opt_overlap)

@@ -15,9 +15,9 @@ One wave is four shard-local phases joined by three exchanges:
   2. claim    owners install the routed write claims and probe them:
               OCC through the fused ``wave_commit`` (or ``claim_probe``
               when ``fuse_wave`` is off), MVCC/MV-OCC through one
-              ``claim_probe`` call on both claim channels plus
-              ``mv_gather`` on the version ring; scan fragments through
-              ``iterate_validate``.
+              ``claim_probe`` call on both claim channels that also
+              reads the version ring (``mv_gather``'s select); scan
+              fragments through ``iterate_validate``.
               The per-op verdicts go back 2 bits an op (``verdict_pack``).
   3. commit   senders unpack the verdicts (``verdict_unpack``), gather
               them by each op's routing coordinates, decide their lanes
@@ -140,7 +140,7 @@ class DistConfig:
         if self.pipeline_depth > 1 and self.snapshot_age > 0:
             raise ValueError(
                 f"pipeline_depth={self.pipeline_depth} with snapshot_age="
-                f"{self.snapshot_age}: the pipelined wave's mv_gather runs "
+                f"{self.snapshot_age}: the pipelined wave's ring read runs "
                 "one wave before the previous wave's mv_install lands, so "
                 "an aged snapshot could read a ring slot the synchronous "
                 "engine had already reclaimed; aged readers must run at "
@@ -426,12 +426,10 @@ def _make_phases(cfg: DistConfig, ns: int):
             claim_w, claim_r, mv_begin, mv_head = tables
             is_pw = (r_live & (r_kind == t.WRITE)).contiguous()
             is_ad = r_live & (r_kind == t.ADD)
-            wprio_w, wprio_r = be.claim_probe(
+            wprio_w, wprio_r, ok = be.claim_probe(
                 claim_w, rk, r_grp, r_prio, wave, is_w, fine,
-                claim_r=claim_r, mask_r=is_pw)
-            _, ok = be.mv_gather(
-                mv_begin, rk, r_grp,
-                mvstore.snapshot_ts(wave, cfg.snapshot_age), fine)
+                claim_r=claim_r, mask_r=is_pw, begin=mv_begin,
+                snap_ts=mvstore.snapshot_ts(wave, cfg.snapshot_age))
             # Bit 0, unconditional: first-committer-wins write-write (a
             # plain WRITE loses to any stronger writer, an ADD only to a
             # stronger plain WRITE) and snapshot reclamation.

@@ -47,9 +47,18 @@
 // barrier; later ops of a wave larger than the grid reload theirs.  No op
 // carries state across the barrier, so the answer is the literal
 // install-then-probe for any number of ops and needs no precondition.
+//
+// With two tables and a version ring (begin uint32[N, D, G], snap_ts) the
+// launch also writes ok[i], the snapshot select's visibility flag of every
+// op (mv::select, mv_gather's per-op body): the sharded multi-version
+// owner's mv_gather launch on the same keys and groups, folded in.  The
+// launch does not write the ring, so the reads go in step 1, before the
+// barrier, under the installs and the barrier wait.  The ring adds D x G
+// words per distinct live record and a flag byte an op to the bytes.
 #include <cooperative_groups.h>
 
 #include "claim.cuh"
+#include "mv_ring.cuh"
 
 namespace {
 
@@ -68,8 +77,10 @@ struct CoopArgs {
   const bool* mask_r;
   int* out;
   int* out_r;
-  int n, N, G;
-  unsigned ivw;
+  const unsigned* begin;  // nullptr: no ring read
+  bool* ok;
+  int n, N, G, D;
+  unsigned ivw, snap_ts;
   int fine;
 };
 
@@ -84,14 +95,20 @@ __global__ void __launch_bounds__(kThreads)
     key0 = a.keys[first];
     g0 = a.groups[first];
   }
-  // 1. the installs.
+  // 1. the installs, and the ring reads.
   for (int i = first; i < a.n; i += stride) {
     const bool m = a.mask[i];
     const bool mr = two && a.mask_r[i];
-    if (!m && !mr) continue;
+    const bool ring = a.begin != nullptr;
+    if (!m && !mr && !ring) continue;
     const int key = i == first ? key0 : a.keys[i];
     const int g = i == first ? g0 : a.groups[i];
-    if (!claim::in_cell(key, g, a.N, a.G)) continue;
+    if (ring) {
+      int slot;
+      a.ok[i] = mv::select(a.begin, key, g, a.N, a.D, a.G, a.fine,
+                           a.snap_ts, &slot);
+    }
+    if ((!m && !mr) || !claim::in_cell(key, g, a.N, a.G)) continue;
     const unsigned word = claim::word(a.ivw, a.prio[i]);
     const size_t cell = (size_t)key * a.G + g;
     if (m) atomicMin(a.table + cell, word);
@@ -149,16 +166,21 @@ __global__ void probe_kernel(const unsigned* __restrict__ table,
 
 }  // namespace
 
-// table_r, mask_r and out_r: all null (one table) or all set (two).
+// table_r, mask_r and out_r: all null (one table) or all set (two); begin
+// and ok: both null (no ring read) or both set, with two tables.
 extern "C" int repro_claim_probe_coop(void* table, void* table_r,
                                       const void* keys, const void* groups,
                                       const void* prio, const void* mask,
                                       const void* mask_r, void* out,
-                                      void* out_r, int n, int N, int G,
-                                      int ivw, int fine, void* stream) {
+                                      void* out_r, const void* begin,
+                                      void* ok, int n, int N, int G, int D,
+                                      int ivw, unsigned snap_ts, int fine,
+                                      void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   if ((table_r == nullptr) != (mask_r == nullptr) ||
-      (table_r == nullptr) != (out_r == nullptr))
+      (table_r == nullptr) != (out_r == nullptr) ||
+      (begin == nullptr) != (ok == nullptr) ||
+      (begin != nullptr && table_r == nullptr))
     return (int)cudaErrorInvalidValue;
   CoopArgs a{static_cast<unsigned*>(table),
              static_cast<unsigned*>(table_r),
@@ -169,10 +191,14 @@ extern "C" int repro_claim_probe_coop(void* table, void* table_r,
              static_cast<const bool*>(mask_r),
              static_cast<int*>(out),
              static_cast<int*>(out_r),
+             static_cast<const unsigned*>(begin),
+             static_cast<bool*>(ok),
              n,
              N,
              G,
+             D,
              (unsigned)ivw,
+             snap_ts,
              fine};
   int limit = 0;
   cudaError_t e = grid_limit(&limit);

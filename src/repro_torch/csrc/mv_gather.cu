@@ -21,9 +21,13 @@
 //
 // Design.  The TPU kernel DMAs each op's whole ring row into VMEM and reduces
 // it in a lane block.  Here one thread per op reads its record's D x G words
-// and keeps the running best; the table is only read, so thread order does
-// not matter.
+// and keeps the running best (mv::select in mv_ring.cuh, which validate's
+// and claim_probe's multi-version forms also run); the table is only read,
+// so thread order does not matter.  The engine's waves read the ring inside
+// those launches; this entry is the backend op on its own.
 #include <cuda_runtime.h>
+
+#include "mv_ring.cuh"
 
 namespace {
 
@@ -35,30 +39,9 @@ __global__ void mv_gather_kernel(const unsigned* __restrict__ begin,
                                  int D, int G, int fine, unsigned ts) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int key = keys[i];
   int slot = 0;
-  unsigned best = 0u;
-  if (key >= 0 && key < N) {
-    const unsigned* row = begin + (size_t)key * D * G;
-    const int g = groups[i];
-    const bool g_ok = g >= 0 && g < G;
-    for (int d = 0; d < D; ++d) {
-      const unsigned* s = row + d * G;
-      unsigned eff = 0u;
-      if (fine) {
-        if (g_ok) eff = s[g];
-      } else {
-        for (int j = 0; j < G; ++j) eff = max(eff, s[j]);
-      }
-      const unsigned score = eff <= ts ? eff + 1u : 0u;
-      if (score > best) {
-        best = score;
-        slot = d;
-      }
-    }
-  }
+  ok_out[i] = mv::select(begin, keys[i], groups[i], N, D, G, fine, ts, &slot);
   slot_out[i] = slot;
-  ok_out[i] = best > 0u;
 }
 
 }  // namespace

@@ -55,9 +55,19 @@
 // one-channel kernels' (claim_scatter twice, validate_pair once), so the
 // bound is theirs; the launch (4.8 us empty) and the barrier (~1.1 us in
 // wave_commit) set the time.
+//
+// With a version ring (begin uint32[N, D, G], snap_ts) validate_install
+// also writes ok[i], the snapshot select's visibility flag of every op
+// (mv::select, mv_gather's per-op body): the multi-version wave's mv_gather
+// launch, folded in.  No part of this launch writes the ring, so its reads
+// go in step 1, before the barrier, where their latency hides under the
+// installs and the barrier wait; every op loads its key and group for
+// them, whatever its install and check flags.  The ring adds D x G words
+// per distinct live record and a flag byte an op to the bytes.
 #include <cooperative_groups.h>
 
 #include "claim.cuh"
+#include "mv_ring.cuh"
 
 namespace {
 
@@ -77,8 +87,10 @@ struct InstallArgs {
   const bool* check;
   const bool* check_r;
   bool* out;
-  int n, K, N, G;
-  unsigned ivw;
+  const unsigned* begin;  // nullptr: no ring read
+  bool* ok;
+  int n, K, N, G, D;
+  unsigned ivw, snap_ts;
   int fine;
 };
 
@@ -94,7 +106,7 @@ __device__ __forceinline__ Op load_op(const InstallArgs& a, int i) {
   Op op{};
   op.f = (a.install_w[i] ? kIw : 0u) | (a.install_r[i] ? kIr : 0u) |
          (a.check[i] ? kCw : 0u) | (a.check_r[i] ? kCr : 0u);
-  if (op.f == 0) return op;  // nothing to install or check
+  if (op.f == 0 && a.begin == nullptr) return op;  // nothing to do
   op.key = a.keys[i];
   op.g = a.groups[i];
   op.p = (unsigned)a.prio[i / a.K];
@@ -107,9 +119,14 @@ __global__ void __launch_bounds__(kThreads)
   const int stride = gridDim.x * kThreads;
   const int first = blockIdx.x * kThreads + threadIdx.x;
   const Op held = first < a.n ? load_op(a, first) : Op{};
-  // 1. both installs.
+  // 1. both installs, and the ring reads.
   for (int i = first; i < a.n; i += stride) {
     const Op op = i == first ? held : load_op(a, i);
+    if (a.begin != nullptr) {
+      int slot;
+      a.ok[i] = mv::select(a.begin, op.key, op.g, a.N, a.D, a.G, a.fine,
+                           a.snap_ts, &slot);
+    }
     if (!(op.f & (kIw | kIr)) || !claim::in_cell(op.key, op.g, a.N, a.G))
       continue;
     const unsigned word = claim::word(a.ivw, (int)op.p);
@@ -285,12 +302,15 @@ extern "C" int repro_validate_pair(const void* claim_w, const void* claim_r,
   return (int)cudaGetLastError();
 }
 
+// begin and ok: both null (no ring read) or both set.
 extern "C" int repro_validate_install(
     void* claim_w, void* claim_r, const void* keys, const void* groups,
     const void* prio, const void* install_w, const void* install_r,
-    const void* check, const void* check_r, void* out, int T, int K, int N,
-    int G, int ivw, int fine, void* stream) {
+    const void* check, const void* check_r, void* out, const void* begin,
+    void* ok, int T, int K, int N, int G, int D, int ivw, unsigned snap_ts,
+    int fine, void* stream) {
   if (T <= 0 || K <= 0) return (int)cudaGetLastError();
+  if ((begin == nullptr) != (ok == nullptr)) return (int)cudaErrorInvalidValue;
   InstallArgs a{static_cast<unsigned*>(claim_w),
                 static_cast<unsigned*>(claim_r),
                 static_cast<const int*>(keys),
@@ -301,11 +321,15 @@ extern "C" int repro_validate_install(
                 static_cast<const bool*>(check),
                 static_cast<const bool*>(check_r),
                 static_cast<bool*>(out),
+                static_cast<const unsigned*>(begin),
+                static_cast<bool*>(ok),
                 T * K,
                 K,
                 N,
                 G,
+                D,
                 (unsigned)ivw,
+                snap_ts,
                 fine};
   int limit = 0;
   cudaError_t e = grid_limit(&limit);

@@ -27,13 +27,17 @@ int32[T] (op i of lane t is checked against ``myprio[t]``), not the
 per-op int32[T, K].  The multi-version waves install both claim channels
 and validate their writes against both, and MV-OCC its reads against
 the writer table, with this one call (``cc/mvcc.py``, ``cc/mvocc.py``).
+That form also takes the version ring (``begin`` int32[N, D, G], the
+snapshot ``snap_ts``): it then returns ``(conflict, ok)``, ``ok`` bool[T,
+K] being ``mv_gather(begin, keys, groups, snap_ts, fine)[1]`` for every
+op, the wave's snapshot read folded into the same launch.
 
-CUDA tensors launch ``csrc/occ_validate.cu``: one thread per op reading
-the rows its checks name, and with the installs one cooperative launch
-(installs, a grid barrier, the check); CPU tensors take the plain
-versions (with the installs: ``claim_scatter_plain`` on each table, then
-the check).  The file's third TPU kernel, ``claim_probe_pallas``, is the
-``probe`` op (``kernels/claim_probe.py``).
+CUDA tensors launch ``csrc/occ_validate.cu``: one thread per op reading the
+rows its checks name, and with the installs one cooperative launch
+(installs, a grid barrier, the check); CPU tensors take the plain versions
+(with the installs: ``claim_scatter_plain`` on each table, then the check,
+then ``mv_gather_plain`` with the ring). The file's third TPU kernel,
+``claim_probe_pallas``, is the ``probe`` op (``kernels/claim_probe.py``).
 """
 from __future__ import annotations
 
@@ -42,9 +46,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.claimword import NO_PRIO, inv_wave, live_prio, u32
+from repro_torch.core.claimword import (NO_PRIO, U32_MASK, inv_wave,
+                                        live_prio, u32)
 from repro_torch.kernels import build
 from repro_torch.kernels.claim_scatter import claim_scatter_plain
+from repro_torch.kernels.mv_gather import mv_gather_plain
 from repro_torch.kernels.scatter import gather_rows, pick_group
 
 _P = ctypes.c_void_p
@@ -52,7 +58,8 @@ _I = ctypes.c_int
 _SIG = {"repro_validate_dual": [_P] * 7 + [_I] * 4 + [_P],
         "repro_validate": [_P] * 6 + [_I] * 5 + [_P],
         "repro_validate_pair": [_P] * 8 + [_I] * 5 + [_P],
-        "repro_validate_install": [_P] * 10 + [_I] * 6 + [_P]}
+        "repro_validate_install": ([_P] * 12 + [_I] * 6
+                                   + [ctypes.c_uint, _I, _P])}
 
 
 def validate_plain(claim_w: torch.Tensor, keys: torch.Tensor,
@@ -61,7 +68,15 @@ def validate_plain(claim_w: torch.Tensor, keys: torch.Tensor,
                    claim_r: Optional[torch.Tensor] = None,
                    check_r: Optional[torch.Tensor] = None,
                    install_w: Optional[torch.Tensor] = None,
-                   install_r: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   install_r: Optional[torch.Tensor] = None,
+                   begin: Optional[torch.Tensor] = None,
+                   snap_ts: Optional[int] = None):
+    if begin is not None:
+        conflict = validate_plain(claim_w, keys, groups, myprio, check, wave,
+                                  fine, claim_r, check_r, install_w,
+                                  install_r)
+        return conflict, mv_gather_plain(begin, keys, groups, snap_ts,
+                                         fine)[1]
     if install_w is not None:
         myprio = myprio[:, None].expand(keys.shape)
         claim_scatter_plain(claim_w, keys, groups, myprio, wave, install_w)
@@ -83,13 +98,17 @@ def validate(claim_w: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
              fine: bool, claim_r: Optional[torch.Tensor] = None,
              check_r: Optional[torch.Tensor] = None,
              install_w: Optional[torch.Tensor] = None,
-             install_r: Optional[torch.Tensor] = None) -> torch.Tensor:
+             install_r: Optional[torch.Tensor] = None,
+             begin: Optional[torch.Tensor] = None,
+             snap_ts: Optional[int] = None):
     """Conflict flags bool[T, K]: checked ops whose cell (fine) or row
     (coarse) a strictly stronger lane claimed this wave in ``claim_w``,
     or, with the second channel, ``check_r`` ops whose cell or row a
     stronger lane claimed in ``claim_r``.  With ``install_w`` and
     ``install_r`` the call first installs those ops' claims into the two
-    tables (in place) and ``myprio`` is the lane priority int32[T]."""
+    tables (in place) and ``myprio`` is the lane priority int32[T]; with
+    the ring ``begin`` and ``snap_ts`` as well it returns (conflict, ok),
+    ``ok`` the snapshot read's visibility flag per op."""
     validate.calls += 1
     if (claim_r is None) != (check_r is None):
         raise ValueError("validate: claim_r and check_r come together")
@@ -97,11 +116,16 @@ def validate(claim_w: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
     if installs != (install_r is not None) or (installs and claim_r is None):
         raise ValueError("validate: install_w and install_r come together, "
                          "with claim_r and check_r")
+    ring = begin is not None
+    if ring != (snap_ts is not None) or (ring and not installs):
+        raise ValueError("validate: begin and snap_ts come together, with "
+                         "the installs")
     if installs and keys.dim() != 2:
         raise ValueError("validate: the installs take keys of shape [T, K]")
     if keys.device.type == "cpu":
         return validate_plain(claim_w, keys, groups, myprio, check, wave,
-                              fine, claim_r, check_r, install_w, install_r)
+                              fine, claim_r, check_r, install_w, install_r,
+                              begin, snap_ts)
     dev = build.launch_device(keys)
     N, G = claim_w.shape
     shape = tuple(keys.shape)
@@ -112,6 +136,7 @@ def validate(claim_w: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
                 shape[:1] if installs else shape, dev)
     build.check("check", check, torch.bool, shape, dev)
     out = torch.empty(shape, dtype=torch.bool, device=dev)
+    ok, D = None, 0
     lib = build.load("occ_validate", _SIG)
     with torch.cuda.device(dev):
         if installs:
@@ -119,12 +144,18 @@ def validate(claim_w: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
             build.check("check_r", check_r, torch.bool, shape, dev)
             build.check("install_w", install_w, torch.bool, shape, dev)
             build.check("install_r", install_r, torch.bool, shape, dev)
+            if ring:
+                _, D, _ = begin.shape
+                build.check("begin", begin, torch.int32, (N, D, G), dev)
+                ok = torch.empty(shape, dtype=torch.bool, device=dev)
             rc = lib.repro_validate_install(
                 build.ptr(claim_w), build.ptr(claim_r), build.ptr(keys),
                 build.ptr(groups), build.ptr(myprio), build.ptr(install_w),
                 build.ptr(install_r), build.ptr(check), build.ptr(check_r),
-                build.ptr(out), shape[0], shape[1], N, G, inv_wave(wave),
-                int(bool(fine)), build.stream(dev))
+                build.ptr(out), build.ptr(begin), build.ptr(ok), shape[0],
+                shape[1], N, G, D, inv_wave(wave),
+                int(snap_ts or 0) & U32_MASK, int(bool(fine)),
+                build.stream(dev))
         elif claim_r is None:
             rc = lib.repro_validate(
                 build.ptr(claim_w), build.ptr(keys), build.ptr(groups),
@@ -141,7 +172,7 @@ def validate(claim_w: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
                 inv_wave(wave), int(bool(fine)), build.stream(dev))
     build.raise_on_error("validate", rc)
     validate.launches += 1
-    return out
+    return (out, ok) if ring else out
 
 
 validate.launches = 0

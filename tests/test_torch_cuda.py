@@ -249,6 +249,56 @@ def test_tictoc_and_dual_unfused_waves_launch_once_a_wave():
 
 
 @pytest.mark.cuda
+def test_ts_gather_tictoc_form_bit_identical_to_plain_version():
+    """TicToc's observation in one launch on chip_smoke.ts_gather_cases:
+    commit_ts and ext_need, fine and coarse, lanes wider than the block,
+    rts words whose + 1 wraps to 0."""
+    check = chip_smoke.KernelCheck("ts_gather")
+    chip_smoke.ts_gather_case_checks(check, _cuda())
+    torch.cuda.synchronize()
+    assert check.equal and check.max_err == 0.0
+    assert check.cases == len(chip_smoke.ts_gather_cases())
+
+
+@pytest.mark.cuda
+def test_ring_folds_bit_identical_to_plain_versions():
+    """validate's and two-table claim_probe's ring reads on
+    chip_smoke.ring_fold_cases: verdicts or answers, ok and both installed
+    tables, empty and reclaimed rings, a wave past the resident grid."""
+    checks = {n: chip_smoke.KernelCheck(n) for n in ("validate",
+                                                     "claim_probe")}
+    chip_smoke.ring_fold_case_checks(checks, _cuda())
+    torch.cuda.synchronize()
+    for c in checks.values():
+        assert c.equal and c.max_err == 0.0
+        assert c.cases == len(chip_smoke.ring_fold_cases())
+
+
+@pytest.mark.cuda
+def test_tictoc_and_mv_waves_read_in_the_folded_launches():
+    """A TicToc wave launches ts_gather once; a local MVCC or MV-OCC wave
+    reads the ring inside validate, so mv_gather never launches; the
+    backend op mv_gather still launches on its own."""
+    dev = _cuda()
+    _, launches = chip_smoke.main_path("tpcc", dev, waves=4, lanes=16,
+                                       scale=0.01)
+    assert launches["ts_gather"] == 2 * 4
+    _, phases = chip_smoke.mv_path(
+        dev, waves=6, lanes=16, tpcc_kw=dict(scale=0.01),
+        ycsb_kw=dict(n_keys=2000, theta=0.9, write_frac=0.8, ro_frac=0.2))
+    for ph in ("mv_mvcc", "mv_mvocc"):
+        n, w = phases[ph]
+        assert n["validate"] == w and n["mv_gather"] == 0
+    shape = chip_smoke.SHAPES["tpcc"]
+    try:
+        chip_smoke.SHAPES["tpcc"] = (997, 2, 16, 64)
+        launches = chip_smoke.backend_probe_path(dev)
+    finally:
+        chip_smoke.SHAPES["tpcc"] = shape
+    assert launches["mv_gather"] == 1
+
+
+@pytest.mark.cuda
 def test_route_pack_edge_cases_bit_identical_to_plain_version():
     """The tiled pack on chip_smoke.route_pack_cases, both routes (direct
     and two-level), and a buffer of more than 2**31 words."""

@@ -347,7 +347,8 @@ def test_txn_bench_runs_every_mechanism_on_cpu(fuse):
     """The grid runner takes all eight mechanisms on either route; the
     fused route never calls commit_install for the probe family, the
     unfused route never calls wave_commit; without scans no mechanism
-    calls iterate_validate; MVCC and MV-OCC never call claim_scatter."""
+    calls iterate_validate; MVCC and MV-OCC never call claim_scatter or
+    mv_gather."""
     rows = txn_bench.run_grid("ycsb", list(txn_bench.CCS), (0,), [8], 3,
                               n_keys=2000, device="cpu", fuse_wave=fuse)
     assert [r["cc"] for r in rows] == list(txn_bench.CCS)
@@ -358,8 +359,10 @@ def test_txn_bench_runs_every_mechanism_on_cpu(fuse):
         assert "cuda" not in ops.values()
         assert ops.pop("iterate_validate", "not_run") == "not_run"
         if r["cc"] in ("mvcc", "mvocc"):
-            # Both claim installs ride the wave's one validate call.
+            # Both claim installs and the ring read ride the wave's one
+            # validate call.
             assert ops.pop("claim_scatter") == "not_run"
+            assert ops.pop("mv_gather") == "not_run"
         if r["cc"] in ("autogran", "mvcc", "mvocc"):
             assert set(ops.values()) == {"torch"}
             continue
