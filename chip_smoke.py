@@ -71,11 +71,12 @@ src/repro_torch/csrc, then:
      ext_need): fine and coarse, G = 1 to 3, K = 1, 40, 300 (wider than
      the block) and 1,030, rts words of 0xFFFFFFFF (a write's rts + 1
      wraps to 0), overlapping and empty masks, scan extents, keys -1 and
-     past the end, groups past G; the ring folds of validate and
-     claim_probe (ring_fold_cases): D = 4 and 1, G = 1 to 3, empty slots,
-     records all empty or all newer than the snapshot (reclaimed), stamps
-     on both sides of 2**31, and a wave past the resident grid, verdicts
-     or answers, ok and both tables compared.  validate is timed on the
+     past the end, groups past G; the ring folds of validate and of
+     claim_probe's verdict form (ring_fold_cases): D = 4 and 1, G = 1 to
+     3, empty slots, records all empty or all newer than the snapshot
+     (reclaimed), stamps on both sides of 2**31, and a wave past the
+     resident grid, validate's verdicts and ok, claim_probe's verdict
+     words and both tables compared.  validate is timed on the
      masks the MVCC and MV-OCC waves build (TPC-C and the multi-version
      YCSB mix) as one launch that installs both claim tables, checks and
      reads the ring, beside the same call without the ring and beside
@@ -85,14 +86,26 @@ src/repro_torch/csrc, then:
      torch arithmetic; TicToc's three installs as one ts_install_max
      launch, with the fine and the coarse extension, beside the one-table
      launch three times; claim_probe (one cooperative launch) on one
-     table, on two tables beside two calls, and on two tables with the
-     ring read beside the call without it and beside two-table
-     claim_probe and mv_gather.
-     With --parent DIR ts_gather (the parent's one-table launch twice and
-     the torch arithmetic), mv_gather, validate (the parent's install
-     form and mv_gather) and the ring form of claim_probe (the parent's
-     two-table launch and mv_gather) are timed beside the kernels of the
-     commit unpacked in DIR, built from its sources;
+     table and on two tables beside two calls.  The sharded wave's folded verdict forms
+     (verdict_fold_cases): wave_commit writing the packed verdict words,
+     claim_probe's verdict form on one table and on two with the ring,
+     iterate_validate ORing into bit 0 and bit 1 of those words,
+     commit_install and mv_install reading commit words, and the sender's
+     gather forms of verdict_unpack (at the routing coordinates) and
+     verdict_pack (through the lane channel), each against the chain of
+     plain ops it replaces, bit-identical: cap % 16 of 0 and 8 and cap =
+     8 (words straddling rows), 1, 3 and 8 rows, the one-card row (16,384
+     ops) and scan row (32,768), rows of empty cells, all-conflict rows,
+     scan fragments sharing words, and 8 rows of 40,968 ops past the
+     resident grid; each timed at the one-card shapes beside the chain it
+     replaces and the claim and install launches beside the same call
+     without the words.
+     With --parent DIR the parent's full-row verdict_pack and
+     verdict_unpack (alone and in the sharded verdict chains), ts_gather (the parent's
+     one-table launch twice and the torch arithmetic), and mv_gather and
+     validate without the ring, the latter with mv_gather, are timed
+     beside the kernels of the commit unpacked in DIR, built from its
+     sources;
   2. the main path on TPC-C (full scale, T = 128, 200 waves) through the
      benchmark CLI's grid runner: OCC, TicToc, 2PL, SwissTM and Adaptive
      x coarse and fine, plus AutoGran coarse, with the launch counters set
@@ -165,7 +178,10 @@ src/repro_torch/csrc, then:
      unfused (workload E: OCC and MV-OCC fine).  Every op of the
      mechanism launches its kernel, claim_probe once a wave where the
      wave calls it (both claim channels and the ring read of an MV wave
-     in one launch; mv_gather never),
+     in one launch; mv_gather never), the claim launch (writing the
+     packed verdicts), the install launch (reading the commit words),
+     verdict_unpack and verdict_pack once a wave each (the sender's
+     gather forms; the owner launches neither),
      causes sum to aborts, MVCC sees no phantom, MVCC/MV-OCC abort no
      read-only lane, the collective carries the modelled wire bytes, each
      run commits exactly the lanes the local validator commits on the
@@ -289,13 +305,25 @@ KERNEL_META = {
 #: form, listed under "forms" in the kernels line: ts_gather's TicToc form
 #: coarse and the one-table gather, ts_install_max's three installs with
 #: the coarse extension and the one-table install, validate's ring form on
-#: MVCC's masks, claim_probe on two tables and on two tables with the
-#: ring read.
+#: MVCC's masks, claim_probe on two tables.
 KERNEL_FORMS = {"ts_gather": ("ts_gather_coarse", "ts_gather_one"),
                 "ts_install_max": ("ts_install_max_coarse",
                                    "ts_install_max_one"),
                 "validate": ("validate_mvcc",),
-                "claim_probe": ("claim_probe_pair", "claim_probe_ring")}
+                "claim_probe": ("claim_probe_pair",)}
+#: The folded verdict forms of the sharded wave, timed at the one-card
+#: sharded shapes (verdict_fold_timings) and listed under "forms" too:
+#: the owner's claim launches writing the packed words, the scan check
+#: ORing into them, the installs reading the commit words, and the
+#: sender's gather forms of verdict_unpack and verdict_pack.
+DIST_FORMS = {"wave_commit": ("wave_commit_pack",),
+              "claim_probe": ("claim_probe_verdict",
+                              "claim_probe_verdict_ring"),
+              "iterate_validate": ("iterate_validate_words",),
+              "commit_install": ("commit_install_words",),
+              "mv_install": ("mv_install_words",),
+              "verdict_pack": ("verdict_pack_gather",),
+              "verdict_unpack": ("verdict_unpack_gather",)}
 #: The kernels that only the sharded engine launches; the kernel phase
 #: times them at the sharded wave's shapes.
 DIST_KERNELS = ("route_pack", "verdict_pack", "verdict_unpack")
@@ -1355,9 +1383,10 @@ def ring_fold_cases(seed=79):
     as validate_install_cases makes them (claim_w, claim_r uint32[N, G],
     keys, groups, the lane priority prio int32[T], install_w, install_r,
     check, check_r, wave, fine) plus the version ring ``begin`` uint32[N,
-    D, G] and the snapshot ``snap_ts``; claim_probe's ring form takes the
-    same tables and ops (mask = install_w, mask_r = install_r, the lane
-    priority per op).  Fine and coarse x D = 4 with G = 1 to 3 and D = 1
+    D, G] and the snapshot ``snap_ts``, and the read masks ``is_r`` and
+    ``is_rp`` (a subset of is_r); claim_probe's verdict form takes the
+    same tables and ops as [D, M] rows of 40 ops (mask = install_w, mask_r
+    = install_r, the lane priority per op, is_r, is_rp).  Fine and coarse x D = 4 with G = 1 to 3 and D = 1
     with G = 2, T = 8 lanes of K = 40 ops on N = 997 rows, at claim-tag
     halves and ring
     stamps that alternate (stamps from 1 and from 0x7FFFFFF8 + 1: both
@@ -1367,6 +1396,7 @@ def ring_fold_cases(seed=79):
     keys -1 and past the end, groups G and G + 2, a tie; and one wave of
     INSTALL_BIG ops on 2**16 rows, more than one a co-resident thread."""
     rng = np.random.default_rng(seed)
+    reads = np.random.default_rng(seed + 1)
     configs = [(fine, D, G) for fine in (True, False)
                for D, G in ((4, 1), (4, 2), (4, 3), (1, 2))] + [(True, 4, 2)]
     shapes = [(997, 8, 40)] * (len(configs) - 1) + [(1 << 16,
@@ -1390,6 +1420,7 @@ def ring_fold_cases(seed=79):
         if ci % 3 == 2:
             install_w, install_r, check, check_r = (
                 rng.random((T, K)) < 0.5 for _ in range(4))
+            is_r = reads.random((T, K)) < 0.5
             mode = "overlap"
         else:
             kind = rng.integers(0, 3, (T, K))  # 0 read, 1 write, 2 ADD
@@ -1397,6 +1428,7 @@ def ring_fold_cases(seed=79):
             install_w, install_r = kind > 0, kind == 1
             check = (kind == 1) | ((kind == 0) & has_write[:, None])
             check_r = kind == 2
+            is_r = kind == 0
             mode = "waves"
         cases.append((
             f"{mode} {'fine' if fine else 'coarse'} D={D} G={G} "
@@ -1405,19 +1437,20 @@ def ring_fold_cases(seed=79):
                  keys=keys.astype(np.int32), groups=groups.astype(np.int32),
                  prio=prio.astype(np.int32), install_w=install_w,
                  install_r=install_r, check=check, check_r=check_r,
-                 wave=wave, fine=fine, begin=begin, snap_ts=snap)))
+                 wave=wave, fine=fine, begin=begin, snap_ts=snap,
+                 is_r=is_r, is_rp=is_r & (reads.random((T, K)) < 0.7))))
     return cases
 
 
 def ring_fold_case_checks(checks, dev):
-    """validate's and claim_probe's ring forms against their plain
-    versions (the parent's calls in the parent's order: the installs and
-    check or probes, then mv_gather_plain) on ring_fold_cases: verdicts or
-    answers, both installed tables and ok; some case must see a
-    reclaimed snapshot and some a visible one."""
+    """validate's ring form and claim_probe's verdict form (two tables
+    and the ring) against their plain versions (the installs and check or
+    probes, mv_gather_plain, and for claim_probe the owner's verdict bits
+    and verdict_pack_plain) on ring_fold_cases: validate's verdicts and
+    ok, claim_probe's verdict words, both installed tables; some case must
+    see a reclaimed snapshot and some a visible one."""
     from repro_torch import kernels as K
-    from repro_torch.kernels.claim_probe import claim_probe_plain
-    from repro_torch.kernels.mv_gather import mv_gather_plain
+    from repro_torch.kernels.claim_probe import claim_probe_verdict_plain
     from repro_torch.kernels.occ_validate import validate_plain
     cases = ring_fold_cases()
     seen = {True: 0, False: 0}
@@ -1440,15 +1473,14 @@ def ring_fold_case_checks(checks, dev):
         got = K.claim_probe(a["claim_w"], *args, c["wave"], a["install_w"],
                             c["fine"], claim_r=a["claim_r"],
                             mask_r=a["install_r"], begin=a["begin"],
-                            snap_ts=c["snap_ts"])
-        want = (claim_probe_plain(b["claim_w"], *args, c["wave"],
-                                  b["install_w"], c["fine"]),
-                claim_probe_plain(b["claim_r"], *args, c["wave"],
-                                  b["install_r"], c["fine"]),
-                mv_gather_plain(b["begin"], *args[:2], c["snap_ts"],
-                                c["fine"])[1])
-        checks["claim_probe"].compare([*got, a["claim_w"], a["claim_r"]],
-                                      [*want, b["claim_w"], b["claim_r"]])
+                            snap_ts=c["snap_ts"], is_r=a["is_r"],
+                            is_rp=a["is_rp"])
+        want = claim_probe_verdict_plain(
+            b["claim_w"], *args, c["wave"], b["install_w"], c["fine"],
+            b["claim_r"], b["install_r"], b["begin"], c["snap_ts"],
+            b["is_r"], b["is_rp"])
+        checks["claim_probe"].compare([got, a["claim_w"], a["claim_r"]],
+                                      [want, b["claim_w"], b["claim_r"]])
     log(f"  ring-fold edge cases (validate and claim_probe): {len(cases)} "
         f"(the largest {max(c['keys'].size for _, c in cases)} ops), "
         f"{seen[True]} ops see a version, {seen[False]} none")
@@ -1813,16 +1845,27 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
     ts_gather_case_checks(checks["ts_gather"], dev)
     ring_fold_case_checks(checks, dev)
     dist_kernel_checks(checks, dev, dist_lanes)
+    verdict_fold_case_checks(checks, dev)
     route_pack_case_checks(checks["route_pack"], dev)
-    timings["dist"] = dist_kernel_timings(dev, dist_lanes)
+    timings["dist"] = dist_kernel_timings(dev, dist_lanes, parent=parent)
+    # The fold timings' tables at YCSB's 10M records on the card; a CPU
+    # rehearsal takes 2**16 (its times are no device metric).
+    timings["dist"].update(verdict_fold_timings(
+        dev, parent, dist_lanes, N=YCSB_N if dev.type == "cuda" else 1 << 16))
     for label, t in timings.items():
         for name, r in t.items():
+            plain = ("-" if r["plain_ms"] is None
+                     else f"{r['plain_ms']:.4f}")
             log(f"  {label:5s} {name:16s} kernel {r['ms']:.6f} ms  plain "
-                f"{r['plain_ms']:.4f} ms  library "
+                f"{plain} ms  library "
                 f"{'-' if r['library_ms'] is None else '%.4f' % r['library_ms']}"
                 f" ms  bound {r['bound'][0]:.7f} ms ({r['bound'][1]})"
                 + (f"  without the ring {r['noring_ms']:.6f} ms"
                    if "noring_ms" in r else "")
+                + (f"  without the words {r['nowords_ms']:.6f} ms"
+                   if "nowords_ms" in r else "")
+                + (f"  the chain it replaces {r['chain_ms']:.6f} ms"
+                   if "chain_ms" in r else "")
                 + (f"  split launches {r['split_ms']:.6f} ms"
                    if "split_ms" in r else "")
                 + (f"  parent kernel {r['parent_ms']:.6f} ms "
@@ -1886,7 +1929,7 @@ def scan_mv_checks(checks, dev, N, G, keys, groups, prio, masks, wave, seed,
                    ext_cap):
     """The slice-3 kernels against their plain versions, every case."""
     from repro_torch import kernels as K
-    from repro_torch.kernels.claim_probe import claim_probe_plain
+    from repro_torch.kernels.claim_probe import claim_probe_verdict_plain
     from repro_torch.kernels.iterate_validate import iterate_validate_plain
     from repro_torch.kernels.mv_gather import mv_gather_plain
     from repro_torch.kernels.mv_install import mv_install_plain
@@ -1954,7 +1997,7 @@ def scan_mv_checks(checks, dev, N, G, keys, groups, prio, masks, wave, seed,
                     K.mv_gather(begin, keys, groups_x, ts, fine),
                     mv_gather_plain(begin, keys, groups_x, ts, fine))
         # The ring read folded into the MV waves' validate (installs, check)
-        # and the sharded owner's two-table claim_probe.
+        # and the sharded owner's two-table claim_probe (its verdict form).
         ring_kw = dict(begin=begin, snap_ts=base + 6)
         cw0, cr0 = make_tables(N, G, wave, dev, seed + 17)[:2]
         for fine in (True, False):
@@ -1968,14 +2011,12 @@ def scan_mv_checks(checks, dev, N, G, keys, groups, prio, masks, wave, seed,
             checks["validate"].compare(*outs)
             a, b = [cw0.clone(), cr0.clone()], [cw0.clone(), cr0.clone()]
             got = K.claim_probe(a[0], keys, groups_x, prio, wave, do_w, fine,
-                                claim_r=a[1], mask_r=pw, **ring_kw)
-            want = (claim_probe_plain(b[0], keys, groups_x, prio, wave, do_w,
-                                      fine),
-                    claim_probe_plain(b[1], keys, groups_x, prio, wave, pw,
-                                      fine),
-                    mv_gather_plain(begin, keys, groups_x, base + 6,
-                                    fine)[1])
-            checks["claim_probe"].compare([*got, *a], [*want, *b])
+                                claim_r=a[1], mask_r=pw, **ring_kw,
+                                is_r=do_r, is_rp=check_r)
+            want = claim_probe_verdict_plain(
+                b[0], keys, groups_x, prio, wave, do_w, fine, b[1], pw,
+                begin, base + 6, do_r, check_r)
+            checks["claim_probe"].compare([got, *a], [want, *b])
         del begin, cw0, cr0
     for D in (MV_DEPTH, 1):
         begin, head = ring(N, D, G, keys, groups, do_w, dev)
@@ -2306,21 +2347,14 @@ def gather_fold_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
     workload at the main shapes (else the synthetic ops: reads at do_r,
     writes at do_w), beside this build's one-table ts_gather twice and
     TicToc's torch arithmetic (what the wave ran before, ``split_ms``)
-    and the parent's gathers with the same arithmetic (``parent_ms``);
-    claim_probe on two tables with the ring read (``claim_probe_ring``,
-    the sharded MV owner's one launch: writer claims at do_w, reader
-    claims at do_r, every op's snapshot read) beside the same call
-    without the ring (``noring_ms``), this build's two-table launch and
-    mv_gather (``split_ms``) and the parent's (``parent_ms``).  Returns
-    {name: timing dict}."""
+    and the parent's gathers with the same arithmetic (``parent_ms``).
+    Returns {name: timing dict}."""
     from repro_torch import kernels as K
-    from repro_torch.kernels.claim_probe import claim_probe_plain
-    from repro_torch.kernels.mv_gather import mv_gather_plain
     from repro_torch.kernels.ts_gather import tictoc_observe_plain
     from repro_torch.launch.txn_bench import make_workload
     do_w, do_r = masks[0], masks[1]
     n = T * Kk
-    cw0, cr0, wts, rts = make_tables(N, G, wave, dev, 29)
+    wts, rts = make_tables(N, G, wave, dev, 29)[2:]
     if label in MAIN_KW:
         wl = make_workload(label, **MAIN_KW[label])
         if (wl.n_records, wl.slots) != (N, Kk):
@@ -2366,41 +2400,6 @@ def gather_fold_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
                 lambda a=gargs: tictoc_observe_plain(
                     *a, **obs, gather=parent["ts_gather"]), dev)
 
-    begin, _ = ring(N, MV_DEPTH, G, keys, groups, do_w, dev, waves=6)
-    snap = 3
-    cw, cr = cw0.clone(), cr0.clone()
-    args = (cw, keys, groups, prio, wave, do_w, True)
-    pair = dict(claim_r=cr, mask_r=do_r)
-    ring_kw = dict(begin=begin, snap_ts=snap)
-
-    def split(probe, gather):
-        probe(*args, **pair)
-        gather(begin, keys, groups, snap, True)
-    probed = _distinct(keys, groups, everyone, G, N)
-    out["claim_probe_ring"] = dict(
-        ms=time_ms(lambda: K.claim_probe(*args, **pair, **ring_kw), dev),
-        plain_ms=time_ms(lambda: (
-            claim_probe_plain(cw, keys, groups, prio, wave, do_w, True),
-            claim_probe_plain(cr, keys, groups, prio, wave, do_r, True),
-            mv_gather_plain(begin, keys, groups, snap, True)), dev),
-        noring_ms=time_ms(lambda: K.claim_probe(*args, **pair), dev),
-        split_ms=time_ms(lambda: split(K.claim_probe, K.mv_gather), dev),
-        library_ms=None,
-        # The two-table form's bytes, a flag byte an op and the D x G ring
-        # words of each distinct live record.
-        bound=bound_ms(n * (4 + 4 + 4 + 1 + 1 + 4 + 4 + 1) + 2 * probed * 4
-                       + (_distinct(keys, groups, do_w, G, N)
-                          + _distinct(keys, groups, do_r, G, N)) * 4
-                       + _distinct_rows(keys, everyone, N) * MV_DEPTH * G * 4,
-                       4 * n + n * MV_DEPTH * G),
-        form=("two claim tables and the ring read in one launch (the "
-              "sharded MV owner's claim step)"),
-        shape=(f"{label} two tables and the ring, T={T} K={Kk} N={N} G={G} "
-               f"D={MV_DEPTH}, fine"))
-    if parent:
-        out["claim_probe_ring"]["parent_ms"] = time_ms(
-            lambda: split(parent["claim_probe_coop"], parent["mv_gather"]),
-            dev)
     return out
 
 
@@ -2519,10 +2518,13 @@ def dist_kernel_checks(checks, dev, lanes=DIST_LANES, slots=16):
         torch.cuda.synchronize(dev)
 
 
-def dist_kernel_timings(dev, lanes=DIST_LANES, slots=16, wave=9):
+def dist_kernel_timings(dev, lanes=DIST_LANES, slots=16, wave=9,
+                        parent=None):
     """Times of the sharded wave's kernels at the one-card shapes (one
     destination, M = lanes x slots ops, cap 16,384), and of wave_commit on
-    that one wide row.  Returns {name: timing dict}."""
+    that one wide row; with ``parent`` the parent's full-row verdict_pack
+    and verdict_unpack on the same inputs (``parent_ms``).  Returns
+    {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.core.distributed import LANE_FILL, META_FILL, NO_OP
     from repro_torch.kernels.route_pack import route_pack_plain
@@ -2589,8 +2591,478 @@ def dist_kernel_timings(dev, lanes=DIST_LANES, slots=16, wave=9):
             library_ms=None, bound=bound_ms(wave_bytes, 10 * cap),
             shape=f"[1, {cap}]"),
     }
+    if parent:
+        out["verdict_pack"]["parent_ms"] = time_ms(
+            lambda: parent["verdict_pack"](v), dev)
+        out["verdict_unpack"]["parent_ms"] = time_ms(
+            lambda: parent["verdict_unpack"](words, cap), dev)
     return out
 
+
+
+# ------------------------------------------- verdict folds (sharded wave)
+#: verdict_fold_cases' shapes: (label, D source rows, cap ops a row, mode,
+#: scans, fine, G).  cap % 16 of 0 and 8 and cap = 8 (one partial word a
+#: row, so words straddle rows), 1, 3 and 8 rows, the one-card row
+#: (16,384 ops) and its scan row (32,768), rows of empty cells, all-conflict
+#: rows, scan fragments ORing into shared words, and 8 rows of 40,968 ops:
+#: more ops than an H100 keeps co-resident threads (and wave_commit's
+#: 128-op chunks more units than its resident grid), so the grids stride.
+VERDICT_FOLD_SHAPES = (
+    ("cap%16=0 ns=1", 1, 64, "mixed", False, True, 2),
+    ("cap%16=8 ns=3", 3, 40, "mixed", True, False, 2),
+    ("cap=8 ns=8", 8, 8, "mixed", True, True, 2),
+    ("cap%16=8 ns=8 G=1", 8, 2056, "mixed", True, False, 1),
+    ("one-card row", 1, 16384, "mixed", False, True, 2),
+    ("one-card scan row", 1, 32768, "mixed", True, False, 2),
+    ("empty rows", 3, 24, "empty", False, True, 2),
+    ("all-conflict rows", 2, 40, "conflict", False, False, 2),
+    ("scan fragments, shared words", 3, 40, "scan_or", True, True, 2),
+    ("past the resident grid", 8, 40968, "mixed", True, True, 2),
+)
+#: The scan fragments' widest interval in the fold cases (max_extent).
+FOLD_EXT_CAP = 8
+
+
+def _route_np(owner, D, cap, lane_of_op):
+    """route_pack's placement in numpy: (pos int32[M], took bool[M], the
+    lane channel int32[D, cap] with LANE_FILL in cells no op fills)."""
+    M = owner.shape[0]
+    pos = np.zeros(M, np.int32)
+    lane = np.full((D, cap), -1, np.int32)
+    valid = (owner >= 0) & (owner < D)
+    idx = np.flatnonzero(valid)
+    order = np.argsort(owner[idx], kind="stable")
+    o = owner[idx][order]
+    pos[idx[order]] = np.arange(o.size) - np.searchsorted(o, o)
+    took = valid & (pos < cap)
+    lane[owner[took], pos[took]] = lane_of_op[took]
+    return pos, took, lane
+
+
+def _fold_case(rng, ci, D, cap, mode, scans, fine, G, N=None, T=None):
+    """One verdict_fold_cases entry's dict (see there); ``ci`` picks the
+    claim-tag half and the ring's stamp side, ``N`` the records (997 for
+    small rows, 2**16 above 4,096 ops by default) and ``T`` the sender's
+    lanes (by default as many as fill the D rows)."""
+    n = D * cap
+    if N is None:
+        N = 997 if n < 4096 else 1 << 16
+    wave = HIGH_WAVE if ci % 2 else 9
+    base = HIGH_TS if ci % 4 >= 2 else 0
+    W = -(-cap // 16)
+    keys = _hot_keys(rng, N, D, cap)
+    groups = rng.integers(0, G, (D, cap))
+    kind = rng.choice([0, 1, 2, 3], (D, cap), p=[0.1, 0.5, 0.3, 0.1])
+    width = np.where(rng.random((D, cap)) < 0.4,
+                     rng.integers(1, FOLD_EXT_CAP + 1, (D, cap)), 0)
+    claim_w = claim_words(rng, N, G, wave, 0.3)
+    claim_r = claim_words(rng, N, G, wave, 0.3)
+    begin = rng.integers(base + 1, base + 21, (N, 4, G)).astype(np.uint32)
+    begin[rng.random((N, 4, G)) < 0.3] = 0xFFFFFFFF
+    begin[1] = base + 11 + np.arange(4 * G).reshape(4, G)     # reclaimed
+    prio = rng.integers(1, 1 << 16, (D, cap))
+    if mode == "empty":
+        keys[:] = -1
+    elif mode == "conflict":
+        # Point reads of claimed cells, each claim live and stronger than
+        # every op, every stamp newer than the snapshot.
+        kind[:], width[:] = 1, 0
+        keys = np.where(keys < 0, 0, keys % N)
+        claim_w[:] = claim_r[:] = _live_word(wave, 0)
+        begin[:] = base + 11
+    elif mode == "scan_or":
+        # Scan fragments only, over hot claimed rows: several conflicting
+        # fragments share each word.
+        kind[:] = 1
+        width = rng.integers(1, FOLD_EXT_CAP + 1, (D, cap))
+        keys = rng.integers(0, 16, (D, cap))
+        claim_w[:16] = _live_word(wave, 0)
+    live = keys >= 0
+    prio = np.where(live, prio, 0xFFFF)
+    is_r = live & (kind == 1)
+    is_sc = is_r & (width > 0) if scans else np.zeros((D, cap), bool)
+    cwords = rng.integers(-2 ** 31, 2 ** 31, (D, W)).astype(np.int32)
+    cwords[:, ::3] = 0                           # words that bump nothing
+    # The sender: T lanes of K ops routed to the D rows at cap.
+    K = 32 if scans else 16
+    T = T or max(1, -(-n // K))
+    M = T * K
+    owner = rng.integers(0, D, M)
+    owner[rng.random(M) < 0.3] = 0               # row 0 may overflow
+    owner = np.where(rng.random(M) < 0.1, rng.choice([D, -1, D + 5], M),
+                     owner)
+    pos, took, lane = _route_np(owner, D, cap,
+                                (np.arange(M) // K).astype(np.int32))
+    return dict(
+        D=D, cap=cap, wave=wave, fine=fine, scans=scans,
+        keys=keys.astype(np.int32), groups=groups.astype(np.int32),
+        prio=prio.astype(np.int32), is_w=live & ((kind == 2) | (kind == 3)),
+        is_pw=live & (kind == 2), is_r=is_r, is_sc=is_sc,
+        is_rp=is_r & ~is_sc, ext=np.maximum(width, 1).astype(np.int32),
+        claim_w=claim_w, claim_r=claim_r,
+        wts=rng.integers(0, 1 << 32, (N, G), dtype=np.uint64).astype(
+            np.uint32),
+        begin=begin, head=rng.integers(0, 4, N).astype(np.int32),
+        snap_ts=base + 10, ts=base + 40, cwords=cwords,
+        owner=owner.astype(np.int32), pos=pos, took=took, lane=lane,
+        vwords=rng.integers(-2 ** 31, 2 ** 31, (D, W)).astype(np.int32),
+        commit=rng.random(T) < 0.6)
+
+
+def verdict_fold_cases(seed=83):
+    """The owner's and the sender's folded verdict forms, made with numpy
+    from ``seed``: [(label, dict)] per VERDICT_FOLD_SHAPES entry.  Owner
+    side, rows of ``cap`` cells as they arrive: keys int32[D, cap] (-1 for
+    an empty cell, a fifth on four hot rows, some past N), groups, the
+    cell priority prio16, the masks the wave decodes (is_w every write,
+    is_pw the plain WRITEs, is_r every read, is_sc the scan fragments,
+    is_rp the point reads), the fragments' extents ext; the pre-install
+    claim tables claim_w and claim_r uint32[N, G] (stale, empty and live
+    words; all live and stronger than every op in the all-conflict rows),
+    wts, the version ring begin uint32[N, 4, G] and head int32[N] (empty
+    slots, a reclaimed record; every stamp postdating the snapshot in the
+    all-conflict rows), snap_ts, the install stamp ts, and arrived commit
+    words cwords int32[D, ceil(cap/16)] (every 2-bit pattern, bit 31 set).
+    Sender side, T lanes of 16 ops (32 with scans) routed to the D rows at
+    ``cap`` (a tenth masked, some rows overflowing, some underfilled):
+    owner, pos and took int32/bool[M] as route_pack gives them, the lane
+    channel lane int32[D, cap] (LANE_FILL -1), the arrived verdict words
+    vwords and the lanes' commit bool[T]."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for ci, (label, D, cap, mode, scans, fine, G) in enumerate(
+            VERDICT_FOLD_SHAPES):
+        c = _fold_case(rng, ci, D, cap, mode, scans, fine, G)
+        cases.append((f"{label} D={D} cap={cap} {mode} "
+                      f"{'fine' if fine else 'coarse'} G={G}"
+                      f"{' scans' if scans else ''} wave={c['wave']}", c))
+    return cases
+
+
+def _claim_args(a, c):
+    return (a["keys"], a["groups"], a["prio"], c["wave"])
+
+
+def verdict_fold_case_checks(checks, dev):
+    """Every folded form against its plain version, the chain of plain ops
+    it replaces, on verdict_fold_cases: wave_commit's packed words and its
+    installed table, claim_probe's verdict form on one table and on two
+    with the ring (words and both tables), iterate_validate ORing into
+    bit 0 and bit 1 of those words, commit_install and mv_install reading
+    commit words (wts; the ring and heads), and the sender's gather forms
+    of verdict_unpack and verdict_pack.  Some case must have words with
+    bit 31 set, fields of every value, all-conflict words and at least
+    two scan fragments OR-ed into one word."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.claim_probe import claim_probe_verdict_plain
+    from repro_torch.kernels.iterate_validate import iterate_validate_plain
+    from repro_torch.kernels.mv_install import mv_install_plain
+    from repro_torch.kernels.occ_commit import commit_install_plain
+    from repro_torch.kernels.verdict_pack import (verdict_pack_gather_plain,
+                                                  verdict_pack_plain,
+                                                  verdict_unpack_gather_plain)
+    from repro_torch.kernels.wave_commit import wave_commit_plain
+    cases = verdict_fold_cases()
+    fields = set()
+    negative = full = shared = 0
+    for label, c in cases:
+        a, b = _case_tensors(c, dev), _case_tensors(c, dev)
+        # Owner: OCC's fused claim, then its scans into bit 0.
+        got, commit = K.wave_commit(
+            a["claim_w"], None, None, a["keys"], a["groups"], a["prio"],
+            a["is_w"], None, a["is_rp"], None, None, None, c["wave"],
+            c["fine"], False, False, pack=True)
+        conflict, want_commit = wave_commit_plain(
+            b["claim_w"], None, None, b["keys"], b["groups"], b["prio"],
+            b["is_w"], None, b["is_rp"], None, None, None, c["wave"],
+            c["fine"], False, False)
+        want = verdict_pack_plain(conflict.to(torch.int8))
+        checks["wave_commit"].compare([got, commit, a["claim_w"]],
+                                      [want, want_commit, b["claim_w"]])
+        iv = (a["claim_w"], a["keys"], a["ext"], a["groups"], a["prio"],
+              a["is_sc"], c["wave"], c["fine"], 8, FOLD_EXT_CAP)
+        phantom = iterate_validate_plain(*iv)
+        for bit in (0, 1):
+            w0 = got.clone()
+            checks["iterate_validate"].compare(
+                [K.iterate_validate(*iv, words=w0, bit=bit)],
+                [got | verdict_pack_plain(phantom.to(torch.int8) << bit)])
+        per_word = torch.nn.functional.pad(
+            phantom.to(torch.int32), (0, -c["cap"] % 16)).view(
+                c["D"], -1, 16).sum(dim=-1)
+        shared += int((per_word >= 2).sum())
+        # Owner: the unfused OCC claim (one table).
+        a, b = _case_tensors(c, dev), _case_tensors(c, dev)
+        got = K.claim_probe(a["claim_w"], *_claim_args(a, c), a["is_w"],
+                            c["fine"], is_rp=a["is_rp"])
+        want = claim_probe_verdict_plain(
+            b["claim_w"], *_claim_args(b, c), b["is_w"], c["fine"], None,
+            None, None, None, None, b["is_rp"])
+        checks["claim_probe"].compare([got, a["claim_w"]],
+                                      [want, b["claim_w"]])
+        # Owner: the MV claim (two tables and the ring).
+        a, b = _case_tensors(c, dev), _case_tensors(c, dev)
+        got = K.claim_probe(a["claim_w"], *_claim_args(a, c), a["is_w"],
+                            c["fine"], claim_r=a["claim_r"],
+                            mask_r=a["is_pw"], begin=a["begin"],
+                            snap_ts=c["snap_ts"], is_r=a["is_r"],
+                            is_rp=a["is_rp"])
+        want = claim_probe_verdict_plain(
+            b["claim_w"], *_claim_args(b, c), b["is_w"], c["fine"],
+            b["claim_r"], b["is_pw"], b["begin"], c["snap_ts"], b["is_r"],
+            b["is_rp"])
+        checks["claim_probe"].compare([got, a["claim_w"], a["claim_r"]],
+                                      [want, b["claim_w"], b["claim_r"]])
+        u = want.to(torch.int64) & 0xFFFFFFFF
+        for f in range(16):
+            fields |= set(((u >> (2 * f)) & 3).unique().tolist())
+        negative += int((want < 0).sum())
+        full += int((want == -1).sum())
+        # Owner: the installs through the arrived commit words.
+        K.commit_install(a["wts"], a["keys"], a["groups"], a["is_w"],
+                         words=a["cwords"])
+        commit_install_plain(b["wts"], b["keys"], b["groups"], b["is_w"],
+                             b["cwords"])
+        checks["commit_install"].compare([a["wts"]], [b["wts"]])
+        K.mv_install(a["begin"], a["head"], a["keys"], a["groups"],
+                     a["is_w"], c["ts"], words=a["cwords"])
+        mv_install_plain(b["begin"], b["head"], b["keys"], b["groups"],
+                         b["is_w"], c["ts"], b["cwords"])
+        checks["mv_install"].compare([a["begin"], a["head"]],
+                                     [b["begin"], b["head"]])
+        # Sender: the verdicts at the routing coordinates, the commit bits
+        # through the lane channel.
+        checks["verdict_unpack"].compare(
+            [K.verdict_unpack(a["vwords"], c["cap"], owner=a["owner"],
+                              pos=a["pos"], took=a["took"])],
+            [verdict_unpack_gather_plain(b["vwords"], c["cap"], b["owner"],
+                                         b["pos"], b["took"])])
+        checks["verdict_pack"].compare(
+            [K.verdict_pack(a["commit"], lane=a["lane"])],
+            [verdict_pack_gather_plain(b["commit"], b["lane"])])
+    log(f"  verdict-fold cases: {len(cases)} (the largest "
+        f"{max(c['keys'].size for _, c in cases)} ops); MV verdict fields "
+        f"{sorted(fields)}, words with bit 31 {negative}, all-conflict "
+        f"words {full}; words holding >= 2 scan conflicts {shared}")
+    if not (fields == {0, 1, 2, 3} and negative and full and shared):
+        raise AssertionError("verdict folds: the cases must reach every "
+                             "field value, bit 31, all-conflict words and "
+                             "scan conflicts sharing a word")
+
+
+def _gather_chain(unpack, words, n, owner, pos, took):
+    """The sender's verdict chain before the gather form: the parent
+    route's clamped int64 coordinates, the full-row unpack (``unpack``),
+    the gather and the mask."""
+    D = words.shape[0]
+    vv = unpack(words, n)[torch.clamp(owner, 0, D - 1).to(torch.int64),
+                          torch.clamp(pos, 0, n - 1).to(torch.int64)]
+    return torch.where(took, vv, 0)
+
+
+def _lane_chain(pack, commit, lane):
+    """The sender's commit-bit chain before the gather form."""
+    T = commit.shape[0]
+    return pack(torch.where(
+        lane >= 0, commit[torch.clamp(lane, 0, T - 1).to(torch.int64)]
+        .to(torch.int8), 0))
+
+
+def _mv_verdicts(wprio, rprio, ok, prio, is_w, is_pw, is_r, is_rp):
+    """The sharded MV owner's verdict bytes from the two-table
+    claim_probe's answers and mv_gather's ok, as the wave computed them
+    before the verdict form."""
+    is_ad = is_w & ~is_pw
+    uncond = ((is_pw & (wprio < prio)) | (is_ad & (rprio < prio))
+              | (is_r & ~ok))
+    rdval = is_rp & (wprio < prio)
+    return uncond.to(torch.int8) | (rdval.to(torch.int8) << 1)
+
+
+def verdict_fold_timings(dev, parent=None, lanes=DIST_LANES, slots=16,
+                         N=YCSB_N):
+    """Times of the folded verdict forms at the one-card sharded shapes
+    (one row of cap 16,384 ops, 32,768 with scans, on YCSB's 10M records;
+    the sender's lanes x slots ops): each form (``ms``) beside the chain
+    it replaces on this build's kernels (``chain_ms``; for the two-table
+    claim with the ring, the answer-form claim, mv_gather, the verdict
+    bits and the pack), the claim and install launches beside the same
+    call without the words (``nowords_ms``; the two-table claim with the
+    ring beside the answer form without the ring, ``noring_ms``), and
+    with ``parent`` the chain on the parent's verdict_pack /
+    verdict_unpack launches (``parent_ms``).  Returns {form: timing
+    dict}."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.claim_probe import claim_probe_verdict_plain
+    from repro_torch.kernels.iterate_validate import (iterate_validate_plain,
+                                                      scan_span)
+    from repro_torch.kernels.mv_install import mv_install_plain
+    from repro_torch.kernels.occ_commit import commit_install_plain
+    from repro_torch.kernels.verdict_pack import (verdict_pack_gather_plain,
+                                                  verdict_unpack_gather_plain,
+                                                  verdict_unpack_plain)
+    from repro_torch.kernels.wave_commit import wave_commit_plain
+    rng = np.random.default_rng(89)
+    cap = _dist_cap(lanes, slots, 1, False)
+    cap_s = _dist_cap(lanes, slots, 1, True)
+    c = _case_tensors(_fold_case(rng, 0, 1, cap, "mixed", False, True, 2,
+                                 N=N, T=lanes), dev)
+    cs = _case_tensors(_fold_case(rng, 0, 1, cap_s, "mixed", True, False,
+                                  2, N=N), dev)
+    T, M, W = c["commit"].shape[0], c["owner"].shape[0], cap // 16
+    wave, snap = c["wave"], c["snap_ts"]
+    kr = (c["keys"], c["groups"], c["prio"])
+    wc = (c["claim_w"], None, None, *kr, c["is_w"], None, c["is_rp"],
+          None, None, None, wave, True, False, False)
+    pair = dict(claim_r=c["claim_r"], mask_r=c["is_pw"])
+    ring = dict(**pair, begin=c["begin"], snap_ts=snap)
+    iv = (cs["claim_w"], cs["keys"], cs["ext"], cs["groups"], cs["prio"],
+          cs["is_sc"], cs["wave"], False, 8, FOLD_EXT_CAP)
+    ws = torch.zeros((1, cap_s // 16), dtype=torch.int32, device=dev)
+    vs = torch.zeros((1, cap_s), dtype=torch.int8, device=dev)
+    everyone = torch.ones_like(c["is_w"])
+    cells = _distinct(c["keys"], c["groups"], everyone, 2, N)
+    installs = _distinct(c["keys"], c["groups"], c["is_w"], 2, N)
+    bumps = _distinct(c["keys"], c["groups"], c["is_w"] & (
+        verdict_unpack_plain(c["cwords"], cap) > 0), 2, N)
+    records = _distinct_rows(c["keys"], everyone, N)
+    covered = _covered_rows(cs["keys"], cs["ext"], cs["is_sc"], N, 8,
+                            scan_span(FOLD_EXT_CAP, False, 8))
+    unpack_fns = {"": K.verdict_unpack}
+    pack_fns = {"": K.verdict_pack}
+    if parent:
+        unpack_fns["parent"] = parent["verdict_unpack"]
+        pack_fns["parent"] = parent["verdict_pack"]
+
+    def chains(fn_of):
+        """chain_ms (this build) and with ``parent`` parent_ms of
+        ``fn_of(key)``, the chain on the pack or unpack of ``key``."""
+        out = {"chain_ms": time_ms(fn_of(""), dev)}
+        if parent:
+            out["parent_ms"] = time_ms(fn_of("parent"), dev)
+        return out
+
+    out = {}
+    # Owner, OCC fused: op vectors in (14 B an op), each probed cell read,
+    # each installed cell written, a word a 16 ops out.
+    out["wave_commit_pack"] = dict(
+        ms=time_ms(lambda: K.wave_commit(*wc, pack=True), dev),
+        nowords_ms=time_ms(lambda: K.wave_commit(*wc), dev),
+        plain_ms=time_ms(lambda: wave_commit_plain(*wc, pack=True), dev),
+        library_ms=None,
+        bound=bound_ms(cap * 14 + (cells + installs) * 4 + W * 4 + 1,
+                       10 * cap),
+        shape=f"[1, {cap}]",
+        **chains(lambda p: lambda: pack_fns[p](
+            K.wave_commit(*wc)[0].to(torch.int8))))
+    # Owner, OCC unfused: one table, the same bytes.
+    out["claim_probe_verdict"] = dict(
+        ms=time_ms(lambda: K.claim_probe(c["claim_w"], *kr, wave,
+                                         c["is_w"], True, is_rp=c["is_rp"]),
+                   dev),
+        nowords_ms=time_ms(lambda: K.claim_probe(c["claim_w"], *kr, wave,
+                                                 c["is_w"], True), dev),
+        plain_ms=time_ms(lambda: claim_probe_verdict_plain(
+            c["claim_w"], *kr, wave, c["is_w"], True, None, None, None,
+            None, None, c["is_rp"]), dev),
+        library_ms=None,
+        bound=bound_ms(cap * 14 + (cells + installs) * 4 + W * 4, 6 * cap),
+        shape=f"[1, {cap}] one table",
+        **chains(lambda p: lambda: pack_fns[p]((
+            c["is_rp"] & (K.claim_probe(c["claim_w"], *kr, wave, c["is_w"],
+                                        True) < c["prio"]))
+            .to(torch.int8))))
+    # Owner, MVCC/MV-OCC: two tables and the ring; 16 B an op, both
+    # tables' cells, D x G ring words a distinct record.
+    out["claim_probe_verdict_ring"] = dict(
+        ms=time_ms(lambda: K.claim_probe(
+            c["claim_w"], *kr, wave, c["is_w"], True, **ring,
+            is_r=c["is_r"], is_rp=c["is_rp"]), dev),
+        noring_ms=time_ms(lambda: K.claim_probe(
+            c["claim_w"], *kr, wave, c["is_w"], True, **pair), dev),
+        plain_ms=time_ms(lambda: claim_probe_verdict_plain(
+            c["claim_w"], *kr, wave, c["is_w"], True, c["claim_r"],
+            c["is_pw"], c["begin"], snap, c["is_r"], c["is_rp"]), dev),
+        library_ms=None,
+        bound=bound_ms(cap * 16 + 2 * (cells + installs) * 4
+                       + records * 4 * 2 * 4 + W * 4, 20 * cap),
+        shape=f"[1, {cap}] two tables and the ring (D=4)",
+        **chains(lambda p: lambda: pack_fns[p](
+            _mv_verdicts(*K.claim_probe(c["claim_w"], *kr, wave, c["is_w"],
+                                        True, **pair),
+                         K.mv_gather(c["begin"], c["keys"], c["groups"],
+                                     snap, True)[1], c["prio"],
+                         c["is_w"], c["is_pw"], c["is_r"], c["is_rp"]))))
+    # Owner, scans: 17 B an op in, each covered row's two words, the words
+    # read and written.
+    out["iterate_validate_words"] = dict(
+        ms=time_ms(lambda: K.iterate_validate(*iv, words=ws, bit=0), dev),
+        nowords_ms=time_ms(lambda: K.iterate_validate(*iv), dev),
+        plain_ms=time_ms(lambda: iterate_validate_plain(*iv), dev),
+        library_ms=None,
+        bound=bound_ms(cap_s * 17 + covered * 8 + 2 * ws.numel() * 4,
+                       4 * cap_s),
+        shape=f"[1, {cap_s}] coarse, max_extent {FOLD_EXT_CAP}",
+        chain_ms=time_ms(lambda: vs | K.iterate_validate(*iv).to(
+            torch.int8), dev))
+    # Owner installs: 9 B an op, the words, each bumped cell read and
+    # written (ring: a head and two G-word slots a written record).
+    inst = (c["keys"], c["groups"], c["is_w"])
+    out["commit_install_words"] = dict(
+        ms=time_ms(lambda: K.commit_install(c["wts"], *inst,
+                                            words=c["cwords"]), dev),
+        nowords_ms=time_ms(lambda: K.commit_install(c["wts"], *inst), dev),
+        plain_ms=time_ms(lambda: commit_install_plain(
+            c["wts"], *inst, c["cwords"]), dev),
+        library_ms=None,
+        bound=bound_ms(cap * 9 + W * 4 + bumps * 8, 3 * cap),
+        shape=f"[1, {cap}]",
+        **chains(lambda p: lambda: K.commit_install(
+            c["wts"], c["keys"], c["groups"],
+            c["is_w"] & (unpack_fns[p](c["cwords"], cap) > 0))))
+    ts = [c["ts"]]
+
+    def stamp():
+        # Each call stamps above the last, as successive waves do.
+        ts[0] += 1
+        return ts[0]
+    ring_t = (c["begin"], c["head"], *inst)
+    out["mv_install_words"] = dict(
+        ms=time_ms(lambda: K.mv_install(*ring_t, stamp(),
+                                        words=c["cwords"]), dev),
+        nowords_ms=time_ms(lambda: K.mv_install(*ring_t, stamp()), dev),
+        plain_ms=time_ms(lambda: mv_install_plain(*ring_t, stamp(),
+                                                  c["cwords"]), dev),
+        library_ms=None,
+        bound=bound_ms(cap * 9 + W * 4 + bumps * (8 + 2 * 2 * 4), 3 * cap),
+        shape=f"[1, {cap}] D=4",
+        **chains(lambda p: lambda: K.mv_install(
+            c["begin"], c["head"], c["keys"], c["groups"],
+            c["is_w"] & (unpack_fns[p](c["cwords"], cap) > 0), stamp())))
+    # Sender: 10 B an op and the words; the lane channel, a byte a lane
+    # and the words.
+    g = (c["vwords"], cap, c["owner"], c["pos"], c["took"])
+    out["verdict_unpack_gather"] = dict(
+        ms=time_ms(lambda: K.verdict_unpack(
+            c["vwords"], cap, owner=c["owner"], pos=c["pos"],
+            took=c["took"]), dev),
+        plain_ms=time_ms(lambda: verdict_unpack_gather_plain(*g), dev),
+        library_ms=None,
+        bound=bound_ms(M * 10 + W * 4, 3 * M),
+        shape=f"M={M} ops of [1, {W}] words",
+        **chains(lambda p: lambda: _gather_chain(unpack_fns[p], *g)))
+    out["verdict_pack_gather"] = dict(
+        ms=time_ms(lambda: K.verdict_pack(c["commit"], lane=c["lane"]),
+                   dev),
+        plain_ms=time_ms(lambda: verdict_pack_gather_plain(
+            c["commit"], c["lane"]), dev),
+        library_ms=None,
+        bound=bound_ms(cap * 4 + T + W * 4, 2 * cap),
+        shape=f"lane [1, {cap}], T={T}",
+        **chains(lambda p: lambda: _lane_chain(
+            pack_fns[p], c["commit"], c["lane"])))
+    return out
 
 
 # --------------------------------------------------------------- main path
@@ -3327,6 +3799,19 @@ def sharded_path(dev, group=None, waves=WAVES, lanes=DIST_LANES,
             if calls["mv_gather"]:
                 raise AssertionError(f"sharded {name}: mv_gather called "
                                      f"{calls['mv_gather']} times")
+            # The sender packs and unpacks once a wave each; the owner's
+            # claim launch writes the verdict words and its install launch
+            # reads the commit words, one launch a wave each.
+            once = ("verdict_pack", "verdict_unpack",
+                    "claim_probe" if "claim_probe" in cov else "wave_commit",
+                    "mv_install" if cfg.is_mv else "commit_install")
+            for op in once:
+                if calls[op] != waves or (dev.type == "cuda"
+                                          and launches[op] != waves):
+                    raise AssertionError(
+                        f"sharded {name}: {op} calls {calls[op]}, "
+                        f"launches {launches[op]} over {waves} waves "
+                        "(one a wave)")
             if sum(s[D.STAT_CAUSES]) != s[D.STAT_ABORTS]:          # (e)
                 raise AssertionError(f"sharded {name}: causes do not sum "
                                      "to aborts")
@@ -3659,23 +4144,17 @@ def _sync(dev):
 
 #: The C entries (repro_<name>) whose parent build ``--parent`` times
 #: beside this checkout's kernels, each with its source (csrc/<source>.cu)
-#: and module (kernels/<source>.py): the launches the folds of this
-#: checkout replace, the one-table ts_gather (the parent's TicToc called
-#: it twice a wave), mv_gather, and validate's install form and
-#: claim_probe's cooperative launch without the ring.
-PARENT_KERNELS = {"ts_gather": "ts_gather",
+#: and module (kernels/<source>.py): the full-row verdict_pack and
+#: verdict_unpack, which the sharded wave's folds replace (the parent's
+#: wave launched each twice); the one-table ts_gather, mv_gather, and
+#: validate's install form called without the ring (the launches an
+#: earlier fold replaced).  Each is bound with this checkout's C
+#: signature, which these entries share with the parent's.
+PARENT_KERNELS = {"verdict_pack": "verdict_pack",
+                  "verdict_unpack": "verdict_pack",
+                  "ts_gather": "ts_gather",
                   "mv_gather": "mv_gather",
-                  "validate_install": "occ_validate",
-                  "claim_probe_coop": "claim_probe"}
-_P, _I = ctypes.c_void_p, ctypes.c_int
-#: C signatures of parent entries that differ from this checkout's: the
-#: install-form validate (claim_w, claim_r, keys, groups, prio, install_w,
-#: install_r, check, check_r, out, T, K, N, G, inv_wave, fine, stream) and
-#: the cooperative claim_probe (table, table_r, keys, groups, prio, mask,
-#: mask_r, out, out_r, n, N, G, inv_wave, fine, stream), neither with a
-#: ring.
-PARENT_SIGS = {"validate_install": [_P] * 10 + [_I] * 6 + [_P],
-               "claim_probe_coop": [_P] * 9 + [_I] * 5 + [_P]}
+                  "validate_install": "occ_validate"}
 
 
 def parent_kernels(parent_root: str) -> dict:
@@ -3704,7 +4183,7 @@ def parent_kernels(parent_root: str) -> dict:
     for n, src in PARENT_KERNELS.items():
         fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"{src}.so")),
                      f"repro_{n}")
-        fn.argtypes = PARENT_SIGS.get(n) or importlib.import_module(
+        fn.argtypes = importlib.import_module(
             f"repro_torch.kernels.{src}")._SIG[f"repro_{n}"]
         fn.restype = ctypes.c_int
         fns[n] = fn
@@ -3734,25 +4213,31 @@ def parent_kernels(parent_root: str) -> dict:
         build.raise_on_error("parent validate", fns["validate_install"](
             *(build.ptr(t) for t in (claim_w, claim_r, keys, groups, myprio,
                                      install_w, install_r, check, check_r,
-                                     out)), T, K, N, G, inv_wave(wave),
-            int(bool(fine)), build.stream(keys.device)))
+                                     out, None, None)), T, K, N, G, 0,
+            inv_wave(wave), 0, int(bool(fine)), build.stream(keys.device)))
         return out
 
-    def run_claim_probe_coop(table, keys, groups, prio, wave, mask, fine,
-                             claim_r, mask_r):
-        out, out_r = (torch.empty(keys.shape, dtype=torch.int32,
-                                  device=keys.device) for _ in range(2))
-        N, G = table.shape
-        build.raise_on_error("parent claim_probe", fns["claim_probe_coop"](
-            *(build.ptr(t) for t in (table, claim_r, keys, groups, prio,
-                                     mask, mask_r, out, out_r)),
-            keys.numel(), N, G, inv_wave(wave), int(bool(fine)),
-            build.stream(keys.device)))
-        return out, out_r
+    def run_verdict_pack(v):
+        D, M = v.shape
+        W = -(-M // 16)
+        words = torch.empty((D, W), dtype=torch.int32, device=v.device)
+        build.raise_on_error("parent verdict_pack", fns["verdict_pack"](
+            build.ptr(v), build.ptr(words), D, M, W,
+            build.stream(v.device)))
+        return words
+
+    def run_verdict_unpack(words, n):
+        D, W = words.shape
+        out = torch.empty((D, n), dtype=torch.int8, device=words.device)
+        build.raise_on_error("parent verdict_unpack", fns["verdict_unpack"](
+            build.ptr(words), build.ptr(out), D, W, n,
+            build.stream(words.device)))
+        return out
 
     return {"ts_gather": run_ts_gather, "mv_gather": run_mv_gather,
             "validate_install": run_validate_install,
-            "claim_probe_coop": run_claim_probe_coop}
+            "verdict_pack": run_verdict_pack,
+            "verdict_unpack": run_verdict_unpack}
 
 
 def lm_kernel_phase(dev, seed=21, cases=None):
@@ -4077,12 +4562,14 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="a parent commit unpacked in DIR: time its "
-                         "one-table ts_gather twice with TicToc's torch "
-                         "arithmetic, its mv_gather, and its install-form "
-                         "validate and two-table claim_probe each with its "
-                         "mv_gather, beside this checkout's folded "
-                         "launches on the same inputs")
+                    help="a parent commit unpacked in DIR: time the "
+                         "sharded wave's verdict chains on its full-row "
+                         "verdict_pack and verdict_unpack beside this "
+                         "checkout's folded forms, and its one-table "
+                         "ts_gather twice with TicToc's torch arithmetic, "
+                         "its mv_gather, and its validate without the "
+                         "ring with its mv_gather, beside this "
+                         "checkout's folded launches on the same inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
@@ -4228,10 +4715,14 @@ def main(argv=None) -> int:
             "form": t.get("form"),
             "parent_ms": t.get("parent_ms"), "split_ms": t.get("split_ms"),
             "noring_ms": t.get("noring_ms"),
-            "forms": {f: {k: v for k, v in timings["tpcc"][f].items()
-                          if k == "ms" or k.endswith("_ms")
-                          or k in ("shape", "form")}
-                      for f in KERNEL_FORMS.get(name, ())},
+            "forms": {f: {**{k: v for k, v in r.items()
+                             if k == "ms" or k.endswith("_ms")
+                             or k in ("shape", "form")},
+                          "bound_ms": r["bound"][0]}
+                      for label, table in (("tpcc", KERNEL_FORMS),
+                                           ("dist", DIST_FORMS))
+                      for f in table.get(name, ())
+                      for r in (timings[label][f],)},
         })
     for name, (src, replaces) in LM_KERNEL_META.items():
         t = lm_timings[name]

@@ -74,7 +74,13 @@ CC_OPS = {
 #: through one ``claim_probe`` call and publish through ``mv_install``
 #: (the JAX package's wave reads the ring through ``mv_gather``).  Scan
 #: fragments validate through ``iterate_validate`` on their owner shard,
-#: except under MVCC, whose scans never re-validate.
+#: except under MVCC, whose scans never re-validate.  The owner's claim
+#: call writes the packed verdict words itself (``wave_commit(...,
+#: pack=True)``, ``claim_probe(..., is_rp=)``), ``iterate_validate``
+#: ORs into them (``words=``) and the install reads the commit words
+#: (``words=``), so only the sender calls ``verdict_unpack`` and
+#: ``verdict_pack``, once a wave each, in their gather forms (the JAX
+#: package's wave calls each twice).
 DIST_OPS = ("route_pack", "verdict_pack", "verdict_unpack", "wave_commit",
             "iterate_validate", "commit_install")
 DIST_MV_OPS = ("route_pack", "verdict_pack", "verdict_unpack",
@@ -89,17 +95,24 @@ class Backend:
     keywords that fold several of its calls into one: ``validate`` takes
     the multi-version waves' claim installs and their version ring
     (``begin``, ``snap_ts``), ``claim_probe`` a second claim table
-    (``claim_r``, ``mask_r``) and the ring, ``ts_gather`` TicToc's second
-    table, masks and extents (``rts``, ``rd``, ``wr``, ``extent``) and
+    (``claim_r``, ``mask_r``), ``ts_gather`` TicToc's second table, masks
+    and extents (``rts``, ``rd``, ``wr``, ``extent``) and
     ``ts_install_max`` TicToc's second table, its extension mask and the
-    stamps' inputs (``rts``, ``ext``, ``commit_ts``, ``n_chain``).
-    Tables are updated in place, so ``commit_install``, ``claim_scatter``
-    and ``mv_install`` return None, ``claim_probe`` and ``probe`` return
-    wprio int32[T, K] (with ``claim_r``, (wprio, rprio); with the ring,
-    (wprio, rprio, ok)), ``validate`` returns conflict flags (with the
-    ring, (conflict, ok)), ``ts_gather`` timestamps (TicToc's form,
-    (commit_ts, ext_need)), ``validate_dual`` returns (fine, coarse) and
-    ``mv_gather`` returns (slot, ok)."""
+    stamps' inputs (``rts``, ``ext``, ``commit_ts``, ``n_chain``).  The
+    sharded wave's forms take the verdict wire format
+    (kernels/verdict_pack.py) into the launch beside it: ``wave_commit``
+    ``pack=True`` and ``claim_probe`` ``is_rp`` (and on two tables
+    ``is_r`` with the ring) return the packed verdict words,
+    ``iterate_validate`` ``words=``/``bit=`` ORs into them,
+    ``commit_install`` and ``mv_install`` ``words=`` read commit words,
+    and ``verdict_unpack`` ``owner``/``pos``/``took`` and ``verdict_pack``
+    ``lane`` gather at the routing coordinates.  Tables are updated in
+    place, so ``commit_install``, ``claim_scatter`` and ``mv_install``
+    return None, ``claim_probe`` and ``probe`` return wprio int32[T, K]
+    (with ``claim_r``, (wprio, rprio)), ``validate`` returns conflict
+    flags (with the ring, (conflict, ok)), ``ts_gather`` timestamps
+    (TicToc's form, (commit_ts, ext_need)), ``validate_dual`` returns
+    (fine, coarse) and ``mv_gather`` returns (slot, ok)."""
 
 
 for _op in SURFACE_OPS:

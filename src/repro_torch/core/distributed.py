@@ -18,13 +18,23 @@ One wave is four shard-local phases joined by three exchanges:
               ``claim_probe`` call on both claim channels that also
               reads the version ring (``mv_gather``'s select); scan
               fragments through ``iterate_validate``.
-              The per-op verdicts go back 2 bits an op (``verdict_pack``).
-  3. commit   senders unpack the verdicts (``verdict_unpack``), gather
-              them by each op's routing coordinates, decide their lanes
-              and classify the abort causes; the commit bits go back
-              packed the same way.
+              The per-op verdicts go back 2 bits an op, 16 ops a word
+              (the wire format of ``verdict_pack``): the claim call
+              writes the words itself (``wave_commit(..., pack=True)``,
+              ``claim_probe``'s verdict form) and ``iterate_validate``
+              ORs the scan verdicts into them (``words=``).
+  3. commit   senders unpack the verdicts at each op's routing
+              coordinates (``verdict_unpack``'s gather form, one launch),
+              decide their lanes and classify the abort causes; the
+              commit bits go back packed the same way, each buffer cell
+              packing its lane's bit (``verdict_pack``'s gather form
+              through route_pack's lane channel, one launch).
   4. install  owners bump versions of committed writes
-              (``commit_install``) or publish ring slots (``mv_install``).
+              (``commit_install``) or publish ring slots (``mv_install``),
+              each reading the arrived commit words itself (``words=``).
+
+So each wave launches ``verdict_pack`` and ``verdict_unpack`` once each,
+on the sender's side; the owner's side has no pack or unpack launch.
 
 The API is per rank.  ``make_wave_fn(cfg, group)`` gives ``wave(keys [T,
 K], groups, kinds, prio [T], tables, wave) -> (commit bool[T], tables,
@@ -302,7 +312,8 @@ def _make_phases(cfg: DistConfig, ns: int):
     - ``route(keys, groups, kinds, prio) -> (out [ns, 2*cap], send)``:
       ``out`` is the key|meta wire buffer and ``send`` the sender's
       coordinates ``(owner, pos, took, b_lane, lane_dropped, has_write,
-      dropped_op, kinds_flat)`` (the kind channel never travels);
+      dropped_op, kinds_flat)`` (the kind channel never travels; owner
+      and pos are route_pack's, valid where took is set);
     - ``owner_claim(tables, r_buf, wave) -> v_words [ns, W]``;
     - ``sender_commit(send, v_words) -> (commit [T], c_words [ns, W],
       cause [T])``;
@@ -374,9 +385,8 @@ def _make_phases(cfg: DistConfig, ns: int):
         lane_dropped = dropped_op.reshape(-1, T, K).any(dim=2).any(dim=0)
         has_write = (live & ((kind == t.WRITE) | (kind == t.ADD))).any(dim=1)
         out = torch.cat([buf[0], buf[1]], dim=-1)              # [ns, 2*cap]
-        send = (torch.clamp(owner_f, 0, ns - 1).to(torch.int64),
-                torch.clamp(pos, 0, cap - 1).to(torch.int64), took, buf[2],
-                lane_dropped, has_write, dropped_op, kflat)
+        send = (owner_f, pos, took, buf[2], lane_dropped, has_write,
+                dropped_op, kflat)
         return out, send
 
     def _decode(r_buf):
@@ -408,56 +418,53 @@ def _make_phases(cfg: DistConfig, ns: int):
             # Verdict bit 0: the read was claimed by a stronger lane.
             wts, claim_w = tables
             if cfg.fuse_wave:
-                conflict, _ = be.wave_commit(
+                words, _ = be.wave_commit(
                     claim_w, None, None, rk, r_grp, r_prio, is_w, None,
-                    is_rp, None, None, None, wave, fine, False, False)
-                v = conflict.to(torch.int8)
+                    is_rp, None, None, None, wave, fine, False, False,
+                    pack=True)
             else:
-                wprio = be.claim_probe(claim_w, rk, r_grp, r_prio, wave,
-                                       is_w, fine)
-                v = (is_rp & (wprio < r_prio)).to(torch.int8)
+                words = be.claim_probe(claim_w, rk, r_grp, r_prio, wave,
+                                       is_w, fine, is_rp=is_rp)
             if scans:
-                v = v | be.iterate_validate(
+                be.iterate_validate(
                     claim_w, rk, ext, r_grp, r_prio, is_sc, wave, fine,
-                    cfg.bucket_size, cfg.max_extent).to(torch.int8)
+                    cfg.bucket_size, cfg.max_extent, words=words, bit=0)
         else:
             # claim_w carries every write, claim_r only plain WRITEs (so
-            # ADD-ADD pairs commute); reads consult the ring.
+            # ADD-ADD pairs commute); reads consult the ring.  Bit 0,
+            # unconditional: first-committer-wins write-write (a plain
+            # WRITE loses to any stronger writer, an ADD only to a
+            # stronger plain WRITE) and snapshot reclamation.  Bit 1, read
+            # validation: only MV-OCC applies it, and only to update
+            # lanes, which the sender knows.  MVCC's scans read a
+            # consistent cut and never re-validate.
             claim_w, claim_r, mv_begin, mv_head = tables
             is_pw = (r_live & (r_kind == t.WRITE)).contiguous()
-            is_ad = r_live & (r_kind == t.ADD)
-            wprio_w, wprio_r, ok = be.claim_probe(
+            words = be.claim_probe(
                 claim_w, rk, r_grp, r_prio, wave, is_w, fine,
                 claim_r=claim_r, mask_r=is_pw, begin=mv_begin,
-                snap_ts=mvstore.snapshot_ts(wave, cfg.snapshot_age))
-            # Bit 0, unconditional: first-committer-wins write-write (a
-            # plain WRITE loses to any stronger writer, an ADD only to a
-            # stronger plain WRITE) and snapshot reclamation.
-            uncond = ((is_pw & (wprio_w < r_prio))
-                      | (is_ad & (wprio_r < r_prio)) | (is_r & ~ok))
-            # Bit 1, read validation: only MV-OCC applies it, and only to
-            # update lanes, which the sender knows.  MVCC's scans read a
-            # consistent cut and never re-validate.
-            rdval = is_rp & (wprio_w < r_prio)
+                snap_ts=mvstore.snapshot_ts(wave, cfg.snapshot_age),
+                is_r=is_r.contiguous(), is_rp=is_rp)
             if scans and cfg.cc == "mvocc":
-                rdval = rdval | be.iterate_validate(
+                be.iterate_validate(
                     claim_w, rk, ext, r_grp, r_prio, is_sc, wave, fine,
-                    cfg.bucket_size, cfg.max_extent)
-            v = uncond.to(torch.int8) | (rdval.to(torch.int8) << 1)
-        return be.verdict_pack(v.contiguous())
+                    cfg.bucket_size, cfg.max_extent, words=words, bit=1)
+        return words
 
     def sender_commit(send, v_words):
         # Verdicts are gathered back by each op's routing coordinates: the
-        # inverse of route_pack's placement, no scatter.
-        (owner_c, pos_c, took, b_lane, lane_dropped, has_write, dropped_op,
+        # inverse of route_pack's placement, no scatter; an op that was
+        # not taken reads 0.
+        (owner_f, pos, took, b_lane, lane_dropped, has_write, dropped_op,
          kind_f) = send
         if scans:
             # The kind channel packs extents; a conflicting scan fragment
             # is a phantom.
             is_sc_f = (kind_f >> 2) > 1
             kind_f = kind_f & 3
-        vv = be.verdict_unpack(v_words, cap)[owner_c, pos_c]
-        bit0 = ((vv & 1) > 0) & took
+        vv = be.verdict_unpack(v_words, cap, owner=owner_f, pos=pos,
+                               took=took)
+        bit0 = (vv & 1) > 0
         op_conf = bit0
         cause = torch.full_like(kind_f, t.CAUSE_NONE)
         if not mv:
@@ -469,7 +476,7 @@ def _make_phases(cfg: DistConfig, ns: int):
                 hw_op = has_write[:, None].expand(T, K).reshape(-1)
                 if scans:
                     hw_op = torch.cat([hw_op, hw_op])
-                rdval = ((vv & 2) > 0) & hw_op & took
+                rdval = ((vv & 2) > 0) & hw_op
                 op_conf = op_conf | rdval
                 cause = torch.where(rdval, t.CAUSE_READ_VAL, cause)
                 if scans:
@@ -486,21 +493,20 @@ def _make_phases(cfg: DistConfig, ns: int):
         commit = ~op_conf.reshape(-1, T, K).any(dim=2).any(dim=0) \
             & ~lane_dropped
         lane_cause = cause.reshape(-1, T, K).amin(dim=(0, 2))
-        b_commit = torch.where(
-            b_lane >= 0,
-            commit[torch.clamp(b_lane, 0, T - 1).to(torch.int64)]
-            .to(torch.int8), 0)
-        return commit, be.verdict_pack(b_commit), lane_cause
+        # Each buffer cell packs its lane's commit bit (an empty cell 0).
+        return commit, be.verdict_pack(commit, lane=b_lane), lane_cause
 
     def owner_install(tables, r_buf, c_words, wave: int):
+        # A write bumps where its packed commit field is set; the install
+        # launch reads the words itself.
         rk, r_grp, r_kind, _, r_live, _ = _decode(r_buf)
-        is_w = r_live & ((r_kind == t.WRITE) | (r_kind == t.ADD))
-        bump = is_w & (be.verdict_unpack(c_words, cap) > 0)
+        is_w = (r_live & ((r_kind == t.WRITE) | (r_kind == t.ADD))) \
+            .contiguous()
         if not mv:
-            be.commit_install(tables[0], rk, r_grp, bump)
+            be.commit_install(tables[0], rk, r_grp, is_w, words=c_words)
         else:
-            be.mv_install(tables[2], tables[3], rk, r_grp, bump,
-                          mvstore.install_ts(wave))
+            be.mv_install(tables[2], tables[3], rk, r_grp, is_w,
+                          mvstore.install_ts(wave), words=c_words)
 
     return route, owner_claim, sender_commit, owner_install
 

@@ -14,9 +14,9 @@
 // over its row (coarse), kNoPrio where the key or the group is masked or
 // nobody claims.  With a second table and mask (table_r, mask_r) it does
 // the same on both tables, on the same keys, groups and priorities, and
-// writes both answers: the sharded multi-version wave's two claim channels
-// and the dual unfused wave's writer and reader tables, which were two
-// calls of two launches each.
+// writes both answers: the dual unfused wave's writer and reader tables,
+// which were two calls of two launches each (the sharded multi-version
+// wave's two claim channels take the verdict form below).
 //
 // Bound on this card: bytes, and far below one launch.  Per op it reads a
 // key, a group, a priority and a mask byte per table (13 B, 14 B with two)
@@ -48,17 +48,32 @@
 // carries state across the barrier, so the answer is the literal
 // install-then-probe for any number of ops and needs no precondition.
 //
-// With two tables and a version ring (begin uint32[N, D, G], snap_ts) the
-// launch also writes ok[i], the snapshot select's visibility flag of every
-// op (mv::select, mv_gather's per-op body): the sharded multi-version
-// owner's mv_gather launch on the same keys and groups, folded in.  The
-// launch does not write the ring, so the reads go in step 1, before the
-// barrier, under the installs and the barrier wait.  The ring adds D x G
-// words per distinct live record and a flag byte an op to the bytes.
+// The verdict form is the sharded owner's claim step: ops are rows of
+// `row` ops (one row a source shard, i = d * row + j), and in place of the
+// answers the launch writes the owner's 2-bit verdicts packed in the wire
+// format of verdict_word.cuh (op j at bits 2*(j%16), 2*(j%16)+1 of word
+// j/16 of row d; W = ceil(row/16) words a row), from the point-read mask
+// rp and, with two tables and a version ring (begin uint32[N, D, G],
+// snap_ts), the read mask rd and each op's snapshot visibility ok
+// (mv::select, mv_gather's per-op body, folded in):
+//   one table:  bit 0 = rp & w < p;
+//   two tables: bit 0 = (mask_r & w < p) | (mask & !mask_r & r < p)
+//                       | (rd & !ok),  bit 1 = rp & w < p.
+// row is a multiple of 8, not of 16, so the ops of one word may lie in two
+// warps: step 1 zeroes the words, and after the barrier each op with a
+// field ORs it in with one atomicOr (commutative, so the order of the
+// threads does not matter).  The answers and ok never reach global
+// memory.  The launch does not write the ring, so a thread reads its
+// first op's ok in step 1, under the installs and the barrier wait, keeps
+// it across the barrier and selects later ops' after it.  This replaces
+// the owner's compares, casts, mv_gather and verdict_pack launches; the
+// words add 4 bytes a 16 ops, the ring D x G words per distinct live
+// record, and the answers' 4 (or 8) bytes an op go.
 #include <cooperative_groups.h>
 
 #include "claim.cuh"
 #include "mv_ring.cuh"
+#include "verdict_word.cuh"
 
 namespace {
 
@@ -75,11 +90,14 @@ struct CoopArgs {
   const int* prio;
   const bool* mask;
   const bool* mask_r;
-  int* out;
+  int* out;               // nullptr in the verdict form
   int* out_r;
-  const unsigned* begin;  // nullptr: no ring read
-  bool* ok;
+  const unsigned* begin;  // the verdict form's ring (two tables)
+  const bool* rd;         // the verdict form's read mask (two tables)
+  const bool* rp;         // the verdict form's point-read mask
+  unsigned* words;        // nullptr: the answer form
   int n, N, G, D;
+  int row, W;             // the verdict form's ops and words a row
   unsigned ivw, snap_ts;
   int fine;
 };
@@ -90,23 +108,30 @@ __global__ void __launch_bounds__(kThreads)
   const int stride = gridDim.x * kThreads;
   const int first = blockIdx.x * kThreads + threadIdx.x;
   const bool two = a.table_r != nullptr;
+  const bool ring = a.begin != nullptr;
+  const bool verdict = a.words != nullptr;
   int key0 = -1, g0 = 0;
+  bool ok0 = true;
   if (first < a.n) {
     key0 = a.keys[first];
     g0 = a.groups[first];
+  }
+  if (verdict) {
+    const int n_words = a.n / a.row * a.W;
+    for (int j = first; j < n_words; j += stride) a.words[j] = 0u;
   }
   // 1. the installs, and the ring reads.
   for (int i = first; i < a.n; i += stride) {
     const bool m = a.mask[i];
     const bool mr = two && a.mask_r[i];
-    const bool ring = a.begin != nullptr;
-    if (!m && !mr && !ring) continue;
+    const bool read = ring && i == first;
+    if (!m && !mr && !read) continue;
     const int key = i == first ? key0 : a.keys[i];
     const int g = i == first ? g0 : a.groups[i];
-    if (ring) {
+    if (read) {
       int slot;
-      a.ok[i] = mv::select(a.begin, key, g, a.N, a.D, a.G, a.fine,
-                           a.snap_ts, &slot);
+      ok0 = mv::select(a.begin, key, g, a.N, a.D, a.G, a.fine, a.snap_ts,
+                       &slot);
     }
     if ((!m && !mr) || !claim::in_cell(key, g, a.N, a.G)) continue;
     const unsigned word = claim::word(a.ivw, a.prio[i]);
@@ -125,8 +150,31 @@ __global__ void __launch_bounds__(kThreads)
     const unsigned r =
         two ? claim::probe_l2(a.table_r, key, g, a.N, a.G, a.ivw, a.fine)
             : claim::kNoPrio;
-    a.out[i] = (int)w;
-    if (two) a.out_r[i] = (int)r;
+    if (!verdict) {
+      a.out[i] = (int)w;
+      if (two) a.out_r[i] = (int)r;
+      continue;
+    }
+    // 3'. the verdict form: the op's field, OR-ed into its word.
+    const int p = a.prio[i];
+    unsigned v;
+    if (!two) {
+      v = a.rp[i] && (int)w < p ? 1u : 0u;
+    } else {
+      bool ok = ok0;
+      if (i != first) {
+        int slot;
+        ok = mv::select(a.begin, key, g, a.N, a.D, a.G, a.fine, a.snap_ts,
+                        &slot);
+      }
+      const bool m = a.mask[i];
+      const bool mr = a.mask_r[i];
+      const bool b0 = (mr && (int)w < p) || (m && !mr && (int)r < p) ||
+                      (a.rd[i] && !ok);
+      const bool b1 = a.rp[i] && (int)w < p;
+      v = (b0 ? 1u : 0u) | (b1 ? 2u : 0u);
+    }
+    if (v != 0u) verdict::or_field(a.words, i, a.row, a.W, v);
   }
 }
 
@@ -166,22 +214,28 @@ __global__ void probe_kernel(const unsigned* __restrict__ table,
 
 }  // namespace
 
-// table_r, mask_r and out_r: all null (one table) or all set (two); begin
-// and ok: both null (no ring read) or both set, with two tables.
-extern "C" int repro_claim_probe_coop(void* table, void* table_r,
-                                      const void* keys, const void* groups,
-                                      const void* prio, const void* mask,
-                                      const void* mask_r, void* out,
-                                      void* out_r, const void* begin,
-                                      void* ok, int n, int N, int G, int D,
-                                      int ivw, unsigned snap_ts, int fine,
-                                      void* stream) {
+// The answer form: table_r, mask_r and out_r all null (one table) or all
+// set (two); begin, rd, rp and words null.  The verdict form: out and
+// out_r null, rp and words set, n a multiple of row > 0; with two tables
+// (table_r, mask_r) begin and rd are set too, with one both are null.
+extern "C" int repro_claim_probe_coop(
+    void* table, void* table_r, const void* keys, const void* groups,
+    const void* prio, const void* mask, const void* mask_r, void* out,
+    void* out_r, const void* begin, const void* rd,
+    const void* rp, void* words, int n, int N, int G, int D, int row, int W,
+    int ivw, unsigned snap_ts, int fine, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  if ((table_r == nullptr) != (mask_r == nullptr) ||
-      (table_r == nullptr) != (out_r == nullptr) ||
-      (begin == nullptr) != (ok == nullptr) ||
-      (begin != nullptr && table_r == nullptr))
+  const bool two = table_r != nullptr;
+  if (words == nullptr) {
+    if (two != (mask_r != nullptr) || two != (out_r != nullptr) ||
+        out == nullptr || begin != nullptr || rd != nullptr ||
+        rp != nullptr)
+      return (int)cudaErrorInvalidValue;
+  } else if (two != (mask_r != nullptr) || two != (begin != nullptr) ||
+             two != (rd != nullptr) || rp == nullptr || out != nullptr ||
+             out_r != nullptr || !verdict::valid_rows(n, row, W)) {
     return (int)cudaErrorInvalidValue;
+  }
   CoopArgs a{static_cast<unsigned*>(table),
              static_cast<unsigned*>(table_r),
              static_cast<const int*>(keys),
@@ -192,11 +246,15 @@ extern "C" int repro_claim_probe_coop(void* table, void* table_r,
              static_cast<int*>(out),
              static_cast<int*>(out_r),
              static_cast<const unsigned*>(begin),
-             static_cast<bool*>(ok),
+             static_cast<const bool*>(rd),
+             static_cast<const bool*>(rp),
+             static_cast<unsigned*>(words),
              n,
              N,
              G,
              D,
+             row,
+             W,
              (unsigned)ivw,
              snap_ts,
              fine};

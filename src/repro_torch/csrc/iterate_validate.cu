@@ -38,7 +38,17 @@
 // keeps the verdict and writes it.  Ops whose check is false read no row.  The table is only
 // read, so its loads may take the non-coherent path and thread order does
 // not matter.
+//
+// The words form is the sharded owner's scan check: ops are rows of `row`
+// ops (i = d * row + j) and, in place of the verdict bytes, a conflicting
+// op ORs bit `bit` of its 2-bit field into word j/16 of row d of the
+// verdict words its claim launch wrote (verdict_pack.cu's wire format; a
+// word may span two warps or two rows, hence atomicOr).  It runs after
+// that launch in the same stream, so no other ordering is needed.  This
+// replaces the verdict bytes, their cast and the OR before the owner's
+// verdict_pack launch.
 #include "claim.cuh"
+#include "verdict_word.cuh"
 
 namespace {
 
@@ -51,8 +61,9 @@ __global__ void iterate_validate_kernel(
     const unsigned* __restrict__ table, const int* __restrict__ keys,
     const int* __restrict__ extents, const int* __restrict__ groups,
     const int* __restrict__ myprio, const bool* __restrict__ check,
-    bool* __restrict__ out, int n, int N, int G, unsigned ivw, int fine,
-    int B, int span) {
+    bool* __restrict__ out, unsigned* __restrict__ words, int n, int N,
+    int G, unsigned ivw, int fine, int B, int span, int row, int W,
+    int bit) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x % kWarp;
   // Every thread of the warp takes part in the ballot and the walks, the
@@ -136,7 +147,12 @@ __global__ void iterate_validate_kernel(
     }
     if (lane == src) conflict = hit;
   }
-  if (i < n) out[i] = conflict;
+  if (i >= n) return;
+  if (words == nullptr) {
+    out[i] = conflict;
+  } else if (conflict) {
+    verdict::or_field(words, i, row, W, 1u << bit);
+  }
 }
 
 }  // namespace
@@ -144,16 +160,22 @@ __global__ void iterate_validate_kernel(
 extern "C" int repro_iterate_validate(const void* table, const void* keys,
                                       const void* extents, const void* groups,
                                       const void* myprio, const void* check,
-                                      void* out, int n, int N, int G, int ivw,
-                                      int fine, int B, int span,
+                                      void* out, void* words, int n, int N,
+                                      int G, int ivw, int fine, int B,
+                                      int span, int row, int W, int bit,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((out == nullptr) == (words == nullptr) ||
+      (words != nullptr &&
+       (!verdict::valid_rows(n, row, W) || bit < 0 || bit > 1)))
+    return (int)cudaErrorInvalidValue;
   if (n > 0) {
     iterate_validate_kernel<<<(n + 255) / 256, 256, 0, s>>>(
         static_cast<const unsigned*>(table), static_cast<const int*>(keys),
         static_cast<const int*>(extents), static_cast<const int*>(groups),
         static_cast<const int*>(myprio), static_cast<const bool*>(check),
-        static_cast<bool*>(out), n, N, G, (unsigned)ivw, fine, B, span);
+        static_cast<bool*>(out), static_cast<unsigned*>(words), n, N, G,
+        (unsigned)ivw, fine, B, span, row, W, bit);
   }
   return (int)cudaGetLastError();
 }

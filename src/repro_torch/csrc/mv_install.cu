@@ -39,8 +39,16 @@
 // keeps the later ops' h_new in a scratch vector the wrapper passes, read
 // back by the thread that wrote it.  So any number of ops on a record, in
 // any order, gives the oracle's result.
+//
+// With packed commit words (the sharded owner's install: ops in rows of
+// `row`, verdict_pack.cu's wire format, W words a row) op i installs only
+// where do[i] and its 2-bit field is non-zero (verdict::field in step 1):
+// the owner's verdict_unpack launch and the torch compare and mask before
+// this launch, folded in.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "verdict_word.cuh"
 
 namespace {
 
@@ -55,8 +63,10 @@ struct Args {
   const int* keys;
   const int* groups;
   const bool* do_;
+  const unsigned* words;  // packed commit words, or null
   int* scratch;  // h_new of the ops past the grid's first pass, or null
   int n, N, D, G;
+  int row, W;    // ops and words a row of words
   unsigned ts;
 };
 
@@ -65,6 +75,8 @@ struct Args {
 __device__ __forceinline__ int copy_slot(const Args& a, int i) {
   const int key = a.keys[i];
   if (!a.do_[i] || key < 0 || key >= a.N) return -1;
+  if (a.words != nullptr && verdict::field(a.words, i, a.row, a.W) == 0u)
+    return -1;
   const int h_old = a.head[key];
   const int h_new = (((h_old + 1) % a.D) + a.D) % a.D;
   unsigned* row = a.begin + (size_t)key * a.D * a.G;
@@ -137,11 +149,14 @@ extern "C" int repro_mv_install_capacity(int* ops) {
 }
 
 // scratch: int32[n] when n exceeds repro_mv_install_capacity, else may be
-// null.
+// null.  words: null, or int32[n / row, W] packed commit words.
 extern "C" int repro_mv_install(void* begin, void* head, const void* keys,
                                 const void* groups, const void* do_,
-                                void* scratch, int n, int N, int D, int G,
+                                const void* words, void* scratch, int n,
+                                int N, int D, int G, int row, int W,
                                 unsigned ts, void* stream) {
+  if (words != nullptr && !verdict::valid_rows(n, row, W))
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
   int limit = 0;
   cudaError_t e = grid_limit(&limit);
@@ -150,8 +165,8 @@ extern "C" int repro_mv_install(void* begin, void* head, const void* keys,
   if (need > limit && scratch == nullptr) return (int)cudaErrorInvalidValue;
   Args a{static_cast<unsigned*>(begin), static_cast<int*>(head),
          static_cast<const int*>(keys), static_cast<const int*>(groups),
-         static_cast<const bool*>(do_), static_cast<int*>(scratch),
-         n, N, D, G, ts};
+         static_cast<const bool*>(do_), static_cast<const unsigned*>(words),
+         static_cast<int*>(scratch), n, N, D, G, row, W, ts};
   const int blocks = need < limit ? need : limit;
   void* params[] = {&a};
   e = cudaLaunchCooperativeKernel(

@@ -39,6 +39,17 @@
 //      in phase 1, cleared by any block of the lane that saw a conflict in
 //      phase 3, read after a second grid.sync() by the bumps.  The
 //      16,384-op row thus spreads over 128 SMs instead of one.
+//   6. with a words output (the sharded owner's call: T rows of K ops, one
+//      row a source shard) phase 3 also packs the verdicts in the sharded
+//      wave's wire format, op k's conflict at bit 2*(k%16) of word k/16 of
+//      its row, and writes no conflict bytes.  A unit's op k sits at
+//      thread k % blockDim.x, and both block sizes (K rounded up to 32,
+//      or 128 a chunk) are whole warps, so a word's 16 ops are one
+//      half-warp: four __shfl_xor_sync steps (offsets 8, 4, 2, 1 stay
+//      inside the half) OR its fields and the half's first lane stores
+//      the word.  Lanes past round16(K) store nothing; ops past K
+//      pack 0.  This replaces the owner's conflict cast and its
+//      verdict_pack launch.
 // Every loop over units is uniform across a block and the barriers are
 // reached by every thread.  min and + are commutative, so the result does
 // not depend on the order in which blocks or atomics run.  Masked ops (key
@@ -47,6 +58,7 @@
 #include <cooperative_groups.h>
 
 #include "claim.cuh"
+#include "verdict_word.cuh"
 
 namespace {
 
@@ -71,7 +83,8 @@ struct Args {
   const bool* check_w2;
   const bool* check_r;
   const bool* extra;
-  bool* conflict;
+  bool* conflict;  // nullptr: the verdicts go to words only
+  int* words;      // nullptr, or the [T, ceil(K/16)] packed verdicts
   bool* commit;
   int T, K, N, G;
   unsigned ivw;
@@ -142,8 +155,23 @@ __device__ __forceinline__ bool verdict(const Args& a, const Op& op) {
   }
   if (op.f & kCr) c = c || probe_cg(a.claim_r, a, op) < op.p;
   c = c || (op.f & kX);
-  a.conflict[op.i] = c;
+  if (a.conflict != nullptr) a.conflict[op.i] = c;
   return c;
+}
+
+// Phase 3's words output: the half-warp of unit u's ops k..k+15 ORs its
+// conflict fields and its first lane stores the word.  Every thread of
+// the block calls it.
+__device__ __forceinline__ void pack_word(const Args& a, int unit, bool c) {
+  const int k = (unit % a.chunks) * blockDim.x + threadIdx.x;
+  unsigned bits = c ? 1u << verdict::shift_of(k) : 0u;
+#pragma unroll
+  for (int off = verdict::kOps / 2; off > 0; off >>= 1)
+    bits |= __shfl_xor_sync(0xFFFFFFFFu, bits, off);
+  const int W = verdict::words_of(a.K);
+  if (verdict::shift_of(k) == 0 && verdict::word_of(k) < W)
+    a.words[(size_t)(unit / a.chunks) * W + verdict::word_of(k)] =
+        (int)bits;
 }
 
 __device__ __forceinline__ void bump(const Args& a, const Op& op) {
@@ -170,7 +198,9 @@ __global__ void __launch_bounds__(kMaxBlock)
   // 3.-4. probe, verdict, lane reduction; one-block lanes bump here.
   for (int u = first; u < units; u += gridDim.x) {
     const Op op = u == first ? held : load_op(a, u);
-    const bool any = __syncthreads_or(verdict(a, op)) != 0;
+    const bool c = verdict(a, op);
+    if (a.words != nullptr) pack_word(a, u, c);
+    const bool any = __syncthreads_or(c) != 0;
     const int t = u / a.chunks;
     if (wide) {
       if (any && threadIdx.x == 0) a.commit[t] = false;
@@ -220,8 +250,9 @@ extern "C" int repro_wave_commit(
     void* claim_w, void* claim_r, void* wts, const void* keys,
     const void* groups, const void* prio, const void* do_w, const void* do_r,
     const void* check_w, const void* check_w2, const void* check_r,
-    const void* extra, void* conflict, void* commit, int T, int K, int N,
-    int G, int ivw, int fine, int dual, int bump, void* stream) {
+    const void* extra, void* conflict, void* words, void* commit, int T,
+    int K, int N, int G, int ivw, int fine, int dual, int bump,
+    void* stream) {
   if (T <= 0 || K <= 0) return (int)cudaGetLastError();
   Args a{static_cast<unsigned*>(claim_w), static_cast<unsigned*>(claim_r),
          static_cast<unsigned*>(wts), static_cast<const int*>(keys),
@@ -230,8 +261,11 @@ extern "C" int repro_wave_commit(
          static_cast<const bool*>(check_w),
          static_cast<const bool*>(check_w2),
          static_cast<const bool*>(check_r), static_cast<const bool*>(extra),
-         static_cast<bool*>(conflict), static_cast<bool*>(commit), T, K, N,
-         G, (unsigned)ivw, fine, dual, bump, 1};
+         static_cast<bool*>(conflict), static_cast<int*>(words),
+         static_cast<bool*>(commit), T, K, N, G, (unsigned)ivw, fine, dual,
+         bump, 1};
+  if ((conflict == nullptr) == (words == nullptr))
+    return (int)cudaErrorInvalidValue;
   int block = ((K + 31) / 32) * 32;
   if (K > kMaxBlock) {
     block = kWideBlock;

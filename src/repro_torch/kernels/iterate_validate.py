@@ -14,6 +14,14 @@ Only the first ``scan_span(ext_cap, fine, B)`` rows are walked; rows past
 the table's edge read as no claimant.  Returns bool[T, K]; the table is
 only read.
 
+With ``words`` (int32[D, ceil(M/16)], the sharded owner's verdict words
+of keys [D, M] in the wire format of kernels/verdict_pack.py) the call
+ORs each conflict into bit ``bit`` (0 or 1) of its op's field, in place,
+and returns ``words``: the owner's scan verdicts (bit 0 for OCC, bit 1
+for MV-OCC) folded into the words its claim launch wrote.  The plain
+version of that form is the chain it replaces: the flags, shifted, packed
+with ``verdict_pack_plain`` and OR-ed in.
+
 CUDA tensors launch ``csrc/iterate_validate.cu`` (a warp walks its ops'
 intervals one op after another, 128 rows a batch with every load in
 flight before a test); CPU tensors take ``iterate_validate_plain``.
@@ -21,16 +29,18 @@ flight before a test); CPU tensors take ``iterate_validate_plain``.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.core.claimword import NO_PRIO, inv_wave, live_prio, u32
 from repro_torch.kernels import build
 from repro_torch.kernels.scatter import pick_group
+from repro_torch.kernels.verdict_pack import n_words, verdict_pack_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"repro_iterate_validate": [_P] * 7 + [_I] * 7 + [_P]}
+_SIG = {"repro_iterate_validate": [_P] * 8 + [_I] * 10 + [_P]}
 
 
 def scan_span(ext_cap: int, fine: bool, bucket_size: int) -> int:
@@ -78,14 +88,24 @@ def iterate_validate_plain(table: torch.Tensor, keys: torch.Tensor,
 def iterate_validate(table: torch.Tensor, keys: torch.Tensor,
                      extents: torch.Tensor, groups: torch.Tensor,
                      myprio: torch.Tensor, check: torch.Tensor, wave: int,
-                     fine: bool, bucket_size: int,
-                     ext_cap: int) -> torch.Tensor:
-    """Phantom conflict flags, bool[T, K]."""
+                     fine: bool, bucket_size: int, ext_cap: int, *,
+                     words: Optional[torch.Tensor] = None,
+                     bit: int = 0) -> torch.Tensor:
+    """Phantom conflict flags, bool[T, K]; with ``words``, the flags
+    OR-ed into bit ``bit`` of the packed verdict words, which it
+    returns."""
     iterate_validate.calls += 1
+    if words is not None and (bit not in (0, 1) or keys.dim() != 2):
+        raise ValueError(f"iterate_validate: the words form takes bit 0 or "
+                         f"1 and keys [D, M], got bit={bit} and keys "
+                         f"{tuple(keys.shape)}")
     if keys.device.type == "cpu":
-        return iterate_validate_plain(table, keys, extents, groups, myprio,
-                                      check, wave, fine, bucket_size,
-                                      ext_cap)
+        out = iterate_validate_plain(table, keys, extents, groups, myprio,
+                                     check, wave, fine, bucket_size, ext_cap)
+        if words is None:
+            return out
+        return words.bitwise_or_(verdict_pack_plain(out.to(torch.int8)
+                                                    << bit))
     dev = build.launch_device(keys)
     N, G = table.shape
     shape = tuple(keys.shape)
@@ -97,18 +117,24 @@ def iterate_validate(table: torch.Tensor, keys: torch.Tensor,
     build.check("check", check, torch.bool, shape, dev)
     if bucket_size < 1:
         raise ValueError(f"bucket_size must be >= 1, got {bucket_size}")
-    out = torch.empty(shape, dtype=torch.bool, device=dev)
+    out, row, W = None, 0, 0
+    if words is None:
+        out = torch.empty(shape, dtype=torch.bool, device=dev)
+    else:
+        row, W = shape[1], n_words(shape[1])
+        build.check("words", words, torch.int32, (shape[0], W), dev)
     lib = build.load("iterate_validate", _SIG)
     with torch.cuda.device(dev):
         rc = lib.repro_iterate_validate(
             build.ptr(table), build.ptr(keys), build.ptr(extents),
             build.ptr(groups), build.ptr(myprio), build.ptr(check),
-            build.ptr(out), keys.numel(), N, G, inv_wave(wave),
-            int(bool(fine)), bucket_size,
-            scan_span(ext_cap, fine, bucket_size), build.stream(dev))
+            build.ptr(out), build.ptr(words), keys.numel(), N, G,
+            inv_wave(wave), int(bool(fine)), bucket_size,
+            scan_span(ext_cap, fine, bucket_size), row, W, bit,
+            build.stream(dev))
     build.raise_on_error("iterate_validate", rc)
     iterate_validate.launches += 1
-    return out
+    return out if words is None else words
 
 
 iterate_validate.launches = 0

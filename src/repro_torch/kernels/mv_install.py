@@ -16,22 +16,31 @@ ops write it.  ``begin`` and ``head`` are updated in place.  Precondition
 ``MV_EMPTY`` or below ``ts``; the plain version checks it and raises, as
 ``ref.check_mv_begin_monotone`` does.
 
+With ``words`` (the packed commit words of keys [D, M], as
+``commit_install`` takes them) an op installs only where ``do`` is set
+AND its 2-bit field is non-zero: the sharded MV owner's install, the
+owner's ``verdict_unpack``, compare and mask folded into this launch.
+The plain version of that form is that chain, then ``mv_install_plain``.
+
 CUDA tensors launch ``csrc/mv_install.cu`` (one cooperative launch:
 copy, a grid barrier, stamp); CPU tensors take ``mv_install_plain``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.core.claimword import U32_MASK, u32
 from repro_torch.core.mvstore import MV_EMPTY
 from repro_torch.kernels import build
+from repro_torch.kernels.verdict_pack import check_words, \
+    verdict_unpack_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"repro_mv_install": [_P] * 6 + [_I] * 4 + [ctypes.c_uint, _P],
+_SIG = {"repro_mv_install": [_P] * 7 + [_I] * 6 + [ctypes.c_uint, _P],
         "repro_mv_install_capacity": [ctypes.POINTER(ctypes.c_int)]}
 
 
@@ -53,7 +62,10 @@ def check_mv_begin_monotone(begin: torch.Tensor, keys: torch.Tensor,
 
 def mv_install_plain(begin: torch.Tensor, head: torch.Tensor,
                      keys: torch.Tensor, groups: torch.Tensor,
-                     do: torch.Tensor, ts: int) -> None:
+                     do: torch.Tensor, ts: int,
+                     words: Optional[torch.Tensor] = None) -> None:
+    if words is not None:
+        do = do & (verdict_unpack_plain(words, keys.shape[1]) > 0)
     check_mv_begin_monotone(begin, keys, do, ts)
     N, D, G = begin.shape
     m = do & (keys >= 0) & (keys < N)
@@ -74,12 +86,15 @@ def mv_install_plain(begin: torch.Tensor, head: torch.Tensor,
 
 
 def mv_install(begin: torch.Tensor, head: torch.Tensor, keys: torch.Tensor,
-               groups: torch.Tensor, do: torch.Tensor, ts: int) -> None:
-    """In place: one new ring slot per record that a ``do`` op writes,
-    stamped ``ts`` in the written groups."""
+               groups: torch.Tensor, do: torch.Tensor, ts: int, *,
+               words: Optional[torch.Tensor] = None) -> None:
+    """In place: one new ring slot per record that a ``do`` op writes
+    (with ``words``, a ``do`` op whose packed field is non-zero), stamped
+    ``ts`` in the written groups."""
     mv_install.calls += 1
+    row, W = check_words("mv_install", words, keys)
     if keys.device.type == "cpu":
-        return mv_install_plain(begin, head, keys, groups, do, ts)
+        return mv_install_plain(begin, head, keys, groups, do, ts, words)
     dev = build.launch_device(keys)
     N, D, G = begin.shape
     shape = tuple(keys.shape)
@@ -98,8 +113,9 @@ def mv_install(begin: torch.Tensor, head: torch.Tensor, keys: torch.Tensor,
             scratch = torch.empty(shape, dtype=torch.int32, device=dev)
         rc = lib.repro_mv_install(
             build.ptr(begin), build.ptr(head), build.ptr(keys),
-            build.ptr(groups), build.ptr(do), build.ptr(scratch), n, N, D,
-            G, int(ts) & U32_MASK, build.stream(dev))
+            build.ptr(groups), build.ptr(do), build.ptr(words),
+            build.ptr(scratch), n, N, D, G, row, W, int(ts) & U32_MASK,
+            build.stream(dev))
     build.raise_on_error("mv_install", rc)
     mv_install.launches += 1
 

@@ -18,7 +18,13 @@ Replaces the TPU kernel ``wave_commit_pallas``
   5. ``bump``: +1 on ``wts`` per committed ``do_w`` op.
 
 The tables are updated in place; the wrapper returns ``(conflict bool[T, K],
-commit bool[T])``.  CUDA tensors launch ``csrc/wave_commit.cu``: one
+commit bool[T])``.  With ``pack=True`` it returns ``(words int32[T,
+ceil(K/16)], commit)`` instead: each lane's conflicts packed in the
+sharded wave's verdict wire format (kernels/verdict_pack.py), op k's
+conflict at bit ``2*(k % 16)`` of word ``k // 16`` and the other bits 0;
+the sharded owner calls it so, with one row of ops a source shard, and
+the conflict bytes never reach global memory.  CUDA tensors launch
+``csrc/wave_commit.cu``: one
 cooperative launch whose blocks atomicMin-install, meet at a grid barrier,
 then probe, reduce each lane's verdict and bump (a lane wider than 1,024
 ops spread over several blocks, with a second barrier before its bumps);
@@ -35,10 +41,11 @@ from repro_torch.core.claimword import NO_PRIO, claim_word, inv_wave, \
     live_prio, u32
 from repro_torch.kernels import build
 from repro_torch.kernels.scatter import gather_rows, pick_group, scatter_u32
+from repro_torch.kernels.verdict_pack import n_words, verdict_pack_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"repro_wave_commit": [_P] * 14 + [_I] * 8 + [_P]}
+_SIG = {"repro_wave_commit": [_P] * 15 + [_I] * 8 + [_P]}
 
 
 def probe_plain(table: torch.Tensor, keys: torch.Tensor,
@@ -53,8 +60,9 @@ def probe_plain(table: torch.Tensor, keys: torch.Tensor,
 
 def wave_commit_plain(claim_w, claim_r, wts, keys, groups, prio, do_w, do_r,
                       check_w, check_w2, check_r, extra, wave: int,
-                      fine: bool, dual: bool, bump: bool):
-    """Plain PyTorch version of the kernel (see the module docstring)."""
+                      fine: bool, dual: bool, bump: bool, pack: bool = False):
+    """Plain PyTorch version of the kernel (see the module docstring);
+    ``pack`` packs the conflicts as ``verdict_pack`` does."""
     ivw = inv_wave(wave)
     words = claim_word(wave, prio)
     p = u32(prio)
@@ -74,6 +82,8 @@ def wave_commit_plain(claim_w, claim_r, wts, keys, groups, prio, do_w, do_r,
     if bump:
         scatter_u32(wts, keys, groups, torch.ones_like(p),
                     do_w & commit[:, None], "sum")
+    if pack:
+        return verdict_pack_plain(conflict.to(torch.int8)), commit
     return conflict, commit
 
 
@@ -84,14 +94,15 @@ def wave_commit(claim_w: torch.Tensor, claim_r: Optional[torch.Tensor],
                 check_w: torch.Tensor, check_w2: Optional[torch.Tensor],
                 check_r: Optional[torch.Tensor],
                 extra: Optional[torch.Tensor], wave: int, fine: bool,
-                dual: bool, bump: bool):
-    """The fused probe-family wave; returns (conflict, commit) and updates
-    ``claim_w`` (``claim_r`` when dual, ``wts`` when bump) in place."""
+                dual: bool, bump: bool, *, pack: bool = False):
+    """The fused probe-family wave; returns (conflict, commit), or with
+    ``pack`` (verdict words, commit), and updates ``claim_w`` (``claim_r``
+    when dual, ``wts`` when bump) in place."""
     wave_commit.calls += 1
     if keys.device.type == "cpu":
         return wave_commit_plain(claim_w, claim_r, wts, keys, groups, prio,
                                  do_w, do_r, check_w, check_w2, check_r,
-                                 extra, wave, fine, dual, bump)
+                                 extra, wave, fine, dual, bump, pack)
     dev = build.launch_device(keys)
     T, K = keys.shape
     N, G = claim_w.shape
@@ -110,7 +121,11 @@ def wave_commit(claim_w: torch.Tensor, claim_r: Optional[torch.Tensor],
                     ("extra", extra)):
         if m is not None:
             build.check(name, m, torch.bool, (T, K), dev)
-    conflict = torch.empty((T, K), dtype=torch.bool, device=dev)
+    conflict = words = None
+    if pack:
+        words = torch.empty((T, n_words(K)), dtype=torch.int32, device=dev)
+    else:
+        conflict = torch.empty((T, K), dtype=torch.bool, device=dev)
     commit = torch.empty((T,), dtype=torch.bool, device=dev)
     lib = build.load("wave_commit", _SIG)
     with torch.cuda.device(dev):
@@ -120,12 +135,12 @@ def wave_commit(claim_w: torch.Tensor, claim_r: Optional[torch.Tensor],
             build.ptr(groups), build.ptr(prio), build.ptr(do_w),
             build.ptr(do_r if dual else None), build.ptr(check_w),
             build.ptr(check_w2), build.ptr(check_r if dual else None),
-            build.ptr(extra), build.ptr(conflict), build.ptr(commit),
-            T, K, N, G, inv_wave(wave), int(fine), int(dual), int(bump),
-            build.stream(dev))
+            build.ptr(extra), build.ptr(conflict), build.ptr(words),
+            build.ptr(commit), T, K, N, G, inv_wave(wave), int(fine),
+            int(dual), int(bump), build.stream(dev))
     build.raise_on_error("wave_commit", rc)
     wave_commit.launches += 1
-    return conflict, commit
+    return (words if pack else conflict), commit
 
 
 wave_commit.launches = 0

@@ -263,8 +263,9 @@ def test_ts_gather_tictoc_form_bit_identical_to_plain_version():
 @pytest.mark.cuda
 def test_ring_folds_bit_identical_to_plain_versions():
     """validate's and two-table claim_probe's ring reads on
-    chip_smoke.ring_fold_cases: verdicts or answers, ok and both installed
-    tables, empty and reclaimed rings, a wave past the resident grid."""
+    chip_smoke.ring_fold_cases: validate's verdicts and ok, claim_probe's
+    verdict words, both installed tables, empty and reclaimed rings, a
+    wave past the resident grid."""
     checks = {n: chip_smoke.KernelCheck(n) for n in ("validate",
                                                      "claim_probe")}
     chip_smoke.ring_fold_case_checks(checks, _cuda())
@@ -339,6 +340,50 @@ def test_sharded_wave_identical_on_card_and_cpu():
             lanes=32, sources=sources)
     finally:
         close_shards(shards)
+
+
+@pytest.mark.cuda
+def test_verdict_folds_bit_identical_to_plain_versions():
+    """The sharded wave's folded verdict forms on
+    chip_smoke.verdict_fold_cases against the chains they replace:
+    wave_commit and claim_probe (one table; two with the ring) writing
+    the packed words, iterate_validate ORing into bit 0 and bit 1,
+    commit_install and mv_install reading commit words, the sender's
+    gather forms; cap % 16 of 0 and 8, cap = 8, 1 to 8 rows, the one-card
+    rows and a wave past the resident grid."""
+    names = ("wave_commit", "claim_probe", "iterate_validate",
+             "commit_install", "mv_install", "verdict_pack",
+             "verdict_unpack")
+    checks = {n: chip_smoke.KernelCheck(n) for n in names}
+    chip_smoke.verdict_fold_case_checks(checks, _cuda())
+    torch.cuda.synchronize()
+    n = len(chip_smoke.verdict_fold_cases())
+    for name, c in checks.items():
+        assert c.equal and c.max_err == 0.0, name
+        assert c.cases == (2 * n if name in ("claim_probe",
+                                             "iterate_validate") else n)
+
+
+@pytest.mark.cuda
+def test_sharded_wave_packs_and_unpacks_once_a_wave_on_card():
+    """A one-rank NCCL group at small sizes: every configuration launches
+    verdict_pack and verdict_unpack once a wave (the sender's gather
+    forms), the claim and install launches once a wave each, and matches
+    the local validator (chip_smoke.sharded_path raises otherwise)."""
+    from repro_torch.launch.mesh import close_shards, init_shards
+    dev = _cuda()
+    shards = init_shards(dev)
+    try:
+        sources = {
+            "ycsb": ("ycsb", dict(n_keys=5000, theta=0.9)),
+            "ycsb_e": ("ycsb", dict(n_keys=5000, theta=0.9, scan_frac=0.95,
+                                    scan_len=16))}
+        configs = {k: chip_smoke.DIST_CONFIGS[k] for k in sources}
+        _, total, runs = chip_smoke.sharded_path(
+            dev, waves=4, lanes=32, sources=sources, configs=configs)
+    finally:
+        close_shards(shards)
+    assert total["verdict_pack"] == total["verdict_unpack"] == 4 * runs
 
 
 #: Small cases of the language-model kernels: ragged lengths, GQA ratios

@@ -6,15 +6,17 @@ package.
 ``chip_smoke.py`` holds the CUDA ``ts_gather`` TicToc form (one plain
 launch a wave: both tables to commit_ts and ext_need) and the ring forms
 of ``validate`` and the two-table ``claim_probe`` (the ring read inside
-their cooperative launch) against their plain versions on
+their cooperative launch; ``claim_probe`` takes the ring in its verdict
+form only, the sharded owner's claim step) against their plain versions on
 ``chip_smoke.ts_gather_cases`` and ``chip_smoke.ring_fold_cases``.  Here,
 on the CPU, the plain route of each form meets the JAX oracles bit for bit
 on exactly those cases, made with numpy from a seed: ``ref.ts_gather``
 twice and TicToc's uint32 arithmetic (src/repro/core/cc/tictoc.py);
 ``ref.claim_scatter`` into each table, ``ref.occ_validate`` per channel
-and ``ref.mv_gather``; ``ref.claim_probe_fused`` per table and
-``ref.mv_gather``.  The cases are shown to reach each path of the new
-kernels, and the folded forms refuse mixed arguments.  TicToc runs (TPC-C
+and ``ref.mv_gather``; ``ref.claim_probe_fused`` per table,
+``ref.mv_gather``, the owner's verdict bits and ``ref.verdict_pack``.
+The cases are shown to reach each path of the new kernels, and the
+folded forms refuse mixed arguments.  TicToc runs (TPC-C
 and YCSB, coarse and fine, with and without scans) stay equal to JAX
 ``backend="jnp"`` with one ``ts_gather`` call a wave; local MVCC and
 MV-OCC runs with one ``validate`` call and no ``mv_gather`` call a wave;
@@ -196,20 +198,29 @@ def _ref_probe(c, table, mask):
 @pytest.mark.parametrize("i", range(len(RING_CASES)),
                          ids=[c[0] for c in RING_CASES])
 def test_claim_probe_ring_form_plain_matches_ref_on_card_cases(i):
+    """The two-table claim_probe with the ring (its verdict form, the
+    sharded MV owner's claim step) against JAX's owner chain:
+    ref.claim_probe_fused per table, ref.mv_gather's ok, the verdict bits
+    of src/repro/core/distributed.py and ref.verdict_pack."""
     _, c = RING_CASES[i]
     cw, cr = _t(c["claim_w"]), _t(c["claim_r"])
     prio = _t(c["prio"])[:, None].expand(c["keys"].shape).contiguous()
     K.reset_launches()
-    wprio, rprio, ok = K.claim_probe(
+    words = K.claim_probe(
         cw, _t(c["keys"]), _t(c["groups"]), prio, c["wave"],
         _t(c["install_w"]), c["fine"], claim_r=cr,
         mask_r=_t(c["install_r"]), begin=_t(c["begin"]),
-        snap_ts=c["snap_ts"])
+        snap_ts=c["snap_ts"], is_r=_t(c["is_r"]), is_rp=_t(c["is_rp"]))
     want_cw, want_w = _ref_probe(c, c["claim_w"], c["install_w"])
     want_cr, want_r = _ref_probe(c, c["claim_r"], c["install_r"])
-    np.testing.assert_array_equal(wprio.numpy(), want_w)
-    np.testing.assert_array_equal(rprio.numpy(), want_r)
-    np.testing.assert_array_equal(ok.numpy(), _ref_ring_ok(i))
+    p = np.broadcast_to(c["prio"][:, None], c["keys"].shape).astype(np.int64)
+    mask, mask_r = c["install_w"], c["install_r"]
+    uncond = ((mask_r & (want_w < p)) | (mask & ~mask_r & (want_r < p))
+              | (c["is_r"] & ~_ref_ring_ok(i)))
+    rdval = c["is_rp"] & (want_w < p)
+    want = ref.verdict_pack(jnp.asarray(
+        uncond.astype(np.int8) | (rdval.astype(np.int8) << 1)))
+    np.testing.assert_array_equal(words.numpy(), np.asarray(want))
     np.testing.assert_array_equal(cw.numpy().view(np.uint32), want_cw)
     np.testing.assert_array_equal(cr.numpy().view(np.uint32), want_cr)
     assert (K.claim_probe.calls, K.claim_probe.launches) == (1, 0)
@@ -222,8 +233,9 @@ def test_ring_fold_cases_reach_each_path():
     ones; ops that see a version and ops that see none: empty slots, a
     record whose every slot is empty, a reclaimed snapshot (every stamp
     newer); keys -1 and past the end, groups G and G + 2, and the pinned
-    corner of ROADMAP C.2; a conflict; and a wave of more ops than an H100
-    keeps co-resident threads."""
+    corner of ROADMAP C.2; reads (point reads a subset) that see a
+    version and reads that see none; a conflict; and a wave of more ops
+    than an H100 keeps co-resident threads."""
     assert {c["fine"] for _, c in RING_CASES} == {True, False}
     assert {c["begin"].shape[1:] for _, c in RING_CASES} == {
         (4, 1), (4, 2), (4, 3), (1, 2)}
@@ -233,12 +245,16 @@ def test_ring_fold_cases_reach_each_path():
     assert {label.split()[0] for label, _ in RING_CASES} == {"waves",
                                                              "overlap"}
     seen = empty = reclaimed = pinned = conflicts = 0
+    read_seen = read_unseen = 0
     for i, (_, c) in enumerate(RING_CASES):
         N, D, G = c["begin"].shape
         assert (c["keys"] == -1).any() and (c["keys"] >= N).any()
         assert (c["groups"] == G).any() and (c["groups"] == G + 2).any()
+        assert not (c["is_rp"] & ~c["is_r"]).any()
         ok = _ref_ring_ok(i)
         seen += int(ok.sum())
+        read_seen += int((c["is_r"] & ok).sum())
+        read_unseen += int((c["is_r"] & ~ok).sum())
         live = (c["keys"] >= 0) & (c["keys"] < N)
         rows = c["begin"][np.where(live, c["keys"], 0)]
         empty += int((live & (rows == 0xFFFFFFFF).all(axis=(-2, -1))).sum())
@@ -247,6 +263,7 @@ def test_ring_fold_cases_reach_each_path():
         pinned += int((~live & (c["groups"] >= G) & c["fine"]).sum())
         conflicts += int(_ref_validate(i)[0].sum())
     assert seen and empty and reclaimed and pinned and conflicts
+    assert read_seen and read_unseen
     assert max(c["keys"].size for _, c in RING_CASES) > H100_THREADS
 
 
@@ -283,10 +300,12 @@ def _claim_probe_call(given):
     in ``given``."""
     _, c = RING_CASES[0]
     x = {n: _t(c[n]) for n in ("claim_w", "claim_r", "keys", "groups",
-                               "install_w", "install_r", "begin")}
+                               "install_w", "install_r", "begin", "is_r",
+                               "is_rp")}
     prio = _t(c["prio"])[:, None].expand(c["keys"].shape).contiguous()
     pool = {"claim_r": x["claim_r"], "mask_r": x["install_r"],
-            "begin": x["begin"], "snap_ts": c["snap_ts"]}
+            "begin": x["begin"], "snap_ts": c["snap_ts"], "is_r": x["is_r"],
+            "is_rp": x["is_rp"]}
     kw = {n: pool[n] for n in given}
     return (lambda: K.claim_probe(x["claim_w"], x["keys"], x["groups"],
                                   prio, c["wave"], x["install_w"],
@@ -297,8 +316,9 @@ def _claim_probe_call(given):
 #: Argument sets the folded forms refuse, as (call, the keywords given,
 #: the error): ts_gather's TicToc tensors apart and keys that are not
 #: [T, K]; validate's ring without its snapshot, a snapshot alone and the
-#: ring without the installs; claim_probe's ring without its snapshot and
-#: with one table.
+#: ring without the installs; claim_probe's ring without its snapshot,
+#: with one table, and outside the verdict form (without is_r and is_rp,
+#: or without is_rp).
 _INSTALLS = ("claim_r", "check_r", "install_w", "install_r")
 BAD_FOLD_ARGS = {
     "ts_gather-rts-alone": (_ts_gather_call, ("rts",), "come together"),
@@ -323,6 +343,13 @@ BAD_FOLD_ARGS = {
                                 "begin and snap_ts"),
     "claim_probe-ring-one-table": (_claim_probe_call, ("begin", "snap_ts"),
                                    "begin and snap_ts"),
+    "claim_probe-ring-answer-form": (_claim_probe_call,
+                                     ("claim_r", "mask_r", "begin",
+                                      "snap_ts"), "begin and snap_ts"),
+    "claim_probe-ring-without-is_rp": (_claim_probe_call,
+                                       ("claim_r", "mask_r", "begin",
+                                        "snap_ts", "is_r"),
+                                       "begin and snap_ts"),
 }
 
 
