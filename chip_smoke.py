@@ -76,7 +76,20 @@ src/repro_torch/csrc, then:
      3, empty slots, records all empty or all newer than the snapshot
      (reclaimed), stamps on both sides of 2**31, and a wave past the
      resident grid, validate's verdicts and ok, claim_probe's verdict
-     words and both tables compared.  validate is timed on the
+     words and both tables compared; iterate_validate's bump form
+     (bump_fold_cases: the phantom pass and the version bumps in one
+     launch): K = 1, 16, 64, 160, 1,024 and 1,030, lanes with a point
+     conflict only, a phantom only, neither and both, every write
+     masked, keys -1 and past the end, groups past G, G = 1 to 3,
+     duplicate write cells across lanes, wts words at 0xFFFFFFFF (the
+     bumps wrap), fine and coarse, both tag halves and a wave past the
+     resident grid, verdicts and wts compared; validate_dual's install
+     form (dual_install_cases: AutoGran's write-claim install and both
+     verdicts in one cooperative launch): its masks, overlapping ones,
+     installs alone, checks alone, none, G = 1 to 3, K = 1, 40 and
+     1,030, duplicate cells, a tie, both tag halves and a wave past the
+     resident grid, both verdicts and the table compared.  validate is
+     timed on the
      masks the MVCC and MV-OCC waves build (TPC-C and the multi-version
      YCSB mix) as one launch that installs both claim tables, checks and
      reads the ring, beside the same call without the ring and beside
@@ -86,7 +99,12 @@ src/repro_torch/csrc, then:
      torch arithmetic; TicToc's three installs as one ts_install_max
      launch, with the fine and the coarse extension, beside the one-table
      launch three times; claim_probe (one cooperative launch) on one
-     table and on two tables beside two calls.  The sharded wave's folded verdict forms
+     table and on two tables beside two calls; the bump form on the scan
+     wave beside the chain it replaces (iterate_validate, the OR, any,
+     NOT and mask, commit_install) and the install form on an AutoGran
+     wave of the main path's workload beside its chain (two priority
+     copies, claim_scatter, validate_dual).  The sharded wave's folded
+     verdict forms
      (verdict_fold_cases): wave_commit writing the packed verdict words,
      claim_probe's verdict form on one table and on two with the ring,
      iterate_validate ORing into bit 0 and bit 1 of those words,
@@ -102,10 +120,12 @@ src/repro_torch/csrc, then:
      without the words.
      With --parent DIR the parent's full-row verdict_pack and
      verdict_unpack (alone and in the sharded verdict chains), ts_gather (the parent's
-     one-table launch twice and the torch arithmetic), and mv_gather and
-     validate without the ring, the latter with mv_gather, are timed
-     beside the kernels of the commit unpacked in DIR, built from its
-     sources;
+     one-table launch twice and the torch arithmetic), mv_gather and
+     validate without the ring, the latter with mv_gather, and the
+     chains of the bump and install forms on the parent's
+     iterate_validate, commit_install, claim_scatter and validate_dual
+     are timed beside the kernels of the commit unpacked in DIR, built
+     from its sources;
   2. the main path on TPC-C (full scale, T = 128, 200 waves) through the
      benchmark CLI's grid runner: OCC, TicToc, 2PL, SwissTM and Adaptive
      x coarse and fine, plus AutoGran coarse, with the launch counters set
@@ -113,7 +133,9 @@ src/repro_torch/csrc, then:
      mechanism must have launched, aborts must sum over causes, every
      lane-wave must commit or abort, every TicToc wave must launch
      ts_install_max once (its three installs) and ts_gather once (its two
-     reads and commit_ts), and OCC-fine must beat
+     reads and commit_ts), every AutoGran wave validate_dual once (its
+     write claims installed in it), commit_install once (its bumps) and
+     claim_scatter never, and OCC-fine must beat
      OCC-coarse and TicToc-coarse (the paper's quickstart ordering), and
      AutoGran-coarse must beat OCC-coarse (the paper's section 5
      proposal);
@@ -131,9 +153,11 @@ src/repro_torch/csrc, then:
      theta 0.9, scanproportion 0.95, maxscanlength 100), T = 128, 200
      waves: the five probe-family mechanisms and MVCC/MV-OCC x coarse and
      fine, plus AutoGran.  MVCC must see no phantom, coarse must see at
-     least fine's phantoms for OCC, TicToc and MV-OCC, and every
-     mechanism's kernels (iterate_validate and commit_install included)
-     must have launched;
+     least fine's phantoms for OCC, TicToc and MV-OCC, every
+     mechanism's kernels (iterate_validate included) must have launched,
+     iterate_validate once a wave but MVCC's (the bumping waves in its
+     bump form, their version bumps inside it), validate_dual once an
+     AutoGran wave, commit_install and claim_scatter never;
   7. the multi-version path at full size: MVCC/MV-OCC x coarse and fine on
      TPC-C, and OCC/MVCC/MV-OCC on YCSB with 80% writes and 20% read-only
      transactions (benchmarks/abort_rates.py): read-only lanes never
@@ -142,8 +166,9 @@ src/repro_torch/csrc, then:
      every MVCC and MV-OCC wave launches validate (both claim installs,
      the check and the ring read) once, mv_install once and
      claim_scatter and mv_gather never;
-  8. fused = unfused again with scans on (the bumps move out of
-     wave_commit);
+  8. fused = unfused again with scans on (the fused route's bumps move
+     out of wave_commit into iterate_validate's bump form, the unfused
+     route's stay in commit_install);
   9. cross-device identity: one set of draws made on the CPU, run through
      the wave step on the card (kernels) and on the CPU (plain versions),
      for every mechanism on the point mix, one scan configuration per
@@ -151,9 +176,10 @@ src/repro_torch/csrc, then:
      included) must be bit-identical, lane_time within rtol 1e-5 and the
      heats within rtol 1e-6;
  9b. the backend ops without an engine caller: probe on a table
-     wave_commit has just installed into (TPC-C shape), and mv_gather on
-     a ring mv_install has just published that wave's writes into, at
-     the next wave's snapshot: one launch each, equal to the plain
+     wave_commit has just installed into (TPC-C shape), mv_gather on a
+     ring mv_install has just published that wave's writes into, at the
+     next wave's snapshot, and claim_scatter of the next wave's claims
+     into a copy of that table: one launch each, equal to the plain
      versions, every installed claim and every published version seen;
  9c. examples/quickstart_torch.py's main as it ships (TPC-C 8 warehouses,
      scale 0.5, T = 96, 200 waves): OCC-fine beats OCC-coarse and
@@ -305,12 +331,16 @@ KERNEL_META = {
 #: form, listed under "forms" in the kernels line: ts_gather's TicToc form
 #: coarse and the one-table gather, ts_install_max's three installs with
 #: the coarse extension and the one-table install, validate's ring form on
-#: MVCC's masks, claim_probe on two tables.
+#: MVCC's masks, claim_probe on two tables, iterate_validate's bump form
+#: (the scan waves' phantom pass and bumps), validate_dual's check alone
+#: (its main-path form is AutoGran's install form).
 KERNEL_FORMS = {"ts_gather": ("ts_gather_coarse", "ts_gather_one"),
                 "ts_install_max": ("ts_install_max_coarse",
                                    "ts_install_max_one"),
                 "validate": ("validate_mvcc",),
-                "claim_probe": ("claim_probe_pair",)}
+                "claim_probe": ("claim_probe_pair",),
+                "iterate_validate": ("iterate_validate_bump",),
+                "validate_dual": ("validate_dual_check",)}
 #: The folded verdict forms of the sharded wave, timed at the one-card
 #: sharded shapes (verdict_fold_timings) and listed under "forms" too:
 #: the owner's claim launches writing the packed words, the scan check
@@ -328,26 +358,28 @@ DIST_FORMS = {"wave_commit": ("wave_commit_pack",),
 #: times them at the sharded wave's shapes.
 DIST_KERNELS = ("route_pack", "verdict_pack", "verdict_unpack")
 #: The kernels each mechanism's (fused) wave launches on the point mix.
-#: The MV waves read the ring inside their validate launch: no mv_gather.
+#: The MV waves read the ring inside their validate launch: no mv_gather;
+#: AutoGran installs its write claims inside its validate_dual launch: no
+#: claim_scatter.
 _PROBE_OPS = ("wave_commit", "segment_count")
 _MV_OPS = ("validate", "mv_install", "segment_count")
 MECH_OPS = {"occ": _PROBE_OPS,
             "tictoc": _PROBE_OPS + ("ts_gather", "ts_install_max"),
             "2pl": _PROBE_OPS, "swisstm": _PROBE_OPS, "adaptive": _PROBE_OPS,
-            "autogran": ("validate_dual", "claim_scatter", "commit_install",
-                         "segment_count"),
+            "autogran": ("validate_dual", "commit_install", "segment_count"),
             "mvcc": _MV_OPS, "mvocc": _MV_OPS}
 
 
 def mech_ops(cc: str, scans: bool) -> tuple:
     """The kernels a mechanism's fused wave launches.  With scans every
-    mechanism but MVCC adds iterate_validate, and the bumping probe-family
-    mechanisms bump through commit_install after the phantom pass."""
+    mechanism but MVCC adds iterate_validate, and AutoGran bumps inside
+    it (its bump form, as the bumping probe-family mechanisms do), so it
+    drops commit_install."""
     ops = MECH_OPS[cc]
     if scans and cc != "mvcc":
         ops = ops + ("iterate_validate",)
-        if cc in ("occ", "2pl", "swisstm", "adaptive"):
-            ops = ops + ("commit_install",)
+        if cc == "autogran":
+            ops = tuple(op for op in ops if op != "commit_install")
     return ops
 
 PROBE_FAMILY = ("occ", "tictoc", "2pl", "swisstm", "adaptive")
@@ -1489,6 +1521,228 @@ def ring_fold_case_checks(checks, dev):
                              "reclaimed snapshots")
 
 
+#: The bump fold's lane roles, in turn over a case's lanes: a point
+#: conflict only, a phantom only, neither (the lane commits and its writes
+#: bump) and both.
+BUMP_ROLES = ("point", "phantom", "neither", "both")
+#: bump_fold_cases' shapes (K, T, G, fine, B, ext_cap, N, writes): one op a
+#: lane (256 lanes a block, a partial second block), 16 and 64 (K off and
+#: on the warp), 160 (one lane a block) in a wave past an H100's resident
+#: threads, 1,024 in 32 lanes (one block a lane, four strides) and 1,030
+#: (a ragged last stride); G = 1 to 3, fine and coarse, B = 8 and 1;
+#: ``writes`` False masks every write.
+BUMP_SHAPES = (
+    (1, 300, 2, False, 8, 8, 997, True),
+    (16, 40, 3, True, 8, 16, 997, True),
+    (64, 12, 1, False, 1, 33, 997, True),
+    (64, 16, 2, True, 8, 9, 997, False),
+    (1024, 32, 2, False, 8, 24, 4001, True),
+    (1030, 3, 2, True, 8, 40, 4001, True),
+    (160, 2048, 2, False, 8, 8, 1 << 16, True))
+
+
+def bump_fold_cases(seed=89):
+    """iterate_validate's bump form (a scan wave's phantom pass and its
+    version bumps in one launch), made with numpy from ``seed``: [(label,
+    dict)] with the wrapper's arguments (``table``, ``myprio`` and ``wts``
+    as uint32; ``myprio`` the lane priority broadcast to [T, K], as the
+    engine passes it) and each lane's role.  Every shape of BUMP_SHAPES
+    at waves whose claim tag has its top bit set (9) and clear
+    (HIGH_WAVE), the largest at 9 only.  Lanes take the roles of
+    BUMP_ROLES in turn: point lanes get a point conflict on one op and
+    priority 0 (no claim is stronger), phantom lanes a checked scan on op
+    0 over a planted stronger claim and priority 0xFFFE, neither lanes
+    priority 0 and no point conflict.  Keys -1 and past the end, extents 0
+    and -5, groups G and G + 2, a fifth of the ops on four hot rows
+    (duplicate write cells across lanes) whose wts words sit at
+    0xFFFFFFFF - 0..2 (their bumps wrap)."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for K, T, G, fine, B, ext_cap, N, writes in BUMP_SHAPES:
+        for wave in ((9,) if T * K > 100_000 else (9, HIGH_WAVE)):
+            table = claim_words(rng, N, G, wave, 0.1)
+            keys = _hot_keys(rng, N, T, K)
+            groups = _odd_groups(rng, G, T, K)
+            ext = np.where(rng.random((T, K)) < 0.4,
+                           rng.integers(2, ext_cap + 1, (T, K)), 1)
+            ext[rng.random((T, K)) < 0.02] = 0
+            ext[rng.random((T, K)) < 0.02] = -5
+            do = (rng.random((T, K)) < 0.4) & writes
+            check = ~do & (rng.random((T, K)) < 0.9)
+            point = np.zeros((T, K), bool)
+            roles = np.array([BUMP_ROLES[t % 4] for t in range(T)])
+            prio = np.where(np.isin(roles, ("phantom", "both")), 0xFFFE, 0)
+            wts = rng.integers(0, 1 << 32, (N, G), dtype=np.uint64)
+            wts[:4] = 0xFFFFFFFF - rng.integers(0, 3, (4, G))
+            for t in range(T):
+                if roles[t] in ("point", "both"):
+                    point[t, rng.integers(0, K)] = True
+                if roles[t] in ("phantom", "both"):
+                    k0 = int(rng.integers(4, N - ext_cap))
+                    g0 = int(rng.integers(0, G))
+                    keys[t, 0], groups[t, 0] = k0, g0
+                    ext[t, 0], check[t, 0], do[t, 0] = ext_cap, True, False
+                    table[k0, g0] = _live_word(wave, 0x0100)
+            cases.append((
+                f"K={K} T={T} G={G} {'fine' if fine else 'coarse'} B={B} "
+                f"ext_cap={ext_cap} wave={wave}"
+                + ("" if writes else " every write masked"),
+                dict(table=table, keys=keys.astype(np.int32),
+                     extents=ext.astype(np.int32),
+                     groups=groups.astype(np.int32),
+                     myprio=np.broadcast_to(prio[:, None], (T, K)).astype(
+                         np.uint32),
+                     check=check, wave=wave, fine=fine, bucket_size=B,
+                     ext_cap=ext_cap, point=point, do=do,
+                     wts=wts.astype(np.uint32), roles=tuple(roles))))
+    return cases
+
+
+def bump_fold_outcomes(point, phantom, roles) -> dict:
+    """{role: lanes} of what a bump case's lanes did: a point conflict
+    only, a phantom only, neither, both (``phantom`` from the plain
+    phantom pass)."""
+    p, q = np.asarray(point).any(axis=1), np.asarray(phantom).any(axis=1)
+    got = {"point": p & ~q, "phantom": ~p & q, "neither": ~p & ~q,
+           "both": p & q}
+    return {r: int(m.sum()) for r, m in got.items()}
+
+
+def _bump_args(c):
+    return [c[k] for k in ("table", "keys", "extents", "groups", "myprio",
+                           "check")] + [c["wave"], c["fine"],
+                                        c["bucket_size"], c["ext_cap"]]
+
+
+def bump_fold_case_checks(check, dev):
+    """iterate_validate's bump form against its plain version (the chain
+    iterate_validate_plain | point, commit_install_plain(do & ~any)) on
+    bump_fold_cases: the verdicts and the bumped wts.  The cases must
+    reach every lane role, bump, and wrap a word."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.iterate_validate import iterate_validate_plain
+    cases = bump_fold_cases()
+    seen = {r: 0 for r in BUMP_ROLES}
+    bumped = wrapped = 0
+    for label, c in cases:
+        a, b = _case_tensors(c, dev), _case_tensors(c, dev)
+        got = K.iterate_validate(*_bump_args(a), point=a["point"],
+                                 wts=a["wts"], do=a["do"])
+        want = iterate_validate_plain(*_bump_args(b), point=b["point"],
+                                      wts=b["wts"], do=b["do"])
+        check.compare([got, a["wts"]], [want, b["wts"]])
+        phantom = iterate_validate_plain(*_bump_args(b))
+        for r, n in bump_fold_outcomes(b["point"].cpu(), phantom.cpu(),
+                                       c["roles"]).items():
+            seen[r] += n
+        w0 = c["wts"]
+        w1 = b["wts"].cpu().numpy().view(np.uint32)
+        bumped += int((w1 != w0).sum())
+        wrapped += int(((w1 < w0)).sum())
+    log(f"  iterate_validate bump-form edge cases: {len(cases)} (the "
+        f"largest {max(c['keys'].size for _, c in cases)} ops), lanes by "
+        f"outcome {seen}, {bumped} wts words bumped, {wrapped} wrapped")
+    if min(seen.values()) <= 0 or not (bumped and wrapped):
+        raise AssertionError("iterate_validate bump form: the cases must "
+                             "reach every lane role, bump and wrap")
+
+
+#: validate_dual's install-form modes: AutoGran's masks (writes install,
+#: point reads check), independent halves (ops that install and check),
+#: installs alone, checks alone, nothing.
+DUAL_MODES = ("waves", "overlap", "install_only", "check_only", "none")
+
+
+def dual_install_cases(seed=97):
+    """validate_dual's install form (AutoGran's write-claim install and
+    its dual check in one launch), made with numpy from ``seed``:
+    [(label, dict)] with the wrapper's arguments (the pre-install table as
+    uint32, the lane priority ``prio`` int32[T]).  Every mode of
+    DUAL_MODES at G = 2, and AutoGran's masks at G = 1 and 3 and the
+    overlap at G = 3, at waves whose claim tag has its top bit set (9)
+    and clear (HIGH_WAVE): T = 8 lanes of K = 40 ops (320, off the
+    256-thread block) on N = 997 rows; K = 1 (300 lanes) and K = 1,030 (3
+    lanes); a fifth of the ops on four hot rows (duplicate cells), keys
+    -1 and past the end, groups G and G + 2, a lane whose priority ties a
+    claim; and AutoGran's masks on a wave of INSTALL_BIG ops on 2**16
+    rows, past an H100's resident threads, so the kernel's threads
+    stride."""
+    rng = np.random.default_rng(seed)
+    configs = [(m, 2, (997, 8, 40)) for m in DUAL_MODES] + [
+        ("waves", 1, (997, 8, 40)), ("waves", 3, (997, 8, 40)),
+        ("overlap", 3, (997, 8, 40)), ("waves", 2, (997, 300, 1)),
+        ("overlap", 2, (4001, 3, 1030))]
+    configs = [(*c, w) for w in (9, HIGH_WAVE) for c in configs] + [
+        ("waves", 2, (1 << 16, *INSTALL_BIG), 9)]
+    cases = []
+    for mode, G, (N, T, K), wave in configs:
+        claim_w = claim_words(rng, N, G, wave, 0.3)
+        keys = _hot_keys(rng, N, T, K)
+        groups = _odd_groups(rng, G, T, K)
+        prio = rng.permutation(1 << 16)[:T]
+        prio[0] = claim_w[keys[0, 0] % N, 0] & 0xFFFF   # a tie
+        write = rng.random((T, K)) < 0.4
+        if mode == "waves":
+            install, check = write, ~write & (rng.random((T, K)) < 0.9)
+        else:
+            install, check = (rng.random((T, K)) < 0.5 for _ in range(2))
+            if mode in ("check_only", "none"):
+                install[:] = False
+            if mode in ("install_only", "none"):
+                check[:] = False
+        cases.append((
+            f"{mode} G={G} wave={wave} T={T} K={K}",
+            dict(claim_w=claim_w, keys=keys.astype(np.int32),
+                 groups=groups.astype(np.int32), prio=prio.astype(np.int32),
+                 check=check, wave=wave, install=install)))
+    return cases
+
+
+def dual_install_case_checks(check, dev):
+    """validate_dual's install form against its plain version
+    (claim_scatter_plain on the expanded priority, then
+    validate_dual_plain) on dual_install_cases: both verdicts and the
+    installed table.  Some case must see a conflict that only this
+    wave's installs give, and a coarse conflict the fine side does not
+    see; on the card the largest case must exceed the resident threads."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.occ_validate import validate_dual_plain
+    cases = dual_install_cases()
+    fresh = coarse_only = 0
+    for label, c in cases:
+        a, b = _case_tensors(c, dev), _case_tensors(c, dev)
+        got = K.validate_dual(a["claim_w"], a["keys"], a["groups"],
+                              a["prio"], a["check"], c["wave"],
+                              install=a["install"])
+        want = validate_dual_plain(b["claim_w"], b["keys"], b["groups"],
+                                   b["prio"], b["check"], c["wave"],
+                                   b["install"])
+        check.compare([*got, a["claim_w"]], [*want, b["claim_w"]])
+        p = _case_tensors(c, dev)
+        before = validate_dual_plain(
+            p["claim_w"], p["keys"], p["groups"],
+            p["prio"][:, None].expand(p["keys"].shape), p["check"],
+            c["wave"])
+        fresh += int((want[1] & ~before[1]).sum())
+        coarse_only += int((want[1] & ~want[0]).sum())
+    cap = None
+    if dev.type == "cuda":
+        props = torch.cuda.get_device_properties(dev)
+        cap = props.multi_processor_count * getattr(
+            props, "max_threads_per_multi_processor", SM_THREADS)
+        if not max(c["keys"].size for _, c in cases) > cap:
+            raise AssertionError(f"validate_dual: no install case exceeds "
+                                 f"the card's {cap} resident threads")
+    log(f"  validate_dual install-form edge cases: {len(cases)} (the "
+        f"largest {max(c['keys'].size for _, c in cases)} ops; the card "
+        f"holds at most {cap} resident threads), {fresh} coarse conflicts "
+        f"from this wave's installs, {coarse_only} coarse-only")
+    if not (fresh and coarse_only):
+        raise AssertionError("validate_dual install form: the cases must "
+                             "conflict on this wave's installs and on the "
+                             "coarse side alone")
+
+
 #: route_pack's edge cases (M, n_dest, cap, W, skew): the one-card wave
 #: (4,096 ops), with scans (8,192) and TPC-C's (16,384; 32,768 with
 #: scans); M off the 256-op tile, one op, none; n_dest 1, 3, 8 and
@@ -1640,6 +1894,7 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
         # The slice-2 kernels, at this wave and at one whose claim tag has
         # its top bit clear, with and without live ops in the mask.
         none = torch.zeros_like(do_w)
+        lane = prio[:, 0].contiguous()
         tables = {wave: (cw0, wts0),
                   HIGH_WAVE: make_tables(N, G, HIGH_WAVE, dev, si + 7)[::2]}
         for wv, (cw_, wts_) in tables.items():
@@ -1655,6 +1910,13 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
                 checks["validate_dual"].compare(
                     K.validate_dual(cw_, keys, groups, prio, chk, wv),
                     validate_dual_plain(cw_, keys, groups, prio, chk, wv))
+                # AutoGran's form: the install, then both verdicts.
+                a, b = cw_.clone(), cw_.clone()
+                checks["validate_dual"].compare(
+                    [*K.validate_dual(a, keys, groups, lane, chk, wv,
+                                      install=inst), a],
+                    [*validate_dual_plain(b, keys, groups, lane, chk, wv,
+                                          inst), b])
                 for fine in (True, False):
                     a, b = cw_.clone(), cw_.clone()
                     checks["claim_probe"].compare(
@@ -1806,7 +2068,8 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
                 bound=bound_ms(n * (4 + 4 + 4 + 1) + installs * 8, n)),
             # Op vectors in, two verdict bytes out, one G-word row read per
             # distinct checked record.
-            "validate_dual": dict(
+            "validate_dual_check": dict(
+                form="the check alone, a priority per op",
                 ms=time_ms(lambda: K.validate_dual(
                     cw, keys, groups, prio, check_w, wave), dev),
                 plain_ms=time_ms(lambda: validate_dual_plain(
@@ -1832,6 +2095,8 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
                                       prio, masks, wave))
         t.update(gather_fold_timings(label, dev, N, G, T, Kk, keys, groups,
                                      prio, masks, wave, parent))
+        t.update(dual_install_timings(label, dev, N, G, T, Kk, keys, groups,
+                                      prio, masks, wave, parent))
         timings[label] = t
     timings["seg"] = segment_count_case_checks(checks["segment_count"],
                                                dev)
@@ -1844,6 +2109,8 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
     claim_probe_case_checks(checks["claim_probe"], dev)
     ts_gather_case_checks(checks["ts_gather"], dev)
     ring_fold_case_checks(checks, dev)
+    bump_fold_case_checks(checks["iterate_validate"], dev)
+    dual_install_case_checks(checks["validate_dual"], dev)
     dist_kernel_checks(checks, dev, dist_lanes)
     verdict_fold_case_checks(checks, dev)
     route_pack_case_checks(checks["route_pack"], dev)
@@ -1940,7 +2207,7 @@ def scan_mv_checks(checks, dev, N, G, keys, groups, prio, masks, wave, seed,
     starts, ext = scan_extents(keys, N, ext_cap, seed)
     hits = []
     for wv in (wave, HIGH_WAVE):
-        dense, dense_r = make_tables(N, G, wv, dev, seed + 11)[:2]
+        dense, dense_r, wts = make_tables(N, G, wv, dev, seed + 11)[:3]
         for fine in (True, False):
             for chk in (check_w, none):
                 checks["validate"].compare(
@@ -1982,7 +2249,17 @@ def scan_mv_checks(checks, dev, N, G, keys, groups, prio, masks, wave, seed,
                             table, starts, ext, groups, prio, chk, wv, fine,
                             B, ext_cap)])
                     hits.append(int(got.sum()))
-        del dense, dense_r, table
+                # The bump form: point conflicts with the scan checks,
+                # none without them; the writes bump.
+                pt = check_w if chk is check_r else none
+                outs = []
+                for fn in (K.iterate_validate, iterate_validate_plain):
+                    w_ = wts.clone()
+                    outs.append([fn(table, starts, ext, groups, prio, chk,
+                                    wv, fine, B, ext_cap, point=pt, wts=w_,
+                                    do=do_w), w_])
+                checks["iterate_validate"].compare(*outs)
+        del dense, dense_r, wts, table
     log(f"  iterate_validate conflicts per case: {hits}")
     if not max(hits) > 0:
         raise AssertionError("iterate_validate: no case had a conflict")
@@ -2071,10 +2348,12 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
         live = b.live()
         do_w = b.is_write() & live
         scan = b.is_scan() & b.is_read() & live
+        reads = b.is_read() & live & ~b.is_scan()
         ext_cap = wl.max_extent
     else:
         _, ext = scan_extents(keys, N, ext_cap, 0)
         scan = (ext > 1) & (keys >= 0)
+        reads = ~scan & ~do_w & (keys >= 0)
     n = T * Kk
     span = scan_span(ext_cap, False, 8)
     table = post_install_claims(N, G, wave, keys, groups, prio, do_w, dev, 5)
@@ -2127,6 +2406,104 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
     if parent:
         out["mv_gather"]["parent_ms"] = time_ms(
             lambda: parent["mv_gather"](begin, keys, groups, 7, True), dev)
+    # The bump form on the same wave: the point conflicts of its reads
+    # (their check on the post-install table), its writes bump; beside the
+    # chain it replaces (the phantom launch, the OR, any, NOT and mask, and
+    # commit_install) on this build and on the parent's kernels.
+    from repro_torch.kernels.occ_validate import validate_plain
+    point = validate_plain(table, keys, groups, prio, reads, wave, False)
+    wts = make_tables(N, G, wave, dev, 6)[2]
+    bump = dict(point=point, wts=wts, do=do_w)
+    commit = ~(iterate_validate_plain(*scan_args) | point).any(dim=1)
+    bumps = _distinct(keys, groups, do_w & commit[:, None], G, N)
+
+    def chain(phantom, install):
+        c = phantom(*scan_args) | point
+        install(wts, keys, groups, do_w & ~c.any(dim=1)[:, None])
+    # iterate_validate's bytes, a point and a write-mask byte an op, a word
+    # read and written per distinct bumped cell.
+    out["iterate_validate_bump"] = dict(
+        ms=time_ms(lambda: K.iterate_validate(*scan_args, **bump), dev),
+        plain_ms=time_ms(lambda: iterate_validate_plain(*scan_args, **bump),
+                         dev),
+        chain_ms=time_ms(lambda: chain(K.iterate_validate,
+                                       K.commit_install), dev),
+        library_ms=None,
+        bound=bound_ms(n * (4 * 4 + 1 + 1 + 1 + 1) + rows_scanned * G * 4
+                       + bumps * 8, rows_scanned * G + n),
+        form=("a scan wave's phantom pass and its version bumps in one "
+              "launch"),
+        shape=(f"{label} scan wave, T={T} K={Kk} N={N} G={G}, coarse "
+               f"B=8 span {span}"),
+        point=int(point.sum()), committed=int(commit.sum()),
+        bumped_cells=bumps)
+    if parent:
+        out["iterate_validate_bump"]["parent_ms"] = time_ms(
+            lambda: chain(parent["iterate_validate"],
+                          parent["commit_install"]), dev)
+    return out
+
+
+def dual_install_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
+                         wave, parent=None):
+    """Times of validate_dual's install form (AutoGran's write-claim
+    install and both verdicts in one cooperative launch) on an AutoGran
+    wave of the main path's workload at the main shapes (else the
+    synthetic ops: installs at do_w, checks at check_w), beside the chain
+    it replaces (two [T, K] copies of the lane priority, claim_scatter and
+    validate_dual: ``chain_ms`` on this build, ``parent_ms`` on the
+    parent's two kernels).  Every call installs into the same table (min
+    is idempotent).  Returns {name: timing dict}."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.occ_validate import validate_dual_plain
+    from repro_torch.launch.txn_bench import make_workload
+    if label in MAIN_KW:
+        wl = make_workload(label, **MAIN_KW[label])
+        if (wl.n_records, wl.slots) != (N, Kk):
+            raise ValueError(f"{label}: shape {(N, Kk)} is not the "
+                             f"workload's {(wl.n_records, wl.slots)}")
+        g = torch.Generator(device=dev)
+        g.manual_seed(17)
+        b, _ = wl.gen(g, wave, T, torch.zeros((wl.n_rings,),
+                                              dtype=torch.int32, device=dev))
+        keys, groups = b.op_key, b.op_group
+        live = b.live()
+        inst = b.is_write() & live
+        check = b.is_read() & live & ~b.is_scan()
+    else:
+        inst, check = masks[0], masks[2]
+    n = T * Kk
+    lane = prio[:, 0].contiguous()
+    cw = make_tables(N, G, wave, dev, 19)[0]
+    args = (cw, keys, groups, lane, check, wave)
+
+    def chain(scatter, dual):
+        scatter(cw, keys, groups, lane[:, None].expand(keys.shape)
+                .contiguous(), wave, inst)
+        return dual(cw, keys, groups, lane[:, None].expand(keys.shape)
+                    .contiguous(), check, wave)
+    installs = _distinct(keys, groups, inst, G, N)
+    rows = _distinct_rows(keys, check, N)
+    # Keys, groups (4 B) and two mask bytes in, two verdict bytes out an
+    # op, the lane priority 4 B a lane; a word read and written per
+    # distinct installed cell, a G-word row read per distinct checked
+    # record.
+    out = {"validate_dual": dict(
+        ms=time_ms(lambda: K.validate_dual(*args, install=inst), dev),
+        plain_ms=time_ms(lambda: validate_dual_plain(*args, inst), dev),
+        chain_ms=time_ms(lambda: chain(K.claim_scatter, K.validate_dual),
+                         dev),
+        library_ms=None,
+        bound=bound_ms(n * (4 + 4 + 1 + 1 + 2) + 4 * T + installs * 8
+                       + rows * G * 4, n + n * G),
+        form=("AutoGran's one launch: the write-claim install and both "
+              "verdicts"),
+        shape=f"{label} AutoGran wave, T={T} K={Kk} N={N} G={G}",
+        installed=int(inst.sum()), checked=int(check.sum()))}
+    if parent:
+        out["validate_dual"]["parent_ms"] = time_ms(
+            lambda: chain(parent["claim_scatter"], parent["validate_dual"]),
+            dev)
     return out
 
 
@@ -3109,6 +3486,21 @@ def _check_kernels(what, rows, launches, dev, scans):
         raise AssertionError(f"{what}: a TicToc wave must launch "
                              "ts_install_max and ts_gather once, an MV "
                              "wave mv_gather never")
+    # An AutoGran wave is one validate_dual launch (its claims installed
+    # in it); with scans every wave but MVCC's launches iterate_validate
+    # once, the bumping waves in its bump form, so commit_install
+    # launches only on AutoGran's point waves.
+    auto_waves = sum(r["waves"] for r in rows if r["cc"] == "autogran")
+    scan_waves = (sum(r["waves"] for r in rows if r["cc"] != "mvcc")
+                  if scans else 0)
+    want = {"validate_dual": auto_waves, "claim_scatter": 0,
+            "iterate_validate": scan_waves,
+            "commit_install": 0 if scans else auto_waves}
+    got = {op: launches[op] for op in want}
+    log(f"  {what} launches {got} over {auto_waves} AutoGran waves, "
+        f"{scan_waves} waves that check scans")
+    if dev.type == "cuda" and got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
 
 
 def main_path(workload, dev, waves=WAVES, lanes=LANES, **wl_kw):
@@ -3380,16 +3772,19 @@ def cross_device(dev, waves=30, scale=0.1, scan_len=0,
 def backend_probe_path(dev, wave=9):
     """The backend ops without an engine caller on the card: ``probe`` after
     ``wave_commit`` installs one wave's write claims at the TPC-C shape
-    (OCC-fine, through the backend) reads the installed table, and
+    (OCC-fine, through the backend) reads the installed table,
     ``mv_gather`` after ``mv_install`` publishes that wave's writes into a
     version ring reads the ring at the next wave's snapshot (the
     multi-version waves run its select inside their validate and claim_probe
-    launches). Counters set to 0 just before, read just after: one launch
-    each. Returns the launches."""
+    launches), and ``claim_scatter`` installs the next wave's write claims
+    into a copy of the installed table (the waves install inside their
+    validate and validate_dual launches). Counters set to 0 just before,
+    read just after: one launch each. Returns the launches."""
     from repro_torch import kernels as K
     from repro_torch.core import mvstore
     from repro_torch.core.backend import BACKEND
     from repro_torch.core.claimword import NO_PRIO, inv_wave
+    from repro_torch.kernels.claim_scatter import claim_scatter_plain
     from repro_torch.kernels.mv_gather import mv_gather_plain
     from repro_torch.kernels.wave_commit import probe_plain
     N, G, T, Kk = SHAPES["tpcc"]
@@ -3406,7 +3801,21 @@ def backend_probe_path(dev, wave=9):
                        mvstore.install_ts(wave))
     snap = mvstore.snapshot_ts(wave + 1)
     slot, ok = BACKEND.mv_gather(begin, keys, groups, snap, True)
+    # The next wave's write claims into a copy of the installed table.
+    scattered = cw.clone()
+    BACKEND.claim_scatter(scattered, keys, groups, prio, wave + 1, do_w)
     launches = K.launch_counts()
+    want_table = cw.clone()
+    claim_scatter_plain(want_table, keys, groups, prio, wave + 1, do_w)
+    next_prio = probe_plain(scattered, keys, groups, inv_wave(wave + 1),
+                            True)
+    log(f"  claim_scatter of the next wave's claims: "
+        f"{int((next_prio != NO_PRIO).sum())} ops see one")
+    if not torch.equal(scattered, want_table):
+        raise AssertionError("Backend.claim_scatter disagrees with "
+                             "claim_scatter_plain")
+    if bool((next_prio[do_w & (keys >= 0)] == NO_PRIO).any()):
+        raise AssertionError("claim_scatter missed a claim")
     want_slot, want_ok = mv_gather_plain(begin, keys, groups, snap, True)
     fresh = do_w & (keys >= 0)
     log(f"  mv_gather of the ring after mv_install: {int(ok.sum())} ops "
@@ -3430,7 +3839,8 @@ def backend_probe_path(dev, wave=9):
         raise AssertionError("probe missed a claim wave_commit installed")
     if dev.type == "cuda" and not all(
             launches[op] == 1
-            for op in ("probe", "wave_commit", "mv_install", "mv_gather")):
+            for op in ("probe", "wave_commit", "mv_install", "mv_gather",
+                       "claim_scatter")):
         raise AssertionError(f"backend probe: launches {launches}")
     return launches
 
@@ -4148,13 +4558,19 @@ def _sync(dev):
 #: verdict_unpack, which the sharded wave's folds replace (the parent's
 #: wave launched each twice); the one-table ts_gather, mv_gather, and
 #: validate's install form called without the ring (the launches an
-#: earlier fold replaced).  Each is bound with this checkout's C
+#: earlier fold replaced); iterate_validate and commit_install (the scan
+#: waves' phantom pass and bumps), claim_scatter and validate_dual
+#: (AutoGran's claims and check).  Each is bound with this checkout's C
 #: signature, which these entries share with the parent's.
 PARENT_KERNELS = {"verdict_pack": "verdict_pack",
                   "verdict_unpack": "verdict_pack",
                   "ts_gather": "ts_gather",
                   "mv_gather": "mv_gather",
-                  "validate_install": "occ_validate"}
+                  "validate_install": "occ_validate",
+                  "iterate_validate": "iterate_validate",
+                  "commit_install": "occ_commit",
+                  "claim_scatter": "claim_scatter",
+                  "validate_dual": "occ_validate"}
 
 
 def parent_kernels(parent_root: str) -> dict:
@@ -4166,6 +4582,7 @@ def parent_kernels(parent_root: str) -> dict:
     import importlib
     from repro_torch.core.claimword import U32_MASK, inv_wave
     from repro_torch.kernels import build
+    from repro_torch.kernels.iterate_validate import scan_span
     out_dir = os.path.join(ROOT, "build", "parent_kernels")
     os.makedirs(out_dir, exist_ok=True)
     csrc = os.path.join(parent_root, "src", "repro_torch", "csrc")
@@ -4217,6 +4634,41 @@ def parent_kernels(parent_root: str) -> dict:
             inv_wave(wave), 0, int(bool(fine)), build.stream(keys.device)))
         return out
 
+    def run_iterate_validate(table, keys, extents, groups, myprio, check,
+                             wave, fine, bucket_size, ext_cap):
+        out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+        N, G = table.shape
+        build.raise_on_error("parent iterate_validate", fns[
+            "iterate_validate"](
+            *(build.ptr(t) for t in (table, keys, extents, groups, myprio,
+                                     check, out, None)),
+            keys.numel(), N, G, inv_wave(wave), int(bool(fine)), bucket_size,
+            scan_span(ext_cap, fine, bucket_size), 0, 0, 0,
+            build.stream(keys.device)))
+        return out
+
+    def run_commit_install(wts, keys, groups, do):
+        N, G = wts.shape
+        build.raise_on_error("parent commit_install", fns["commit_install"](
+            *(build.ptr(t) for t in (wts, keys, groups, do, None)),
+            keys.numel(), N, G, 0, 0, build.stream(keys.device)))
+
+    def run_claim_scatter(table, keys, groups, prio, wave, mask):
+        N, G = table.shape
+        build.raise_on_error("parent claim_scatter", fns["claim_scatter"](
+            *(build.ptr(t) for t in (table, keys, groups, prio, mask)),
+            keys.numel(), N, G, inv_wave(wave), build.stream(keys.device)))
+
+    def run_validate_dual(claim_w, keys, groups, myprio, check, wave):
+        fine = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+        coarse = torch.empty_like(fine)
+        N, G = claim_w.shape
+        build.raise_on_error("parent validate_dual", fns["validate_dual"](
+            *(build.ptr(t) for t in (claim_w, keys, groups, myprio, check,
+                                     fine, coarse)),
+            keys.numel(), N, G, inv_wave(wave), build.stream(keys.device)))
+        return fine, coarse
+
     def run_verdict_pack(v):
         D, M = v.shape
         W = -(-M // 16)
@@ -4236,6 +4688,10 @@ def parent_kernels(parent_root: str) -> dict:
 
     return {"ts_gather": run_ts_gather, "mv_gather": run_mv_gather,
             "validate_install": run_validate_install,
+            "iterate_validate": run_iterate_validate,
+            "commit_install": run_commit_install,
+            "claim_scatter": run_claim_scatter,
+            "validate_dual": run_validate_dual,
             "verdict_pack": run_verdict_pack,
             "verdict_unpack": run_verdict_unpack}
 
@@ -4567,9 +5023,12 @@ def main(argv=None) -> int:
                          "verdict_pack and verdict_unpack beside this "
                          "checkout's folded forms, and its one-table "
                          "ts_gather twice with TicToc's torch arithmetic, "
-                         "its mv_gather, and its validate without the "
-                         "ring with its mv_gather, beside this "
-                         "checkout's folded launches on the same inputs")
+                         "its mv_gather, its validate without the "
+                         "ring with its mv_gather, its iterate_validate "
+                         "and commit_install with the torch mask, and its "
+                         "claim_scatter and validate_dual with the "
+                         "priority copies, beside this checkout's folded "
+                         "launches on the same inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "

@@ -6,7 +6,8 @@ them (XLA gather/scatter and Pallas).  The port keeps the same op names
 and one backend whose ops dispatch on the device of their tensors: CPU
 tensors run the plain PyTorch version, CUDA tensors launch the hand
 kernel (kernels/).  Every op of the surface is ported; ``probe`` has no
-caller in either package's engine.
+caller in either package's engine, and ``claim_scatter`` and
+``mv_gather`` none in the port's (their work rides other ops' calls).
 
 All word tables are updated in place, so ops that install return only
 their per-op outputs (see each kernel module).
@@ -32,14 +33,19 @@ N_OPS = len(SURFACE_OPS)
 #: only by AutoGran and by the unfused route, which also runs
 #: ``claim_probe`` (listed for no mechanism, as in the JAX package).
 #: ``iterate_validate`` runs only where the config admits scans
-#: (``max_extent > 1``), and with scans the fused route moves its bumps
-#: to ``commit_install``.  The lists stay the JAX package's; where the
-#: port folds an op into another op's call, ``kernel_coverage`` reports
-#: it "not_run".  MVCC and MV-OCC install both claim channels and read
+#: (``max_extent > 1``), and with scans the JAX package's fused route
+#: moves its bumps to ``commit_install``.  The lists stay the JAX
+#: package's; where the port folds an op into another op's call,
+#: ``kernel_coverage`` reports it "not_run".  With scans the port's
+#: fused route and AutoGran bump inside the phantom pass's one
+#: ``iterate_validate`` call (its bump form), so ``commit_install`` is
+#: "not_run" there; AutoGran installs its write claims inside its one
+#: ``validate_dual`` call, so ``claim_scatter`` is "not_run" for it.
+#: MVCC and MV-OCC install both claim channels and read
 #: the version ring inside their one ``validate`` call a wave, so the
 #: port reports ``claim_scatter`` and ``mv_gather`` as "not_run" for them
 #: (the JAX package's waves call ``claim_scatter`` twice and
-#: ``mv_gather`` once); AutoGran still calls ``claim_scatter``.  The
+#: ``mv_gather`` once); no engine path calls ``claim_scatter``.  The
 #: port's TicToc reads both timestamp tables and derives ``commit_ts`` in
 #: one ``ts_gather`` call a wave (JAX: two) and makes its three timestamp
 #: installs in one ``ts_install_max`` call; the unfused route's dual
@@ -94,7 +100,10 @@ class Backend:
     Signatures follow the JAX backend's argument order, with optional
     keywords that fold several of its calls into one: ``validate`` takes
     the multi-version waves' claim installs and their version ring
-    (``begin``, ``snap_ts``), ``claim_probe`` a second claim table
+    (``begin``, ``snap_ts``), ``validate_dual`` AutoGran's write-claim
+    install (``install``, with the lane priority int32[T]),
+    ``iterate_validate`` a scan wave's version bumps (``point``,
+    ``wts``, ``do``), ``claim_probe`` a second claim table
     (``claim_r``, ``mask_r``), ``ts_gather`` TicToc's second table, masks
     and extents (``rts``, ``rd``, ``wr``, ``extent``) and
     ``ts_install_max`` TicToc's second table, its extension mask and the
@@ -138,8 +147,9 @@ def kernel_coverage(cc: int, launches: dict, calls: dict) -> dict:
     ``kernels.call_counts()`` over a run: "cuda" where every call launched
     the op's kernel, "torch" where a call ran its plain version, "not_run"
     where the run never called it (``commit_install`` on the fused
-    route of point configs, ``iterate_validate`` without scans,
-    ``claim_scatter`` and ``mv_gather`` under MVCC and MV-OCC)."""
+    route and, with scans, in AutoGran, ``iterate_validate`` without
+    scans, ``claim_scatter`` under MVCC, MV-OCC and AutoGran,
+    ``mv_gather`` under MVCC and MV-OCC)."""
     return _coverage(CC_OPS[cc], launches, calls)
 
 

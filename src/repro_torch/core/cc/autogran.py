@@ -8,8 +8,11 @@ past ``autogran_up`` the record is promoted to fine timestamps for good.
 The version table is always fine-width; promotion only changes the probe
 width of the record (the ``fine_mode`` bit).
 
-Claims install with ``claim_scatter``; both probe widths come from one
-``validate_dual`` call; the bumps go through ``commit_install``.
+The write claims install and both probe widths come from one
+``validate_dual`` call (its install form, the lane priority int32[T]).
+With scans the version bumps ride the phantom pass's ``iterate_validate``
+call (its bump form); on the point mix they go through
+``commit_install``.
 """
 from __future__ import annotations
 
@@ -25,13 +28,15 @@ from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
                   cfg: EngineConfig):
     keys = batch.op_key
-    store = base.write_claims(store, batch, prio, wave, cfg)
-    # Two probe widths, one claim table, one row read per op: the record's
-    # fine_mode bit picks the verdict that applies.
-    myp = base.my_prio_per_op(batch, prio)
-    check = batch.is_read() & batch.live() & ~batch.is_scan()
+    live = batch.live()
+    # The write claims, then two probe widths from one row read per op on
+    # the installed table: the record's fine_mode bit picks the verdict
+    # that applies.
+    check = batch.is_read() & live & ~batch.is_scan()
+    do_w = batch.is_write() & live
     conflict_fine, conflict_coarse = kb.BACKEND.validate_dual(
-        store.claim_w, keys, batch.op_group, myp, check, wave)
+        store.claim_w, keys, batch.op_group, prio, check, wave,
+        install=do_w)
 
     k, valid = claims.record_index(keys, store.fine_mode.shape[0])
     is_fine_rec = valid & store.fine_mode[k]
@@ -39,8 +44,12 @@ def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
     T, K = keys.shape
     u = claims.hash01(wave, claims.lane_op_ids(T, K, keys.device))
     conflict = conflict & (u < cfg.cost.opt_overlap)   # window thinning
-    conflict = conflict | base.phantom_validate(store, batch, prio, wave,
-                                                cfg, fine=False)
+    scans = cfg.max_extent > 1
+    if scans:
+        # The phantom pass and the version bumps in one call: no code
+        # below reads or writes wts.
+        conflict = base.phantom_validate(store, batch, prio, wave, cfg,
+                                         fine=False, point=conflict, do=do_w)
     res = base.result_from_conflicts(batch, conflict, eager=False,
                                      cause_op=t.CAUSE_READ_VAL)
 
@@ -54,5 +63,6 @@ def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
     promote = false_ev & (cur > cfg.autogran_up) & valid
     store.fine_mode[k[promote]] = True
 
-    store = base.bump_versions(store, batch, res.commit, cfg)
+    if not scans:
+        store = base.bump_versions(store, batch, res.commit, cfg)
     return store, res

@@ -7,15 +7,17 @@ claim -> verdict -> install chain through ``claim_probe_commit`` below.
 the claim tables (both in one call on a dual wave), the verdict compare in
 tensor ops and ``commit_install`` for the bumps.  Both routes evaluate the
 same mask algebra over the same primitives, so they are bit-identical.
-AutoGran installs with ``write_claims`` and bumps with ``bump_versions``;
-the multi-version pair installs both claim channels inside its one
-``validate`` call (``cc/mvcc.py``).
+AutoGran installs its write claims inside its one ``validate_dual`` call
+(``cc/autogran.py``); the multi-version pair installs both claim channels
+inside its one ``validate`` call (``cc/mvcc.py``).
 
 Scans (ops with ``op_extent > 1``, admitted by ``cfg.max_extent > 1``)
 ride no point channel: they validate only through ``phantom_validate``
 (the ``iterate_validate`` op) against the post-install writer-claim table,
 and the version bumps move after it, so a lane that loses a phantom never
-advances a version.
+advances a version.  On the fused route and in AutoGran the bumps ride
+that call (its bump form, ``point=``); the unfused route and AutoGran's
+point waves bump with ``bump_versions`` (``commit_install``).
 """
 from __future__ import annotations
 
@@ -93,20 +95,12 @@ def bump_versions(store: StoreState, batch: TxnBatch, commit: torch.Tensor,
     return store
 
 
-def write_claims(store: StoreState, batch: TxnBatch, prio: torch.Tensor,
-                 wave: int, cfg: EngineConfig) -> StoreState:
-    """Write-set claims into the writer-claim table (backend
-    ``claim_scatter``), in place."""
-    kb.BACKEND.claim_scatter(store.claim_w, batch.op_key, batch.op_group,
-                             my_prio_per_op(batch, prio), wave,
-                             batch.is_write() & batch.live())
-    return store
-
-
 def phantom_validate(store: StoreState, batch: TxnBatch, prio: torch.Tensor,
                      wave: int, cfg: EngineConfig,
                      fine: Optional[bool] = None, *,
-                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     mask: Optional[torch.Tensor] = None,
+                     point: Optional[torch.Tensor] = None,
+                     do: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Interval (scan) validation, the phantom check: a live scan READ
     conflicts when a record of its interval (exact at its group when fine,
     bucket-expanded over the whole row when coarse) carries a live claim
@@ -114,7 +108,15 @@ def phantom_validate(store: StoreState, batch: TxnBatch, prio: torch.Tensor,
     table.  Unthinned: an iterator's window spans the whole wave.
     ``mask`` narrows the checked ops (MV-OCC: update lanes only).  Returns
     conflict bool[T, K]; all-False without calling the backend when the
-    config admits no scans."""
+    config admits no scans.
+
+    With ``point`` (the wave's point conflicts; the config must admit
+    scans) and ``do`` (the live writes) it returns ``point | phantom`` and
+    bumps ``wts`` (in place) by 1 per ``do`` op of a committing lane, in
+    the same backend call."""
+    if point is not None and cfg.max_extent <= 1:
+        raise ValueError("phantom_validate: the bump form needs scans "
+                         "(cfg.max_extent > 1)")
     if cfg.max_extent <= 1:
         return torch.zeros(batch.op_key.shape, dtype=torch.bool,
                            device=batch.op_key.device)
@@ -123,10 +125,11 @@ def phantom_validate(store: StoreState, batch: TxnBatch, prio: torch.Tensor,
     check = batch.is_scan() & batch.is_read() & batch.live()
     if mask is not None:
         check = check & mask
+    bump = {} if point is None else dict(point=point, wts=store.wts, do=do)
     return kb.BACKEND.iterate_validate(
         store.claim_w, batch.op_key, batch.op_extent, batch.op_group,
         my_prio_per_op(batch, prio), check, wave, fine, cfg.bucket_size,
-        cfg.max_extent)
+        cfg.max_extent, **bump)
 
 
 def claim_probe_commit(store: StoreState, batch: TxnBatch,
@@ -158,8 +161,9 @@ def claim_probe_commit(store: StoreState, batch: TxnBatch,
     With scans (``cfg.max_extent > 1``) the scan ops are carved out of
     every point channel and of the reader-claim installs, the phantom pass
     runs on the post-install writer-claim table, and the bumps follow it:
-    the fused route runs ``wave_commit`` without its bump and bumps
-    through ``commit_install``.  Returns ``(store, conflict bool[T, K])``.
+    the fused route runs ``wave_commit`` without its bump and bumps in the
+    phantom pass's ``iterate_validate`` call (its bump form).  Returns
+    ``(store, conflict bool[T, K])``.
     """
     if fine is None:
         fine = is_fine(cfg)
@@ -190,10 +194,12 @@ def claim_probe_commit(store: StoreState, batch: TxnBatch,
             store.wts if fuse_bump else None, keys, groups, myp, do_w, do_r,
             check_w, check_w2, check_r, extra, wave, fine, dual, fuse_bump)
         if scan is not None:
-            conflict = conflict | phantom_validate(store, batch, prio, wave,
-                                                   cfg, fine)
             if bump:
-                bump_versions(store, batch, ~conflict.any(dim=1), cfg)
+                conflict = phantom_validate(store, batch, prio, wave, cfg,
+                                            fine, point=conflict, do=do_w)
+            else:
+                conflict = conflict | phantom_validate(store, batch, prio,
+                                                       wave, cfg, fine)
         return store, conflict
 
     # Unfused: the chain of the megakernel, term by term; a dual wave

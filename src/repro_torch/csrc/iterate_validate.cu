@@ -47,6 +47,20 @@
 // that launch in the same stream, so no other ordering is needed.  This
 // replaces the verdict bytes, their cast and the OR before the owner's
 // verdict_pack launch.
+//
+// The bump form is a scan wave's phantom pass and its version bumps in one
+// launch (the local waves of OCC, 2PL, SwissTM, Adaptive and AutoGran with
+// scans).  It takes the wave's point conflicts `point`, the write mask `do`
+// and the version table `wts` (as the claim table, [N, G]), writes point |
+// phantom per op, and adds 1 to wts[key, group] for every op with `do` set,
+// its cell in the table, and no conflict anywhere in its lane: the
+// commit_install launch (occ_commit.cu) after this one and the torch OR,
+// any, NOT and mask between them, folded in.  Its blocks hold whole lanes
+// (256 / K of them, or one lane of more than 256 ops strided over 256
+// threads), so a lane's verdict is one flag in shared memory and one
+// __syncthreads(); each thread keeps the walk above.  The bumps add a key,
+// a group and a mask byte an op to the bytes, and a word read and written
+// per distinct bumped cell.
 #include "claim.cuh"
 #include "verdict_word.cuh"
 
@@ -56,23 +70,22 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kWarp = 32;
 constexpr int kUnroll = 4;                  // rows a lane loads a batch
 constexpr int kBatch = kWarp * kUnroll;     // rows a warp tests at once
+constexpr int kBlock = 256;                 // threads of a bump-form block
 
-__global__ void iterate_validate_kernel(
+// The phantom verdict of op i (has: the thread holds an op).  Every
+// thread of the warp calls it together, the ones without an op too: the
+// ballot and the walks are warp-wide.
+__device__ __forceinline__ bool phantom_walk(
     const unsigned* __restrict__ table, const int* __restrict__ keys,
     const int* __restrict__ extents, const int* __restrict__ groups,
-    const int* __restrict__ myprio, const bool* __restrict__ check,
-    bool* __restrict__ out, unsigned* __restrict__ words, int n, int N,
-    int G, unsigned ivw, int fine, int B, int span, int row, int W,
-    int bit) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const int* __restrict__ myprio, const bool* __restrict__ check, int i,
+    bool has, int N, int G, unsigned ivw, int fine, int B, int span) {
   const int lane = threadIdx.x % kWarp;
-  // Every thread of the warp takes part in the ballot and the walks, the
-  // ones past n too (blockDim.x is a multiple of 32).
   long long start = 0;
   int rows = 0, g = 0;
   unsigned p = 0;
   bool need = false;
-  if (i < n && check[i]) {
+  if (has && check[i]) {
     const long long key = keys[i];
     g = groups[i];
     if (key >= 0 && (!fine || (g >= 0 && g < G))) {
@@ -147,11 +160,72 @@ __global__ void iterate_validate_kernel(
     }
     if (lane == src) conflict = hit;
   }
+  return conflict;
+}
+
+__global__ void iterate_validate_kernel(
+    const unsigned* __restrict__ table, const int* __restrict__ keys,
+    const int* __restrict__ extents, const int* __restrict__ groups,
+    const int* __restrict__ myprio, const bool* __restrict__ check,
+    bool* __restrict__ out, unsigned* __restrict__ words, int n, int N,
+    int G, unsigned ivw, int fine, int B, int span, int row, int W,
+    int bit) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  // blockDim.x is a multiple of 32: the threads past n walk with no op.
+  const bool conflict = phantom_walk(table, keys, extents, groups, myprio,
+                                     check, i, i < n, N, G, ivw, fine, B,
+                                     span);
   if (i >= n) return;
   if (words == nullptr) {
     out[i] = conflict;
   } else if (conflict) {
     verdict::or_field(words, i, row, W, 1u << bit);
+  }
+}
+
+// The bump form: a block holds `lanes` whole lanes of K ops (lanes x K <=
+// kBlock, or one lane of K > kBlock ops strided over the block).  Pass 1:
+// each op's verdict point | phantom, written out and OR-ed into its lane's
+// flag in shared memory; pass 2, after one __syncthreads(): each op of a
+// lane without a conflict that has `do` set and a cell in the table adds 1
+// to wts (atomicAdd: wraps mod 2^32, any order gives occ_commit's table).
+// Nothing in the launch reads wts, and a lane's verdict is its own ops',
+// so no grid barrier is needed.
+__global__ void __launch_bounds__(kBlock) iterate_validate_bump_kernel(
+    const unsigned* __restrict__ table, const int* __restrict__ keys,
+    const int* __restrict__ extents, const int* __restrict__ groups,
+    const int* __restrict__ myprio, const bool* __restrict__ check,
+    const bool* __restrict__ point, const bool* __restrict__ do_,
+    unsigned* __restrict__ wts, bool* __restrict__ out, int T, int K,
+    int lanes, int N, int G, unsigned ivw, int fine, int B, int span) {
+  __shared__ int lost[kBlock];  // a conflict in local lane l
+  const int lane0 = blockIdx.x * lanes;
+  const int mine = T - lane0 < lanes ? T - lane0 : lanes;
+  const int ops = mine * K;
+  const int base = lane0 * K;
+  if (threadIdx.x < lanes) lost[threadIdx.x] = 0;
+  __syncthreads();
+  // The trip count is the block's, so every warp walks in step.
+  const int span_ops = lanes * K;
+  for (int j0 = 0; j0 < span_ops; j0 += blockDim.x) {
+    const int j = j0 + threadIdx.x;
+    const bool has = j < ops;
+    const int i = base + j;
+    bool c = phantom_walk(table, keys, extents, groups, myprio, check, i,
+                          has, N, G, ivw, fine, B, span);
+    if (has) {
+      c = c || point[i];
+      out[i] = c;
+      if (c) lost[j / K] = 1;
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < ops; j += blockDim.x) {
+    const int i = base + j;
+    if (lost[j / K] || !do_[i]) continue;
+    const int key = keys[i];
+    const int g = groups[i];
+    if (claim::in_cell(key, g, N, G)) atomicAdd(wts + (size_t)key * G + g, 1u);
   }
 }
 
@@ -177,5 +251,30 @@ extern "C" int repro_iterate_validate(const void* table, const void* keys,
         static_cast<bool*>(out), static_cast<unsigned*>(words), n, N, G,
         (unsigned)ivw, fine, B, span, row, W, bit);
   }
+  return (int)cudaGetLastError();
+}
+
+// The bump form: ops [T, K]; point, do_, wts and out all set.
+extern "C" int repro_iterate_validate_bump(
+    const void* table, const void* keys, const void* extents,
+    const void* groups, const void* myprio, const void* check,
+    const void* point, const void* do_, void* wts, void* out, int T, int K,
+    int N, int G, int ivw, int fine, int B, int span, void* stream) {
+  if (point == nullptr || do_ == nullptr || wts == nullptr ||
+      out == nullptr || T < 0 || K < 0)
+    return (int)cudaErrorInvalidValue;
+  if (T == 0 || K == 0) return (int)cudaGetLastError();
+  const int lanes = K <= kBlock ? kBlock / K : 1;
+  const int ops = lanes * K;
+  const int threads = ops < kBlock ? (ops + kWarp - 1) / kWarp * kWarp
+                                   : kBlock;
+  iterate_validate_bump_kernel<<<(T + lanes - 1) / lanes, threads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(table), static_cast<const int*>(keys),
+      static_cast<const int*>(extents), static_cast<const int*>(groups),
+      static_cast<const int*>(myprio), static_cast<const bool*>(check),
+      static_cast<const bool*>(point), static_cast<const bool*>(do_),
+      static_cast<unsigned*>(wts), static_cast<bool*>(out), T, K, lanes, N,
+      G, (unsigned)ivw, fine, B, span);
   return (int)cudaGetLastError();
 }

@@ -64,6 +64,18 @@
 // installs and the barrier wait; every op loads its key and group for
 // them, whatever its install and check flags.  The ring adds D x G words
 // per distinct live record and a flag byte an op to the bytes.
+//
+// validate_dual_install: AutoGran's write-claim install and its dual check
+// as one launch.  The wave scattered its write claims into claim_w
+// (claim_scatter) and then ran validate_dual on the same ops: two launches
+// and two [T, K] copies of the lane priority.  Here, on validate_install's
+// plan: every op with `install` set and its cell in the table atomicMin's
+// (inv_wave << 16) | prio16 into claim_w, prio[i / K] the lane priority;
+// one grid barrier; then validate_dual's two verdicts from one row read
+// through L2 (__ldcg): fine at the op's group, coarse as the row minimum.
+// The same co-resident grid (its own occupancy query), the same stride
+// past it.  The bytes are claim_scatter's and validate_dual's, so the
+// bound is theirs.
 #include <cooperative_groups.h>
 
 #include "claim.cuh"
@@ -155,22 +167,85 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Co-resident blocks of validate_install_kernel per device; 0 until
-// queried.
-int g_grid[kMaxDevices];
+// validate_dual's install form: AutoGran's claim install and its dual
+// check as one launch, on validate_install_kernel's plan.
+struct DualArgs {
+  unsigned* claim_w;
+  const int* keys;
+  const int* groups;
+  const int* prio;  // int32[T], the lane priority
+  const bool* install;
+  const bool* check;
+  bool* fine_out;
+  bool* coarse_out;
+  int n, K, N, G;
+  unsigned ivw;
+};
 
-cudaError_t grid_limit(int* out) {
+enum : unsigned { kInstall = 1, kCheck = 2 };
+
+__device__ __forceinline__ Op load_dual_op(const DualArgs& a, int i) {
+  Op op{};
+  op.f = (a.install[i] ? kInstall : 0u) | (a.check[i] ? kCheck : 0u);
+  if (op.f == 0) return op;  // nothing to do
+  op.key = a.keys[i];
+  op.g = a.groups[i];
+  op.p = (unsigned)a.prio[i / a.K];
+  return op;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    validate_dual_install_kernel(const DualArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const int stride = gridDim.x * kThreads;
+  const int first = blockIdx.x * kThreads + threadIdx.x;
+  const Op held = first < a.n ? load_dual_op(a, first) : Op{};
+  // 1. the install.
+  for (int i = first; i < a.n; i += stride) {
+    const Op op = i == first ? held : load_dual_op(a, i);
+    if ((op.f & kInstall) && claim::in_cell(op.key, op.g, a.N, a.G))
+      atomicMin(a.claim_w + (size_t)op.key * a.G + op.g,
+                claim::word(a.ivw, (int)op.p));
+  }
+  // 2. every install before any check.
+  grid.sync();
+  // 3. both probe widths from one row read, through L2.
+  for (int i = first; i < a.n; i += stride) {
+    const Op op = i == first ? held : load_dual_op(a, i);
+    const bool c = (op.f & kCheck) != 0;
+    unsigned fp = claim::kNoPrio;
+    unsigned cp = claim::kNoPrio;
+    if (c && op.key >= 0 && op.key < a.N) {
+      const unsigned* row = a.claim_w + (size_t)op.key * a.G;
+      for (int j = 0; j < a.G; ++j) {
+        const unsigned v = claim::live_prio(__ldcg(row + j), a.ivw);
+        cp = min(cp, v);
+        if (j == op.g) fp = v;
+      }
+    }
+    a.fine_out[i] = c && fp < op.p;
+    a.coarse_out[i] = c && cp < op.p;
+  }
+}
+
+// Co-resident blocks of a cooperative kernel per device (`cache`, one slot
+// a device; 0 until queried).
+int g_grid_install[kMaxDevices];
+int g_grid_dual[kMaxDevices];
+
+template <typename Kernel>
+cudaError_t grid_limit(Kernel kernel, int* cache, int* out) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  int* slot = dev < kMaxDevices ? &g_grid[dev] : nullptr;
+  int* slot = dev < kMaxDevices ? &cache[dev] : nullptr;
   if (slot != nullptr && *slot > 0) {
     *out = *slot;
     return cudaSuccess;
   }
   int per_sm = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, validate_install_kernel, kThreads, 0);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kThreads, 0);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
@@ -332,13 +407,50 @@ extern "C" int repro_validate_install(
                 snap_ts,
                 fine};
   int limit = 0;
-  cudaError_t e = grid_limit(&limit);
+  cudaError_t e =
+      grid_limit(validate_install_kernel, g_grid_install, &limit);
   if (e != cudaSuccess) return (int)e;
   const int need = (a.n + kThreads - 1) / kThreads;
   const int blocks = need < limit ? need : limit;
   void* params[] = {&a};
   e = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(validate_install_kernel), dim3(blocks),
+      dim3(kThreads), params, 0, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// validate_dual's install form: ops [T, K], prio int32[T].
+extern "C" int repro_validate_dual_install(
+    void* claim_w, const void* keys, const void* groups, const void* prio,
+    const void* install, const void* check, void* fine_out, void* coarse_out,
+    int T, int K, int N, int G, int ivw, void* stream) {
+  if (install == nullptr || fine_out == nullptr || coarse_out == nullptr ||
+      T < 0 || K < 0)
+    return (int)cudaErrorInvalidValue;
+  if (T == 0 || K == 0) return (int)cudaGetLastError();
+  DualArgs a{static_cast<unsigned*>(claim_w),
+             static_cast<const int*>(keys),
+             static_cast<const int*>(groups),
+             static_cast<const int*>(prio),
+             static_cast<const bool*>(install),
+             static_cast<const bool*>(check),
+             static_cast<bool*>(fine_out),
+             static_cast<bool*>(coarse_out),
+             T * K,
+             K,
+             N,
+             G,
+             (unsigned)ivw};
+  int limit = 0;
+  cudaError_t e = grid_limit(validate_dual_install_kernel, g_grid_dual,
+                             &limit);
+  if (e != cudaSuccess) return (int)e;
+  const int need = (a.n + kThreads - 1) / kThreads;
+  const int blocks = need < limit ? need : limit;
+  void* params[] = {&a};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(validate_dual_install_kernel), dim3(blocks),
       dim3(kThreads), params, 0, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -32,6 +32,13 @@ snapshot ``snap_ts``): it then returns ``(conflict, ok)``, ``ok`` bool[T,
 K] being ``mv_gather(begin, keys, groups, snap_ts, fine)[1]`` for every
 op, the wave's snapshot read folded into the same launch.
 
+``validate_dual`` takes AutoGran's write-claim install the same way
+(``install``): first, for every op with ``install`` set and its cell in
+the table, ``claim_w[key, group] = min(..., (inv_wave << 16) | prio16)``
+in place, then both verdicts on the installed table, ``myprio`` the lane
+priority int32[T].  AutoGran's wave makes that one call
+(``cc/autogran.py``).
+
 CUDA tensors launch ``csrc/occ_validate.cu``: one thread per op reading the
 rows its checks name, and with the installs one cooperative launch
 (installs, a grid barrier, the check); CPU tensors take the plain versions
@@ -56,6 +63,7 @@ from repro_torch.kernels.scatter import gather_rows, pick_group
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"repro_validate_dual": [_P] * 7 + [_I] * 4 + [_P],
+        "repro_validate_dual_install": [_P] * 8 + [_I] * 5 + [_P],
         "repro_validate": [_P] * 6 + [_I] * 5 + [_P],
         "repro_validate_pair": [_P] * 8 + [_I] * 5 + [_P],
         "repro_validate_install": ([_P] * 12 + [_I] * 6
@@ -181,7 +189,11 @@ validate.calls = 0
 
 def validate_dual_plain(claim_w: torch.Tensor, keys: torch.Tensor,
                         groups: torch.Tensor, myprio: torch.Tensor,
-                        check: torch.Tensor, wave: int):
+                        check: torch.Tensor, wave: int,
+                        install: Optional[torch.Tensor] = None):
+    if install is not None:
+        myprio = myprio[:, None].expand(keys.shape)
+        claim_scatter_plain(claim_w, keys, groups, myprio, wave, install)
     rows, valid = gather_rows(claim_w, keys)
     pr = torch.where(valid[..., None], live_prio(rows, inv_wave(wave)),
                      NO_PRIO)
@@ -193,28 +205,49 @@ def validate_dual_plain(claim_w: torch.Tensor, keys: torch.Tensor,
 
 def validate_dual(claim_w: torch.Tensor, keys: torch.Tensor,
                   groups: torch.Tensor, myprio: torch.Tensor,
-                  check: torch.Tensor, wave: int):
-    """(fine, coarse) conflict flags, bool[T, K] each."""
+                  check: torch.Tensor, wave: int,
+                  install: Optional[torch.Tensor] = None):
+    """(fine, coarse) conflict flags, bool[T, K] each.  With ``install``
+    the call first installs those ops' write claims into ``claim_w`` (in
+    place) and ``myprio`` is the lane priority int32[T]."""
     validate_dual.calls += 1
+    want = tuple(keys.shape[:1]) if install is not None else \
+        tuple(keys.shape)
+    if (install is not None and keys.dim() != 2) or \
+            tuple(myprio.shape) != want:
+        raise ValueError(f"validate_dual: myprio is the lane priority [T] "
+                         f"with install (keys [T, K]), else per op; got "
+                         f"myprio {tuple(myprio.shape)}, keys "
+                         f"{tuple(keys.shape)}, install "
+                         f"{install is not None}")
     if keys.device.type == "cpu":
-        return validate_dual_plain(claim_w, keys, groups, myprio, check, wave)
+        return validate_dual_plain(claim_w, keys, groups, myprio, check, wave,
+                                   install)
     dev = build.launch_device(keys)
     N, G = claim_w.shape
     shape = tuple(keys.shape)
     build.check("claim_w", claim_w, torch.int32, (N, G), dev)
     build.check("keys", keys, torch.int32, shape, dev)
     build.check("groups", groups, torch.int32, shape, dev)
-    build.check("myprio", myprio, torch.int32, shape, dev)
+    build.check("myprio", myprio, torch.int32, want, dev)
     build.check("check", check, torch.bool, shape, dev)
     fine = torch.empty(shape, dtype=torch.bool, device=dev)
     coarse = torch.empty(shape, dtype=torch.bool, device=dev)
     lib = build.load("occ_validate", _SIG)
     with torch.cuda.device(dev):
-        rc = lib.repro_validate_dual(
-            build.ptr(claim_w), build.ptr(keys), build.ptr(groups),
-            build.ptr(myprio), build.ptr(check), build.ptr(fine),
-            build.ptr(coarse), keys.numel(), N, G, inv_wave(wave),
-            build.stream(dev))
+        if install is not None:
+            build.check("install", install, torch.bool, shape, dev)
+            rc = lib.repro_validate_dual_install(
+                build.ptr(claim_w), build.ptr(keys), build.ptr(groups),
+                build.ptr(myprio), build.ptr(install), build.ptr(check),
+                build.ptr(fine), build.ptr(coarse), shape[0], shape[1], N,
+                G, inv_wave(wave), build.stream(dev))
+        else:
+            rc = lib.repro_validate_dual(
+                build.ptr(claim_w), build.ptr(keys), build.ptr(groups),
+                build.ptr(myprio), build.ptr(check), build.ptr(fine),
+                build.ptr(coarse), keys.numel(), N, G, inv_wave(wave),
+                build.stream(dev))
     build.raise_on_error("validate_dual", rc)
     validate_dual.launches += 1
     return fine, coarse

@@ -67,8 +67,9 @@ def test_padded_and_open_loop_steps_identical_on_card_and_cpu():
 
 @pytest.mark.cuda
 def test_fused_and_unfused_routes_identical_with_scans_on_card():
-    """Under scans the fused route bumps through commit_install after the
-    phantom pass."""
+    """Under scans the fused route bumps inside the phantom pass's
+    iterate_validate launch, the unfused route through commit_install
+    after it."""
     chip_smoke.fused_unfused(_cuda(), waves=5, scale=0.01,
                              ccs=(("occ", 0), ("2pl", 1)), scan_len=16)
 
@@ -384,6 +385,32 @@ def test_sharded_wave_packs_and_unpacks_once_a_wave_on_card():
     finally:
         close_shards(shards)
     assert total["verdict_pack"] == total["verdict_unpack"] == 4 * runs
+
+
+@pytest.mark.cuda
+def test_iterate_validate_bump_form_bit_identical_on_card_cases():
+    """iterate_validate's bump form (a scan wave's phantom pass and its
+    version bumps in one launch) against the chain it replaces on
+    chip_smoke.bump_fold_cases: K = 1 to 1,030, every lane role, every
+    write masked, wts words that wrap, a wave past the resident grid."""
+    check = chip_smoke.KernelCheck("iterate_validate")
+    chip_smoke.bump_fold_case_checks(check, _cuda())
+    torch.cuda.synchronize()
+    assert check.equal and check.max_err == 0.0
+    assert check.cases == len(chip_smoke.bump_fold_cases())
+
+
+@pytest.mark.cuda
+def test_validate_dual_install_form_bit_identical_on_card_cases():
+    """validate_dual's install form (AutoGran's write-claim install and
+    dual check in one cooperative launch) against claim_scatter_plain and
+    validate_dual_plain on chip_smoke.dual_install_cases, the installed
+    table too; the largest case strides past the resident grid."""
+    check = chip_smoke.KernelCheck("validate_dual")
+    chip_smoke.dual_install_case_checks(check, _cuda())
+    torch.cuda.synchronize()
+    assert check.equal and check.max_err == 0.0
+    assert check.cases == len(chip_smoke.dual_install_cases())
 
 
 #: Small cases of the language-model kernels: ragged lengths, GQA ratios
