@@ -118,14 +118,17 @@ src/repro_torch/csrc, then:
      resident grid; each timed at the one-card shapes beside the chain it
      replaces and the claim and install launches beside the same call
      without the words.
-     With --parent DIR the parent's full-row verdict_pack and
-     verdict_unpack (alone and in the sharded verdict chains), ts_gather (the parent's
-     one-table launch twice and the torch arithmetic), mv_gather and
-     validate without the ring, the latter with mv_gather, and the
-     chains of the bump and install forms on the parent's
-     iterate_validate, commit_install, claim_scatter and validate_dual
-     are timed beside the kernels of the commit unpacked in DIR, built
-     from its sources;
+     Every wave kernel reads the wave (and the ring stamps derived from
+     it) from device memory; a case's int wave is copied there once.
+     With --parent DIR the parent's builds of the wave kernels (the wave
+     by value: wave_commit, claim_probe on one and two tables,
+     validate's install form with the ring, validate_dual and its
+     install form, claim_scatter, iterate_validate and its bump form,
+     mv_gather, mv_install), its full-row verdict_pack and
+     verdict_unpack (alone and in the sharded verdict chains) and
+     ts_gather (the parent's one-table launch twice and the torch
+     arithmetic) are timed beside this checkout's kernels on the same
+     inputs, built from the sources of the commit unpacked in DIR;
   2. the main path on TPC-C (full scale, T = 128, 200 waves) through the
      benchmark CLI's grid runner: OCC, TicToc, 2PL, SwissTM and Adaptive
      x coarse and fine, plus AutoGran coarse, with the launch counters set
@@ -198,6 +201,15 @@ src/repro_torch/csrc, then:
      inc_drops, offered == admitted + arrival_drops, reenq_drops == 0 and
      inc_cap aborts == inc_drops, exactly; goodput and p50/p99
      time-to-commit printed;
+ 9g. sync-free waves (sync_free_path): every mechanism x coarse and fine
+     on TPC-C and YCSB point, TPC-C scan_len 200 with OCC, AutoGran and
+     MVCC, YCSB workload E with OCC, the unfused route with OCC, 2PL and
+     Adaptive, and the open step (YCSB, OCC and MVCC, rate 96, queue
+     512), T = 128: two eager waves of engine.draw_wave (the draws and the
+     step), then three under torch.cuda.set_sync_debug_mode("error") and
+     torch.profiler with no host-to-device or device-to-host copy and no
+     stream or device synchronize among them; the wave index advanced on
+     the device;
  10. the sharded engine (core/distributed.py) on a one-rank NCCL group:
      YCSB and TPC-C at the main path's sizes and YCSB workload E, 256
      lanes, 200 waves, OCC/MVCC/MV-OCC x coarse and fine and OCC fine
@@ -2087,12 +2099,24 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
                 library_ms=None,
                 bound=bound_ms(n * (4 + 4 + 4) + probed * 4, n)),
         }
+        if parent:
+            # The parent's build of the same calls, the wave by value.
+            t["wave_commit"]["parent_ms"] = time_ms(
+                lambda: parent["wave_commit"](
+                    cw, None, wt, keys, groups, prio, do_w, None, check_w,
+                    None, None, None, wave, True, False, True), dev)
+            t["claim_scatter"]["parent_ms"] = time_ms(
+                lambda: parent["claim_scatter"](cw, keys, groups, prio, wave,
+                                                do_w), dev)
+            t["validate_dual_check"]["parent_ms"] = time_ms(
+                lambda: parent["validate_dual"](cw, keys, groups, prio,
+                                                check_w, wave), dev)
         t.update(scan_mv_timings(label, dev, N, G, T, Kk, keys, groups,
                                  prio, do_w, wave, parent))
         t.update(validate_install_timings(label, dev, N, G, T, Kk, keys,
                                           groups, prio, masks, wave, parent))
         t.update(tictoc_probe_timings(label, dev, N, G, T, Kk, keys, groups,
-                                      prio, masks, wave))
+                                      prio, masks, wave, parent))
         t.update(gather_fold_timings(label, dev, N, G, T, Kk, keys, groups,
                                      prio, masks, wave, parent))
         t.update(dual_install_timings(label, dev, N, G, T, Kk, keys, groups,
@@ -2361,12 +2385,16 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
     rows_scanned = _covered_rows(keys, ext, scan, N, 8, span)
     rows_live = _distinct_rows(keys, torch.ones_like(do_w), N)
     rows_written = _distinct_rows(keys, do_w, N)
+    # Each call stamps above the last, as successive waves do: this build
+    # reads its stamp from device memory (a 0-d view of one arange, made
+    # before the timed calls), the parent's took it by value.
+    stamps = torch.arange(101, 101 + 4096, dtype=torch.int64, device=dev)
     ts = [100]
 
-    def install(fn):
-        # Each call stamps above the last, as successive waves do.
+    def install(fn, on_device=True):
         ts[0] += 1
-        fn(begin, head, keys, groups, do_w, ts[0])
+        fn(begin, head, keys, groups, do_w,
+           stamps[ts[0] - 101] if on_device else ts[0])
     log(f"  {label:5s} scan wave: {int(scan.sum())} scans over "
         f"{rows_scanned} rows (coarse span {span}), {rows_written} written "
         f"records")
@@ -2404,12 +2432,16 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
                            n)),
     }
     if parent:
+        out["iterate_validate"]["parent_ms"] = time_ms(
+            lambda: parent["iterate_validate"](*scan_args), dev)
         out["mv_gather"]["parent_ms"] = time_ms(
             lambda: parent["mv_gather"](begin, keys, groups, 7, True), dev)
+        out["mv_install"]["parent_ms"] = time_ms(
+            lambda: install(parent["mv_install"], on_device=False), dev)
     # The bump form on the same wave: the point conflicts of its reads
     # (their check on the post-install table), its writes bump; beside the
     # chain it replaces (the phantom launch, the OR, any, NOT and mask, and
-    # commit_install) on this build and on the parent's kernels.
+    # commit_install) on this build, and the parent's bump form.
     from repro_torch.kernels.occ_validate import validate_plain
     point = validate_plain(table, keys, groups, prio, reads, wave, False)
     wts = make_tables(N, G, wave, dev, 6)[2]
@@ -2439,8 +2471,7 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
         bumped_cells=bumps)
     if parent:
         out["iterate_validate_bump"]["parent_ms"] = time_ms(
-            lambda: chain(parent["iterate_validate"],
-                          parent["commit_install"]), dev)
+            lambda: parent["iterate_validate"](*scan_args, **bump), dev)
     return out
 
 
@@ -2451,8 +2482,8 @@ def dual_install_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
     wave of the main path's workload at the main shapes (else the
     synthetic ops: installs at do_w, checks at check_w), beside the chain
     it replaces (two [T, K] copies of the lane priority, claim_scatter and
-    validate_dual: ``chain_ms`` on this build, ``parent_ms`` on the
-    parent's two kernels).  Every call installs into the same table (min
+    validate_dual: ``chain_ms`` on this build) and the parent's install
+    form (``parent_ms``).  Every call installs into the same table (min
     is idempotent).  Returns {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.kernels.occ_validate import validate_dual_plain
@@ -2502,8 +2533,7 @@ def dual_install_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
         installed=int(inst.sum()), checked=int(check.sum()))}
     if parent:
         out["validate_dual"]["parent_ms"] = time_ms(
-            lambda: chain(parent["claim_scatter"], parent["validate_dual"]),
-            dev)
+            lambda: parent["validate_dual"](*args, install=inst), dev)
     return out
 
 
@@ -2524,7 +2554,7 @@ def validate_install_timings(label, dev, N, G, T, Kk, keys, groups, prio,
     the wave's snapshot), beside the same call without the ring
     (``noring_ms``), this build's install form and mv_gather (the launches
     the waves made before, ``split_ms``) and, with ``parent``, the
-    parent's same two launches.  The multi-version workload's draw at the
+    parent's same launch.  The multi-version workload's draw at the
     main shapes, else the synthetic ops; every call installs into the
     same tables (min is idempotent, so each call sees the tables of the
     first).  Returns {name: timing dict}."""
@@ -2597,8 +2627,8 @@ def validate_install_timings(label, dev, N, G, T, Kk, keys, groups, prio,
             checked=[int(check_w.sum()), int(ad.sum())])
         if parent:
             out[name]["parent_ms"] = time_ms(
-                lambda: run_split(parent["validate_install"],
-                                  parent["mv_gather"]), dev)
+                lambda args=args, inst=inst: parent["validate_install"](
+                    *args, **inst, **ring_kw), dev)
     log(f"  {label:5s} MV wave masks: {int(do_w.sum())} writes, "
         f"{int(pw.sum())} plain writes, {int(ad.sum())} ADDs, "
         f"{int(reads.sum())} update-transaction point reads")
@@ -2606,7 +2636,7 @@ def validate_install_timings(label, dev, N, G, T, Kk, keys, groups, prio,
 
 
 def tictoc_probe_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
-                         wave):
+                         wave, parent=None):
     """Times of two folded forms on the synthetic wave: TicToc's three
     installs as one ts_install_max launch (the stamps computed in the
     kernel from commit_ts and the chain counts; committed writes at do_w,
@@ -2616,9 +2646,10 @@ def tictoc_probe_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
     stamps (``split_ms``); claim_probe on one table (one cooperative
     launch); claim_probe on two tables (``claim_probe_pair``: writer
     claims at do_w, reader claims at do_r) beside this build's one-table
-    launch twice (``split_ms``).  Every timed claim call installs into
-    the same tables (min is idempotent), every ts call into the same (max
-    is).  Returns {name: timing dict}."""
+    launch twice (``split_ms``); with ``parent`` the parent's claim_probe
+    on the same calls.  Every timed claim call installs into the same
+    tables (min is idempotent), every ts call into the same (max is).
+    Returns {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.kernels.claim_probe import claim_probe_plain
     from repro_torch.kernels.ts_install import (chain_stamps,
@@ -2706,6 +2737,12 @@ def tictoc_probe_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
                        + (_distinct(keys, groups, do_w, G, N)
                           + _distinct(keys, groups, do_r, G, N)) * 4, 4 * n),
         shape=f"{label} two tables, T={T} K={Kk} N={N} G={G}, fine")
+    if parent:
+        one["parent_ms"] = time_ms(lambda: parent["claim_probe"](
+            cw, keys, groups, prio, wave, do_w, True), dev)
+        pair["parent_ms"] = time_ms(lambda: parent["claim_probe"](
+            cw, keys, groups, prio, wave, do_w, True, claim_r=cr,
+            mask_r=do_r), dev)
     out["claim_probe"] = one
     out["claim_probe_pair"] = pair
     return out
@@ -3398,12 +3435,15 @@ def verdict_fold_timings(dev, parent=None, lanes=DIST_LANES, slots=16,
         **chains(lambda p: lambda: K.commit_install(
             c["wts"], c["keys"], c["groups"],
             c["is_w"] & (unpack_fns[p](c["cwords"], cap) > 0))))
-    ts = [c["ts"]]
+    # Each call stamps above the last, as successive waves do, read from
+    # device memory (0-d views of one arange made before the timed calls).
+    stamps = torch.arange(c["ts"] + 1, c["ts"] + 1 + 8192,
+                          dtype=torch.int64, device=dev)
+    ts = [0]
 
     def stamp():
-        # Each call stamps above the last, as successive waves do.
         ts[0] += 1
-        return ts[0]
+        return stamps[ts[0] - 1]
     ring_t = (c["begin"], c["head"], *inst)
     out["mv_install_words"] = dict(
         ms=time_ms(lambda: K.mv_install(*ring_t, stamp(),
@@ -3940,6 +3980,114 @@ def open_loop_path(dev, waves=WAVES, lanes=LANES, **kw):
                                  "identity fails")
     _check_kernels("open loop", rows, launches, dev, scans=False)
     return rows, launches
+
+
+#: Every mechanism the port runs (txn_bench's ``--cc`` choices).
+ALL_CCS = ("occ", "tictoc", "2pl", "swisstm", "adaptive", "autogran",
+           "mvcc", "mvocc")
+#: Profiler and runtime event names that mean a host copy or a host wait.
+HOST_WAITS = ("Memcpy HtoD", "Memcpy DtoH", "cudaStreamSynchronize",
+              "cudaDeviceSynchronize")
+
+
+def sync_free_configs() -> list:
+    """(workload, its settings, cc, granularity, fused, arrival rate) of
+    the sync-free phase: every mechanism x coarse and fine on TPC-C and
+    YCSB point; TPC-C scan_len 200 with OCC, AutoGran and MVCC; YCSB-E
+    with OCC; the unfused route with OCC, 2PL and Adaptive; the open step
+    (YCSB, OCC and MVCC, rate 96, queue 512)."""
+    out = [(w, MAIN_KW[w], cc, g, True, 0.0) for w in ("tpcc", "ycsb")
+           for cc in ALL_CCS for g in (0, 1)]
+    out += [("tpcc", SCAN_KW["tpcc"], cc, g, True, 0.0)
+            for cc in ("occ", "autogran", "mvcc") for g in (0, 1)]
+    out += [("ycsb", SCAN_KW["ycsb"], "occ", g, True, 0.0) for g in (0, 1)]
+    out += [("tpcc", MAIN_KW["tpcc"], cc, g, False, 0.0)
+            for cc in ("occ", "2pl", "adaptive") for g in (0, 1)]
+    kw = {k: v for k, v in OPEN_KW.items() if k != "arrival_rate"}
+    out += [("ycsb", kw, cc, 1, True, OPEN_KW["arrival_rate"])
+            for cc in ("occ", "mvcc")]
+    return out
+
+
+def sync_free_path(dev, warm=2, waves=3, lanes=LANES, configs=None):
+    """The gate of a capturable wave: for each configuration
+    (``sync_free_configs``) two eager waves of ``engine.draw_wave`` (the
+    draws and the step, as ``run_waves`` makes them), then ``waves`` more
+    under ``torch.cuda.set_sync_debug_mode("error")`` (any synchronizing
+    call raises) and ``torch.profiler``, which must show no ``HOST_WAITS``
+    event inside them (the mode does not flag a copy from pageable
+    memory).  The wave index must have advanced on the device and every
+    lane of every wave must commit or abort.  Returns (launches during
+    the profiled waves, waves profiled)."""
+    from torch.autograd import DeviceType
+    from repro_torch import kernels as K
+    from repro_torch.core.engine import (arrival_rate, draw_wave,
+                                         make_open_wave_step, make_wave_step)
+    from repro_torch.core.types import engine_state_init
+    from repro_torch.launch.txn_bench import make_config, make_workload
+    configs = sync_free_configs() if configs is None else configs
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    workloads = {}
+    launches = {op: 0 for op in K.WRAPPERS}
+    for wl_name, wl_kw, cc, gran, fuse, rate in configs:
+        key = (wl_name, tuple(sorted(wl_kw.items())))
+        if key not in workloads:
+            workloads[key] = make_workload(wl_name, **wl_kw)
+        wl = workloads[key]
+        cfg = make_config(wl, cc, gran, lanes, fuse, mv_depth=MV_DEPTH,
+                          arrival_rate=rate)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        state = engine_state_init(cfg, wl.init_store(dev, cfg.mv_depth))
+        step = (make_open_wave_step if cfg.open_loop else make_wave_step)(
+            cfg)
+        r = arrival_rate(cfg, dev)
+        for _ in range(warm):
+            state, _ = draw_wave(cfg, wl, state, step, gen, r)
+        _sync(dev)
+        before = K.launch_counts()
+        with torch.profiler.profile(activities=acts) as prof:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                with torch.profiler.record_function("sync_free_waves"):
+                    for _ in range(waves):
+                        state, _ = draw_wave(cfg, wl, state, step, gen, r)
+            finally:
+                if dev.type == "cuda":
+                    torch.cuda.set_sync_debug_mode(0)
+            _sync(dev)
+        for op, n in K.launch_counts().items():
+            launches[op] += n - before[op]
+        events = prof.events()
+        (span,) = [e for e in events if e.name == "sync_free_waves"
+                   and e.device_type == DeviceType.CPU]
+        lo, hi = span.time_range.start, span.time_range.end
+        inside = [e for e in events if e.device_type == DeviceType.CUDA
+                  or lo <= e.time_range.start <= hi]
+        waits = [e.name for e in inside
+                 if any(w in e.name for w in HOST_WAITS)]
+        n_dev = sum(e.device_type == DeviceType.CUDA for e in events)
+        what = (f"{wl_name}{' scans' if wl.max_extent > 1 else ''} "
+                f"{cc}-{'fine' if gran else 'coarse'}"
+                f"{'' if fuse else ' unfused'}"
+                f"{f' open rate {rate:g}' if rate else ''}")
+        log(f"  sync-free {what}: {waves} waves, {len(waits)} host copies "
+            f"and syncs, {n_dev / waves:.1f} device events a wave")
+        if waits:
+            raise AssertionError(f"sync-free {what}: host waits {waits}")
+        if int(state.wave) != warm + waves:
+            raise AssertionError(f"sync-free {what}: wave {int(state.wave)}")
+        done = int(state.commits + state.aborts)
+        if not cfg.open_loop and done != lanes * (warm + waves):
+            raise AssertionError(f"sync-free {what}: {done} lanes done")
+        if dev.type == "cuda" and n_dev == 0:
+            raise AssertionError(f"sync-free {what}: nothing ran on the "
+                                 "device")
+    log(f"  sync-free launches {launches}")
+    return launches, len(configs) * waves
 
 
 def cross_device_padded(dev, waves=30, scale=0.1, active_lanes=96,
@@ -4554,31 +4702,50 @@ def _sync(dev):
 
 #: The C entries (repro_<name>) whose parent build ``--parent`` times
 #: beside this checkout's kernels, each with its source (csrc/<source>.cu)
-#: and module (kernels/<source>.py): the full-row verdict_pack and
-#: verdict_unpack, which the sharded wave's folds replace (the parent's
-#: wave launched each twice); the one-table ts_gather, mv_gather, and
-#: validate's install form called without the ring (the launches an
-#: earlier fold replaced); iterate_validate and commit_install (the scan
-#: waves' phantom pass and bumps), claim_scatter and validate_dual
-#: (AutoGran's claims and check).  Each is bound with this checkout's C
-#: signature, which these entries share with the parent's.
+#: and module (kernels/<source>.py): the wave kernels that read the wave
+#: (and the stamps derived from it) from device memory here and took them
+#: by value in the parent (wave_commit, claim_probe_coop, the validate
+#: forms, claim_scatter, iterate_validate and its bump form, mv_gather,
+#: mv_install), each timed on the same inputs as this build's; and the
+#: full-row verdict_pack and verdict_unpack and the one-table ts_gather,
+#: whose signatures did not change.
 PARENT_KERNELS = {"verdict_pack": "verdict_pack",
                   "verdict_unpack": "verdict_pack",
                   "ts_gather": "ts_gather",
+                  "wave_commit": "wave_commit",
+                  "claim_probe_coop": "claim_probe",
                   "mv_gather": "mv_gather",
+                  "mv_install": "mv_install",
                   "validate_install": "occ_validate",
+                  "validate_dual": "occ_validate",
+                  "validate_dual_install": "occ_validate",
                   "iterate_validate": "iterate_validate",
-                  "commit_install": "occ_commit",
-                  "claim_scatter": "claim_scatter",
-                  "validate_dual": "occ_validate"}
+                  "iterate_validate_bump": "iterate_validate",
+                  "claim_scatter": "claim_scatter"}
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+#: The parent's C signatures of the entries whose signature changed: the
+#: wave's claim tag (int) and the ring stamps (unsigned) by value.  Every
+#: other entry is bound with this checkout's signature.
+PARENT_SIGS = {
+    "wave_commit": [_P] * 15 + [_I] * 8 + [_P],
+    "claim_probe_coop": [_P] * 13 + [_I] * 7 + [_U, _I, _P],
+    "mv_gather": [_P] * 5 + [_I] * 5 + [_U, _P],
+    "mv_install": [_P] * 7 + [_I] * 6 + [_U, _P],
+    "validate_install": [_P] * 12 + [_I] * 6 + [_U, _I, _P],
+    "validate_dual": [_P] * 7 + [_I] * 4 + [_P],
+    "validate_dual_install": [_P] * 8 + [_I] * 5 + [_P],
+    "iterate_validate": [_P] * 8 + [_I] * 10 + [_P],
+    "iterate_validate_bump": [_P] * 10 + [_I] * 8 + [_P],
+    "claim_scatter": [_P] * 5 + [_I] * 4 + [_P]}
 
 
 def parent_kernels(parent_root: str) -> dict:
     """{name: fn(*inputs)} launching another build of PARENT_KERNELS (a
     parent commit's, unpacked at ``parent_root``): its csrc sources built
     with the port's nvcc flags into build/parent_kernels and bound with
-    their C signatures; each fn takes its wrapper's arguments, so
-    kernel_phase times both builds on the same inputs in one process."""
+    their C signatures (PARENT_SIGS, else this checkout's); each fn takes
+    its wrapper's arguments (the wave and stamps as ints), so kernel_phase
+    times both builds on the same inputs in one process."""
     import importlib
     from repro_torch.core.claimword import U32_MASK, inv_wave
     from repro_torch.kernels import build
@@ -4600,10 +4767,59 @@ def parent_kernels(parent_root: str) -> dict:
     for n, src in PARENT_KERNELS.items():
         fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"{src}.so")),
                      f"repro_{n}")
-        fn.argtypes = importlib.import_module(
+        fn.argtypes = PARENT_SIGS.get(n) or importlib.import_module(
             f"repro_torch.kernels.{src}")._SIG[f"repro_{n}"]
         fn.restype = ctypes.c_int
         fns[n] = fn
+    mv_lib = ctypes.CDLL(os.path.join(out_dir, "mv_install.so"))
+    mv_lib.repro_mv_install_capacity.argtypes = [
+        ctypes.POINTER(ctypes.c_int)]
+    mv_lib.repro_mv_install_capacity.restype = ctypes.c_int
+
+    def run_wave_commit(claim_w, claim_r, wts, keys, groups, prio, do_w,
+                        do_r, check_w, check_w2, check_r, extra, wave, fine,
+                        dual, bump):
+        T, K = keys.shape
+        N, G = claim_w.shape
+        conflict = torch.empty((T, K), dtype=torch.bool, device=keys.device)
+        commit = torch.empty((T,), dtype=torch.bool, device=keys.device)
+        build.raise_on_error("parent wave_commit", fns["wave_commit"](
+            *(build.ptr(t) for t in (
+                claim_w, claim_r if dual else None, wts if bump else None,
+                keys, groups, prio, do_w, do_r if dual else None, check_w,
+                check_w2, check_r if dual else None, extra, conflict, None,
+                commit)),
+            T, K, N, G, inv_wave(wave), int(fine), int(dual), int(bump),
+            build.stream(keys.device)))
+        return conflict, commit
+
+    def run_claim_probe(table, keys, groups, prio, wave, mask, fine,
+                        claim_r=None, mask_r=None):
+        N, G = table.shape
+        out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+        out_r = None if claim_r is None else torch.empty_like(out)
+        build.raise_on_error("parent claim_probe", fns["claim_probe_coop"](
+            *(build.ptr(t) for t in (table, claim_r, keys, groups, prio,
+                                     mask, mask_r, out, out_r, None, None,
+                                     None, None)),
+            keys.numel(), N, G, 0, 0, 0, inv_wave(wave), 0, int(bool(fine)),
+            build.stream(keys.device)))
+        return out if claim_r is None else (out, out_r)
+
+    def run_mv_install(begin, head, keys, groups, do, ts):
+        N, D, G = begin.shape
+        n = keys.numel()
+        ops = ctypes.c_int(0)
+        build.raise_on_error("parent mv_install",
+                             mv_lib.repro_mv_install_capacity(
+                                 ctypes.byref(ops)))
+        scratch = (torch.empty(keys.shape, dtype=torch.int32,
+                               device=keys.device)
+                   if n > ops.value else None)
+        build.raise_on_error("parent mv_install", fns["mv_install"](
+            *(build.ptr(t) for t in (begin, head, keys, groups, do, None,
+                                     scratch)),
+            n, N, D, G, 0, 0, int(ts) & U32_MASK, build.stream(keys.device)))
 
     def run_ts_gather(table, keys, groups, fine):
         out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
@@ -4624,34 +4840,43 @@ def parent_kernels(parent_root: str) -> dict:
         return slot, ok
 
     def run_validate_install(claim_w, keys, groups, myprio, check, wave,
-                             fine, claim_r, check_r, install_w, install_r):
+                             fine, claim_r, check_r, install_w, install_r,
+                             begin=None, snap_ts=None):
         out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+        ok = None if begin is None else torch.empty_like(out)
         (T, K), (N, G) = keys.shape, claim_w.shape
+        D = 0 if begin is None else begin.shape[1]
         build.raise_on_error("parent validate", fns["validate_install"](
             *(build.ptr(t) for t in (claim_w, claim_r, keys, groups, myprio,
                                      install_w, install_r, check, check_r,
-                                     out, None, None)), T, K, N, G, 0,
-            inv_wave(wave), 0, int(bool(fine)), build.stream(keys.device)))
-        return out
+                                     out, begin, ok)), T, K, N, G, D,
+            inv_wave(wave), int(snap_ts or 0) & U32_MASK, int(bool(fine)),
+            build.stream(keys.device)))
+        return out if begin is None else (out, ok)
 
     def run_iterate_validate(table, keys, extents, groups, myprio, check,
-                             wave, fine, bucket_size, ext_cap):
+                             wave, fine, bucket_size, ext_cap, point=None,
+                             wts=None, do=None):
         out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
         N, G = table.shape
+        span = scan_span(ext_cap, fine, bucket_size)
+        if point is not None:
+            T, K = keys.shape
+            build.raise_on_error("parent iterate_validate", fns[
+                "iterate_validate_bump"](
+                *(build.ptr(t) for t in (table, keys, extents, groups,
+                                         myprio, check, point, do, wts,
+                                         out)),
+                T, K, N, G, inv_wave(wave), int(bool(fine)), bucket_size,
+                span, build.stream(keys.device)))
+            return out
         build.raise_on_error("parent iterate_validate", fns[
             "iterate_validate"](
             *(build.ptr(t) for t in (table, keys, extents, groups, myprio,
                                      check, out, None)),
             keys.numel(), N, G, inv_wave(wave), int(bool(fine)), bucket_size,
-            scan_span(ext_cap, fine, bucket_size), 0, 0, 0,
-            build.stream(keys.device)))
+            span, 0, 0, 0, build.stream(keys.device)))
         return out
-
-    def run_commit_install(wts, keys, groups, do):
-        N, G = wts.shape
-        build.raise_on_error("parent commit_install", fns["commit_install"](
-            *(build.ptr(t) for t in (wts, keys, groups, do, None)),
-            keys.numel(), N, G, 0, 0, build.stream(keys.device)))
 
     def run_claim_scatter(table, keys, groups, prio, wave, mask):
         N, G = table.shape
@@ -4659,10 +4884,19 @@ def parent_kernels(parent_root: str) -> dict:
             *(build.ptr(t) for t in (table, keys, groups, prio, mask)),
             keys.numel(), N, G, inv_wave(wave), build.stream(keys.device)))
 
-    def run_validate_dual(claim_w, keys, groups, myprio, check, wave):
+    def run_validate_dual(claim_w, keys, groups, myprio, check, wave,
+                          install=None):
         fine = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
         coarse = torch.empty_like(fine)
         N, G = claim_w.shape
+        if install is not None:
+            T, K = keys.shape
+            build.raise_on_error("parent validate_dual", fns[
+                "validate_dual_install"](
+                *(build.ptr(t) for t in (claim_w, keys, groups, myprio,
+                                         install, check, fine, coarse)),
+                T, K, N, G, inv_wave(wave), build.stream(keys.device)))
+            return fine, coarse
         build.raise_on_error("parent validate_dual", fns["validate_dual"](
             *(build.ptr(t) for t in (claim_w, keys, groups, myprio, check,
                                      fine, coarse)),
@@ -4687,9 +4921,11 @@ def parent_kernels(parent_root: str) -> dict:
         return out
 
     return {"ts_gather": run_ts_gather, "mv_gather": run_mv_gather,
+            "wave_commit": run_wave_commit,
+            "claim_probe": run_claim_probe,
+            "mv_install": run_mv_install,
             "validate_install": run_validate_install,
             "iterate_validate": run_iterate_validate,
-            "commit_install": run_commit_install,
             "claim_scatter": run_claim_scatter,
             "validate_dual": run_validate_dual,
             "verdict_pack": run_verdict_pack,
@@ -5018,17 +5254,17 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="a parent commit unpacked in DIR: time the "
+                    help="a parent commit unpacked in DIR: time its "
+                         "builds of the wave kernels (wave_commit, "
+                         "claim_probe, validate's install form with the "
+                         "ring, validate_dual and its install form, "
+                         "claim_scatter, iterate_validate and its bump "
+                         "form, mv_gather, mv_install; the wave by value) "
+                         "beside this checkout's on the same inputs, the "
                          "sharded wave's verdict chains on its full-row "
-                         "verdict_pack and verdict_unpack beside this "
-                         "checkout's folded forms, and its one-table "
-                         "ts_gather twice with TicToc's torch arithmetic, "
-                         "its mv_gather, its validate without the "
-                         "ring with its mv_gather, its iterate_validate "
-                         "and commit_install with the torch mask, and its "
-                         "claim_scatter and validate_dual with the "
-                         "priority copies, beside this checkout's folded "
-                         "launches on the same inputs")
+                         "verdict_pack and verdict_unpack, and its "
+                         "one-table ts_gather twice with TicToc's torch "
+                         "arithmetic")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
@@ -5108,6 +5344,8 @@ def main(argv=None) -> int:
     open_rows, l_open = open_loop_path(dev)
     log("cross-device identity, open loop:")
     cross_device_open(dev)
+    log("sync-free waves (set_sync_debug_mode('error') and the profiler):")
+    l_sync, n_sync = sync_free_path(dev)
 
     log("sharded engine, one-rank NCCL group:")
     import torch.distributed as dist
@@ -5148,6 +5386,7 @@ def main(argv=None) -> int:
             "quickstart": (l_quick, 3 * WAVES),
             "fig3": (l_fig, len(fig_rows) * WAVES),
             "open_loop": (l_open, len(open_rows) * WAVES),
+            "sync_free": (l_sync, n_sync),
             "sharded": (l_dist, n_dist * WAVES),
             "scaling": (l_scale, (30 + txn_scaling.WARMUP_WAVES)
                         * len(scaling))}

@@ -26,15 +26,15 @@ from repro_torch.core.claimword import U32_MASK
 from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 
 
-def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
-                  cfg: EngineConfig):
+def wave_validate(store: StoreState, batch: TxnBatch, prio,
+                  wave: torch.Tensor, cfg: EngineConfig):
     fine = base.is_fine(cfg)
     keys = batch.op_key
     live = batch.live()
     rd = batch.is_read() & live
     wr = batch.is_write() & live
 
-    k, valid = claims.record_index(keys, store.pess_mode.shape[0])
+    k, valid = claims.record_index(keys, store.n_records)
     pess = valid & store.pess_mode[k]
 
     T, K = keys.shape
@@ -71,6 +71,5 @@ def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
     new_mode = torch.where(cur > cfg.adapt_up, True,
                            torch.where(cur < cfg.adapt_down, False, pess))
     # Duplicate keys carry the same mode (it depends on the key only).
-    acc = live & valid
-    store.pess_mode[k[acc]] = new_mode[acc]
+    claims.sink_scatter(store.pess_mode, keys, new_mode, live)
     return store, res

@@ -25,8 +25,8 @@ from repro_torch.core.cc import base
 from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 
 
-def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
-                  cfg: EngineConfig):
+def wave_validate(store: StoreState, batch: TxnBatch, prio,
+                  wave: torch.Tensor, cfg: EngineConfig):
     keys = batch.op_key
     live = batch.live()
     # The write claims, then two probe widths from one row read per op on
@@ -38,7 +38,7 @@ def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
         store.claim_w, keys, batch.op_group, prio, check, wave,
         install=do_w)
 
-    k, valid = claims.record_index(keys, store.fine_mode.shape[0])
+    k, valid = claims.record_index(keys, store.n_records)
     is_fine_rec = valid & store.fine_mode[k]
     conflict = torch.where(is_fine_rec, conflict_fine, conflict_coarse)
     T, K = keys.shape
@@ -60,8 +60,8 @@ def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
                       cfg.autogran_decay, false_ev)
     cur = claims.lazy_decayed(store.false_heat, store.heat_wave, keys, wave,
                               cfg.autogran_decay)
-    promote = false_ev & (cur > cfg.autogran_up) & valid
-    store.fine_mode[k[promote]] = True
+    promote = false_ev & (cur > cfg.autogran_up)
+    claims.sink_scatter(store.fine_mode, keys, promote, promote)
 
     if not scans:
         store = base.bump_versions(store, batch, res.commit, cfg)

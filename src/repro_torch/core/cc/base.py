@@ -96,7 +96,7 @@ def bump_versions(store: StoreState, batch: TxnBatch, commit: torch.Tensor,
 
 
 def phantom_validate(store: StoreState, batch: TxnBatch, prio: torch.Tensor,
-                     wave: int, cfg: EngineConfig,
+                     wave: torch.Tensor, cfg: EngineConfig,
                      fine: Optional[bool] = None, *,
                      mask: Optional[torch.Tensor] = None,
                      point: Optional[torch.Tensor] = None,
@@ -133,7 +133,8 @@ def phantom_validate(store: StoreState, batch: TxnBatch, prio: torch.Tensor,
 
 
 def claim_probe_commit(store: StoreState, batch: TxnBatch,
-                       prio: torch.Tensor, wave: int, cfg: EngineConfig,
+                       prio: torch.Tensor, wave: torch.Tensor,
+                       cfg: EngineConfig,
                        fine: Optional[bool] = None, *,
                        check_w: torch.Tensor,
                        check_w2: Optional[torch.Tensor] = None,

@@ -31,8 +31,8 @@ from repro_torch.core.cc import base
 from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 
 
-def fcw_conflicts(store: StoreState, batch: TxnBatch, prio, wave: int,
-                  cfg: EngineConfig, read_check=None):
+def fcw_conflicts(store: StoreState, batch: TxnBatch, prio,
+                  wave: torch.Tensor, cfg: EngineConfig, read_check=None):
     """(store, conflict bool[T, K], ok bool[T, K]): first-committer-wins
     write-write verdicts, shared by MVCC and MV-OCC, and the snapshot
     read's visibility.  Installs both claim channels (every write into
@@ -58,7 +58,7 @@ def fcw_conflicts(store: StoreState, batch: TxnBatch, prio, wave: int,
 
 
 def mv_commit(store: StoreState, batch: TxnBatch, commit: torch.Tensor,
-              prio, wave: int, cfg: EngineConfig) -> StoreState:
+              prio, wave: torch.Tensor, cfg: EngineConfig) -> StoreState:
     """Install the wave's committed writes into the version ring: one slot
     per written record (``mv_install``), in place."""
     do = batch.is_write() & batch.live() & commit[:, None]
@@ -67,8 +67,8 @@ def mv_commit(store: StoreState, batch: TxnBatch, commit: torch.Tensor,
     return store
 
 
-def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
-                  cfg: EngineConfig):
+def wave_validate(store: StoreState, batch: TxnBatch, prio,
+                  wave: torch.Tensor, cfg: EngineConfig):
     rd = batch.is_read() & batch.live()
     T, K = batch.op_key.shape
 

@@ -20,8 +20,8 @@ from repro_torch.core.cc import base, mvcc
 from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 
 
-def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
-                  cfg: EngineConfig):
+def wave_validate(store: StoreState, batch: TxnBatch, prio,
+                  wave: torch.Tensor, cfg: EngineConfig):
     fine = base.is_fine(cfg)
     live = batch.live()
     rd = batch.is_read() & live

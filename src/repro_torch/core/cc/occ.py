@@ -10,14 +10,16 @@ one ``wave_commit`` backend op with version bumps.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core import claims
 from repro_torch.core import types as t
 from repro_torch.core.cc import base
 from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 
 
-def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
-                  cfg: EngineConfig):
+def wave_validate(store: StoreState, batch: TxnBatch, prio,
+                  wave: torch.Tensor, cfg: EngineConfig):
     T, K = batch.op_key.shape
     u = claims.hash01(wave, claims.lane_op_ids(T, K, batch.op_key.device))
     check = batch.is_read() & batch.live() & (u < cfg.cost.opt_overlap)

@@ -22,8 +22,8 @@ from repro_torch.core.claimword import U32_MASK
 from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 
 
-def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
-                  cfg: EngineConfig):
+def wave_validate(store: StoreState, batch: TxnBatch, prio,
+                  wave: torch.Tensor, cfg: EngineConfig):
     fine = base.is_fine(cfg)
     live = batch.live()
     rd = batch.is_read() & live

@@ -32,8 +32,8 @@ from repro_torch.core.claimword import U32_MASK
 from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 
 
-def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
-                  cfg: EngineConfig):
+def wave_validate(store: StoreState, batch: TxnBatch, prio,
+                  wave: torch.Tensor, cfg: EngineConfig):
     be = kb.BACKEND
     fine = base.is_fine(cfg)
     keys, groups = batch.op_key, batch.op_group

@@ -13,14 +13,16 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.core import claims
 from repro_torch.core import types as t
 from repro_torch.core.cc import base
 from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 
 
-def wave_validate(store: StoreState, batch: TxnBatch, prio, wave: int,
-                  cfg: EngineConfig):
+def wave_validate(store: StoreState, batch: TxnBatch, prio,
+                  wave: torch.Tensor, cfg: EngineConfig):
     fine = base.is_fine(cfg)
     live = batch.live()
     rd = batch.is_read() & live

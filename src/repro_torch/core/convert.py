@@ -6,9 +6,11 @@ the version ring's begin stamps) travel as their bit patterns:
 ``store_from_numpy`` reinterprets uint32 arrays as int32 tensors and
 ``store_to_numpy`` views them back as uint32, so comparisons are exact.
 The per-record tables (mode bits, heats, heat waves, ring heads) travel
-with their own dtypes.  The sharded engine's tables (core/distributed.py)
-travel as global arrays: ``dist_tables_from_numpy`` gives each rank its
-``rec_per`` rows, ``dist_tables_to_numpy`` gathers them back.  A language
+with their own dtypes; the mode and heat tables gain their zero sink slot
+(``core/types.SINK``) on the way in and lose it on the way out.  The
+sharded engine's tables (core/distributed.py) travel as global arrays:
+``dist_tables_from_numpy`` gives each rank its ``rec_per`` rows,
+``dist_tables_to_numpy`` gathers them back.  A language
 model's parameters and decode cache travel from the JAX package's stacked
 stages to the port's per-layer lists (``lm_params_from_jax``,
 ``lm_cache_from_jax``); bfloat16 arrays keep their bit patterns.
@@ -23,8 +25,8 @@ import torch.distributed as dist
 
 from repro_torch.core.distributed import DistConfig, n_shards
 from repro_torch.core.mvstore import mv_placeholder
-from repro_torch.core.types import (CostModel, EngineConfig, StoreState,
-                                    TxnBatch)
+from repro_torch.core.types import (SINK, SINK_TABLES, CostModel,
+                                    EngineConfig, StoreState, TxnBatch)
 from repro_torch.models.common import tree_map
 
 WORD_TABLES = ("wts", "rts", "claim_w", "claim_r", "mv_begin")
@@ -46,8 +48,10 @@ def store_from_numpy(arrays: dict, device) -> StoreState:
     (``values``, ``mv_vals``) are ignored (ROADMAP A.4)."""
     tables = {k: _words(arrays[k], device) for k in WORD_TABLES}
     for k, dtype in RECORD_TABLES.items():
-        tables[k] = torch.from_numpy(np.ascontiguousarray(
-            np.asarray(arrays[k]).astype(dtype))).to(device)
+        a = np.asarray(arrays[k]).astype(dtype)
+        if k in SINK_TABLES:
+            a = np.concatenate([a, np.zeros(SINK, dtype)])
+        tables[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
     tables["mv_vals"] = mv_placeholder(device)[2]
     return StoreState(**tables)
 
@@ -56,7 +60,9 @@ def store_to_numpy(store: StoreState) -> dict:
     """{field: numpy array}, word tables as uint32."""
     out = {k: getattr(store, k).cpu().numpy().view(np.uint32)
            for k in WORD_TABLES}
-    out.update({k: getattr(store, k).cpu().numpy() for k in RECORD_TABLES})
+    for k in RECORD_TABLES:
+        a = getattr(store, k).cpu().numpy()
+        out[k] = a[:-SINK] if k in SINK_TABLES else a
     return out
 
 

@@ -45,7 +45,9 @@ shards; with scans ``kinds`` packs ``kind | extent << 2``.  The exchange is
 one ``all_to_all_single`` over the group: row i of the buffer goes to
 rank i, and row i of what arrives came from rank i.  The tensors' device
 picks the kernels: CUDA tensors (an NCCL group) launch the CUDA kernels,
-CPU tensors (a gloo group) run their plain versions.
+CPU tensors (a gloo group) run their plain versions.  The wave index is a
+0-d int64 tensor on that device (an int is copied there), which the
+kernels read from device memory and ``make_run_fn`` advances there.
 
 Not ported yet, raising NotImplementedError with their ROADMAP item: the
 software pipeline (``pipeline_depth >= 2`` on more than one shard), the
@@ -65,6 +67,7 @@ import torch.distributed as dist
 from repro_torch.core import backend as kb
 from repro_torch.core import mvstore
 from repro_torch.core import types as t
+from repro_torch.core.claimword import device_scalar
 from repro_torch.core.types import resolve_device
 
 NO_OP = 0x7FFFFFFF       # empty buffer cell in the key channel
@@ -399,7 +402,7 @@ def _make_phases(cfg: DistConfig, ns: int):
         r_prio = ((r_meta >> 3) & 0xFFFF).contiguous()
         return rk, r_grp, r_kind, r_prio, r_live, r_meta
 
-    def owner_claim(tables, r_buf, wave: int):
+    def owner_claim(tables, r_buf, wave: torch.Tensor):
         rk, r_grp, r_kind, r_prio, r_live, r_meta = _decode(r_buf)
         is_w = r_live & ((r_kind == t.WRITE) | (r_kind == t.ADD))
         is_r = r_live & (r_kind == t.READ)
@@ -496,7 +499,7 @@ def _make_phases(cfg: DistConfig, ns: int):
         # Each buffer cell packs its lane's commit bit (an empty cell 0).
         return commit, be.verdict_pack(commit, lane=b_lane), lane_cause
 
-    def owner_install(tables, r_buf, c_words, wave: int):
+    def owner_install(tables, r_buf, c_words, wave: torch.Tensor):
         # A write bumps where its packed commit field is set; the install
         # launch reads the words itself.
         rk, r_grp, r_kind, _, r_live, _ = _decode(r_buf)
@@ -517,7 +520,7 @@ def _make_shard_body(cfg: DistConfig, ns: int, exchange: Exchange):
     wave) -> (commit, lane_dropped, has_write, dropped_op, cause)``."""
     route, owner_claim, sender_commit, owner_install = _make_phases(cfg, ns)
 
-    def body(keys, groups, kinds, prio, tables, wave: int):
+    def body(keys, groups, kinds, prio, tables, wave: torch.Tensor):
         out, send = route(keys, groups, kinds, prio)
         r_buf = exchange(out)
         v_words = owner_claim(tables, r_buf, wave)
@@ -557,7 +560,8 @@ def make_wave_fn(cfg: DistConfig, group=None,
     tables, stats int32[STATS_LEN])``.  ``tables`` (``init_tables``) are
     updated in place and returned.  ``wave.exchange`` counts the bytes
     handed to the collective.  Every rank of ``group`` must call it with
-    the same wave index."""
+    the same wave index: a 0-d int64 tensor on the tables' device, or an
+    int (copied there)."""
     ns = _check_group(cfg, group, mesh_shape)
     if cfg.depth(ns) > 1:
         raise ValueError(
@@ -567,10 +571,11 @@ def make_wave_fn(cfg: DistConfig, group=None,
     exchange = Exchange(group)
     body = _make_shard_body(cfg, ns, exchange)
 
-    def wave(keys, groups, kinds, prio, tables, wave_idx: int):
+    def wave(keys, groups, kinds, prio, tables, wave_idx):
         _check_wave_args(cfg, keys, groups, kinds, prio)
         commit, lane_dropped, has_write, dropped_op, cause = body(
-            keys, groups, kinds, prio, tables, int(wave_idx))
+            keys, groups, kinds, prio, tables,
+            device_scalar(wave_idx, keys.device))
         return commit, tables, _closed_stats(commit, lane_dropped, has_write,
                                              dropped_op, cause)
 
@@ -583,8 +588,8 @@ def make_run_fn(cfg: DistConfig, n_waves: int, group=None,
     """The closed-loop runner on this rank: ``run(keys [n_waves, T, K],
     groups, kinds, prio [n_waves, T], tables, wave0) -> (commit [n_waves,
     T], tables, stats [n_waves, STATS_LEN])``, a loop of synchronous waves
-    ``wave0, wave0 + 1, ...``.  ``run.exchange`` counts the collective's
-    bytes."""
+    ``wave0, wave0 + 1, ...``, the index advanced on the device.
+    ``run.exchange`` counts the collective's bytes."""
     ns = _check_group(cfg, group, mesh_shape)
     if cfg.depth(ns) > 1:
         raise NotImplementedError(
@@ -592,14 +597,16 @@ def make_run_fn(cfg: DistConfig, n_waves: int, group=None,
             f"ported to repro_torch yet: it waits for {_PIPELINE}")
     wave = make_wave_fn(cfg, group, mesh_shape)
 
-    def run(keys, groups, kinds, prio, tables, wave0: int = 0):
+    def run(keys, groups, kinds, prio, tables, wave0=0):
         if keys.shape[0] != n_waves:
             raise ValueError(f"keys hold {keys.shape[0]} waves, expected "
                              f"{n_waves}")
         commits, stats = [], []
+        w_idx = device_scalar(wave0, keys.device)
         for w in range(n_waves):
             c, tables, s = wave(keys[w], groups[w], kinds[w], prio[w],
-                                tables, int(wave0) + w)
+                                tables, w_idx)
+            w_idx = w_idx + 1
             commits.append(c)
             stats.append(s)
         return torch.stack(commits), tables, torch.stack(stats)

@@ -16,6 +16,11 @@ count and returns the wave's lane forensics beside the state:
 
     state, lanes = step(state, fresh_batch, ring_tails, perm, offered)
 
+The wave index ``state.wave`` is a 0-d int64 tensor on the run's device,
+which both steps advance there; no wave reads a device value on the host
+(``draw_wave`` is one wave of ``run_waves``, draws included), which is
+what capturing a wave into a CUDA graph needs.
+
 ``sweep`` runs a benchmark grid point by point; each point runs at its
 lane bucket's widest lane count with the padding lanes masked, as the
 JAX sweep does (there is no one-program grid to share here, so the
@@ -59,7 +64,8 @@ class Workload(Protocol):
 
     def init_store(self, device, mv_depth: int = 0) -> StoreState: ...
 
-    def gen(self, generator: torch.Generator, wave: int, lanes: int,
+    def gen(self, generator: torch.Generator, wave: torch.Tensor,
+            lanes: int,
             ring_tails: torch.Tensor) -> tuple[TxnBatch, torch.Tensor]: ...
 
 
@@ -252,7 +258,7 @@ def make_open_wave_step(cfg: EngineConfig,
         offered = torch.as_tensor(offered, device=dev).to(
             torch.int64).clamp(max=n_active)
         queue, n_adm, n_ovf = admission.enqueue(
-            ol.queue, fresh, torch.full((T,), wave, device=dev),
+            ol.queue, fresh, wave.expand(T),
             torch.zeros((T,), dtype=torch.int64, device=dev),
             ol.next_id + lane, lane < offered)
 
@@ -394,29 +400,51 @@ def summarize(cfg: EngineConfig, state: EngineState, n_waves: int,
     )
 
 
+def arrival_rate(cfg: EngineConfig, device) -> Optional[torch.Tensor]:
+    """The open loop's arrival rate as the float32 scalar tensor on
+    ``device`` that ``draw_wave`` draws from (made once a run, so a wave
+    copies nothing from the host); None in a closed loop."""
+    if not cfg.open_loop:
+        return None
+    return torch.full((), cfg.arrival_rate, dtype=torch.float32,
+                      device=device)
+
+
+def draw_wave(cfg: EngineConfig, workload: Workload, state: EngineState,
+              step: Callable, gen: torch.Generator,
+              rate: Optional[torch.Tensor] = None) -> tuple:
+    """One wave of ``run_waves``: the workload's batch and ring tails, the
+    lane permutation and, in the open loop, the arrival count (from
+    ``rate``, ``arrival_rate``'s tensor), drawn from ``gen`` in that
+    order, then ``step``.  Returns ``(state, lanes)``, ``lanes`` the open
+    step's forensics (None in a closed loop).  Nothing in it reads a
+    device value on the host: the wave index stays on the device."""
+    dev = state.lane_time.device
+    fresh, tails = workload.gen(gen, state.wave, cfg.lanes,
+                                state.store.ring_tails)
+    perm = torch.randperm(cfg.lanes, generator=gen, device=dev)
+    if cfg.open_loop:
+        offered = poisson_offered(gen, rate, cfg.lanes)
+        return step(state, fresh, tails, perm, offered)
+    return step(state, fresh, tails, perm), None
+
+
 def run_waves(cfg: EngineConfig, workload: Workload, state: EngineState,
               step: Callable, gen: torch.Generator, n_waves: int,
               trace: Optional[list] = None) -> tuple[EngineState, float]:
-    """Continue ``state`` for ``n_waves`` waves, drawing each wave's batch,
-    ring tails and lane permutation from ``gen`` (and, in the open loop,
-    its arrival count, after them).  ``trace`` (a list) collects the open
-    step's per-wave lane forensics.  Returns the new state and the loop's
-    host seconds, synchronized with the device."""
+    """Continue ``state`` for ``n_waves`` waves of ``draw_wave``.
+    ``trace`` (a list) collects the open step's per-wave lane forensics.
+    Returns the new state and the loop's host seconds, synchronized with
+    the device (the only host waits of the loop)."""
     dev = state.lane_time.device
+    rate = arrival_rate(cfg, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     for _ in range(n_waves):
-        fresh, tails = workload.gen(gen, state.wave, cfg.lanes,
-                                    state.store.ring_tails)
-        perm = torch.randperm(cfg.lanes, generator=gen, device=dev)
-        if cfg.open_loop:
-            offered = poisson_offered(gen, cfg.arrival_rate, cfg.lanes)
-            state, lanes = step(state, fresh, tails, perm, offered)
-            if trace is not None:
-                trace.append(lanes)
-        else:
-            state = step(state, fresh, tails, perm)
+        state, lanes = draw_wave(cfg, workload, state, step, gen, rate)
+        if trace is not None and lanes is not None:
+            trace.append(lanes)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return state, time.perf_counter() - t0

@@ -33,19 +33,23 @@ MV_EMPTY = 0xFFFFFFFF
 _U32 = 0xFFFFFFFF
 
 
-def snapshot_ts(wave: int, age: int = 0) -> int:
+def snapshot_ts(wave, age: int = 0):
     """Snapshot timestamp of a wave-w transaction: installs of waves < w
     are visible.  ``age`` pins the snapshot that many waves further back,
-    saturating at 0."""
-    w = int(wave) & _U32
-    if age:
-        w = w - min(w, int(age))
-    return w
+    saturating at 0.  ``wave`` is an int or a 0-d int64 tensor (the run's
+    wave, read on its device: the saturation is a clamp there)."""
+    w = wave & _U32
+    if not age:
+        return w
+    if isinstance(w, torch.Tensor):
+        return torch.clamp(w - int(age), min=0)
+    return w - min(w, int(age))
 
 
-def install_ts(wave: int) -> int:
-    """Begin timestamp of versions committed in wave w (uint32)."""
-    return (int(wave) + 1) & _U32
+def install_ts(wave):
+    """Begin timestamp of versions committed in wave w (uint32); an int or
+    a 0-d int64 tensor, as ``wave`` is."""
+    return (wave + 1) & _U32
 
 
 def mv_init(n_records: int, depth: int, n_groups: int, device):

@@ -19,7 +19,9 @@ Operation encoding (T lanes x K op slots):
 
 Word-valued tables (wts, rts, claim_w, claim_r, mv_begin) hold uint32
 bit patterns in int32 tensors, 4 bytes per cell as in the JAX package
-(see ``core/claimword.py``).  The wave counter is a host integer.
+(see ``core/claimword.py``).  The wave counter is a 0-d int64 tensor on
+the run's device, which the step advances there and the kernels read from
+device memory, so no wave waits on the host for it.
 """
 from __future__ import annotations
 
@@ -109,6 +111,14 @@ PRIO_LANE_BITS = 10  # up to 1024 lanes
 PRIO_LANE_MASK = (1 << PRIO_LANE_BITS) - 1
 NO_CLAIM = 0xFFFFFFFF
 
+#: Slots past the last record of the per-record mode and heat tables: the
+#: sink that the masked ops of a fixed-shape scatter write (the JAX
+#: package's scatters drop them, ``mode="drop"``, which torch lacks).
+SINK = 1
+#: The StoreState tables that carry the sink slot.
+SINK_TABLES = ("pess_mode", "abort_heat", "fine_mode", "false_heat",
+               "heat_wave")
+
 # Out-of-bounds key of the JAX package's drop/fill scatters.  The port masks
 # keys outside [0, n_records) explicitly instead (torch raises on
 # out-of-range indices and wraps negative ones); no port code uses it.
@@ -183,20 +193,25 @@ class StoreState:
     Every table is updated in place: the word tables and the version
     ring by the backend ops, the mode bits and heats by the mechanisms.
     Heats decay lazily: a record's heat is multiplied by
-    decay ** (wave - heat_wave) when it is next read.  The JAX package's
-    tracked values (``values``, ``mv_vals``) wait for ROADMAP A.4:
-    ``mv_vals`` is a placeholder.
+    decay ** (wave - heat_wave) when it is next read.  The mode bits, the
+    heats and the heat waves carry one sink slot past the last record
+    (index ``n_records``, ``SINK``): the masked ops of their fixed-shape
+    scatters write 0 (False) there, and no reader reads it.  The JAX
+    package's tracked values (``values``, ``mv_vals``) wait for ROADMAP
+    A.4: ``mv_vals`` is a placeholder.
     """
     wts: torch.Tensor         # int32[n_records, G]  write timestamps
     rts: torch.Tensor         # int32[n_records, G]  read timestamps
     claim_w: torch.Tensor     # int32[n_records, G]  writer claim table
     claim_r: torch.Tensor     # int32[n_records, G]  reader claim table
     ring_tails: torch.Tensor  # int32[n_rings]       append-ring cursors
-    pess_mode: torch.Tensor   # bool[n_records]  Adaptive: pessimistic mode
-    abort_heat: torch.Tensor  # f32[n_records]   Adaptive: abort EWMA
-    fine_mode: torch.Tensor   # bool[n_records]  AutoGran: fine timestamps
-    false_heat: torch.Tensor  # f32[n_records]   AutoGran: false-conflict EWMA
-    heat_wave: torch.Tensor   # int32[n_records] wave a heat was last touched
+    pess_mode: torch.Tensor   # bool[n_records + 1]  Adaptive: pessimistic
+    abort_heat: torch.Tensor  # f32[n_records + 1]   Adaptive: abort EWMA
+    fine_mode: torch.Tensor   # bool[n_records + 1]  AutoGran: fine stamps
+    false_heat: torch.Tensor  # f32[n_records + 1]   AutoGran: false-conflict
+                              #   EWMA
+    heat_wave: torch.Tensor   # int32[n_records + 1] wave a heat was last
+                              #   touched (each with the sink slot)
     mv_begin: torch.Tensor    # int32[n_records, D, G] ring begin stamps
                               #   (core/mvstore.py; [1, 1, 1] when the run
                               #   has no ring, mv_depth=0)
@@ -221,7 +236,7 @@ class StoreState:
 class EngineState:
     """State carried from one wave to the next.  Counters stay on the
     device so a wave never waits for the host."""
-    wave: int                   # current wave index (host integer)
+    wave: torch.Tensor          # int64 scalar: current wave index
     store: StoreState
     pending: TxnBatch           # retry buffer: aborted txns re-run next wave
     pending_live: torch.Tensor  # bool[T]
@@ -398,7 +413,8 @@ def store_init(n_records: int, n_groups: int, n_rings: int = 1,
                           device=dev)
 
     def per_record(dtype) -> torch.Tensor:
-        return torch.zeros((n_records,), dtype=dtype, device=dev)
+        # The record's state and the masked scatters' sink slot.
+        return torch.zeros((n_records + SINK,), dtype=dtype, device=dev)
     if mv_depth > 0:
         mv_begin, mv_head, mv_vals = mvstore.mv_init(n_records, mv_depth, G,
                                                      dev)
@@ -432,7 +448,7 @@ def engine_state_init(cfg: EngineConfig, store: StoreState) -> EngineState:
     def zero(*shape, dtype=torch.int64):
         return torch.zeros(shape, dtype=dtype, device=dev)
     return EngineState(
-        wave=0,
+        wave=zero(),
         store=store,
         pending=txn_batch_zeros(T, cfg.slots, dev),
         pending_live=zero(T, dtype=torch.bool),

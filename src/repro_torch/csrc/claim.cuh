@@ -6,7 +6,9 @@
 // atomicMin install never needs a reset (src/repro_torch/core/claimword.py).
 // Tables are [N, G] words; an op addresses the cell (key, group).  Keys
 // outside [0, N) and groups outside [0, G) are masked: they install nothing
-// and probe kNoPrio.
+// and probe kNoPrio.  A kernel reads the wave number from device memory
+// (a 0-d int64 tensor, the run's wave), never as a launch argument, so a
+// captured launch reads each replay's wave: inv_wave_at.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,6 +16,12 @@
 namespace claim {
 
 constexpr unsigned kNoPrio = 0xFFFFu;
+constexpr unsigned kMaxWave = 0xFFFFu;
+
+// The claim tag of the wave at *wave: kMaxWave - (wave & kMaxWave).
+__device__ __forceinline__ unsigned inv_wave_at(const long long* wave) {
+  return kMaxWave - ((unsigned)__ldg(wave) & kMaxWave);
+}
 
 __device__ __forceinline__ unsigned word(unsigned ivw, int prio) {
   return (ivw << 16) | ((unsigned)prio & 0xFFFFu);

@@ -98,7 +98,8 @@ struct CoopArgs {
   unsigned* words;        // nullptr: the answer form
   int n, N, G, D;
   int row, W;             // the verdict form's ops and words a row
-  unsigned ivw, snap_ts;
+  const long long* wave;     // the wave number, read in the kernel
+  const long long* snap_ts;  // the ring's snapshot (two tables)
   int fine;
 };
 
@@ -110,6 +111,10 @@ __global__ void __launch_bounds__(kThreads)
   const bool two = a.table_r != nullptr;
   const bool ring = a.begin != nullptr;
   const bool verdict = a.words != nullptr;
+  // The wave's claim tag and the snapshot, read once a thread before the
+  // barrier.
+  const unsigned ivw = claim::inv_wave_at(a.wave);
+  const unsigned snap = ring ? mv::stamp_at(a.snap_ts) : 0u;
   int key0 = -1, g0 = 0;
   bool ok0 = true;
   if (first < a.n) {
@@ -130,11 +135,10 @@ __global__ void __launch_bounds__(kThreads)
     const int g = i == first ? g0 : a.groups[i];
     if (read) {
       int slot;
-      ok0 = mv::select(a.begin, key, g, a.N, a.D, a.G, a.fine, a.snap_ts,
-                       &slot);
+      ok0 = mv::select(a.begin, key, g, a.N, a.D, a.G, a.fine, snap, &slot);
     }
     if ((!m && !mr) || !claim::in_cell(key, g, a.N, a.G)) continue;
-    const unsigned word = claim::word(a.ivw, a.prio[i]);
+    const unsigned word = claim::word(ivw, a.prio[i]);
     const size_t cell = (size_t)key * a.G + g;
     if (m) atomicMin(a.table + cell, word);
     if (mr) atomicMin(a.table_r + cell, word);
@@ -145,10 +149,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = first; i < a.n; i += stride) {
     const int key = i == first ? key0 : a.keys[i];
     const int g = i == first ? g0 : a.groups[i];
-    const unsigned w =
-        claim::probe_l2(a.table, key, g, a.N, a.G, a.ivw, a.fine);
+    const unsigned w = claim::probe_l2(a.table, key, g, a.N, a.G, ivw, a.fine);
     const unsigned r =
-        two ? claim::probe_l2(a.table_r, key, g, a.N, a.G, a.ivw, a.fine)
+        two ? claim::probe_l2(a.table_r, key, g, a.N, a.G, ivw, a.fine)
             : claim::kNoPrio;
     if (!verdict) {
       a.out[i] = (int)w;
@@ -164,8 +167,7 @@ __global__ void __launch_bounds__(kThreads)
       bool ok = ok0;
       if (i != first) {
         int slot;
-        ok = mv::select(a.begin, key, g, a.N, a.D, a.G, a.fine, a.snap_ts,
-                        &slot);
+        ok = mv::select(a.begin, key, g, a.N, a.D, a.G, a.fine, snap, &slot);
       }
       const bool m = a.mask[i];
       const bool mr = a.mask_r[i];
@@ -205,25 +207,30 @@ cudaError_t grid_limit(int* out) {
 __global__ void probe_kernel(const unsigned* __restrict__ table,
                              const int* __restrict__ keys,
                              const int* __restrict__ groups,
-                             int* __restrict__ out, int n, int N, int G,
-                             unsigned ivw, int fine) {
+                             int* __restrict__ out,
+                             const long long* __restrict__ wave, int n,
+                             int N, int G, int fine) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  out[i] = (int)claim::probe(table, keys[i], groups[i], N, G, ivw, fine);
+  out[i] = (int)claim::probe(table, keys[i], groups[i], N, G,
+                             claim::inv_wave_at(wave), fine);
 }
 
 }  // namespace
 
 // The answer form: table_r, mask_r and out_r all null (one table) or all
-// set (two); begin, rd, rp and words null.  The verdict form: out and
-// out_r null, rp and words set, n a multiple of row > 0; with two tables
-// (table_r, mask_r) begin and rd are set too, with one both are null.
+// set (two); begin, rd, rp, words and snap_ts null.  The verdict form: out
+// and out_r null, rp and words set, n a multiple of row > 0; with two
+// tables (table_r, mask_r) begin, rd and snap_ts are set too, with one all
+// three are null.  wave (int64, device memory) is always set.
 extern "C" int repro_claim_probe_coop(
     void* table, void* table_r, const void* keys, const void* groups,
     const void* prio, const void* mask, const void* mask_r, void* out,
-    void* out_r, const void* begin, const void* rd,
-    const void* rp, void* words, int n, int N, int G, int D, int row, int W,
-    int ivw, unsigned snap_ts, int fine, void* stream) {
+    void* out_r, const void* begin, const void* rd, const void* rp,
+    void* words, const void* wave, const void* snap_ts, int n, int N, int G,
+    int D, int row, int W, int fine, void* stream) {
+  if (wave == nullptr || (begin == nullptr) != (snap_ts == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
   const bool two = table_r != nullptr;
   if (words == nullptr) {
@@ -255,8 +262,8 @@ extern "C" int repro_claim_probe_coop(
              D,
              row,
              W,
-             (unsigned)ivw,
-             snap_ts,
+             static_cast<const long long*>(wave),
+             static_cast<const long long*>(snap_ts),
              fine};
   int limit = 0;
   cudaError_t e = grid_limit(&limit);
@@ -272,13 +279,14 @@ extern "C" int repro_claim_probe_coop(
 }
 
 extern "C" int repro_probe(const void* table, const void* keys,
-                           const void* groups, void* out, int n, int N,
-                           int G, int ivw, int fine, void* stream) {
+                           const void* groups, void* out, const void* wave,
+                           int n, int N, int G, int fine, void* stream) {
+  if (wave == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 0)
     probe_kernel<<<(n + 255) / 256, 256, 0, s>>>(
         static_cast<const unsigned*>(table), static_cast<const int*>(keys),
-        static_cast<const int*>(groups), static_cast<int*>(out), n, N, G,
-        (unsigned)ivw, fine);
+        static_cast<const int*>(groups), static_cast<int*>(out),
+        static_cast<const long long*>(wave), n, N, G, fine);
   return (int)cudaGetLastError();
 }

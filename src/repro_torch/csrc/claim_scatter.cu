@@ -25,28 +25,32 @@ __global__ void claim_scatter_kernel(unsigned* __restrict__ table,
                                      const int* __restrict__ keys,
                                      const int* __restrict__ groups,
                                      const int* __restrict__ prio,
-                                     const bool* __restrict__ mask, int n,
-                                     int N, int G, unsigned ivw) {
+                                     const bool* __restrict__ mask,
+                                     const long long* __restrict__ wave,
+                                     int n, int N, int G) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n || !mask[i]) return;
   const int key = keys[i];
   const int g = groups[i];
   if (claim::in_cell(key, g, N, G))
-    atomicMin(table + (size_t)key * G + g, claim::word(ivw, prio[i]));
+    atomicMin(table + (size_t)key * G + g,
+              claim::word(claim::inv_wave_at(wave), prio[i]));
 }
 
 }  // namespace
 
 extern "C" int repro_claim_scatter(void* table, const void* keys,
                                    const void* groups, const void* prio,
-                                   const void* mask, int n, int N, int G,
-                                   int ivw, void* stream) {
+                                   const void* mask, const void* wave, int n,
+                                   int N, int G, void* stream) {
+  if (wave == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 0) {
     claim_scatter_kernel<<<(n + 255) / 256, 256, 0, s>>>(
         static_cast<unsigned*>(table), static_cast<const int*>(keys),
         static_cast<const int*>(groups), static_cast<const int*>(prio),
-        static_cast<const bool*>(mask), n, N, G, (unsigned)ivw);
+        static_cast<const bool*>(mask), static_cast<const long long*>(wave),
+        n, N, G);
   }
   return (int)cudaGetLastError();
 }

@@ -167,10 +167,11 @@ __global__ void iterate_validate_kernel(
     const unsigned* __restrict__ table, const int* __restrict__ keys,
     const int* __restrict__ extents, const int* __restrict__ groups,
     const int* __restrict__ myprio, const bool* __restrict__ check,
-    bool* __restrict__ out, unsigned* __restrict__ words, int n, int N,
-    int G, unsigned ivw, int fine, int B, int span, int row, int W,
-    int bit) {
+    bool* __restrict__ out, unsigned* __restrict__ words,
+    const long long* __restrict__ wave, int n, int N, int G, int fine, int B,
+    int span, int row, int W, int bit) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned ivw = claim::inv_wave_at(wave);
   // blockDim.x is a multiple of 32: the threads past n walk with no op.
   const bool conflict = phantom_walk(table, keys, extents, groups, myprio,
                                      check, i, i < n, N, G, ivw, fine, B,
@@ -196,9 +197,11 @@ __global__ void __launch_bounds__(kBlock) iterate_validate_bump_kernel(
     const int* __restrict__ extents, const int* __restrict__ groups,
     const int* __restrict__ myprio, const bool* __restrict__ check,
     const bool* __restrict__ point, const bool* __restrict__ do_,
-    unsigned* __restrict__ wts, bool* __restrict__ out, int T, int K,
-    int lanes, int N, int G, unsigned ivw, int fine, int B, int span) {
+    unsigned* __restrict__ wts, bool* __restrict__ out,
+    const long long* __restrict__ wave, int T, int K, int lanes, int N,
+    int G, int fine, int B, int span) {
   __shared__ int lost[kBlock];  // a conflict in local lane l
+  const unsigned ivw = claim::inv_wave_at(wave);
   const int lane0 = blockIdx.x * lanes;
   const int mine = T - lane0 < lanes ? T - lane0 : lanes;
   const int ops = mine * K;
@@ -234,12 +237,12 @@ __global__ void __launch_bounds__(kBlock) iterate_validate_bump_kernel(
 extern "C" int repro_iterate_validate(const void* table, const void* keys,
                                       const void* extents, const void* groups,
                                       const void* myprio, const void* check,
-                                      void* out, void* words, int n, int N,
-                                      int G, int ivw, int fine, int B,
-                                      int span, int row, int W, int bit,
-                                      void* stream) {
+                                      void* out, void* words,
+                                      const void* wave, int n, int N, int G,
+                                      int fine, int B, int span, int row,
+                                      int W, int bit, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((out == nullptr) == (words == nullptr) ||
+  if (wave == nullptr || (out == nullptr) == (words == nullptr) ||
       (words != nullptr &&
        (!verdict::valid_rows(n, row, W) || bit < 0 || bit > 1)))
     return (int)cudaErrorInvalidValue;
@@ -248,20 +251,22 @@ extern "C" int repro_iterate_validate(const void* table, const void* keys,
         static_cast<const unsigned*>(table), static_cast<const int*>(keys),
         static_cast<const int*>(extents), static_cast<const int*>(groups),
         static_cast<const int*>(myprio), static_cast<const bool*>(check),
-        static_cast<bool*>(out), static_cast<unsigned*>(words), n, N, G,
-        (unsigned)ivw, fine, B, span, row, W, bit);
+        static_cast<bool*>(out), static_cast<unsigned*>(words),
+        static_cast<const long long*>(wave), n, N, G, fine, B, span, row, W,
+        bit);
   }
   return (int)cudaGetLastError();
 }
 
-// The bump form: ops [T, K]; point, do_, wts and out all set.
+// The bump form: ops [T, K]; point, do_, wts, out and wave all set.
 extern "C" int repro_iterate_validate_bump(
     const void* table, const void* keys, const void* extents,
     const void* groups, const void* myprio, const void* check,
-    const void* point, const void* do_, void* wts, void* out, int T, int K,
-    int N, int G, int ivw, int fine, int B, int span, void* stream) {
+    const void* point, const void* do_, void* wts, void* out,
+    const void* wave, int T, int K, int N, int G, int fine, int B, int span,
+    void* stream) {
   if (point == nullptr || do_ == nullptr || wts == nullptr ||
-      out == nullptr || T < 0 || K < 0)
+      out == nullptr || wave == nullptr || T < 0 || K < 0)
     return (int)cudaErrorInvalidValue;
   if (T == 0 || K == 0) return (int)cudaGetLastError();
   const int lanes = K <= kBlock ? kBlock / K : 1;
@@ -274,7 +279,7 @@ extern "C" int repro_iterate_validate_bump(
       static_cast<const int*>(extents), static_cast<const int*>(groups),
       static_cast<const int*>(myprio), static_cast<const bool*>(check),
       static_cast<const bool*>(point), static_cast<const bool*>(do_),
-      static_cast<unsigned*>(wts), static_cast<bool*>(out), T, K, lanes, N,
-      G, (unsigned)ivw, fine, B, span);
+      static_cast<unsigned*>(wts), static_cast<bool*>(out),
+      static_cast<const long long*>(wave), T, K, lanes, N, G, fine, B, span);
   return (int)cudaGetLastError();
 }

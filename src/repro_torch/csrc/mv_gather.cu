@@ -35,12 +35,14 @@ __global__ void mv_gather_kernel(const unsigned* __restrict__ begin,
                                  const int* __restrict__ keys,
                                  const int* __restrict__ groups,
                                  int* __restrict__ slot_out,
-                                 bool* __restrict__ ok_out, int n, int N,
-                                 int D, int G, int fine, unsigned ts) {
+                                 bool* __restrict__ ok_out,
+                                 const long long* __restrict__ ts, int n,
+                                 int N, int D, int G, int fine) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   int slot = 0;
-  ok_out[i] = mv::select(begin, keys[i], groups[i], N, D, G, fine, ts, &slot);
+  ok_out[i] = mv::select(begin, keys[i], groups[i], N, D, G, fine,
+                         mv::stamp_at(ts), &slot);
   slot_out[i] = slot;
 }
 
@@ -48,14 +50,16 @@ __global__ void mv_gather_kernel(const unsigned* __restrict__ begin,
 
 extern "C" int repro_mv_gather(const void* begin, const void* keys,
                                const void* groups, void* slot_out,
-                               void* ok_out, int n, int N, int D, int G,
-                               int fine, unsigned ts, void* stream) {
+                               void* ok_out, const void* ts, int n, int N,
+                               int D, int G, int fine, void* stream) {
+  if (ts == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 0) {
     mv_gather_kernel<<<(n + 255) / 256, 256, 0, s>>>(
         static_cast<const unsigned*>(begin), static_cast<const int*>(keys),
         static_cast<const int*>(groups), static_cast<int*>(slot_out),
-        static_cast<bool*>(ok_out), n, N, D, G, fine, ts);
+        static_cast<bool*>(ok_out), static_cast<const long long*>(ts), n, N,
+        D, G, fine);
   }
   return (int)cudaGetLastError();
 }

@@ -48,6 +48,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "mv_ring.cuh"
 #include "verdict_word.cuh"
 
 namespace {
@@ -65,9 +66,9 @@ struct Args {
   const bool* do_;
   const unsigned* words;  // packed commit words, or null
   int* scratch;  // h_new of the ops past the grid's first pass, or null
+  const long long* ts;  // the install stamp, read in the kernel
   int n, N, D, G;
   int row, W;    // ops and words a row of words
-  unsigned ts;
 };
 
 // Step 1 for op i: its new slot (after copying the old one into it), or -1
@@ -90,6 +91,7 @@ __global__ void __launch_bounds__(kThreads) mv_install_kernel(const Args a) {
   cg::grid_group grid = cg::this_grid();
   const int stride = gridDim.x * kThreads;
   const int first = blockIdx.x * kThreads + threadIdx.x;
+  const unsigned ts = mv::stamp_at(a.ts);  // read before the barrier
   int held = -1;
   // 1. copy forward, every op against the pre-wave head.
   for (int i = first; i < a.n; i += stride) {
@@ -108,7 +110,7 @@ __global__ void __launch_bounds__(kThreads) mv_install_kernel(const Args a) {
     const int key = a.keys[i];
     const int g = a.groups[i];
     if (g >= 0 && g < a.G)
-      a.begin[((size_t)key * a.D + h_new) * a.G + g] = a.ts;
+      a.begin[((size_t)key * a.D + h_new) * a.G + g] = ts;
     a.head[key] = h_new;
   }
 }
@@ -149,13 +151,14 @@ extern "C" int repro_mv_install_capacity(int* ops) {
 }
 
 // scratch: int32[n] when n exceeds repro_mv_install_capacity, else may be
-// null.  words: null, or int32[n / row, W] packed commit words.
+// null.  words: null, or int32[n / row, W] packed commit words.  ts: the
+// install stamp, an int64 in device memory.
 extern "C" int repro_mv_install(void* begin, void* head, const void* keys,
                                 const void* groups, const void* do_,
-                                const void* words, void* scratch, int n,
-                                int N, int D, int G, int row, int W,
-                                unsigned ts, void* stream) {
-  if (words != nullptr && !verdict::valid_rows(n, row, W))
+                                const void* words, void* scratch,
+                                const void* ts, int n, int N, int D, int G,
+                                int row, int W, void* stream) {
+  if (ts == nullptr || (words != nullptr && !verdict::valid_rows(n, row, W)))
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
   int limit = 0;
@@ -166,7 +169,8 @@ extern "C" int repro_mv_install(void* begin, void* head, const void* keys,
   Args a{static_cast<unsigned*>(begin), static_cast<int*>(head),
          static_cast<const int*>(keys), static_cast<const int*>(groups),
          static_cast<const bool*>(do_), static_cast<const unsigned*>(words),
-         static_cast<int*>(scratch), n, N, D, G, row, W, ts};
+         static_cast<int*>(scratch), static_cast<const long long*>(ts), n, N,
+         D, G, row, W};
   const int blocks = need < limit ? need : limit;
   void* params[] = {&a};
   e = cudaLaunchCooperativeKernel(

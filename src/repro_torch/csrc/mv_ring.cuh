@@ -10,12 +10,19 @@
 // the slot is the lowest d of the highest score, ok = best score > 0.  A
 // key outside [0, N) reads nothing: slot 0, ok false.  Every compare and
 // max is unsigned: the empty slot's stamp is 0xFFFFFFFF, which an int32
-// compare would take for -1 and make visible.
+// compare would take for -1 and make visible.  The snapshot and install
+// timestamps are read from device memory (0-d int64 tensors derived from
+// the run's wave on the device), never passed as launch arguments: stamp_at.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace mv {
+
+// The uint32 timestamp at *ts (its low 32 bits).
+__device__ __forceinline__ unsigned stamp_at(const long long* ts) {
+  return (unsigned)__ldg(ts);
+}
 
 // Newest slot of the op's record visible at snapshot ts; returns ok and
 // stores the slot (0 when nothing is visible) in *slot.

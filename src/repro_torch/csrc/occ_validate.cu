@@ -101,8 +101,9 @@ struct InstallArgs {
   bool* out;
   const unsigned* begin;  // nullptr: no ring read
   bool* ok;
+  const long long* wave;     // the wave number, read in the kernel
+  const long long* snap_ts;  // the ring's snapshot (with begin)
   int n, K, N, G, D;
-  unsigned ivw, snap_ts;
   int fine;
 };
 
@@ -130,6 +131,10 @@ __global__ void __launch_bounds__(kThreads)
   cg::grid_group grid = cg::this_grid();
   const int stride = gridDim.x * kThreads;
   const int first = blockIdx.x * kThreads + threadIdx.x;
+  // The wave's claim tag and the snapshot, read once a thread before the
+  // barrier.
+  const unsigned ivw = claim::inv_wave_at(a.wave);
+  const unsigned snap = a.begin != nullptr ? mv::stamp_at(a.snap_ts) : 0u;
   const Op held = first < a.n ? load_op(a, first) : Op{};
   // 1. both installs, and the ring reads.
   for (int i = first; i < a.n; i += stride) {
@@ -137,11 +142,11 @@ __global__ void __launch_bounds__(kThreads)
     if (a.begin != nullptr) {
       int slot;
       a.ok[i] = mv::select(a.begin, op.key, op.g, a.N, a.D, a.G, a.fine,
-                           a.snap_ts, &slot);
+                           snap, &slot);
     }
     if (!(op.f & (kIw | kIr)) || !claim::in_cell(op.key, op.g, a.N, a.G))
       continue;
-    const unsigned word = claim::word(a.ivw, (int)op.p);
+    const unsigned word = claim::word(ivw, (int)op.p);
     const size_t cell = (size_t)op.key * a.G + op.g;
     if (op.f & kIw) atomicMin(a.claim_w + cell, word);
     if (op.f & kIr) atomicMin(a.claim_r + cell, word);
@@ -155,11 +160,11 @@ __global__ void __launch_bounds__(kThreads)
     if (op.f & (kCw | kCr)) {
       const unsigned wp =
           (op.f & kCw) ? claim::probe_l2(a.claim_w, op.key, op.g, a.N, a.G,
-                                         a.ivw, a.fine)
+                                         ivw, a.fine)
                        : claim::kNoPrio;
       const unsigned rp =
           (op.f & kCr) ? claim::probe_l2(a.claim_r, op.key, op.g, a.N, a.G,
-                                         a.ivw, a.fine)
+                                         ivw, a.fine)
                        : claim::kNoPrio;
       c = ((op.f & kCw) && wp < op.p) || ((op.f & kCr) && rp < op.p);
     }
@@ -178,8 +183,8 @@ struct DualArgs {
   const bool* check;
   bool* fine_out;
   bool* coarse_out;
+  const long long* wave;  // the wave number, read in the kernel
   int n, K, N, G;
-  unsigned ivw;
 };
 
 enum : unsigned { kInstall = 1, kCheck = 2 };
@@ -199,13 +204,15 @@ __global__ void __launch_bounds__(kThreads)
   cg::grid_group grid = cg::this_grid();
   const int stride = gridDim.x * kThreads;
   const int first = blockIdx.x * kThreads + threadIdx.x;
+  // The wave's claim tag, read once a thread before the barrier.
+  const unsigned ivw = claim::inv_wave_at(a.wave);
   const Op held = first < a.n ? load_dual_op(a, first) : Op{};
   // 1. the install.
   for (int i = first; i < a.n; i += stride) {
     const Op op = i == first ? held : load_dual_op(a, i);
     if ((op.f & kInstall) && claim::in_cell(op.key, op.g, a.N, a.G))
       atomicMin(a.claim_w + (size_t)op.key * a.G + op.g,
-                claim::word(a.ivw, (int)op.p));
+                claim::word(ivw, (int)op.p));
   }
   // 2. every install before any check.
   grid.sync();
@@ -218,7 +225,7 @@ __global__ void __launch_bounds__(kThreads)
     if (c && op.key >= 0 && op.key < a.N) {
       const unsigned* row = a.claim_w + (size_t)op.key * a.G;
       for (int j = 0; j < a.G; ++j) {
-        const unsigned v = claim::live_prio(__ldcg(row + j), a.ivw);
+        const unsigned v = claim::live_prio(__ldcg(row + j), ivw);
         cp = min(cp, v);
         if (j == op.g) fp = v;
       }
@@ -261,10 +268,12 @@ __global__ void validate_dual_kernel(const unsigned* __restrict__ claim_w,
                                      const int* __restrict__ myprio,
                                      const bool* __restrict__ check,
                                      bool* __restrict__ fine_out,
-                                     bool* __restrict__ coarse_out, int n,
-                                     int N, int G, unsigned ivw) {
+                                     bool* __restrict__ coarse_out,
+                                     const long long* __restrict__ wave,
+                                     int n, int N, int G) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const unsigned ivw = claim::inv_wave_at(wave);
   const bool c = check[i];
   const int key = keys[i];
   const int g = groups[i];
@@ -288,14 +297,15 @@ __global__ void validate_kernel(const unsigned* __restrict__ claim_w,
                                 const int* __restrict__ groups,
                                 const int* __restrict__ myprio,
                                 const bool* __restrict__ check,
-                                bool* __restrict__ out, int n, int N, int G,
-                                unsigned ivw, int fine) {
+                                bool* __restrict__ out,
+                                const long long* __restrict__ wave, int n,
+                                int N, int G, int fine) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const bool c = check[i];
-  const unsigned wprio =
-      c ? claim::probe(claim_w, keys[i], groups[i], N, G, ivw, fine)
-        : claim::kNoPrio;
+  const unsigned wprio = c ? claim::probe(claim_w, keys[i], groups[i], N, G,
+                                          claim::inv_wave_at(wave), fine)
+                           : claim::kNoPrio;
   out[i] = c && wprio < (unsigned)myprio[i];
 }
 
@@ -306,8 +316,9 @@ __global__ void validate_pair_kernel(const unsigned* __restrict__ claim_w,
                                      const int* __restrict__ myprio,
                                      const bool* __restrict__ check,
                                      const bool* __restrict__ check_r,
-                                     bool* __restrict__ out, int n, int N,
-                                     int G, unsigned ivw, int fine) {
+                                     bool* __restrict__ out,
+                                     const long long* __restrict__ wave,
+                                     int n, int N, int G, int fine) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const bool cw = check[i];
@@ -316,6 +327,7 @@ __global__ void validate_pair_kernel(const unsigned* __restrict__ claim_w,
     out[i] = false;
     return;
   }
+  const unsigned ivw = claim::inv_wave_at(wave);
   const int key = keys[i];
   const int g = groups[i];
   const unsigned wp =
@@ -330,15 +342,16 @@ __global__ void validate_pair_kernel(const unsigned* __restrict__ claim_w,
 
 extern "C" int repro_validate(const void* claim_w, const void* keys,
                               const void* groups, const void* myprio,
-                              const void* check, void* out, int n, int N,
-                              int G, int ivw, int fine, void* stream) {
+                              const void* check, void* out, const void* wave,
+                              int n, int N, int G, int fine, void* stream) {
+  if (wave == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 0) {
     validate_kernel<<<(n + 255) / 256, 256, 0, s>>>(
         static_cast<const unsigned*>(claim_w), static_cast<const int*>(keys),
         static_cast<const int*>(groups), static_cast<const int*>(myprio),
-        static_cast<const bool*>(check), static_cast<bool*>(out), n, N, G,
-        (unsigned)ivw, fine);
+        static_cast<const bool*>(check), static_cast<bool*>(out),
+        static_cast<const long long*>(wave), n, N, G, fine);
   }
   return (int)cudaGetLastError();
 }
@@ -346,15 +359,17 @@ extern "C" int repro_validate(const void* claim_w, const void* keys,
 extern "C" int repro_validate_dual(const void* claim_w, const void* keys,
                                    const void* groups, const void* myprio,
                                    const void* check, void* fine_out,
-                                   void* coarse_out, int n, int N, int G,
-                                   int ivw, void* stream) {
+                                   void* coarse_out, const void* wave, int n,
+                                   int N, int G, void* stream) {
+  if (wave == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 0) {
     validate_dual_kernel<<<(n + 255) / 256, 256, 0, s>>>(
         static_cast<const unsigned*>(claim_w), static_cast<const int*>(keys),
         static_cast<const int*>(groups), static_cast<const int*>(myprio),
         static_cast<const bool*>(check), static_cast<bool*>(fine_out),
-        static_cast<bool*>(coarse_out), n, N, G, (unsigned)ivw);
+        static_cast<bool*>(coarse_out), static_cast<const long long*>(wave),
+        n, N, G);
   }
   return (int)cudaGetLastError();
 }
@@ -362,9 +377,10 @@ extern "C" int repro_validate_dual(const void* claim_w, const void* keys,
 extern "C" int repro_validate_pair(const void* claim_w, const void* claim_r,
                                    const void* keys, const void* groups,
                                    const void* myprio, const void* check,
-                                   const void* check_r, void* out, int n,
-                                   int N, int G, int ivw, int fine,
-                                   void* stream) {
+                                   const void* check_r, void* out,
+                                   const void* wave, int n, int N, int G,
+                                   int fine, void* stream) {
+  if (wave == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 0) {
     validate_pair_kernel<<<(n + 255) / 256, 256, 0, s>>>(
@@ -372,20 +388,23 @@ extern "C" int repro_validate_pair(const void* claim_w, const void* claim_r,
         static_cast<const unsigned*>(claim_r), static_cast<const int*>(keys),
         static_cast<const int*>(groups), static_cast<const int*>(myprio),
         static_cast<const bool*>(check), static_cast<const bool*>(check_r),
-        static_cast<bool*>(out), n, N, G, (unsigned)ivw, fine);
+        static_cast<bool*>(out), static_cast<const long long*>(wave), n, N, G,
+        fine);
   }
   return (int)cudaGetLastError();
 }
 
-// begin and ok: both null (no ring read) or both set.
+// begin, ok and snap_ts: all null (no ring read) or all set; wave set.
 extern "C" int repro_validate_install(
     void* claim_w, void* claim_r, const void* keys, const void* groups,
     const void* prio, const void* install_w, const void* install_r,
     const void* check, const void* check_r, void* out, const void* begin,
-    void* ok, int T, int K, int N, int G, int D, int ivw, unsigned snap_ts,
-    int fine, void* stream) {
+    void* ok, const void* wave, const void* snap_ts, int T, int K, int N,
+    int G, int D, int fine, void* stream) {
+  if (wave == nullptr || (begin == nullptr) != (ok == nullptr) ||
+      (begin == nullptr) != (snap_ts == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (T <= 0 || K <= 0) return (int)cudaGetLastError();
-  if ((begin == nullptr) != (ok == nullptr)) return (int)cudaErrorInvalidValue;
   InstallArgs a{static_cast<unsigned*>(claim_w),
                 static_cast<unsigned*>(claim_r),
                 static_cast<const int*>(keys),
@@ -398,13 +417,13 @@ extern "C" int repro_validate_install(
                 static_cast<bool*>(out),
                 static_cast<const unsigned*>(begin),
                 static_cast<bool*>(ok),
+                static_cast<const long long*>(wave),
+                static_cast<const long long*>(snap_ts),
                 T * K,
                 K,
                 N,
                 G,
                 D,
-                (unsigned)ivw,
-                snap_ts,
                 fine};
   int limit = 0;
   cudaError_t e =
@@ -424,9 +443,9 @@ extern "C" int repro_validate_install(
 extern "C" int repro_validate_dual_install(
     void* claim_w, const void* keys, const void* groups, const void* prio,
     const void* install, const void* check, void* fine_out, void* coarse_out,
-    int T, int K, int N, int G, int ivw, void* stream) {
+    const void* wave, int T, int K, int N, int G, void* stream) {
   if (install == nullptr || fine_out == nullptr || coarse_out == nullptr ||
-      T < 0 || K < 0)
+      wave == nullptr || T < 0 || K < 0)
     return (int)cudaErrorInvalidValue;
   if (T == 0 || K == 0) return (int)cudaGetLastError();
   DualArgs a{static_cast<unsigned*>(claim_w),
@@ -437,11 +456,11 @@ extern "C" int repro_validate_dual_install(
              static_cast<const bool*>(check),
              static_cast<bool*>(fine_out),
              static_cast<bool*>(coarse_out),
+             static_cast<const long long*>(wave),
              T * K,
              K,
              N,
-             G,
-             (unsigned)ivw};
+             G};
   int limit = 0;
   cudaError_t e = grid_limit(validate_dual_install_kernel, g_grid_dual,
                              &limit);

@@ -86,8 +86,8 @@ struct Args {
   bool* conflict;  // nullptr: the verdicts go to words only
   int* words;      // nullptr, or the [T, ceil(K/16)] packed verdicts
   bool* commit;
+  const long long* wave;  // the wave number, read in the kernel
   int T, K, N, G;
-  unsigned ivw;
   int fine, dual, bump;
   int chunks;  // blocks a lane spans; each takes blockDim.x of its ops
 };
@@ -121,9 +121,10 @@ __device__ __forceinline__ Op load_op(const Args& a, int unit) {
   return op;
 }
 
-__device__ __forceinline__ void install(const Args& a, const Op& op) {
+__device__ __forceinline__ void install(const Args& a, const Op& op,
+                                        unsigned ivw) {
   if (!op.live || !claim::in_cell(op.key, op.g, a.N, a.G)) return;
-  const unsigned word = claim::word(a.ivw, (int)op.p);
+  const unsigned word = claim::word(ivw, (int)op.p);
   const size_t cell = (size_t)op.key * a.G + op.g;
   if (op.f & kW) atomicMin(a.claim_w + cell, word);
   if (op.f & kR) atomicMin(a.claim_r + cell, word);
@@ -131,29 +132,31 @@ __device__ __forceinline__ void install(const Args& a, const Op& op) {
 
 // claim::probe through L2: the words were written by this launch.
 __device__ __forceinline__ unsigned probe_cg(const unsigned* table,
-                                             const Args& a, const Op& op) {
+                                             const Args& a, const Op& op,
+                                             unsigned ivw) {
   if (op.key < 0 || op.key >= a.N) return kNoPrio;
   const unsigned* row = table + (size_t)op.key * a.G;
   if (a.fine) {
     if (op.g < 0 || op.g >= a.G) return kNoPrio;
-    return live_prio(__ldcg(row + op.g), a.ivw);
+    return live_prio(__ldcg(row + op.g), ivw);
   }
   unsigned best = kNoPrio;
   for (int j = 0; j < a.G; ++j)
-    best = min(best, live_prio(__ldcg(row + j), a.ivw));
+    best = min(best, live_prio(__ldcg(row + j), ivw));
   return best;
 }
 
 // The op's conflict, written to conflict[i]; false for an idle thread.
-__device__ __forceinline__ bool verdict(const Args& a, const Op& op) {
+__device__ __forceinline__ bool verdict(const Args& a, const Op& op,
+                                        unsigned ivw) {
   if (!op.live) return false;
   bool c = false;
   if (op.f & (kCw | kCw2)) {
-    const unsigned wp = probe_cg(a.claim_w, a, op);
+    const unsigned wp = probe_cg(a.claim_w, a, op, ivw);
     c = (op.f & kCw) && wp < op.p;
     c = c || ((op.f & kCw2) && wp != kNoPrio && wp != op.p);
   }
-  if (op.f & kCr) c = c || probe_cg(a.claim_r, a, op) < op.p;
+  if (op.f & kCr) c = c || probe_cg(a.claim_r, a, op, ivw) < op.p;
   c = c || (op.f & kX);
   if (a.conflict != nullptr) a.conflict[op.i] = c;
   return c;
@@ -185,11 +188,13 @@ __global__ void __launch_bounds__(kMaxBlock)
   const int units = a.T * a.chunks;
   const bool wide = a.chunks > 1;
   const int first = blockIdx.x;  // < units: the grid is at most units
+  // The wave's claim tag, read once a thread before the first barrier.
+  const unsigned ivw = claim::inv_wave_at(a.wave);
   // 1. install; the first unit's op stays in registers.
   const Op held = load_op(a, first);
   for (int u = first; u < units; u += gridDim.x) {
     const Op op = u == first ? held : load_op(a, u);
-    install(a, op);
+    install(a, op, ivw);
     if (wide && u % a.chunks == 0 && threadIdx.x == 0)
       a.commit[u / a.chunks] = true;
   }
@@ -198,7 +203,7 @@ __global__ void __launch_bounds__(kMaxBlock)
   // 3.-4. probe, verdict, lane reduction; one-block lanes bump here.
   for (int u = first; u < units; u += gridDim.x) {
     const Op op = u == first ? held : load_op(a, u);
-    const bool c = verdict(a, op);
+    const bool c = verdict(a, op, ivw);
     if (a.words != nullptr) pack_word(a, u, c);
     const bool any = __syncthreads_or(c) != 0;
     const int t = u / a.chunks;
@@ -250,9 +255,10 @@ extern "C" int repro_wave_commit(
     void* claim_w, void* claim_r, void* wts, const void* keys,
     const void* groups, const void* prio, const void* do_w, const void* do_r,
     const void* check_w, const void* check_w2, const void* check_r,
-    const void* extra, void* conflict, void* words, void* commit, int T,
-    int K, int N, int G, int ivw, int fine, int dual, int bump,
-    void* stream) {
+    const void* extra, void* conflict, void* words, void* commit,
+    const void* wave, int T, int K, int N, int G, int fine, int dual,
+    int bump, void* stream) {
+  if (wave == nullptr) return (int)cudaErrorInvalidValue;
   if (T <= 0 || K <= 0) return (int)cudaGetLastError();
   Args a{static_cast<unsigned*>(claim_w), static_cast<unsigned*>(claim_r),
          static_cast<unsigned*>(wts), static_cast<const int*>(keys),
@@ -262,8 +268,8 @@ extern "C" int repro_wave_commit(
          static_cast<const bool*>(check_w2),
          static_cast<const bool*>(check_r), static_cast<const bool*>(extra),
          static_cast<bool*>(conflict), static_cast<int*>(words),
-         static_cast<bool*>(commit), T, K, N, G, (unsigned)ivw, fine, dual,
-         bump, 1};
+         static_cast<bool*>(commit), static_cast<const long long*>(wave), T,
+         K, N, G, fine, dual, bump, 1};
   if ((conflict == nullptr) == (words == nullptr))
     return (int)cudaErrorInvalidValue;
   int block = ((K + 31) / 32) * 32;

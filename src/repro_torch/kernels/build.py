@@ -15,7 +15,10 @@ for every one of them.  Without ``nvcc`` a CUDA call raises.
 The wrappers in the kernel modules share the argument checks below: every
 tensor must be on the launch device, of the expected dtype and shape, and
 contiguous; the C function returns ``cudaGetLastError()`` after its
-launches, and a non-zero code raises.
+launches, and a non-zero code raises.  The wave index, and a timestamp
+derived from it, reach a kernel as a pointer to a 0-d int64 tensor on the
+launch device (``scalar``), never by value: a launch argument that a
+captured graph would freeze.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
+
+from repro_torch.core.claimword import device_scalar
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -128,6 +133,15 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def scalar(name: str, x, device: torch.device) -> torch.Tensor:
+    """The 0-d int64 tensor on ``device`` that a kernel reads ``x`` (the
+    wave, or a timestamp derived from it) from: a tensor is checked and
+    passed as it is, an int copied there (``claimword.device_scalar``)."""
+    t = device_scalar(x, device)
+    check(name, t, torch.int64, (), device)
+    return t
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

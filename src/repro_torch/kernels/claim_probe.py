@@ -58,7 +58,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.claimword import U32_MASK, claim_word, inv_wave
+from repro_torch.core.claimword import claim_word, inv_wave
 from repro_torch.kernels import build
 from repro_torch.kernels.mv_gather import mv_gather_plain
 from repro_torch.kernels.scatter import scatter_u32
@@ -67,13 +67,12 @@ from repro_torch.kernels.wave_commit import probe_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"repro_claim_probe_coop": ([_P] * 13 + [_I] * 7
-                                   + [ctypes.c_uint, _I, _P]),
-        "repro_probe": [_P] * 4 + [_I] * 5 + [_P]}
+_SIG = {"repro_claim_probe_coop": [_P] * 15 + [_I] * 7 + [_P],
+        "repro_probe": [_P] * 5 + [_I] * 4 + [_P]}
 
 
 def claim_probe_plain(table: torch.Tensor, keys: torch.Tensor,
-                      groups: torch.Tensor, prio: torch.Tensor, wave: int,
+                      groups: torch.Tensor, prio: torch.Tensor, wave,
                       mask: torch.Tensor, fine: bool) -> torch.Tensor:
     scatter_u32(table, keys, groups, claim_word(wave, prio), mask, "amin")
     return probe_plain(table, keys, groups, inv_wave(wave),
@@ -99,19 +98,21 @@ def claim_probe_verdict_plain(table, keys, groups, prio, wave, mask, fine,
 
 
 def claim_probe(table: torch.Tensor, keys: torch.Tensor,
-                groups: torch.Tensor, prio: torch.Tensor, wave: int,
+                groups: torch.Tensor, prio: torch.Tensor, wave,
                 mask: torch.Tensor, fine: bool, *,
                 claim_r: Optional[torch.Tensor] = None,
                 mask_r: Optional[torch.Tensor] = None,
                 begin: Optional[torch.Tensor] = None,
-                snap_ts: Optional[int] = None,
+                snap_ts=None,
                 is_r: Optional[torch.Tensor] = None,
                 is_rp: Optional[torch.Tensor] = None):
     """Install the masked ops' claims in place; returns wprio int32[T, K],
     or with ``claim_r`` and ``mask_r`` (wprio, rprio), one per table.
     With ``is_rp`` (one table) or ``is_r``, ``is_rp`` and the ring
     ``begin``, ``snap_ts`` (two tables) it returns the packed verdict
-    words int32[D, ceil(M/16)] of keys [D, M] instead."""
+    words int32[D, ceil(M/16)] of keys [D, M] instead.  ``wave`` and
+    ``snap_ts`` are 0-d int64 tensors (or ints); the kernel reads them on
+    the device."""
     claim_probe.calls += 1
     if (claim_r is None) != (mask_r is None):
         raise ValueError("claim_probe: claim_r and mask_r come together")
@@ -166,6 +167,8 @@ def claim_probe(table: torch.Tensor, keys: torch.Tensor,
         out = torch.empty(shape, dtype=torch.int32, device=dev)
         if claim_r is not None:
             out_r = torch.empty(shape, dtype=torch.int32, device=dev)
+    w = build.scalar("wave", wave, dev)
+    ts = build.scalar("snap_ts", snap_ts, dev) if ring else None
     lib = build.load("claim_probe", _SIG)
     with torch.cuda.device(dev):
         rc = lib.repro_claim_probe_coop(
@@ -173,8 +176,8 @@ def claim_probe(table: torch.Tensor, keys: torch.Tensor,
             build.ptr(groups), build.ptr(prio), build.ptr(mask),
             build.ptr(mask_r), build.ptr(out), build.ptr(out_r),
             build.ptr(begin), build.ptr(is_r), build.ptr(is_rp),
-            build.ptr(words), keys.numel(), N, G, D, row, W, inv_wave(wave),
-            int(snap_ts or 0) & U32_MASK, int(bool(fine)), build.stream(dev))
+            build.ptr(words), build.ptr(w), build.ptr(ts), keys.numel(), N,
+            G, D, row, W, int(bool(fine)), build.stream(dev))
     build.raise_on_error("claim_probe", rc)
     claim_probe.launches += 1
     if verdict:
@@ -189,7 +192,7 @@ claim_probe.calls = 0
 
 
 def probe(table: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
-          wave: int, fine: bool) -> torch.Tensor:
+          wave, fine: bool) -> torch.Tensor:
     """Strongest live claimant prio16 per op of ``table`` at ``wave``:
     int32[T, K], NO_PRIO where unclaimed or where the key is masked."""
     probe.calls += 1
@@ -203,11 +206,12 @@ def probe(table: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
     build.check("keys", keys, torch.int32, shape, dev)
     build.check("groups", groups, torch.int32, shape, dev)
     out = torch.empty(shape, dtype=torch.int32, device=dev)
+    w = build.scalar("wave", wave, dev)
     lib = build.load("claim_probe", _SIG)
     with torch.cuda.device(dev):
         rc = lib.repro_probe(
             build.ptr(table), build.ptr(keys), build.ptr(groups),
-            build.ptr(out), keys.numel(), N, G, inv_wave(wave), int(fine),
+            build.ptr(out), build.ptr(w), keys.numel(), N, G, int(fine),
             build.stream(dev))
     build.raise_on_error("probe", rc)
     probe.launches += 1

@@ -50,8 +50,8 @@ from repro_torch.kernels.verdict_pack import n_words, verdict_pack_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"repro_iterate_validate": [_P] * 8 + [_I] * 10 + [_P],
-        "repro_iterate_validate_bump": [_P] * 10 + [_I] * 8 + [_P]}
+_SIG = {"repro_iterate_validate": [_P] * 9 + [_I] * 9 + [_P],
+        "repro_iterate_validate_bump": [_P] * 11 + [_I] * 7 + [_P]}
 
 
 def scan_span(ext_cap: int, fine: bool, bucket_size: int) -> int:
@@ -66,7 +66,7 @@ def scan_span(ext_cap: int, fine: bool, bucket_size: int) -> int:
 def iterate_validate_plain(table: torch.Tensor, keys: torch.Tensor,
                            extents: torch.Tensor, groups: torch.Tensor,
                            myprio: torch.Tensor, check: torch.Tensor,
-                           wave: int, fine: bool, bucket_size: int,
+                           wave, fine: bool, bucket_size: int,
                            ext_cap: int,
                            point: Optional[torch.Tensor] = None,
                            wts: Optional[torch.Tensor] = None,
@@ -108,7 +108,7 @@ def iterate_validate_plain(table: torch.Tensor, keys: torch.Tensor,
 
 def iterate_validate(table: torch.Tensor, keys: torch.Tensor,
                      extents: torch.Tensor, groups: torch.Tensor,
-                     myprio: torch.Tensor, check: torch.Tensor, wave: int,
+                     myprio: torch.Tensor, check: torch.Tensor, wave,
                      fine: bool, bucket_size: int, ext_cap: int, *,
                      words: Optional[torch.Tensor] = None,
                      bit: int = 0, point: Optional[torch.Tensor] = None,
@@ -117,7 +117,9 @@ def iterate_validate(table: torch.Tensor, keys: torch.Tensor,
     """Phantom conflict flags, bool[T, K]; with ``words``, the flags
     OR-ed into bit ``bit`` of the packed verdict words, which it
     returns; with ``point``, ``wts`` and ``do``, ``point | phantom``,
-    and ``wts`` bumped in place for the committed lanes' ``do`` ops."""
+    and ``wts`` bumped in place for the committed lanes' ``do`` ops.
+    ``wave`` is a 0-d int64 tensor (or an int), read by the kernel on the
+    device."""
     iterate_validate.calls += 1
     bump = point is not None
     if bump != (wts is not None) or bump != (do is not None):
@@ -159,6 +161,7 @@ def iterate_validate(table: torch.Tensor, keys: torch.Tensor,
         build.check("point", point, torch.bool, shape, dev)
         build.check("do", do, torch.bool, shape, dev)
         build.check("wts", wts, torch.int32, (N, G), dev)
+    w = build.scalar("wave", wave, dev)
     lib = build.load("iterate_validate", _SIG)
     with torch.cuda.device(dev):
         if bump:
@@ -166,15 +169,15 @@ def iterate_validate(table: torch.Tensor, keys: torch.Tensor,
                 build.ptr(table), build.ptr(keys), build.ptr(extents),
                 build.ptr(groups), build.ptr(myprio), build.ptr(check),
                 build.ptr(point), build.ptr(do), build.ptr(wts),
-                build.ptr(out), shape[0], shape[1], N, G, inv_wave(wave),
+                build.ptr(out), build.ptr(w), shape[0], shape[1], N, G,
                 int(bool(fine)), bucket_size, span, build.stream(dev))
         else:
             rc = lib.repro_iterate_validate(
                 build.ptr(table), build.ptr(keys), build.ptr(extents),
                 build.ptr(groups), build.ptr(myprio), build.ptr(check),
-                build.ptr(out), build.ptr(words), keys.numel(), N, G,
-                inv_wave(wave), int(bool(fine)), bucket_size, span, row, W,
-                bit, build.stream(dev))
+                build.ptr(out), build.ptr(words), build.ptr(w), keys.numel(),
+                N, G, int(bool(fine)), bucket_size, span, row, W, bit,
+                build.stream(dev))
     build.raise_on_error("iterate_validate", rc)
     iterate_validate.launches += 1
     return out if words is None else words

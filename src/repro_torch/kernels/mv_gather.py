@@ -31,11 +31,11 @@ from repro_torch.kernels.scatter import gather_rows
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"repro_mv_gather": [_P] * 5 + [_I] * 5 + [ctypes.c_uint, _P]}
+_SIG = {"repro_mv_gather": [_P] * 6 + [_I] * 5 + [_P]}
 
 
 def mv_gather_plain(begin: torch.Tensor, keys: torch.Tensor,
-                    groups: torch.Tensor, ts: int, fine: bool):
+                    groups: torch.Tensor, ts, fine: bool):
     N, D, G = begin.shape
     rows, valid = gather_rows(begin.view(N, D * G), keys)
     rows = rows.view(keys.shape + (D, G))                 # [T, K, D, G]
@@ -44,8 +44,7 @@ def mv_gather_plain(begin: torch.Tensor, keys: torch.Tensor,
         eff = torch.where(sel, rows, 0).amax(dim=-1)
     else:
         eff = rows.amax(dim=-1)                           # [T, K, D]
-    score = torch.where(eff <= (int(ts) & U32_MASK), (eff + 1) & U32_MASK,
-                        0)
+    score = torch.where(eff <= (ts & U32_MASK), (eff + 1) & U32_MASK, 0)
     score = torch.where(valid[..., None], score, 0)
     best = score.amax(dim=-1)
     idx = torch.arange(D, dtype=torch.int32, device=keys.device)
@@ -54,9 +53,10 @@ def mv_gather_plain(begin: torch.Tensor, keys: torch.Tensor,
 
 
 def mv_gather(begin: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
-              ts: int, fine: bool):
+              ts, fine: bool):
     """(slot int32[T, K], ok bool[T, K]) of the newest version visible at
-    snapshot ``ts``."""
+    snapshot ``ts``, a 0-d int64 tensor (or an int) that the kernel reads
+    on the device."""
     mv_gather.calls += 1
     if keys.device.type == "cpu":
         return mv_gather_plain(begin, keys, groups, ts, fine)
@@ -68,12 +68,13 @@ def mv_gather(begin: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
     build.check("groups", groups, torch.int32, shape, dev)
     slot = torch.empty(shape, dtype=torch.int32, device=dev)
     ok = torch.empty(shape, dtype=torch.bool, device=dev)
+    stamp = build.scalar("ts", ts, dev)
     lib = build.load("mv_gather", _SIG)
     with torch.cuda.device(dev):
         rc = lib.repro_mv_gather(
             build.ptr(begin), build.ptr(keys), build.ptr(groups),
-            build.ptr(slot), build.ptr(ok), keys.numel(), N, D, G,
-            int(bool(fine)), int(ts) & U32_MASK, build.stream(dev))
+            build.ptr(slot), build.ptr(ok), build.ptr(stamp), keys.numel(),
+            N, D, G, int(bool(fine)), build.stream(dev))
     build.raise_on_error("mv_gather", rc)
     mv_gather.launches += 1
     return slot, ok

@@ -32,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.claimword import U32_MASK, u32
+from repro_torch.core.claimword import U32_MASK, to_i32, u32
 from repro_torch.core.mvstore import MV_EMPTY
 from repro_torch.kernels import build
 from repro_torch.kernels.verdict_pack import check_words, \
@@ -40,18 +40,18 @@ from repro_torch.kernels.verdict_pack import check_words, \
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"repro_mv_install": [_P] * 7 + [_I] * 6 + [ctypes.c_uint, _P],
+_SIG = {"repro_mv_install": [_P] * 8 + [_I] * 6 + [_P],
         "repro_mv_install_capacity": [ctypes.POINTER(ctypes.c_int)]}
 
 
 def check_mv_begin_monotone(begin: torch.Tensor, keys: torch.Tensor,
-                            do: torch.Tensor, ts: int) -> None:
+                            do: torch.Tensor, ts) -> None:
     """Raise if a ring row that ``do`` installs into already holds a begin
     >= ``ts`` (other than ``MV_EMPTY``)."""
     N = begin.shape[0]
     m = do & (keys >= 0) & (keys < N)
     rows = u32(begin[keys[m].to(torch.int64)])
-    bad = (rows != MV_EMPTY) & (rows >= (int(ts) & U32_MASK))
+    bad = (rows != MV_EMPTY) & (rows >= (ts & U32_MASK))
     if bool(bad.any()):
         raise ValueError(
             f"mv_install precondition violated: {int(bad.sum())} begin "
@@ -62,7 +62,7 @@ def check_mv_begin_monotone(begin: torch.Tensor, keys: torch.Tensor,
 
 def mv_install_plain(begin: torch.Tensor, head: torch.Tensor,
                      keys: torch.Tensor, groups: torch.Tensor,
-                     do: torch.Tensor, ts: int,
+                     do: torch.Tensor, ts,
                      words: Optional[torch.Tensor] = None) -> None:
     if words is not None:
         do = do & (verdict_unpack_plain(words, keys.shape[1]) > 0)
@@ -80,17 +80,18 @@ def mv_install_plain(begin: torch.Tensor, head: torch.Tensor,
     # value, so the unordered writes are deterministic.
     begin[k, h_new] = old
     gv = (g >= 0) & (g < G)
-    begin[k[gv], h_new[gv], g[gv]] = ((int(ts) & U32_MASK) ^ 0x80000000) \
-        - 0x80000000  # the int32 bit pattern of ts
+    begin[k[gv], h_new[gv], g[gv]] = to_i32(
+        torch.as_tensor(ts, device=begin.device))  # ts's int32 bit pattern
     head[k] = h_new.to(torch.int32)
 
 
 def mv_install(begin: torch.Tensor, head: torch.Tensor, keys: torch.Tensor,
-               groups: torch.Tensor, do: torch.Tensor, ts: int, *,
+               groups: torch.Tensor, do: torch.Tensor, ts, *,
                words: Optional[torch.Tensor] = None) -> None:
     """In place: one new ring slot per record that a ``do`` op writes
     (with ``words``, a ``do`` op whose packed field is non-zero), stamped
-    ``ts`` in the written groups."""
+    ``ts`` in the written groups.  ``ts`` is a 0-d int64 tensor (or an
+    int), read by the kernel on the device."""
     mv_install.calls += 1
     row, W = check_words("mv_install", words, keys)
     if keys.device.type == "cpu":
@@ -103,6 +104,7 @@ def mv_install(begin: torch.Tensor, head: torch.Tensor, keys: torch.Tensor,
     build.check("keys", keys, torch.int32, shape, dev)
     build.check("groups", groups, torch.int32, shape, dev)
     build.check("do", do, torch.bool, shape, dev)
+    stamp = build.scalar("ts", ts, dev)
     lib = build.load("mv_install", _SIG)
     n = keys.numel()
     with torch.cuda.device(dev):
@@ -114,7 +116,7 @@ def mv_install(begin: torch.Tensor, head: torch.Tensor, keys: torch.Tensor,
         rc = lib.repro_mv_install(
             build.ptr(begin), build.ptr(head), build.ptr(keys),
             build.ptr(groups), build.ptr(do), build.ptr(words),
-            build.ptr(scratch), n, N, D, G, row, W, int(ts) & U32_MASK,
+            build.ptr(scratch), build.ptr(stamp), n, N, D, G, row, W,
             build.stream(dev))
     build.raise_on_error("mv_install", rc)
     mv_install.launches += 1

@@ -53,8 +53,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.claimword import (NO_PRIO, U32_MASK, inv_wave,
-                                        live_prio, u32)
+from repro_torch.core.claimword import NO_PRIO, inv_wave, live_prio, u32
 from repro_torch.kernels import build
 from repro_torch.kernels.claim_scatter import claim_scatter_plain
 from repro_torch.kernels.mv_gather import mv_gather_plain
@@ -62,23 +61,22 @@ from repro_torch.kernels.scatter import gather_rows, pick_group
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"repro_validate_dual": [_P] * 7 + [_I] * 4 + [_P],
-        "repro_validate_dual_install": [_P] * 8 + [_I] * 5 + [_P],
-        "repro_validate": [_P] * 6 + [_I] * 5 + [_P],
-        "repro_validate_pair": [_P] * 8 + [_I] * 5 + [_P],
-        "repro_validate_install": ([_P] * 12 + [_I] * 6
-                                   + [ctypes.c_uint, _I, _P])}
+_SIG = {"repro_validate_dual": [_P] * 8 + [_I] * 3 + [_P],
+        "repro_validate_dual_install": [_P] * 9 + [_I] * 4 + [_P],
+        "repro_validate": [_P] * 7 + [_I] * 4 + [_P],
+        "repro_validate_pair": [_P] * 9 + [_I] * 4 + [_P],
+        "repro_validate_install": [_P] * 14 + [_I] * 6 + [_P]}
 
 
 def validate_plain(claim_w: torch.Tensor, keys: torch.Tensor,
                    groups: torch.Tensor, myprio: torch.Tensor,
-                   check: torch.Tensor, wave: int, fine: bool,
+                   check: torch.Tensor, wave, fine: bool,
                    claim_r: Optional[torch.Tensor] = None,
                    check_r: Optional[torch.Tensor] = None,
                    install_w: Optional[torch.Tensor] = None,
                    install_r: Optional[torch.Tensor] = None,
                    begin: Optional[torch.Tensor] = None,
-                   snap_ts: Optional[int] = None):
+                   snap_ts=None):
     if begin is not None:
         conflict = validate_plain(claim_w, keys, groups, myprio, check, wave,
                                   fine, claim_r, check_r, install_w,
@@ -102,13 +100,13 @@ def validate_plain(claim_w: torch.Tensor, keys: torch.Tensor,
 
 
 def validate(claim_w: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
-             myprio: torch.Tensor, check: torch.Tensor, wave: int,
+             myprio: torch.Tensor, check: torch.Tensor, wave,
              fine: bool, claim_r: Optional[torch.Tensor] = None,
              check_r: Optional[torch.Tensor] = None,
              install_w: Optional[torch.Tensor] = None,
              install_r: Optional[torch.Tensor] = None,
              begin: Optional[torch.Tensor] = None,
-             snap_ts: Optional[int] = None):
+             snap_ts=None):
     """Conflict flags bool[T, K]: checked ops whose cell (fine) or row
     (coarse) a strictly stronger lane claimed this wave in ``claim_w``,
     or, with the second channel, ``check_r`` ops whose cell or row a
@@ -116,7 +114,9 @@ def validate(claim_w: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
     ``install_r`` the call first installs those ops' claims into the two
     tables (in place) and ``myprio`` is the lane priority int32[T]; with
     the ring ``begin`` and ``snap_ts`` as well it returns (conflict, ok),
-    ``ok`` the snapshot read's visibility flag per op."""
+    ``ok`` the snapshot read's visibility flag per op.  ``wave`` and
+    ``snap_ts`` are 0-d int64 tensors (or ints), read by the kernel on the
+    device."""
     validate.calls += 1
     if (claim_r is None) != (check_r is None):
         raise ValueError("validate: claim_r and check_r come together")
@@ -144,7 +144,8 @@ def validate(claim_w: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
                 shape[:1] if installs else shape, dev)
     build.check("check", check, torch.bool, shape, dev)
     out = torch.empty(shape, dtype=torch.bool, device=dev)
-    ok, D = None, 0
+    ok, ts, D = None, None, 0
+    w = build.scalar("wave", wave, dev)
     lib = build.load("occ_validate", _SIG)
     with torch.cuda.device(dev):
         if installs:
@@ -156,19 +157,19 @@ def validate(claim_w: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
                 _, D, _ = begin.shape
                 build.check("begin", begin, torch.int32, (N, D, G), dev)
                 ok = torch.empty(shape, dtype=torch.bool, device=dev)
+                ts = build.scalar("snap_ts", snap_ts, dev)
             rc = lib.repro_validate_install(
                 build.ptr(claim_w), build.ptr(claim_r), build.ptr(keys),
                 build.ptr(groups), build.ptr(myprio), build.ptr(install_w),
                 build.ptr(install_r), build.ptr(check), build.ptr(check_r),
-                build.ptr(out), build.ptr(begin), build.ptr(ok), shape[0],
-                shape[1], N, G, D, inv_wave(wave),
-                int(snap_ts or 0) & U32_MASK, int(bool(fine)),
+                build.ptr(out), build.ptr(begin), build.ptr(ok), build.ptr(w),
+                build.ptr(ts), shape[0], shape[1], N, G, D, int(bool(fine)),
                 build.stream(dev))
         elif claim_r is None:
             rc = lib.repro_validate(
                 build.ptr(claim_w), build.ptr(keys), build.ptr(groups),
                 build.ptr(myprio), build.ptr(check), build.ptr(out),
-                keys.numel(), N, G, inv_wave(wave), int(bool(fine)),
+                build.ptr(w), keys.numel(), N, G, int(bool(fine)),
                 build.stream(dev))
         else:
             build.check("claim_r", claim_r, torch.int32, (N, G), dev)
@@ -176,8 +177,8 @@ def validate(claim_w: torch.Tensor, keys: torch.Tensor, groups: torch.Tensor,
             rc = lib.repro_validate_pair(
                 build.ptr(claim_w), build.ptr(claim_r), build.ptr(keys),
                 build.ptr(groups), build.ptr(myprio), build.ptr(check),
-                build.ptr(check_r), build.ptr(out), keys.numel(), N, G,
-                inv_wave(wave), int(bool(fine)), build.stream(dev))
+                build.ptr(check_r), build.ptr(out), build.ptr(w),
+                keys.numel(), N, G, int(bool(fine)), build.stream(dev))
     build.raise_on_error("validate", rc)
     validate.launches += 1
     return (out, ok) if ring else out
@@ -189,7 +190,7 @@ validate.calls = 0
 
 def validate_dual_plain(claim_w: torch.Tensor, keys: torch.Tensor,
                         groups: torch.Tensor, myprio: torch.Tensor,
-                        check: torch.Tensor, wave: int,
+                        check: torch.Tensor, wave,
                         install: Optional[torch.Tensor] = None):
     if install is not None:
         myprio = myprio[:, None].expand(keys.shape)
@@ -205,11 +206,12 @@ def validate_dual_plain(claim_w: torch.Tensor, keys: torch.Tensor,
 
 def validate_dual(claim_w: torch.Tensor, keys: torch.Tensor,
                   groups: torch.Tensor, myprio: torch.Tensor,
-                  check: torch.Tensor, wave: int,
+                  check: torch.Tensor, wave,
                   install: Optional[torch.Tensor] = None):
     """(fine, coarse) conflict flags, bool[T, K] each.  With ``install``
     the call first installs those ops' write claims into ``claim_w`` (in
-    place) and ``myprio`` is the lane priority int32[T]."""
+    place) and ``myprio`` is the lane priority int32[T].  ``wave`` is a
+    0-d int64 tensor (or an int), read by the kernel on the device."""
     validate_dual.calls += 1
     want = tuple(keys.shape[:1]) if install is not None else \
         tuple(keys.shape)
@@ -233,6 +235,7 @@ def validate_dual(claim_w: torch.Tensor, keys: torch.Tensor,
     build.check("check", check, torch.bool, shape, dev)
     fine = torch.empty(shape, dtype=torch.bool, device=dev)
     coarse = torch.empty(shape, dtype=torch.bool, device=dev)
+    w = build.scalar("wave", wave, dev)
     lib = build.load("occ_validate", _SIG)
     with torch.cuda.device(dev):
         if install is not None:
@@ -240,13 +243,13 @@ def validate_dual(claim_w: torch.Tensor, keys: torch.Tensor,
             rc = lib.repro_validate_dual_install(
                 build.ptr(claim_w), build.ptr(keys), build.ptr(groups),
                 build.ptr(myprio), build.ptr(install), build.ptr(check),
-                build.ptr(fine), build.ptr(coarse), shape[0], shape[1], N,
-                G, inv_wave(wave), build.stream(dev))
+                build.ptr(fine), build.ptr(coarse), build.ptr(w), shape[0],
+                shape[1], N, G, build.stream(dev))
         else:
             rc = lib.repro_validate_dual(
                 build.ptr(claim_w), build.ptr(keys), build.ptr(groups),
                 build.ptr(myprio), build.ptr(check), build.ptr(fine),
-                build.ptr(coarse), keys.numel(), N, G, inv_wave(wave),
+                build.ptr(coarse), build.ptr(w), keys.numel(), N, G,
                 build.stream(dev))
     build.raise_on_error("validate_dual", rc)
     validate_dual.launches += 1

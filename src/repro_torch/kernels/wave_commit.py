@@ -45,11 +45,11 @@ from repro_torch.kernels.verdict_pack import n_words, verdict_pack_plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"repro_wave_commit": [_P] * 15 + [_I] * 8 + [_P]}
+_SIG = {"repro_wave_commit": [_P] * 16 + [_I] * 7 + [_P]}
 
 
 def probe_plain(table: torch.Tensor, keys: torch.Tensor,
-                groups: torch.Tensor, ivw: int, fine: bool) -> torch.Tensor:
+                groups: torch.Tensor, ivw, fine: bool) -> torch.Tensor:
     """Strongest live claimant prio16 per op (int64), NO_PRIO when
     unclaimed or masked (the JAX oracle ``ref.claim_probe``)."""
     rows, valid = gather_rows(table, keys)
@@ -59,7 +59,7 @@ def probe_plain(table: torch.Tensor, keys: torch.Tensor,
 
 
 def wave_commit_plain(claim_w, claim_r, wts, keys, groups, prio, do_w, do_r,
-                      check_w, check_w2, check_r, extra, wave: int,
+                      check_w, check_w2, check_r, extra, wave,
                       fine: bool, dual: bool, bump: bool, pack: bool = False):
     """Plain PyTorch version of the kernel (see the module docstring);
     ``pack`` packs the conflicts as ``verdict_pack`` does."""
@@ -93,11 +93,12 @@ def wave_commit(claim_w: torch.Tensor, claim_r: Optional[torch.Tensor],
                 do_w: torch.Tensor, do_r: Optional[torch.Tensor],
                 check_w: torch.Tensor, check_w2: Optional[torch.Tensor],
                 check_r: Optional[torch.Tensor],
-                extra: Optional[torch.Tensor], wave: int, fine: bool,
+                extra: Optional[torch.Tensor], wave, fine: bool,
                 dual: bool, bump: bool, *, pack: bool = False):
     """The fused probe-family wave; returns (conflict, commit), or with
     ``pack`` (verdict words, commit), and updates ``claim_w`` (``claim_r``
-    when dual, ``wts`` when bump) in place."""
+    when dual, ``wts`` when bump) in place.  ``wave`` is the run's 0-d
+    int64 tensor (or an int), which the kernel reads on the device."""
     wave_commit.calls += 1
     if keys.device.type == "cpu":
         return wave_commit_plain(claim_w, claim_r, wts, keys, groups, prio,
@@ -127,6 +128,7 @@ def wave_commit(claim_w: torch.Tensor, claim_r: Optional[torch.Tensor],
     else:
         conflict = torch.empty((T, K), dtype=torch.bool, device=dev)
     commit = torch.empty((T,), dtype=torch.bool, device=dev)
+    w = build.scalar("wave", wave, dev)
     lib = build.load("wave_commit", _SIG)
     with torch.cuda.device(dev):
         rc = lib.repro_wave_commit(
@@ -136,7 +138,7 @@ def wave_commit(claim_w: torch.Tensor, claim_r: Optional[torch.Tensor],
             build.ptr(do_r if dual else None), build.ptr(check_w),
             build.ptr(check_w2), build.ptr(check_r if dual else None),
             build.ptr(extra), build.ptr(conflict), build.ptr(words),
-            build.ptr(commit), T, K, N, G, inv_wave(wave), int(fine),
+            build.ptr(commit), build.ptr(w), T, K, N, G, int(fine),
             int(dual), int(bump), build.stream(dev))
     build.raise_on_error("wave_commit", rc)
     wave_commit.launches += 1

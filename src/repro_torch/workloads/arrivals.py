@@ -9,8 +9,10 @@ queue (core/admission.py).  Two seeded streams:
 - ``poisson_offered`` — the local engine's per-wave draw: one
   ``torch.poisson`` sample on an explicit ``torch.Generator``, capped at
   the lane-grid width (the front-end materializes at most T fresh
-  transactions per wave, so size rates accordingly).  It is the port's
-  own stream: it does not reproduce ``jax.random.poisson``.
+  transactions per wave, so size rates accordingly).  The run passes the
+  rate as a tensor on the generator's device, made once, so a draw
+  copies nothing from the host.  It is the port's own stream: it does
+  not reproduce ``jax.random.poisson``.
 - ``PoissonArrivals`` — a host-side schedule (NumPy ``default_rng``),
   copied as it is: ``counts(n_waves, max_per_wave)`` yields capped
   per-wave arrival counts, reproducibly from ``seed``.
@@ -23,11 +25,13 @@ import numpy as np
 import torch
 
 
-def poisson_offered(gen: torch.Generator, rate: float,
+def poisson_offered(gen: torch.Generator, rate,
                     max_n: int) -> torch.Tensor:
     """One wave's arrival count: min(Poisson(rate), max_n), an int64
-    scalar tensor on the generator's device."""
-    lam = torch.tensor(float(rate), dtype=torch.float32, device=gen.device)
+    scalar tensor on the generator's device.  ``rate`` is a float32
+    scalar tensor there (a float is filled into one)."""
+    lam = rate if isinstance(rate, torch.Tensor) else torch.full(
+        (), float(rate), dtype=torch.float32, device=gen.device)
     draw = torch.poisson(lam, generator=gen)
     return torch.clamp(draw, max=max_n).to(torch.int64)
 

@@ -18,6 +18,7 @@ a wave prefix sum, outside CC.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -164,8 +165,7 @@ class TPCCWorkload:
         def randint(lo, hi, shape):
             return torch.randint(lo, hi, shape, generator=gen, device=dev)
 
-        mix = torch.tensor(MIX_SCAN if self.scan_len > 0 else MIX,
-                           dtype=torch.float32, device=dev)
+        mix = _mix(MIX_SCAN if self.scan_len > 0 else MIX, dev)
         txn_type = torch.multinomial(mix, T, replacement=True,
                                      generator=gen).to(torch.int32)
         w = randint(0, self.n_warehouses, (T,))
@@ -305,3 +305,10 @@ class TPCCWorkload:
         f["op_extent"][:, 1] = self.scan_len
         return self._batch(f, T, dev, STOCK_LEVEL,
                            torch.full((T,), 2, device=dev))
+
+
+@functools.lru_cache(maxsize=None)
+def _mix(weights: tuple, device: torch.device) -> torch.Tensor:
+    """The transaction mix as a float32 tensor on ``device``, made once:
+    a wave's draw copies nothing from the host."""
+    return torch.tensor(weights, dtype=torch.float32, device=device)

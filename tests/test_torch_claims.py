@@ -116,6 +116,12 @@ def _heats(rng, n=12):
     return heat, heat_wave, keys
 
 
+def _with_sink(a: np.ndarray) -> torch.Tensor:
+    """The port's per-record table: the records, then the zero sink slot
+    (``types.SINK``) that the masked scatters write."""
+    return torch.from_numpy(np.append(a, np.zeros(pt.SINK, a.dtype)))
+
+
 @pytest.mark.parametrize("decay", [0.95, 0.97])
 def test_lazy_decayed_matches_jax(decay):
     rng = np.random.default_rng(17)
@@ -124,7 +130,7 @@ def test_lazy_decayed_matches_jax(decay):
     want = np.asarray(jcl.lazy_decayed(
         jnp.asarray(heat), jnp.asarray(heat_wave), jnp.asarray(keys),
         jnp.uint32(wave), decay))
-    got = cl.lazy_decayed(torch.from_numpy(heat), torch.from_numpy(heat_wave),
+    got = cl.lazy_decayed(_with_sink(heat), _with_sink(heat_wave),
                           torch.from_numpy(keys), wave, decay)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
@@ -141,9 +147,11 @@ def test_touch_heat_matches_jax():
         jnp.asarray(heat), jnp.asarray(heat_wave), jnp.asarray(keys),
         jnp.asarray(add), jnp.uint32(41), 0.95,
         jnp.asarray(mask & (keys >= 0)))
-    th, tw = torch.from_numpy(heat.copy()), torch.from_numpy(heat_wave.copy())
+    th, tw = _with_sink(heat), _with_sink(heat_wave)
     assert cl.touch_heat(th, tw, torch.from_numpy(keys), torch.from_numpy(add),
                          41, 0.95, torch.from_numpy(mask)) is None  # in place
+    assert th[-1] == 0 and tw[-1] == 0   # the masked ops' sink slot
+    th, tw = th[:-pt.SINK], tw[:-pt.SINK]
     np.testing.assert_allclose(th.numpy(), np.asarray(want_h), rtol=1e-6)
     np.testing.assert_array_equal(tw.numpy(), np.asarray(want_w))
     assert th[4] > 2.0 and tw[4] == 41

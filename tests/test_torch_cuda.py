@@ -479,3 +479,23 @@ def test_lm_serving_launches_its_kernels_and_matches_the_plain_route(arch):
         errs = row["route_rel_l2"][step]
         assert errs["f32 kernel vs plain"] <= chip_smoke.LM_ROUTE_RTOL
         assert errs["bf16 kernel vs plain"] <= chip_smoke.LM_ROUTE_RTOL
+
+
+@pytest.mark.cuda
+def test_waves_never_wait_on_the_host():
+    """Two eager waves, then three under set_sync_debug_mode("error") and
+    the profiler, with no host copy or sync among them
+    (chip_smoke.sync_free_path raises otherwise): every mechanism fused,
+    scans, the unfused route and the open step, at small sizes."""
+    small = [("tpcc", dict(scale=0.01), cc, 1, True, 0.0)
+             for cc in chip_smoke.ALL_CCS]
+    small += [("tpcc", dict(scale=0.01, scan_len=16), cc, 0, True, 0.0)
+              for cc in ("occ", "autogran", "mvcc")]
+    small += [("tpcc", dict(scale=0.01), cc, 0, False, 0.0)
+              for cc in ("occ", "2pl", "adaptive")]
+    small += [("ycsb", dict(n_keys=2000), cc, 1, True, 12.0)
+              for cc in ("occ", "mvcc")]
+    launches, waves = chip_smoke.sync_free_path(_cuda(), lanes=16,
+                                                configs=small)
+    assert waves == 3 * len(small)
+    assert launches["wave_commit"] > 0 and launches["validate"] > 0
