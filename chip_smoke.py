@@ -209,7 +209,21 @@ src/repro_torch/csrc, then:
      step), then three under torch.cuda.set_sync_debug_mode("error") and
      torch.profiler with no host-to-device or device-to-host copy and no
      stream or device synchronize among them; the wave index advanced on
-     the device;
+     the device; six tracked configurations (track_conflicts and the
+     per-wave timeline's writes among the guarded waves: OCC, TicToc,
+     AutoGran, MVCC on TPC-C point, OCC on TPC-C scans, MVCC open-loop);
+ 9h. observability (observability_path): OCC fine, TicToc, MVCC and
+     AutoGran coarse on TPC-C (8 warehouses, scale 1.0, T = 128, 200
+     waves) through engine.run with track_conflicts off and on: the runs
+     identical but for the conflict tables, per-wave series included,
+     the tracked run launching exactly one commit_install, one
+     segment_count and one ts_install_max more a wave, with hot records;
+     txn_bench --trace over OCC and TicToc x coarse and fine: the Chrome
+     trace valid with one slice a wave, the rows' cost-model columns
+     those of analysis/txn_cost.py; then tracked OCC fine and TicToc
+     coarse on the card and the CPU from the same draws (TPC-C scale 0.1,
+     30 waves): conflict tables, hot_records and per-wave integer series
+     bit-identical, per-wave simulated µs within rtol 1e-5;
  10. the sharded engine (core/distributed.py) on a one-rank NCCL group:
      YCSB and TPC-C at the main path's sizes and YCSB workload E, 256
      lanes, 200 waves, OCC/MVCC/MV-OCC x coarse and fine and OCC fine
@@ -3706,20 +3720,25 @@ def _draws(wl, waves, lanes, seed=5):
     return out
 
 
-def _replay(cfg, wl, draws, d, active_lanes=None):
+def _replay(cfg, wl, draws, d, active_lanes=None, timeline=False):
     """The wave step on ``d`` over ``draws``; ``active_lanes`` < T masks
-    the lanes past it as the sweep runner pads a point."""
+    the lanes past it as the sweep runner pads a point.  ``timeline``
+    returns ``(state, the per-wave timeline's arrays)``."""
     from repro_torch.core import engine as E
     from repro_torch.core import types as t
     st = t.engine_state_init(cfg, wl.init_store(d, cfg.mv_depth))
     active = (None if active_lanes is None else
               torch.arange(cfg.lanes, device=d) < active_lanes)
     step = E.make_wave_step(cfg, active)
-    for fresh, tl, perm in draws:
+    tl = E.Timeline(len(draws), st.wave) if timeline else None
+    for fresh, tails, perm in draws:
         fb = t.TxnBatch(**{f.name: getattr(fresh, f.name).to(d)
                            for f in dataclasses.fields(t.TxnBatch)})
-        st = step(st, fb, tl.to(d), perm.to(d))
-    return st
+        wave = st.wave
+        st, row = step(st, fb, tails.to(d), perm.to(d))
+        if tl is not None:
+            tl.record(wave, row)
+    return (st, tl.arrays()) if timeline else st
 
 
 def _replay_open(cfg, wl, draws, offered, d):
@@ -3991,21 +4010,30 @@ HOST_WAITS = ("Memcpy HtoD", "Memcpy DtoH", "cudaStreamSynchronize",
 
 
 def sync_free_configs() -> list:
-    """(workload, its settings, cc, granularity, fused, arrival rate) of
-    the sync-free phase: every mechanism x coarse and fine on TPC-C and
-    YCSB point; TPC-C scan_len 200 with OCC, AutoGran and MVCC; YCSB-E
-    with OCC; the unfused route with OCC, 2PL and Adaptive; the open step
-    (YCSB, OCC and MVCC, rate 96, queue 512)."""
-    out = [(w, MAIN_KW[w], cc, g, True, 0.0) for w in ("tpcc", "ycsb")
-           for cc in ALL_CCS for g in (0, 1)]
-    out += [("tpcc", SCAN_KW["tpcc"], cc, g, True, 0.0)
+    """(workload, its settings, cc, granularity, fused, arrival rate,
+    tracked) of the sync-free phase: every mechanism x coarse and fine on
+    TPC-C and YCSB point; TPC-C scan_len 200 with OCC, AutoGran and MVCC;
+    YCSB-E with OCC; the unfused route with OCC, 2PL and Adaptive; the
+    open step (YCSB, OCC and MVCC, rate 96, queue 512); and tracked
+    (``track_conflicts`` and the per-wave timeline, as ``engine.run``
+    keeps them): OCC, TicToc, AutoGran and MVCC on TPC-C point, OCC on
+    TPC-C scans and MVCC open-loop."""
+    out = [(w, MAIN_KW[w], cc, g, True, 0.0, False)
+           for w in ("tpcc", "ycsb") for cc in ALL_CCS for g in (0, 1)]
+    out += [("tpcc", SCAN_KW["tpcc"], cc, g, True, 0.0, False)
             for cc in ("occ", "autogran", "mvcc") for g in (0, 1)]
-    out += [("ycsb", SCAN_KW["ycsb"], "occ", g, True, 0.0) for g in (0, 1)]
-    out += [("tpcc", MAIN_KW["tpcc"], cc, g, False, 0.0)
+    out += [("ycsb", SCAN_KW["ycsb"], "occ", g, True, 0.0, False)
+            for g in (0, 1)]
+    out += [("tpcc", MAIN_KW["tpcc"], cc, g, False, 0.0, False)
             for cc in ("occ", "2pl", "adaptive") for g in (0, 1)]
     kw = {k: v for k, v in OPEN_KW.items() if k != "arrival_rate"}
-    out += [("ycsb", kw, cc, 1, True, OPEN_KW["arrival_rate"])
+    out += [("ycsb", kw, cc, 1, True, OPEN_KW["arrival_rate"], False)
             for cc in ("occ", "mvcc")]
+    out += [("tpcc", MAIN_KW["tpcc"], cc, g, True, 0.0, True)
+            for cc, g in (("occ", 1), ("tictoc", 0), ("autogran", 0),
+                          ("mvcc", 1))]
+    out += [("tpcc", SCAN_KW["tpcc"], "occ", 0, True, 0.0, True),
+            ("ycsb", kw, "mvcc", 1, True, OPEN_KW["arrival_rate"], True)]
     return out
 
 
@@ -4016,28 +4044,32 @@ def sync_free_path(dev, warm=2, waves=3, lanes=LANES, configs=None):
     under ``torch.cuda.set_sync_debug_mode("error")`` (any synchronizing
     call raises) and ``torch.profiler``, which must show no ``HOST_WAITS``
     event inside them (the mode does not flag a copy from pageable
-    memory).  The wave index must have advanced on the device and every
-    lane of every wave must commit or abort.  Returns (launches during
-    the profiled waves, waves profiled)."""
+    memory).  A tracked configuration also records every wave's row into
+    a per-wave ``Timeline``, inside the guarded waves.  The wave index
+    must have advanced on the device and every lane of every wave must
+    commit or abort.  Returns (launches during the profiled waves, waves
+    profiled)."""
     from torch.autograd import DeviceType
     from repro_torch import kernels as K
-    from repro_torch.core.engine import (arrival_rate, draw_wave,
+    from repro_torch.core.engine import (Timeline, arrival_rate, draw_wave,
                                          make_open_wave_step, make_wave_step)
     from repro_torch.core.types import engine_state_init
     from repro_torch.launch.txn_bench import make_config, make_workload
+    from repro_torch.launch.wave_profile import device_ops
     configs = sync_free_configs() if configs is None else configs
     acts = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     workloads = {}
     launches = {op: 0 for op in K.WRAPPERS}
-    for wl_name, wl_kw, cc, gran, fuse, rate in configs:
+    for wl_name, wl_kw, cc, gran, fuse, rate, track in configs:
         key = (wl_name, tuple(sorted(wl_kw.items())))
         if key not in workloads:
             workloads[key] = make_workload(wl_name, **wl_kw)
         wl = workloads[key]
-        cfg = make_config(wl, cc, gran, lanes, fuse, mv_depth=MV_DEPTH,
-                          arrival_rate=rate)
+        cfg = dataclasses.replace(
+            make_config(wl, cc, gran, lanes, fuse, mv_depth=MV_DEPTH,
+                        arrival_rate=rate), track_conflicts=track)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         state = engine_state_init(cfg, wl.init_store(dev, cfg.mv_depth))
@@ -4046,15 +4078,19 @@ def sync_free_path(dev, warm=2, waves=3, lanes=LANES, configs=None):
         r = arrival_rate(cfg, dev)
         for _ in range(warm):
             state, _ = draw_wave(cfg, wl, state, step, gen, r)
+        timeline = Timeline(waves, state.wave) if track else None
         _sync(dev)
         before = K.launch_counts()
         with torch.profiler.profile(activities=acts) as prof:
             if dev.type == "cuda":
                 torch.cuda.set_sync_debug_mode("error")
             try:
-                with torch.profiler.record_function("sync_free_waves"):
+                with torch.profiler.record_function("repro:sync_free_waves"):
                     for _ in range(waves):
-                        state, _ = draw_wave(cfg, wl, state, step, gen, r)
+                        wave = state.wave
+                        state, row = draw_wave(cfg, wl, state, step, gen, r)
+                        if track:
+                            timeline.record(wave, row)
             finally:
                 if dev.type == "cuda":
                     torch.cuda.set_sync_debug_mode(0)
@@ -4062,18 +4098,19 @@ def sync_free_path(dev, warm=2, waves=3, lanes=LANES, configs=None):
         for op, n in K.launch_counts().items():
             launches[op] += n - before[op]
         events = prof.events()
-        (span,) = [e for e in events if e.name == "sync_free_waves"
+        (span,) = [e for e in events if e.name == "repro:sync_free_waves"
                    and e.device_type == DeviceType.CPU]
         lo, hi = span.time_range.start, span.time_range.end
         inside = [e for e in events if e.device_type == DeviceType.CUDA
                   or lo <= e.time_range.start <= hi]
         waits = [e.name for e in inside
                  if any(w in e.name for w in HOST_WAITS)]
-        n_dev = sum(e.device_type == DeviceType.CUDA for e in events)
+        n_dev = len(device_ops(events)[0])
         what = (f"{wl_name}{' scans' if wl.max_extent > 1 else ''} "
                 f"{cc}-{'fine' if gran else 'coarse'}"
                 f"{'' if fuse else ' unfused'}"
-                f"{f' open rate {rate:g}' if rate else ''}")
+                f"{f' open rate {rate:g}' if rate else ''}"
+                f"{' tracked' if track else ''}")
         log(f"  sync-free {what}: {waves} waves, {len(waits)} host copies "
             f"and syncs, {n_dev / waves:.1f} device events a wave")
         if waits:
@@ -4083,6 +4120,12 @@ def sync_free_path(dev, warm=2, waves=3, lanes=LANES, configs=None):
         done = int(state.commits + state.aborts)
         if not cfg.open_loop and done != lanes * (warm + waves):
             raise AssertionError(f"sync-free {what}: {done} lanes done")
+        if track:
+            rows = timeline.arrays()
+            lanes_done = rows["per_wave_commits"] + rows["per_wave_aborts"]
+            if not cfg.open_loop and (lanes_done != lanes).any():
+                raise AssertionError(f"sync-free {what}: timeline "
+                                     f"{lanes_done.tolist()}")
         if dev.type == "cuda" and n_dev == 0:
             raise AssertionError(f"sync-free {what}: nothing ran on the "
                                  "device")
@@ -4148,6 +4191,138 @@ def cross_device_open(dev, waves=30, n_keys=100_000, configs=(("mvcc", 1),)):
             f"commits {int(a.commits)} queued {int(a.ol.queue.size)} inc_drops "
             f"{int(a.ol.inc_drops)}: identical on {dev} and cpu")
 
+
+# ------------------------------------------------------------ observability
+#: The observability phase's tracked mechanisms at full width: the
+#: cross-device pair (OCC fine, TicToc coarse), MVCC and AutoGran.
+OBS_CONFIGS = (("occ", 1), ("tictoc", 0), ("mvcc", 0), ("autogran", 0))
+#: The launches a tracked wave adds: the conflict histogram's +1 scatter,
+#: same-cell count and peak install.
+TRACK_OPS = {"commit_install": 1, "segment_count": 1, "ts_install_max": 1}
+PER_WAVE_INT = ("per_wave_commits", "per_wave_aborts", "per_wave_causes")
+
+
+def _same_timeline(a: dict, b: dict, what: str, rtol: float = 0.0):
+    """Per-wave integer series bit-identical, simulated µs within
+    ``rtol``."""
+    import numpy as np
+    for k in PER_WAVE_INT:
+        if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"{what}: {k} differs")
+    np.testing.assert_allclose(a["per_wave_us"], b["per_wave_us"], rtol=rtol,
+                               atol=0, err_msg=f"{what}: per_wave_us")
+
+
+def observability_path(dev, waves=WAVES, lanes=LANES, scale=1.0,
+                       out_dir=None):
+    """The conflict histogram and the per-wave timeline at full width
+    (TPC-C 8 warehouses at ``scale``, T = ``lanes``): each of
+    ``OBS_CONFIGS`` through ``engine.run`` with ``track_conflicts`` off
+    and on, same seed: the runs identical (every state field but the
+    conflict tables, and the per-wave series), the tracked run launching
+    exactly ``TRACK_OPS`` more a wave and finding hot records.  Then the
+    benchmark CLI with ``--trace`` (OCC and TicToc, coarse and fine): the
+    Chrome trace written under ``out_dir`` (default build/observability)
+    and valid, one slice a wave, and every row carrying the cost-model
+    columns of analysis/txn_cost.py.  Returns (launches, waves driven)."""
+    from repro_torch import kernels as K
+    from repro_torch.analysis.trace import validate_chrome_trace
+    from repro_torch.core import engine as E
+    from repro_torch.launch import txn_bench
+    wl = txn_bench.make_workload("tpcc", scale=scale)
+    K.reset_launches()
+    n_waves = 0
+    for cc, gran in OBS_CONFIGS:
+        res, delta = {}, {}
+        for track in (False, True):
+            cfg = dataclasses.replace(
+                txn_bench.make_config(wl, cc, gran, lanes,
+                                      mv_depth=MV_DEPTH),
+                track_conflicts=track)
+            before = K.launch_counts()
+            res[track] = E.run(cfg, wl, waves, seed=7, device=dev,
+                               keep_state=True)
+            delta[track] = {op: n - before[op]
+                            for op, n in K.launch_counts().items()}
+            n_waves += waves
+        off, on = res[False], res[True]
+        what = f"tracking {cc}-{'fine' if gran else 'coarse'}"
+        _same_state(off.final_state, on.final_state, what)
+        _same_timeline(vars(off), vars(on), what)
+        added = {op: (delta[True][op] - delta[False][op]) / waves
+                 for op in delta[True]}
+        want = {op: TRACK_OPS.get(op, 0) if dev.type == "cuda" else 0
+                for op in added}
+        hits = int(on.final_state.conflict_hits.sum())
+        log(f"  {what}: {waves} waves, commits {on.commits} aborts "
+            f"{on.aborts}, {hits} conflicting ops, hot records "
+            f"{on.hot_records[:4]}; launches a wave added "
+            + json.dumps({op: n for op, n in added.items() if n})
+            + "; tracking off = on")
+        if added != want:
+            raise AssertionError(f"{what}: launches a wave added {added}")
+        if not (on.hot_records and off.hot_records is None
+                and on.per_wave_commits.shape == (waves,)):
+            raise AssertionError(f"{what}: no hot records or timeline")
+    out_dir = out_dir or os.path.join(ROOT, "build", "observability")
+    os.makedirs(out_dir, exist_ok=True)
+    trace = os.path.join(out_dir, "txn_trace.json")
+    rows = txn_bench.main([
+        "--workload", "tpcc", "--scale", str(scale), "--cc", "occ",
+        "tictoc", "--lanes", str(lanes), "--waves", str(waves), "--device",
+        dev.type, "--trace", trace,
+        "--json", os.path.join(out_dir, "rows.json")])
+    n_waves += len(rows) * waves
+    with open(trace) as f:
+        doc = json.load(f)
+    errs = validate_chrome_trace(doc)
+    slices = sum(e["ph"] == "X" for e in doc["traceEvents"])
+    log(f"  trace {trace}: {len(doc['traceEvents'])} events, {slices} "
+        f"wave slices, {len(errs)} schema errors, "
+        f"{os.path.getsize(trace)} bytes")
+    if errs or slices != len(rows) * waves:
+        raise AssertionError(f"trace: {errs[:3]}, {slices} slices")
+    for r in rows:
+        want = txn_bench._cost_fields(r["cc"], r["lanes"], r["granularity"],
+                                      wl.slots, wl.n_groups, 0)
+        got = {k: r.get(k) for k in want}
+        log(f"  txn_bench row {_name(r)}: " + json.dumps(got))
+        if got != want:
+            raise AssertionError(f"{_name(r)}: cost columns {got}")
+    return K.launch_counts(), n_waves
+
+
+def cross_device_observability(dev, waves=30, scale=0.1,
+                               configs=(("occ", 1), ("tictoc", 0))):
+    """Tracked runs of CPU-made draws through the wave step on ``dev`` and
+    on the CPU, the per-wave timeline kept: the conflict tables and
+    ``hot_records`` bit-identical, the per-wave integer series too and the
+    simulated µs within rtol 1e-5 (as the rest of the state)."""
+    from repro_torch.core.engine import hot_records
+    from repro_torch.launch.txn_bench import make_config
+    from repro_torch.workloads import TPCCWorkload
+    wl = TPCCWorkload.make(n_warehouses=8, scale=scale)
+    draws = _draws(wl, waves, LANES)
+    cpu = torch.device("cpu")
+    for cc, gran in configs:
+        cfg = dataclasses.replace(
+            make_config(wl, cc, gran, LANES, mv_depth=MV_DEPTH),
+            track_conflicts=True)
+        (a, ta), (b, tb) = (_replay(cfg, wl, draws, d, timeline=True)
+                            for d in (dev, cpu))
+        what = f"cross-device tracking {cc}-{'fine' if gran else 'coarse'}"
+        _same_state(a, b, what, rtol_time=1e-5, rtol_heat=1e-6)
+        for name in ("conflict_hits", "conflict_peak"):
+            if not torch.equal(getattr(a, name).cpu(), getattr(b, name)):
+                raise AssertionError(f"{what}: {name} differs")
+        hot = hot_records(a)
+        if hot != hot_records(b) or not hot:
+            raise AssertionError(f"{what}: hot records differ or are empty")
+        _same_timeline(ta, tb, what, rtol=1e-5)
+        log(f"  {what}: {waves} waves, commits {int(a.commits)}, hot "
+            f"records {hot[:3]}, per-wave commits "
+            f"{ta['per_wave_commits'][:6].tolist()}...: identical on {dev} "
+            "and cpu")
 
 
 # ------------------------------------------------------------ sharded path
@@ -5346,6 +5521,10 @@ def main(argv=None) -> int:
     cross_device_open(dev)
     log("sync-free waves (set_sync_debug_mode('error') and the profiler):")
     l_sync, n_sync = sync_free_path(dev)
+    log("observability: the conflict histogram and the per-wave timeline:")
+    l_obs, n_obs = observability_path(dev)
+    log("cross-device identity, tracked:")
+    cross_device_observability(dev)
 
     log("sharded engine, one-rank NCCL group:")
     import torch.distributed as dist
@@ -5387,6 +5566,7 @@ def main(argv=None) -> int:
             "fig3": (l_fig, len(fig_rows) * WAVES),
             "open_loop": (l_open, len(open_rows) * WAVES),
             "sync_free": (l_sync, n_sync),
+            "observability": (l_obs, n_obs),
             "sharded": (l_dist, n_dist * WAVES),
             "scaling": (l_scale, (30 + txn_scaling.WARMUP_WAVES)
                         * len(scaling))}

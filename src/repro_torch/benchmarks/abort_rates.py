@@ -11,9 +11,9 @@ Beyond the paper: a write-heavy, high-contention YCSB mix (Zipf 0.9, 80%
 writes, 20% read-only transactions; 100k keys, 1M with ``--full``).
 Multi-version snapshot reads never abort a read-only transaction, while
 single-version coarse OCC aborts them on any conflicting concurrent
-write.  Rows go to ``reports/abort_rates.json`` and lack the JAX rows'
-cost-model columns (ROADMAP A.10).  ``main``'s keywords override both
-grids (a CPU test runs it small).
+write.  Rows go to ``reports/abort_rates.json``, the cost-model columns
+included.  ``main``'s keywords override both grids (a CPU test runs it
+small).
 """
 from __future__ import annotations
 

@@ -8,9 +8,9 @@ Starts coarse everywhere; promotes records with false-conflict evidence
 to fine-grained timestamps.  Success = recovers manual-fine OCC
 throughput on TPC-C without annotations; each lane count prints the
 recovered share of the fine gain.  Rows go to
-``reports/auto_granularity.json`` and lack the JAX rows' cost-model
-columns (ROADMAP A.10).  ``main``'s keywords override the grid (a CPU
-test runs it at ``scale=0.01``).
+``reports/auto_granularity.json``, the cost-model columns included.
+``main``'s keywords override the grid (a CPU test runs it at
+``scale=0.01``).
 """
 from __future__ import annotations
 

@@ -3,10 +3,10 @@
 
 Every figure runs its grid through ``launch/txn_bench.run_grid``, which
 runs ``core/engine.sweep`` on ``device`` (CUDA by default, ``"cpu"`` for
-the plain versions of the kernels).  Rows carry the JAX rows' keys but
-the cost-model columns (``bytes_per_txn``, ``flops_per_txn``,
-``roofline_*``, ``launches_per_wave``, ``dma_rows_per_wave*``), which
-wait for ROADMAP A.10, plus ``device_name``, ``waves_per_s``,
+the plain versions of the kernels).  Rows carry the JAX rows' keys, the
+cost-model columns (``bytes_per_txn``, ``flops_per_txn``, ``roofline_*``,
+``launches_per_wave``, ``dma_rows_per_wave*``; analysis/txn_cost.py on
+the port's tables) included, plus ``device_name``, ``waves_per_s``,
 ``lanes_run`` and ``kernel_ops``.
 """
 from __future__ import annotations
@@ -42,19 +42,21 @@ def sweep(workload: str, *, ccs=None, lanes=None, grans=(0, 1), waves=300,
           scale=1.0, n_keys=1_000_000, seed=1, quiet=False, device="cuda",
           warm=False, **wl_kw):
     """One grid through ``run_grid``; extra keywords (write_frac, ro_frac,
-    theta, scan_frac, scan_len, arrival_rate, ...) pass through.
-    ``warm=True`` runs the grid twice through ``warm_then_time`` and keeps
-    the second pass's rows, whose ``wall_s`` is each point's own warm wave
-    loop."""
+    theta, scan_frac, scan_len, arrival_rate, per_wave, return_points,
+    ...) pass through, and with ``return_points`` the result is ``(rows,
+    SweepPoints)``.  ``warm=True`` runs the grid twice through
+    ``warm_then_time`` and keeps the second pass's rows, whose ``wall_s``
+    is each point's own warm wave loop."""
     from repro_torch.launch.txn_bench import run_grid
     grid_args = (workload, list(ccs or CCS), tuple(grans),
                  list(lanes or LANES), waves)
     grid_kw = dict(scale=scale, n_keys=n_keys, seed=seed, device=device,
                    **wl_kw)
     if warm:
-        rows, _ = warm_then_time(run_grid, *grid_args, **grid_kw)
+        ret, _ = warm_then_time(run_grid, *grid_args, **grid_kw)
     else:
-        rows = run_grid(*grid_args, **grid_kw)
+        ret = run_grid(*grid_args, **grid_kw)
+    rows = ret[0] if isinstance(ret, tuple) else ret
     if not quiet:
         for r in rows:
             line = (f"  {workload} {r['cc']:9s} "
@@ -67,7 +69,7 @@ def sweep(workload: str, *, ccs=None, lanes=None, grans=(0, 1), waves=300,
                 line += (f"  goodput={r['goodput']:8.3f}  "
                          f"p99ttc={max(r['p99_ttc_waves']):g}w")
             print(line)
-    return rows
+    return ret
 
 
 def save_rows(rows, path):

@@ -13,9 +13,8 @@ Validated orderings (paper section 4.2):
 
 The grid is the twin's (``common.CCS`` x coarse and fine x
 ``common.LANES``; 1M keys, 10M with ``--full``), warm, with rows in
-``reports/fig2_ycsb.json``.  Rows lack the JAX rows' cost-model columns
-(ROADMAP A.10).  ``main``'s keywords override the grid (a CPU test runs
-it at ``n_keys=2000``).
+``reports/fig2_ycsb.json``, the cost-model columns included.  ``main``'s
+keywords override the grid (a CPU test runs it at ``n_keys=2000``).
 """
 from __future__ import annotations
 

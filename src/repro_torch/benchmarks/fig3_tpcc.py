@@ -14,9 +14,8 @@ Validated claims (paper section 4.3):
 
 The grid is the twin's (every mechanism of ``common.CCS`` x coarse and
 fine x ``common.LANES``, TPC-C scale 1.0), warm, with rows in
-``reports/fig3_tpcc.json``.  Rows lack the JAX rows' cost-model columns
-(ROADMAP A.10).  ``main``'s keywords override the grid (a CPU test runs
-it at ``scale=0.01``).
+``reports/fig3_tpcc.json``, the cost-model columns included.  ``main``'s
+keywords override the grid (a CPU test runs it at ``scale=0.01``).
 """
 from __future__ import annotations
 

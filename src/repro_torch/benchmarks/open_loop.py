@@ -3,7 +3,8 @@ latency vs offered load, from the port.  The twin of
 ``benchmarks/open_loop.py``.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.open_loop \
-        [--waves 200] [--lanes 64] [--n-keys 1000000] [--device cuda|cpu]
+        [--waves 200] [--lanes 64] [--n-keys 1000000] [--device cuda|cpu] \
+        [--trace [PATH]]
 
 The paper's experiments are closed-loop (every thread always has a
 transaction; aborts retry in place).  This drives the same engine
@@ -13,12 +14,16 @@ as a load-latency curve — goodput (unique committed txns per simulated
 us) saturates at the closed-loop capacity while p50/p99 time-to-commit
 (waves from first admission to commit) grows past the knee.  Fine
 timestamps move the knee right for both occ and mvcc.  Rows go to
-``reports/open_loop.json`` and lack the JAX rows' cost-model columns;
-the twin's Chrome-trace export (``--trace``) waits for ROADMAP A.10.
+``reports/open_loop.json``.  ``--trace`` (or ``REPRO_TRACE``) writes ONE
+combined Chrome trace across the offered loads (analysis/trace.py): each
+(rate, cc, granularity) point is a process row labelled cc/gran/rate on
+the simulated-time axis.
 """
 from __future__ import annotations
 
 import argparse
+
+import os
 
 from repro_torch.benchmarks.common import one, save_rows, sweep
 
@@ -36,23 +41,28 @@ def main(argv=None):
     ap.add_argument("--json", default="reports/open_loop.json")
     ap.add_argument("--trace", nargs="?", const="reports/open_loop_trace"
                     ".json", default=None, metavar="PATH",
-                    help="Chrome-trace timeline: not ported yet (ROADMAP "
-                         "A.10)")
+                    help="export ONE combined Chrome-trace timeline across "
+                         "all offered loads (analysis/trace.py; rows are "
+                         "labelled cc/gran/rate); REPRO_TRACE=1 also "
+                         "enables it")
     args = ap.parse_args(argv)
-    if args.trace is not None:
-        raise NotImplementedError(
-            "open_loop --trace is not ported to repro_torch yet: the "
-            "per-wave timeline waits for ROADMAP A.10 (observability)")
+    from repro_torch.launch.txn_bench import trace_path
+    trace = trace_path(args.trace, "reports/open_loop_trace.json")
 
     T = args.lanes
     rates = args.rates or [0.25 * T, 0.5 * T, 0.75 * T, 1.0 * T]
     rows = []
+    traced = []
     for rate in rates:
         got = sweep("ycsb", ccs=["occ", "mvcc"], lanes=[T],
                     waves=args.waves, n_keys=args.n_keys,
                     device=args.device, quiet=True, warm=True,
                     arrival_rate=rate, queue_cap=4 * T,
-                    max_incarnations=args.max_incarnations)
+                    max_incarnations=args.max_incarnations,
+                    per_wave=bool(trace), return_points=bool(trace))
+        if trace:
+            got, points = got
+            traced += [(rate, p) for p in points]
         for r in got:
             r["arrival_rate"] = rate
         rows += got
@@ -64,6 +74,24 @@ def main(argv=None):
                   f"p99={max(r['p99_ttc_waves']):3g} waves  "
                   f"dropped={r['inc_drops']}")
     save_rows(rows, args.json)
+    if trace:
+        from repro_torch.analysis.trace import (point_events, point_meta,
+                                                write_trace)
+        from repro_torch.core import types as t
+        events = []
+        for pid, (rate, p) in enumerate(traced, start=1):
+            label = (f"{t.CC_NAMES[p.cc]}/"
+                     f"{'fine' if p.granularity else 'coarse'}/"
+                     f"rate{rate:g}")
+            events += point_events(label, pid, p.per_wave_commits,
+                                   p.per_wave_aborts, p.per_wave_us,
+                                   p.per_wave_causes, point_meta(p))
+        os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+        write_trace(trace, {
+            "traceEvents": events, "displayTimeUnit": "ms",
+            "otherData": {"source": "repro open-loop wave trace",
+                          "time_axis": "simulated microseconds"}})
+        print(f"[saved] {trace} ({len(traced)} trace rows)")
 
     # The headline ordering: at the highest offered load, fine
     # granularity sustains more goodput than coarse for both mechanisms.

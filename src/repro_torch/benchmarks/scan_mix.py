@@ -19,9 +19,9 @@ Printed per point, and checked:
     while mvocc, which re-validates, pays.
 
 Open-loop by default (arrivals at 3/4 of the lane width).  Rows carry
-``scan_frac``/``scan_len`` and go to ``reports/scan_mix.json``; they lack
-the JAX rows' cost-model columns (ROADMAP A.10).  ``main``'s ``lanes``
-keyword replaces the twin's 64 lanes (a CPU test runs it small).
+``scan_frac``/``scan_len`` and the cost-model columns and go to
+``reports/scan_mix.json``.  ``main``'s ``lanes`` keyword replaces the
+twin's 64 lanes (a CPU test runs it small).
 """
 from __future__ import annotations
 

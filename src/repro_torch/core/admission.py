@@ -116,7 +116,7 @@ def ring_enqueue(cap: int, head: torch.Tensor, size: torch.Tensor,
     src = writer.clamp(min=0)
     tabs = tuple(
         torch.where(hit.view((cap,) + (1,) * (tab.dim() - 1)),
-                    col.to(tab.dtype)[src], tab)
+                    col.to(tab.dtype).index_select(0, src), tab)
         for tab, col in zip(tables, cols))
     n_acc = accept.sum()
     return tabs, size + n_acc, n_acc, m.sum() - n_acc
@@ -157,7 +157,7 @@ def dequeue(q: QueueState, lanes: int, n_active=None) -> tuple:
 
     def pick(tab, fill):
         g = got.view((lanes,) + (1,) * (tab.dim() - 1))
-        return torch.where(g, tab[pos], fill)
+        return torch.where(g, tab.index_select(0, pos), fill)
 
     fills = {"op_key": -1, "op_kind": t.NOP, "op_extent": 1}
     batch = TxnBatch(**{n: pick(getattr(q, n), fills.get(n, 0))

@@ -30,6 +30,7 @@ from repro_torch.core import backend as kb
 from repro_torch.core import claims
 from repro_torch.core import types as t
 from repro_torch.core.claimword import NO_PRIO
+from repro_torch.core.ranges import named_range
 from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 
 
@@ -91,7 +92,9 @@ def bump_versions(store: StoreState, batch: TxnBatch, commit: torch.Tensor,
     """+1 on ``wts`` per committed write op (backend ``commit_install``),
     in place."""
     w = batch.is_write() & batch.live() & commit[:, None]
-    kb.BACKEND.commit_install(store.wts, batch.op_key, batch.op_group, w)
+    with named_range("install"):
+        kb.BACKEND.commit_install(store.wts, batch.op_key, batch.op_group,
+                                  w)
     return store
 
 
@@ -126,10 +129,11 @@ def phantom_validate(store: StoreState, batch: TxnBatch, prio: torch.Tensor,
     if mask is not None:
         check = check & mask
     bump = {} if point is None else dict(point=point, wts=store.wts, do=do)
-    return kb.BACKEND.iterate_validate(
-        store.claim_w, batch.op_key, batch.op_extent, batch.op_group,
-        my_prio_per_op(batch, prio), check, wave, fine, cfg.bucket_size,
-        cfg.max_extent, **bump)
+    with named_range("iterate_validate"):
+        return kb.BACKEND.iterate_validate(
+            store.claim_w, batch.op_key, batch.op_extent, batch.op_group,
+            my_prio_per_op(batch, prio), check, wave, fine,
+            cfg.bucket_size, cfg.max_extent, **bump)
 
 
 def claim_probe_commit(store: StoreState, batch: TxnBatch,
@@ -190,10 +194,12 @@ def claim_probe_commit(store: StoreState, batch: TxnBatch,
 
     if cfg.fuse_wave:
         fuse_bump = bump and scan is None
-        conflict, _ = be.wave_commit(
-            store.claim_w, store.claim_r if dual else None,
-            store.wts if fuse_bump else None, keys, groups, myp, do_w, do_r,
-            check_w, check_w2, check_r, extra, wave, fine, dual, fuse_bump)
+        with named_range("wave_commit"):
+            conflict, _ = be.wave_commit(
+                store.claim_w, store.claim_r if dual else None,
+                store.wts if fuse_bump else None, keys, groups, myp, do_w,
+                do_r, check_w, check_w2, check_r, extra, wave, fine, dual,
+                fuse_bump)
         if scan is not None:
             if bump:
                 conflict = phantom_validate(store, batch, prio, wave, cfg,
@@ -205,13 +211,14 @@ def claim_probe_commit(store: StoreState, batch: TxnBatch,
 
     # Unfused: the chain of the megakernel, term by term; a dual wave
     # installs and probes both claim tables in one claim_probe call.
-    if dual:
-        wprio, rprio = be.claim_probe(store.claim_w, keys, groups, myp, wave,
-                                      do_w, fine, claim_r=store.claim_r,
-                                      mask_r=do_r)
-    else:
-        wprio = be.claim_probe(store.claim_w, keys, groups, myp, wave, do_w,
-                               fine)
+    with named_range("claim"):
+        if dual:
+            wprio, rprio = be.claim_probe(store.claim_w, keys, groups, myp,
+                                          wave, do_w, fine,
+                                          claim_r=store.claim_r, mask_r=do_r)
+        else:
+            wprio = be.claim_probe(store.claim_w, keys, groups, myp, wave,
+                                   do_w, fine)
     conflict = check_w & (wprio < myp)
     if check_w2 is not None:
         conflict = conflict | (check_w2 & (wprio != NO_PRIO) & (wprio != myp))

@@ -28,6 +28,7 @@ from repro_torch.core import backend as kb
 from repro_torch.core import claims, mvstore
 from repro_torch.core import types as t
 from repro_torch.core.cc import base
+from repro_torch.core.ranges import named_range
 from repro_torch.core.types import EngineConfig, StoreState, TxnBatch
 
 
@@ -62,8 +63,9 @@ def mv_commit(store: StoreState, batch: TxnBatch, commit: torch.Tensor,
     """Install the wave's committed writes into the version ring: one slot
     per written record (``mv_install``), in place."""
     do = batch.is_write() & batch.live() & commit[:, None]
-    kb.BACKEND.mv_install(store.mv_begin, store.mv_head, batch.op_key,
-                          batch.op_group, do, mvstore.install_ts(wave))
+    with named_range("mv_install"):
+        kb.BACKEND.mv_install(store.mv_begin, store.mv_head, batch.op_key,
+                              batch.op_group, do, mvstore.install_ts(wave))
     return store
 
 

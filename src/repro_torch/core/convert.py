@@ -5,6 +5,9 @@ Word tables (uint32 in the JAX package: the timestamp and claim tables and
 the version ring's begin stamps) travel as their bit patterns:
 ``store_from_numpy`` reinterprets uint32 arrays as int32 tensors and
 ``store_to_numpy`` views them back as uint32, so comparisons are exact.
+The engine state's conflict histogram (``conflict_hits``,
+``conflict_peak``, uint32 words too) travels the same way
+(``conflicts_from_numpy``, ``conflicts_to_numpy``).
 The per-record tables (mode bits, heats, heat waves, ring heads) travel
 with their own dtypes; the mode and heat tables gain their zero sink slot
 (``core/types.SINK``) on the way in and lose it on the way out.  The
@@ -26,10 +29,12 @@ import torch.distributed as dist
 from repro_torch.core.distributed import DistConfig, n_shards
 from repro_torch.core.mvstore import mv_placeholder
 from repro_torch.core.types import (SINK, SINK_TABLES, CostModel,
-                                    EngineConfig, StoreState, TxnBatch)
+                                    EngineConfig, EngineState, StoreState,
+                                    TxnBatch)
 from repro_torch.models.common import tree_map
 
 WORD_TABLES = ("wts", "rts", "claim_w", "claim_r", "mv_begin")
+CONFLICT_TABLES = ("conflict_hits", "conflict_peak")
 RECORD_TABLES = {"ring_tails": np.int32, "pess_mode": np.bool_,
                  "abort_heat": np.float32, "fine_mode": np.bool_,
                  "false_heat": np.float32, "heat_wave": np.int32,
@@ -64,6 +69,19 @@ def store_to_numpy(store: StoreState) -> dict:
         a = getattr(store, k).cpu().numpy()
         out[k] = a[:-SINK] if k in SINK_TABLES else a
     return out
+
+
+def conflicts_from_numpy(arrays: dict, device) -> dict:
+    """{field: int32 tensor} of the conflict tables in ``arrays`` (the
+    JAX state's uint32 ``conflict_hits`` and ``conflict_peak``), for
+    ``dataclasses.replace`` of an EngineState."""
+    return {k: _words(arrays[k], device) for k in CONFLICT_TABLES}
+
+
+def conflicts_to_numpy(state: EngineState) -> dict:
+    """{field: uint32 array} of the state's conflict tables."""
+    return {k: getattr(state, k).cpu().numpy().view(np.uint32)
+            for k in CONFLICT_TABLES}
 
 
 def batch_from_numpy(arrays: dict, device) -> TxnBatch:

@@ -68,6 +68,7 @@ from repro_torch.core import backend as kb
 from repro_torch.core import mvstore
 from repro_torch.core import types as t
 from repro_torch.core.claimword import device_scalar
+from repro_torch.core.ranges import in_range
 from repro_torch.core.types import resolve_device
 
 NO_OP = 0x7FFFFFFF       # empty buffer cell in the key channel
@@ -511,7 +512,10 @@ def _make_phases(cfg: DistConfig, ns: int):
             be.mv_install(tables[2], tables[3], rk, r_grp, is_w,
                           mvstore.install_ts(wave), words=c_words)
 
-    return route, owner_claim, sender_commit, owner_install
+    # Each phase is one profiler range, of the JAX package's names.
+    return (in_range("route")(route), in_range("claim")(owner_claim),
+            in_range("commit")(sender_commit),
+            in_range("install")(owner_install))
 
 
 def _make_shard_body(cfg: DistConfig, ns: int, exchange: Exchange):

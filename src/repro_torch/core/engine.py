@@ -12,14 +12,22 @@ so the draws can come from the port's own generators (``run``) or be fed
 in from elsewhere (the parity tests replay the JAX engine's draws; the
 chip smoke test feeds one draw to the CPU and the card).  The open loop's
 step (``make_open_wave_step``) also takes the wave's Poisson arrival
-count and returns the wave's lane forensics beside the state:
+count.  Each step returns the new state and the wave's row (``WaveRow``,
+the JAX scan's ``ys``: commits, aborts, cause counts and lane times, on
+the device; the open step's also carries the wave's lane forensics):
 
-    state, lanes = step(state, fresh_batch, ring_tails, perm, offered)
+    state, row = step(state, fresh_batch, ring_tails, perm[, offered])
 
 The wave index ``state.wave`` is a 0-d int64 tensor on the run's device,
 which both steps advance there; no wave reads a device value on the host
 (``draw_wave`` is one wave of ``run_waves``, draws included), which is
-what capturing a wave into a CUDA graph needs.
+what capturing a wave into a CUDA graph needs.  The per-wave timeline
+(``Timeline``) keeps the rows on the device, written at the wave's index
+read there, and is read once after the loop; ``run`` always keeps it,
+``sweep`` with ``per_wave=True``.  ``cfg.track_conflicts`` adds the
+conflict histogram to both steps (``_conflict_histogram``), read by
+``hot_records``.  The phases run inside ``torch.profiler`` ranges of the
+JAX package's names while a profiler runs (``core/ranges.py``).
 
 ``sweep`` runs a benchmark grid point by point; each point runs at its
 lane bucket's widest lane count with the padding lanes masked, as the
@@ -36,7 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional, Protocol, Sequence
+from typing import Callable, NamedTuple, Optional, Protocol, Sequence
 
 import numpy as np
 import torch
@@ -47,6 +55,7 @@ from repro_torch.core import backend as kb
 from repro_torch.core import claims
 from repro_torch.core import types as t
 from repro_torch.core.cc import VALIDATORS, ValidationResult
+from repro_torch.core.ranges import named_range
 from repro_torch.core.types import (EngineConfig, EngineState, StoreState,
                                     TxnBatch, engine_state_init,
                                     resolve_device)
@@ -142,6 +151,65 @@ def _lane_cost(cfg: EngineConfig, batch: TxnBatch, commit: torch.Tensor,
     return torch.where(commit, t_commit, t_abort), has_write
 
 
+def _conflict_histogram(cfg: EngineConfig, hits: torch.Tensor,
+                        peak: torch.Tensor, batch: TxnBatch,
+                        res: ValidationResult) -> None:
+    """Hot-record accounting (``cfg.track_conflicts``), in place: the
+    per-cell conflicting-op totals through ``commit_install``'s +1
+    scatter, and the per-wave same-cell conflict peak through
+    ``segment_count`` maxed into the table by ``ts_install_max``.  Cells
+    are fine resolution whatever the granularity."""
+    be = kb.BACKEND
+    conf = res.conflict_op & batch.live()
+    be.commit_install(hits, batch.op_key, batch.op_group, conf)
+    n_conf = be.segment_count(batch.op_key, batch.op_group, cfg.n_groups,
+                              conf)
+    be.ts_install_max(peak, batch.op_key, batch.op_group,
+                      n_conf.to(torch.int32), conf)
+
+
+class WaveRow(NamedTuple):
+    """One wave's row of the timeline, on the device: the JAX scan's
+    ``ys`` (closed step: ``ys``; open step: ``ys[0]``, ``ys[1]``,
+    ``ys[6]``, ``ys[7]``), with the lane times unsummed."""
+    commits: torch.Tensor   # int64 scalar: committed live lanes
+    aborts: torch.Tensor    # int64 scalar: aborted live lanes
+    causes: torch.Tensor    # int64[N_ABORT_CAUSES]: the aborts by cause
+    lane_dt: torch.Tensor   # f32[T]: simulated us per lane, 0 where idle
+    lanes: Optional[tuple] = None  # the open step's lane forensics
+
+
+class Timeline:
+    """The per-wave timeline of a run of ``n_waves`` waves from the state
+    whose wave index is ``wave0``.  ``record`` writes a wave's row at that
+    wave's index (``wave - wave0``, read on the device: the write is
+    five device operations and no host copy, and a captured replay could
+    make it); ``arrays`` reads every row once, after the loop."""
+
+    def __init__(self, n_waves: int, wave0: torch.Tensor):
+        dev = wave0.device
+        self.wave0 = wave0.clone()
+        self.counts = torch.zeros((n_waves, 2 + t.N_ABORT_CAUSES),
+                                  dtype=torch.int64, device=dev)
+        self.us = torch.zeros((n_waves,), dtype=torch.float32, device=dev)
+
+    def record(self, wave: torch.Tensor, row: WaveRow) -> None:
+        """Write the row of the wave whose index was ``wave``."""
+        at = (wave - self.wave0).view(1)
+        self.counts.index_copy_(0, at, torch.cat(
+            (row.commits.view(1), row.aborts.view(1), row.causes))[None])
+        self.us.index_copy_(0, at, row.lane_dt.sum().view(1))
+
+    def arrays(self) -> dict:
+        """{per_wave_commits, per_wave_aborts int64[waves],
+        per_wave_causes int64[waves, N_ABORT_CAUSES], per_wave_us
+        f32[waves]} as numpy."""
+        c = self.counts.cpu().numpy()
+        return dict(per_wave_commits=c[:, 0], per_wave_aborts=c[:, 1],
+                    per_wave_causes=c[:, 2:],
+                    per_wave_us=self.us.cpu().numpy())
+
+
 def select_batch(sel: torch.Tensor, pending: TxnBatch,
                  fresh: TxnBatch) -> TxnBatch:
     """Lanes with ``sel`` keep their pending (aborted) transaction; the
@@ -168,7 +236,8 @@ def _pad(batch: TxnBatch, active: Optional[torch.Tensor]) -> TxnBatch:
 
 def make_wave_step(cfg: EngineConfig,
                    active: Optional[torch.Tensor] = None) -> Callable:
-    """Build the wave step ``step(state, fresh, tails, perm) -> state``.
+    """Build the wave step ``step(state, fresh, tails, perm) -> (state,
+    row)``.
 
     ``fresh`` is the workload's batch for this wave, ``tails`` its
     advanced ring cursors and ``perm`` a permutation of the T lanes (the
@@ -176,11 +245,11 @@ def make_wave_step(cfg: EngineConfig,
     ``active`` (bool[T] or None) marks live lanes: ``sweep`` pads a point
     to its bucket's lane count and masks the padding here.  Inactive lanes
     carry empty transactions and are excluded from every metric; None
-    means every lane is live."""
+    means every lane is live.  ``row`` is the wave's ``WaveRow``."""
     validator = VALIDATORS[cfg.cc]
 
     def step(state: EngineState, fresh: TxnBatch, tails: torch.Tensor,
-             perm: torch.Tensor) -> EngineState:
+             perm: torch.Tensor) -> tuple:
         wave = state.wave
         sel = state.pending_live
         batch = _pad(select_batch(sel, state.pending, fresh), active)
@@ -188,9 +257,11 @@ def make_wave_step(cfg: EngineConfig,
         store = dataclasses.replace(state.store, ring_tails=tails)
         prio = claims.prio16(age, perm, use_age=(cfg.cc == t.CC_SWISS))
 
-        store, res = validator(store, batch, prio, wave, cfg)
+        with named_range("validate"):
+            store, res = validator(store, batch, prio, wave, cfg)
         commit = res.commit
-        lane_dt, has_write = _lane_cost(cfg, batch, commit, res)
+        with named_range("cost"):
+            lane_dt, has_write = _lane_cost(cfg, batch, commit, res)
 
         if active is None:
             committed, aborted = commit, ~commit
@@ -198,20 +269,24 @@ def make_wave_step(cfg: EngineConfig,
             committed, aborted = commit & active, ~commit & active
             lane_dt = torch.where(active, lane_dt, 0.0)
         causes_wave = t.cause_counts(res.lane_cause(), aborted)
+        if cfg.track_conflicts:
+            _conflict_histogram(cfg, state.conflict_hits,
+                                state.conflict_peak, batch, res)
         commits_by_type = state.commits_by_type.index_add(
             0, batch.txn_type.to(torch.int64), committed.to(torch.int64))
         # Padding lanes are empty and so read-only, but committed/aborted
         # already mask them out.
         ro = ~has_write
-        return EngineState(
+        n_commit, n_abort = committed.sum(), aborted.sum()
+        new_state = EngineState(
             wave=wave + 1,
             store=store,
             pending=batch,
             pending_live=aborted,
             age=torch.where(commit, 0, age + 1),
             lane_time=state.lane_time + lane_dt,
-            commits=state.commits + committed.sum(),
-            aborts=state.aborts + aborted.sum(),
+            commits=state.commits + n_commit,
+            aborts=state.aborts + n_abort,
             commits_by_type=commits_by_type,
             wasted_time=(state.wasted_time
                          + torch.where(committed, 0.0, lane_dt).sum()),
@@ -219,8 +294,11 @@ def make_wave_step(cfg: EngineConfig,
             ro_commits=state.ro_commits + (committed & ro).sum(),
             ro_aborts=state.ro_aborts + (aborted & ro).sum(),
             abort_causes=state.abort_causes + causes_wave,
+            conflict_hits=state.conflict_hits,
+            conflict_peak=state.conflict_peak,
             ol=state.ol,
         )
+        return new_state, WaveRow(n_commit, n_abort, causes_wave, lane_dt)
 
     return step
 
@@ -228,7 +306,7 @@ def make_wave_step(cfg: EngineConfig,
 def make_open_wave_step(cfg: EngineConfig,
                         active: Optional[torch.Tensor] = None) -> Callable:
     """Build the OPEN-LOOP wave step ``step(state, fresh, tails, perm,
-    offered) -> (state, lanes)``.
+    offered) -> (state, row)``.
 
     Instead of the closed loop's one-transaction-per-lane retry buffer,
     lanes are filled each wave from the admission queue
@@ -240,8 +318,9 @@ def make_open_wave_step(cfg: EngineConfig,
     ``cfg.max_incarnations``.  Committed lanes record time-to-commit =
     commit_wave - admit_wave + 1 waves into the per-class histogram.
     ``active`` is ``sweep``'s live-lane prefix mask, as in
-    make_wave_step.  ``lanes`` is the wave's lane forensics: (txn_id,
-    incarnation, got, admit_wave, op_key, op_kind, commit)."""
+    make_wave_step.  ``row`` is the wave's ``WaveRow``, whose ``lanes``
+    are the wave's lane forensics: (txn_id, incarnation, got, admit_wave,
+    op_key, op_kind, commit)."""
     validator = VALIDATORS[cfg.cc]
     T = cfg.lanes
     n_active = T if active is None else int(active.sum())
@@ -268,9 +347,11 @@ def make_open_wave_step(cfg: EngineConfig,
         store = dataclasses.replace(state.store, ring_tails=tails)
         prio = claims.prio16(incarn, perm, use_age=(cfg.cc == t.CC_SWISS))
 
-        store, res = validator(store, batch, prio, wave, cfg)
+        with named_range("validate"):
+            store, res = validator(store, batch, prio, wave, cfg)
         commit = res.commit & got
-        lane_dt, has_write = _lane_cost(cfg, batch, commit, res)
+        with named_range("cost"):
+            lane_dt, has_write = _lane_cost(cfg, batch, commit, res)
         lane_dt = torch.where(got, lane_dt, 0.0)
 
         # ---- retry incarnations / latency accounting -------------------
@@ -283,6 +364,9 @@ def make_open_wave_step(cfg: EngineConfig,
         lane_cause = torch.where(inc_drop, t.CAUSE_INC_CAP,
                                  res.lane_cause())
         causes_wave = t.cause_counts(lane_cause, aborted)
+        if cfg.track_conflicts:
+            _conflict_histogram(cfg, state.conflict_hits,
+                                state.conflict_peak, batch, res)
         # Arrivals enqueued before the dequeue freed these lanes, so the
         # re-enqueue never overflows: reenq_drops stays 0.
         queue, _, n_re_ovf = admission.enqueue(
@@ -301,6 +385,7 @@ def make_open_wave_step(cfg: EngineConfig,
         commits_by_type = state.commits_by_type.index_add(
             0, batch.txn_type.to(torch.int64), commit.to(torch.int64))
         ro = ~has_write
+        n_commit, n_abort = commit.sum(), aborted.sum()
         new_state = EngineState(
             wave=wave + 1,
             store=store,
@@ -308,8 +393,8 @@ def make_open_wave_step(cfg: EngineConfig,
             pending_live=state.pending_live,  # the queue owns every retry
             age=state.age,
             lane_time=state.lane_time + lane_dt,
-            commits=state.commits + commit.sum(),
-            aborts=state.aborts + aborted.sum(),
+            commits=state.commits + n_commit,
+            aborts=state.aborts + n_abort,
             commits_by_type=commits_by_type,
             wasted_time=(state.wasted_time
                          + torch.where(commit, 0.0, lane_dt).sum()),
@@ -317,10 +402,14 @@ def make_open_wave_step(cfg: EngineConfig,
             ro_commits=state.ro_commits + (commit & ro).sum(),
             ro_aborts=state.ro_aborts + (aborted & ro).sum(),
             abort_causes=state.abort_causes + causes_wave,
+            conflict_hits=state.conflict_hits,
+            conflict_peak=state.conflict_peak,
             ol=new_ol,
         )
-        return new_state, (txn_id, incarn, got, admit_w, batch.op_key,
-                           batch.op_kind, commit)
+        return new_state, WaveRow(
+            n_commit, n_abort, causes_wave, lane_dt,
+            (txn_id, incarn, got, admit_w, batch.op_key, batch.op_kind,
+             commit))
 
     return step
 
@@ -340,6 +429,13 @@ class SimResult:
     ro_aborts: int = 0
     ro_abort_rate: float = 0.0
     abort_causes: Optional[list] = None  # int[N_ABORT_CAUSES]; sums to aborts
+    # The per-wave timeline (``Timeline.arrays``), numpy:
+    per_wave_commits: Optional[np.ndarray] = None  # int64[waves]
+    per_wave_aborts: Optional[np.ndarray] = None   # int64[waves]
+    per_wave_causes: Optional[np.ndarray] = None   # int64[waves, causes]
+    per_wave_us: Optional[np.ndarray] = None       # f32[waves] simulated us
+    hot_records: Optional[list] = None  # track_conflicts top-k:
+                               #   (record, group, total_hits, peak_per_wave)
     wall_s: float = 0.0        # host seconds of the wave loop, synchronized
     device: str = "cpu"
     final_state: Optional[EngineState] = None
@@ -360,15 +456,21 @@ class SimResult:
 
 def summarize(cfg: EngineConfig, state: EngineState, n_waves: int,
               wall_s: float = 0.0, keep_state: bool = False,
-              trace: Optional[list] = None) -> SimResult:
+              trace: Optional[list] = None,
+              timeline: Optional[Timeline] = None) -> SimResult:
+    """The run's SimResult: ``trace`` (the open step's lane forensics of
+    each wave) and ``timeline`` fill their fields where given, and a
+    ``track_conflicts`` run gets its ``hot_records``."""
     commits, aborts = int(state.commits), int(state.aborts)
     ro_c, ro_a = int(state.ro_commits), int(state.ro_aborts)
     wall = float(state.lane_time.sum()) / cfg.lanes if cfg.lanes else 0.0
-    extra = {}
+    extra = {} if timeline is None else timeline.arrays()
+    if cfg.track_conflicts:
+        extra["hot_records"] = hot_records(state, k=16)
     if cfg.open_loop:
         ol = state.ol
         p50, p99 = admission.ttc_percentiles(ol.lat_hist)
-        extra = dict(
+        extra.update(
             open_loop=True, goodput=commits / max(wall, 1e-9),
             offered=int(ol.offered), admitted=int(ol.admitted),
             arrival_drops=int(ol.arrival_drops),
@@ -416,9 +518,9 @@ def draw_wave(cfg: EngineConfig, workload: Workload, state: EngineState,
     """One wave of ``run_waves``: the workload's batch and ring tails, the
     lane permutation and, in the open loop, the arrival count (from
     ``rate``, ``arrival_rate``'s tensor), drawn from ``gen`` in that
-    order, then ``step``.  Returns ``(state, lanes)``, ``lanes`` the open
-    step's forensics (None in a closed loop).  Nothing in it reads a
-    device value on the host: the wave index stays on the device."""
+    order, then ``step``.  Returns ``(state, row)``, ``row`` the wave's
+    ``WaveRow``.  Nothing in it reads a device value on the host: the
+    wave index stays on the device."""
     dev = state.lane_time.device
     fresh, tails = workload.gen(gen, state.wave, cfg.lanes,
                                 state.store.ring_tails)
@@ -426,25 +528,31 @@ def draw_wave(cfg: EngineConfig, workload: Workload, state: EngineState,
     if cfg.open_loop:
         offered = poisson_offered(gen, rate, cfg.lanes)
         return step(state, fresh, tails, perm, offered)
-    return step(state, fresh, tails, perm), None
+    return step(state, fresh, tails, perm)
 
 
 def run_waves(cfg: EngineConfig, workload: Workload, state: EngineState,
               step: Callable, gen: torch.Generator, n_waves: int,
-              trace: Optional[list] = None) -> tuple[EngineState, float]:
+              trace: Optional[list] = None,
+              timeline: Optional[Timeline] = None
+              ) -> tuple[EngineState, float]:
     """Continue ``state`` for ``n_waves`` waves of ``draw_wave``.
-    ``trace`` (a list) collects the open step's per-wave lane forensics.
-    Returns the new state and the loop's host seconds, synchronized with
-    the device (the only host waits of the loop)."""
+    ``trace`` (a list) collects the open step's per-wave lane forensics;
+    ``timeline`` (made from this ``state``'s wave) records every wave's
+    row.  Returns the new state and the loop's host seconds, synchronized
+    with the device (the only host waits of the loop)."""
     dev = state.lane_time.device
     rate = arrival_rate(cfg, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     for _ in range(n_waves):
-        state, lanes = draw_wave(cfg, workload, state, step, gen, rate)
-        if trace is not None and lanes is not None:
-            trace.append(lanes)
+        wave = state.wave
+        state, row = draw_wave(cfg, workload, state, step, gen, rate)
+        if trace is not None and row.lanes is not None:
+            trace.append(row.lanes)
+        if timeline is not None:
+            timeline.record(wave, row)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return state, time.perf_counter() - t0
@@ -452,14 +560,18 @@ def run_waves(cfg: EngineConfig, workload: Workload, state: EngineState,
 
 def _drive(cfg: EngineConfig, workload: Workload, n_waves: int, seed: int,
            dev: torch.device, active: Optional[torch.Tensor] = None,
-           trace: Optional[list] = None) -> tuple[EngineState, float]:
-    """One run of ``n_waves`` waves from a fresh store, on ``dev``."""
+           trace: Optional[list] = None, per_wave: bool = False) -> tuple:
+    """One run of ``n_waves`` waves from a fresh store, on ``dev``:
+    ``(state, wall_s, timeline)``, the timeline None unless
+    ``per_wave``."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     state = engine_state_init(cfg, workload.init_store(dev, cfg.mv_depth))
+    timeline = Timeline(n_waves, state.wave) if per_wave else None
     mk = make_open_wave_step if cfg.open_loop else make_wave_step
-    return run_waves(cfg, workload, state, mk(cfg, active), gen, n_waves,
-                     trace)
+    state, wall_s = run_waves(cfg, workload, state, mk(cfg, active), gen,
+                              n_waves, trace, timeline)
+    return state, wall_s, timeline
 
 
 def run(cfg: EngineConfig, workload: Workload, n_waves: int, seed: int = 0,
@@ -471,20 +583,37 @@ def run(cfg: EngineConfig, workload: Workload, n_waves: int, seed: int = 0,
     the run's device, seeded with ``seed`` (a stream of its own: it does
     not reproduce the JAX package's draws).  ``cfg.open_loop`` selects the
     open-loop step; ``trace=True`` (open loop only) returns per-wave lane
-    forensics, each int[waves, T], in ``SimResult.trace``.  ``device``
+    forensics, each int[waves, T], in ``SimResult.trace``.  The per-wave
+    timeline fills ``per_wave_*`` and, with ``cfg.track_conflicts``, the
+    conflict histogram ``hot_records``, as JAX ``run`` does.  ``device``
     defaults to CUDA and raises without it; ``wall_s`` covers the wave
     loop up to a device synchronize."""
     dev = resolve_device(device)
     lanes = [] if trace else None
-    state, wall_s = _drive(cfg, workload, n_waves, seed, dev, trace=lanes)
-    return summarize(cfg, state, n_waves, wall_s, keep_state, lanes)
+    state, wall_s, timeline = _drive(cfg, workload, n_waves, seed, dev,
+                                     trace=lanes, per_wave=True)
+    return summarize(cfg, state, n_waves, wall_s, keep_state, lanes,
+                     timeline)
+
+
+def hot_records(state: EngineState, k: int = 16) -> list:
+    """Top-k hot cells of the conflict histogram (track_conflicts runs):
+    ``(record, group, total_conflict_hits, peak_same_wave_conflicts)``
+    sorted by total hits (ties in the JAX package's order: a stable sort,
+    reversed), zero-hit cells omitted."""
+    hits = state.conflict_hits.cpu().numpy().view(np.uint32)
+    peak = state.conflict_peak.cpu().numpy().view(np.uint32)
+    G = hits.shape[1]
+    flat = hits.ravel()
+    order = np.argsort(flat, kind="stable")[::-1][:k]
+    return [(int(i // G), int(i % G), int(flat[i]), int(peak.ravel()[i]))
+            for i in order if flat[i] > 0]
 
 
 @dataclasses.dataclass
 class SweepPoint:
-    """One datapoint of a sweep grid: the JAX package's SweepPoint (less
-    its per-wave timeline, which waits for ROADMAP A.10) plus where and
-    how fast the point ran."""
+    """One datapoint of a sweep grid: the JAX package's SweepPoint plus
+    where and how fast the point ran."""
     cc: int
     granularity: int
     lanes: int
@@ -510,6 +639,11 @@ class SweepPoint:
     p50_ttc: Optional[list] = None  # per-txn-class time-to-commit (waves)
     p99_ttc: Optional[list] = None
     abort_causes: Optional[list] = None  # int[N_ABORT_CAUSES] (types.CAUSE_*)
+    # Per-wave timeline (sweep(..., per_wave=True); analysis/trace.py):
+    per_wave_commits: Optional[np.ndarray] = None
+    per_wave_aborts: Optional[np.ndarray] = None
+    per_wave_causes: Optional[np.ndarray] = None
+    per_wave_us: Optional[np.ndarray] = None
     # ---- the port's additions ----
     reenq_drops: int = 0       # open loop: re-enqueue overflow (always 0)
     lanes_run: int = 0         # the bucket's lane count the point ran at
@@ -558,12 +692,8 @@ def sweep(cfg: EngineConfig, workload: Workload, n_waves: int, *,
     the lanes' time by the point's own lane count; ``wall_s`` is the
     point's wave loop, at ``T_pad`` lanes.  Only the multi-version
     mechanisms get ``cfg.mv_depth``'s ring.  ``cfg.open_loop`` runs every
-    point open-loop.  The per-wave timeline (``per_wave``) waits for
-    ROADMAP A.10."""
-    if per_wave:
-        raise NotImplementedError(
-            "sweep(per_wave=True) is not ported to repro_torch yet: the "
-            "per-wave timeline waits for ROADMAP A.10 (observability)")
+    point open-loop.  ``per_wave`` keeps each point's per-wave timeline
+    (its own lanes: the padding is masked out of every row)."""
     dev = resolve_device(device)
     pad = {T: max(b) for b in lane_buckets(lane_counts, lane_bucket_ratio)
            for T in b}
@@ -579,10 +709,11 @@ def sweep(cfg: EngineConfig, workload: Workload, n_waves: int, *,
                           torch.arange(T_pad, device=dev) < T)
                 for sd in seeds:
                     before = (kernels.launch_counts(), kernels.call_counts())
-                    state, wall_s = _drive(ccfg, workload, n_waves, sd, dev,
-                                           active)
+                    state, wall_s, timeline = _drive(
+                        ccfg, workload, n_waves, sd, dev, active,
+                        per_wave=per_wave)
                     points.append(_point(ccfg, state, T, sd, n_waves, wall_s,
-                                         before))
+                                         before, timeline))
     return points
 
 
@@ -592,16 +723,18 @@ _POINT_FIELDS = ("commits", "aborts", "abort_rate", "throughput",
                  "ro_aborts", "ro_abort_rate", "open_loop", "goodput",
                  "offered", "admitted", "arrival_drops", "inc_drops",
                  "queued_final", "p50_ttc", "p99_ttc", "abort_causes",
-                 "reenq_drops", "wall_s", "device")
+                 "reenq_drops", "wall_s", "device", "per_wave_commits",
+                 "per_wave_aborts", "per_wave_causes", "per_wave_us")
 
 
 def _point(cfg: EngineConfig, state: EngineState, lanes: int, seed: int,
-           n_waves: int, wall_s: float, before: tuple) -> SweepPoint:
+           n_waves: int, wall_s: float, before: tuple,
+           timeline: Optional[Timeline] = None) -> SweepPoint:
     """A finished point, summarized over its own ``lanes`` (the lanes past
-    them were padding) with the kernel counters' deltas since
-    ``before``."""
+    them were padding) with the kernel counters' deltas since ``before``
+    and, where given, its timeline."""
     res = summarize(dataclasses.replace(cfg, lanes=lanes), state, n_waves,
-                    wall_s)
+                    wall_s, timeline=timeline)
     launches, calls = ({op: n - b[op] for op, n in now.items()}
                        for now, b in zip((kernels.launch_counts(),
                                           kernels.call_counts()), before))

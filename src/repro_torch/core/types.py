@@ -250,6 +250,11 @@ class EngineState:
     ro_commits: torch.Tensor    # int64 scalar
     ro_aborts: torch.Tensor     # int64 scalar
     abort_causes: torch.Tensor  # int64[N_ABORT_CAUSES]; sums to aborts
+    # The conflict histogram (cfg.track_conflicts), uint32 words in int32
+    # as the word tables: [n_records, G] when tracking, else [1, 1].
+    conflict_hits: torch.Tensor  # total conflicting ops per cell
+    conflict_peak: torch.Tensor  # most conflicting ops of one cell in a
+                                 #   wave
     # The open-loop front-end (core/admission.py); None in a closed loop.
     ol: Optional["OpenLoopState"] = None
 
@@ -367,17 +372,10 @@ class EngineConfig:
                 "the CURRENT wave's claim tables, which aged snapshots "
                 "have already drifted past")
         # Settings the port does not run yet.
-        waits = [
-            (self.track_values, "track_values=True",
-             "ROADMAP A.4 (apply_values)"),
-            (self.track_conflicts, "track_conflicts=True",
-             "ROADMAP A.10 (observability)"),
-        ]
-        for bad, what, item in waits:
-            if bad:
-                raise NotImplementedError(
-                    f"{what} is not ported to repro_torch yet: it waits "
-                    f"for {item}")
+        if self.track_values:
+            raise NotImplementedError(
+                "track_values=True is not ported to repro_torch yet: it "
+                "waits for ROADMAP A.4 (apply_values)")
 
     @property
     def open_loop(self) -> bool:
@@ -447,6 +445,8 @@ def engine_state_init(cfg: EngineConfig, store: StoreState) -> EngineState:
 
     def zero(*shape, dtype=torch.int64):
         return torch.zeros(shape, dtype=dtype, device=dev)
+    cells = ((cfg.n_records, cfg.n_groups) if cfg.track_conflicts
+             else (1, 1))
     return EngineState(
         wave=zero(),
         store=store,
@@ -462,6 +462,8 @@ def engine_state_init(cfg: EngineConfig, store: StoreState) -> EngineState:
         ro_commits=zero(),
         ro_aborts=zero(),
         abort_causes=zero(N_ABORT_CAUSES),
+        conflict_hits=zero(*cells, dtype=torch.int32),
+        conflict_peak=zero(*cells, dtype=torch.int32),
         ol=(open_loop_init(cfg.queue_cap, cfg.slots, cfg.n_txn_types,
                            cfg.lat_bins, dev) if cfg.open_loop else None),
     )

@@ -24,14 +24,20 @@ not at all (from the wrappers' counters around the point), and ``wall_s``
 / ``waves_per_s`` the point's wave loop's synchronized host time at
 ``lanes_run`` lanes (its bucket's width).  Open-loop rows add goodput,
 the admission counters (``reenq_drops`` too) and the per-class
-time-to-commit percentiles.  The JAX rows' cost-model columns wait for
-ROADMAP A.10.
+time-to-commit percentiles.  Every row carries the cost-model columns
+(``_cost_fields``, analysis/txn_cost.py on the port's tables, on the
+roofline of ``gpu_h100``).  ``--trace PATH`` (or ``REPRO_TRACE=1`` /
+``=PATH``) writes the grid's per-wave timeline as a Chrome trace
+(analysis/trace.py): one process row per point, one slice per wave on the
+simulated-time axis, the point's measured ``wall_s`` and device in the
+row's metadata.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 
 import torch
 
@@ -83,8 +89,42 @@ def make_config(wl, cc_name: str, gran: int, lanes: int,
         queue_cap=queue_cap, max_incarnations=max_incarnations)
 
 
-def row(workload: str, p, max_extent: int = 1) -> dict:
-    """One JSON row for a finished sweep point ``p``."""
+def _cost_fields(cc_name: str, lanes: int, granularity: int, slots: int,
+                 n_groups: int, mv_depth: int, max_extent: int = 1,
+                 bucket_size: int = 8) -> dict:
+    """The cost-model columns (analysis/txn_cost.py): analytic bytes and
+    flops per transaction attempt, the mechanism's fraction of the
+    H100's roofline, the port's kernel launches per wave and, for the
+    probe family, the fused and unfused probe chains' touched-row visits
+    per wave.  Closed-form in the wave shape, so the same on every
+    device."""
+    from repro_torch.analysis import txn_cost as tc
+    shape = tc.WaveShape(lanes=lanes, slots=slots, n_groups=n_groups,
+                         granularity=granularity, mv_depth=mv_depth,
+                         max_extent=max_extent, bucket_size=bucket_size)
+    cost = tc.txn_cost(cc_name, shape)
+    fields = {
+        "bytes_per_txn": round(cost["bytes_per_txn"], 1),
+        "flops_per_txn": round(cost["flops_per_txn"], 1),
+        "roofline_frac": round(cost["roofline_frac"], 6),
+        "roofline_bound": cost["bound"],
+        "roofline_chip": cost["chip"],
+        "launches_per_wave": cost["launches_per_wave"],
+    }
+    if cc_name in tc.PROBE_CHAIN_LAUNCHES:
+        chain = tc.probe_chain(cc_name, shape, fused=True)
+        unfused = tc.probe_chain(cc_name, shape, fused=False)
+        fields.update({
+            "dma_rows_per_wave": chain["dma_rows_per_wave"],
+            "dma_rows_per_wave_unfused": unfused["dma_rows_per_wave"],
+        })
+    return fields
+
+
+def row(workload: str, p, *, slots: int, n_groups: int, mv_depth: int,
+        max_extent: int, bucket_size: int) -> dict:
+    """One JSON row for a finished sweep point ``p``, with the cost-model
+    columns at the run's wave shape."""
     from repro_torch.core import types as t
     from repro_torch.core.backend import kernel_coverage
     dev = torch.device(p.device)
@@ -110,6 +150,9 @@ def row(workload: str, p, max_extent: int = 1) -> dict:
         "abort_causes": {t.CAUSE_NAMES[i]: n
                          for i, n in enumerate(p.abort_causes)},
     }
+    r.update(_cost_fields(cc_name, p.lanes, p.granularity, slots, n_groups,
+                          mv_depth if p.cc in t.MV_CCS else 0, max_extent,
+                          bucket_size))
     if p.open_loop:
         r.update({
             "open_loop": True, "goodput": round(p.goodput, 4),
@@ -128,13 +171,16 @@ def run_grid(workload: str, ccs: list, grans, lanes: list, waves: int, *,
              scan_len: int = 0, mv_depth: int = 4, snapshot_age: int = 0,
              arrival_rate: float = 0.0, queue_cap: int | None = None,
              max_incarnations: int | None = None, device=None,
-             fuse_wave: bool = True) -> list:
+             fuse_wave: bool = True, per_wave: bool = False,
+             return_points: bool = False):
     """Run the (cc, granularity, lanes) grid through ``engine.sweep``;
     returns row dicts in the JAX grid order.  ``fuse_wave=False`` takes
     the probe family's unfused route; ``snapshot_age > 0`` needs an
     all-MV ``ccs``; ``arrival_rate > 0`` runs every point open-loop, with
     ``make_config``'s queue and incarnation defaults at the widest lane
-    count."""
+    count.  ``per_wave`` keeps each point's per-wave timeline, and
+    ``return_points`` returns ``(rows, SweepPoints)``, the points
+    carrying it (analysis/trace.py reads them)."""
     from repro_torch.core import types as t
     from repro_torch.core.engine import sweep
     if snapshot_age and not all(t.CC_IDS[c] in t.MV_CCS for c in ccs):
@@ -155,8 +201,23 @@ def run_grid(workload: str, ccs: list, grans, lanes: list, waves: int, *,
         mv_depth=mv_depth if need_mv else 0)
     points = sweep(base, wl, waves, ccs=[t.CC_IDS[c] for c in ccs],
                    grans=tuple(grans), lane_counts=tuple(lanes),
-                   seeds=(seed,), device=device)
-    return [row(workload, p, base.max_extent) for p in points]
+                   seeds=(seed,), per_wave=per_wave, device=device)
+    rows = [row(workload, p, slots=wl.slots, n_groups=wl.n_groups,
+                mv_depth=mv_depth, max_extent=base.max_extent,
+                bucket_size=base.bucket_size) for p in points]
+    return (rows, points) if return_points else rows
+
+
+def trace_path(arg: str | None, default: str) -> str | None:
+    """Where ``--trace`` writes: its path, else ``REPRO_TRACE`` (``1`` or
+    ``true`` for ``default``, any other value but ``0`` a path), else
+    nowhere (None)."""
+    if arg is not None:
+        return arg
+    env = os.environ.get("REPRO_TRACE", "")
+    if env and env != "0":
+        return env if env not in ("1", "true") else default
+    return None
 
 
 def main(argv=None):
@@ -209,6 +270,14 @@ def main(argv=None):
                     help="cpu runs the plain PyTorch versions of the "
                          "kernels")
     ap.add_argument("--json", default=None)
+    ap.add_argument("--trace", nargs="?", const="reports/txn_trace.json",
+                    default=None, metavar="PATH",
+                    help="export the per-wave timeline as Chrome-trace JSON "
+                         "(analysis/trace.py; open in chrome://tracing or "
+                         "ui.perfetto.dev): one process row per grid point, "
+                         "one slice per wave with its commit and abort-cause "
+                         "deltas on the simulated-time axis; REPRO_TRACE=1 "
+                         "(or =PATH) does the same without the flag")
     args = ap.parse_args(argv)
     ycsb_flags = (args.write_frac, args.theta, args.ro_frac)
     if args.workload == "tpcc" and any(v is not None for v in ycsb_flags):
@@ -239,8 +308,9 @@ def main(argv=None):
     elif args.arrival_rate <= 0:
         ap.error(f"--arrival-rate must be > 0 (got {args.arrival_rate}); "
                  "omit the flag for the closed-loop retry buffer")
+    trace = trace_path(args.trace, "reports/txn_trace.json")
     grans = {"coarse": (0,), "fine": (1,), "both": (0, 1)}[args.granularity]
-    rows = run_grid(
+    rows, points = run_grid(
         args.workload, args.cc, grans, args.lanes, args.waves,
         scale=args.scale, n_keys=args.n_keys, seed=args.seed,
         write_frac=0.5 if args.write_frac is None else args.write_frac,
@@ -250,7 +320,7 @@ def main(argv=None):
         snapshot_age=args.snapshot_age,
         arrival_rate=args.arrival_rate or 0.0,
         queue_cap=args.queue_cap, max_incarnations=args.max_incarnations,
-        device=args.device)
+        device=args.device, per_wave=bool(trace), return_points=True)
     for r in rows:
         line = (f"{r['workload']} {r['cc']:9s} "
                 f"{'fine' if r['granularity'] else 'coarse'} "
@@ -265,6 +335,13 @@ def main(argv=None):
     if args.json:
         with open(args.json, "w") as f:
             json.dump(rows, f, indent=1)
+    if trace:
+        from repro_torch.analysis.trace import sweep_trace, write_trace
+        os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+        write_trace(trace, sweep_trace(points))
+        print(f"wrote Chrome trace -> {trace} ({len(points)} grid points; "
+              "load in chrome://tracing or ui.perfetto.dev)")
+    return rows
 
 
 if __name__ == "__main__":

@@ -36,10 +36,20 @@ def jax_config(wl, cc: int, gran: int, lanes: int,
         max_extent=wl.max_extent, **kw)
 
 
+_GENS = {}
+
+
+def _jit_gen(wl):
+    """The workload's generator, jitted once per workload object."""
+    if id(wl) not in _GENS:
+        _GENS[id(wl)] = (wl, jax.jit(wl.gen, static_argnums=(2,)))
+    return _GENS[id(wl)][1]
+
+
 def jax_draws(wl, lanes: int, n_waves: int, seed: int = 0) -> list:
     """[(fresh batch fields, ring tails, perm)] per wave, as numpy: the
     split -> gen -> permutation chain of the JAX wave step, replayed."""
-    gen = jax.jit(wl.gen, static_argnums=(2,))
+    gen = _jit_gen(wl)
     rng = jax.random.PRNGKey(seed)
     tails = jnp.zeros((wl.n_rings,), jnp.int32)
     out = []
@@ -66,13 +76,33 @@ def store_arrays(store) -> dict:
             for k in EXACT_TABLES + HEAT_TABLES}
 
 
+class ReplayedWorkload:
+    """The JAX workload ``wl`` whose ``gen`` returns recorded draws
+    (``jax_draws`` or ``jax_open_draws`` of ``wl``) by wave index: JAX
+    ``run`` on it makes the same waves as on ``wl`` with the same seed,
+    without compiling the generator into its scan."""
+
+    def __init__(self, wl, draws: list):
+        self._wl = wl
+        self._fields = {k: jnp.asarray(np.stack([d[0][k] for d in draws]))
+                        for k in draws[0][0]}
+        self._tails = jnp.asarray(np.stack([d[1] for d in draws]))
+
+    def __getattr__(self, name):
+        return getattr(self._wl, name)
+
+    def gen(self, rng, wave, lanes: int, ring_tails):
+        fresh = jt.TxnBatch(**{k: v[wave] for k, v in self._fields.items()})
+        return fresh, self._tails[wave]
+
+
 def jax_open_draws(wl, lanes: int, n_waves: int, rate: float,
                    seed: int = 0) -> list:
     """[(fresh batch fields, ring tails, perm, offered)] per wave, as
     numpy: the four-way split -> gen -> permutation -> Poisson chain of
     the JAX open-loop wave step, replayed."""
     from repro.workloads.arrivals import poisson_offered
-    gen = jax.jit(wl.gen, static_argnums=(2,))
+    gen = _jit_gen(wl)
     rng = jax.random.PRNGKey(seed)
     tails = jnp.zeros((wl.n_rings,), jnp.int32)
     out = []
@@ -89,32 +119,42 @@ def jax_open_draws(wl, lanes: int, n_waves: int, rate: float,
 
 
 def port_open_replay(cfg, store0: dict, draws: list, device="cpu",
-                     active=None):
+                     active=None, timeline=None):
     """Run the port's open-loop step over ``jax_open_draws`` from the store
     ``store0``; returns the final EngineState.  ``active`` masks padding
-    lanes as the sweep runner does."""
+    lanes as the sweep runner does; ``timeline`` (an ``engine.Timeline``
+    of ``len(draws)`` waves from wave 0) records every wave's row."""
     from repro_torch.core.types import engine_state_init
     state = engine_state_init(cfg, convert.store_from_numpy(store0, device))
     step = pe.make_open_wave_step(cfg, active)
     for fresh, tails, perm, offered in draws:
-        state, _ = step(state, convert.batch_from_numpy(fresh, device),
-                        torch.from_numpy(tails.astype(np.int32)).to(device),
-                        torch.from_numpy(perm.astype(np.int64)).to(device),
-                        offered)
+        wave = state.wave
+        state, row = step(state, convert.batch_from_numpy(fresh, device),
+                          torch.from_numpy(tails.astype(np.int32)).to(device),
+                          torch.from_numpy(perm.astype(np.int64)).to(device),
+                          offered)
+        if timeline is not None:
+            timeline.record(wave, row)
     return state
 
 
-def port_replay(cfg, store0: dict, draws: list, device="cpu", active=None):
+def port_replay(cfg, store0: dict, draws: list, device="cpu", active=None,
+                timeline=None):
     """Run the port's wave step over ``draws`` from the store ``store0``
     ({field: numpy array}); returns the final EngineState.  ``active``
-    (bool[T] or None) masks padding lanes as the sweep runner does."""
+    (bool[T] or None) masks padding lanes as the sweep runner does;
+    ``timeline`` (an ``engine.Timeline`` of ``len(draws)`` waves from
+    wave 0) records every wave's row."""
     from repro_torch.core.types import engine_state_init
     state = engine_state_init(cfg, convert.store_from_numpy(store0, device))
     step = pe.make_wave_step(cfg, active)
     for fresh, tails, perm in draws:
-        state = step(state, convert.batch_from_numpy(fresh, device),
-                     torch.from_numpy(tails.astype(np.int32)).to(device),
-                     torch.from_numpy(perm.astype(np.int64)).to(device))
+        wave = state.wave
+        state, row = step(state, convert.batch_from_numpy(fresh, device),
+                          torch.from_numpy(tails.astype(np.int32)).to(device),
+                          torch.from_numpy(perm.astype(np.int64)).to(device))
+        if timeline is not None:
+            timeline.record(wave, row)
     return state
 
 

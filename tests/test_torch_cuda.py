@@ -486,16 +486,32 @@ def test_waves_never_wait_on_the_host():
     """Two eager waves, then three under set_sync_debug_mode("error") and
     the profiler, with no host copy or sync among them
     (chip_smoke.sync_free_path raises otherwise): every mechanism fused,
-    scans, the unfused route and the open step, at small sizes."""
-    small = [("tpcc", dict(scale=0.01), cc, 1, True, 0.0)
+    scans, the unfused route and the open step, tracked or not, at small
+    sizes."""
+    small = [("tpcc", dict(scale=0.01), cc, 1, True, 0.0, False)
              for cc in chip_smoke.ALL_CCS]
-    small += [("tpcc", dict(scale=0.01, scan_len=16), cc, 0, True, 0.0)
-              for cc in ("occ", "autogran", "mvcc")]
-    small += [("tpcc", dict(scale=0.01), cc, 0, False, 0.0)
+    small += [("tpcc", dict(scale=0.01, scan_len=16), cc, 0, True, 0.0,
+               False) for cc in ("occ", "autogran", "mvcc")]
+    small += [("tpcc", dict(scale=0.01), cc, 0, False, 0.0, False)
               for cc in ("occ", "2pl", "adaptive")]
-    small += [("ycsb", dict(n_keys=2000), cc, 1, True, 12.0)
-              for cc in ("occ", "mvcc")]
+    small += [("ycsb", dict(n_keys=2000), cc, 1, True, 12.0, track)
+              for cc in ("occ", "mvcc") for track in (False, True)]
+    small += [("tpcc", dict(scale=0.01), cc, 0, True, 0.0, True)
+              for cc in ("occ", "tictoc")]
     launches, waves = chip_smoke.sync_free_path(_cuda(), lanes=16,
                                                 configs=small)
     assert waves == 3 * len(small)
     assert launches["wave_commit"] > 0 and launches["validate"] > 0
+
+
+@pytest.mark.cuda
+def test_tracking_and_the_timeline_on_the_card(tmp_path):
+    """Tracking off = on with three more launches a wave, a valid trace
+    from txn_bench, and tracked runs on the card = the CPU
+    (chip_smoke.observability_path and cross_device_observability raise
+    otherwise), at small sizes."""
+    launches, waves = chip_smoke.observability_path(
+        _cuda(), waves=4, lanes=16, scale=0.01, out_dir=str(tmp_path))
+    assert waves == 4 * (2 * len(chip_smoke.OBS_CONFIGS) + 4)
+    assert launches["commit_install"] > 0
+    chip_smoke.cross_device_observability(_cuda(), waves=3, scale=0.01)

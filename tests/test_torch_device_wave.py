@@ -30,6 +30,7 @@ All comparisons are bit-identical but the heats' (rtol 1e-6, a float32
 pow, as in tests/test_torch_claims.py).
 """
 import contextlib
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -48,7 +49,7 @@ from repro_torch.core import claims as cl
 from repro_torch.core import claimword as cw
 from repro_torch.core import mvstore as mv
 from repro_torch.core import types as pt
-from repro_torch.core.engine import (arrival_rate, draw_wave,
+from repro_torch.core.engine import (Timeline, arrival_rate, draw_wave,
                                      make_open_wave_step, make_wave_step)
 from repro_torch.launch.txn_bench import make_config, make_workload
 
@@ -405,3 +406,38 @@ def test_a_wave_never_waits_on_the_host(monkeypatch, wl_name, cc, gran,
         state, _ = draw_wave(cfg, wl, state, step, gen, r)
     assert int(state.wave) == 3
     assert sum(K.call_counts().values()) > 0
+
+
+TRACKED_CONFIGS = [("tpcc", "occ", 1, 0.0), ("tpcc", "tictoc", 0, 0.0),
+                   ("tpcc_scans", "autogran", 0, 0.0),
+                   ("ycsb", "mvcc", 1, 12.0)]
+
+
+@pytest.mark.parametrize(
+    "wl_name,cc,gran,rate", TRACKED_CONFIGS,
+    ids=[f"{w}-{cc}" + ("-open" if r else "")
+         for w, cc, _, r in TRACKED_CONFIGS])
+def test_a_tracked_wave_never_waits_on_the_host(monkeypatch, wl_name, cc,
+                                                gran, rate):
+    """With ``track_conflicts`` the conflict histogram, and the per-wave
+    timeline's write of the wave's row, stay on the device too."""
+    wl = make_workload(wl_name.split("_")[0], **_WL[wl_name])
+    cfg = dataclasses.replace(make_config(wl, cc, gran, 16,
+                                          arrival_rate=rate),
+                              track_conflicts=True)
+    state = pt.engine_state_init(cfg, wl.init_store("cpu", cfg.mv_depth))
+    step = (make_open_wave_step if cfg.open_loop else make_wave_step)(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    r = arrival_rate(cfg, "cpu")
+    for _ in range(2):
+        state, _ = draw_wave(cfg, wl, state, step, gen, r)
+    timeline = Timeline(1, state.wave)
+    with guarded(monkeypatch):
+        wave = state.wave
+        state, row = draw_wave(cfg, wl, state, step, gen, r)
+        timeline.record(wave, row)
+    assert int(state.wave) == 3
+    assert int(state.conflict_hits.sum()) >= 0
+    rows = timeline.arrays()
+    assert int(rows["per_wave_commits"][0]) == int(row.commits)

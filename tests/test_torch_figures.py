@@ -6,18 +6,20 @@ small table (TPC-C scale 0.01, YCSB 2,000 keys; their grids as the JAX
 twins'), and must print its ordering and ratio lines beside the paper's
 numbers and return rows that carry every key of the JAX CLI's rows
 (``repro.launch.txn_bench.run_grid`` on a tiny grid, closed and open
-loop) except the cost-model columns, which wait for ROADMAP A.10.  The
+loop), the cost-model columns included.  The
 orderings themselves are the card's to show at the figures' own sizes:
 at this size a few waves decide them.  scan_mix runs at its twin's 64
 lanes on the 2,000-key table, where its phantom checks (coarse at least
 fine's phantoms; none under MVCC) have the contention to hold.
 """
+import json
 import os
 import sys
 
 import pytest
 
 from repro.launch.txn_bench import run_grid as jax_run_grid
+from repro_torch.analysis.trace import validate_chrome_trace
 from repro_torch.benchmarks import (abort_rates, auto_granularity, common,
                                     fig2_ycsb, fig3_tpcc, open_loop,
                                     scan_mix)
@@ -26,30 +28,33 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
                                 "examples"))
 import quickstart_torch  # noqa: E402
 
-#: The JAX rows' cost-model columns (analysis/txn_cost.py; ROADMAP A.10).
-COST_KEYS = {"bytes_per_txn", "flops_per_txn", "roofline_frac",
-             "roofline_bound", "roofline_chip", "launches_per_wave",
-             "dma_rows_per_wave", "dma_rows_per_wave_unfused"}
-
-
 @pytest.fixture(scope="module")
 def jax_keys():
-    """(closed-loop row keys, open-loop row keys) of the JAX CLI."""
+    """(closed-loop row keys, open-loop row keys) of the JAX CLI, the
+    cost-model columns (analysis/txn_cost.py) included."""
     kw = dict(n_keys=2000, seed=0)
     closed = jax_run_grid("ycsb", ["occ"], (0,), [8], 2, **kw)[0]
     opened = jax_run_grid("ycsb", ["occ"], (0,), [8], 2, arrival_rate=4.0,
                           **kw)[0]
-    return set(closed) - COST_KEYS, set(opened) - COST_KEYS
+    return set(closed), set(opened)
 
 
 def _json(tmp_path):
     return ["--device", "cpu", "--json", str(tmp_path / "rows.json")]
 
 
+#: The JAX rows' probe-chain columns, which only the probe family carries
+#: (the port's rows carry ``launches_per_wave`` for every mechanism).
+CHAIN_KEYS = {"launches_per_wave", "dma_rows_per_wave",
+              "dma_rows_per_wave_unfused"}
+PROBE_FAMILY = {"occ", "tictoc", "2pl", "swisstm", "adaptive"}
+
+
 def _check_rows(rows, keys):
     assert rows
     for r in rows:
-        missing = keys - set(r)
+        need = keys if r["cc"] in PROBE_FAMILY else keys - CHAIN_KEYS
+        missing = need - set(r)
         assert not missing, (r["cc"], missing)
         assert r["backend"] == "cpu" and r["device_name"] == "cpu"
         assert r["commits"] + r["aborts"] == r["lanes"] * r["waves"] or \
@@ -109,8 +114,15 @@ def test_open_loop(jax_keys, tmp_path, capsys):
         assert r["reenq_drops"] == 0
     out = capsys.readouterr().out
     assert out.count("fine/coarse goodput") == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        open_loop.main(["--trace"] + _json(tmp_path))
+    trace = tmp_path / "trace.json"
+    open_loop.main(["--waves", "2", "--lanes", "8", "--n-keys", "2000",
+                    "--rates", "4", "--trace", str(trace)] + _json(tmp_path))
+    doc = json.loads(trace.read_text())
+    assert validate_chrome_trace(doc) == []
+    labels = [e["args"]["name"] for e in doc["traceEvents"]
+              if e["name"] == "process_name"]
+    assert labels == ["occ/coarse/rate4", "mvcc/coarse/rate4",
+                      "occ/fine/rate4", "mvcc/fine/rate4"]
 
 
 def test_scan_mix(jax_keys, tmp_path, capsys):

@@ -112,7 +112,16 @@ def test_port_sweep_matches_run_at_bucket_max(cc):
 
 
 def test_sweep_per_wave_waits_for_observability():
+    """The per-wave timeline (ROADMAP A.10, ported): each point's rows
+    sum to its totals, the padded point's too."""
     wl = make_workload("ycsb", n_keys=2000)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        pe.sweep(make_config(wl, "occ", 0, 8), wl, 2, ccs=[0],
-                 per_wave=True, device="cpu")
+    pts = pe.sweep(make_config(wl, "occ", 0, 8), wl, 3, ccs=[0],
+                   grans=(0,), lane_counts=(4, 8), per_wave=True,
+                   device="cpu")
+    for p in pts:
+        assert p.per_wave_commits.shape == (3,)
+        assert int(p.per_wave_commits.sum()) == p.commits
+        assert int(p.per_wave_aborts.sum()) == p.aborts
+        assert p.per_wave_causes.sum(axis=0).tolist() == p.abort_causes
+        np.testing.assert_allclose(p.per_wave_us.sum() / p.lanes,
+                                   p.sim_time_us, rtol=1e-5)
