@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-Builds the port's nineteen CUDA kernels (sixteen sources) from
+Builds the port's twenty CUDA kernels (seventeen sources) from
 src/repro_torch/csrc, then:
 
   1. kernels: each kernel against its plain PyTorch version on the card, at
@@ -128,7 +128,16 @@ src/repro_torch/csrc, then:
      verdict_unpack (alone and in the sharded verdict chains) and
      ts_gather (the parent's one-table launch twice and the torch
      arithmetic) are timed beside this checkout's kernels on the same
-     inputs, built from the sources of the commit unpacked in DIR;
+     inputs, built from the sources of the commit unpacked in DIR.
+     apply_values, the port's own kernel (the tracked values' serial
+     replay; no TPU kernel), against its plain replay, bit for bit, at
+     TPC-C's shape (T 128, K 64, N 2,450,808, C 4) and YCSB's (K 16, N
+     10M, C 10) flat and at TPC-C's into a ring of D = 4: hot records,
+     masked keys and keys past the table, uncommitted lanes, every op on
+     one cell (across lanes and within them), each lane's ops on four
+     cells of its own, nothing committed, non-integer deltas; one op, a
+     lane of 1,030 ops and a ring of D = 1; each timed form beside its
+     bound and its plain replay;
   2. the main path on TPC-C (full scale, T = 128, 200 waves) through the
      benchmark CLI's grid runner: OCC, TicToc, 2PL, SwissTM and Adaptive
      x coarse and fine, plus AutoGran coarse, with the launch counters set
@@ -212,6 +221,10 @@ src/repro_torch/csrc, then:
      the device; six tracked configurations (track_conflicts and the
      per-wave timeline's writes among the guarded waves: OCC, TicToc,
      AutoGran, MVCC on TPC-C point, OCC on TPC-C scans, MVCC open-loop);
+     six with tracked values (the apply_values replay; under MVCC and
+     MV-OCC the ring's head copy and copy-forward too: OCC, TicToc,
+     AutoGran, MVCC on TPC-C point, MV-OCC on YCSB point, OCC
+     open-loop);
  9h. observability (observability_path): OCC fine, TicToc, MVCC and
      AutoGran coarse on TPC-C (8 warehouses, scale 1.0, T = 128, 200
      waves) through engine.run with track_conflicts off and on: the runs
@@ -224,6 +237,20 @@ src/repro_torch/csrc, then:
      coarse on the card and the CPU from the same draws (TPC-C scale 0.1,
      30 waves): conflict tables, hot_records and per-wave integer series
      bit-identical, per-wave simulated µs within rtol 1e-5;
+ 9i. tracked values (values_path): OCC fine, TicToc coarse, 2PL fine,
+     AutoGran coarse, MVCC coarse and MV-OCC fine on TPC-C (8
+     warehouses, scale 1.0) and YCSB 10M, T = 128, 200 waves, untracked
+     and tracked from one seed: commits, counters and every table
+     identical, the tracked run launching apply_values once a wave (twice
+     under MVCC and MV-OCC) and nothing else more; TPC-C's warehouse and
+     district YTD each summing to the committed payments exactly; under
+     MVCC and MV-OCC the ring's newest versions equal to the values, and
+     after every wave each op of the waves 0, 1, 2, 3 and 5 back reading
+     its cell at that wave's snapshot (mvstore.snapshot_values, through
+     mv_gather): an ok read equals the value after that wave, bit for
+     bit.  Then tracked OCC fine, TicToc coarse, MVCC coarse and MV-OCC
+     fine on the card and the CPU from the same draws (TPC-C scale 0.1,
+     30 waves): values and ring values bit-identical;
  10. the sharded engine (core/distributed.py) on a one-rank NCCL group:
      YCSB and TPC-C at the main path's sizes and YCSB workload E, 256
      lanes, 200 waves, OCC/MVCC/MV-OCC x coarse and fine and OCC fine
@@ -242,8 +269,19 @@ src/repro_torch/csrc, then:
      bytes per wave are printed;
  11. the sharded engine on the card (NCCL) against the CPU (gloo) for 30
      waves at reduced sizes: commit masks, tables and stats bit-identical;
- 12. the scaling rows of repro_torch.launch.txn_scaling (the local anchor
-     and sharded OCC and MVCC on the JAX benchmark's draws);
+ 11b. the sharded open loop (core/distributed.run_open_loop, depth 1) on
+     the one-rank NCCL group: YCSB 10M, 256 lanes, OCC and MVCC x coarse
+     and fine, 192 Poisson arrivals a wave into a queue of 1,024 with 8
+     incarnations and 32 time-to-commit bins, 200 waves: the conservation
+     identities exact, route_pack, the claim and install kernels,
+     verdict_pack and verdict_unpack once a wave each; goodput, p50/p99
+     time-to-commit and waves/s printed.  Then OCC fine and MVCC coarse
+     wave by wave on the card and on the CPU through a gloo group (YCSB
+     100k keys, 30 waves): commit masks, stats, queue state and tables
+     bit-identical;
+ 12. the scaling rows of repro_torch.launch.txn_scaling (the local anchor,
+     sharded OCC and MVCC on the JAX benchmark's draws, and the open-loop
+     rows: OCC and MVCC x coarse and fine behind the admission rings);
  13. LM serving: flash_attention, rglru and rwkv6 against their plain
      versions at the full-width prefill shapes (recurrentgemma-9b: B 4,
      S 3,072, D 4,096; Hq 16 over Hkv 1, D 256, window 2,048; rwkv6-3b:
@@ -352,6 +390,9 @@ KERNEL_META = {
                      "src/repro/kernels/verdict_pack.py:50"),
     "verdict_unpack": ("src/repro_torch/csrc/verdict_pack.cu",
                        "src/repro/kernels/verdict_pack.py:65"),
+    # No TPU kernel: the JAX package's serial replay is a lax.scan.
+    "apply_values": ("src/repro_torch/csrc/apply_values.cu",
+                     "src/repro/core/engine.py:95"),
 }
 #: The other call forms the kernel phase times beside a kernel's main-path
 #: form, listed under "forms" in the kernels line: ts_gather's TicToc form
@@ -366,7 +407,8 @@ KERNEL_FORMS = {"ts_gather": ("ts_gather_coarse", "ts_gather_one"),
                 "validate": ("validate_mvcc",),
                 "claim_probe": ("claim_probe_pair",),
                 "iterate_validate": ("iterate_validate_bump",),
-                "validate_dual": ("validate_dual_check",)}
+                "validate_dual": ("validate_dual_check",),
+                "apply_values": ("apply_values_ycsb", "apply_values_ring")}
 #: The folded verdict forms of the sharded wave, timed at the one-card
 #: sharded shapes (verdict_fold_timings) and listed under "forms" too:
 #: the owner's claim launches writing the packed words, the scan check
@@ -1848,12 +1890,131 @@ def route_pack_case_checks(check, dev):
                              "drop-free waves")
 
 
-def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
+# ------------------------------------------------------- apply_values
+#: apply_values' timed forms: (timing name, N, T, K, C, D; D = 0 the flat
+#: values): TPC-C's flat values (the kernel's main-path row), YCSB's and
+#: TPC-C's version ring of D = 4.
+APPLY_TIMED = (("apply_values", TPCC_N, 128, 64, 4, 0),
+               ("apply_values_ycsb", YCSB_N, 128, 16, 10, 0),
+               ("apply_values_ring", TPCC_N, 128, 64, 4, MV_DEPTH))
+#: The input modes of apply_values_cases: hot records among random ones
+#: with masked keys, keys past the table and uncommitted lanes; every op on
+#: one cell; each lane's ops on four cells of its own; nothing committed.
+APPLY_MODES = ("mixed", "one_cell", "lane_cells", "none")
+
+
+def apply_values_inputs(N, T, K, C, D, mode, dev, seed):
+    """One wave's replay inputs on ``dev`` from ``seed``: (values f32[N,
+    C] or the ring [N, D, C], batch, commit bool[T], prio int32[T],
+    slot_of int32[N] or None), the ops made with numpy, the tables with a
+    generator on ``dev``.  Deltas are non-integer, so the float32 sums
+    depend on their order."""
+    from repro_torch.core import types as t
+    rng = np.random.default_rng(seed)
+    kind = rng.choice([t.NOP, t.READ, t.WRITE, t.ADD], (T, K),
+                      p=[0.1, 0.3, 0.25, 0.35])
+    col = rng.integers(0, C, (T, K))
+    key = rng.integers(0, N, (T, K))
+    commit = rng.random(T) < 0.7
+    commit[0] = True
+    if mode == "mixed":
+        hot = rng.integers(0, N, 8)
+        pick = rng.random((T, K))
+        key = np.where(pick < 0.3, hot[rng.integers(0, 8, (T, K))], key)
+        key = np.where(pick > 0.9, -1, key)
+        key = np.where((pick > 0.88) & (pick <= 0.9), N + 3, key)
+    elif mode == "one_cell":
+        key[:], col[:] = N // 2, C - 1
+        kind = np.where(rng.random((T, K)) < 0.1, t.WRITE, t.ADD)
+    elif mode == "lane_cells":
+        key = rng.integers(0, N, (T, 4))[np.arange(T)[:, None],
+                                         rng.integers(0, 4, (T, K))]
+        col = np.zeros_like(col)
+    else:
+        commit[:] = False
+    vals = (rng.standard_normal((T, K)) * 3.3).astype(np.float32)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    table = torch.randn((N, D, C) if D else (N, C), generator=g,
+                        device=dev) * 0.7
+    fields = dict(op_key=key, op_group=np.zeros_like(key), op_col=col,
+                  op_kind=kind, op_val=vals,
+                  txn_type=np.zeros(T), n_ops=np.full(T, K))
+
+    def d(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a.astype(dtype))).to(dev)
+    batch = t.TxnBatch(**{k: d(v, np.float32 if k == "op_val" else np.int32)
+                          for k, v in fields.items()})
+    slot_of = (torch.randint(0, D, (N,), generator=g, device=dev,
+                             dtype=torch.int32) if D else None)
+    return (table, batch, d(commit, np.bool_),
+            d(rng.permutation(T), np.int32), slot_of)
+
+
+def apply_values_cases(shapes=APPLY_TIMED):
+    """(label, N, T, K, C, D, mode): every mode at each timed shape, plus
+    one op, one lane of 1,030 ops (wider than a block) and a ring of D =
+    1."""
+    out = [(f"{name} {mode}", N, T, K, C, D, mode)
+           for name, N, T, K, C, D in shapes for mode in APPLY_MODES]
+    return out + [("one op", 17, 1, 1, 3, 0, "one_cell"),
+                  ("wide lane", 5000, 3, 1030, 2, 0, "mixed"),
+                  ("ring D=1", 5000, 16, 40, 3, 1, "mixed")]
+
+
+def apply_values_checks(check, dev, shapes=APPLY_TIMED, seed=101):
+    """apply_values against its plain version on every case, bit for bit
+    (the updated values), then the timed forms: kernel, plain replay and
+    bound at each of ``shapes`` on its mixed input.  Returns {name:
+    timing dict}."""
+    from repro_torch import kernels as K
+    from repro_torch.core import types as t
+    from repro_torch.kernels.apply_values import apply_values_plain
+    for i, (label, N, T, Kk, C, D, mode) in enumerate(
+            apply_values_cases(shapes)):
+        table, batch, commit, prio, slot_of = apply_values_inputs(
+            N, T, Kk, C, D, mode, dev, seed + i)
+        a, b = table.clone(), table.clone()
+        K.apply_values(a, batch, commit, prio, slot_of)
+        apply_values_plain(b, batch, commit, prio, slot_of)
+        check.compare([a], [b])
+        if mode != "none" and torch.equal(a, table):
+            raise AssertionError(f"apply_values case {label}: no cell "
+                                 "changed")
+    timings = {}
+    for i, (name, N, T, Kk, C, D) in enumerate(shapes):
+        table, batch, commit, prio, slot_of = apply_values_inputs(
+            N, T, Kk, C, D, "mixed", dev, seed + 50 + i)
+        act = (commit[:, None] & ((batch.op_kind == t.WRITE)
+                                  | (batch.op_kind == t.ADD))
+               & (batch.op_key >= 0) & (batch.op_key < N))
+        cells = torch.unique(batch.op_key[act].long() * C
+                             + batch.op_col[act].long()).numel()
+        rows = torch.unique(batch.op_key[act]).numel() if D else 0
+        # Per op a key, a column, a kind and a value in; per lane a commit
+        # byte and a priority; each written cell read and written once
+        # (with the ring, each written record's new slot read once).
+        n_bytes = T * Kk * 16 + T * 5 + cells * 8 + rows * 4
+        timings[name] = dict(
+            form=("ring D=4, slot_of the new heads" if D else "flat values"),
+            shape=f"T={T} K={Kk} N={N} C={C}" + (f" D={D}" if D else ""),
+            ms=time_ms(lambda: K.apply_values(table, batch, commit, prio,
+                                              slot_of), dev),
+            plain_ms=time_ms(lambda: apply_values_plain(
+                table, batch, commit, prio, slot_of), dev, n=3, warmup=1),
+            library_ms=None,
+            bound=bound_ms(n_bytes, int(act.sum())))
+    return timings
+
+
+def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None,
+                 apply_shapes=APPLY_TIMED):
     """Compare every kernel with its plain version over every flag
     combination at ``shapes``, and the sharded wave's kernels at its
-    shapes for ``dist_lanes`` lanes; time them.  Returns ({name:
-    KernelCheck}, {label: {name: timing dict}}), the sharded wave's
-    kernels under the label "dist"."""
+    shapes for ``dist_lanes`` lanes; time them.  apply_values at
+    ``apply_shapes``, its timings under the label "tpcc".  Returns
+    ({name: KernelCheck}, {label: {name: timing dict}}), the sharded
+    wave's kernels under the label "dist"."""
     from repro_torch import kernels as K
     from repro_torch.core.claimword import claim_word
     from repro_torch.core.claimword import inv_wave
@@ -2157,6 +2318,8 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None):
     # rehearsal takes 2**16 (its times are no device metric).
     timings["dist"].update(verdict_fold_timings(
         dev, parent, dist_lanes, N=YCSB_N if dev.type == "cuda" else 1 << 16))
+    timings.setdefault("tpcc", {}).update(apply_values_checks(
+        checks["apply_values"], dev, apply_shapes))
     for label, t in timings.items():
         for name, r in t.items():
             plain = ("-" if r["plain_ms"] is None
@@ -3726,7 +3889,8 @@ def _replay(cfg, wl, draws, d, active_lanes=None, timeline=False):
     returns ``(state, the per-wave timeline's arrays)``."""
     from repro_torch.core import engine as E
     from repro_torch.core import types as t
-    st = t.engine_state_init(cfg, wl.init_store(d, cfg.mv_depth))
+    st = t.engine_state_init(cfg, wl.init_store(d, cfg.mv_depth,
+                                                cfg.track_values))
     active = (None if active_lanes is None else
               torch.arange(cfg.lanes, device=d) < active_lanes)
     step = E.make_wave_step(cfg, active)
@@ -3746,7 +3910,8 @@ def _replay_open(cfg, wl, draws, offered, d):
     counts ``offered``."""
     from repro_torch.core import engine as E
     from repro_torch.core import types as t
-    st = t.engine_state_init(cfg, wl.init_store(d, cfg.mv_depth))
+    st = t.engine_state_init(cfg, wl.init_store(d, cfg.mv_depth,
+                                                cfg.track_values))
     step = E.make_open_wave_step(cfg)
     for (fresh, tl, perm), n in zip(draws, offered):
         fb = t.TxnBatch(**{f.name: getattr(fresh, f.name).to(d)
@@ -4011,29 +4176,39 @@ HOST_WAITS = ("Memcpy HtoD", "Memcpy DtoH", "cudaStreamSynchronize",
 
 def sync_free_configs() -> list:
     """(workload, its settings, cc, granularity, fused, arrival rate,
-    tracked) of the sync-free phase: every mechanism x coarse and fine on
-    TPC-C and YCSB point; TPC-C scan_len 200 with OCC, AutoGran and MVCC;
-    YCSB-E with OCC; the unfused route with OCC, 2PL and Adaptive; the
-    open step (YCSB, OCC and MVCC, rate 96, queue 512); and tracked
-    (``track_conflicts`` and the per-wave timeline, as ``engine.run``
-    keeps them): OCC, TicToc, AutoGran and MVCC on TPC-C point, OCC on
-    TPC-C scans and MVCC open-loop."""
-    out = [(w, MAIN_KW[w], cc, g, True, 0.0, False)
+    tracked, values) of the sync-free phase: every mechanism x coarse and
+    fine on TPC-C and YCSB point; TPC-C scan_len 200 with OCC, AutoGran
+    and MVCC; YCSB-E with OCC; the unfused route with OCC, 2PL and
+    Adaptive; the open step (YCSB, OCC and MVCC, rate 96, queue 512);
+    tracked (``track_conflicts`` and the per-wave timeline, as
+    ``engine.run`` keeps them): OCC, TicToc, AutoGran and MVCC on TPC-C
+    point, OCC on TPC-C scans and MVCC open-loop; and with tracked values
+    (``track_values``: the replay, and under MVCC and MV-OCC the ring's
+    head copy and copy-forward): OCC, TicToc, AutoGran and MVCC on TPC-C
+    point, MV-OCC on YCSB point and OCC open-loop."""
+    out = [(w, MAIN_KW[w], cc, g, True, 0.0, False, False)
            for w in ("tpcc", "ycsb") for cc in ALL_CCS for g in (0, 1)]
-    out += [("tpcc", SCAN_KW["tpcc"], cc, g, True, 0.0, False)
+    out += [("tpcc", SCAN_KW["tpcc"], cc, g, True, 0.0, False, False)
             for cc in ("occ", "autogran", "mvcc") for g in (0, 1)]
-    out += [("ycsb", SCAN_KW["ycsb"], "occ", g, True, 0.0, False)
+    out += [("ycsb", SCAN_KW["ycsb"], "occ", g, True, 0.0, False, False)
             for g in (0, 1)]
-    out += [("tpcc", MAIN_KW["tpcc"], cc, g, False, 0.0, False)
+    out += [("tpcc", MAIN_KW["tpcc"], cc, g, False, 0.0, False, False)
             for cc in ("occ", "2pl", "adaptive") for g in (0, 1)]
     kw = {k: v for k, v in OPEN_KW.items() if k != "arrival_rate"}
-    out += [("ycsb", kw, cc, 1, True, OPEN_KW["arrival_rate"], False)
+    out += [("ycsb", kw, cc, 1, True, OPEN_KW["arrival_rate"], False, False)
             for cc in ("occ", "mvcc")]
-    out += [("tpcc", MAIN_KW["tpcc"], cc, g, True, 0.0, True)
+    out += [("tpcc", MAIN_KW["tpcc"], cc, g, True, 0.0, True, False)
             for cc, g in (("occ", 1), ("tictoc", 0), ("autogran", 0),
                           ("mvcc", 1))]
-    out += [("tpcc", SCAN_KW["tpcc"], "occ", 0, True, 0.0, True),
-            ("ycsb", kw, "mvcc", 1, True, OPEN_KW["arrival_rate"], True)]
+    out += [("tpcc", SCAN_KW["tpcc"], "occ", 0, True, 0.0, True, False),
+            ("ycsb", kw, "mvcc", 1, True, OPEN_KW["arrival_rate"], True,
+             False)]
+    out += [("tpcc", MAIN_KW["tpcc"], cc, g, True, 0.0, False, True)
+            for cc, g in (("occ", 1), ("tictoc", 0), ("autogran", 0),
+                          ("mvcc", 1))]
+    out += [("ycsb", MAIN_KW["ycsb"], "mvocc", 0, True, 0.0, False, True),
+            ("ycsb", kw, "occ", 1, True, OPEN_KW["arrival_rate"], False,
+             True)]
     return out
 
 
@@ -4045,7 +4220,9 @@ def sync_free_path(dev, warm=2, waves=3, lanes=LANES, configs=None):
     call raises) and ``torch.profiler``, which must show no ``HOST_WAITS``
     event inside them (the mode does not flag a copy from pageable
     memory).  A tracked configuration also records every wave's row into
-    a per-wave ``Timeline``, inside the guarded waves.  The wave index
+    a per-wave ``Timeline``, inside the guarded waves; a configuration
+    with values tracks them (its waves replay into them, and must change
+    them).  The wave index
     must have advanced on the device and every lane of every wave must
     commit or abort.  Returns (launches during the profiled waves, waves
     profiled)."""
@@ -4062,17 +4239,19 @@ def sync_free_path(dev, warm=2, waves=3, lanes=LANES, configs=None):
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     workloads = {}
     launches = {op: 0 for op in K.WRAPPERS}
-    for wl_name, wl_kw, cc, gran, fuse, rate, track in configs:
+    for wl_name, wl_kw, cc, gran, fuse, rate, track, values in configs:
         key = (wl_name, tuple(sorted(wl_kw.items())))
         if key not in workloads:
             workloads[key] = make_workload(wl_name, **wl_kw)
         wl = workloads[key]
         cfg = dataclasses.replace(
             make_config(wl, cc, gran, lanes, fuse, mv_depth=MV_DEPTH,
-                        arrival_rate=rate), track_conflicts=track)
+                        arrival_rate=rate, track_values=values),
+            track_conflicts=track)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
-        state = engine_state_init(cfg, wl.init_store(dev, cfg.mv_depth))
+        state = engine_state_init(cfg, wl.init_store(dev, cfg.mv_depth,
+                                                     values))
         step = (make_open_wave_step if cfg.open_loop else make_wave_step)(
             cfg)
         r = arrival_rate(cfg, dev)
@@ -4110,7 +4289,8 @@ def sync_free_path(dev, warm=2, waves=3, lanes=LANES, configs=None):
                 f"{cc}-{'fine' if gran else 'coarse'}"
                 f"{'' if fuse else ' unfused'}"
                 f"{f' open rate {rate:g}' if rate else ''}"
-                f"{' tracked' if track else ''}")
+                f"{' tracked' if track else ''}"
+                f"{' values' if values else ''}")
         log(f"  sync-free {what}: {waves} waves, {len(waits)} host copies "
             f"and syncs, {n_dev / waves:.1f} device events a wave")
         if waits:
@@ -4129,6 +4309,8 @@ def sync_free_path(dev, warm=2, waves=3, lanes=LANES, configs=None):
         if dev.type == "cuda" and n_dev == 0:
             raise AssertionError(f"sync-free {what}: nothing ran on the "
                                  "device")
+        if values and not bool(state.store.values.any()):
+            raise AssertionError(f"sync-free {what}: no value written")
     log(f"  sync-free launches {launches}")
     return launches, len(configs) * waves
 
@@ -4323,6 +4505,173 @@ def cross_device_observability(dev, waves=30, scale=0.1,
             f"records {hot[:3]}, per-wave commits "
             f"{ta['per_wave_commits'][:6].tolist()}...: identical on {dev} "
             "and cpu")
+
+
+# ----------------------------------------------------------- tracked values
+#: The values phase's sources, at the main path's full sizes, and its
+#: mechanisms (cc, granularity).
+VALUE_SOURCES = {"tpcc": MAIN_KW["tpcc"], "ycsb": MAIN_KW["ycsb"]}
+VALUE_CONFIGS = (("occ", 1), ("tictoc", 0), ("2pl", 1), ("autogran", 0),
+                 ("mvcc", 0), ("mvocc", 1))
+#: Snapshot ages the MV runs read at after every wave: the wave's own
+#: snapshot, up to three waves back (the ring holds MV_DEPTH versions)
+#: and five back, where a hot record's version can be reclaimed.
+SNAPSHOT_AGES = (0, 1, 2, 3, 5)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
+def _values_run(cfg, wl, dev, waves, ages=()):
+    """``waves`` waves of ``draw_wave`` from a fresh store (seed 0); with
+    ``ages`` (a tracked MV run), after wave w each op of wave w - a reads
+    its cell at that wave's snapshot (ts = w - a + 1) through
+    ``mvstore.snapshot_values``, and a read that is ``ok`` must equal the
+    flat value recorded after wave w - a, bit for bit.  Returns (state,
+    host seconds, ok reads, reclaimed reads)."""
+    from repro_torch.core import mvstore
+    from repro_torch.core.claims import record_index
+    from repro_torch.core.engine import draw_wave, make_wave_step
+    from repro_torch.core.types import engine_state_init
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = engine_state_init(cfg, wl.init_store(dev, cfg.mv_depth,
+                                                 cfg.track_values))
+    step = make_wave_step(cfg)
+    hist, n_ok, n_stale = [], 0, 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    for w in range(waves):
+        state, _ = draw_wave(cfg, wl, state, step, gen)
+        if not ages:
+            continue
+        st, b = state.store, state.pending
+        k, valid = record_index(b.op_key, st.n_records)
+        c, cvalid = record_index(b.op_col, st.values.shape[1])
+        hist.append((b.op_key, b.op_group, b.op_col, valid & cvalid,
+                     st.values[k, c]))
+        hist = hist[-(max(ages) + 1):]
+        for a in ages:
+            if a >= len(hist):
+                continue
+            keys, groups, cols, live, want = hist[-1 - a]
+            got, ok = mvstore.snapshot_values(
+                st.mv_vals, st.mv_begin, keys, groups, cols, w - a + 1,
+                cfg.granularity == 1)
+            if not torch.equal(_bits(got[ok]), _bits(want[ok])):
+                raise AssertionError(f"snapshot read of wave {w - a} at "
+                                     f"wave {w}: a value differs")
+            n_ok += int(ok.sum())
+            n_stale += int((live & ~ok).sum())
+    _sync(dev)
+    return state, time.perf_counter() - t0, n_ok, n_stale
+
+
+def values_path(dev, waves=WAVES, lanes=LANES, sources=VALUE_SOURCES,
+                configs=VALUE_CONFIGS, ages=SNAPSHOT_AGES):
+    """Tracked values at full width: each of ``configs`` on each source
+    (TPC-C 8 warehouses at scale 1.0, YCSB 10M) run untracked and tracked
+    from the same seed.  The two runs' commits, counters and every table
+    are identical; the tracked run launches apply_values once a wave
+    (twice under MVCC and MV-OCC: the flat values and the ring) and
+    nothing else more; on TPC-C each warehouse's and district's YTD sums
+    to the committed payments exactly (each payment adds 1.0 to both);
+    under MVCC and MV-OCC the ring's newest versions equal the flat
+    values, and the snapshot reads of ``_values_run`` agree with the flat
+    values of the wave they snapshot.  The counters are set to 0 just
+    before each run and read just after.  Returns (launches over the
+    tracked runs, tracked waves)."""
+    from repro_torch import kernels as K
+    from repro_torch.launch.txn_bench import make_config, make_workload
+    from repro_torch.workloads import tpcc as T
+    total = {op: 0 for op in K.WRAPPERS}
+    for src, kw in sources.items():
+        wl = make_workload(src, **kw)
+        for cc, gran in configs:
+            cfg = make_config(wl, cc, gran, lanes, mv_depth=MV_DEPTH)
+            mv = cfg.mv_depth > 0
+            what = f"{src} {cc}-{'fine' if gran else 'coarse'}"
+            K.reset_launches()
+            plain, secs_p, _, _ = _values_run(cfg, wl, dev, waves)
+            base = K.launch_counts()
+            K.reset_launches()
+            tracked, secs_t, n_ok, n_stale = _values_run(
+                dataclasses.replace(cfg, track_values=True), wl, dev, waves,
+                ages if mv else ())
+            launched = K.launch_counts()
+            for op in total:
+                total[op] += launched[op]
+            _same_state(plain, tracked, f"values {what}")
+            extra = {op: n - base[op] for op, n in launched.items()
+                     if n != base[op]}
+            want = {"apply_values": waves * (2 if mv else 1)}
+            if mv:
+                want["mv_gather"] = sum(
+                    sum(a <= w for a in ages) for w in range(waves))
+            st = tracked.store
+            line = (f"  {what}: commits {int(tracked.commits)} = untracked, "
+                    f"tables identical; {waves / secs_p:.1f} waves/s "
+                    f"untracked, {waves / secs_t:.1f} tracked; launches "
+                    f"added {extra}")
+            if mv:
+                line += f"; snapshot reads ok {n_ok}, reclaimed {n_stale}"
+            if src == "tpcc":
+                pay = int(tracked.commits_by_type[T.PAYMENT])
+                w_ytd = st.values[:wl.n_warehouses, T.W_YTD].double().sum()
+                d_ytd = st.values[wl.d_base:wl.d_base + wl.n_dist_total,
+                                  T.D_YTD].double().sum()
+                line += (f"; payments {pay}, W_YTD sum {float(w_ytd)}, "
+                         f"D_YTD sum {float(d_ytd)}")
+                if not float(w_ytd) == float(d_ytd) == pay > 0:
+                    raise AssertionError(f"values {what}: YTD sums "
+                                         f"{float(w_ytd)}, {float(d_ytd)} "
+                                         f"!= {pay} payments")
+            log(line)
+            if dev.type == "cuda" and extra != want:
+                raise AssertionError(f"values {what}: launches added "
+                                     f"{extra}, want {want}")
+            if not bool(st.values.any()):
+                raise AssertionError(f"values {what}: no value written")
+            if mv:
+                newest = st.mv_vals[torch.arange(st.n_records, device=dev),
+                                    st.mv_head.long()]
+                if not torch.equal(_bits(newest), _bits(st.values)):
+                    raise AssertionError(f"values {what}: the ring's newest "
+                                         "versions differ from the values")
+                if n_ok == 0:
+                    raise AssertionError(f"values {what}: no snapshot read "
+                                         "was ok")
+            del plain, tracked, st
+    log(f"  values launches {total}")
+    return total, len(sources) * len(configs) * waves
+
+
+def cross_device_values(dev, waves=30, scale=0.1,
+                        configs=(("occ", 1), ("tictoc", 0), ("mvcc", 0),
+                                 ("mvocc", 1))):
+    """Tracked runs of CPU-made draws through the wave step on ``dev``
+    (the apply_values kernel) and on the CPU (the plain replay): the
+    values and the ring's values bit-identical, the rest of the state as
+    ``cross_device``."""
+    from repro_torch.launch.txn_bench import make_config
+    from repro_torch.workloads import TPCCWorkload
+    wl = TPCCWorkload.make(n_warehouses=8, scale=scale)
+    draws = _draws(wl, waves, LANES)
+    cpu = torch.device("cpu")
+    for cc, gran in configs:
+        cfg = make_config(wl, cc, gran, LANES, mv_depth=MV_DEPTH,
+                          track_values=True)
+        a, b = (_replay(cfg, wl, draws, d) for d in (dev, cpu))
+        what = f"cross-device values {cc}-{'fine' if gran else 'coarse'}"
+        _same_state(a, b, what, rtol_time=1e-5, rtol_heat=1e-6)
+        for name in ("values", "mv_vals"):
+            if not torch.equal(_bits(getattr(a.store, name).cpu()),
+                               _bits(getattr(b.store, name))):
+                raise AssertionError(f"{what}: {name} differs")
+        log(f"  {what}: {waves} waves, commits {int(a.commits)}, "
+            f"{int((a.store.values != 0).sum())} cells written, values "
+            f"and ring values identical on {dev} and cpu")
 
 
 # ------------------------------------------------------------ sharded path
@@ -4603,6 +4952,150 @@ def sharded_cross_device(dev, group=None, cpu_group=None, waves=30,
                 f"dropped ops {st[D.STAT_DROPPED_OPS]} phantoms "
                 f"{st[D.STAT_CAUSE0 + CAUSE_PHANTOM]}: "
                 f"identical on {dev} and cpu")
+
+
+# ------------------------------------------------- sharded open loop
+#: The sharded open loop's settings (ROADMAP A.11's first item): arrivals
+#: a wave over the ranks, each rank's queue, incarnations, histogram bins.
+DIST_OPEN = dict(rate=192.0, queue_cap=1024, max_incarnations=8,
+                 lat_bins=32)
+DIST_OPEN_CONFIGS = (("occ", 0), ("occ", 1), ("mvcc", 0), ("mvcc", 1))
+
+
+def dist_open_config(wl, cc, gran, lanes, ns):
+    """The sharded open loop's DistConfig: ``dist_config``'s, for ``lanes``
+    global lanes over ``ns`` ranks, with ``DIST_OPEN``'s queue."""
+    return dataclasses.replace(
+        dist_config(wl, cc, gran, True, lanes // ns),
+        queue_cap=DIST_OPEN["queue_cap"],
+        max_incarnations=DIST_OPEN["max_incarnations"],
+        lat_bins=DIST_OPEN["lat_bins"])
+
+
+def _open_identities(s, what):
+    """The sharded open loop's conservation identities, exactly."""
+    if not (s["admitted"] == s["commits"] + s["queued_final"] + s["inc_drops"]
+            and s["offered"] == s["admitted"] + s["arrival_drops"]
+            and int(s["lat_hist"].sum()) == s["commits"]
+            and s["abort_causes"][0] == s["inc_drops"]
+            and sum(s["abort_causes"]) == s["aborts"]):
+        counts = {k: v for k, v in s.items()
+                  if k not in ("lat_hist", "per_shard_stats")}
+        raise AssertionError(f"{what}: a conservation identity fails: "
+                             f"{counts}")
+
+
+def sharded_open_path(dev, group=None, waves=WAVES, lanes=DIST_LANES,
+                      source=DIST_SOURCES["ycsb"],
+                      configs=DIST_OPEN_CONFIGS):
+    """The sharded open loop (core/distributed.run_open_loop, depth 1) on
+    ``group``'s shards: the source's fresh batches (the port's generator
+    on ``dev``) as each wave's candidates, ``DIST_OPEN``'s Poisson
+    arrivals split over the ranks (``PoissonArrivals.shard_counts``, seed
+    7).  Every conservation identity holds exactly; every wave launches
+    route_pack, the claim kernel (wave_commit, or claim_probe on both
+    channels and the ring), the install kernel, verdict_pack and
+    verdict_unpack once each.  Goodput (commits per host second),
+    p50/p99 time-to-commit and waves/s printed.  The counters are set to
+    0 just before each run and read just after.  Returns (launches over
+    the runs, waves)."""
+    from repro_torch import kernels as K
+    from repro_torch.core import distributed as D
+    from repro_torch.core.admission import ttc_percentiles
+    from repro_torch.launch.txn_bench import make_workload
+    from repro_torch.workloads.arrivals import PoissonArrivals
+    ns = D.n_shards(group)
+    wl = make_workload(source[0], **source[1])
+    _, stacked = dist_draws(wl, waves, lanes, dev, seed=17)
+
+    def gen(w):
+        return tuple(x[w] for x in stacked)
+    arrivals = PoissonArrivals(rate=DIST_OPEN["rate"], seed=7)
+    counts = arrivals.shard_counts(waves, ns, lanes // ns)
+    total = {op: 0 for op in K.WRAPPERS}
+    # A short run first: no configuration's pace pays for first use.
+    D.run_open_loop(dist_open_config(wl, *configs[0], lanes, ns),
+                    counts[:3], gen, 3, group, dev)
+    for cc, gran in configs:
+        cfg = dist_open_config(wl, cc, gran, lanes, ns)
+        what = f"sharded open {cc}-{'fine' if gran else 'coarse'}"
+        K.reset_launches()
+        s = D.run_open_loop(cfg, counts, gen, waves, group, dev)
+        launches, calls = K.launch_counts(), K.call_counts()
+        for op in total:
+            total[op] += launches[op]
+        _open_identities(s, what)
+        (p50,), (p99,) = ttc_percentiles(s["lat_hist"].sum(axis=0)[None, :])
+        log(f"  {what}: {ns} rank(s) x {lanes // ns} lanes, rate "
+            f"{DIST_OPEN['rate']:g}, queue {cfg.queue_cap}: goodput "
+            f"{s['commits'] / s['wall_s']:.1f} txn/s, p50 {p50:g} p99 "
+            f"{p99:g} waves, {waves / s['wall_s']:.1f} waves/s; offered "
+            f"{s['offered']} admitted {s['admitted']} commits "
+            f"{s['commits']} queued {s['queued_final']} inc_drops "
+            f"{s['inc_drops']} arrival_drops {s['arrival_drops']} causes "
+            f"{s['abort_causes']}")
+        once = ("route_pack", "verdict_pack", "verdict_unpack",
+                "claim_probe" if cfg.is_mv else "wave_commit",
+                "mv_install" if cfg.is_mv else "commit_install")
+        for op in once:
+            if calls[op] != waves or (dev.type == "cuda"
+                                      and launches[op] != waves):
+                raise AssertionError(f"{what}: {op} calls {calls[op]}, "
+                                     f"launches {launches[op]} over {waves} "
+                                     "waves (one a wave)")
+        if s["commits"] <= 0:
+            raise AssertionError(f"{what}: nothing committed")
+    log(f"  sharded open launches {total}")
+    return total, len(configs) * waves
+
+
+def sharded_open_cross_device(dev, group=None, cpu_group=None, waves=30,
+                              lanes=DIST_LANES,
+                              source=DIST_CROSS_SOURCES["ycsb"],
+                              configs=(("occ", 1), ("mvcc", 0))):
+    """The same CPU-made candidates and arrival counts through the
+    sharded open wave on ``dev`` (the kernels, over ``group``) and on the
+    CPU (the plain versions, over the gloo ``cpu_group``), wave by wave:
+    commit masks, stats and every field of the queue state bit-identical,
+    then the tables."""
+    import torch.distributed as dist
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.txn_bench import make_workload
+    from repro_torch.workloads.arrivals import PoissonArrivals
+    cpu = torch.device("cpu")
+    ns = D.n_shards(group)
+    T = lanes // ns
+    mine = slice(dist.get_rank(group) * T, (dist.get_rank(group) + 1) * T)
+    wl = make_workload(source[0], **source[1])
+    _, stacked = dist_draws(wl, waves, lanes, cpu, seed=19)
+    counts = PoissonArrivals(rate=DIST_OPEN["rate"], seed=3).shard_counts(
+        waves, ns, T)
+    for cc, gran in configs:
+        cfg = dist_open_config(wl, cc, gran, lanes, ns)
+        runs = []
+        for d, g in ((dev, group), (cpu, cpu_group)):
+            wave = D.make_open_wave_fn(cfg, g)
+            tables = D.init_tables(cfg, g, d)
+            q = D.init_open_queue(cfg, g, d)
+            outs = []
+            for w in range(waves):
+                c, tables, q, st = wave(
+                    *(x[w][mine].to(d).contiguous() for x in stacked),
+                    int(counts[w, dist.get_rank(g)]), tables, q, w)
+                outs.append((c.cpu(), st.cpu(), [x.cpu() for x in q]))
+            runs.append((outs, [x.cpu() for x in tables]))
+        what = f"sharded open cross-device {cc}-{'fine' if gran else 'coarse'}"
+        for w, (a, b) in enumerate(zip(runs[0][0], runs[1][0])):
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                    and all(torch.equal(x, y) for x, y in zip(a[2], b[2]))):
+                raise AssertionError(f"{what}: wave {w} differs")
+        for i, (x, y) in enumerate(zip(*(r[1] for r in runs))):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: table {i} differs")
+        st = torch.stack([o[1] for o in runs[0][0]]).to(torch.int64).sum(0)
+        log(f"  {what}: {waves} waves, commits {int(st[D.STAT_COMMITS])} "
+            f"admitted {int(st[D.STAT_ADMITTED])}: identical on {dev} and "
+            "cpu")
 
 
 # ------------------------------------------------------------- LM serving
@@ -5450,6 +5943,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+
+    def phase(title):
+        log(f"[{time.perf_counter() - t_start:.1f} s] {title}")
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}  CUDA {torch.version.cuda}  "
@@ -5465,10 +5961,10 @@ def main(argv=None) -> int:
                 log(f"  {name}: {line.strip()}")
 
     parent = parent_kernels(args.parent) if args.parent else None
-    log("kernels vs plain versions:")
+    phase("kernels vs plain versions:")
     checks, timings = kernel_phase(dev, SHAPES, parent=parent)
 
-    log("main path, TPC-C:")
+    phase("main path, TPC-C:")
     tpcc, l_tpcc = main_path("tpcc", dev, **MAIN_KW["tpcc"])
     ratios("tpcc", tpcc)
     occ_f = tpcc["occ-fine"]["throughput"]
@@ -5482,60 +5978,69 @@ def main(argv=None) -> int:
             "throughput"]:
         raise AssertionError("AutoGran-coarse must beat OCC-coarse on TPC-C")
 
-    log("main path, YCSB:")
+    phase("main path, YCSB:")
     ycsb, l_ycsb = main_path("ycsb", dev, **MAIN_KW["ycsb"])
     ratios("ycsb", ycsb)
 
-    log("unfused route, TPC-C:")
+    phase("unfused route, TPC-C:")
     _, l_unf = unfused_path(dev, tpcc, scale=1.0)
 
-    log("scan path, TPC-C:")
+    phase("scan path, TPC-C:")
     tpcc_s, l_tpcc_s = scan_path("tpcc", dev, **SCAN_KW["tpcc"])
-    log("scan path, YCSB:")
+    phase("scan path, YCSB:")
     ycsb_s, l_ycsb_s = scan_path("ycsb", dev, **SCAN_KW["ycsb"])
 
-    log("multi-version path:")
+    phase("multi-version path:")
     mv, mv_phases = mv_path(dev)
 
-    log("fused = unfused on the card:")
+    phase("fused = unfused on the card:")
     fused_unfused(dev)
     fused_unfused(dev, scan_len=SCAN_KW["tpcc"]["scan_len"])
 
-    log("cross-device identity:")
+    phase("cross-device identity:")
     cross_device(dev)
     cross_device(dev, waves=20, scan_len=SCAN_KW["tpcc"]["scan_len"],
                  configs=SCAN_CONFIGS)
 
-    log("backend op probe on the card:")
+    phase("backend op probe on the card:")
     l_probe = backend_probe_path(dev)
-    log("quickstart (examples/quickstart_torch.py):")
+    phase("quickstart (examples/quickstart_torch.py):")
     _, l_quick = quickstart_path(dev)
-    log("figures: fig3's grid through the port's sweep:")
+    phase("figures: fig3's grid through the port's sweep:")
     fig_rows, l_fig, fig_ratios = figures_path(dev, scale=1.0)
     log("fig3_ratios " + json.dumps(fig_ratios))
-    log("cross-device identity with padding:")
+    phase("cross-device identity with padding:")
     cross_device_padded(dev)
-    log("open loop, YCSB:")
+    phase("open loop, YCSB:")
     open_rows, l_open = open_loop_path(dev)
-    log("cross-device identity, open loop:")
+    phase("cross-device identity, open loop:")
     cross_device_open(dev)
-    log("sync-free waves (set_sync_debug_mode('error') and the profiler):")
+    phase("sync-free waves (set_sync_debug_mode('error') and the profiler):")
     l_sync, n_sync = sync_free_path(dev)
-    log("observability: the conflict histogram and the per-wave timeline:")
+    phase("observability: the conflict histogram and the per-wave timeline:")
     l_obs, n_obs = observability_path(dev)
-    log("cross-device identity, tracked:")
+    phase("cross-device identity, tracked:")
     cross_device_observability(dev)
+    phase("tracked values: the serial replay into the values and the ring:")
+    l_val, n_val = values_path(dev)
+    phase("cross-device identity, tracked values:")
+    cross_device_values(dev)
 
-    log("sharded engine, one-rank NCCL group:")
+    phase("sharded engine, one-rank NCCL group:")
     import torch.distributed as dist
     from repro_torch.launch import txn_scaling
     from repro_torch.launch.mesh import close_shards, init_shards
     shards = init_shards(dev)
     try:
         dist_rows, l_dist, n_dist = sharded_path(dev)
-        log("sharded engine, card = CPU (gloo group for the CPU run):")
-        sharded_cross_device(dev, cpu_group=dist.new_group(backend="gloo"))
-        log("sharded scaling rows (repro_torch.launch.txn_scaling):")
+        phase("sharded engine, card = CPU (gloo group for the CPU run):")
+        cpu_group = dist.new_group(backend="gloo")
+        sharded_cross_device(dev, cpu_group=cpu_group)
+        phase("sharded open loop, one-rank NCCL group:")
+        l_dopen, n_dopen = sharded_open_path(dev)
+        phase("sharded open loop, card = CPU:")
+        sharded_open_cross_device(dev, cpu_group=cpu_group)
+        phase("sharded scaling rows (repro_torch.launch.txn_scaling):")
         K.reset_launches()
         scaling = txn_scaling.scaling_rows(shards, waves=30)
         l_scale = K.launch_counts()
@@ -5544,7 +6049,7 @@ def main(argv=None) -> int:
     finally:
         close_shards(shards)
 
-    log("LM serving:")
+    phase("LM serving:")
     torch.cuda.empty_cache()
     lm_checks, lm_timings = lm_kernel_phase(dev)
     lm_rows, lm_launches = [], {op: 0 for op in K.WRAPPERS}
@@ -5567,7 +6072,9 @@ def main(argv=None) -> int:
             "open_loop": (l_open, len(open_rows) * WAVES),
             "sync_free": (l_sync, n_sync),
             "observability": (l_obs, n_obs),
+            "values": (l_val, n_val),
             "sharded": (l_dist, n_dist * WAVES),
+            "sharded_open": (l_dopen, n_dopen),
             "scaling": (l_scale, (30 + txn_scaling.WARMUP_WAVES)
                         * len(scaling))}
     per_wave = {op: {k: n[op] / w for k, (n, w) in runs.items()}

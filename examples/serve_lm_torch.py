@@ -57,9 +57,11 @@ class SessionStoreWorkload:
     def slots(self):
         return self.ops_per_txn
 
-    def init_store(self, device=None, mv_depth: int = 0):
+    def init_store(self, device=None, mv_depth: int = 0,
+                   track_values: bool = False):
         return store_init(self.n_records, self.n_groups, n_rings=self.n_rings,
-                          device=device, mv_depth=mv_depth)
+                          device=device, mv_depth=mv_depth,
+                          n_cols=self.n_cols if track_values else 0)
 
     def gen(self, gen: torch.Generator, wave: int, lanes: int,
             ring_tails: torch.Tensor):

@@ -6,8 +6,10 @@ them (XLA gather/scatter and Pallas).  The port keeps the same op names
 and one backend whose ops dispatch on the device of their tensors: CPU
 tensors run the plain PyTorch version, CUDA tensors launch the hand
 kernel (kernels/).  Every op of the surface is ported; ``probe`` has no
-caller in either package's engine, and ``claim_scatter`` and
-``mv_gather`` none in the port's (their work rides other ops' calls).
+caller in either package's engine, and ``claim_scatter`` none in the
+port's (its work rides other ops' calls); ``mv_gather``'s one caller is
+``mvstore.snapshot_values``.  One op is the port's own:
+``apply_values``, the tracked values' serial replay.
 
 All word tables are updated in place, so ops that install return only
 their per-op outputs (see each kernel module).
@@ -126,6 +128,11 @@ class Backend:
 
 for _op in SURFACE_OPS:
     setattr(Backend, _op, staticmethod(kernels.WRAPPERS[_op]))
+
+#: The port's own op beside the surface: the tracked values' serial replay
+#: (kernels/apply_values.py), which the JAX package computes with a
+#: ``lax.scan`` in its engine rather than through its backend.
+Backend.apply_values = staticmethod(kernels.WRAPPERS["apply_values"])
 
 #: The one backend: every config uses it; the tensors' device picks the
 #: route.

@@ -16,9 +16,9 @@ A read aborts only when its snapshot predates every retained slot
 (``snapshot_age`` beyond the ring's depth): the select's ok flag.
 Scans read a consistent cut of the snapshot and are never re-validated
 (snapshot isolation admits phantoms, as it admits write skew).  Committed
-writes claim one ring slot per record per wave (``mv_install``).
-The JAX package's ``track_values`` branch of ``mv_commit`` waits for
-ROADMAP A.4; the config refuses it.
+writes claim one ring slot per record per wave (``mv_install``); with
+tracked values the new slots get their values too
+(``mvstore.install_values``).
 """
 from __future__ import annotations
 
@@ -61,11 +61,17 @@ def fcw_conflicts(store: StoreState, batch: TxnBatch, prio,
 def mv_commit(store: StoreState, batch: TxnBatch, commit: torch.Tensor,
               prio, wave: torch.Tensor, cfg: EngineConfig) -> StoreState:
     """Install the wave's committed writes into the version ring: one slot
-    per written record (``mv_install``), in place."""
+    per written record (``mv_install``), in place, plus the slots' values
+    when values are tracked.  ``mv_install`` moves the heads in place, so
+    a tracked wave copies them first: ``install_values`` reads both."""
     do = batch.is_write() & batch.live() & commit[:, None]
+    head_old = store.mv_head.clone() if cfg.track_values else None
     with named_range("mv_install"):
         kb.BACKEND.mv_install(store.mv_begin, store.mv_head, batch.op_key,
                               batch.op_group, do, mvstore.install_ts(wave))
+    if cfg.track_values:
+        mvstore.install_values(store.mv_vals, head_old, store.mv_head,
+                               batch, commit, prio)
     return store
 
 

@@ -10,7 +10,11 @@ The engine state's conflict histogram (``conflict_hits``,
 (``conflicts_from_numpy``, ``conflicts_to_numpy``).
 The per-record tables (mode bits, heats, heat waves, ring heads) travel
 with their own dtypes; the mode and heat tables gain their zero sink slot
-(``core/types.SINK``) on the way in and lose it on the way out.  The
+(``core/types.SINK``) on the way in and lose it on the way out.  Tracked
+values (``values`` f32[n_records, n_cols] and ``mv_vals``, the ring's or
+its [1, 1, 1] placeholder) travel as float32 both ways: a store is
+tracked when its arrays carry ``values``, and a tracked store gives both
+back.  The
 sharded engine's tables (core/distributed.py) travel as global arrays:
 ``dist_tables_from_numpy`` gives each rank its ``rec_per`` rows,
 ``dist_tables_to_numpy`` gathers them back.  A language
@@ -48,26 +52,43 @@ def _words(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int32).copy()).to(device)
 
 
+def _floats(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+
 def store_from_numpy(arrays: dict, device) -> StoreState:
-    """StoreState from {field: array}; the JAX store's tracked values
-    (``values``, ``mv_vals``) are ignored (ROADMAP A.4)."""
+    """StoreState from {field: array}; with ``values`` in ``arrays`` the
+    store tracks values (``mv_vals`` from the arrays, or the placeholder
+    where they carry none), else it holds the empty placeholders."""
     tables = {k: _words(arrays[k], device) for k in WORD_TABLES}
     for k, dtype in RECORD_TABLES.items():
         a = np.asarray(arrays[k]).astype(dtype)
         if k in SINK_TABLES:
             a = np.concatenate([a, np.zeros(SINK, dtype)])
         tables[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    tables["mv_vals"] = mv_placeholder(device)[2]
+    if "values" in arrays:
+        tables["values"] = _floats(arrays["values"], device)
+        tables["mv_vals"] = (_floats(arrays["mv_vals"], device)
+                             if "mv_vals" in arrays
+                             else mv_placeholder(device)[2])
+    else:
+        tables["values"] = torch.zeros((0, 0), dtype=torch.float32,
+                                       device=device)
+        tables["mv_vals"] = mv_placeholder(device)[2]
     return StoreState(**tables)
 
 
 def store_to_numpy(store: StoreState) -> dict:
-    """{field: numpy array}, word tables as uint32."""
+    """{field: numpy array}, word tables as uint32; ``values`` and
+    ``mv_vals`` where the store tracks values."""
     out = {k: getattr(store, k).cpu().numpy().view(np.uint32)
            for k in WORD_TABLES}
     for k in RECORD_TABLES:
         a = getattr(store, k).cpu().numpy()
         out[k] = a[:-SINK] if k in SINK_TABLES else a
+    if store.tracks_values:
+        for k in ("values", "mv_vals"):
+            out[k] = getattr(store, k).cpu().numpy()
     return out
 
 

@@ -49,21 +49,32 @@ CPU tensors (a gloo group) run their plain versions.  The wave index is a
 0-d int64 tensor on that device (an int is copied there), which the
 kernels read from device memory and ``make_run_fn`` advances there.
 
+The open loop (``queue_cap >= 1``) puts a fixed-capacity admission ring
+on each rank in front of the same shard body (``init_open_queue``,
+``make_open_wave_fn``, ``run_open_loop``): arrivals enqueue, up to T
+lanes leave FIFO, the routed wave runs, aborted lanes re-enqueue with
+incarnation + 1 or drop at the cap, committed lanes record their
+time-to-commit, all with core/admission.py's ``ring_enqueue`` and
+``record_ttc``, on the device.
+
 Not ported yet, raising NotImplementedError with their ROADMAP item: the
-software pipeline (``pipeline_depth >= 2`` on more than one shard), the
-axis-wise exchange on meshes of two or more axes, and the open loop
-(``queue_cap >= 1``, ``make_open_wave_fn``, ``run_open_loop``).  Values
-are not tracked on the sharded path, as in the JAX package.
+software pipeline (``pipeline_depth >= 2`` on more than one shard, closed
+and open: ``make_run_fn``, ``make_open_run_fn``, ``run_open_loop``) and
+the axis-wise exchange on meshes of two or more axes.  Values are not
+tracked on the sharded path, as in the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence
+import time
+from typing import Callable, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import admission
 from repro_torch.core import backend as kb
 from repro_torch.core import mvstore
 from repro_torch.core import types as t
@@ -96,7 +107,6 @@ STAT_CAUSES = slice(STAT_CAUSE0, STAT_CAUSE0 + t.N_ABORT_CAUSES)
 _PIPELINE = "ROADMAP A.11 (pipeline_depth >= 2: the software pipeline)"
 _AXISWISE = ("ROADMAP A.11 (topology='axiswise': DeviceMesh subgroups, one "
              "exchange per mesh axis)")
-_OPEN_LOOP = "ROADMAP A.11 (the sharded open loop, after A.9)"
 
 
 def verdict_words(cap: int) -> int:
@@ -220,10 +230,6 @@ class DistConfig:
                 "serializes in the past — a scan validated today cannot "
                 "protect a cut taken waves ago (the local engine rejects "
                 "this identically; EngineConfig)")
-        if self.open_loop:
-            raise NotImplementedError(
-                f"queue_cap={self.queue_cap} (the open loop) is not ported "
-                f"to repro_torch yet: it waits for {_OPEN_LOOP}")
 
     @property
     def open_loop(self) -> bool:
@@ -619,16 +625,233 @@ def make_run_fn(cfg: DistConfig, n_waves: int, group=None,
     return run
 
 
-def make_open_wave_fn(cfg: DistConfig, group=None, mesh_shape=None):
-    raise NotImplementedError(
-        "make_open_wave_fn (the sharded open loop) is not ported to "
-        f"repro_torch yet: it waits for {_OPEN_LOOP}")
+class OpenQueue(NamedTuple):
+    """One rank's open-loop state, in the JAX package's qstate order: a
+    capacity-``queue_cap`` ring of transactions (keys, groups and kinds
+    of their K ops, the wave each was admitted, its incarnation and
+    admission serial), the ring's cursors and the rank's time-to-commit
+    histogram.  int32 throughout, as the JAX package's."""
+    q_key: torch.Tensor     # [C, K]
+    q_grp: torch.Tensor     # [C, K]
+    q_kind: torch.Tensor    # [C, K]
+    q_admit: torch.Tensor   # [C]
+    q_inc: torch.Tensor     # [C]
+    q_id: torch.Tensor      # [C]
+    head: torch.Tensor      # [1] ring read cursor
+    size: torch.Tensor      # [1] live entries
+    next_id: torch.Tensor   # [1] next admission serial
+    lat_hist: torch.Tensor  # [lat_bins] time-to-commit in waves
 
 
-def run_open_loop(cfg: DistConfig, *args, **kwargs):
+def init_open_queue(cfg: DistConfig, group=None, device=None) -> OpenQueue:
+    """This rank's fresh open-loop state for ``make_open_wave_fn``: an
+    empty ring and histogram, ``next_id = rank * 2**20`` so that
+    admission serials are unique across ranks without coordination (up to
+    2**20 admissions a rank)."""
+    if not cfg.open_loop:
+        raise ValueError("init_open_queue needs queue_cap >= 1")
+    dev = resolve_device(device)
+    C, K = cfg.queue_cap, cfg.slots
+
+    def i32(*shape, fill=0):
+        return torch.full(shape, fill, dtype=torch.int32, device=dev)
+    return OpenQueue(i32(C, K, fill=-1), i32(C, K), i32(C, K, fill=t.NOP),
+                     i32(C), i32(C), i32(C), i32(1), i32(1),
+                     i32(1, fill=dist.get_rank(group) << 20),
+                     i32(cfg.lat_bins))
+
+
+def make_open_wave_fn(cfg: DistConfig, group=None,
+                      mesh_shape: Optional[Sequence[int]] = None):
+    """The open-loop routed wave on this rank, one wave a call:
+    ``open_wave(keys, groups, kinds, prio, n_arrive, tables, qstate,
+    wave) -> (commit bool[T], tables, qstate, stats int32[STATS_LEN])``.
+
+    ``keys``/``groups``/``kinds`` [T, K] are this rank's fresh arrival
+    candidates, of which the first ``n_arrive`` (an int or a tensor of
+    one count) arrive; ``prio`` [T] is the wave's priority of this rank's
+    lanes, which the dequeued transactions take.  In order: the arrivals
+    enqueue (ring overflow drops them, counted), up to T lanes leave the
+    ring FIFO, the shard body runs on them, committed lanes record
+    ``wave - admit_wave + 1`` in the histogram, aborted lanes re-enqueue
+    with incarnation + 1 or, past ``cfg.max_incarnations``, drop with
+    their cause reclassified ``CAUSE_INC_CAP``.  Arrivals land before the
+    dequeue frees lanes, so the re-enqueue never overflows.  Stats slots
+    6 to 9 carry the wave's admitted arrivals, dropped arrivals, dropped
+    incarnations and the ring's occupancy after it.  ``tables`` are
+    updated in place, ``qstate`` (``init_open_queue``) is returned anew.
+    Every rank calls it with the same wave index."""
+    if not cfg.open_loop:
+        raise ValueError("make_open_wave_fn needs queue_cap >= 1 (the "
+                         "open-loop switch); use make_wave_fn for "
+                         "closed-loop waves")
+    ns = _check_group(cfg, group, mesh_shape)
+    if cfg.depth(ns) > 1:
+        raise ValueError(
+            f"make_open_wave_fn runs one synchronous wave per call: "
+            f"pipeline_depth={cfg.pipeline_depth} on {ns} shards needs the "
+            f"pipelined open-loop runner, which is not ported to repro_torch "
+            f"yet: it waits for {_PIPELINE} (one shard falls back to depth "
+            "1)")
+    exchange = Exchange(group)
+    body = _make_shard_body(cfg, ns, exchange)
+    T, C = cfg.lanes_per_shard, cfg.queue_cap
+
+    def open_wave(keys, groups, kinds, prio, n_arrive, tables, qstate,
+                  wave_idx):
+        _check_wave_args(cfg, keys, groups, kinds, prio)
+        dev = keys.device
+        wave = device_scalar(wave_idx, dev)
+        w = wave.to(torch.int32)
+        (qk, qg, qi, qa, qc, qd, head, size, nid, lat_hist) = qstate
+        lane = torch.arange(T, dtype=torch.int32, device=dev)
+        zeros = torch.zeros((T,), dtype=torch.int32, device=dev)
+
+        # Arrivals: the first n_arrive fresh lanes enter the ring.
+        n_arr = torch.as_tensor(n_arrive, device=dev).to(torch.int32) \
+            .reshape(-1)[:1].clamp(max=T)
+        (qk, qg, qi, qa, qc, qd), size, n_adm, n_ovf = \
+            admission.ring_enqueue(
+                C, head, size, lane < n_arr, (qk, qg, qi, qa, qc, qd),
+                (keys, groups, kinds, w.expand(T), zeros, nid + lane))
+
+        # Admit: fill the rank's T lanes FIFO.
+        take = size.clamp(max=T)
+        got = lane < take
+        pos = ((head + lane) % C).to(torch.int64)
+        g2 = got[:, None]
+        dk = torch.where(g2, qk.index_select(0, pos), -1)
+        dg = torch.where(g2, qg.index_select(0, pos), 0)
+        di = torch.where(g2, qi.index_select(0, pos), t.NOP)
+        admit_w = torch.where(got, qa.index_select(0, pos), 0)
+        incarn = torch.where(got, qc.index_select(0, pos), 0)
+        txn_id = torch.where(got, qd.index_select(0, pos), -1)
+        head, size = (head + take) % C, size - take
+
+        # The routed wave on the admitted lanes.
+        commit, lane_dropped, has_write, dropped_op, cause = body(
+            dk, dg, di, prio, tables, wave)
+        commit = commit & got
+        aborted = got & ~commit
+
+        # Retry incarnations and time-to-commit.
+        retry = aborted & (incarn < cfg.max_incarnations)
+        inc_drop = aborted & ~retry
+        cause = torch.where(inc_drop, t.CAUSE_INC_CAP, cause)
+        (qk, qg, qi, qa, qc, qd), size, _, n_re_ovf = \
+            admission.ring_enqueue(
+                C, head, size, retry, (qk, qg, qi, qa, qc, qd),
+                (dk, dg, di, admit_w, incarn + 1, txn_id))
+        lat_hist = admission.record_ttc(lat_hist, w - admit_w + 1, commit)
+
+        ro = ~has_write
+        head_stats = torch.stack([
+            commit.sum(), aborted.sum(), lane_dropped.sum(),
+            dropped_op.sum(), (commit & ro).sum(), (aborted & ro).sum(),
+            n_adm, n_ovf + n_re_ovf, inc_drop.sum(), size[0].long()])
+        stats = torch.cat([head_stats, t.cause_counts(cause, aborted)]) \
+            .to(torch.int32)
+        return commit, tables, OpenQueue(
+            qk, qg, qi, qa, qc, qd, head, size, nid + n_arr,
+            lat_hist), stats
+
+    open_wave.exchange = exchange
+    return open_wave
+
+
+def make_open_run_fn(cfg: DistConfig, n_waves: int, group=None,
+                     mesh_shape: Optional[Sequence[int]] = None):
+    """The JAX package's pipelined open-loop runner (effective depth >= 2):
+    not ported.  At depth 1 ``run_open_loop`` runs ``make_open_wave_fn``
+    wave by wave, as the JAX package's does."""
+    if not cfg.open_loop:
+        raise ValueError("make_open_run_fn needs queue_cap >= 1 (the "
+                         "open-loop switch)")
+    ns = _check_group(cfg, group, mesh_shape)
+    if cfg.depth(ns) < 2:
+        raise ValueError(
+            "make_open_run_fn is the pipelined scanned runner: effective "
+            f"depth {cfg.depth(ns)} on {ns} shards runs the synchronous "
+            "make_open_wave_fn instead (run_open_loop picks)")
     raise NotImplementedError(
-        "run_open_loop (the sharded open loop) is not ported to "
-        f"repro_torch yet: it waits for {_OPEN_LOOP}")
+        f"pipeline_depth={cfg.pipeline_depth} on {ns} shards (the open "
+        f"loop) is not ported to repro_torch yet: it waits for {_PIPELINE}")
+
+
+def run_open_loop(cfg: DistConfig, arrive_counts, gen_fn: Callable,
+                  n_waves: int, group=None, device=None,
+                  mesh_shape: Optional[Sequence[int]] = None) -> dict:
+    """Run ``n_waves`` open waves on every rank of ``group`` and reconcile
+    the ranks' stats into the JAX package's summary dict.
+
+    ``arrive_counts`` is int[n_waves, n_shards]
+    (``PoissonArrivals.shard_counts``); ``gen_fn(wave) -> (keys, groups,
+    kinds, prio)`` gives the wave's globally shaped candidates ([n_shards
+    * T, K], prio [n_shards * T]; numpy arrays or tensors), of which each
+    rank takes its own lanes.  Tables and queues start fresh on
+    ``device`` (CUDA unless the caller asks for the CPU).  The summary
+    holds the identities that the conservation oracle asserts, exactly:
+    ``admitted == commits + queued_final + inc_drops`` and ``offered ==
+    admitted + arrival_drops``; ``lat_hist`` is int[n_shards, lat_bins],
+    ``per_shard_stats`` int64[n_shards, STATS_LEN].  It adds ``wall_s``,
+    the wave loop's host seconds up to a device synchronize, and
+    ``exchange_bytes``, what this rank handed to the collective."""
+    ns = _check_group(cfg, group, mesh_shape)
+    if cfg.depth(ns) > 1:
+        raise NotImplementedError(
+            f"run_open_loop at pipeline_depth={cfg.pipeline_depth} on {ns} "
+            f"shards is not ported to repro_torch yet: it waits for "
+            f"{_PIPELINE}")
+    dev = resolve_device(device)
+    T = cfg.lanes_per_shard
+    rank = dist.get_rank(group)
+    mine = slice(rank * T, (rank + 1) * T)
+    counts = np.asarray(arrive_counts).reshape(n_waves, ns)
+    tables = init_tables(cfg, group, dev)
+    qstate = init_open_queue(cfg, group, dev)
+    wave = make_open_wave_fn(cfg, group, mesh_shape)
+    acc = torch.zeros((STATS_LEN,), dtype=torch.int64, device=dev)
+
+    def local(x):
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.asarray(x).astype(np.int32))
+        return x[mine].to(dev, torch.int32).contiguous()
+
+    def gather(x):
+        out = [torch.zeros_like(x) for _ in range(ns)]
+        dist.all_gather(out, x, group=group)
+        return torch.stack(out).cpu().numpy()
+    w_idx = device_scalar(0, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for w in range(n_waves):
+        keys, groups, kinds, prio = (local(x) for x in gen_fn(w))
+        _, tables, qstate, stats = wave(keys, groups, kinds, prio,
+                                        int(counts[w, rank]), tables,
+                                        qstate, w_idx)
+        acc += stats
+        w_idx = w_idx + 1
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall_s = time.perf_counter() - t0
+    acc_np = gather(acc)
+    return {
+        "commits": int(acc_np[:, STAT_COMMITS].sum()),
+        "aborts": int(acc_np[:, STAT_ABORTS].sum()),
+        "ro_commits": int(acc_np[:, STAT_RO_COMMITS].sum()),
+        "ro_aborts": int(acc_np[:, STAT_RO_ABORTS].sum()),
+        "offered": int(np.minimum(counts, T).sum()),
+        "admitted": int(acc_np[:, STAT_ADMITTED].sum()),
+        "arrival_drops": int(acc_np[:, STAT_ARRIVAL_DROPS].sum()),
+        "inc_drops": int(acc_np[:, STAT_INC_DROPS].sum()),
+        "queued_final": int(gather(qstate.size).sum()),
+        "abort_causes": [int(x) for x in acc_np[:, STAT_CAUSES].sum(axis=0)],
+        "lat_hist": gather(qstate.lat_hist),
+        "per_shard_stats": acc_np,
+        "wall_s": wall_s,
+        "exchange_bytes": wave.exchange.bytes_sent,
+    }
 
 
 def init_tables(cfg: DistConfig, group=None, device=None) -> tuple:

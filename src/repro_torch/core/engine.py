@@ -71,7 +71,8 @@ class Workload(Protocol):
     n_txn_types: int
     slots: int
 
-    def init_store(self, device, mv_depth: int = 0) -> StoreState: ...
+    def init_store(self, device, mv_depth: int = 0,
+                   track_values: bool = False) -> StoreState: ...
 
     def gen(self, generator: torch.Generator, wave: torch.Tensor,
             lanes: int,
@@ -260,6 +261,9 @@ def make_wave_step(cfg: EngineConfig,
         with named_range("validate"):
             store, res = validator(store, batch, prio, wave, cfg)
         commit = res.commit
+        if cfg.track_values:
+            with named_range("apply_values"):
+                kb.BACKEND.apply_values(store.values, batch, commit, prio)
         with named_range("cost"):
             lane_dt, has_write = _lane_cost(cfg, batch, commit, res)
 
@@ -350,6 +354,9 @@ def make_open_wave_step(cfg: EngineConfig,
         with named_range("validate"):
             store, res = validator(store, batch, prio, wave, cfg)
         commit = res.commit & got
+        if cfg.track_values:
+            with named_range("apply_values"):
+                kb.BACKEND.apply_values(store.values, batch, commit, prio)
         with named_range("cost"):
             lane_dt, has_write = _lane_cost(cfg, batch, commit, res)
         lane_dt = torch.where(got, lane_dt, 0.0)
@@ -566,7 +573,8 @@ def _drive(cfg: EngineConfig, workload: Workload, n_waves: int, seed: int,
     ``per_wave``."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    state = engine_state_init(cfg, workload.init_store(dev, cfg.mv_depth))
+    state = engine_state_init(cfg, workload.init_store(
+        dev, cfg.mv_depth, cfg.track_values))
     timeline = Timeline(n_waves, state.wave) if per_wave else None
     mk = make_open_wave_step if cfg.open_loop else make_wave_step
     state, wall_s = run_waves(cfg, workload, state, mk(cfg, active), gen,

@@ -19,8 +19,11 @@ oldest slot; a snapshot older than every retained slot gets ``ok = False``
 from the ``mv_gather`` op and aborts.  Empty slots hold ``MV_EMPTY`` and
 are visible to no snapshot.
 
-The ring's values (``mv_vals``, ``install_values``) wait for ROADMAP A.4:
-``mv_vals`` is always the [1, 1, 1] placeholder here.
+With tracked values (``EngineConfig.track_values``) the ring also holds
+each version's values, ``mv_vals`` f32[n_records, D, n_cols]:
+``install_values`` materializes the wave's new slots and
+``snapshot_values`` reads a snapshot's value through the ``mv_gather``
+op.  Without them ``mv_vals`` is the [1, 1, 1] placeholder.
 """
 from __future__ import annotations
 
@@ -52,15 +55,24 @@ def install_ts(wave):
     return (wave + 1) & _U32
 
 
-def mv_init(n_records: int, depth: int, n_groups: int, device):
+def mv_init(n_records: int, depth: int, n_groups: int, device,
+            n_cols: int = 0, values=None):
     """Fresh ring tables: slot 0 holds the initial version (begin 0 in every
     group), the other D-1 slots are empty.  Returns (begin, head, vals);
-    ``vals`` is the [1, 1, 1] placeholder."""
+    ``vals`` is f32[n_records, D, n_cols] when ``n_cols > 0``, slot 0
+    holding ``values`` (zeros when None), else the [1, 1, 1]
+    placeholder."""
     begin = torch.full((n_records, depth, n_groups), -1, dtype=torch.int32,
                        device=device)
     begin[:, 0, :] = 0
     head = torch.zeros((n_records,), dtype=torch.int32, device=device)
-    return begin, head, mv_placeholder(device)[2]
+    if n_cols <= 0:
+        return begin, head, mv_placeholder(device)[2]
+    vals = torch.zeros((n_records, depth, n_cols), dtype=torch.float32,
+                       device=device)
+    if values is not None:
+        vals[:, 0, :] = values
+    return begin, head, vals
 
 
 def mv_placeholder(device):
@@ -69,3 +81,56 @@ def mv_placeholder(device):
     return (torch.zeros((1, 1, 1), dtype=torch.int32, device=device),
             torch.zeros((1,), dtype=torch.int32, device=device),
             torch.zeros((1, 1, 1), dtype=torch.float32, device=device))
+
+
+def install_values(vals: torch.Tensor, head_old: torch.Tensor,
+                   head_new: torch.Tensor, batch, commit: torch.Tensor,
+                   prio: torch.Tensor) -> torch.Tensor:
+    """Materialize the wave's new ring slots (tracked values), in place.
+
+    Two steps, as the begin-table install of ``mv_install``: every slot
+    the wave installed is first copied from its record's previous newest
+    slot, all columns (the unwritten columns carry forward), then the
+    committed writes are replayed into the new slots by the
+    ``apply_values`` op (``slot_of=head_new``), the one definition of the
+    serial replay.  ``head_old`` is the ring's heads before the wave's
+    ``mv_install`` (which updates ``mv_head`` in place), ``head_new``
+    after it.  The copy runs before the replay in stream order.
+
+    Every op writes one row: a committed write its record's new slot
+    from the old one, any other op its record's old slot (or record 0's
+    for a key outside the table) with that row's own contents.  Writers
+    of one row therefore write the same bytes (a record's new slot
+    differs from its old one unless D = 1, where both copies are the
+    identity), so the unordered copy is deterministic on every device."""
+    from repro_torch.core import backend as kb
+    from repro_torch.core.claims import record_index
+    N, D, C = vals.shape
+    do = (batch.is_write() & batch.live() & commit[:, None]).reshape(-1)
+    k, valid = record_index(batch.op_key.reshape(-1), N)
+    src = k * D + head_old.index_select(0, k).to(torch.int64)
+    dst = torch.where(do & valid,
+                      k * D + head_new.index_select(0, k).to(torch.int64),
+                      src)
+    rows = vals.view(N * D, C)
+    rows.index_copy_(0, dst, rows.index_select(0, src))
+    return kb.BACKEND.apply_values(vals, batch, commit, prio,
+                                   slot_of=head_new)
+
+
+def snapshot_values(vals: torch.Tensor, begin: torch.Tensor,
+                    keys: torch.Tensor, groups: torch.Tensor,
+                    cols: torch.Tensor, ts, fine: bool):
+    """Snapshot value read (tests and demos): ``(value f32, ok bool)`` per
+    op, through the ``mv_gather`` op's slot select.  ``ok`` is False where
+    the snapshot's version was reclaimed or the op is masked (key outside
+    ``[0, n_records)``), and the value is then 0."""
+    from repro_torch.core import backend as kb
+    from repro_torch.core.claims import record_index
+    N, D, C = vals.shape
+    slot, ok = kb.BACKEND.mv_gather(begin, keys, groups, ts, fine)
+    k, valid = record_index(keys, N)
+    c, cvalid = record_index(cols, C)
+    v = vals.view(-1).index_select(
+        0, ((k * D + slot.to(torch.int64)) * C + c).reshape(-1))
+    return torch.where(ok & valid & cvalid, v.view(keys.shape), 0.0), ok

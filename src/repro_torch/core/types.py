@@ -196,9 +196,10 @@ class StoreState:
     decay ** (wave - heat_wave) when it is next read.  The mode bits, the
     heats and the heat waves carry one sink slot past the last record
     (index ``n_records``, ``SINK``): the masked ops of their fixed-shape
-    scatters write 0 (False) there, and no reader reads it.  The JAX
-    package's tracked values (``values``, ``mv_vals``) wait for ROADMAP
-    A.4: ``mv_vals`` is a placeholder.
+    scatters write 0 (False) there, and no reader reads it.  The record
+    values (``EngineConfig.track_values``) are the flat ``values`` and,
+    with a ring, each version's ``mv_vals``; an untracked store holds
+    empty placeholders there (``tracks_values`` is False).
     """
     wts: torch.Tensor         # int32[n_records, G]  write timestamps
     rts: torch.Tensor         # int32[n_records, G]  read timestamps
@@ -216,7 +217,11 @@ class StoreState:
                               #   (core/mvstore.py; [1, 1, 1] when the run
                               #   has no ring, mv_depth=0)
     mv_head: torch.Tensor     # int32[n_records] newest ring slot per record
-    mv_vals: torch.Tensor     # f32[1, 1, 1] placeholder (ROADMAP A.4)
+    mv_vals: torch.Tensor     # f32[n_records, D, n_cols] each version's
+                              #   values (tracked with a ring, else the
+                              #   [1, 1, 1] placeholder)
+    values: torch.Tensor      # f32[n_records, n_cols] the record values
+                              #   (tracked, else the [0, 0] placeholder)
 
     @property
     def n_records(self) -> int:
@@ -230,6 +235,11 @@ class StoreState:
     def mv_depth(self) -> int:
         """Ring depth D (1 without a ring: the placeholder's slot)."""
         return self.mv_begin.shape[1]
+
+    @property
+    def tracks_values(self) -> bool:
+        """The store carries record values (``store_init(n_cols > 0)``)."""
+        return self.values.numel() > 0
 
 
 @dataclasses.dataclass
@@ -371,11 +381,6 @@ class EngineConfig:
                 f"{self.snapshot_age}: scans validate intervals against "
                 "the CURRENT wave's claim tables, which aged snapshots "
                 "have already drifted past")
-        # Settings the port does not run yet.
-        if self.track_values:
-            raise NotImplementedError(
-                "track_values=True is not ported to repro_torch yet: it "
-                "waits for ROADMAP A.4 (apply_values)")
 
     @property
     def open_loop(self) -> bool:
@@ -398,12 +403,24 @@ def txn_batch_zeros(lanes: int, slots: int, device) -> TxnBatch:
 
 
 def store_init(n_records: int, n_groups: int, n_rings: int = 1,
-               need_rts: bool = True, device=None,
-               mv_depth: int = 0) -> StoreState:
+               need_rts: bool = True, device=None, mv_depth: int = 0,
+               n_cols: int = 0,
+               values: Optional[torch.Tensor] = None) -> StoreState:
     """A fresh store on ``device``; ``mv_depth > 0`` allocates the
-    version ring (core/mvstore.py), else its placeholders."""
+    version ring (core/mvstore.py), else its placeholders.  ``n_cols >
+    0`` tracks values: ``values`` f32[n_records, n_cols] (zeros unless
+    given) and, with a ring, ``mv_vals`` whose slot 0 holds them."""
     dev = resolve_device(device)
     G = n_groups
+    if n_cols > 0:
+        if values is None:
+            values = torch.zeros((n_records, n_cols), dtype=torch.float32,
+                                 device=dev)
+        elif tuple(values.shape) != (n_records, n_cols):
+            raise ValueError(f"values has shape {tuple(values.shape)}, "
+                             f"expected {(n_records, n_cols)}")
+    else:
+        values = torch.zeros((0, 0), dtype=torch.float32, device=dev)
 
     def table(fill: int) -> torch.Tensor:
         # NO_CLAIM's bit pattern is -1 as int32.
@@ -414,8 +431,9 @@ def store_init(n_records: int, n_groups: int, n_rings: int = 1,
         # The record's state and the masked scatters' sink slot.
         return torch.zeros((n_records + SINK,), dtype=dtype, device=dev)
     if mv_depth > 0:
-        mv_begin, mv_head, mv_vals = mvstore.mv_init(n_records, mv_depth, G,
-                                                     dev)
+        mv_begin, mv_head, mv_vals = mvstore.mv_init(
+            n_records, mv_depth, G, dev, n_cols,
+            values if n_cols > 0 else None)
     else:
         mv_begin, mv_head, mv_vals = mvstore.mv_placeholder(dev)
     return StoreState(
@@ -433,6 +451,7 @@ def store_init(n_records: int, n_groups: int, n_rings: int = 1,
         mv_begin=mv_begin,
         mv_head=mv_head,
         mv_vals=mv_vals,
+        values=values,
     )
 
 

@@ -7,6 +7,7 @@ CUDA tensors; it never falls back.  ``calls`` grows by one per wrapper
 call; ``launches`` grows by one per call that launched the kernel, and
 nowhere else.
 """
+from repro_torch.kernels.apply_values import apply_values
 from repro_torch.kernels.claim_probe import claim_probe, probe
 from repro_torch.kernels.claim_scatter import claim_scatter
 from repro_torch.kernels.flash_attention import flash_attention
@@ -24,8 +25,9 @@ from repro_torch.kernels.ts_install import ts_install_max
 from repro_torch.kernels.verdict_pack import verdict_pack, verdict_unpack
 from repro_torch.kernels.wave_commit import wave_commit
 
-#: Op -> kernel wrapper: the backend surface's ops, then the language
-#: models' (flash_attention, rglru, rwkv6).
+#: Op -> kernel wrapper: the backend surface's ops, the language models'
+#: (flash_attention, rglru, rwkv6), then the port's own apply_values (the
+#: tracked values' serial replay, which no TPU kernel computes).
 WRAPPERS = {
     "wave_commit": wave_commit,
     "segment_count": segment_count,
@@ -46,6 +48,7 @@ WRAPPERS = {
     "flash_attention": flash_attention,
     "rglru": rglru,
     "rwkv6": rwkv6,
+    "apply_values": apply_values,
 }
 
 

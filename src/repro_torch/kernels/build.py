@@ -39,7 +39,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("wave_commit", "segment_count", "ts_gather", "ts_install",
            "occ_commit", "claim_scatter", "occ_validate", "claim_probe",
            "iterate_validate", "mv_gather", "mv_install", "route_pack",
-           "verdict_pack", "flash_attention", "rglru", "rwkv6")
+           "verdict_pack", "flash_attention", "rglru", "rwkv6",
+           "apply_values")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

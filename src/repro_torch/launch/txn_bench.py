@@ -66,13 +66,15 @@ def make_config(wl, cc_name: str, gran: int, lanes: int,
                 fuse_wave: bool = True, *, mv_depth: int = 4,
                 snapshot_age: int = 0, arrival_rate: float = 0.0,
                 queue_cap: int | None = None,
-                max_incarnations: int | None = None):
+                max_incarnations: int | None = None,
+                track_values: bool = False):
     """The run's EngineConfig.  Only the multi-version mechanisms get a
     version ring (``mv_depth`` slots); ``arrival_rate > 0`` makes it an
     open-loop run, whose queue holds 4x ``lanes`` entries and whose
     transactions get 8 incarnations unless ``queue_cap`` /
     ``max_incarnations`` say otherwise (0 incarnations drops every
-    abort)."""
+    abort); ``track_values`` replays the committed writes into the
+    record values."""
     from repro_torch.core import types as t
     cc = t.CC_IDS[cc_name]
     if queue_cap is None:
@@ -86,7 +88,8 @@ def make_config(wl, cc_name: str, gran: int, lanes: int,
         max_extent=wl.max_extent, fuse_wave=fuse_wave,
         mv_depth=mv_depth if cc in t.MV_CCS else 0,
         snapshot_age=snapshot_age, arrival_rate=arrival_rate,
-        queue_cap=queue_cap, max_incarnations=max_incarnations)
+        queue_cap=queue_cap, max_incarnations=max_incarnations,
+        track_values=track_values)
 
 
 def _cost_fields(cc_name: str, lanes: int, granularity: int, slots: int,

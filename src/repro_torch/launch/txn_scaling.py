@@ -1,5 +1,5 @@
-"""Sharded-engine scaling on the port (counterpart of the closed-loop rows
-of benchmarks/txn_scaling.py).
+"""Sharded-engine scaling on the port (counterpart of
+benchmarks/txn_scaling.py).
 
     PYTHONPATH=src python -m repro_torch.launch.txn_scaling --waves 30
     PYTHONPATH=src torchrun --nproc-per-node 4 \
@@ -18,7 +18,21 @@ the JAX rows' keys (``shards``, ``cc``, ``commits``, ``waves_per_s``,
 ``coll_bytes_per_wave`` is what this rank handed to
 ``all_to_all_single`` per wave, counted by the port.  ``waves_per_s`` is
 the slowest rank's synchronized host time of the timed run, after a
-warm-up run.  ``--device`` defaults to CUDA (one card per rank, NCCL);
+warm-up run.
+
+Then the open-loop row family (``mode: "open_loop"``): the same routed
+wave behind each rank's admission ring (core/distributed.run_open_loop)
+for OCC and MVCC at both granularities, a queue of 4 x the rank's lanes,
+8 incarnations, 32 time-to-commit bins, Poisson arrivals at 0.75 x the
+global lanes a wave split over the ranks
+(``PoissonArrivals.shard_counts``, seed 7) and the JAX benchmark's fresh
+candidates per wave (numpy, seed 5000 + wave).  Rows add
+``goodput_txn_per_s`` (commits over the run's host seconds, the
+candidates' generation included, as in the JAX benchmark), p50/p99
+time-to-commit in waves from the ranks' summed histograms and the
+admission counters.  Every row runs pipeline depth 1 (the software
+pipeline, ROADMAP A.11, is not ported) and its ``pipeline_depth`` says
+so.  ``--device`` defaults to CUDA (one card per rank, NCCL);
 ``cpu`` runs the plain versions over gloo.
 """
 from __future__ import annotations
@@ -141,9 +155,74 @@ def sharded_row(cc: str, shards, waves: int, lanes: int, slots: int,
             **D.wire_bytes_per_wave(cfg, ns)}
 
 
+def open_candidates(lanes: int, slots: int, n_keys: int,
+                    seed_base: int = 5000):
+    """The JAX benchmark's open-loop candidates: ``gen(wave) -> (keys,
+    groups, kinds [lanes, slots], prio [lanes])`` from numpy, globally
+    shaped (each rank takes its own lanes)."""
+    from repro_torch.core import types as t
+
+    def gen(w):
+        rng = np.random.default_rng(seed_base + w)
+        keys = rng.integers(0, n_keys, (lanes, slots), dtype=np.int32)
+        groups = rng.integers(0, 2, (lanes, slots), dtype=np.int32)
+        kinds = rng.choice([t.READ, t.WRITE], (lanes, slots)).astype(
+            np.int32)
+        return keys, groups, kinds, rng.permutation(lanes).astype(np.int32)
+    return gen
+
+
+def open_row(cc: str, gran: int, shards, waves: int, lanes: int,
+             slots: int, n_keys: int) -> dict:
+    """One open-loop run of ``cc`` at granularity ``gran`` on every rank
+    of the group; every rank returns the row."""
+    from repro_torch import kernels
+    from repro_torch.core import distributed as D
+    from repro_torch.core.admission import ttc_percentiles
+    from repro_torch.core.backend import dist_kernel_coverage
+    from repro_torch.workloads.arrivals import PoissonArrivals
+    dev, ns = shards.device, shards.size
+    T = lanes // ns
+    cfg = D.DistConfig(n_records=n_keys, n_groups=2, lanes_per_shard=T,
+                       slots=slots, granularity=gran, cc=cc,
+                       mv_depth=4 if cc != "occ" else 0, queue_cap=4 * T,
+                       max_incarnations=8, lat_bins=32)
+    gen = open_candidates(lanes, slots, n_keys)
+    arrivals = PoissonArrivals(rate=0.75 * lanes, seed=7)
+    n = min(WARMUP_WAVES, waves)
+    D.run_open_loop(cfg, arrivals.shard_counts(n, ns, T), gen, n,
+                    device=dev)
+    before = (kernels.launch_counts(), kernels.call_counts())
+    dist.barrier()
+    s = D.run_open_loop(cfg, arrivals.shard_counts(waves, ns, T), gen,
+                        waves, device=dev)
+    launches, calls = _deltas(before)
+    slowest = torch.tensor([s["wall_s"]], dtype=torch.float64, device=dev)
+    dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+    dt = float(slowest)
+    (p50,), (p99,) = ttc_percentiles(s["lat_hist"].sum(axis=0)[None, :])
+    return {"shards": ns, "cc": cc, "mode": "open_loop",
+            "granularity": gran, "pipeline_depth": cfg.depth(ns),
+            "commits": s["commits"], "aborts": s["aborts"], "waves": waves,
+            "waves_per_s": waves / dt,
+            "coll_bytes_per_wave": s["exchange_bytes"] / waves,
+            "goodput_txn_per_s": s["commits"] / dt,
+            "p50_ttc_waves": p50, "p99_ttc_waves": p99,
+            "offered": s["offered"], "admitted": s["admitted"],
+            "arrival_drops": s["arrival_drops"],
+            "inc_drops": s["inc_drops"],
+            "queued_final": s["queued_final"],
+            "ro_commits": s["ro_commits"], "ro_aborts": s["ro_aborts"],
+            "abort_causes": s["abort_causes"], "backend": dev.type,
+            "kernel_ops": dist_kernel_coverage(cc, launches, calls),
+            "device_name": _device_name(dev),
+            **D.wire_bytes_per_wave(cfg, ns)}
+
+
 def scaling_rows(shards, waves: int = 30, lanes: int = GLOBAL_LANES,
                  slots: int = SLOTS, n_keys: int = N_KEYS) -> list:
-    """The anchor row (rank 0 only) and the sharded OCC and MVCC rows."""
+    """The anchor row (rank 0 only), the sharded OCC and MVCC rows, then
+    the open-loop rows (OCC and MVCC x coarse and fine)."""
     if lanes % shards.size:
         raise ValueError(f"{lanes} global lanes do not split over "
                          f"{shards.size} shards")
@@ -152,6 +231,10 @@ def scaling_rows(shards, waves: int = 30, lanes: int = GLOBAL_LANES,
         rows.append(anchor_row(shards.device, waves, lanes, n_keys))
     for cc in ("occ", "mvcc"):
         rows.append(sharded_row(cc, shards, waves, lanes, slots, n_keys))
+    for cc in ("occ", "mvcc"):
+        for gran in (0, 1):
+            rows.append(open_row(cc, gran, shards, waves, lanes, slots,
+                                 n_keys))
     return rows
 
 
@@ -177,6 +260,13 @@ def main(argv=None):
     if shards.rank:
         return
     for r in rows:
+        if r.get("mode") == "open_loop":
+            print(f"open {r['cc']:4s} g={r['granularity']} "
+                  f"shards={r['shards']} depth={r['pipeline_depth']}: "
+                  f"goodput={r['goodput_txn_per_s']:8.1f} txn/s  p50/p99 "
+                  f"ttc={r['p50_ttc_waves']:g}/{r['p99_ttc_waves']:g} "
+                  f"waves  dropped={r['inc_drops']} on {r['device_name']}")
+            continue
         print(f"{r['cc']:4s} shards={r['shards']}: "
               f"{r['waves_per_s']:8.1f} waves/s  {r['commits']} commits  "
               f"ro={r['ro_commits']}/{r['ro_aborts']}  coll/wave="

@@ -10,6 +10,8 @@
         --workload tpcc --cc 2pl adaptive --unfused
     PYTHONPATH=src python -m repro_torch.launch.wave_profile \
         --workload tpcc --cc occ --track-conflicts --per-wave
+    PYTHONPATH=src python -m repro_torch.launch.wave_profile \
+        --workload tpcc --cc occ mvcc --track-values
 
 For each (cc, granularity) of the ``--cc`` mechanisms (OCC and TicToc by
 default): the host wall time per wave
@@ -29,8 +31,10 @@ are txn_bench's (scans, read-only share, write share), and so is
 and incarnations); ``--unfused`` takes the probe family's unfused route;
 the multi-version mechanisms get txn_bench's default ring of 4 slots.
 ``--track-conflicts`` keeps the conflict histogram (three more kernel
-launches a wave) and ``--per-wave`` the per-wave timeline
-(``engine.Timeline``), as ``run`` does.
+launches a wave), ``--track-values`` the record values (the
+``apply_values`` replay once a wave, twice under MVCC and MV-OCC, under
+the range ``repro:apply_values`` for the flat values) and ``--per-wave``
+the per-wave timeline (``engine.Timeline``), as ``run`` does.
 Prints one JSON line per configuration and needs a CUDA device.
 """
 from __future__ import annotations
@@ -122,10 +126,12 @@ def profile_device(fn, n: int, top: int = 8) -> dict:
 def profile(workload: str, cc: str, gran: int, lanes: int, waves: int,
             warmup: int = 10, top: int = 8, arrival_rate: float = 0.0,
             fuse_wave: bool = True, track_conflicts: bool = False,
-            per_wave: bool = False, **wl_kw) -> dict:
+            per_wave: bool = False, track_values: bool = False,
+            **wl_kw) -> dict:
     """``arrival_rate > 0`` makes the run open-loop; ``fuse_wave=False``
     takes the probe family's unfused route; ``track_conflicts`` keeps the
-    conflict histogram and ``per_wave`` the per-wave timeline."""
+    conflict histogram, ``track_values`` the record values and
+    ``per_wave`` the per-wave timeline."""
     import dataclasses
     from repro_torch import kernels as K
     from repro_torch.core.engine import (Timeline, make_open_wave_step,
@@ -137,10 +143,11 @@ def profile(workload: str, cc: str, gran: int, lanes: int, waves: int,
     cfg = dataclasses.replace(
         make_config(wl, cc, gran, lanes, fuse_wave,
                     arrival_rate=arrival_rate),
-        track_conflicts=track_conflicts)
+        track_conflicts=track_conflicts, track_values=track_values)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    state = engine_state_init(cfg, wl.init_store(dev, cfg.mv_depth))
+    state = engine_state_init(cfg, wl.init_store(dev, cfg.mv_depth,
+                                                 track_values))
     step = (make_open_wave_step if cfg.open_loop else make_wave_step)(cfg)
 
     def loop(state, n):
@@ -156,7 +163,7 @@ def profile(workload: str, cc: str, gran: int, lanes: int, waves: int,
         "lanes": lanes, "waves": waves, "max_extent": cfg.max_extent,
         "workload_kw": wl_kw, "arrival_rate": arrival_rate,
         "fuse_wave": fuse_wave, "track_conflicts": track_conflicts,
-        "per_wave": per_wave,
+        "track_values": track_values, "per_wave": per_wave,
         "device_name": torch.cuda.get_device_name(dev),
         "wall_ms_per_wave": wall / waves * 1e3,
         "kernel_launches_per_wave": launched,
@@ -187,6 +194,9 @@ def main(argv=None):
                     help="keep the conflict histogram (commit_install, "
                          "segment_count and ts_install_max once more a "
                          "wave)")
+    ap.add_argument("--track-values", action="store_true",
+                    help="track the record values (apply_values once a "
+                         "wave, twice under MVCC and MV-OCC)")
     ap.add_argument("--per-wave", action="store_true",
                     help="keep the per-wave timeline, as engine.run does")
     args = ap.parse_args(argv)
@@ -201,7 +211,8 @@ def main(argv=None):
                                      arrival_rate=args.arrival_rate,
                                      fuse_wave=not args.unfused,
                                      track_conflicts=args.track_conflicts,
-                                     per_wave=args.per_wave, **kw)),
+                                     per_wave=args.per_wave,
+                                     track_values=args.track_values, **kw)),
                   flush=True)
 
 

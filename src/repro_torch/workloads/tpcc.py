@@ -134,10 +134,14 @@ class TPCCWorkload:
         or the Stock-level window; 1 without scans."""
         return max(MAX_ITEMS, self.scan_len) if self.scan_len > 0 else 1
 
-    def init_store(self, device=None, mv_depth: int = 0) -> StoreState:
+    def init_store(self, device=None, mv_depth: int = 0,
+                   track_values: bool = False) -> StoreState:
+        """A fresh store; ``track_values`` gives it the record values
+        (``n_cols`` columns, zeros)."""
         return store_init(self.n_records, self.n_groups,
                           n_rings=self.n_rings, device=device,
-                          mv_depth=mv_depth)
+                          mv_depth=mv_depth,
+                          n_cols=self.n_cols if track_values else 0)
 
     # ---- key helpers ----
     def d_key(self, w, d):

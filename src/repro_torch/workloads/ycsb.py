@@ -78,10 +78,14 @@ class YCSBWorkload:
         """Widest interval an op carries: scan_len with the scan class."""
         return self.scan_len if self.scan_frac > 0 else 1
 
-    def init_store(self, device=None, mv_depth: int = 0) -> StoreState:
+    def init_store(self, device=None, mv_depth: int = 0,
+                   track_values: bool = False) -> StoreState:
+        """A fresh store; ``track_values`` gives it the record values
+        (``n_cols`` columns, zeros)."""
         return store_init(self.n_records, self.n_groups,
                           n_rings=self.n_rings, device=device,
-                          mv_depth=mv_depth)
+                          mv_depth=mv_depth,
+                          n_cols=self.n_cols if track_values else 0)
 
     def gen(self, gen: torch.Generator, wave: int, lanes: int,
             ring_tails: torch.Tensor):

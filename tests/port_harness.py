@@ -159,8 +159,14 @@ def port_replay(cfg, store0: dict, draws: list, device="cpu", active=None,
 
 
 def initial_store(wl, jcfg) -> dict:
-    """The JAX workload's fresh store, with the config's ring, as numpy."""
-    return store_arrays(wl.init_store(False, mv_depth=jcfg.mv_depth))
+    """The JAX workload's fresh store, with the config's ring and, where
+    the config tracks values, its ``values`` and ``mv_vals``, as numpy."""
+    store = wl.init_store(jcfg.track_values, mv_depth=jcfg.mv_depth)
+    out = store_arrays(store)
+    if jcfg.track_values:
+        out.update(values=np.asarray(store.values),
+                   mv_vals=np.asarray(store.mv_vals))
+    return out
 
 
 def assert_engine_parity(wl, cc: int, gran: int, lanes: int, draws: list,
@@ -216,3 +222,47 @@ def assert_routes_identical(wl, cc: int, draws: list) -> None:
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     for f in convert.store_to_numpy(a.store):
         assert torch.equal(getattr(a.store, f), getattr(b.store, f)), f
+
+
+def f32_bits(a) -> np.ndarray:
+    """A float32 array's bit patterns (values compared bit for bit)."""
+    return np.ascontiguousarray(np.asarray(a, dtype=np.float32)) \
+        .view(np.uint32)
+
+
+def assert_values_parity(wl, cc: int, gran: int, lanes: int, draws: list,
+                         seed: int = 0, **kw):
+    """A tracked run (``track_values=True``) of the port replaying the JAX
+    draws (``jax_draws``, or ``jax_open_draws`` with ``arrival_rate`` in
+    ``kw``) against JAX ``run`` on the same draws: the final ``values``
+    and ``mv_vals`` bit-identical, the commits and the exact tables too;
+    and the port's untracked replay of the same draws ends in the same
+    counters and tables.  Returns the port's tracked final EngineState."""
+    jcfg = jax_config(wl, cc, gran, lanes, track_values=True, **kw)
+    ref = jax_run(jcfg, ReplayedWorkload(wl, draws), n_waves=len(draws),
+                  seed=seed, keep_state=True)
+    js = ref.final_state.store
+    cfg = convert.config_from_fields(dataclasses.asdict(jcfg))
+    replay = port_open_replay if cfg.open_loop else port_replay
+    state = replay(cfg, initial_store(wl, jcfg), draws)
+    got = convert.store_to_numpy(state.store)
+    np.testing.assert_array_equal(f32_bits(got["values"]),
+                                  f32_bits(js.values), err_msg="values")
+    np.testing.assert_array_equal(f32_bits(got["mv_vals"]),
+                                  f32_bits(js.mv_vals), err_msg="mv_vals")
+    assert int(state.commits) == ref.commits
+    assert int(state.aborts) == ref.aborts
+    for k in EXACT_TABLES:
+        np.testing.assert_array_equal(got[k], np.asarray(getattr(js, k)),
+                                      err_msg=k)
+    ucfg = dataclasses.replace(cfg, track_values=False)
+    plain = replay(ucfg, initial_store(wl, dataclasses.replace(
+        jcfg, track_values=False)), draws)
+    assert not plain.store.tracks_values
+    for f in ("commits", "aborts", "abort_causes", "commits_by_type",
+              "ro_commits", "ro_aborts", "lane_time"):
+        assert torch.equal(getattr(plain, f), getattr(state, f)), f
+    for k in EXACT_TABLES:
+        assert torch.equal(getattr(plain.store, k),
+                           getattr(state.store, k)), k
+    return state

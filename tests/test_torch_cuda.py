@@ -25,10 +25,14 @@ def _cuda() -> torch.device:
                                    (50, 1, 3, 5)],
                          ids=["tpcc-like", "ycsb-like", "ragged"])
 def test_kernels_bit_identical_to_plain_versions(shape):
-    """All twelve kernels, every flag combination, hot/duplicate/masked
+    """Every kernel, every flag combination, hot/duplicate/masked
     ops, stale claim tags, scans across the table's end, rings that wrap
     and D = 1: chip_smoke's kernel phase raises on any difference."""
-    checks, _ = chip_smoke.kernel_phase(_cuda(), {"case": shape})
+    N, _, T, K = shape
+    checks, _ = chip_smoke.kernel_phase(
+        _cuda(), {"case": shape},
+        apply_shapes=(("apply_values", N, T, K, 4, 0),
+                      ("apply_values_ring", N, T, K, 4, 4)))
     assert set(checks) == set(chip_smoke.KERNEL_META)
     for c in checks.values():
         assert c.equal and c.max_err == 0.0 and c.cases > 0, c.name
@@ -339,6 +343,55 @@ def test_sharded_wave_identical_on_card_and_cpu():
         chip_smoke.sharded_cross_device(
             dev, cpu_group=dist.new_group(backend="gloo"), waves=4,
             lanes=32, sources=sources)
+    finally:
+        close_shards(shards)
+
+
+@pytest.mark.cuda
+def test_apply_values_bit_identical_to_plain_replay():
+    """The serial replay's kernel on chip_smoke.apply_values_cases at small
+    shapes, flat and into a ring, bit for bit."""
+    check = chip_smoke.KernelCheck("apply_values")
+    chip_smoke.apply_values_checks(
+        check, _cuda(), (("apply_values", 997, 16, 64, 4, 0),
+                         ("apply_values_ycsb", 4096, 128, 16, 10, 0),
+                         ("apply_values_ring", 997, 16, 64, 4, 4)))
+    assert check.equal and check.cases > 0
+
+
+@pytest.mark.cuda
+def test_tracked_values_on_card():
+    """Tracked runs: the card's values and ring values equal the CPU's
+    from the same draws; tracked = untracked but for the values, one
+    apply_values launch a wave (two under MVCC and MV-OCC), snapshot
+    reads equal to the flat values of their wave; the tracked waves read
+    nothing on the host."""
+    dev = _cuda()
+    chip_smoke.cross_device_values(dev, waves=5, scale=0.01)
+    chip_smoke.values_path(
+        dev, waves=8, lanes=16,
+        sources={"tpcc": dict(scale=0.01),
+                 "ycsb": dict(n_keys=2000, theta=0.9)})
+    chip_smoke.sync_free_path(
+        dev, lanes=16,
+        configs=[c for c in chip_smoke.sync_free_configs() if c[-1]])
+
+
+@pytest.mark.cuda
+def test_sharded_open_loop_on_card():
+    """The sharded open loop on a one-rank NCCL group: the identities,
+    one launch of each kernel a wave, and the card equal to a gloo group
+    on the CPU wave by wave."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import close_shards, init_shards
+    dev = _cuda()
+    shards = init_shards(dev)
+    try:
+        src = ("ycsb", dict(n_keys=5000, theta=0.9))
+        chip_smoke.sharded_open_path(dev, waves=6, lanes=32, source=src)
+        chip_smoke.sharded_open_cross_device(
+            dev, cpu_group=dist.new_group(backend="gloo"), waves=4,
+            lanes=32, source=src)
     finally:
         close_shards(shards)
 

@@ -2,8 +2,10 @@
 the CPU against the JAX engine.
 
 The CLI runs in a subprocess with its own one-rank gloo group; its rows
-carry the JAX benchmark rows' keys, and the sharded rows' counts equal JAX
-``make_run_fn``'s on the same draws (benchmarks/txn_scaling.py's).
+carry the JAX benchmark rows' keys, the sharded rows' counts equal JAX
+``make_run_fn``'s on the same draws (benchmarks/txn_scaling.py's), and
+the open-loop rows' counts JAX ``run_open_loop``'s on the benchmark's
+candidates and arrivals.
 """
 import json
 import os
@@ -32,8 +34,9 @@ def test_txn_scaling_cli_rows_match_jax(tmp_path):
         cwd=root, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     rows = json.loads(out.read_text())
-    assert [(x["shards"], x["cc"]) for x in rows] == [
-        (0, "occ"), (1, "occ"), (1, "mvcc")]
+    assert [(x["shards"], x["cc"], x.get("mode")) for x in rows] == [
+        (0, "occ", None), (1, "occ", None), (1, "mvcc", None)] + [
+        (1, cc, "open_loop") for cc in ("occ", "occ", "mvcc", "mvcc")]
     keys = {"shards", "cc", "commits", "waves_per_s", "pipeline_depth",
             "ro_commits", "ro_aborts", "abort_causes", "kernel_ops",
             "coll_bytes_per_wave", "wire_bytes_per_wave",
@@ -47,7 +50,7 @@ def test_txn_scaling_cli_rows_match_jax(tmp_path):
     kinds = rng.choice([t.READ, t.WRITE], (32, 16)).astype(np.int32)
     prio = np.stack([np.random.default_rng(w).permutation(32)
                      for w in range(2)]).astype(np.uint32)
-    for row in rows[1:]:
+    for row in rows[1:3]:
         cfg = JD.DistConfig(n_records=4000, lanes_per_shard=32, slots=16,
                             cc=row["cc"],
                             mv_depth=4 if row["cc"] != "occ" else 0)
@@ -59,3 +62,24 @@ def test_txn_scaling_cli_rows_match_jax(tmp_path):
         assert row["commits"] == int(np.asarray(commit).sum())
         assert row["abort_causes"] == s[JD.STAT_CAUSES].tolist()
         assert row["coll_bytes_per_wave"] == row["wire_bytes_per_wave"]
+    # The open-loop rows: JAX run_open_loop on the same candidates and
+    # arrival counts (one shard runs the synchronous wave at any depth).
+    from repro.workloads.arrivals import PoissonArrivals
+    from repro_torch.launch.txn_scaling import open_candidates
+    gen = open_candidates(32, 16, 4000)
+    arr = PoissonArrivals(rate=0.75 * 32, seed=7).shard_counts(2, 1, 32)
+    for row in rows[3:]:
+        cfg = JD.DistConfig(n_records=4000, lanes_per_shard=32, slots=16,
+                            granularity=row["granularity"], cc=row["cc"],
+                            mv_depth=4 if row["cc"] != "occ" else 0,
+                            queue_cap=128, max_incarnations=8, lat_bins=32)
+        want = JD.run_open_loop(
+            cfg, mesh, arr, lambda w: tuple(jnp.asarray(x)
+                                            for x in gen(w)), 2)
+        for k in ("commits", "aborts", "offered", "admitted",
+                  "arrival_drops", "inc_drops", "queued_final",
+                  "ro_commits", "ro_aborts", "abort_causes"):
+            assert row[k] == want[k], (row["cc"], k)
+        assert row["pipeline_depth"] == 1
+        assert row["admitted"] == (row["commits"] + row["queued_final"]
+                                   + row["inc_drops"])

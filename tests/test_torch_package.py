@@ -204,11 +204,12 @@ def test_every_kernel_has_a_cuda_source_and_a_counter():
                                "iterate_validate",
                                "mv_gather", "mv_install", "route_pack",
                                "verdict_pack", "verdict_unpack",
-                               "flash_attention", "rglru", "rwkv6"}
+                               "flash_attention", "rglru", "rwkv6",
+                               "apply_values"}
     # validate and validate_dual share csrc/occ_validate.cu, verdict_pack
     # and verdict_unpack csrc/verdict_pack.cu, claim_probe and probe
     # csrc/claim_probe.cu.
-    assert len(build.SOURCES) == 16 and len(K.WRAPPERS) == 19
+    assert len(build.SOURCES) == 17 and len(K.WRAPPERS) == 20
     for w in K.WRAPPERS.values():
         assert isinstance(w.launches, int) and isinstance(w.calls, int)
 
@@ -234,8 +235,18 @@ def _cfg(**kw):
     dict(track_values=True),
 ], ids=["values"])
 def test_settings_outside_the_slice_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        _cfg(**kw)
+    """Tracked values are ported (ROADMAP A.4), and a tracked wave on a
+    device with no kernel raises rather than run the plain replay: the
+    CPU alone takes the plain version."""
+    cfg = _cfg(**kw)
+    store = pt.store_init(cfg.n_records, cfg.n_groups, device="cpu",
+                          n_cols=3)
+    batch = pt.txn_batch_zeros(cfg.lanes, cfg.slots, "meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        K.WRAPPERS["apply_values"](
+            store.values.to("meta"), batch,
+            torch.ones(cfg.lanes, dtype=torch.bool, device="meta"),
+            torch.zeros(cfg.lanes, dtype=torch.int32, device="meta"))
 
 
 @pytest.mark.parametrize("kw", [
