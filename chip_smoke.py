@@ -279,6 +279,20 @@ src/repro_torch/csrc, then:
      wave by wave on the card and on the CPU through a gloo group (YCSB
      100k keys, 30 waves): commit masks, stats, queue state and tables
      bit-identical;
+ 11c. the software-pipelined sharded wave, forced to depth 2 on the
+     one-rank NCCL group (core/distributed._pipelined_run; DistConfig
+     keeps one shard at depth 1): every configuration of 10, 200 waves,
+     commit masks, stats and tables bit-identical to the synchronous
+     runner's run of 10, every kernel of the mechanism launched once a
+     step ("cuda"), n_waves + 3 exchanges of the fused buffer; waves/s
+     and device operations a wave printed beside depth 1's.  The
+     pipelined open loop (core/distributed._open_loop at depth 2) with
+     11b's settings: the conservation identities exact, every kernel once
+     a step; with max_incarnations=0 every counter and the histogram equal
+     to depth 1's.  Both pipelined runners on the card and on the CPU
+     (gloo) for 30 waves at 11's reduced sizes, wave by wave; then a (1,
+     1) axis-wise mesh (launch/mesh.init_shards(mesh_shape=...)), one
+     exchange per axis, equal to the flat exchange at twice its bytes;
  12. the scaling rows of repro_torch.launch.txn_scaling (the local anchor,
      sharded OCC and MVCC on the JAX benchmark's draws, and the open-loop
      rows: OCC and MVCC x coarse and fine behind the admission rings);
@@ -4735,22 +4749,23 @@ def dist_draws(wl, waves, lanes, dev, seed=13):
                  torch.stack(kinds), torch.stack([p for _, p in out]))
 
 
-def run_sharded(cfg, group, stacked, dev):
+def run_sharded(cfg, group, stacked, dev, pipelined=False, mesh_shape=None):
     """One run of the sharded engine over the stacked draws on fresh
     tables: (commit [waves, T], tables, stats [waves, STATS_LEN], host
-    seconds, bytes handed to the collective)."""
+    seconds, the run's ``Exchange``).  ``pipelined`` forces the software
+    pipeline (``_pipelined_run``) whatever the shard count."""
     from repro_torch.core import distributed as D
     waves = stacked[0].shape[0]
     tables = D.init_tables(cfg, group, dev)
-    run = D.make_run_fn(cfg, waves, group)
+    make = D._pipelined_run if pipelined else D.make_run_fn
+    run = make(cfg, waves, group, mesh_shape)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     commit, tables, stats = run(*stacked, tables)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return (commit, tables, stats, time.perf_counter() - t0,
-            run.exchange.bytes_sent)
+    return (commit, tables, stats, time.perf_counter() - t0, run.exchange)
 
 
 def local_replay(wl, cc, gran, lanes, draws, dev):
@@ -4786,21 +4801,23 @@ def _same_run(a, b, what):
             raise AssertionError(f"{what}: table {i} differs")
 
 
-def _profile_run(cfg, group, stacked, dev, n=20):
+def _profile_run(cfg, group, stacked, dev, n=20, pipelined=False):
     """Device events, busy ms, idle share and top kernels per wave over
-    ``n`` waves (the card only)."""
+    ``n`` waves (the card only; a pipelined run's three drain steps
+    counted in its waves')."""
     if dev.type != "cuda":
         return {}
     from repro_torch.launch.wave_profile import profile_device
     head = tuple(x[:n] for x in stacked)
-    r = profile_device(lambda: run_sharded(cfg, group, head, dev), n)
+    r = profile_device(lambda: run_sharded(cfg, group, head, dev,
+                                           pipelined), n)
     return {k: r[k] for k in ("device_events_per_wave",
                               "device_busy_ms_per_wave",
                               "device_idle_share", "top_device")}
 
 
 def sharded_path(dev, group=None, waves=WAVES, lanes=DIST_LANES,
-                 sources=DIST_SOURCES, configs=DIST_CONFIGS):
+                 sources=DIST_SOURCES, configs=DIST_CONFIGS, keep=None):
     """The sharded engine (core/distributed.make_run_fn) on ``group``'s
     shards over the port's generators: every configuration's kernels
     launch ("cuda" for every op, iterate_validate only with scans), the
@@ -4808,7 +4825,9 @@ def sharded_path(dev, group=None, waves=WAVES, lanes=DIST_LANES,
     no read-only lane; at one shard each run commits exactly the lanes the
     local validator commits, with the same tables; fused = unfused.  The
     launch counters are set to 0 just before each run and read just
-    after.  Returns ({name: row}, launches over the runs, runs)."""
+    after.  Returns ({name: row}, launches over the runs, runs); with a
+    dict ``keep``, each source's stacked draws and each run's (commit,
+    tables, stats) stay in it by name."""
     from repro_torch import kernels as K
     from repro_torch.core import distributed as D
     from repro_torch.core import types as t
@@ -4820,6 +4839,8 @@ def sharded_path(dev, group=None, waves=WAVES, lanes=DIST_LANES,
     for src, (kind, kw) in sources.items():
         wl = make_workload(kind, **kw)
         draws, stacked = dist_draws(wl, waves, lanes, dev)
+        if keep is not None:
+            keep[src] = stacked
         fused = {}
         # A short run first, so that no configuration's pace pays for the
         # first use of the collective and the kernels.
@@ -4834,7 +4855,10 @@ def sharded_path(dev, group=None, waves=WAVES, lanes=DIST_LANES,
             launches, calls = K.launch_counts(), K.call_counts()
             for op in total:
                 total[op] += launches[op]
-            commit, tables, stats, secs, sent = out
+            commit, tables, stats, secs, exchange = out
+            sent = exchange.bytes_sent
+            if keep is not None:
+                keep[name] = out[:3]
             s = stats.to(torch.int64).sum(dim=0).cpu().tolist()
             cov = dist_kernel_coverage(cc, launches, calls, fuse)
             scans = cfg.max_extent > 1
@@ -4972,12 +4996,16 @@ def dist_open_config(wl, cc, gran, lanes, ns):
         lat_bins=DIST_OPEN["lat_bins"])
 
 
-def _open_identities(s, what):
-    """The sharded open loop's conservation identities, exactly."""
+def _open_identities(s, what, depth=1):
+    """The sharded open loop's conservation identities, exactly.  At depth
+    >= 2 a retry the full ring rejects counts in inc_drops but keeps its
+    validation cause, so the inc_cap causes are at most inc_drops."""
+    inc_cap = s["abort_causes"][0]
     if not (s["admitted"] == s["commits"] + s["queued_final"] + s["inc_drops"]
             and s["offered"] == s["admitted"] + s["arrival_drops"]
             and int(s["lat_hist"].sum()) == s["commits"]
-            and s["abort_causes"][0] == s["inc_drops"]
+            and (inc_cap == s["inc_drops"] if depth == 1
+                 else inc_cap <= s["inc_drops"])
             and sum(s["abort_causes"]) == s["aborts"]):
         counts = {k: v for k, v in s.items()
                   if k not in ("lat_hist", "per_shard_stats")}
@@ -5096,6 +5124,262 @@ def sharded_open_cross_device(dev, group=None, cpu_group=None, waves=30,
         log(f"  {what}: {waves} waves, commits {int(st[D.STAT_COMMITS])} "
             f"admitted {int(st[D.STAT_ADMITTED])}: identical on {dev} and "
             "cpu")
+
+
+# ------------------------------------------------- sharded pipeline
+#: The pipelined phases' depth, forced on one rank (DistConfig.depth keeps
+#: one shard at depth 1, as the JAX package's).
+PIPE_DEPTH = 2
+
+
+def _fused_bytes(cfg, ns):
+    """Bytes of one pipelined step's exchange: [key | meta | V | C]."""
+    from repro_torch.core import distributed as D
+    cap = cfg.cap(ns)
+    return ns * (2 * cap + 2 * D.verdict_words(cap)) * 4
+
+
+def _once_a_step(what, cov, launches, calls, steps, dev):
+    """Every kernel of the mechanism ran, once each step."""
+    for op, v in cov.items():
+        if v != "not_run" and (calls[op] != steps or (
+                dev.type == "cuda" and launches[op] != steps)):
+            raise AssertionError(f"{what}: {op} calls {calls[op]}, "
+                                 f"launches {launches[op]} over {steps} "
+                                 "steps (one a step)")
+
+
+def sharded_pipeline_path(dev, kept, depth1_rows, group=None, waves=WAVES,
+                          lanes=DIST_LANES, sources=DIST_SOURCES,
+                          configs=DIST_CONFIGS):
+    """The software-pipelined closed loop (core/distributed._pipelined_run)
+    forced to depth 2 on ``group``'s shards, on the draws ``sharded_path``
+    kept (``kept``): commit masks, stats and tables bit-identical to its
+    synchronous runs, every kernel of the mechanism "cuda" and launched
+    once a step, ``n_waves + 3`` exchanges of the fused buffer.  Waves/s
+    and device operations a wave (a report, no gate) beside depth 1's
+    (``depth1_rows``).  The counters are set to 0 just before each run
+    and read just after.  Returns (launches over the runs, steps)."""
+    from repro_torch import kernels as K
+    from repro_torch.core import distributed as D
+    from repro_torch.core.backend import dist_kernel_coverage
+    from repro_torch.launch.txn_bench import make_workload
+    ns = D.n_shards(group)
+    steps = waves + 3
+    total = {op: 0 for op in K.WRAPPERS}
+    for src, (kind, kw) in sources.items():
+        wl = make_workload(kind, **kw)
+        stacked = kept[src]
+        for cc, gran, fuse in configs[src]:
+            cfg = dataclasses.replace(dist_config(wl, cc, gran, fuse, lanes),
+                                      pipeline_depth=PIPE_DEPTH)
+            name = (f"{src} {cc}-{'fine' if gran else 'coarse'}"
+                    + ("" if fuse else " unfused"))
+            what = f"sharded pipeline {name}"
+            K.reset_launches()
+            out = run_sharded(cfg, group, stacked, dev, pipelined=True)
+            launches, calls = K.launch_counts(), K.call_counts()
+            for op in total:
+                total[op] += launches[op]
+            _same_run(out[:3], kept[name], f"{what} vs the synchronous run")
+            exchange = out[4]
+            if (exchange.calls != steps
+                    or exchange.bytes_sent != steps * _fused_bytes(cfg, ns)):
+                raise AssertionError(
+                    f"{what}: {exchange.calls} exchanges of "
+                    f"{exchange.bytes_sent} B, expected {steps} of "
+                    f"{_fused_bytes(cfg, ns)} B")
+            cov = dist_kernel_coverage(cc, launches, calls, fuse)
+            want = {op: ("not_run" if op == "iterate_validate"
+                         and cfg.max_extent == 1
+                         else "cuda" if dev.type == "cuda" else "torch")
+                    for op in cov}
+            if cov != want:
+                raise AssertionError(f"{what}: kernel_ops {cov} != {want}")
+            _once_a_step(what, cov, launches, calls, steps, dev)
+            prof = _profile_run(cfg, group, stacked, dev, pipelined=True)
+            d1 = depth1_rows[name]
+            log(f"  {name:24s} depth {PIPE_DEPTH}: {waves / out[3]:.1f} "
+                f"waves/s (depth 1 {d1['waves_per_s']:.1f}), {steps} "
+                f"exchanges of {_fused_bytes(cfg, ns)} B, device ops/wave "
+                f"{prof.get('device_events_per_wave', 'not measured')} "
+                f"(depth 1 {d1.get('device_events_per_wave', 'not measured')}"
+                f"), busy ms/wave "
+                f"{prof.get('device_busy_ms_per_wave', 'not measured')} "
+                f"(depth 1 "
+                f"{d1.get('device_busy_ms_per_wave', 'not measured')}), "
+                f"idle {prof.get('device_idle_share', 'not measured')}: "
+                "identical to depth 1")
+    log(f"  sharded pipeline launches {total}")
+    return total, steps * sum(len(c) for c in configs.values())
+
+
+def sharded_open_pipeline_path(dev, group=None, waves=WAVES,
+                               lanes=DIST_LANES,
+                               source=DIST_SOURCES["ycsb"],
+                               configs=DIST_OPEN_CONFIGS,
+                               no_retry=(("occ", 1), ("mvcc", 0))):
+    """The pipelined open loop (core/distributed._open_loop at depth 2,
+    forced on ``group``'s shards) with ``sharded_open_path``'s source,
+    arrivals and queue: the conservation identities exact (a retry the
+    full ring rejects drops into inc_drops, keeping its cause), every
+    kernel of the mechanism once a step, ``n_waves + 3`` exchanges of the
+    fused buffer; goodput and p50/p99 printed.  With max_incarnations=0
+    (``no_retry``) every counter, the histogram and the per-rank stats
+    equal depth 1's.  Returns (launches over the timed runs, steps)."""
+    from repro_torch import kernels as K
+    from repro_torch.core import distributed as D
+    from repro_torch.core.admission import ttc_percentiles
+    from repro_torch.core.backend import dist_kernel_coverage
+    from repro_torch.launch.txn_bench import make_workload
+    from repro_torch.workloads.arrivals import PoissonArrivals
+    ns = D.n_shards(group)
+    wl = make_workload(source[0], **source[1])
+    _, stacked = dist_draws(wl, waves, lanes, dev, seed=17)
+
+    def gen(w):
+        return tuple(x[w] for x in stacked)
+    counts = PoissonArrivals(rate=DIST_OPEN["rate"], seed=7).shard_counts(
+        waves, ns, lanes // ns)
+    steps = waves + 3
+    total = {op: 0 for op in K.WRAPPERS}
+    for cc, gran in configs:
+        cfg = dataclasses.replace(dist_open_config(wl, cc, gran, lanes, ns),
+                                  pipeline_depth=PIPE_DEPTH)
+        what = (f"sharded open pipeline {cc}-"
+                f"{'fine' if gran else 'coarse'}")
+        K.reset_launches()
+        s = D._open_loop(cfg, counts, gen, waves, group, dev, None,
+                         PIPE_DEPTH)
+        launches, calls = K.launch_counts(), K.call_counts()
+        for op in total:
+            total[op] += launches[op]
+        _open_identities(s, what, depth=PIPE_DEPTH)
+        _once_a_step(what, dist_kernel_coverage(cc, launches, calls),
+                     launches, calls, steps, dev)
+        if s["exchange_bytes"] != steps * _fused_bytes(cfg, ns):
+            raise AssertionError(f"{what}: {s['exchange_bytes']} B "
+                                 "exchanged")
+        (p50,), (p99,) = ttc_percentiles(s["lat_hist"].sum(axis=0)[None, :])
+        log(f"  {what}: goodput {s['commits'] / s['wall_s']:.1f} txn/s, "
+            f"p50 {p50:g} p99 {p99:g} waves, {waves / s['wall_s']:.1f} "
+            f"waves/s; offered {s['offered']} admitted {s['admitted']} "
+            f"commits {s['commits']} queued {s['queued_final']} inc_drops "
+            f"{s['inc_drops']} (inc_cap causes {s['abort_causes'][0]}) "
+            f"arrival_drops {s['arrival_drops']}")
+        if s["commits"] <= 0:
+            raise AssertionError(f"{what}: nothing committed")
+    for cc, gran in no_retry:
+        cfg = dataclasses.replace(dist_open_config(wl, cc, gran, lanes, ns),
+                                  max_incarnations=0)
+        a, b = (D._open_loop(cfg, counts, gen, waves, group, dev, None, d)
+                for d in (1, PIPE_DEPTH))
+        what = (f"sharded open pipeline {cc}-{'fine' if gran else 'coarse'}"
+                " without retries")
+        for k, v in a.items():
+            if k not in ("wall_s", "exchange_bytes") and not np.array_equal(
+                    np.asarray(b[k]), np.asarray(v)):
+                raise AssertionError(f"{what}: {k} {b[k]} != depth 1's {v}")
+        log(f"  {what}: every counter and lat_hist equal to depth 1's "
+            f"(commits {a['commits']}, inc_drops {a['inc_drops']})")
+    log(f"  sharded open pipeline launches {total}")
+    return total, steps * len(configs)
+
+
+def sharded_pipeline_cross_device(dev, group=None, cpu_group=None,
+                                  waves=30, lanes=DIST_LANES,
+                                  sources=DIST_CROSS_SOURCES,
+                                  configs=DIST_CROSS_CONFIGS,
+                                  open_source=DIST_CROSS_SOURCES["ycsb"],
+                                  open_configs=(("occ", 1), ("mvcc", 0))):
+    """Both pipelined runners on ``dev`` (over ``group``) and on the CPU
+    (the plain versions, over the gloo ``cpu_group``) on the same
+    CPU-made draws: the closed runner's commit masks and stats wave by
+    wave and its tables, then the open runner's commit masks and stats
+    wave by wave, queue state and tables, bit-identical."""
+    import torch.distributed as dist
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.txn_bench import make_workload
+    from repro_torch.workloads.arrivals import PoissonArrivals
+    cpu = torch.device("cpu")
+    for src, (kind, kw) in sources.items():
+        wl = make_workload(kind, **kw)
+        _, stacked = dist_draws(wl, waves, lanes, cpu)
+        on_dev = tuple(x.to(dev) for x in stacked)
+        for cc, gran, fuse in configs[src]:
+            cfg = dist_config(wl, cc, gran, fuse, lanes)
+            a = run_sharded(cfg, group, on_dev, dev, pipelined=True)
+            b = run_sharded(cfg, cpu_group, stacked, cpu, pipelined=True)
+            what = (f"{src} {cc}-{'fine' if gran else 'coarse'}"
+                    + ("" if fuse else " unfused"))
+            _same_run(a[:3], b[:3], f"sharded pipeline cross-device {what}")
+            log(f"  pipelined {what}: {waves} waves identical on {dev} and "
+                "cpu")
+    ns = D.n_shards(group)
+    T = lanes // ns
+    rank = dist.get_rank(group)
+    mine = slice(rank * T, (rank + 1) * T)
+    wl = make_workload(open_source[0], **open_source[1])
+    _, stacked = dist_draws(wl, waves, lanes, cpu, seed=19)
+    counts = PoissonArrivals(rate=DIST_OPEN["rate"], seed=3).shard_counts(
+        waves, ns, T)
+    for cc, gran in open_configs:
+        cfg = dist_open_config(wl, cc, gran, lanes, ns)
+        runs = []
+        for d, g in ((dev, group), (cpu, cpu_group)):
+            run = D._open_pipelined_run(cfg, waves, g)
+            out = run(*(x[:, mine].to(d).contiguous() for x in stacked),
+                      torch.from_numpy(counts[:, dist.get_rank(g)]).to(d),
+                      D.init_tables(cfg, g, d), D.init_open_queue(cfg, g, d))
+            runs.append([x.cpu() for x in (out[0], out[3], *out[2],
+                                           *out[1])])
+        what = (f"sharded open pipeline cross-device "
+                f"{cc}-{'fine' if gran else 'coarse'}")
+        for w in range(waves):
+            for i in (0, 1):
+                if not torch.equal(runs[0][i][w], runs[1][i][w]):
+                    raise AssertionError(f"{what}: wave {w} differs")
+        for i, (x, y) in enumerate(zip(*runs)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: output {i} differs")
+        log(f"  {what}: {waves} waves, commits {int(runs[0][0].sum())}: "
+            f"identical on {dev} and cpu")
+
+
+def axiswise_path(dev, shards, waves=20, lanes=DIST_LANES,
+                  source=DIST_SOURCES["ycsb"]):
+    """The axis-wise exchange on the one-rank ``shards.mesh_shape`` (1, 1)
+    mesh (its subgroups made by launch/mesh.init_shards): the synchronous
+    and the pipelined runner equal the flat exchange's bit for bit, with
+    one collective per axis and twice the modelled wire bytes."""
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.txn_bench import make_workload
+    wl = make_workload(source[0], **source[1])
+    _, stacked = dist_draws(wl, waves, lanes, dev, seed=23)
+    base = dist_config(wl, "mvocc", 1, True, lanes)
+    for pipelined in (False, True):
+        flat = run_sharded(base, None, stacked, dev, pipelined)
+        cfg = dataclasses.replace(base, topology="axiswise")
+        axis = run_sharded(cfg, None, stacked, dev, pipelined,
+                           shards.mesh_shape)
+        what = f"axis-wise {shards.mesh_shape} " + (
+            "pipelined" if pipelined else "synchronous")
+        _same_run(axis[:3], flat[:3], f"{what} vs flat")
+        hops = len(shards.mesh_shape)
+        steps = waves + 3 if pipelined else waves
+        model = D.wire_bytes_per_wave(cfg, 1, shards.mesh_shape)
+        if not (axis[4].calls == hops * flat[4].calls
+                and axis[4].bytes_sent == hops * flat[4].bytes_sent
+                == hops * steps * D.wire_bytes_per_wave(base, 1)[
+                    "wire_bytes_per_wave"]
+                and axis[4].bytes_sent
+                == steps * model["wire_bytes_per_wave"]):
+            raise AssertionError(
+                f"{what}: {axis[4].calls} calls, {axis[4].bytes_sent} B; "
+                f"flat {flat[4].calls}, {flat[4].bytes_sent} B")
+        log(f"  {what}: {waves} waves equal to the flat exchange, "
+            f"{axis[4].calls} collectives ({hops} an exchange), "
+            f"{axis[4].bytes_sent} B = {hops} x flat's")
 
 
 # ------------------------------------------------------------- LM serving
@@ -6030,9 +6314,10 @@ def main(argv=None) -> int:
     import torch.distributed as dist
     from repro_torch.launch import txn_scaling
     from repro_torch.launch.mesh import close_shards, init_shards
-    shards = init_shards(dev)
+    shards = init_shards(dev, mesh_shape=(1, 1))
     try:
-        dist_rows, l_dist, n_dist = sharded_path(dev)
+        kept = {}
+        dist_rows, l_dist, n_dist = sharded_path(dev, keep=kept)
         phase("sharded engine, card = CPU (gloo group for the CPU run):")
         cpu_group = dist.new_group(backend="gloo")
         sharded_cross_device(dev, cpu_group=cpu_group)
@@ -6040,6 +6325,15 @@ def main(argv=None) -> int:
         l_dopen, n_dopen = sharded_open_path(dev)
         phase("sharded open loop, card = CPU:")
         sharded_open_cross_device(dev, cpu_group=cpu_group)
+        phase("sharded pipeline, one rank (depth forced to 2):")
+        l_pipe, n_pipe = sharded_pipeline_path(dev, kept, dist_rows)
+        del kept
+        phase("sharded open pipeline, one rank (depth forced to 2):")
+        l_opipe, n_opipe = sharded_open_pipeline_path(dev)
+        phase("sharded pipeline, card = CPU:")
+        sharded_pipeline_cross_device(dev, cpu_group=cpu_group)
+        phase("axis-wise exchange, one rank:")
+        axiswise_path(dev, shards)
         phase("sharded scaling rows (repro_torch.launch.txn_scaling):")
         K.reset_launches()
         scaling = txn_scaling.scaling_rows(shards, waves=30)
@@ -6075,6 +6369,8 @@ def main(argv=None) -> int:
             "values": (l_val, n_val),
             "sharded": (l_dist, n_dist * WAVES),
             "sharded_open": (l_dopen, n_dopen),
+            "sharded_pipeline": (l_pipe, n_pipe),
+            "sharded_open_pipeline": (l_opipe, n_opipe),
             "scaling": (l_scale, (30 + txn_scaling.WARMUP_WAVES)
                         * len(scaling))}
     per_wave = {op: {k: n[op] / w for k, (n, w) in runs.items()}

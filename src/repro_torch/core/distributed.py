@@ -57,11 +57,30 @@ incarnation + 1 or drop at the cap, committed lanes record their
 time-to-commit, all with core/admission.py's ``ring_enqueue`` and
 ``record_ttc``, on the device.
 
-Not ported yet, raising NotImplementedError with their ROADMAP item: the
-software pipeline (``pipeline_depth >= 2`` on more than one shard, closed
-and open: ``make_run_fn``, ``make_open_run_fn``, ``run_open_loop``) and
-the axis-wise exchange on meshes of two or more axes.  Values are not
-tracked on the sharded path, as in the JAX package.
+Software pipeline (``pipeline_depth >= 2`` on more than one shard, or
+forced on one by ``_pipelined_run`` / ``_open_pipelined_run``): route
+never reads the tables, so wave w's routing runs while the owners claim
+wave w-1, and the verdict and commit words ride with wave w's outbound
+buffers in ONE exchange a step.  Step s (wave w = wave0 + s):
+
+    1. owner-install  wave w-3  (commit words arrived last step)
+    2. owner-claim    wave w-1  (routed buffers arrived last step) -> V
+    3. sender-commit  wave w-2  (verdict words arrived last step)  -> C
+    4. route          wave w                                       -> O
+    5. one exchange of [O_key | O_meta | V | C]
+
+Three owner-side routed-buffer slots and two sender-side coordinate slots
+carry the waves in flight; the warm-up steps run on NO_OP-filled buffers
+(every op masked: no table write) and three NOP waves drain the pipe.
+The result equals the synchronous wave's bit for bit (OCC always, MVCC
+and MV-OCC at ``snapshot_age`` 0, which DistConfig enforces at depth >=
+2).  The open loop's retries re-enqueue two waves after they ran, and a
+retry the full ring rejects leaves as an incarnation drop.
+
+The axis-wise exchange (``topology="axiswise"`` on a mesh of two or more
+axes) runs one ``all_to_all_single`` per mesh axis, each over that axis's
+subgroup (``mesh_groups``), at the axes' count times the flat bytes.
+Values are not tracked on the sharded path, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -103,11 +122,6 @@ STAT_COMMITS, STAT_ABORTS, STAT_DROPPED_LANES, STAT_DROPPED_OPS, \
     STAT_INC_DROPS, STAT_QUEUED = range(10)
 STAT_CAUSE0 = 10
 STAT_CAUSES = slice(STAT_CAUSE0, STAT_CAUSE0 + t.N_ABORT_CAUSES)
-
-_PIPELINE = "ROADMAP A.11 (pipeline_depth >= 2: the software pipeline)"
-_AXISWISE = ("ROADMAP A.11 (topology='axiswise': DeviceMesh subgroups, one "
-             "exchange per mesh axis)")
-
 
 def verdict_words(cap: int) -> int:
     """int32 wire words per ``cap``-op verdict row: 2 bits per op, 16 ops
@@ -261,9 +275,19 @@ def n_shards(group=None) -> int:
     return dist.get_world_size(group)
 
 
-def wire_bytes_per_wave(cfg: DistConfig, ns: int) -> dict:
-    """Bytes one shard hands to the exchange per synchronous wave on
-    ``ns`` shards (the flat exchange):
+def _hops(cfg: DistConfig, mesh_shape: Optional[Sequence[int]]) -> int:
+    """Collectives one exchange makes: one per mesh axis for the axis-wise
+    exchange on a mesh of two or more axes, else one."""
+    if (cfg.topology == "axiswise" and mesh_shape is not None
+            and len(mesh_shape) > 1):
+        return len(mesh_shape)
+    return 1
+
+
+def wire_bytes_per_wave(cfg: DistConfig, ns: int,
+                        mesh_shape: Optional[Sequence[int]] = None) -> dict:
+    """Bytes one shard hands to the exchange per steady-state wave on
+    ``ns`` shards, as the JAX package models them:
 
     - ``route_bytes_per_wave``: key + meta int32 channels, ``ns * cap * 8``;
     - ``verdict_bytes_per_wave``: the bit-packed verdicts,
@@ -271,48 +295,112 @@ def wire_bytes_per_wave(cfg: DistConfig, ns: int) -> dict:
     - ``commit_bytes_per_wave``: the packed commit bits, the same;
     - ``verdict_bytes_per_wave_legacy``: one int8 per op, ``ns * cap``;
     - ``wire_bytes_per_wave``: route + verdict + commit.
+
+    The axis-wise exchange on a ``mesh_shape`` of two or more axes sends
+    the payload once per axis, so every entry counts that many times.
     """
     cap = cfg.cap(ns)
     W = verdict_words(cap)
+    hops = _hops(cfg, mesh_shape)
     route, verdict = ns * cap * 2 * 4, ns * W * 4
-    return {"route_bytes_per_wave": route,
-            "verdict_bytes_per_wave": verdict,
-            "commit_bytes_per_wave": verdict,
-            "verdict_bytes_per_wave_legacy": ns * cap,
-            "wire_bytes_per_wave": route + 2 * verdict}
+    return {"route_bytes_per_wave": route * hops,
+            "verdict_bytes_per_wave": verdict * hops,
+            "commit_bytes_per_wave": verdict * hops,
+            "verdict_bytes_per_wave_legacy": ns * cap * hops,
+            "wire_bytes_per_wave": (route + 2 * verdict) * hops}
+
+
+#: Axis subgroups per (group, mesh shape), built once by every rank
+#: (``mesh_groups``) and dropped with the process group
+#: (``forget_mesh_groups``).
+_MESH_GROUPS: dict = {}
+
+
+def mesh_groups(mesh_shape: Sequence[int], group=None) -> tuple:
+    """One process group per axis of ``mesh_shape`` over ``group``'s ranks
+    in row-major order: axis i's group holds the ranks that share every
+    other coordinate, ranked by their coordinate along i (the order of
+    JAX's ``P((ax0, ax1, ...))``).  Built once per mesh: every rank of the
+    default group must make the first call, in the same order, as
+    ``torch.distributed.new_group`` asks."""
+    shape = tuple(int(d) for d in mesh_shape)
+    base = group if group is not None else dist.group.WORLD
+    key = (base, shape)
+    if key not in _MESH_GROUPS:
+        ranks = dist.get_process_group_ranks(base)
+        if math.prod(shape) != len(ranks):
+            raise ValueError(f"mesh_shape {shape} does not cover the "
+                             f"group's {len(ranks)} ranks")
+        if ranks != sorted(ranks):
+            raise ValueError("mesh_groups needs a group whose ranks rise "
+                             "with the global ranks (a subgroup's rank "
+                             "order is its global ranks' order)")
+        grid = np.asarray(ranks).reshape(shape)
+        me = dist.get_rank()
+        backend = dist.get_backend(base)
+        axes = []
+        for i in range(len(shape)):
+            lines = np.moveaxis(grid, i, -1).reshape(-1, shape[i])
+            mine = None
+            for line in lines:
+                g = dist.new_group([int(r) for r in line], backend=backend)
+                if me in line:
+                    mine = g
+            axes.append(mine)
+        _MESH_GROUPS[key] = tuple(axes)
+    return _MESH_GROUPS[key]
+
+
+def forget_mesh_groups() -> None:
+    """Drop the cached axis subgroups (their process group is gone)."""
+    _MESH_GROUPS.clear()
 
 
 class Exchange:
     """The one collective of the routed wave: ``exchange(buf [ns, B]) ->
-    [ns, B]``, one ``all_to_all_single`` over the group, where row i goes
-    to rank i and arrived row i came from rank i.  ``bytes_sent`` and
-    ``calls`` count what this rank handed to the collective."""
+    [ns, B]``, where row i goes to rank i and arrived row i came from rank
+    i, always in fresh storage.  Flat: one ``all_to_all_single`` over the
+    group.  Axis-wise (``axis_groups``, one per axis of ``mesh_shape``):
+    the buffer as ``mesh_shape + [B]``, dim i moved to the front and
+    exchanged over axis i's group, axis by axis; the row-major composition
+    equals the flat exchange.  ``bytes_sent`` and ``calls`` count what
+    this rank handed to each collective."""
 
-    def __init__(self, group=None):
-        self.group = group
+    def __init__(self, group=None, mesh_shape=None, axis_groups=()):
+        if axis_groups:
+            self.steps = tuple(enumerate(axis_groups))
+            self.shape = tuple(mesh_shape)
+        else:
+            self.steps = ((0, group),)
+            self.shape = None
         self.bytes_sent = 0
         self.calls = 0
 
     def __call__(self, buf: torch.Tensor) -> torch.Tensor:
-        buf = buf.contiguous()
-        out = torch.empty_like(buf)
-        dist.all_to_all_single(out, buf, group=self.group)
-        self.bytes_sent += buf.numel() * buf.element_size()
-        self.calls += 1
-        return out
+        x = buf.reshape((self.shape or buf.shape[:1]) + buf.shape[1:])
+        for i, g in self.steps:
+            send = x.movedim(i, 0).contiguous()
+            out = torch.empty_like(send)
+            dist.all_to_all_single(out, send, group=g)
+            self.bytes_sent += send.numel() * send.element_size()
+            self.calls += 1
+            x = out.movedim(0, i)
+        return x.reshape(buf.shape)
+
+
+def _make_exchange(cfg: DistConfig, group,
+                   mesh_shape: Optional[Sequence[int]]) -> Exchange:
+    if _hops(cfg, mesh_shape) > 1:
+        return Exchange(group, mesh_shape, mesh_groups(mesh_shape, group))
+    return Exchange(group)
 
 
 def _check_group(cfg: DistConfig, group, mesh_shape: Optional[Sequence[int]]
                  ) -> int:
     ns = n_shards(group)
-    if mesh_shape is not None:
-        if math.prod(mesh_shape) != ns:
-            raise ValueError(f"mesh_shape {tuple(mesh_shape)} does not "
-                             f"cover the group's {ns} ranks")
-        if cfg.topology == "axiswise" and len(mesh_shape) > 1:
-            raise NotImplementedError(
-                f"topology='axiswise' on a {len(mesh_shape)}-axis mesh is "
-                f"not ported to repro_torch yet: it waits for {_AXISWISE}")
+    if mesh_shape is not None and math.prod(mesh_shape) != ns:
+        raise ValueError(f"mesh_shape {tuple(mesh_shape)} does not "
+                         f"cover the group's {ns} ranks")
     return ns
 
 
@@ -552,6 +640,75 @@ def _closed_stats(commit, lane_dropped, has_write, dropped_op, cause):
         .to(torch.int32)
 
 
+def _pipe_carry_init(cfg: DistConfig, ns: int, device) -> tuple:
+    """The empty pipeline carry: three owner-side routed buffers, filled
+    with NO_OP keys and META_FILL metas, two verdict/commit word rows of
+    zeros and two sender coordinate slots ``(owner, pos, took, b_lane,
+    lane_dropped, has_write, dropped_op, kinds_flat)`` with nothing taken,
+    so that the warm-up steps' owner and sender phases mask every op and
+    write no table.  The flat-op axis M is ``T * K``, doubled with scans
+    (two fragments an op).  No two slots share storage."""
+    cap, W = cfg.cap(ns), verdict_words(cfg.cap(ns))
+    T, K = cfg.lanes_per_shard, cfg.slots
+    M = T * K * (2 if cfg.max_extent > 1 else 1)
+
+    def i32(shape, fill):
+        return torch.full(shape, fill, dtype=torch.int32, device=device)
+
+    def boolean(n):
+        return torch.zeros((n,), dtype=torch.bool, device=device)
+
+    def routed():
+        return torch.cat([i32((ns, cap), NO_OP), i32((ns, cap), META_FILL)],
+                         dim=-1)
+
+    def coords():
+        return (i32((M,), 0), i32((M,), 0), boolean(M),
+                i32((ns, cap), LANE_FILL), boolean(T), boolean(T),
+                boolean(M), i32((M,), t.NOP))
+    return (routed(), routed(), routed(), i32((ns, W), 0), i32((ns, W), 0),
+            coords(), coords())
+
+
+def _nop_wave(cfg: DistConfig, device) -> tuple:
+    """One drain wave's (keys, groups, kinds, prio): every slot NOP."""
+    T, K = cfg.lanes_per_shard, cfg.slots
+
+    def i32(shape, fill):
+        return torch.full(shape, fill, dtype=torch.int32, device=device)
+    return i32((T, K), -1), i32((T, K), 0), i32((T, K), t.NOP), i32((T,), 0)
+
+
+def _make_pipeline_step(cfg: DistConfig, ns: int, exchange: Exchange):
+    """One step of the software-pipelined closed loop (module docstring):
+    install wave w-3, claim wave w-1, commit wave w-2, route wave w, then
+    ONE exchange of ``[O_key | O_meta | V_{w-1} | C_{w-2}]``.
+    ``step(carry, keys, groups, kinds, prio, wave) -> (carry, commit,
+    stats)``, where ``carry = (tables, rb1, rb2, rb3, v_in, c_in, st1,
+    st2)`` and commit and stats are wave w-2's.  ``wave`` is the step's
+    0-d int64 device tensor; w-3 and w-1 are derived from it there (their
+    low bits, negative in the warm-up steps, are JAX's uint32 wrap)."""
+    route, owner_claim, sender_commit, owner_install = _make_phases(cfg, ns)
+    cap = cfg.cap(ns)
+    W = verdict_words(cap)
+
+    def step(carry, keys, groups, kinds, prio, wave):
+        tables, rb1, rb2, rb3, v_in, c_in, st1, st2 = carry
+        owner_install(tables, rb3, c_in, wave - 3)
+        v_words = owner_claim(tables, rb1, wave - 1)
+        commit, c_words, cause = sender_commit(st2, v_in)
+        out, st0 = route(keys, groups, kinds, prio)
+        arrived = exchange(torch.cat([out, v_words, c_words], dim=-1))
+        r_out = arrived[:, :2 * cap].contiguous()
+        v_nxt = arrived[:, 2 * cap:2 * cap + W].contiguous()
+        c_nxt = arrived[:, 2 * cap + W:].contiguous()
+        stats = _closed_stats(commit, st2[4], st2[5], st2[6], cause)
+        return ((tables, r_out, rb1, rb2, v_nxt, c_nxt, st0, st1), commit,
+                stats)
+
+    return step
+
+
 def _check_wave_args(cfg: DistConfig, keys, groups, kinds, prio):
     shape = (cfg.lanes_per_shard, cfg.slots)
     for name, x in (("keys", keys), ("groups", groups), ("kinds", kinds)):
@@ -577,8 +734,9 @@ def make_wave_fn(cfg: DistConfig, group=None,
         raise ValueError(
             f"make_wave_fn runs one synchronous wave per call: "
             f"pipeline_depth={cfg.pipeline_depth} on {ns} shards needs the "
-            "scanned runner (make_run_fn; one shard falls back to depth 1)")
-    exchange = Exchange(group)
+            "pipelined runner (make_run_fn; one shard falls back to depth "
+            "1)")
+    exchange = _make_exchange(cfg, group, mesh_shape)
     body = _make_shard_body(cfg, ns, exchange)
 
     def wave(keys, groups, kinds, prio, tables, wave_idx):
@@ -597,20 +755,20 @@ def make_run_fn(cfg: DistConfig, n_waves: int, group=None,
                 mesh_shape: Optional[Sequence[int]] = None):
     """The closed-loop runner on this rank: ``run(keys [n_waves, T, K],
     groups, kinds, prio [n_waves, T], tables, wave0) -> (commit [n_waves,
-    T], tables, stats [n_waves, STATS_LEN])``, a loop of synchronous waves
-    ``wave0, wave0 + 1, ...``, the index advanced on the device.
-    ``run.exchange`` counts the collective's bytes."""
+    T], tables, stats [n_waves, STATS_LEN])`` for waves ``wave0, wave0 +
+    1, ...``, the index advanced on the device.  ``cfg.depth(ns)`` picks
+    the schedule, as in the JAX package: depth 1 is a loop of synchronous
+    waves (three exchanges a wave), depth >= 2 the software pipeline
+    (``_pipelined_run``: one exchange a step, ``n_waves + 3`` steps),
+    bit-identical to it.  ``run.exchange`` counts the collective's
+    bytes."""
     ns = _check_group(cfg, group, mesh_shape)
     if cfg.depth(ns) > 1:
-        raise NotImplementedError(
-            f"pipeline_depth={cfg.pipeline_depth} on {ns} shards is not "
-            f"ported to repro_torch yet: it waits for {_PIPELINE}")
+        return _pipelined_run(cfg, n_waves, group, mesh_shape)
     wave = make_wave_fn(cfg, group, mesh_shape)
 
     def run(keys, groups, kinds, prio, tables, wave0=0):
-        if keys.shape[0] != n_waves:
-            raise ValueError(f"keys hold {keys.shape[0]} waves, expected "
-                             f"{n_waves}")
+        _check_run_args(cfg, n_waves, keys, groups, kinds, prio)
         commits, stats = [], []
         w_idx = device_scalar(wave0, keys.device)
         for w in range(n_waves):
@@ -622,6 +780,51 @@ def make_run_fn(cfg: DistConfig, n_waves: int, group=None,
         return torch.stack(commits), tables, torch.stack(stats)
 
     run.exchange = wave.exchange
+    return run
+
+
+def _check_run_args(cfg: DistConfig, n_waves: int, keys, groups, kinds,
+                    prio) -> None:
+    for name, x in (("keys", keys), ("groups", groups), ("kinds", kinds),
+                    ("prio", prio)):
+        if x.shape[0] != n_waves:
+            raise ValueError(f"{name} hold {x.shape[0]} waves, expected "
+                             f"{n_waves}")
+    if n_waves:
+        _check_wave_args(cfg, keys[0], groups[0], kinds[0], prio[0])
+
+
+def _pipelined_run(cfg: DistConfig, n_waves: int, group=None,
+                   mesh_shape: Optional[Sequence[int]] = None):
+    """The software-pipelined closed-loop runner at any shard count (the
+    depth is not consulted: one rank runs it too), with ``make_run_fn``'s
+    signature.  It runs ``n_waves + 3`` steps of ``_make_pipeline_step``,
+    the last three on NOP drain waves, and keeps the rows of steps 2 to
+    ``n_waves + 1`` (waves 0 to ``n_waves - 1``): the commit, stats and
+    final tables of the synchronous loop, bit for bit.  No step waits on
+    the host."""
+    ns = _check_group(cfg, group, mesh_shape)
+    exchange = _make_exchange(cfg, group, mesh_shape)
+    step = _make_pipeline_step(cfg, ns, exchange)
+
+    def run(keys, groups, kinds, prio, tables, wave0=0):
+        _check_run_args(cfg, n_waves, keys, groups, kinds, prio)
+        dev = keys.device
+        carry = (tables,) + _pipe_carry_init(cfg, ns, dev)
+        drain = _nop_wave(cfg, dev)
+        commits, stats = [], []
+        w_idx = device_scalar(wave0, dev)
+        for s in range(n_waves + 3):
+            x = ((keys[s], groups[s], kinds[s], prio[s]) if s < n_waves
+                 else drain)
+            carry, c, st = step(carry, *x, w_idx)
+            w_idx = w_idx + 1
+            if 2 <= s < n_waves + 2:
+                commits.append(c)
+                stats.append(st)
+        return torch.stack(commits), carry[0], torch.stack(stats)
+
+    run.exchange = exchange
     return run
 
 
@@ -661,6 +864,23 @@ def init_open_queue(cfg: DistConfig, group=None, device=None) -> OpenQueue:
                      i32(cfg.lat_bins))
 
 
+def _ring_take(C: int, tabs: tuple, head, size, take, lane) -> tuple:
+    """Dequeue the first ``take`` ring entries FIFO onto lanes ``[0,
+    take)``: ``((keys, groups, kinds, admit_wave, incarnation, txn_id,
+    got), head', size')``; the other lanes get empty transactions."""
+    qk, qg, qi, qa, qc, qd = tabs
+    got = lane < take
+    pos = ((head + lane) % C).to(torch.int64)
+    g2 = got[:, None]
+    picked = (torch.where(g2, qk.index_select(0, pos), -1),
+              torch.where(g2, qg.index_select(0, pos), 0),
+              torch.where(g2, qi.index_select(0, pos), t.NOP),
+              torch.where(got, qa.index_select(0, pos), 0),
+              torch.where(got, qc.index_select(0, pos), 0),
+              torch.where(got, qd.index_select(0, pos), -1), got)
+    return picked, (head + take) % C, size - take
+
+
 def make_open_wave_fn(cfg: DistConfig, group=None,
                       mesh_shape: Optional[Sequence[int]] = None):
     """The open-loop routed wave on this rank, one wave a call:
@@ -690,10 +910,9 @@ def make_open_wave_fn(cfg: DistConfig, group=None,
         raise ValueError(
             f"make_open_wave_fn runs one synchronous wave per call: "
             f"pipeline_depth={cfg.pipeline_depth} on {ns} shards needs the "
-            f"pipelined open-loop runner, which is not ported to repro_torch "
-            f"yet: it waits for {_PIPELINE} (one shard falls back to depth "
-            "1)")
-    exchange = Exchange(group)
+            "pipelined open-loop runner (run_open_loop; one shard falls "
+            "back to depth 1)")
+    exchange = _make_exchange(cfg, group, mesh_shape)
     body = _make_shard_body(cfg, ns, exchange)
     T, C = cfg.lanes_per_shard, cfg.queue_cap
 
@@ -716,17 +935,9 @@ def make_open_wave_fn(cfg: DistConfig, group=None,
                 (keys, groups, kinds, w.expand(T), zeros, nid + lane))
 
         # Admit: fill the rank's T lanes FIFO.
-        take = size.clamp(max=T)
-        got = lane < take
-        pos = ((head + lane) % C).to(torch.int64)
-        g2 = got[:, None]
-        dk = torch.where(g2, qk.index_select(0, pos), -1)
-        dg = torch.where(g2, qg.index_select(0, pos), 0)
-        di = torch.where(g2, qi.index_select(0, pos), t.NOP)
-        admit_w = torch.where(got, qa.index_select(0, pos), 0)
-        incarn = torch.where(got, qc.index_select(0, pos), 0)
-        txn_id = torch.where(got, qd.index_select(0, pos), -1)
-        head, size = (head + take) % C, size - take
+        (dk, dg, di, admit_w, incarn, txn_id, got), head, size = _ring_take(
+            C, (qk, qg, qi, qa, qc, qd), head, size, size.clamp(max=T),
+            lane)
 
         # The routed wave on the admitted lanes.
         commit, lane_dropped, has_write, dropped_op, cause = body(
@@ -759,23 +970,161 @@ def make_open_wave_fn(cfg: DistConfig, group=None,
     return open_wave
 
 
+def _open_slot(cfg: DistConfig, device) -> tuple:
+    """An empty sender-side admission slot of the open pipeline: (keys,
+    groups, kinds, admit_wave, incarnation, got, txn_id, admitted,
+    arrival drops) of a wave that dequeued nothing."""
+    T, K = cfg.lanes_per_shard, cfg.slots
+
+    def i32(shape, fill):
+        return torch.full(shape, fill, dtype=torch.int32, device=device)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    return (i32((T, K), -1), i32((T, K), 0), i32((T, K), t.NOP),
+            i32((T,), 0), i32((T,), 0),
+            torch.zeros((T,), dtype=torch.bool, device=device),
+            i32((T,), -1), zero, zero.clone())
+
+
+def _make_open_pipeline_step(cfg: DistConfig, ns: int, exchange: Exchange):
+    """One step of the software-pipelined open loop: the closed pipeline's
+    schedule with this rank's admission ring in the carry.  Wave w-2's
+    verdicts land this step, so its aborted lanes re-enqueue two waves
+    after they ran, before wave w's arrivals.  With two waves in flight
+    the ring may be full: a retry it rejects leaves as an incarnation
+    drop (counted in ``inc_drops``, keeping its validation cause), so
+    ``admitted == commits + queued_final + inc_drops`` stays exact.
+    ``step(carry, keys, groups, kinds, prio, n_arrive, wave, live) ->
+    (carry, commit, stats)``, ``carry = (tables, rb1, rb2, rb3, v_in,
+    c_in, st1, st2, os1, os2, qstate)``; the stats row is wave w-2's, its
+    admission counters carried in the ``os`` slots from the step that
+    admitted it.  A drain step (``live`` False) admits and dequeues
+    nothing."""
+    route, owner_claim, sender_commit, owner_install = _make_phases(cfg, ns)
+    cap = cfg.cap(ns)
+    W = verdict_words(cap)
+    T, C = cfg.lanes_per_shard, cfg.queue_cap
+
+    def step(carry, keys, groups, kinds, prio, n_arrive, wave, live):
+        (tables, rb1, rb2, rb3, v_in, c_in, st1, st2, os1, os2,
+         qstate) = carry
+        (qk, qg, qi, qa, qc, qd, head, size, nid, lat_hist) = qstate
+        dev = keys.device
+        lane = torch.arange(T, dtype=torch.int32, device=dev)
+
+        # Owner phases: install wave w-3, claim wave w-1.
+        owner_install(tables, rb3, c_in, wave - 3)
+        v_words = owner_claim(tables, rb1, wave - 1)
+
+        # Sender: wave w-2's fate, its retries and time-to-commit.
+        commit, c_words, cause = sender_commit(st2, v_in)
+        dk2, dg2, di2, admit2, inc2, got2, qid2, n_adm2, n_ovf2 = os2
+        commit = commit & got2
+        aborted = got2 & ~commit
+        retry = aborted & (inc2 < cfg.max_incarnations)
+        cause = torch.where(aborted & ~retry, t.CAUSE_INC_CAP, cause)
+        (qk, qg, qi, qa, qc, qd), size, _, n_re_ovf = \
+            admission.ring_enqueue(
+                C, head, size, retry, (qk, qg, qi, qa, qc, qd),
+                (dk2, dg2, di2, admit2, inc2 + 1, qid2))
+        inc_drop = (aborted & ~retry).sum() + n_re_ovf
+        w = wave.to(torch.int32)
+        lat_hist = admission.record_ttc(lat_hist, w - 2 - admit2 + 1,
+                                        commit)
+
+        # Wave w's arrivals, then its lanes FIFO (none on a drain step).
+        n_arr = n_arrive.reshape(-1)[:1].to(torch.int32).clamp(max=T)
+        (qk, qg, qi, qa, qc, qd), size, n_adm, n_ovf = \
+            admission.ring_enqueue(
+                C, head, size, lane < n_arr, (qk, qg, qi, qa, qc, qd),
+                (keys, groups, kinds, w.expand(T), torch.zeros_like(lane),
+                 nid + lane))
+        nid = nid + n_arr
+        take = size.clamp(max=T) if live else torch.zeros_like(size)
+        (dk, dg, di, admit_w, incarn, qid, got), head, size = _ring_take(
+            C, (qk, qg, qi, qa, qc, qd), head, size, take, lane)
+
+        # Route wave w; ONE exchange.
+        out, st0 = route(dk, dg, di, prio)
+        arrived = exchange(torch.cat([out, v_words, c_words], dim=-1))
+        r_out = arrived[:, :2 * cap].contiguous()
+        v_nxt = arrived[:, 2 * cap:2 * cap + W].contiguous()
+        c_nxt = arrived[:, 2 * cap + W:].contiguous()
+
+        ro = ~st2[5]
+        head_stats = torch.stack([
+            commit.sum(), aborted.sum(), st2[4].sum(), st2[6].sum(),
+            (commit & ro).sum(), (aborted & ro).sum(), n_adm2, n_ovf2,
+            inc_drop, size[0].long()])
+        stats = torch.cat([head_stats, t.cause_counts(cause, aborted)]) \
+            .to(torch.int32)
+        os0 = (dk, dg, di, admit_w, incarn, got, qid, n_adm, n_ovf)
+        qstate = OpenQueue(qk, qg, qi, qa, qc, qd, head, size, nid,
+                           lat_hist)
+        return ((tables, r_out, rb1, rb2, v_nxt, c_nxt, st0, st1, os0, os1,
+                 qstate), commit, stats)
+
+    return step
+
+
+def _open_pipelined_run(cfg: DistConfig, n_waves: int, group=None,
+                        mesh_shape: Optional[Sequence[int]] = None):
+    """The software-pipelined open-loop runner at any shard count (the
+    depth is not consulted), with ``make_open_run_fn``'s signature: it
+    runs ``n_waves + 3`` steps, the three drain steps admitting and
+    dequeuing nothing, and keeps the rows of waves 0 to ``n_waves - 1``.
+    No step waits on the host."""
+    ns = _check_group(cfg, group, mesh_shape)
+    exchange = _make_exchange(cfg, group, mesh_shape)
+    step = _make_open_pipeline_step(cfg, ns, exchange)
+
+    def run(keys, groups, kinds, prio, n_arrive, tables, qstate, wave0=0):
+        _check_run_args(cfg, n_waves, keys, groups, kinds, prio)
+        if n_arrive.shape[0] != n_waves:
+            raise ValueError(f"n_arrive holds {n_arrive.shape[0]} waves, "
+                             f"expected {n_waves}")
+        dev = keys.device
+        n_arrive = n_arrive.to(dev)
+        carry = ((tables,) + _pipe_carry_init(cfg, ns, dev)
+                 + (_open_slot(cfg, dev), _open_slot(cfg, dev),
+                    OpenQueue(*qstate)))
+        drain = _nop_wave(cfg, dev)
+        none = torch.zeros((1,), dtype=torch.int32, device=dev)
+        commits, stats = [], []
+        w_idx = device_scalar(wave0, dev)
+        for s in range(n_waves + 3):
+            live = s < n_waves
+            x = ((keys[s], groups[s], kinds[s], prio[s], n_arrive[s])
+                 if live else drain + (none,))
+            carry, c, st = step(carry, *x, w_idx, live)
+            w_idx = w_idx + 1
+            if 2 <= s < n_waves + 2:
+                commits.append(c)
+                stats.append(st)
+        return (torch.stack(commits), carry[0], carry[-1],
+                torch.stack(stats))
+
+    run.exchange = exchange
+    return run
+
+
 def make_open_run_fn(cfg: DistConfig, n_waves: int, group=None,
                      mesh_shape: Optional[Sequence[int]] = None):
-    """The JAX package's pipelined open-loop runner (effective depth >= 2):
-    not ported.  At depth 1 ``run_open_loop`` runs ``make_open_wave_fn``
-    wave by wave, as the JAX package's does."""
+    """The pipelined open-loop runner (effective depth >= 2) on this rank:
+    ``run(keys [n_waves, T, K], groups, kinds, prio [n_waves, T],
+    n_arrive [n_waves], tables, qstate, wave0) -> (commit [n_waves, T],
+    tables, qstate, stats [n_waves, STATS_LEN])``; ``n_arrive`` holds this
+    rank's arrival counts.  At depth 1 ``run_open_loop`` runs
+    ``make_open_wave_fn`` wave by wave, as the JAX package's does."""
     if not cfg.open_loop:
         raise ValueError("make_open_run_fn needs queue_cap >= 1 (the "
                          "open-loop switch)")
     ns = _check_group(cfg, group, mesh_shape)
     if cfg.depth(ns) < 2:
         raise ValueError(
-            "make_open_run_fn is the pipelined scanned runner: effective "
-            f"depth {cfg.depth(ns)} on {ns} shards runs the synchronous "
+            "make_open_run_fn is the pipelined runner: effective depth "
+            f"{cfg.depth(ns)} on {ns} shards runs the synchronous "
             "make_open_wave_fn instead (run_open_loop picks)")
-    raise NotImplementedError(
-        f"pipeline_depth={cfg.pipeline_depth} on {ns} shards (the open "
-        f"loop) is not ported to repro_torch yet: it waits for {_PIPELINE}")
+    return _open_pipelined_run(cfg, n_waves, group, mesh_shape)
 
 
 def run_open_loop(cfg: DistConfig, arrive_counts, gen_fn: Callable,
@@ -789,19 +1138,28 @@ def run_open_loop(cfg: DistConfig, arrive_counts, gen_fn: Callable,
     kinds, prio)`` gives the wave's globally shaped candidates ([n_shards
     * T, K], prio [n_shards * T]; numpy arrays or tensors), of which each
     rank takes its own lanes.  Tables and queues start fresh on
-    ``device`` (CUDA unless the caller asks for the CPU).  The summary
-    holds the identities that the conservation oracle asserts, exactly:
-    ``admitted == commits + queued_final + inc_drops`` and ``offered ==
-    admitted + arrival_drops``; ``lat_hist`` is int[n_shards, lat_bins],
+    ``device`` (CUDA unless the caller asks for the CPU).  The effective
+    depth picks the engine, as in the JAX package: a loop of
+    ``make_open_wave_fn`` waves at depth 1, the pipelined runner at depth
+    >= 2 (retries re-enqueue two waves later and may drop into
+    ``inc_drops``).  The summary holds the identities that the
+    conservation oracle asserts, exactly, at every depth: ``admitted ==
+    commits + queued_final + inc_drops`` and ``offered == admitted +
+    arrival_drops``; ``lat_hist`` is int[n_shards, lat_bins],
     ``per_shard_stats`` int64[n_shards, STATS_LEN].  It adds ``wall_s``,
-    the wave loop's host seconds up to a device synchronize, and
-    ``exchange_bytes``, what this rank handed to the collective."""
+    the host seconds of the waves and their candidates up to a device
+    synchronize, and ``exchange_bytes``, what this rank handed to the
+    collective."""
     ns = _check_group(cfg, group, mesh_shape)
-    if cfg.depth(ns) > 1:
-        raise NotImplementedError(
-            f"run_open_loop at pipeline_depth={cfg.pipeline_depth} on {ns} "
-            f"shards is not ported to repro_torch yet: it waits for "
-            f"{_PIPELINE}")
+    return _open_loop(cfg, arrive_counts, gen_fn, n_waves, group, device,
+                      mesh_shape, cfg.depth(ns))
+
+
+def _open_loop(cfg: DistConfig, arrive_counts, gen_fn: Callable,
+               n_waves: int, group, device, mesh_shape, depth: int) -> dict:
+    """``run_open_loop`` at an explicit ``depth`` (1: the synchronous
+    waves; >= 2: ``_open_pipelined_run``, on one rank too)."""
+    ns = _check_group(cfg, group, mesh_shape)
     dev = resolve_device(device)
     T = cfg.lanes_per_shard
     rank = dist.get_rank(group)
@@ -809,8 +1167,6 @@ def run_open_loop(cfg: DistConfig, arrive_counts, gen_fn: Callable,
     counts = np.asarray(arrive_counts).reshape(n_waves, ns)
     tables = init_tables(cfg, group, dev)
     qstate = init_open_queue(cfg, group, dev)
-    wave = make_open_wave_fn(cfg, group, mesh_shape)
-    acc = torch.zeros((STATS_LEN,), dtype=torch.int64, device=dev)
 
     def local(x):
         if not isinstance(x, torch.Tensor):
@@ -821,17 +1177,29 @@ def run_open_loop(cfg: DistConfig, arrive_counts, gen_fn: Callable,
         out = [torch.zeros_like(x) for _ in range(ns)]
         dist.all_gather(out, x, group=group)
         return torch.stack(out).cpu().numpy()
-    w_idx = device_scalar(0, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    for w in range(n_waves):
-        keys, groups, kinds, prio = (local(x) for x in gen_fn(w))
-        _, tables, qstate, stats = wave(keys, groups, kinds, prio,
-                                        int(counts[w, rank]), tables,
-                                        qstate, w_idx)
-        acc += stats
-        w_idx = w_idx + 1
+    if depth >= 2:
+        run = _open_pipelined_run(cfg, n_waves, group, mesh_shape)
+        draws = [[local(x) for x in gen_fn(w)] for w in range(n_waves)]
+        stacked = (torch.stack(col) for col in zip(*draws))
+        n_arr = torch.from_numpy(counts[:, rank].astype(np.int32)).to(dev)
+        _, tables, qstate, stats = run(*stacked, n_arr, tables, qstate)
+        acc = stats.to(torch.int64).sum(dim=0)
+        exchange = run.exchange
+    else:
+        wave = make_open_wave_fn(cfg, group, mesh_shape)
+        acc = torch.zeros((STATS_LEN,), dtype=torch.int64, device=dev)
+        w_idx = device_scalar(0, dev)
+        for w in range(n_waves):
+            keys, groups, kinds, prio = (local(x) for x in gen_fn(w))
+            _, tables, qstate, stats = wave(keys, groups, kinds, prio,
+                                            int(counts[w, rank]), tables,
+                                            qstate, w_idx)
+            acc += stats
+            w_idx = w_idx + 1
+        exchange = wave.exchange
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall_s = time.perf_counter() - t0
@@ -850,7 +1218,7 @@ def run_open_loop(cfg: DistConfig, arrive_counts, gen_fn: Callable,
         "lat_hist": gather(qstate.lat_hist),
         "per_shard_stats": acc_np,
         "wall_s": wall_s,
-        "exchange_bytes": wave.exchange.bytes_sent,
+        "exchange_bytes": exchange.bytes_sent,
     }
 
 

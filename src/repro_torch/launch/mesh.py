@@ -13,20 +13,25 @@ shards over:
   directory, so parallel processes never contend for a TCP port.
 
 CUDA (the default) makes an NCCL group on device ``LOCAL_RANK``; gloo
-serves only a caller that asks for the CPU.  ``close_shards`` destroys the
-group and removes the temporary store.
+serves only a caller that asks for the CPU.  With ``mesh_shape`` the ranks
+also form that mesh in row-major order, and every rank builds one subgroup
+per mesh axis (core/distributed.mesh_groups), which the axis-wise exchange
+(``DistConfig(topology="axiswise")``) runs over.  ``close_shards`` destroys
+the group and its subgroups and removes the temporary store.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import shutil
 import tempfile
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.distributed import forget_mesh_groups, mesh_groups
 from repro_torch.core.types import resolve_device
 
 
@@ -38,11 +43,16 @@ class Shards:
     size: int
     device: torch.device
     store_dir: Optional[str] = None  # temporary FileStore directory
+    mesh_shape: Optional[tuple] = None
+    axis_groups: tuple = ()          # this rank's group on each mesh axis
 
 
-def init_shards(device=None, init_file: Optional[str] = None) -> Shards:
+def init_shards(device=None, init_file: Optional[str] = None,
+                mesh_shape: Optional[Sequence[int]] = None) -> Shards:
     """Initialize the default process group for ``device`` (CUDA unless
-    the caller asks for the CPU) and return this rank's ``Shards``."""
+    the caller asks for the CPU) and return this rank's ``Shards``; with
+    ``mesh_shape`` (its product the world size) also the mesh's axis
+    subgroups."""
     dev = resolve_device(device)
     if dist.is_initialized():
         raise RuntimeError("a default process group already exists: call "
@@ -57,6 +67,9 @@ def init_shards(device=None, init_file: Optional[str] = None) -> Shards:
         backend = "nccl"
     else:
         backend = "gloo"
+    if mesh_shape is not None and math.prod(mesh_shape) != size:
+        raise ValueError(f"mesh_shape {tuple(mesh_shape)} does not cover "
+                         f"the {size} ranks")
     store_dir = None
     if init_file is not None:
         method = f"file://{os.path.abspath(init_file)}"
@@ -68,11 +81,17 @@ def init_shards(device=None, init_file: Optional[str] = None) -> Shards:
         rank, size = 0, 1
     dist.init_process_group(backend=backend, init_method=method, rank=rank,
                             world_size=size)
-    return Shards(rank=rank, size=size, device=dev, store_dir=store_dir)
+    if mesh_shape is None:
+        return Shards(rank=rank, size=size, device=dev, store_dir=store_dir)
+    return Shards(rank=rank, size=size, device=dev, store_dir=store_dir,
+                  mesh_shape=tuple(mesh_shape),
+                  axis_groups=mesh_groups(mesh_shape))
 
 
 def close_shards(shards: Shards) -> None:
-    """Destroy the default process group and its temporary store."""
+    """Destroy the default process group, its mesh subgroups and its
+    temporary store."""
+    forget_mesh_groups()
     if dist.is_initialized():
         dist.destroy_process_group()
     if shards.store_dir is not None:

@@ -3,37 +3,40 @@ benchmarks/txn_scaling.py).
 
     PYTHONPATH=src python -m repro_torch.launch.txn_scaling --waves 30
     PYTHONPATH=src torchrun --nproc-per-node 4 \
-        -m repro_torch.launch.txn_scaling --waves 30 --json build/scaling.json
+        -m repro_torch.launch.txn_scaling --pipeline-depth 2 --waves 30 \
+        --json build/scaling.json
 
 A ``shards=0`` anchor row first runs the local engine (core/engine.run)
 on YCSB at the same global lane count, OCC fine.  Then, on this process
-group's shards (one when run alone), the synchronous sharded wave
-(core/distributed.make_run_fn, pipeline depth 1) runs OCC and MVCC (ring
-depth 4) on the JAX benchmark's draws: ``--n-keys`` uniform keys, 2
-groups, READ/WRITE ops, the global lanes split evenly over the ranks, one
-batch for every wave and a fresh lane permutation per wave.  Rows carry
-the JAX rows' keys (``shards``, ``cc``, ``commits``, ``waves_per_s``,
+group's shards (one when run alone), the sharded runner
+(core/distributed.make_run_fn) runs OCC and MVCC (ring depth 4) on the
+JAX benchmark's draws: ``--n-keys`` uniform keys, 2 groups, READ/WRITE
+ops, the global lanes split evenly over the ranks, one batch for every
+wave and a fresh lane permutation per wave; each mechanism at the
+effective pipeline depths {1, ``--pipeline-depth``} (``depths``: one
+shard runs depth 1 only, as the JAX benchmark's rows).  Rows carry the
+JAX rows' keys (``shards``, ``cc``, ``commits``, ``waves_per_s``,
 ``pipeline_depth``, ``ro_commits``, ``ro_aborts``, ``abort_causes``,
-``kernel_ops``, the ``wire_bytes_per_wave`` fields) plus ``device_name``;
-``coll_bytes_per_wave`` is what this rank handed to
-``all_to_all_single`` per wave, counted by the port.  ``waves_per_s`` is
-the slowest rank's synchronized host time of the timed run, after a
-warm-up run.
+``kernel_ops``, the ``wire_bytes_per_wave`` fields) plus
+``device_name``; ``coll_bytes_per_wave`` is what this rank handed to
+``all_to_all_single`` per exchange step, counted by the port's
+``Exchange`` (a pipelined run's ``n_waves + 3`` steps, as the JAX
+benchmark divides).  ``waves_per_s`` is the
+slowest rank's synchronized host time of the timed run, after a warm-up
+run.
 
-Then the open-loop row family (``mode: "open_loop"``): the same routed
-wave behind each rank's admission ring (core/distributed.run_open_loop)
-for OCC and MVCC at both granularities, a queue of 4 x the rank's lanes,
-8 incarnations, 32 time-to-commit bins, Poisson arrivals at 0.75 x the
-global lanes a wave split over the ranks
-(``PoissonArrivals.shard_counts``, seed 7) and the JAX benchmark's fresh
-candidates per wave (numpy, seed 5000 + wave).  Rows add
-``goodput_txn_per_s`` (commits over the run's host seconds, the
+Then the open-loop row family (``mode: "open_loop"``), at the effective
+depth of ``--pipeline-depth``: the same routed wave behind each rank's
+admission ring (core/distributed.run_open_loop) for OCC and MVCC at both
+granularities, a queue of 4 x the rank's lanes, 8 incarnations, 32
+time-to-commit bins, Poisson arrivals at 0.75 x the global lanes a wave
+split over the ranks (``PoissonArrivals.shard_counts``, seed 7) and the
+JAX benchmark's fresh candidates per wave (numpy, seed 5000 + wave).
+Rows add ``goodput_txn_per_s`` (commits over the run's host seconds, the
 candidates' generation included, as in the JAX benchmark), p50/p99
 time-to-commit in waves from the ranks' summed histograms and the
-admission counters.  Every row runs pipeline depth 1 (the software
-pipeline, ROADMAP A.11, is not ported) and its ``pipeline_depth`` says
-so.  ``--device`` defaults to CUDA (one card per rank, NCCL);
-``cpu`` runs the plain versions over gloo.
+admission counters.  ``--device`` defaults to CUDA (one card per rank,
+NCCL); ``cpu`` runs the plain versions over gloo.
 """
 from __future__ import annotations
 
@@ -45,8 +48,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-#: The JAX benchmark's sizes: global lanes, slots, records.
+#: The JAX benchmark's sizes: global lanes, slots, records, and the
+#: pipeline depth of its second sweep.
 GLOBAL_LANES, SLOTS, N_KEYS = 256, 16, 1_000_000
+PIPELINE_DEPTH = 2
 WARMUP_WAVES = 3
 
 
@@ -110,17 +115,34 @@ def draws(waves: int, lanes: int, slots: int, n_keys: int, rank: int,
             torch.from_numpy(np.ascontiguousarray(prio[:, mine])).to(dev))
 
 
+def depths(ns: int, depth: int) -> list:
+    """The effective pipeline depths {1, ``depth``} on ``ns`` shards,
+    deduplicated (one shard runs depth 1 only)."""
+    from repro_torch.core.distributed import DistConfig
+    return sorted({DistConfig(n_records=1, pipeline_depth=d).depth(ns)
+                   for d in (1, depth)})
+
+
+def _steps(cfg, ns: int, waves: int) -> int:
+    """Exchange steps of a run: a pipelined run adds three drain steps, so
+    bytes per step are the steady-state wave's, as the JAX benchmark
+    divides them."""
+    return waves + (3 if cfg.depth(ns) >= 2 else 0)
+
+
 def sharded_row(cc: str, shards, waves: int, lanes: int, slots: int,
-                n_keys: int) -> dict:
-    """One sharded run of ``cc`` on every rank of the group; every rank
-    returns the row (counts summed over ranks)."""
+                n_keys: int, depth: int = 1) -> dict:
+    """One sharded run of ``cc`` at pipeline depth ``depth`` on every rank
+    of the group; every rank returns the row (counts summed over
+    ranks)."""
     from repro_torch import kernels
     from repro_torch.core import distributed as D
     from repro_torch.core.backend import dist_kernel_coverage
     dev, ns = shards.device, shards.size
     cfg = D.DistConfig(n_records=n_keys, n_groups=2,
                        lanes_per_shard=lanes // ns, slots=slots, cc=cc,
-                       mv_depth=4 if cc != "occ" else 0)
+                       mv_depth=4 if cc != "occ" else 0,
+                       pipeline_depth=depth)
     keys, groups, kinds, prio = draws(waves, lanes, slots, n_keys,
                                       shards.rank, ns, dev)
     n = min(WARMUP_WAVES, waves)
@@ -145,7 +167,8 @@ def sharded_row(cc: str, shards, waves: int, lanes: int, slots: int,
             "aborts": s[D.STAT_ABORTS], "waves": waves,
             "waves_per_s": waves / float(slowest),
             "pipeline_depth": cfg.depth(ns),
-            "coll_bytes_per_wave": run.exchange.bytes_sent / waves,
+            "coll_bytes_per_wave": run.exchange.bytes_sent
+            / _steps(cfg, ns, waves),
             "ro_commits": s[D.STAT_RO_COMMITS],
             "ro_aborts": s[D.STAT_RO_ABORTS],
             "abort_causes": s[D.STAT_CAUSES],
@@ -173,9 +196,10 @@ def open_candidates(lanes: int, slots: int, n_keys: int,
 
 
 def open_row(cc: str, gran: int, shards, waves: int, lanes: int,
-             slots: int, n_keys: int) -> dict:
-    """One open-loop run of ``cc`` at granularity ``gran`` on every rank
-    of the group; every rank returns the row."""
+             slots: int, n_keys: int, depth: int = PIPELINE_DEPTH) -> dict:
+    """One open-loop run of ``cc`` at granularity ``gran`` and pipeline
+    depth ``depth`` on every rank of the group; every rank returns the
+    row."""
     from repro_torch import kernels
     from repro_torch.core import distributed as D
     from repro_torch.core.admission import ttc_percentiles
@@ -186,7 +210,7 @@ def open_row(cc: str, gran: int, shards, waves: int, lanes: int,
     cfg = D.DistConfig(n_records=n_keys, n_groups=2, lanes_per_shard=T,
                        slots=slots, granularity=gran, cc=cc,
                        mv_depth=4 if cc != "occ" else 0, queue_cap=4 * T,
-                       max_incarnations=8, lat_bins=32)
+                       max_incarnations=8, lat_bins=32, pipeline_depth=depth)
     gen = open_candidates(lanes, slots, n_keys)
     arrivals = PoissonArrivals(rate=0.75 * lanes, seed=7)
     n = min(WARMUP_WAVES, waves)
@@ -205,7 +229,8 @@ def open_row(cc: str, gran: int, shards, waves: int, lanes: int,
             "granularity": gran, "pipeline_depth": cfg.depth(ns),
             "commits": s["commits"], "aborts": s["aborts"], "waves": waves,
             "waves_per_s": waves / dt,
-            "coll_bytes_per_wave": s["exchange_bytes"] / waves,
+            "coll_bytes_per_wave": s["exchange_bytes"]
+            / _steps(cfg, ns, waves),
             "goodput_txn_per_s": s["commits"] / dt,
             "p50_ttc_waves": p50, "p99_ttc_waves": p99,
             "offered": s["offered"], "admitted": s["admitted"],
@@ -220,9 +245,11 @@ def open_row(cc: str, gran: int, shards, waves: int, lanes: int,
 
 
 def scaling_rows(shards, waves: int = 30, lanes: int = GLOBAL_LANES,
-                 slots: int = SLOTS, n_keys: int = N_KEYS) -> list:
-    """The anchor row (rank 0 only), the sharded OCC and MVCC rows, then
-    the open-loop rows (OCC and MVCC x coarse and fine)."""
+                 slots: int = SLOTS, n_keys: int = N_KEYS,
+                 depth: int = PIPELINE_DEPTH) -> list:
+    """The anchor row (rank 0 only), the sharded OCC and MVCC rows at the
+    effective depths {1, ``depth``}, then the open-loop rows (OCC and MVCC
+    x coarse and fine) at ``depth``."""
     if lanes % shards.size:
         raise ValueError(f"{lanes} global lanes do not split over "
                          f"{shards.size} shards")
@@ -230,11 +257,13 @@ def scaling_rows(shards, waves: int = 30, lanes: int = GLOBAL_LANES,
     if shards.rank == 0:
         rows.append(anchor_row(shards.device, waves, lanes, n_keys))
     for cc in ("occ", "mvcc"):
-        rows.append(sharded_row(cc, shards, waves, lanes, slots, n_keys))
+        for d in depths(shards.size, depth):
+            rows.append(sharded_row(cc, shards, waves, lanes, slots, n_keys,
+                                    d))
     for cc in ("occ", "mvcc"):
         for gran in (0, 1):
             rows.append(open_row(cc, gran, shards, waves, lanes, slots,
-                                 n_keys))
+                                 n_keys, depth))
     return rows
 
 
@@ -245,16 +274,23 @@ def main(argv=None):
     ap.add_argument("--lanes", type=int, default=GLOBAL_LANES,
                     help="global lanes, split evenly over the ranks")
     ap.add_argument("--n-keys", type=int, default=N_KEYS)
+    ap.add_argument("--pipeline-depth", type=int, default=PIPELINE_DEPTH,
+                    help="software-pipeline depth of the second closed "
+                         "row and the open rows (1 keeps every row "
+                         "synchronous; one shard runs depth 1)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cpu runs the plain versions over gloo")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     if args.waves < 1:
         ap.error(f"--waves must be >= 1, got {args.waves}")
+    if args.pipeline_depth < 1:
+        ap.error(f"--pipeline-depth must be >= 1, got "
+                 f"{args.pipeline_depth}")
     shards = init_shards(args.device)
     try:
         rows = scaling_rows(shards, args.waves, args.lanes,
-                            n_keys=args.n_keys)
+                            n_keys=args.n_keys, depth=args.pipeline_depth)
     finally:
         close_shards(shards)
     if shards.rank:
@@ -267,7 +303,8 @@ def main(argv=None):
                   f"ttc={r['p50_ttc_waves']:g}/{r['p99_ttc_waves']:g} "
                   f"waves  dropped={r['inc_drops']} on {r['device_name']}")
             continue
-        print(f"{r['cc']:4s} shards={r['shards']}: "
+        print(f"{r['cc']:4s} shards={r['shards']} "
+              f"depth={r.get('pipeline_depth', 1)}: "
               f"{r['waves_per_s']:8.1f} waves/s  {r['commits']} commits  "
               f"ro={r['ro_commits']}/{r['ro_aborts']}  coll/wave="
               f"{r['coll_bytes_per_wave'] / 1024:.1f} KiB on "

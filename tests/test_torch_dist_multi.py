@@ -61,7 +61,7 @@ JAX_PROG = textwrap.dedent("""
 """)
 
 TORCH_PROG = textwrap.dedent("""
-    import json, sys
+    import dataclasses, json, sys
     import numpy as np, pytest, torch
     from repro_torch.core import convert, distributed as D
     from repro_torch.launch.mesh import close_shards, init_shards
@@ -88,10 +88,18 @@ TORCH_PROG = textwrap.dedent("""
                 out[f"{i}_table_{j}"] = x
             assert wave.exchange.bytes_sent == WAVES * \\
                 D.wire_bytes_per_wave(cfg, sh.size)["wire_bytes_per_wave"]
-        deep = D.DistConfig(n_records=N, lanes_per_shard=T, slots=K,
-                            pipeline_depth=2)
-        with pytest.raises(NotImplementedError, match="pipeline_depth"):
-            D.make_run_fn(deep, WAVES)
+        # Depth 2 on four ranks runs the pipelined runner: the last case's
+        # waves again, WAVES + 3 exchanges, the same commits and stats.
+        deep = dataclasses.replace(cfg, pipeline_depth=2)
+        run = D.make_run_fn(deep, WAVES)
+        c, _, s = run(*(torch.from_numpy(np.ascontiguousarray(
+            data[f"{i}_{f}"][:, mine].astype(np.int32)))
+            for f in ("keys", "groups", "kinds", "prio")),
+            D.init_tables(deep, None, "cpu"))
+        assert run.exchange.calls == WAVES + 3
+        for w in range(WAVES):
+            assert np.array_equal(c[w].numpy(), out[f"{i}_commit_{w}"])
+            assert np.array_equal(s[w].numpy(), out[f"{i}_stats_{w}"])
         with pytest.raises(ValueError, match="one synchronous wave per call"):
             D.make_wave_fn(deep)
     finally:

@@ -9,9 +9,11 @@ same numpy draws (``test_torch_dist_open.gen_fn``) and per-rank arrival
 counts go into both, and the summaries (commits, aborts, the queue's
 counters, the causes), the per-rank stats and the per-rank
 time-to-commit histograms must be bit-identical: OCC fine and MV-OCC
-coarse.  At depth 2 on two ranks ``make_open_run_fn`` and
-``run_open_loop`` raise NotImplementedError naming ROADMAP A.11's
-pipeline, and ``make_open_wave_fn`` refuses it as the JAX package does.
+coarse.  At depth 2 on two ranks ``make_open_run_fn`` gives the
+pipelined runner and ``run_open_loop`` runs it with the conservation
+identities exact, and ``make_open_wave_fn`` refuses it as the JAX
+package does (tests/test_torch_dist_pipeline.py holds depth 2 against
+JAX).
 """
 import json
 import os
@@ -78,14 +80,16 @@ TORCH_PROG = textwrap.dedent("""
                                 "queued_final")] + s["abort_causes"])
             out[f"{i}_lat_hist"] = s["lat_hist"]
             out[f"{i}_per_shard"] = s["per_shard_stats"]
-        deep = D.DistConfig(n_records=96, lanes_per_shard=4, slots=4,
+        deep = D.DistConfig(n_records=96, lanes_per_shard=4, slots=6,
                             queue_cap=8, pipeline_depth=2)
-        with pytest.raises(NotImplementedError, match="A.11"):
-            D.make_open_run_fn(deep, 3)
-        with pytest.raises(NotImplementedError, match="A.11"):
-            D.run_open_loop(deep, np.ones((3, 2)), gen_fn(8, 1), 3,
+        assert D.make_open_run_fn(deep, 3).exchange.calls == 0
+        s = D.run_open_loop(deep, np.full((3, 2), 3), gen_fn(8, 1), 3,
                             device="cpu")
-        with pytest.raises(ValueError, match="one synchronous wave.*A.11"):
+        assert s["admitted"] == (s["commits"] + s["queued_final"]
+                                 + s["inc_drops"]) and s["commits"] > 0
+        assert s["offered"] == s["admitted"] + s["arrival_drops"] == 18
+        with pytest.raises(ValueError, match="one synchronous wave.*"
+                                             "run_open_loop"):
             D.make_open_wave_fn(deep)
     finally:
         close_shards(sh)

@@ -5,7 +5,8 @@ The CLI runs in a subprocess with its own one-rank gloo group; its rows
 carry the JAX benchmark rows' keys, the sharded rows' counts equal JAX
 ``make_run_fn``'s on the same draws (benchmarks/txn_scaling.py's), and
 the open-loop rows' counts JAX ``run_open_loop``'s on the benchmark's
-candidates and arrivals.
+candidates and arrivals; ``--pipeline-depth 2`` adds pipelined rows only
+on more than one rank.
 """
 import json
 import os
@@ -29,7 +30,7 @@ def test_txn_scaling_cli_rows_match_jax(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.txn_scaling", "--device",
          "cpu", "--waves", "2", "--lanes", "32", "--n-keys", "4000",
-         "--json", str(out)],
+         "--pipeline-depth", "2", "--json", str(out)],
         env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")),
         cwd=root, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -83,3 +84,8 @@ def test_txn_scaling_cli_rows_match_jax(tmp_path):
         assert row["pipeline_depth"] == 1
         assert row["admitted"] == (row["commits"] + row["queued_final"]
                                    + row["inc_drops"])
+    # One rank runs depth 1 only (the rows above, deduplicated); more than
+    # one rank adds each mechanism's pipelined closed row.
+    from repro_torch.launch.txn_scaling import depths
+    assert depths(1, 2) == [1] and depths(4, 2) == [1, 2]
+    assert depths(4, 1) == [1] and depths(8, 3) == [1, 3]

@@ -9,8 +9,8 @@ draws over several waves, and the commit masks, every table and all
 ``STATS_LEN`` stats slots must be bit-identical: OCC, MVCC and MV-OCC at
 both granularities, the fused and unfused OCC owner routes, scans
 (intervals of up to 8 records) and capacity drops (``route_cap=8``).  The
-config checks are the JAX package's, and the settings outside the slice
-raise NotImplementedError.
+config checks are the JAX package's, and a (1, 1) axis-wise mesh runs as
+the flat exchange.
 """
 import dataclasses
 
@@ -196,17 +196,32 @@ def test_wave_checks_interval_limits(shards):
 
 
 def test_settings_outside_the_slice_raise(shards):
-    cfg = D.DistConfig(n_records=N, topology="axiswise")
-    with pytest.raises(NotImplementedError, match="axiswise"):
-        D.make_wave_fn(cfg, mesh_shape=(1, 1))
-    D.make_wave_fn(cfg, mesh_shape=(1,))        # one axis: the flat exchange
-    # The open loop is ported (tests/test_torch_dist_open.py holds it);
-    # its pipelined runner raises on more than one rank only.
+    """Every setting is ported: a (1, 1) axis-wise mesh runs, one
+    exchange per axis, as the flat exchange at twice the bytes; a mesh
+    that does not cover the ranks raises; one shard falls back to the
+    synchronous wave at any depth."""
+    cfg = D.DistConfig(n_records=N, lanes_per_shard=T, slots=K,
+                       topology="axiswise")
+    keys, groups, kinds, prio = (torch.from_numpy(a.astype(np.int32))
+                                 for a in draws(4, waves=1)[0])
+    outs = {}
+    for shape in ((1, 1), (1,)):             # one axis: the flat exchange
+        wave = D.make_wave_fn(cfg, mesh_shape=shape)
+        tables = D.init_tables(cfg, None, "cpu")
+        outs[shape] = wave(keys, groups, kinds, prio, tables, 0), wave
+    (c2, t2, s2), axis = outs[(1, 1)]
+    (c1, t1, s1), flat = outs[(1,)]
+    assert torch.equal(c2, c1) and torch.equal(s2, s1)
+    assert all(torch.equal(a, b) for a, b in zip(t2, t1))
+    assert axis.exchange.calls == 2 * flat.exchange.calls == 6
+    assert axis.exchange.bytes_sent == 2 * flat.exchange.bytes_sent == \
+        D.wire_bytes_per_wave(cfg, 1, (1, 1))["wire_bytes_per_wave"]
     open_cfg = D.DistConfig(n_records=N, queue_cap=4, topology="axiswise")
-    with pytest.raises(NotImplementedError, match="axiswise"):
-        D.make_open_wave_fn(open_cfg, mesh_shape=(1, 1))
-    D.make_open_wave_fn(open_cfg, mesh_shape=(1,))
+    D.make_open_wave_fn(open_cfg, mesh_shape=(1, 1))
+    with pytest.raises(ValueError, match="does not cover"):
+        D.make_open_wave_fn(open_cfg, mesh_shape=(2, 1))
     # One shard falls back to the synchronous wave at any depth.
     assert D.DistConfig(n_records=N, pipeline_depth=2).depth(1) == 1
-    D.make_run_fn(D.DistConfig(n_records=N, pipeline_depth=2), 1)
+    assert D.make_run_fn(D.DistConfig(n_records=N, pipeline_depth=2),
+                         1).exchange.calls == 0
 
