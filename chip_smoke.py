@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-Builds the port's twenty CUDA kernels (seventeen sources) from
+Builds the port's twenty-one CUDA kernels (eighteen sources) from
 src/repro_torch/csrc, then:
 
   1. kernels: each kernel against its plain PyTorch version on the card, at
@@ -329,6 +329,34 @@ src/repro_torch/csrc, then:
      two correct evaluations farther apart).  The bf16 plain route also
      decodes its own 32 greedy tokens; how many of each request's tokens
      equal the kernel route's, up to the first difference, is printed.
+     qwen2-7b (the dense family: 28 layers, GQA 32/4 at D 128, causal)
+     the same way: 28 flash_attention launches a prefill.
+ 14. flash_attention's backward (flash_attention_backward, the port's own
+     kernel) and its forward's lse against their plain versions
+     (flash_backward_phase): the training shape (B 1, Hq 32 over Hkv 4,
+     S 4,096, D 128, causal, bf16), recurrentgemma's shape at S 3,072 (D
+     256, window 2,048, GQA 16/1) and FLASH_CASES' decode shape and edges
+     (sq_valid, sk_valid, rows without keys, D 16 and 32, rep 1,
+     float32): dq, dk, dv within relative L2 1e-4 (float32) / 1e-2
+     (bf16), lse within 1e-4 + 1e-5 |lse| and -inf on the same rows, the
+     output with lse equal bit for bit to the one without; the forward
+     with lse and the backward timed at the training shape beside their
+     bounds, the plain backward and SDPA's forward + backward;
+ 15. training (lm_train_path): qwen2-7b at published widths cut to 8
+     layers (bf16, float32 master and moments, n_micro 4, remat), random
+     weights from a seed.  One microbatch's gradients through the kernel
+     and plain routes on the float32 model (loss within rtol 1e-5, every
+     gradient within relative L2 1e-3) and on the bf16 model (every
+     kernel-route gradient at most twice as far from the float32 plain
+     gradients as the bf16 plain route's, + 1e-2); then 2 steps of 4 x
+     4,096 tokens through launch.train.run_supervised, the launch
+     counters set to 0 just before and read just after: flash_attention
+     2 x 8 x 4 a step (forward and remat's recompute), its backward 8 x
+     4, nothing else, nothing on the plain route; step ms, tokens/s, peak
+     GiB and a profiled step; three steps on one repeated batch lower the
+     loss; the smoke config's restart through the kernels (one injected
+     failure; the checkpoint restores bit for bit); recurrentgemma-9b's
+     smoke training raising NotImplementedError (ROADMAP A.12.3b).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -5397,8 +5425,9 @@ LM_KERNEL_META = {
 PEAK_BF16_OPS_PER_S = 989e12
 #: The served models at full width, and their traffic: 4 requests of
 #: 3,072-token prompts (longer than recurrentgemma's 2,048 window and the
-#: JAX kernels' 2,048-step chunk), 32 tokens each.
-LM_ARCHS = ("recurrentgemma-9b", "rwkv6-3b")
+#: JAX kernels' 2,048-step chunk), 32 tokens each.  qwen2-7b (28 layers,
+#: GQA 32/4 at D 128, causal) is the dense family (ROADMAP A.12.1).
+LM_ARCHS = ("recurrentgemma-9b", "rwkv6-3b", "qwen2-7b")
 LM_TRAFFIC = dict(n_requests=4, prompt_len=3072, gen=32)
 #: Relative L2 error allowed between the kernel route's and the plain
 #: route's last-position logits on the card (the float32 model; the bf16
@@ -5956,6 +5985,169 @@ def lm_kernel_phase(dev, seed=21, cases=None):
     return checks, timings
 
 
+#: flash_attention's backward (and its forward's lse) against their plain
+#: versions: the training shape (qwen2-7b's attention at train_4k's
+#: length: Hq 32 over Hkv 4, D 128, causal), recurrentgemma's shape at
+#: S 3,072 (D 256, window 2,048, GQA 16/1), then FLASH_CASES' decode
+#: shape and edges (sq_valid and sk_valid, rows without keys, D 16 and
+#: 32, rep 1, float32).  The first is timed.
+FLASH_BWD_CASES = (
+    ("train-4k", dict(B=1, Hq=32, Hkv=4, Sq=4096, Sk=4096, D=128,
+                      causal=True, window=None), torch.bfloat16),
+    ("rg9b S=3072", dict(B=1, Hq=16, Hkv=1, Sq=3072, Sk=3072, D=256,
+                         causal=True, window=2048), torch.bfloat16),
+) + FLASH_CASES[1:]
+#: Relative L2 allowed between the backward kernel's dq, dk, dv and the
+#: plain version's, by dtype: the same float32 sums in another order, on
+#: float32 or on bfloat16 outputs (one bf16 rounding is 2^-9 of a value).
+FLASH_BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def flash_bwd_work(s, dtype, dev) -> tuple[float, float, float]:
+    """(bytes, operations, peak rate) of one backward call: q, k, v, o,
+    do and lse read once, dq, dk, dv written once; 10 D flops per visible
+    (q, k) pair (S and dP recomputed, dV, dK and dQ), 2.5x the
+    forward's."""
+    n_bytes, ops, rate = flash_work(s, dtype, dev)
+    el = torch.finfo(dtype).bits // 8
+    rows = s["B"] * s["Hq"] * s["Sq"]
+    n_bytes += el * s["D"] * 3 * rows + 4 * rows
+    return n_bytes, 2.5 * ops, rate
+
+
+def _sdpa_train(args, kw, dout):
+    """One PyTorch call of the same function as the forward and backward
+    together: scaled dot-product attention with the same boolean mask,
+    forward and backward through autograd (kv heads repeated first,
+    outside the timing).  A yardstick only; the port never calls it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import attention_mask
+    q, k, v = args
+    rep = q.shape[1] // k.shape[1]
+    q = q.detach().requires_grad_()
+    kk = k.repeat_interleave(rep, 1).detach().requires_grad_()
+    vv = v.repeat_interleave(rep, 1).detach().requires_grad_()
+    Sq, Sk = q.shape[2], k.shape[2]
+    mask = attention_mask(Sq, Sk, causal=kw["causal"], window=kw["window"],
+                          sq_valid=kw["sq_valid"] or Sq,
+                          sk_valid=kw["sk_valid"] or Sk, device=q.device)
+
+    def run():
+        out = F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask)
+        torch.autograd.grad(out, (q, kk, vv), dout)
+    return run
+
+
+def flash_backward_phase(dev, seed=23, cases=None):
+    """flash_attention_backward against flash_attention_backward_plain on
+    the same inputs (q, k, v, the kernel forward's output and lse, and a
+    random dO), dq, dk, dv within FLASH_BWD_RTOL in relative L2, over
+    FLASH_BWD_CASES (``cases`` replaces them: a rehearsal on the CPU at
+    small shapes); and the forward's lse against the plain log-sum-exp
+    (-inf on the same rows, finite ones within 1e-4 + 1e-5 |lse|), its
+    output equal bit for bit to the forward without lse.  The first case
+    is timed: the forward with lse, the backward, the plain backward and
+    SDPA's forward + backward.  Returns (summary, timing row)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_plain,
+        flash_attention_forward, flash_attention_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    worst = {"dq_dk_dv_rel_l2": 0.0, "lse_max_abs_err": 0.0,
+             "max_abs_err": 0.0, "cases": 0}
+    row = None
+    for i, (label, s, dtype) in enumerate(cases or FLASH_BWD_CASES):
+        args, kw = flash_inputs(s, dtype, dev, gen)
+        fkw = dict(kw, scale=None)
+        fwd = flash_attention_forward
+        out, lse = fwd(*args, with_lse=True, **fkw)
+        plain_out, plain_lse = flash_attention_plain(*args, with_lse=True,
+                                                     **kw)
+        if not torch.equal(out, fwd(*args, with_lse=False, **fkw)):
+            raise AssertionError(f"flash_attention {label}: the output "
+                                 f"with lse differs from the one without")
+        if not torch.equal(torch.isinf(lse), torch.isinf(plain_lse)):
+            raise AssertionError(f"flash_attention {label}: lse is -inf on "
+                                 f"other rows than the plain version's")
+        fin = torch.isfinite(plain_lse)
+        lse_err = float((lse[fin] - plain_lse[fin]).abs().max()) \
+            if bool(fin.any()) else 0.0
+        if not bool(((lse[fin] - plain_lse[fin]).abs()
+                     <= 1e-4 + 1e-5 * plain_lse[fin].abs()).all()):
+            raise AssertionError(f"flash_attention {label}: lse off by "
+                                 f"{lse_err}")
+        dout = _randn(out.shape, dev, gen, 1.0, dtype)
+        bargs = (*args, out, lse, dout)
+        got = flash_attention_backward(*bargs, **kw)
+        want = flash_attention_backward_plain(*bargs, **kw)
+        _sync(dev)
+        errs = []
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"{label} {name}: {a.dtype}"
+                                     f"{tuple(a.shape)} vs {b.dtype}"
+                                     f"{tuple(b.shape)}")
+            if not bool(torch.isfinite(a.float()).all()):
+                raise AssertionError(f"{label} {name}: not finite")
+            errs.append(rel_l2(a, b))
+            worst["max_abs_err"] = max(worst["max_abs_err"], float(
+                (a.float() - b.float()).abs().max()) if a.numel() else 0.0)
+        log(f"    flash_attention_backward {label} "
+            f"{str(dtype).split('.')[-1]}: rel L2 dq {errs[0]:.3g} dk "
+            f"{errs[1]:.3g} dv {errs[2]:.3g}; lse max abs err "
+            f"{lse_err:.3g}")
+        if max(errs) > FLASH_BWD_RTOL[dtype]:
+            raise AssertionError(f"flash_attention_backward {label}: "
+                                 f"relative L2 {errs} above "
+                                 f"{FLASH_BWD_RTOL[dtype]}")
+        worst["dq_dk_dv_rel_l2"] = max(worst["dq_dk_dv_rel_l2"], *errs)
+        worst["lse_max_abs_err"] = max(worst["lse_max_abs_err"], lse_err)
+        worst["cases"] += 1
+        if i == 0:
+            fb, fo, rate = flash_work(s, dtype, dev)
+            bb, bo, _ = flash_bwd_work(s, dtype, dev)
+            f_ms = time_ms(lambda: fwd(*args, with_lse=True, **fkw), dev,
+                           n=10, warmup=2)
+            b_ms = time_ms(lambda: flash_attention_backward(*bargs, **kw),
+                           dev, n=10, warmup=2)
+            row = {
+                "ms": b_ms,
+                "plain_ms": time_ms(
+                    lambda: flash_attention_backward_plain(*bargs, **kw),
+                    dev, n=3, warmup=1),
+                "bound": (max(bb / PEAK_BYTES_PER_S, bo / rate) * 1e3,
+                          "bytes" if bb / PEAK_BYTES_PER_S >= bo / rate
+                          else "operations"),
+                "library_ms": time_ms(_sdpa_train(args, kw, dout), dev,
+                                      n=10, warmup=2),
+                "forward_lse_ms": f_ms,
+                "forward_ms": time_ms(
+                    lambda: fwd(*args, with_lse=False, **fkw), dev, n=10,
+                    warmup=2),
+                "forward_bound_ms": max(fb / PEAK_BYTES_PER_S,
+                                        fo / rate) * 1e3,
+                "bytes": bb, "ops": bo,
+                "shape": f"{label} "
+                         + " ".join(f"{k}={v}" for k, v in s.items())
+                         + f" {str(dtype).split('.')[-1]}"}
+            log(f"  flash_attention forward+lse {f_ms:.6f} ms (without "
+                f"lse {row['forward_ms']:.6f} ms), bound "
+                f"{row['forward_bound_ms']:.6f} ms; backward {b_ms:.6f} ms,"
+                f" bound {row['bound'][0]:.6f} ms ({row['bound'][1]}; "
+                f"{bo / 1e9:.2f} Gop, {row['bound'][0] / b_ms:.1%} of the "
+                f"kernel's time); plain backward {row['plain_ms']:.4f} ms; "
+                f"SDPA forward + backward {row['library_ms']:.4f} ms "
+                f"against {f_ms + b_ms:.4f} ms  [{row['shape']}]")
+        del args, out, lse, plain_out, plain_lse, dout, bargs, got, want
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"  flash_attention_backward {worst['cases']} cases vs plain: "
+        f"max rel L2 {worst['dq_dk_dv_rel_l2']:.3g}, max abs err "
+        f"{worst['max_abs_err']:.3g}; lse max abs err "
+        f"{worst['lse_max_abs_err']:.3g}")
+    return worst, row
+
+
 def _lm_profiles(cfg, params, prompt, first, s_cache, n_decode=4):
     """torch.profiler over one prefill and ``n_decode`` decode steps of the
     kernel route: wall and device-busy ms, idle share, device events and
@@ -6179,6 +6371,296 @@ def lm_serve_path(dev, arch, seed=0, smoke=False, **traffic):
     return row, launches
 
 
+#: Training at published widths (ROADMAP A.12.3): qwen2-7b (d 3,584; 28
+#: heads padded to 32 of 128 over 4 kv heads; d_ff 18,944; vocab 152,064;
+#: QKV bias; bf16 parameters, float32 master copy and moments, n_micro 4,
+#: remat), depth cut from 28 to 8 layers: at 20 bytes a parameter (bf16
+#: weight and gradient; float32 master, m, v and accumulator) 28 layers
+#: (7.17 B parameters) need ~143 GB and 8 (2.44 B) ~49 GB, plus the
+#: activations.  4 sequences of 4,096 tokens a step (train_4k's length).
+TRAIN_ARCH = "qwen2-7b"
+TRAIN_LAYERS = 8
+TRAIN_TRAFFIC = dict(batch=4, seq=4096, steps=2)
+#: Relative L2 allowed between the kernel route's and the plain route's
+#: float32 gradients of one microbatch (float32 sums in another order
+#: through 8 layers), and the loss's relative difference.
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_LOSS_RTOL = 1e-5
+
+
+def _grad_errors(a: dict, b: dict) -> dict:
+    """{parameter path: relative L2 of a's gradient against b's}."""
+    from repro_torch.models.common import flatten
+    fb = dict(flatten(b))
+    return {"/".join(map(str, p)): rel_l2(g, fb[p]) for p, g in flatten(a)}
+
+
+def _train_launches(cfg, n_micro, steps=1) -> dict:
+    """The kernel launches of ``steps`` training steps on the card: per
+    attention layer and microbatch flash_attention twice (the forward
+    and remat's recompute) and its backward once; nothing else."""
+    from repro_torch import kernels as K
+    n_attn = cfg.layer_types().count("attn")
+    want = {op: 0 for op in K.WRAPPERS}
+    want["flash_attention"] = steps * n_micro * n_attn * (
+        2 if cfg.remat else 1)
+    want["flash_attention_backward"] = steps * n_micro * n_attn
+    return want
+
+
+def lm_train_path(dev, arch=TRAIN_ARCH, n_layers=TRAIN_LAYERS, seed=0,
+                  smoke=False, **traffic):
+    """The training path at full width (``smoke``: the smoke config, a
+    rehearsal on the CPU, where nothing launches).
+
+    1. Gradients of one microbatch (one sequence) on the float32 model
+       (the bf16 weights cast up) through the kernel route and the plain
+       route (``plain=True``: autograd through the plain versions): the
+       loss within TRAIN_LOSS_RTOL, every parameter's gradient within
+       relative L2 TRAIN_GRAD_RTOL; the kernel route launching
+       flash_attention and its backward, the plain route nothing.  Then
+       the bf16 model's two routes: every bf16 kernel-route gradient at
+       most twice as far from the float32 plain gradient as the bf16
+       plain route's (+ LM_ROUTE_RTOL), lm_serve_path's rule.
+    2. ``steps`` steps through ``launch.train.run_supervised`` with a
+       CheckpointManager in a temp dir (its interval past the run and
+       no final save: a checkpoint of this state, bf16 weights with
+       float32 master, m and v, is 34 GB on disk),
+       launch counters set to 0 just before and read just after:
+       _train_launches exactly.  Step ms, tokens/s and peak GiB; one
+       more step under torch.profiler: device-busy ms, idle share, top
+       kernels.
+    3. Three steps on one repeated batch lower the loss.
+    4. The restart check on the smoke config through the kernels:
+       run_supervised with one injected failure reaches its step, and
+       the last checkpoint restores the final parameters and optimizer
+       state bit for bit (continuation itself is exact only on the CPU:
+       the embedding's backward sums with float atomics on the card).
+    5. A training call on recurrentgemma-9b's smoke config raises
+       NotImplementedError naming ROADMAP A.12.3b.
+    Returns (summary row, launches of step 2's run)."""
+    import gc
+    import tempfile
+    from repro_torch import configs
+    from repro_torch import kernels as K
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import make_batch
+    from repro_torch.ft import FailureInjector
+    from repro_torch.launch.train import TrainRun, run_supervised
+    from repro_torch.launch.wave_profile import profile_device
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import steps
+    from repro_torch.models.common import flatten, tree_map
+    from repro_torch.optim import AdamW
+    traffic = {**TRAIN_TRAFFIC, **traffic}
+    B, S, n_steps = traffic["batch"], traffic["seq"], traffic["steps"]
+    full = configs.get(arch)
+    base = configs.get_smoke(arch) if smoke else full
+    cfg = dataclasses.replace(base, n_layers=min(n_layers, base.n_layers),
+                              n_micro=full.n_micro, remat=True)
+    on_card = dev.type == "cuda"
+    row = {"arch": arch, "layers": cfg.n_layers, "batch": B, "seq": S,
+           "n_micro": cfg.n_micro}
+
+    # 1. Gradients of one microbatch, kernel route against plain route.
+    params = model_mod.init_params(cfg, seed, dev)
+    row["params"] = sum(t.numel() for _, t in flatten(params))
+    log(f"  {arch} x {cfg.n_layers} layers: {row['params'] / 1e9:.3f} B "
+        f"parameters ({cfg.param_dtype}), {B} x {S} tokens a step, "
+        f"n_micro {cfg.n_micro}")
+    one = make_batch(cfg, ShapeSpec("mb", "train", S, 1), 0, device=dev)
+    grads, losses = {}, {}
+    for dt in ("f32", "bf16"):
+        c = dataclasses.replace(cfg, n_micro=1, **(
+            {"param_dtype": "float32"} if dt == "f32" else {}))
+        p = tree_map(lambda t: t.detach().float(), params) \
+            if dt == "f32" else params
+        for route in ("kernel", "plain"):
+            K.reset_launches()
+            loss, g = steps.value_and_grad(p, c, one,
+                                           plain=route == "plain")
+            _sync(dev)
+            got = K.launch_counts()
+            want = (_train_launches(c, 1) if on_card and route ==
+                    "kernel" else {op: 0 for op in K.WRAPPERS})
+            if got != want:
+                raise AssertionError(f"{arch} {dt} {route} route "
+                                     f"launches {got}, want {want}")
+            losses[(dt, route)] = float(loss)
+            grads[(dt, route)] = g
+        if dt == "f32":
+            lk, lp = losses[("f32", "kernel")], losses[("f32", "plain")]
+            if not abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp):
+                raise AssertionError(f"{arch} f32 loss: kernel {lk} vs "
+                                     f"plain {lp}")
+            errs = _grad_errors(grads[("f32", "kernel")],
+                                grads[("f32", "plain")])
+            worst = max(errs, key=errs.get)
+            row["f32_loss"] = (lk, lp)
+            row["f32_grad_rel_l2_max"] = (worst, errs[worst])
+            log(f"  {arch} float32 model: loss kernel {lk:.7f} plain "
+                f"{lp:.7f}; gradients' relative L2, kernel vs plain route: "
+                f"max {errs[worst]:.3g} ({worst}), median "
+                f"{statistics.median(errs.values()):.3g}")
+            if errs[worst] > TRAIN_GRAD_RTOL:
+                raise AssertionError(f"{arch} f32 gradient {worst}: "
+                                     f"relative L2 {errs[worst]}")
+            del grads[("f32", "kernel")], p
+            gc.collect()
+    ek = _grad_errors(grads[("bf16", "kernel")], grads[("f32", "plain")])
+    ep = _grad_errors(grads[("bf16", "plain")], grads[("f32", "plain")])
+    bad = {k: (ek[k], ep[k]) for k in ek
+           if not ek[k] <= 2 * ep[k] + LM_ROUTE_RTOL}
+    worst = max(ek, key=lambda k: ek[k] - 2 * ep[k])
+    row["bf16_loss"] = (losses[("bf16", "kernel")],
+                        losses[("bf16", "plain")])
+    row["bf16_grad_worst"] = (worst, ek[worst], ep[worst])
+    log(f"  {arch} bf16 model: loss kernel {row['bf16_loss'][0]:.5f} plain "
+        f"{row['bf16_loss'][1]:.5f}; gradients' relative L2 to the float32 "
+        f"plain route, kernel route vs plain route: worst {worst} "
+        f"{ek[worst]:.4g} vs {ep[worst]:.4g}; median "
+        f"{statistics.median(ek.values()):.4g} vs "
+        f"{statistics.median(ep.values()):.4g}")
+    if bad:
+        raise AssertionError(f"{arch} bf16 kernel-route gradients more "
+                             f"than twice as far from float32 as the "
+                             f"plain route's: {bad}")
+    del grads, losses, params, one
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 2. Steps through the supervisor.
+    shape = ShapeSpec("train", "train", S, B)
+    opt = AdamW.from_config(cfg, peak_lr=1e-5, total_steps=100,
+                            warmup_steps=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        run = TrainRun(cfg=cfg, optimizer=opt, shape=shape,
+                       ckpt=CheckpointManager(tmp, interval=10 ** 9,
+                                              fingerprint=cfg.name),
+                       log_every=1, device=dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        _sync(dev)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        params, state, run_losses, restarts = run_supervised(
+            run, n_steps, seed=seed, save_final=False)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+        calls = K.call_counts()
+        if os.listdir(tmp):
+            raise AssertionError(f"{arch}: the run wrote a checkpoint")
+    want = (_train_launches(cfg, cfg.n_micro, n_steps) if on_card
+            else {op: 0 for op in K.WRAPPERS})
+    if launches != want:
+        raise AssertionError(f"{arch}: {n_steps} steps launched "
+                             f"{launches}, want {want}")
+    if on_card and calls != launches:
+        raise AssertionError(f"{arch}: wrapper calls {calls} != launches "
+                             f"{launches}: something ran the plain route")
+    if restarts or len(run_losses) != n_steps or not all(
+            math.isfinite(x) for _, x in run_losses):
+        raise AssertionError(f"{arch}: run {run_losses}, {restarts} "
+                             f"restarts")
+    # One more step of the same run, timed alone, then profiled.
+    step_fn = steps.build_train_step(cfg, opt)
+    batch = make_batch(cfg, shape, n_steps, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    params, state, m = step_fn(params, state, batch, n_steps)
+    _sync(dev)
+    step_s = time.perf_counter() - t0
+    row.update({"run_s": wall, "run_losses": run_losses,
+                "step_ms": step_s * 1e3, "tokens_per_s": B * S / step_s,
+                "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                             if on_card else 0.0),
+                "launches": {op: n for op, n in launches.items() if n}})
+    if on_card:
+        row["profile"] = profile_device(
+            lambda: step_fn(params, state, batch, n_steps + 1), 1)
+    log(f"  {arch}: {n_steps} steps through run_supervised in "
+        f"{wall:.3f} s, losses {run_losses}; launches {row['launches']}")
+    log(f"  {arch}: one step {row['step_ms']:.3f} ms, "
+        f"{row['tokens_per_s']:.1f} tokens/s, peak "
+        f"{row['peak_gib']:.3f} GiB (torch.cuda.max_memory_allocated)")
+    pr = row.get("profile")
+    if pr:
+        log(f"  {arch} profiled step: {pr['wall_ms_per_wave_profiled']:.3f}"
+            f" ms wall, {pr['device_busy_ms_per_wave']:.3f} ms device-busy,"
+            f" idle share {pr['device_idle_share']:.4f}, "
+            f"{pr['device_events_per_wave']:.0f} device events; top: "
+            + "; ".join(f"{t['name'][:48]} {t['ms_per_wave']:.3f} ms "
+                        f"x{t['per_wave']:.0f}" for t in pr["top_device"]))
+
+    # 3. Three steps on one repeated batch lower the loss.
+    seen = []
+    for i in range(4):
+        params, state, m = step_fn(params, state, batch, n_steps + 2 + i)
+        seen.append(float(m["loss"]))
+    row["repeated_batch_losses"] = seen
+    log(f"  {arch}: losses on one repeated batch {seen}")
+    if not seen[3] < seen[0]:
+        raise AssertionError(f"{arch}: three steps on one batch did not "
+                             f"lower the loss: {seen}")
+    del params, state, batch, step_fn, m
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 4. Restart: the smoke config through the kernels, one failure.
+    sc = configs.get_smoke(arch)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = CheckpointManager(tmp, interval=2, fingerprint=sc.name)
+        run = TrainRun(cfg=sc, optimizer=AdamW.from_config(
+            sc, total_steps=6, warmup_steps=1),
+            shape=ShapeSpec("t", "train", 64, 4), ckpt=ck,
+            injector=FailureInjector(at_steps=(3,)), log_every=100,
+            device=dev)
+        K.reset_launches()
+        p6, o6, _, restarts = run_supervised(run, 6, seed=seed)
+        got = K.launch_counts()
+        restored, manifest = ck.restore_latest(
+            {"params": p6, "opt": o6})
+        same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            flatten(restored), flatten({"params": p6, "opt": o6})))
+    row["restart"] = {"restarts": restarts, "step": manifest["step"],
+                      "restore_bit_exact": same,
+                      "flash_launches": (got["flash_attention"],
+                                         got["flash_attention_backward"])}
+    log(f"  {sc.name} smoke restart: {restarts} restart, checkpoint at step "
+        f"{manifest['step']}, restore bit for bit {same}; launches "
+        f"{row['restart']['flash_launches']}")
+    if not (restarts == 1 and manifest["step"] == 6 and same):
+        raise AssertionError(f"restart check: {row['restart']}")
+    if on_card and not min(row["restart"]["flash_launches"]) > 0:
+        raise AssertionError("restart check ran no kernel")
+
+    # 5. Hybrid training on the card waits for A.12.3b.
+    if on_card:
+        rc = configs.get_smoke("recurrentgemma-9b")
+        rp = model_mod.init_params(rc, seed, dev)
+        try:
+            steps.value_and_grad(rp, rc, make_batch(
+                rc, ShapeSpec("t", "train", 16, 1), 0, device=dev))
+        except NotImplementedError as e:
+            if "A.12.3b" not in str(e):
+                raise
+            row["hybrid_refused"] = str(e)
+        else:
+            raise AssertionError("hybrid training on the card did not "
+                                 "raise")
+        log(f"  recurrentgemma-9b smoke training on the card: "
+            f"NotImplementedError ({row['hybrid_refused']})")
+        del rp
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return row, launches
+
+
 def ratios(workload, by):
     """Log the paper's orderings: OCC-fine over OCC-coarse and
     TicToc-coarse (quickstart), 2PL over TicToc coarse at T=128 (Fig 3a),
@@ -6346,13 +6828,21 @@ def main(argv=None) -> int:
     phase("LM serving:")
     torch.cuda.empty_cache()
     lm_checks, lm_timings = lm_kernel_phase(dev)
+    phase("flash_attention's backward and lse vs plain versions:")
+    bwd_check, bwd_timing = flash_backward_phase(dev)
     lm_rows, lm_launches = [], {op: 0 for op in K.WRAPPERS}
     for arch in LM_ARCHS:
+        phase(f"LM serving, {arch}:")
         row, launched = lm_serve_path(dev, arch)
         lm_rows.append(row)
         for op, n in launched.items():
             lm_launches[op] += n
     log("lm_serving " + json.dumps(lm_rows))
+    phase(f"LM training, {TRAIN_ARCH} x {TRAIN_LAYERS} layers:")
+    train_row, train_launches = lm_train_path(dev)
+    for op, n in train_launches.items():
+        lm_launches[op] += n
+    log("lm_training " + json.dumps(train_row))
 
     runs = {"tpcc": (l_tpcc, len(tpcc) * WAVES),
             "ycsb": (l_ycsb, len(ycsb) * WAVES),
@@ -6417,6 +6907,23 @@ def main(argv=None) -> int:
             "library_ms": t["library_ms"], "shape": t["shape"],
             "parent_ms": t.get("parent_ms"),
         })
+    kernels.append({
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:88",
+        "launches": lm_launches["flash_attention_backward"],
+        "max_abs_err": bwd_check["max_abs_err"],
+        "max_rel_l2": bwd_check["dq_dk_dv_rel_l2"],
+        "lse_max_abs_err": bwd_check["lse_max_abs_err"],
+        "ms": bwd_timing["ms"], "plain_ms": bwd_timing["plain_ms"],
+        "bound_ms": bwd_timing["bound"][0],
+        "bound_by": bwd_timing["bound"][1],
+        "library_ms": bwd_timing["library_ms"],
+        "forward_lse_ms": bwd_timing["forward_lse_ms"],
+        "forward_ms": bwd_timing["forward_ms"],
+        "forward_bound_ms": bwd_timing["forward_bound_ms"],
+        "shape": bwd_timing["shape"],
+    })
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -181,14 +181,16 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 def _unstack(cfg, stages: list, device) -> list:
     """Per-layer trees from the JAX stacked stages: stage ``si``, key
     ``str(i)``, repeat ``j`` is decoder layer ``offset_si + j *
-    len(pattern) + i``."""
+    len(pattern) + i``.  A 0-d leaf (AdamW's master placeholder of a
+    float32 parameter) is not stacked: every layer gets it."""
     layers = [None] * cfg.n_layers
     offset = 0
     for si, (pattern, n) in enumerate(cfg.stage_split()):
         for i in range(len(pattern)):
             for j in range(n):
                 layers[offset + j * len(pattern) + i] = tree_map(
-                    lambda a: tensor_from_numpy(np.asarray(a)[j], device),
+                    lambda a: tensor_from_numpy(
+                        np.asarray(a)[j] if np.ndim(a) else a, device),
                     stages[si][str(i)])
         offset += n * len(pattern)
     assert all(x is not None for x in layers)
@@ -202,6 +204,14 @@ def lm_params_from_jax(cfg, tree, device="cpu") -> dict:
            for k in ("embed", "final_norm", "head") if k in tree}
     out["layers"] = _unstack(cfg, tree["stages"], device)
     return out
+
+
+def adamw_state_from_jax(cfg, state, device="cpu") -> dict:
+    """The port's AdamW state (``optim/adamw.py``: "m", "v" and, with a
+    master copy, "master", each a tree like the parameters) from the JAX
+    ``AdamW`` state of a model's parameters, as numpy arrays."""
+    return {k: lm_params_from_jax(cfg, tree, device)
+            for k, tree in state.items()}
 
 
 def lm_cache_from_jax(cfg, stages: list, device="cpu") -> list:

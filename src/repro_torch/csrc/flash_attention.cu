@@ -18,6 +18,11 @@
 // cores' 989 TFLOP/s; the bytes (q, k, v read once, out written once,
 // 213 MB) take 0.064 ms.
 //
+// lse (optional, NULL when serving): the float32 log-sum-exp of each
+// row's scaled scores, [B, Hq, Sq], from the running max and sum that
+// both kernels keep (-inf for a row that sees no key); the backward
+// (flash_attention_bwd.cu) recomputes P = exp(s - lse) from it.
+//
 // Two kernels, chosen by dtype:
 //
 // bfloat16 (the served dtype): the tensor cores through wgmma (sm_90a).
@@ -63,6 +68,7 @@
 // with shuffles, and keeps running max, sum and the output rows ty + 16i,
 // columns tx + 16c, in registers.
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include "lm_dtype.cuh"
 #include "wgmma.cuh"
@@ -99,9 +105,10 @@ __device__ __forceinline__ float row_sum(float x) {
 template <typename X, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const X* __restrict__ q, const X* __restrict__ k,
-             const X* __restrict__ v, X* __restrict__ out, int Hq, int Hkv,
-             int Sq, int Sk, int causal, int has_window, int window,
-             float scale, int delta, int sk_valid) {
+             const X* __restrict__ v, X* __restrict__ out,
+             float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
+             int causal, int has_window, int window, float scale, int delta,
+             int sk_valid) {
   constexpr int QS = D + 1;     // padded row strides: conflict-free reads
   constexpr int KS = kBK + 1;
   constexpr int NC = D / 16;    // output columns per thread
@@ -228,13 +235,16 @@ flash_kernel(const X* __restrict__ q, const X* __restrict__ k,
       for (int c = 0; c < NC; ++c) {
         lm::store(o + tx + 16 * c, acc[i][c] / denom);
       }
+      if (lse != nullptr && tx == 0) {
+        lse[bh * Sq + row] = l[i] > 0.f ? m[i] + logf(l[i]) : -CUDART_INF_F;
+      }
     }
   }
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               int B, int Hq, int Hkv, int Sq, int Sk, int causal,
+               float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int causal,
                int has_window, int window, float scale, int delta,
                int sk_valid, cudaStream_t s) {
   constexpr size_t smem = smem_bytes<D>();
@@ -247,8 +257,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + kBQ - 1) / kBQ));
   kern<<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, Sq,
-      Sk, causal, has_window, window, scale, delta, sk_valid);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Hq, Hkv,
+      Sq, Sk, causal, has_window, window, scale, delta, sk_valid);
   return (int)cudaGetLastError();
 }
 
@@ -309,7 +319,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ out,
-                   int Hq, int Hkv, int Sq, int Sk, int causal,
+                   float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
+                   int causal,
                    int has_window, int window, float scale_log2, int delta,
                    int sk_valid) {
   constexpr int DP = kPadded<D>;
@@ -470,9 +481,17 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
   const int row = wq0 + 16 * warp + g;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float sum = quad_sum(l[r]);
+    inv[r] = 1.f / fmaxf(sum, 1e-30f);
+    // m is in log2 units: lse = (m + log2(sum)) ln 2.
+    if (lse != nullptr && t4 == 0 && row + 8 * r < Sq) {
+      lse[bh * Sq + row + 8 * r] =
+          sum > 0.f ? (m[r] + log2f(sum)) * 0.6931471805599453f : -CUDART_INF_F;
+    }
+  }
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
 #pragma unroll
@@ -493,8 +512,9 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int Sq, int Sk, int causal, int has_window,
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int causal,
+           int has_window,
            int window, float scale, int delta, int sk_valid,
            cudaStream_t s) {
   constexpr size_t smem = smem_bytes<D>();
@@ -505,33 +525,39 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + kBQ - 1) / kBQ));
   kern<<<grid, kThreads, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Hq, Hkv, Sq, Sk,
-      causal, has_window, window, scale * 1.4426950408889634f, delta,
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Hq, Hkv, Sq,
+      Sk, causal, has_window, window, scale * 1.4426950408889634f, delta,
       sk_valid);
   return (int)cudaGetLastError();
 }
 
 }  // namespace wg
 
-#define REPRO_FLASH_DISPATCH(FN)                                             \
-  switch (D) {                                                               \
-    case 16: return FN<16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal,         \
-                           has_window, window, scale, delta, sk_valid, s);   \
-    case 32: return FN<32>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal,         \
-                           has_window, window, scale, delta, sk_valid, s);   \
-    case 64: return FN<64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal,         \
-                           has_window, window, scale, delta, sk_valid, s);   \
-    case 128: return FN<128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal,       \
-                             has_window, window, scale, delta, sk_valid, s); \
-    case 256: return FN<256>(q, k, v, out, B, Hq, Hkv, Sq, Sk, causal,       \
-                             has_window, window, scale, delta, sk_valid, s); \
+#define REPRO_FLASH_DISPATCH(FN)                                         \
+  switch (D) {                                                           \
+    case 16: return FN<16>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, causal, \
+                           has_window, window, scale, delta, sk_valid,   \
+                           s);                                           \
+    case 32: return FN<32>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, causal, \
+                           has_window, window, scale, delta, sk_valid,   \
+                           s);                                           \
+    case 64: return FN<64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, causal, \
+                           has_window, window, scale, delta, sk_valid,   \
+                           s);                                           \
+    case 128: return FN<128>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk,       \
+                             causal, has_window, window, scale, delta,   \
+                             sk_valid, s);                               \
+    case 256: return FN<256>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk,       \
+                             causal, has_window, window, scale, delta,   \
+                             sk_valid, s);                               \
   }
 
 }  // namespace
 
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int B, int Hq,
-                                     int Hkv, int Sq, int Sk, int D,
+                                     const void* v, void* out, float* lse,
+                                     int B, int Hq, int Hkv, int Sq, int Sk,
+                                     int D,
                                      int causal, int has_window, int window,
                                      float scale, int sq_valid, int sk_valid,
                                      int dtype, void* stream) {

@@ -10,7 +10,8 @@ nowhere else.
 from repro_torch.kernels.apply_values import apply_values
 from repro_torch.kernels.claim_probe import claim_probe, probe
 from repro_torch.kernels.claim_scatter import claim_scatter
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_backward)
 from repro_torch.kernels.iterate_validate import iterate_validate
 from repro_torch.kernels.mv_gather import mv_gather
 from repro_torch.kernels.mv_install import mv_install
@@ -26,8 +27,9 @@ from repro_torch.kernels.verdict_pack import verdict_pack, verdict_unpack
 from repro_torch.kernels.wave_commit import wave_commit
 
 #: Op -> kernel wrapper: the backend surface's ops, the language models'
-#: (flash_attention, rglru, rwkv6), then the port's own apply_values (the
-#: tracked values' serial replay, which no TPU kernel computes).
+#: (flash_attention, rglru, rwkv6), then the port's own kernels, which no
+#: TPU kernel computes: apply_values (the tracked values' serial replay)
+#: and flash_attention_backward (attention's gradient in training).
 WRAPPERS = {
     "wave_commit": wave_commit,
     "segment_count": segment_count,
@@ -49,6 +51,7 @@ WRAPPERS = {
     "rglru": rglru,
     "rwkv6": rwkv6,
     "apply_values": apply_values,
+    "flash_attention_backward": flash_attention_backward,
 }
 
 

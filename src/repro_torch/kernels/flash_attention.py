@@ -1,4 +1,5 @@
-"""Masked softmax attention: causal, sliding window, GQA, end-aligned.
+"""Masked softmax attention: causal, sliding window, GQA, end-aligned;
+its forward with the row log-sum-exp and its backward.
 
 Replaces the TPU kernel ``flash_attention_pallas``
 (src/repro/kernels/flash_attention.py); the semantics are the JAX oracle
@@ -11,8 +12,8 @@ to it when ``j < sk_valid``, ``j <= pos`` (causal) and
 output is the softmax-weighted sum of v in float32, cast to q's dtype.  A
 row that sees no key gives 0, as the Pallas kernel does.
 
-The model's prefill self-attention (``models/attention._flash``) runs it
-with q already scaled and ``scale=1.0``.
+The model's self-attention (``models/attention._flash``) runs it with q
+already scaled and ``scale=1.0``.
 
 CUDA tensors launch ``csrc/flash_attention.cu``, whose kernel is chosen
 by dtype.  bfloat16: the tensor cores through ``wgmma``, one block of two
@@ -24,6 +25,17 @@ P.V; 193 KB of shared memory at D = 256 (head widths 16 and 32 padded to
 64).  float32: scalar FMAs, one block of 256 threads per 64 query rows.
 Both skip key tiles outside the causal band or the window whole.  CPU
 tensors take ``flash_attention_plain``.
+
+Training: when grad is enabled and q, k or v requires it, ``flash_attention``
+goes through ``FlashAttentionFn``: its forward is the same launch writing
+also the float32 log-sum-exp of each row (``lse`` [B, Hq, Sq], -inf for a
+row that sees no key); its backward is ``flash_attention_backward``, which
+launches ``csrc/flash_attention_bwd.cu`` (a kernel of the port's own: the
+JAX package differentiates its jnp attention and has no backward kernel)
+and on the CPU takes ``flash_attention_backward_plain``.  Both recompute P
+from ``lse``: ``Di = rowsum(dO * O)``, ``dS = P * (dO.V^T - Di)``,
+``dQ = scale dS.K``, ``dK = scale dS^T.Q`` and ``dV = P^T.dO`` summed over
+the query heads of each kv head, all in float32.
 """
 from __future__ import annotations
 
@@ -36,8 +48,10 @@ from repro_torch.kernels import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = {"repro_flash_attention": [_P] * 4 + [_I] * 6 + [_I, _I, _I]
+_SIG = {"repro_flash_attention": [_P] * 5 + [_I] * 6 + [_I, _I, _I]
         + [ctypes.c_float, _I, _I, _I, _P]}
+_BWD_SIG = {"repro_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_I, _I, _I]
+            + [ctypes.c_float, _I, _I, _I, _P]}
 
 NEG_INF = -1e30
 #: Head widths the kernel is compiled for.
@@ -72,9 +86,12 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: Optional[int] = None,
                           scale: Optional[float] = None,
                           sq_valid: Optional[int] = None,
-                          sk_valid: Optional[int] = None) -> torch.Tensor:
+                          sk_valid: Optional[int] = None,
+                          with_lse: bool = False):
     """Plain PyTorch version: ``ref.attention``'s float32 masked softmax
-    over the whole score matrix; rows that see no key give 0."""
+    over the whole score matrix; rows that see no key give 0.
+    ``with_lse`` returns (out, lse float32 [B, Hq, Sq], -inf for a row
+    that sees no key)."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     sq_valid, sk_valid = _valid(Sq, Sk, sq_valid, sk_valid)
@@ -88,23 +105,51 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     mask = attention_mask(Sq, Sk, causal=causal, window=window,
                           sq_valid=sq_valid, sk_valid=sk_valid,
                           device=q.device)
-    logits = torch.where(mask, logits, NEG_INF)
-    p = torch.softmax(logits, dim=-1)
+    p = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
     p = torch.where(mask.any(dim=-1, keepdim=True), p, 0.0)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, torch.logsumexp(torch.where(mask, logits, -torch.inf),
+                                dim=-1)
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None,
-                    scale: Optional[float] = None,
-                    sq_valid: Optional[int] = None,
-                    sk_valid: Optional[int] = None) -> torch.Tensor:
-    """[B, Hq, Sq, D] attention output in q's dtype."""
-    flash_attention.calls += 1
-    kw = dict(causal=causal, window=window, scale=scale, sq_valid=sq_valid,
-              sk_valid=sk_valid)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, **kw)
+def flash_attention_backward_plain(q, k, v, o, lse, do, *,
+                                   causal: bool = True,
+                                   window: Optional[int] = None,
+                                   scale: Optional[float] = None,
+                                   sq_valid: Optional[int] = None,
+                                   sk_valid: Optional[int] = None):
+    """Plain PyTorch version of the backward, by its explicit formulas in
+    float32: P = exp(q.k scale - lse) on visible pairs, Di = rowsum(dO *
+    O), dS = P * (dO.V^T - Di); (dq, dk, dv) in q's dtype, dk and dv
+    summed over the query heads of each kv head."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    sq_valid, sk_valid = _valid(Sq, Sk, sq_valid, sk_valid)
+    rep = Hq // Hkv
+    s = scale if scale is not None else 1.0 / (D ** 0.5)
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    mask = attention_mask(Sq, Sk, causal=causal, window=window,
+                          sq_valid=sq_valid, sk_valid=sk_valid,
+                          device=q.device)
+    logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * s
+    p = torch.where(mask, torch.exp(logits - lse.float()[..., None]), 0.0)
+    di = (dof * of).sum(dim=-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - di)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * s
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * s
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk = dk.reshape(B, Hkv, rep, Sk, D).sum(dim=2)
+    dv = dv.reshape(B, Hkv, rep, Sk, D).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _checked(q, k, v, window, sq_valid, sk_valid):
+    """The launch device and (sq_valid, sk_valid), after the checks that
+    both kernels share."""
     dev = build.launch_device(q)
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -123,24 +168,119 @@ def flash_attention(q, k, v, *, causal: bool = True,
     build.check("q", q, q.dtype, (B, Hq, Sq, D), dev)
     build.check("k", k, q.dtype, (B, Hkv, Sk, D), dev)
     build.check("v", v, q.dtype, (B, Hkv, Sk, D), dev)
+    return dev, sq_valid, sk_valid
+
+
+def flash_attention_forward(q, k, v, *, causal, window, scale, sq_valid,
+                            sk_valid, with_lse: bool):
+    """The forward on q's device: out, or (out, lse) with ``with_lse``.
+    The launch behind ``flash_attention`` and ``FlashAttentionFn``: it
+    counts launches, the op counts calls."""
+    kw = dict(causal=causal, window=window, scale=scale, sq_valid=sq_valid,
+              sk_valid=sk_valid)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, with_lse=with_lse, **kw)
+    dev, sq_valid, sk_valid = _checked(q, k, v, window, sq_valid, sk_valid)
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:
                 raise ValueError(f"flash_attention: {name} must start on a "
                                  f"16-byte boundary (cp.async rows)")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+           if with_lse else None)
     s = scale if scale is not None else 1.0 / (D ** 0.5)
     lib = build.load("flash_attention", _SIG)
     with torch.cuda.device(dev):
         rc = lib.repro_flash_attention(
             build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
-            B, Hq, Hkv, Sq, Sk, D, int(causal), int(window is not None),
-            int(window or 0), ctypes.c_float(s), sq_valid, sk_valid,
-            DTYPE_CODES[q.dtype], build.stream(dev))
+            build.ptr(lse), B, Hq, Hkv, Sq, Sk, D, int(causal),
+            int(window is not None), int(window or 0), ctypes.c_float(s),
+            sq_valid, sk_valid, DTYPE_CODES[q.dtype], build.stream(dev))
     build.raise_on_error("flash_attention", rc)
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` under autograd: the forward saves q, k, v, the
+    output and its row log-sum-exp; the backward is
+    ``flash_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, sq_valid, sk_valid):
+        kw = dict(causal=causal, window=window, scale=scale,
+                  sq_valid=sq_valid, sk_valid=sk_valid)
+        out, lse = flash_attention_forward(q, k, v, with_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse,
+                                              dout.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None,
+                    sq_valid: Optional[int] = None,
+                    sk_valid: Optional[int] = None) -> torch.Tensor:
+    """[B, Hq, Sq, D] attention output in q's dtype; differentiable in q,
+    k and v (``FlashAttentionFn``) when grad is enabled and one of them
+    requires it."""
+    flash_attention.calls += 1
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, scale,
+                                      sq_valid, sk_valid)
+    return flash_attention_forward(q, k, v, causal=causal, window=window,
+                                   scale=scale, sq_valid=sq_valid,
+                                   sk_valid=sk_valid, with_lse=False)
 
 
 flash_attention.launches = 0
 flash_attention.calls = 0
+
+
+def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
+                             window: Optional[int] = None,
+                             scale: Optional[float] = None,
+                             sq_valid: Optional[int] = None,
+                             sk_valid: Optional[int] = None):
+    """(dq, dk, dv) in q's dtype, from the forward's inputs, its output
+    ``o``, its ``lse`` and the output's gradient ``do``."""
+    flash_attention_backward.calls += 1
+    kw = dict(causal=causal, window=window, scale=scale, sq_valid=sq_valid,
+              sk_valid=sk_valid)
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+    dev, sq_valid, sk_valid = _checked(q, k, v, window, sq_valid, sk_valid)
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    build.check("o", o, q.dtype, (B, Hq, Sq, D), dev)
+    build.check("do", do, q.dtype, (B, Hq, Sq, D), dev)
+    build.check("lse", lse, torch.float32, (B, Hq, Sq), dev)
+    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty_like(v))
+    di = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    s = scale if scale is not None else 1.0 / (D ** 0.5)
+    lib = build.load("flash_attention_bwd", _BWD_SIG)
+    with torch.cuda.device(dev):
+        rc = lib.repro_flash_attention_bwd(
+            *(build.ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv, di)),
+            B, Hq, Hkv, Sq, Sk, D, int(causal), int(window is not None),
+            int(window or 0), ctypes.c_float(s), sq_valid, sk_valid,
+            DTYPE_CODES[q.dtype], build.stream(dev))
+    build.raise_on_error("flash_attention_backward", rc)
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+flash_attention_backward.calls = 0

@@ -15,7 +15,10 @@ h_last are bit-identical to ``rglru_plain``; a block of 64 channels streams
 64-step tiles of log_a and x through a three-stage cp.async ring in shared
 memory, computes a and g * x of a whole tile in parallel, walks the two-op
 h chain a thread a channel, and writes h back in coalesced rows.  CPU
-tensors take ``rglru_plain``.
+tensors take ``rglru_plain``, which autograd differentiates.  The kernel
+has no backward yet: a CUDA call under autograd with an input that
+requires grad raises ``NotImplementedError`` (ROADMAP A.12.3b) rather
+than return an h without a gradient.
 """
 from __future__ import annotations
 
@@ -35,13 +38,21 @@ _SIG = {"repro_rglru": [_P] * 5 + [_I] * 4 + [_P]}
 def rglru_plain(log_a: torch.Tensor, x: torch.Tensor,
                 h0: Optional[torch.Tensor] = None):
     """Plain PyTorch version: a float32 loop over t, one multiply and one
-    add per step, as ``ref.rglru``'s scan."""
+    add per step, as ``ref.rglru``'s scan; differentiable (the same
+    operations without ``out=``) when an input requires grad."""
     B, S, D = x.shape
     a = torch.exp(log_a.float())
     gx = torch.sqrt(torch.clamp(1.0 - a * a, min=0.0)) * x.float()
     a, gx = a.transpose(0, 1).contiguous(), gx.transpose(0, 1).contiguous()
     h = (torch.zeros((B, D), dtype=torch.float32, device=x.device)
          if h0 is None else h0.float())
+    if torch.is_grad_enabled() and (log_a.requires_grad or x.requires_grad
+                                    or (h0 is not None and h0.requires_grad)):
+        steps = []                      # under autograd: no out=
+        for t in range(S):
+            h = a[t] * h + gx[t]
+            steps.append(h)
+        return torch.stack(steps).transpose(0, 1).to(x.dtype), h
     hs = torch.empty((S, B, D), dtype=torch.float32, device=x.device)
     for t in range(S):
         h = torch.add(a[t] * h, gx[t], out=hs[t])
@@ -54,6 +65,7 @@ def rglru(log_a: torch.Tensor, x: torch.Tensor,
     rglru.calls += 1
     if x.device.type == "cpu":
         return rglru_plain(log_a, x, h0)
+    build.refuse_grad("rglru", log_a, x, h0)
     dev = build.launch_device(x)
     B, S, D = x.shape
     if x.dtype not in DTYPE_CODES:

@@ -29,7 +29,10 @@ length (``route``):
   one state column in registers.
 
 A failure to build or launch raises; nothing falls back.  CPU tensors
-take ``rwkv6_plain``.
+take ``rwkv6_plain``, which autograd differentiates.  The kernels have no
+backward yet: a CUDA call under autograd with an input that requires
+grad raises ``NotImplementedError`` (ROADMAP A.12.3b) rather than return
+an output without a gradient.
 """
 from __future__ import annotations
 
@@ -86,6 +89,7 @@ def rwkv6(r, k, v, w, u, s0: Optional[torch.Tensor] = None):
     rwkv6.calls += 1
     if r.device.type == "cpu":
         return rwkv6_plain(r, k, v, w, u, s0)
+    build.refuse_grad("rwkv6", r, k, v, w, u, s0)
     dev = build.launch_device(r)
     B, H, S, Dk = r.shape
     Dv = v.shape[-1]

@@ -6,12 +6,17 @@ Parameters are plain dicts of tensors: {"embed": {"tok"},
 "layers": [one dict per decoder layer], "final_norm"[, "head"]}.  Layers
 run as a Python loop in ``cfg.layer_types()`` order; the JAX package
 scans stacked stages instead, and ``core/convert.lm_params_from_jax``
-unstacks them.  Experts, an encoder (with learned positions) and a patch
+unstacks them.  In training (``ctx.mode == "train"`` with grad enabled)
+and with ``cfg.remat``, each layer runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are
+recomputed in the backward pass, as JAX ``jax.checkpoint``s each scan
+body.  Experts, an encoder (with learned positions) and a patch
 prefix raise ``NotImplementedError`` (ROADMAP A.12).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks
 from repro_torch.models.attention import ModelCtx
@@ -77,6 +82,10 @@ def logits_fn(params, cfg, x):
     return x @ table.T
 
 
+def _layer_train(p, x, ltype, cfg, ctx):
+    return blocks.apply_layer(p, x, ltype, cfg, ctx)[0]
+
+
 def forward(params, cfg, ctx: ModelCtx, tokens, *, cache=None,
             last: bool = False):
     """train/prefill: tokens [B, S]; decode: tokens [B, 1] with ``cache``
@@ -86,7 +95,13 @@ def forward(params, cfg, ctx: ModelCtx, tokens, *, cache=None,
     check_slice(cfg)
     x = _embed(params, cfg, tokens)
     new_cache = None if cache is None else []
+    remat = (ctx.mode == "train" and cfg.remat and cache is None
+             and torch.is_grad_enabled())
     for i, t in enumerate(cfg.layer_types()):
+        if remat:
+            x = checkpoint(_layer_train, params["layers"][i], x, t, cfg, ctx,
+                           use_reentrant=False)
+            continue
         x, c = blocks.apply_layer(params["layers"][i], x, t, cfg, ctx,
                                   cache=None if cache is None else cache[i])
         if new_cache is not None:

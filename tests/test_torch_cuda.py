@@ -568,3 +568,36 @@ def test_tracking_and_the_timeline_on_the_card(tmp_path):
     assert waves == 4 * (2 * len(chip_smoke.OBS_CONFIGS) + 4)
     assert launches["commit_install"] > 0
     chip_smoke.cross_device_observability(_cuda(), waves=3, scale=0.01)
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_matches_its_plain_version():
+    """The backward kernel and the forward's lse against their plain
+    versions at small shapes: causal GQA, a window with sk_valid, rows
+    without keys, D 16 and 256, float32 and bf16."""
+    cases = (
+        ("gqa causal", dict(B=1, Hq=8, Hkv=2, Sq=200, Sk=200, D=128,
+                            causal=True, window=None), torch.bfloat16),
+        ("window sk_valid", dict(B=2, Hq=4, Hkv=1, Sq=90, Sk=130, D=64,
+                                 causal=True, window=40, sk_valid=120),
+         torch.float32),
+        ("rows without keys", dict(B=1, Hq=4, Hkv=1, Sq=70, Sk=130, D=32,
+                                   causal=True, window=None, sq_valid=60,
+                                   sk_valid=40), torch.bfloat16),
+        ("D16", dict(B=1, Hq=2, Hkv=2, Sq=45, Sk=45, D=16, causal=False,
+                     window=None), torch.float32),
+        ("D256 rep16", dict(B=1, Hq=16, Hkv=1, Sq=100, Sk=100, D=256,
+                            causal=True, window=50), torch.bfloat16),
+    )
+    worst, row = chip_smoke.flash_backward_phase(_cuda(), cases=cases)
+    assert worst["cases"] == len(cases) and row["ms"] > 0
+
+
+@pytest.mark.cuda
+def test_training_path_on_card():
+    """The training path on qwen2-7b's smoke config: gradient gates,
+    run_supervised's launch counts, the restart, the hybrid refusal."""
+    row, launches = chip_smoke.lm_train_path(_cuda(), smoke=True, batch=4,
+                                             seq=64)
+    assert launches["flash_attention_backward"] > 0
+    assert row["restart"]["restore_bit_exact"]

@@ -1,0 +1,15 @@
+"""The port's training step against the JAX package's on the smoke
+configuration of qwen2-7b (the dense family: GQA 4/2, QKV bias): the
+loss and every gradient, and remat on = remat off, bit for bit. The
+checks and their tolerances are in tests/train_harness.py."""
+import train_harness as th
+
+ARCH = "qwen2-7b"
+
+
+def test_loss_and_grads_match_jax():
+    th.check_loss_and_grads(ARCH)
+
+
+def test_remat_gives_the_same_bits():
+    th.check_remat(ARCH)
