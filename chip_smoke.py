@@ -120,15 +120,6 @@ src/repro_torch/csrc, then:
      without the words.
      Every wave kernel reads the wave (and the ring stamps derived from
      it) from device memory; a case's int wave is copied there once.
-     With --parent DIR the parent's builds of the wave kernels (the wave
-     by value: wave_commit, claim_probe on one and two tables,
-     validate's install form with the ring, validate_dual and its
-     install form, claim_scatter, iterate_validate and its bump form,
-     mv_gather, mv_install), its full-row verdict_pack and
-     verdict_unpack (alone and in the sharded verdict chains) and
-     ts_gather (the parent's one-table launch twice and the torch
-     arithmetic) are timed beside this checkout's kernels on the same
-     inputs, built from the sources of the commit unpacked in DIR.
      apply_values, the port's own kernel (the tracked values' serial
      replay; no TPU kernel), against its plain replay, bit for bit, at
      TPC-C's shape (T 128, K 64, N 2,450,808, C 4) and YCSB's (K 16, N
@@ -339,9 +330,15 @@ src/repro_torch/csrc, then:
      (sq_valid, sk_valid, rows without keys, D 16 and 32, rep 1,
      float32): dq, dk, dv within relative L2 1e-4 (float32) / 1e-2
      (bf16), lse within 1e-4 + 1e-5 |lse| and -inf on the same rows, the
-     output with lse equal bit for bit to the one without; the forward
-     with lse and the backward timed at the training shape beside their
-     bounds, the plain backward and SDPA's forward + backward;
+     output with lse equal bit for bit to the one without; bf16 edges of
+     the tensor-core backward (D 128 GQA 8 with a window of 100 at 300
+     rows, Sq 100 < Sk 260 with sk_valid 230, D 64 rep 1 not causal, D 16
+     with rows that see no key); two calls give the same bits.  The
+     forward with lse and the backward timed at the training shape beside
+     their bounds, the plain backward, SDPA's forward + backward with the
+     same boolean mask and with is_causal and enable_gqa, the per-launch
+     split (delta, dkdv, the rep sum, dq) from the profiler and, with
+     --parent, the parent's build of the backward on the same inputs;
  15. training (lm_train_path): qwen2-7b at published widths cut to 8
      layers (bf16, float32 master and moments, n_micro 4, remat), random
      weights from a seed.  One microbatch's gradients through the kernel
@@ -2049,7 +2046,7 @@ def apply_values_checks(check, dev, shapes=APPLY_TIMED, seed=101):
     return timings
 
 
-def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None,
+def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES,
                  apply_shapes=APPLY_TIMED):
     """Compare every kernel with its plain version over every flag
     combination at ``shapes``, and the sharded wave's kernels at its
@@ -2316,28 +2313,16 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None,
                 library_ms=None,
                 bound=bound_ms(n * (4 + 4 + 4) + probed * 4, n)),
         }
-        if parent:
-            # The parent's build of the same calls, the wave by value.
-            t["wave_commit"]["parent_ms"] = time_ms(
-                lambda: parent["wave_commit"](
-                    cw, None, wt, keys, groups, prio, do_w, None, check_w,
-                    None, None, None, wave, True, False, True), dev)
-            t["claim_scatter"]["parent_ms"] = time_ms(
-                lambda: parent["claim_scatter"](cw, keys, groups, prio, wave,
-                                                do_w), dev)
-            t["validate_dual_check"]["parent_ms"] = time_ms(
-                lambda: parent["validate_dual"](cw, keys, groups, prio,
-                                                check_w, wave), dev)
         t.update(scan_mv_timings(label, dev, N, G, T, Kk, keys, groups,
-                                 prio, do_w, wave, parent))
+                                 prio, do_w, wave))
         t.update(validate_install_timings(label, dev, N, G, T, Kk, keys,
-                                          groups, prio, masks, wave, parent))
+                                          groups, prio, masks, wave))
         t.update(tictoc_probe_timings(label, dev, N, G, T, Kk, keys, groups,
-                                      prio, masks, wave, parent))
+                                      prio, masks, wave))
         t.update(gather_fold_timings(label, dev, N, G, T, Kk, keys, groups,
-                                     prio, masks, wave, parent))
+                                     prio, masks, wave))
         t.update(dual_install_timings(label, dev, N, G, T, Kk, keys, groups,
-                                      prio, masks, wave, parent))
+                                      prio, masks, wave))
         timings[label] = t
     timings["seg"] = segment_count_case_checks(checks["segment_count"],
                                                dev)
@@ -2355,11 +2340,11 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None,
     dist_kernel_checks(checks, dev, dist_lanes)
     verdict_fold_case_checks(checks, dev)
     route_pack_case_checks(checks["route_pack"], dev)
-    timings["dist"] = dist_kernel_timings(dev, dist_lanes, parent=parent)
+    timings["dist"] = dist_kernel_timings(dev, dist_lanes)
     # The fold timings' tables at YCSB's 10M records on the card; a CPU
     # rehearsal takes 2**16 (its times are no device metric).
     timings["dist"].update(verdict_fold_timings(
-        dev, parent, dist_lanes, N=YCSB_N if dev.type == "cuda" else 1 << 16))
+        dev, dist_lanes, N=YCSB_N if dev.type == "cuda" else 1 << 16))
     timings.setdefault("tpcc", {}).update(apply_values_checks(
         checks["apply_values"], dev, apply_shapes))
     for label, t in timings.items():
@@ -2377,10 +2362,7 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES, parent=None,
                 + (f"  the chain it replaces {r['chain_ms']:.6f} ms"
                    if "chain_ms" in r else "")
                 + (f"  split launches {r['split_ms']:.6f} ms"
-                   if "split_ms" in r else "")
-                + (f"  parent kernel {r['parent_ms']:.6f} ms "
-                   f"({r['parent_ms'] / r['ms']:.2f}x this one)"
-                   if "parent_ms" in r else ""))
+                   if "split_ms" in r else ""))
     for c in checks.values():
         log(f"  {c.name:15s} {c.cases} cases vs plain: equal={c.equal} "
             f"max_abs_err={c.max_err}")
@@ -2565,12 +2547,10 @@ def _covered_rows(keys, ext, check, N, B, span):
     return int(torch.unique(row[on]).numel())
 
 
-def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
-                    parent=None):
+def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave):
     """Times of iterate_validate, mv_gather and mv_install on one wave of
     the scan path: the scan-configured workload's draw at the main shapes,
-    else the synthetic ops; with ``parent`` (see parent_kernels) the
-    parent build of mv_gather too.  Returns {name: timing dict}."""
+    else the synthetic ops.  Returns {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.kernels.iterate_validate import (iterate_validate_plain,
                                                       scan_span)
@@ -2604,16 +2584,15 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
     rows_scanned = _covered_rows(keys, ext, scan, N, 8, span)
     rows_live = _distinct_rows(keys, torch.ones_like(do_w), N)
     rows_written = _distinct_rows(keys, do_w, N)
-    # Each call stamps above the last, as successive waves do: this build
-    # reads its stamp from device memory (a 0-d view of one arange, made
-    # before the timed calls), the parent's took it by value.
+    # Each call stamps above the last, as successive waves do, reading its
+    # stamp from device memory (a 0-d view of one arange, made before the
+    # timed calls).
     stamps = torch.arange(101, 101 + 4096, dtype=torch.int64, device=dev)
     ts = [100]
 
-    def install(fn, on_device=True):
+    def install(fn):
         ts[0] += 1
-        fn(begin, head, keys, groups, do_w,
-           stamps[ts[0] - 101] if on_device else ts[0])
+        fn(begin, head, keys, groups, do_w, stamps[ts[0] - 101])
     log(f"  {label:5s} scan wave: {int(scan.sum())} scans over "
         f"{rows_scanned} rows (coarse span {span}), {rows_written} written "
         f"records")
@@ -2650,17 +2629,10 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
             bound=bound_ms(n * (4 + 4 + 1) + rows_written * (8 + 2 * G * 4),
                            n)),
     }
-    if parent:
-        out["iterate_validate"]["parent_ms"] = time_ms(
-            lambda: parent["iterate_validate"](*scan_args), dev)
-        out["mv_gather"]["parent_ms"] = time_ms(
-            lambda: parent["mv_gather"](begin, keys, groups, 7, True), dev)
-        out["mv_install"]["parent_ms"] = time_ms(
-            lambda: install(parent["mv_install"], on_device=False), dev)
     # The bump form on the same wave: the point conflicts of its reads
     # (their check on the post-install table), its writes bump; beside the
     # chain it replaces (the phantom launch, the OR, any, NOT and mask, and
-    # commit_install) on this build, and the parent's bump form.
+    # commit_install) on this build.
     from repro_torch.kernels.occ_validate import validate_plain
     point = validate_plain(table, keys, groups, prio, reads, wave, False)
     wts = make_tables(N, G, wave, dev, 6)[2]
@@ -2688,22 +2660,18 @@ def scan_mv_timings(label, dev, N, G, T, Kk, keys, groups, prio, do_w, wave,
                f"B=8 span {span}"),
         point=int(point.sum()), committed=int(commit.sum()),
         bumped_cells=bumps)
-    if parent:
-        out["iterate_validate_bump"]["parent_ms"] = time_ms(
-            lambda: parent["iterate_validate"](*scan_args, **bump), dev)
     return out
 
 
 def dual_install_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
-                         wave, parent=None):
+                         wave):
     """Times of validate_dual's install form (AutoGran's write-claim
     install and both verdicts in one cooperative launch) on an AutoGran
     wave of the main path's workload at the main shapes (else the
     synthetic ops: installs at do_w, checks at check_w), beside the chain
     it replaces (two [T, K] copies of the lane priority, claim_scatter and
-    validate_dual: ``chain_ms`` on this build) and the parent's install
-    form (``parent_ms``).  Every call installs into the same table (min
-    is idempotent).  Returns {name: timing dict}."""
+    validate_dual: ``chain_ms`` on this build).  Every call installs into
+    the same table (min is idempotent).  Returns {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.kernels.occ_validate import validate_dual_plain
     from repro_torch.launch.txn_bench import make_workload
@@ -2750,9 +2718,6 @@ def dual_install_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
               "verdicts"),
         shape=f"{label} AutoGran wave, T={T} K={Kk} N={N} G={G}",
         installed=int(inst.sum()), checked=int(check.sum()))}
-    if parent:
-        out["validate_dual"]["parent_ms"] = time_ms(
-            lambda: parent["validate_dual"](*args, install=inst), dev)
     return out
 
 
@@ -2764,7 +2729,7 @@ MV_KW = {"tpcc": dict(scale=1.0),
 
 
 def validate_install_timings(label, dev, N, G, T, Kk, keys, groups, prio,
-                             masks, wave, parent=None):
+                             masks, wave):
     """Times of validate with the wave's claim installs and ring read, on
     the masks the multi-version waves build: one launch (MV-OCC's masks:
     every write installs into claim_w and plain writes into claim_r; plain
@@ -2772,8 +2737,8 @@ def validate_install_timings(label, dev, N, G, T, Kk, keys, groups, prio,
     ADDs on claim_r; MVCC's without the reads; every op reads the ring at
     the wave's snapshot), beside the same call without the ring
     (``noring_ms``), this build's install form and mv_gather (the launches
-    the waves made before, ``split_ms``) and, with ``parent``, the
-    parent's same launch.  The multi-version workload's draw at the
+    the waves made before, ``split_ms``).  The multi-version workload's
+    draw at the
     main shapes, else the synthetic ops; every call installs into the
     same tables (min is idempotent, so each call sees the tables of the
     first).  Returns {name: timing dict}."""
@@ -2844,10 +2809,6 @@ def validate_install_timings(label, dev, N, G, T, Kk, keys, groups, prio,
                    f"fine"),
             installed=[int(do_w.sum()), int(pw.sum())],
             checked=[int(check_w.sum()), int(ad.sum())])
-        if parent:
-            out[name]["parent_ms"] = time_ms(
-                lambda args=args, inst=inst: parent["validate_install"](
-                    *args, **inst, **ring_kw), dev)
     log(f"  {label:5s} MV wave masks: {int(do_w.sum())} writes, "
         f"{int(pw.sum())} plain writes, {int(ad.sum())} ADDs, "
         f"{int(reads.sum())} update-transaction point reads")
@@ -2855,7 +2816,7 @@ def validate_install_timings(label, dev, N, G, T, Kk, keys, groups, prio,
 
 
 def tictoc_probe_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
-                         wave, parent=None):
+                         wave):
     """Times of two folded forms on the synthetic wave: TicToc's three
     installs as one ts_install_max launch (the stamps computed in the
     kernel from commit_ts and the chain counts; committed writes at do_w,
@@ -2865,8 +2826,8 @@ def tictoc_probe_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
     stamps (``split_ms``); claim_probe on one table (one cooperative
     launch); claim_probe on two tables (``claim_probe_pair``: writer
     claims at do_w, reader claims at do_r) beside this build's one-table
-    launch twice (``split_ms``); with ``parent`` the parent's claim_probe
-    on the same calls.  Every timed claim call installs into the same
+    launch twice (``split_ms``).  Every timed claim call installs into the
+    same
     tables (min is idempotent), every ts call into the same (max is).
     Returns {name: timing dict}."""
     from repro_torch import kernels as K
@@ -2956,12 +2917,6 @@ def tictoc_probe_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
                        + (_distinct(keys, groups, do_w, G, N)
                           + _distinct(keys, groups, do_r, G, N)) * 4, 4 * n),
         shape=f"{label} two tables, T={T} K={Kk} N={N} G={G}, fine")
-    if parent:
-        one["parent_ms"] = time_ms(lambda: parent["claim_probe"](
-            cw, keys, groups, prio, wave, do_w, True), dev)
-        pair["parent_ms"] = time_ms(lambda: parent["claim_probe"](
-            cw, keys, groups, prio, wave, do_w, True, claim_r=cr,
-            mask_r=do_r), dev)
     out["claim_probe"] = one
     out["claim_probe_pair"] = pair
     return out
@@ -2973,14 +2928,13 @@ MAIN_KW = {"tpcc": dict(scale=1.0),
 
 
 def gather_fold_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
-                        wave, parent=None):
+                        wave):
     """Times of the gather folds: TicToc's observation (ts_gather's TicToc
     form: both tables to commit_ts and ext_need in one launch), fine and
     coarse (``ts_gather_coarse``), on a TicToc wave of the main path's
     workload at the main shapes (else the synthetic ops: reads at do_r,
     writes at do_w), beside this build's one-table ts_gather twice and
-    TicToc's torch arithmetic (what the wave ran before, ``split_ms``)
-    and the parent's gathers with the same arithmetic (``parent_ms``).
+    TicToc's torch arithmetic (what the wave ran before, ``split_ms``).
     Returns {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.kernels.ts_gather import tictoc_observe_plain
@@ -3028,10 +2982,6 @@ def gather_fold_timings(label, dev, N, G, T, Kk, keys, groups, prio, masks,
             shape=(f"{label} TicToc wave, T={T} K={Kk} N={N} G={G}, "
                    f"{'fine' if fine else 'coarse'}"),
             ops=[int(rd.sum()), int(wr.sum())])
-        if parent:
-            out[name]["parent_ms"] = time_ms(
-                lambda a=gargs: tictoc_observe_plain(
-                    *a, **obs, gather=parent["ts_gather"]), dev)
 
     return out
 
@@ -3151,13 +3101,10 @@ def dist_kernel_checks(checks, dev, lanes=DIST_LANES, slots=16):
         torch.cuda.synchronize(dev)
 
 
-def dist_kernel_timings(dev, lanes=DIST_LANES, slots=16, wave=9,
-                        parent=None):
+def dist_kernel_timings(dev, lanes=DIST_LANES, slots=16, wave=9):
     """Times of the sharded wave's kernels at the one-card shapes (one
     destination, M = lanes x slots ops, cap 16,384), and of wave_commit on
-    that one wide row; with ``parent`` the parent's full-row verdict_pack
-    and verdict_unpack on the same inputs (``parent_ms``).  Returns
-    {name: timing dict}."""
+    that one wide row.  Returns {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.core.distributed import LANE_FILL, META_FILL, NO_OP
     from repro_torch.kernels.route_pack import route_pack_plain
@@ -3224,11 +3171,6 @@ def dist_kernel_timings(dev, lanes=DIST_LANES, slots=16, wave=9,
             library_ms=None, bound=bound_ms(wave_bytes, 10 * cap),
             shape=f"[1, {cap}]"),
     }
-    if parent:
-        out["verdict_pack"]["parent_ms"] = time_ms(
-            lambda: parent["verdict_pack"](v), dev)
-        out["verdict_unpack"]["parent_ms"] = time_ms(
-            lambda: parent["verdict_unpack"](words, cap), dev)
     return out
 
 
@@ -3513,8 +3455,7 @@ def _mv_verdicts(wprio, rprio, ok, prio, is_w, is_pw, is_r, is_rp):
     return uncond.to(torch.int8) | (rdval.to(torch.int8) << 1)
 
 
-def verdict_fold_timings(dev, parent=None, lanes=DIST_LANES, slots=16,
-                         N=YCSB_N):
+def verdict_fold_timings(dev, lanes=DIST_LANES, slots=16, N=YCSB_N):
     """Times of the folded verdict forms at the one-card sharded shapes
     (one row of cap 16,384 ops, 32,768 with scans, on YCSB's 10M records;
     the sender's lanes x slots ops): each form (``ms``) beside the chain
@@ -3522,10 +3463,8 @@ def verdict_fold_timings(dev, parent=None, lanes=DIST_LANES, slots=16,
     claim with the ring, the answer-form claim, mv_gather, the verdict
     bits and the pack), the claim and install launches beside the same
     call without the words (``nowords_ms``; the two-table claim with the
-    ring beside the answer form without the ring, ``noring_ms``), and
-    with ``parent`` the chain on the parent's verdict_pack /
-    verdict_unpack launches (``parent_ms``).  Returns {form: timing
-    dict}."""
+    ring beside the answer form without the ring, ``noring_ms``).
+    Returns {form: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.kernels.claim_probe import claim_probe_verdict_plain
     from repro_torch.kernels.iterate_validate import (iterate_validate_plain,
@@ -3564,17 +3503,11 @@ def verdict_fold_timings(dev, parent=None, lanes=DIST_LANES, slots=16,
                             scan_span(FOLD_EXT_CAP, False, 8))
     unpack_fns = {"": K.verdict_unpack}
     pack_fns = {"": K.verdict_pack}
-    if parent:
-        unpack_fns["parent"] = parent["verdict_unpack"]
-        pack_fns["parent"] = parent["verdict_pack"]
 
     def chains(fn_of):
-        """chain_ms (this build) and with ``parent`` parent_ms of
-        ``fn_of(key)``, the chain on the pack or unpack of ``key``."""
-        out = {"chain_ms": time_ms(fn_of(""), dev)}
-        if parent:
-            out["parent_ms"] = time_ms(fn_of("parent"), dev)
-        return out
+        """chain_ms of ``fn_of(key)``, the chain on the pack or unpack of
+        ``key``."""
+        return {"chain_ms": time_ms(fn_of(""), dev)}
 
     out = {}
     # Owner, OCC fused: op vectors in (14 B an op), each probed cell read,
@@ -5682,55 +5615,23 @@ def _sync(dev):
 
 
 #: The C entries (repro_<name>) whose parent build ``--parent`` times
-#: beside this checkout's kernels, each with its source (csrc/<source>.cu)
-#: and module (kernels/<source>.py): the wave kernels that read the wave
-#: (and the stamps derived from it) from device memory here and took them
-#: by value in the parent (wave_commit, claim_probe_coop, the validate
-#: forms, claim_scatter, iterate_validate and its bump form, mv_gather,
-#: mv_install), each timed on the same inputs as this build's; and the
-#: full-row verdict_pack and verdict_unpack and the one-table ts_gather,
-#: whose signatures did not change.
-PARENT_KERNELS = {"verdict_pack": "verdict_pack",
-                  "verdict_unpack": "verdict_pack",
-                  "ts_gather": "ts_gather",
-                  "wave_commit": "wave_commit",
-                  "claim_probe_coop": "claim_probe",
-                  "mv_gather": "mv_gather",
-                  "mv_install": "mv_install",
-                  "validate_install": "occ_validate",
-                  "validate_dual": "occ_validate",
-                  "validate_dual_install": "occ_validate",
-                  "iterate_validate": "iterate_validate",
-                  "iterate_validate_bump": "iterate_validate",
-                  "claim_scatter": "claim_scatter"}
-_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-#: The parent's C signatures of the entries whose signature changed: the
-#: wave's claim tag (int) and the ring stamps (unsigned) by value.  Every
-#: other entry is bound with this checkout's signature.
-PARENT_SIGS = {
-    "wave_commit": [_P] * 15 + [_I] * 8 + [_P],
-    "claim_probe_coop": [_P] * 13 + [_I] * 7 + [_U, _I, _P],
-    "mv_gather": [_P] * 5 + [_I] * 5 + [_U, _P],
-    "mv_install": [_P] * 7 + [_I] * 6 + [_U, _P],
-    "validate_install": [_P] * 12 + [_I] * 6 + [_U, _I, _P],
-    "validate_dual": [_P] * 7 + [_I] * 4 + [_P],
-    "validate_dual_install": [_P] * 8 + [_I] * 5 + [_P],
-    "iterate_validate": [_P] * 8 + [_I] * 10 + [_P],
-    "iterate_validate_bump": [_P] * 10 + [_I] * 8 + [_P],
-    "claim_scatter": [_P] * 5 + [_I] * 4 + [_P]}
+#: beside this checkout's kernels: the kernels the change redesigned, each
+#: with its source (csrc/<source>.cu) and the module and table of its C
+#: signature here, which the parent's must equal.  flash_attention's
+#: backward: the parent's scalar kernels (its scratch is Di alone), timed
+#: by flash_backward_phase.
+PARENT_KERNELS = {"flash_attention_bwd": ("flash_attention_bwd",
+                                          "flash_attention", "_BWD_SIG")}
 
 
 def parent_kernels(parent_root: str) -> dict:
-    """{name: fn(*inputs)} launching another build of PARENT_KERNELS (a
-    parent commit's, unpacked at ``parent_root``): its csrc sources built
-    with the port's nvcc flags into build/parent_kernels and bound with
-    their C signatures (PARENT_SIGS, else this checkout's); each fn takes
-    its wrapper's arguments (the wave and stamps as ints), so kernel_phase
-    times both builds on the same inputs in one process."""
+    """{name: C entry} of another build of PARENT_KERNELS (a parent
+    commit's, unpacked at ``parent_root``): its csrc sources built with
+    the port's nvcc flags into build/parent_kernels, each entry bound with
+    this checkout's C signature, so a phase times both builds on the same
+    inputs in one process."""
     import importlib
-    from repro_torch.core.claimword import U32_MASK, inv_wave
     from repro_torch.kernels import build
-    from repro_torch.kernels.iterate_validate import scan_span
     out_dir = os.path.join(ROOT, "build", "parent_kernels")
     os.makedirs(out_dir, exist_ok=True)
     csrc = os.path.join(parent_root, "src", "repro_torch", "csrc")
@@ -5739,178 +5640,47 @@ def parent_kernels(parent_root: str) -> dict:
          os.path.join(out_dir, f"{src}.so"), os.path.join(csrc,
                                                           f"{src}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src in set(PARENT_KERNELS.values())}
+        for src, _, _ in set(PARENT_KERNELS.values())}
     for src, p in procs.items():
         text, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {csrc}/{src}.cu:\n{text}")
     fns = {}
-    for n, src in PARENT_KERNELS.items():
+    for n, (src, module, table) in PARENT_KERNELS.items():
         fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"{src}.so")),
                      f"repro_{n}")
-        fn.argtypes = PARENT_SIGS.get(n) or importlib.import_module(
-            f"repro_torch.kernels.{src}")._SIG[f"repro_{n}"]
+        fn.argtypes = getattr(importlib.import_module(
+            f"repro_torch.kernels.{module}"), table)[f"repro_{n}"]
         fn.restype = ctypes.c_int
         fns[n] = fn
-    mv_lib = ctypes.CDLL(os.path.join(out_dir, "mv_install.so"))
-    mv_lib.repro_mv_install_capacity.argtypes = [
-        ctypes.POINTER(ctypes.c_int)]
-    mv_lib.repro_mv_install_capacity.restype = ctypes.c_int
+    return fns
 
-    def run_wave_commit(claim_w, claim_r, wts, keys, groups, prio, do_w,
-                        do_r, check_w, check_w2, check_r, extra, wave, fine,
-                        dual, bump):
-        T, K = keys.shape
-        N, G = claim_w.shape
-        conflict = torch.empty((T, K), dtype=torch.bool, device=keys.device)
-        commit = torch.empty((T,), dtype=torch.bool, device=keys.device)
-        build.raise_on_error("parent wave_commit", fns["wave_commit"](
-            *(build.ptr(t) for t in (
-                claim_w, claim_r if dual else None, wts if bump else None,
-                keys, groups, prio, do_w, do_r if dual else None, check_w,
-                check_w2, check_r if dual else None, extra, conflict, None,
-                commit)),
-            T, K, N, G, inv_wave(wave), int(fine), int(dual), int(bump),
-            build.stream(keys.device)))
-        return conflict, commit
 
-    def run_claim_probe(table, keys, groups, prio, wave, mask, fine,
-                        claim_r=None, mask_r=None):
-        N, G = table.shape
-        out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
-        out_r = None if claim_r is None else torch.empty_like(out)
-        build.raise_on_error("parent claim_probe", fns["claim_probe_coop"](
-            *(build.ptr(t) for t in (table, claim_r, keys, groups, prio,
-                                     mask, mask_r, out, out_r, None, None,
-                                     None, None)),
-            keys.numel(), N, G, 0, 0, 0, inv_wave(wave), 0, int(bool(fine)),
-            build.stream(keys.device)))
-        return out if claim_r is None else (out, out_r)
+#: qwen2-7b's prefill shape (4 prompts of 3,072 tokens, GQA 32/4 at D
+#: 128, causal), where flash_attention is timed beside SDPA as well.
+FLASH_DENSE_PREFILL = dict(B=4, Hq=32, Hkv=4, Sq=3072, Sk=3072, D=128,
+                           causal=True, window=None)
 
-    def run_mv_install(begin, head, keys, groups, do, ts):
-        N, D, G = begin.shape
-        n = keys.numel()
-        ops = ctypes.c_int(0)
-        build.raise_on_error("parent mv_install",
-                             mv_lib.repro_mv_install_capacity(
-                                 ctypes.byref(ops)))
-        scratch = (torch.empty(keys.shape, dtype=torch.int32,
-                               device=keys.device)
-                   if n > ops.value else None)
-        build.raise_on_error("parent mv_install", fns["mv_install"](
-            *(build.ptr(t) for t in (begin, head, keys, groups, do, None,
-                                     scratch)),
-            n, N, D, G, 0, 0, int(ts) & U32_MASK, build.stream(keys.device)))
 
-    def run_ts_gather(table, keys, groups, fine):
-        out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
-        N, G = table.shape
-        build.raise_on_error("parent ts_gather", fns["ts_gather"](
-            *(build.ptr(t) for t in (table, keys, groups, out)),
-            keys.numel(), N, G, int(bool(fine)), build.stream(keys.device)))
-        return out
-
-    def run_mv_gather(begin, keys, groups, ts, fine):
-        slot = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
-        ok = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
-        N, D, G = begin.shape
-        build.raise_on_error("parent mv_gather", fns["mv_gather"](
-            *(build.ptr(t) for t in (begin, keys, groups, slot, ok)),
-            keys.numel(), N, D, G, int(bool(fine)), int(ts) & U32_MASK,
-            build.stream(keys.device)))
-        return slot, ok
-
-    def run_validate_install(claim_w, keys, groups, myprio, check, wave,
-                             fine, claim_r, check_r, install_w, install_r,
-                             begin=None, snap_ts=None):
-        out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
-        ok = None if begin is None else torch.empty_like(out)
-        (T, K), (N, G) = keys.shape, claim_w.shape
-        D = 0 if begin is None else begin.shape[1]
-        build.raise_on_error("parent validate", fns["validate_install"](
-            *(build.ptr(t) for t in (claim_w, claim_r, keys, groups, myprio,
-                                     install_w, install_r, check, check_r,
-                                     out, begin, ok)), T, K, N, G, D,
-            inv_wave(wave), int(snap_ts or 0) & U32_MASK, int(bool(fine)),
-            build.stream(keys.device)))
-        return out if begin is None else (out, ok)
-
-    def run_iterate_validate(table, keys, extents, groups, myprio, check,
-                             wave, fine, bucket_size, ext_cap, point=None,
-                             wts=None, do=None):
-        out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
-        N, G = table.shape
-        span = scan_span(ext_cap, fine, bucket_size)
-        if point is not None:
-            T, K = keys.shape
-            build.raise_on_error("parent iterate_validate", fns[
-                "iterate_validate_bump"](
-                *(build.ptr(t) for t in (table, keys, extents, groups,
-                                         myprio, check, point, do, wts,
-                                         out)),
-                T, K, N, G, inv_wave(wave), int(bool(fine)), bucket_size,
-                span, build.stream(keys.device)))
-            return out
-        build.raise_on_error("parent iterate_validate", fns[
-            "iterate_validate"](
-            *(build.ptr(t) for t in (table, keys, extents, groups, myprio,
-                                     check, out, None)),
-            keys.numel(), N, G, inv_wave(wave), int(bool(fine)), bucket_size,
-            span, 0, 0, 0, build.stream(keys.device)))
-        return out
-
-    def run_claim_scatter(table, keys, groups, prio, wave, mask):
-        N, G = table.shape
-        build.raise_on_error("parent claim_scatter", fns["claim_scatter"](
-            *(build.ptr(t) for t in (table, keys, groups, prio, mask)),
-            keys.numel(), N, G, inv_wave(wave), build.stream(keys.device)))
-
-    def run_validate_dual(claim_w, keys, groups, myprio, check, wave,
-                          install=None):
-        fine = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
-        coarse = torch.empty_like(fine)
-        N, G = claim_w.shape
-        if install is not None:
-            T, K = keys.shape
-            build.raise_on_error("parent validate_dual", fns[
-                "validate_dual_install"](
-                *(build.ptr(t) for t in (claim_w, keys, groups, myprio,
-                                         install, check, fine, coarse)),
-                T, K, N, G, inv_wave(wave), build.stream(keys.device)))
-            return fine, coarse
-        build.raise_on_error("parent validate_dual", fns["validate_dual"](
-            *(build.ptr(t) for t in (claim_w, keys, groups, myprio, check,
-                                     fine, coarse)),
-            keys.numel(), N, G, inv_wave(wave), build.stream(keys.device)))
-        return fine, coarse
-
-    def run_verdict_pack(v):
-        D, M = v.shape
-        W = -(-M // 16)
-        words = torch.empty((D, W), dtype=torch.int32, device=v.device)
-        build.raise_on_error("parent verdict_pack", fns["verdict_pack"](
-            build.ptr(v), build.ptr(words), D, M, W,
-            build.stream(v.device)))
-        return words
-
-    def run_verdict_unpack(words, n):
-        D, W = words.shape
-        out = torch.empty((D, n), dtype=torch.int8, device=words.device)
-        build.raise_on_error("parent verdict_unpack", fns["verdict_unpack"](
-            build.ptr(words), build.ptr(out), D, W, n,
-            build.stream(words.device)))
-        return out
-
-    return {"ts_gather": run_ts_gather, "mv_gather": run_mv_gather,
-            "wave_commit": run_wave_commit,
-            "claim_probe": run_claim_probe,
-            "mv_install": run_mv_install,
-            "validate_install": run_validate_install,
-            "iterate_validate": run_iterate_validate,
-            "claim_scatter": run_claim_scatter,
-            "validate_dual": run_validate_dual,
-            "verdict_pack": run_verdict_pack,
-            "verdict_unpack": run_verdict_unpack}
+def flash_dense_timing(dev, gen, s=FLASH_DENSE_PREFILL,
+                       dtype=torch.bfloat16) -> dict:
+    """flash_attention timed at qwen2-7b's prefill shape beside its bound
+    and two SDPA calls: with the same boolean mask (kv heads repeated
+    first), and with is_causal and enable_gqa.  Yardsticks only."""
+    from repro_torch import kernels as K
+    args, kw = flash_inputs(s, dtype, dev, gen)
+    n_bytes, n_ops, rate = flash_work(s, dtype, dev)
+    row = {"ms": time_ms(lambda: K.flash_attention(*args, **kw), dev),
+           "bound_ms": max(n_bytes / PEAK_BYTES_PER_S, n_ops / rate) * 1e3,
+           "library_ms": time_ms(_flash_library(args, kw), dev),
+           "library_causal_ms": time_ms(_sdpa_causal(args), dev),
+           "shape": " ".join(f"{k}={v}" for k, v in s.items())
+                    + f" {str(dtype).split('.')[-1]}"}
+    log(f"  flash_attention at qwen2-7b's prefill shape: kernel "
+        f"{row['ms']:.6f} ms, bound {row['bound_ms']:.6f} ms; SDPA same "
+        f"mask {row['library_ms']:.6f} ms, is_causal enable_gqa "
+        f"{row['library_causal_ms']:.6f} ms  [{row['shape']}]")
+    return row
 
 
 def lm_kernel_phase(dev, seed=21, cases=None):
@@ -5968,6 +5738,8 @@ def lm_kernel_phase(dev, seed=21, cases=None):
                             + f" {str(dtype).split('.')[-1]}"}
             if name == "flash_attention":
                 row["library_ms"] = time_ms(_flash_library(args, kw), dev)
+                if cases is None:   # full size: the card's run alone
+                    row["qwen2_7b_prefill"] = flash_dense_timing(dev, gen)
             timings[name] = row
             del args, got, want
         if dev.type == "cuda":
@@ -5997,6 +5769,26 @@ FLASH_BWD_CASES = (
     ("rg9b S=3072", dict(B=1, Hq=16, Hkv=1, Sq=3072, Sk=3072, D=256,
                          causal=True, window=2048), torch.bfloat16),
 ) + FLASH_CASES[1:]
+#: Edges of the bf16 tensor-core backward (D <= 128): GQA 8 with a window
+#: across 128-key blocks and 64-row tiles, Sq < Sk end-aligned with
+#: ragged tiles and sk_valid < Sk, rep 1 without the causal band (no
+#: partials), D 16 padded to 64 with rows that see no key.
+FLASH_BWD_BF16_EDGE_CASES = (
+    ("bwd bf16 rep8 window 100", dict(B=1, Hq=8, Hkv=1, Sq=300, Sk=300,
+                                      D=128, causal=True, window=100),
+     torch.bfloat16),
+    ("bwd bf16 Sq<Sk sk_valid", dict(B=2, Hq=4, Hkv=2, Sq=100, Sk=260,
+                                     D=128, causal=True, window=None,
+                                     sk_valid=230), torch.bfloat16),
+    ("bwd bf16 D64 rep1 full", dict(B=2, Hq=3, Hkv=3, Sq=70, Sk=70, D=64,
+                                    causal=False, window=None),
+     torch.bfloat16),
+    ("bwd bf16 D16 rows without keys", dict(B=1, Hq=4, Hkv=2, Sq=90,
+                                            Sk=150, D=16, causal=True,
+                                            window=None, sq_valid=80,
+                                            sk_valid=50), torch.bfloat16),
+)
+FLASH_BWD_CASES = FLASH_BWD_CASES + FLASH_BWD_BF16_EDGE_CASES
 #: Relative L2 allowed between the backward kernel's dq, dk, dv and the
 #: plain version's, by dtype: the same float32 sums in another order, on
 #: float32 or on bfloat16 outputs (one bf16 rounding is 2^-9 of a value).
@@ -6008,10 +5800,11 @@ def flash_bwd_work(s, dtype, dev) -> tuple[float, float, float]:
     do and lse read once, dq, dk, dv written once; 10 D flops per visible
     (q, k) pair (S and dP recomputed, dV, dK and dQ), 2.5x the
     forward's."""
-    n_bytes, ops, rate = flash_work(s, dtype, dev)
+    _, ops, rate = flash_work(s, dtype, dev)
     el = torch.finfo(dtype).bits // 8
     rows = s["B"] * s["Hq"] * s["Sq"]
-    n_bytes += el * s["D"] * 3 * rows + 4 * rows
+    kv_rows = s["B"] * s["Hkv"] * s["Sk"]
+    n_bytes = el * s["D"] * 4 * (rows + kv_rows) + 4 * rows
     return n_bytes, 2.5 * ops, rate
 
 
@@ -6038,16 +5831,102 @@ def _sdpa_train(args, kw, dout):
     return run
 
 
-def flash_backward_phase(dev, seed=23, cases=None):
+def _plain_causal(s) -> bool:
+    """Whether the case's mask is SDPA's is_causal mask: causal, no
+    window, every row and key valid, Sq = Sk."""
+    return (s["causal"] and s["window"] is None and s["Sq"] == s["Sk"]
+            and s.get("sq_valid") in (None, s["Sq"])
+            and s.get("sk_valid") in (None, s["Sk"]))
+
+
+def _sdpa_causal_train(args, dout):
+    """SDPA's forward and backward with is_causal and enable_gqa (no
+    mask, kv heads not repeated): the backends that take no mask.  A
+    yardstick only; the port never calls it."""
+    import torch.nn.functional as F
+    q, k, v = (t.detach().requires_grad_() for t in args)
+
+    def run():
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             enable_gqa=True)
+        torch.autograd.grad(out, (q, k, v), dout)
+    return run
+
+
+def _sdpa_causal(args):
+    """SDPA's forward with is_causal and enable_gqa; a yardstick only."""
+    import torch.nn.functional as F
+    q, k, v = args
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+
+#: The backward's launches, by a piece of their kernels' names.
+BWD_LAUNCHES = (("delta", "delta_kernel"), ("dkdv", "dkdv_kernel"),
+                ("rep sum", "rep_sum_kernel"), ("dq", "dq_kernel"))
+
+
+def bwd_kernels(top_device: list) -> dict:
+    """{launch: (device ms, launches)} of the backward's launches
+    (BWD_LAUNCHES) in a profile's ``top_device`` (profile_device), per
+    profiled unit."""
+    out = {}
+    for t in top_device:
+        for label, piece in BWD_LAUNCHES:
+            if piece in t["name"]:
+                ms, k = out.get(label, (0.0, 0.0))
+                out[label] = (ms + t["ms_per_wave"], k + t["per_wave"])
+    return out
+
+
+def bwd_split(fn, n=5) -> tuple[dict, dict, float]:
+    """({launch: device ms of one launch, the mean over those the profile
+    holds}, {launch: launches it holds}, device-busy ms a call) of the
+    backward's launches over ``n`` calls of ``fn`` under torch.profiler:
+    each call makes each launch once (the rep sum where Hq > Hkv)."""
+    from repro_torch.launch.wave_profile import profile_device
+    pr = profile_device(lambda: [fn() for _ in range(n)], n, top=12)
+    seen = bwd_kernels(pr["top_device"])
+    return ({k: ms / c for k, (ms, c) in seen.items()},
+            {k: c * n for k, (_, c) in seen.items()},
+            pr["device_busy_ms_per_wave"])
+
+
+def parent_bwd(fn, q, k, v, o, lse, do, *, causal, window, sq_valid,
+               sk_valid):
+    """A call of the parent's build of the backward (``fn``: its C entry,
+    repro_flash_attention_bwd, whose signature did not change; its
+    scratch is Di alone) on flash_attention_backward's inputs."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import DTYPE_CODES
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty_like(v))
+    di = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    build.raise_on_error("parent flash_attention_bwd", fn(
+        *(build.ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv, di)),
+        B, Hq, Hkv, Sq, Sk, D, int(causal), int(window is not None),
+        int(window or 0), ctypes.c_float(D ** -0.5), sq_valid or Sq,
+        sk_valid or Sk, DTYPE_CODES[q.dtype], build.stream(q.device)))
+    return dq, dk, dv
+
+
+def flash_backward_phase(dev, seed=23, cases=None, parent=None):
     """flash_attention_backward against flash_attention_backward_plain on
     the same inputs (q, k, v, the kernel forward's output and lse, and a
     random dO), dq, dk, dv within FLASH_BWD_RTOL in relative L2, over
     FLASH_BWD_CASES (``cases`` replaces them: a rehearsal on the CPU at
     small shapes); and the forward's lse against the plain log-sum-exp
     (-inf on the same rows, finite ones within 1e-4 + 1e-5 |lse|), its
-    output equal bit for bit to the forward without lse.  The first case
-    is timed: the forward with lse, the backward, the plain backward and
-    SDPA's forward + backward.  Returns (summary, timing row)."""
+    output equal bit for bit to the forward without lse; a second call of
+    the backward gives the same bits.  The first case is timed: the
+    forward with lse, the backward (and its launches' split), the plain
+    backward, SDPA's forward + backward (the same mask; and is_causal
+    with enable_gqa where the mask is that one) and, with ``parent``
+    (--parent's {"flash_attention_bwd": C entry}), the parent's build on
+    the same inputs, in turns parent, this, this, parent.  Returns
+    (summary, timing row)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_backward_plain,
         flash_attention_forward, flash_attention_plain)
@@ -6079,8 +5958,13 @@ def flash_backward_phase(dev, seed=23, cases=None):
         dout = _randn(out.shape, dev, gen, 1.0, dtype)
         bargs = (*args, out, lse, dout)
         got = flash_attention_backward(*bargs, **kw)
+        again = flash_attention_backward(*bargs, **kw)
         want = flash_attention_backward_plain(*bargs, **kw)
         _sync(dev)
+        for name, a, b in zip(("dq", "dk", "dv"), got, again):
+            if not torch.equal(_bits(a), _bits(b)):
+                raise AssertionError(f"flash_attention_backward {label} "
+                                     f"{name}: two calls differ")
         errs = []
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             if a.dtype != b.dtype or a.shape != b.shape:
@@ -6126,10 +6010,36 @@ def flash_backward_phase(dev, seed=23, cases=None):
                     warmup=2),
                 "forward_bound_ms": max(fb / PEAK_BYTES_PER_S,
                                         fo / rate) * 1e3,
+                "split_ms": {}, "split_launches": {}, "busy_ms": None,
+                "library_causal_ms": (time_ms(_sdpa_causal_train(
+                    args, dout), dev, n=10, warmup=2)
+                    if _plain_causal(s) else None),
+                "parent_ms": None,
                 "bytes": bb, "ops": bo,
                 "shape": f"{label} "
                          + " ".join(f"{k}={v}" for k, v in s.items())
                          + f" {str(dtype).split('.')[-1]}"}
+            if dev.type == "cuda":
+                (row["split_ms"], row["split_launches"],
+                 row["busy_ms"]) = bwd_split(
+                    lambda: flash_attention_backward(*bargs, **kw))
+            if parent is not None:
+                pfn = parent["flash_attention_bwd"]
+                ts = {"parent": [], "this": []}
+                for who in ("parent", "this", "this", "parent"):
+                    fn = ((lambda: parent_bwd(pfn, *bargs, **kw))
+                          if who == "parent" else
+                          (lambda: flash_attention_backward(*bargs, **kw)))
+                    ts[who].append(time_ms(fn, dev, n=5, warmup=1))
+                row["parent_ms"] = statistics.mean(ts["parent"])
+                log(f"  flash_attention_backward in turns: parent "
+                    f"{ts['parent']} ms, this build {ts['this']} ms")
+            log(f"  flash_attention backward split (profiler, ms a launch): "
+                + ", ".join(f"{k} {v:.6f} (x{row['split_launches'][k]:.0f})"
+                            for k, v in row["split_ms"].items())
+                + f"; device-busy {row['busy_ms']} ms a call"
+                + f"; SDPA is_causal enable_gqa forward + backward "
+                f"{row['library_causal_ms']} ms")
             log(f"  flash_attention forward+lse {f_ms:.6f} ms (without "
                 f"lse {row['forward_ms']:.6f} ms), bound "
                 f"{row['forward_bound_ms']:.6f} ms; backward {b_ms:.6f} ms,"
@@ -6580,7 +6490,9 @@ def lm_train_path(dev, arch=TRAIN_ARCH, n_layers=TRAIN_LAYERS, seed=0,
                 "launches": {op: n for op, n in launches.items() if n}})
     if on_card:
         row["profile"] = profile_device(
-            lambda: step_fn(params, state, batch, n_steps + 1), 1)
+            lambda: step_fn(params, state, batch, n_steps + 1), 1, top=32)
+        row["backward_kernels"] = bwd_kernels(row["profile"]["top_device"])
+        del row["profile"]["top_device"][8:]
     log(f"  {arch}: {n_steps} steps through run_supervised in "
         f"{wall:.3f} s, losses {run_losses}; launches {row['launches']}")
     log(f"  {arch}: one step {row['step_ms']:.3f} ms, "
@@ -6594,6 +6506,12 @@ def lm_train_path(dev, arch=TRAIN_ARCH, n_layers=TRAIN_LAYERS, seed=0,
             f"{pr['device_events_per_wave']:.0f} device events; top: "
             + "; ".join(f"{t['name'][:48]} {t['ms_per_wave']:.3f} ms "
                         f"x{t['per_wave']:.0f}" for t in pr["top_device"]))
+        bk = row["backward_kernels"]
+        log(f"  {arch} profiled step: flash_attention_backward's launches "
+            f"{sum(ms for ms, _ in bk.values()):.3f} ms of the busy "
+            f"{pr['device_busy_ms_per_wave']:.3f} ("
+            + ", ".join(f"{k} {ms:.3f} ms x{c:.0f}"
+                        for k, (ms, c) in bk.items()) + ")")
 
     # 3. Three steps on one repeated batch lower the loss.
     seen = []
@@ -6677,6 +6595,28 @@ def ratios(workload, by):
         f"recovering {share:.4f} of the OCC fine gain")
 
 
+def ptxas_report(text: str) -> list:
+    """[(kernel, registers, (spill store bytes, spill load bytes))] from
+    nvcc's -Xptxas -v log; the kernel is its mangled name without the
+    anonymous namespace's prefix, cut to 48 characters."""
+    import re
+    out, fn, spill = [], "?", None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
+                        m.group(1))[:48]
+            spill = None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((fn, int(m.group(1)), spill))
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -6688,17 +6628,10 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="a parent commit unpacked in DIR: time its "
-                         "builds of the wave kernels (wave_commit, "
-                         "claim_probe, validate's install form with the "
-                         "ring, validate_dual and its install form, "
-                         "claim_scatter, iterate_validate and its bump "
-                         "form, mv_gather, mv_install; the wave by value) "
-                         "beside this checkout's on the same inputs, the "
-                         "sharded wave's verdict chains on its full-row "
-                         "verdict_pack and verdict_unpack, and its "
-                         "one-table ts_gather twice with TicToc's torch "
-                         "arithmetic")
+                    help="a parent commit unpacked in DIR: time its build "
+                         "of PARENT_KERNELS (flash_attention's backward) "
+                         "beside this checkout's on the same inputs, in "
+                         "turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
@@ -6721,14 +6654,13 @@ def main(argv=None) -> int:
     logs = build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs)}")
     for name, text in sorted(logs.items()):
-        for line in text.splitlines():
-            if ("registers" in line or "spill" in line
-                    or "error" in line.lower()):
-                log(f"  {name}: {line.strip()}")
+        for fn, regs, spill in ptxas_report(text):
+            log(f"  {name}: {fn}: {regs} registers, {spill} bytes spilled "
+                f"(stores, loads)")
 
     parent = parent_kernels(args.parent) if args.parent else None
     phase("kernels vs plain versions:")
-    checks, timings = kernel_phase(dev, SHAPES, parent=parent)
+    checks, timings = kernel_phase(dev, SHAPES)
 
     phase("main path, TPC-C:")
     tpcc, l_tpcc = main_path("tpcc", dev, **MAIN_KW["tpcc"])
@@ -6829,7 +6761,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lm_checks, lm_timings = lm_kernel_phase(dev)
     phase("flash_attention's backward and lse vs plain versions:")
-    bwd_check, bwd_timing = flash_backward_phase(dev)
+    bwd_check, bwd_timing = flash_backward_phase(dev, parent=parent)
     lm_rows, lm_launches = [], {op: 0 for op in K.WRAPPERS}
     for arch in LM_ARCHS:
         phase(f"LM serving, {arch}:")
@@ -6906,6 +6838,7 @@ def main(argv=None) -> int:
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"], "shape": t["shape"],
             "parent_ms": t.get("parent_ms"),
+            "qwen2_7b_prefill": t.get("qwen2_7b_prefill"),
         })
     kernels.append({
         "name": "flash_attention_backward", "route": "cuda",
@@ -6922,6 +6855,11 @@ def main(argv=None) -> int:
         "forward_lse_ms": bwd_timing["forward_lse_ms"],
         "forward_ms": bwd_timing["forward_ms"],
         "forward_bound_ms": bwd_timing["forward_bound_ms"],
+        "library_causal_ms": bwd_timing["library_causal_ms"],
+        "split_ms": bwd_timing["split_ms"],
+        "split_launches": bwd_timing["split_launches"],
+        "busy_ms": bwd_timing["busy_ms"],
+        "parent_ms": bwd_timing["parent_ms"],
         "shape": bwd_timing["shape"],
     })
     log(f"total: {time.perf_counter() - t_start:.1f} s")

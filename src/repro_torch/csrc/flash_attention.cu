@@ -273,10 +273,6 @@ constexpr int kThreads = 128 * kGroups;
 constexpr int kBQ = 64 * kGroups;         // 64 query rows a warpgroup
 constexpr int kBK = 64;                   // keys a tile
 
-// Columns held in smem and registers: 64-column (128-byte) chunks.
-template <int D>
-constexpr int kPadded = D < 64 ? 64 : D;
-
 // Q, 2 x (K + V), and 1 KB to align the tiles to the swizzle's period.
 template <int D>
 constexpr size_t smem_bytes() {
@@ -291,24 +287,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// A tile of R rows x kPadded<D> columns, stored as column chunks of
-// R x 128 bytes with the 128-byte swizzle (16-byte unit u of row r at
-// unit u ^ (r % 8)), the layout wgmma's B128 descriptors read; columns
-// past D and rows past n_rows are zeros.
-template <int D, int R>
-__device__ __forceinline__ void load_tile(unsigned dst, const bf16* src,
-                                          int row0, int n_rows, int tid) {
-  constexpr int U = kPadded<D> / 8;  // 16-byte units a row
-  for (int c = tid; c < R * U; c += kThreads) {
-    const int r = c / U, u = c % U;
-    const bool ok = row0 + r < n_rows && u * 8 < D;
-    const unsigned off = (unsigned)(u / 8) * (R * kRow) + r * kRow
-                         + ((unsigned)((u % 8) ^ (r % 8)) << 4);
-    cp_async16(dst + off,
-               src + (ok ? (long long)(row0 + r) * D + u * 8 : 0), ok);
-  }
 }
 
 // Accumulator layout of m64nNk16 (PTX ISA): warp w of the warpgroup holds
@@ -353,9 +331,9 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = k_end > k_begin ? (k_end - 1) / kBK - t_begin + 1 : 0;
 
   if (n_tiles > 0) {
-    load_tile<D, kBQ>(Qs, qb, q0, Sq, tid);
-    load_tile<D, kBK>(Ks, kb, t_begin * kBK, Sk, tid);
-    load_tile<D, kBK>(Vs, vb, t_begin * kBK, Sk, tid);
+    load_tile<D, kBQ, kThreads>(Qs, qb, q0, Sq, tid);
+    load_tile<D, kBK, kThreads>(Ks, kb, t_begin * kBK, Sk, tid);
+    load_tile<D, kBK, kThreads>(Vs, vb, t_begin * kBK, Sk, tid);
   }
   cp_async_commit();
 
@@ -372,8 +350,8 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int stage = t & 1;
     if (t + 1 < n_tiles) {
       const int k1 = (t_begin + t + 1) * kBK;
-      load_tile<D, kBK>(Ks + (stage ^ 1) * KB, kb, k1, Sk, tid);
-      load_tile<D, kBK>(Vs + (stage ^ 1) * KB, vb, k1, Sk, tid);
+      load_tile<D, kBK, kThreads>(Ks + (stage ^ 1) * KB, kb, k1, Sk, tid);
+      load_tile<D, kBK, kThreads>(Vs + (stage ^ 1) * KB, vb, k1, Sk, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();

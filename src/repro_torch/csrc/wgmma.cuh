@@ -33,6 +33,13 @@ __device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
                :: "r"(dst), "l"(src), "r"(pred ? 16 : 0));
 }
 
+// 4 bytes global -> shared, asynchronously; zero where !pred.
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(pred ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -40,6 +47,29 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Columns a tile of head width D holds in shared memory and registers:
+// whole 64-column (128-byte) chunks, so widths 16 and 32 are padded.
+template <int D>
+constexpr int kPadded = D < 64 ? 64 : D;
+
+// A tile of R rows x kPadded<D> columns of a row-major [n_rows, D] array,
+// rows row0.., loaded by NT threads into the swizzled layout above;
+// columns past D and rows past n_rows are zeros.
+template <int D, int R, int NT>
+__device__ __forceinline__ void load_tile(unsigned dst,
+                                          const __nv_bfloat16* src,
+                                          int row0, int n_rows, int tid) {
+  constexpr int U = kPadded<D> / 8;  // 16-byte units a row
+  for (int c = tid; c < R * U; c += NT) {
+    const int r = c / U, u = c % U;
+    const bool ok = row0 + r < n_rows && u * 8 < D;
+    const unsigned off = (unsigned)(u / 8) * (R * kRow) + r * kRow
+                         + ((unsigned)((u % 8) ^ (r % 8)) << 4);
+    cp_async16(dst + off,
+               src + (ok ? (long long)(row0 + r) * D + u * 8 : 0), ok);
+  }
 }
 
 __device__ __forceinline__ unsigned pack(__nv_bfloat162 x) {

@@ -35,7 +35,16 @@ JAX package differentiates its jnp attention and has no backward kernel)
 and on the CPU takes ``flash_attention_backward_plain``.  Both recompute P
 from ``lse``: ``Di = rowsum(dO * O)``, ``dS = P * (dO.V^T - Di)``,
 ``dQ = scale dS.K``, ``dK = scale dS^T.Q`` and ``dV = P^T.dO`` summed over
-the query heads of each kv head, all in float32.
+the query heads of each kv head, all accumulated in float32, with no float
+atomics (a call's bits repeat).  The kernel is chosen by
+``tensor_core_backward``: bfloat16 at D <= 128 (the trained dtype) runs
+every product on the tensor cores through ``wgmma`` (a dK/dV pass per 128
+keys of one query head, float32 partials summed over the query heads of a
+kv head in head order, and a dQ pass per 128 rows; P and dS rounded to
+bf16 once for the A operand); float32, and bfloat16 at D 256, keep scalar
+float32 FMAs.  Check it on the card with ``python3 chip_smoke.py`` (its
+``flash_backward_phase``) or ``python -m pytest -q tests/test_torch_cuda.py
+-k backward``.
 """
 from __future__ import annotations
 
@@ -57,6 +66,25 @@ NEG_INF = -1e30
 #: Head widths the kernel is compiled for.
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def tensor_core_backward(dtype: torch.dtype, D: int) -> bool:
+    """Whether the backward runs on the tensor cores (bf16, D <= 128)
+    rather than on scalar FMAs (float32, and bf16 at D 256)."""
+    return dtype == torch.bfloat16 and D <= 128
+
+
+def bwd_scratch_numel(q_shape, k_shape, dtype: torch.dtype) -> int:
+    """float32 elements of the backward's scratch: Di of every row, then,
+    on the tensor-core route with Hq > Hkv, from the next multiple of 4,
+    the dK and dV partials of every query head (2 x [B, Hq, Sk, D]), as
+    csrc/flash_attention_bwd.cu lays them out."""
+    B, Hq, Sq, D = q_shape
+    Hkv, Sk = k_shape[1], k_shape[2]
+    n = B * Hq * Sq
+    if tensor_core_backward(dtype, D) and Hq > Hkv:
+        n = -(-n // 4) * 4 + 2 * B * Hq * Sk * D
+    return n
 
 
 def _valid(Sq: int, Sk: int, sq_valid, sk_valid) -> tuple[int, int]:
@@ -266,14 +294,22 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
     build.check("o", o, q.dtype, (B, Hq, Sq, D), dev)
     build.check("do", do, q.dtype, (B, Hq, Sq, D), dev)
     build.check("lse", lse, torch.float32, (B, Hq, Sq), dev)
+    if tensor_core_backward(q.dtype, D):
+        for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention_backward: {name} must "
+                                 f"start on a 16-byte boundary (cp.async "
+                                 f"rows)")
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
-    di = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    scratch = torch.empty((bwd_scratch_numel(q.shape, k.shape, q.dtype),),
+                          dtype=torch.float32, device=dev)
     s = scale if scale is not None else 1.0 / (D ** 0.5)
     lib = build.load("flash_attention_bwd", _BWD_SIG)
     with torch.cuda.device(dev):
         rc = lib.repro_flash_attention_bwd(
-            *(build.ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv, di)),
+            *(build.ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv,
+                                     scratch)),
             B, Hq, Hkv, Sq, Sk, D, int(causal), int(window is not None),
             int(window or 0), ctypes.c_float(s), sq_valid, sk_valid,
             DTYPE_CODES[q.dtype], build.stream(dev))

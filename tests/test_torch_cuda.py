@@ -574,7 +574,10 @@ def test_tracking_and_the_timeline_on_the_card(tmp_path):
 def test_flash_attention_backward_matches_its_plain_version():
     """The backward kernel and the forward's lse against their plain
     versions at small shapes: causal GQA, a window with sk_valid, rows
-    without keys, D 16 and 256, float32 and bf16."""
+    without keys, D 16 and 256, float32 and bf16, and the tensor-core
+    route's edges; two calls give the same bits (flash_backward_phase
+    raises otherwise), and the timed case's profile shows its four
+    launches."""
     cases = (
         ("gqa causal", dict(B=1, Hq=8, Hkv=2, Sq=200, Sk=200, D=128,
                             causal=True, window=None), torch.bfloat16),
@@ -588,9 +591,11 @@ def test_flash_attention_backward_matches_its_plain_version():
                      window=None), torch.float32),
         ("D256 rep16", dict(B=1, Hq=16, Hkv=1, Sq=100, Sk=100, D=256,
                             causal=True, window=50), torch.bfloat16),
+        *chip_smoke.FLASH_BWD_BF16_EDGE_CASES,
     )
     worst, row = chip_smoke.flash_backward_phase(_cuda(), cases=cases)
     assert worst["cases"] == len(cases) and row["ms"] > 0
+    assert set(row["split_ms"]) == {"delta", "dkdv", "rep sum", "dq"}
 
 
 @pytest.mark.cuda

@@ -215,6 +215,27 @@ def test_every_kernel_has_a_cuda_source_and_a_counter():
         assert isinstance(w.launches, int) and isinstance(w.calls, int)
 
 
+@pytest.mark.parametrize("q_shape,k_shape,dtype,route,numel", [
+    ((1, 32, 4096, 128), (1, 4, 4096, 128), torch.bfloat16, True,
+     32 * 4096 + 2 * 32 * 4096 * 128),
+    ((2, 6, 7, 64), (2, 3, 9, 64), torch.bfloat16, True,
+     84 + 2 * 2 * 6 * 9 * 64),
+    ((2, 3, 7, 16), (2, 3, 9, 16), torch.bfloat16, True, 42),
+    ((2, 6, 7, 256), (2, 3, 9, 256), torch.bfloat16, False, 84),
+    ((2, 6, 7, 128), (2, 3, 9, 128), torch.float32, False, 84),
+], ids=["train-4k", "gqa-round-up", "rep1", "d256", "f32"])
+def test_flash_backward_route_and_scratch(q_shape, k_shape, dtype, route,
+                                          numel):
+    """The backward's route (tensor cores for bf16 at D <= 128) and its
+    float32 scratch: Di of every row, then, on that route with GQA, from
+    the next multiple of 4, the dK and dV partials of every query head,
+    as csrc/flash_attention_bwd.cu lays them out."""
+    import importlib
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    assert fa.tensor_core_backward(dtype, q_shape[3]) is route
+    assert fa.bwd_scratch_numel(q_shape, k_shape, dtype) == numel
+
+
 def test_surface_matches_the_jax_package():
     assert pb.SURFACE_OPS == jbackend.SURFACE_OPS
     assert pb.N_OPS == jbackend.N_OPS == 16
