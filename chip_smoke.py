@@ -121,14 +121,20 @@ src/repro_torch/csrc, then:
      Every wave kernel reads the wave (and the ring stamps derived from
      it) from device memory; a case's int wave is copied there once.
      apply_values, the port's own kernel (the tracked values' serial
-     replay; no TPU kernel), against its plain replay, bit for bit, at
-     TPC-C's shape (T 128, K 64, N 2,450,808, C 4) and YCSB's (K 16, N
-     10M, C 10) flat and at TPC-C's into a ring of D = 4: hot records,
-     masked keys and keys past the table, uncommitted lanes, every op on
-     one cell (across lanes and within them), each lane's ops on four
-     cells of its own, nothing committed, non-integer deltas; one op, a
-     lane of 1,030 ops and a ring of D = 1; each timed form beside its
-     bound and its plain replay;
+     replay and the ring's copy-forward; no TPU kernel), against its
+     plain replay, bit for bit, at TPC-C's shape (T 128, K 64, N
+     2,450,808, C 4) and YCSB's (K 16, N 10M, C 10) flat, at TPC-C's into
+     a ring of D = 4 with the copy-forward (head_old), and at 512 lanes
+     of TPC-C's width, past the one-launch form (the grid form): hot
+     records, masked keys and keys past the table, uncommitted lanes,
+     every op on one cell (across lanes and within them), each lane's ops
+     on four cells of its own, nothing committed, signed priorities with
+     ties and the int32 extremes, columns and ring heads from one past
+     the negative end to one past the end, non-integer deltas; one op, a
+     lane of 1,030 ops, rings of D = 1 and 2,048 lanes of 2 ops; each
+     timed form beside its bound and its plain replay and, with --parent,
+     the parent's keys launch, torch.sort and walk launch (for the ring
+     after its torch copy-forward) on the same inputs, in turns;
   2. the main path on TPC-C (full scale, T = 128, 200 waves) through the
      benchmark CLI's grid runner: OCC, TicToc, 2PL, SwissTM and Adaptive
      x coarse and fine, plus AutoGran coarse, with the launch counters set
@@ -213,7 +219,8 @@ src/repro_torch/csrc, then:
      per-wave timeline's writes among the guarded waves: OCC, TicToc,
      AutoGran, MVCC on TPC-C point, OCC on TPC-C scans, MVCC open-loop);
      six with tracked values (the apply_values replay; under MVCC and
-     MV-OCC the ring's head copy and copy-forward too: OCC, TicToc,
+     MV-OCC the ring's head copy and its replay with the copy-forward
+     too: OCC, TicToc,
      AutoGran, MVCC on TPC-C point, MV-OCC on YCSB point, OCC
      open-loop);
  9h. observability (observability_path): OCC fine, TicToc, MVCC and
@@ -336,9 +343,8 @@ src/repro_torch/csrc, then:
      with rows that see no key); two calls give the same bits.  The
      forward with lse and the backward timed at the training shape beside
      their bounds, the plain backward, SDPA's forward + backward with the
-     same boolean mask and with is_causal and enable_gqa, the per-launch
-     split (delta, dkdv, the rep sum, dq) from the profiler and, with
-     --parent, the parent's build of the backward on the same inputs;
+     same boolean mask and with is_causal and enable_gqa, and the
+     per-launch split (delta, dkdv, the rep sum, dq) from the profiler;
  15. training (lm_train_path): qwen2-7b at published widths cut to 8
      layers (bf16, float32 master and moments, n_micro 4, remat), random
      weights from a seed.  One microbatch's gradients through the kernel
@@ -447,7 +453,8 @@ KERNEL_FORMS = {"ts_gather": ("ts_gather_coarse", "ts_gather_one"),
                 "claim_probe": ("claim_probe_pair",),
                 "iterate_validate": ("iterate_validate_bump",),
                 "validate_dual": ("validate_dual_check",),
-                "apply_values": ("apply_values_ycsb", "apply_values_ring")}
+                "apply_values": ("apply_values_ycsb", "apply_values_ring",
+                                 "apply_values_grid")}
 #: The folded verdict forms of the sharded wave, timed at the one-card
 #: sharded shapes (verdict_fold_timings) and listed under "forms" too:
 #: the owner's claim launches writing the packed words, the scan check
@@ -1931,22 +1938,30 @@ def route_pack_case_checks(check, dev):
 
 # ------------------------------------------------------- apply_values
 #: apply_values' timed forms: (timing name, N, T, K, C, D; D = 0 the flat
-#: values): TPC-C's flat values (the kernel's main-path row), YCSB's and
-#: TPC-C's version ring of D = 4.
+#: values): TPC-C's flat values (the kernel's main-path row), YCSB's,
+#: TPC-C's version ring of D = 4 with the copy-forward (head_old, the
+#: MV waves' call), and TPC-C's flat values at 512 lanes, past the
+#: one-launch form (the grid form).
 APPLY_TIMED = (("apply_values", TPCC_N, 128, 64, 4, 0),
                ("apply_values_ycsb", YCSB_N, 128, 16, 10, 0),
-               ("apply_values_ring", TPCC_N, 128, 64, 4, MV_DEPTH))
+               ("apply_values_ring", TPCC_N, 128, 64, 4, MV_DEPTH),
+               ("apply_values_grid", TPCC_N, 512, 64, 4, 0))
 #: The input modes of apply_values_cases: hot records among random ones
 #: with masked keys, keys past the table and uncommitted lanes; every op on
-#: one cell; each lane's ops on four cells of its own; nothing committed.
-APPLY_MODES = ("mixed", "one_cell", "lane_cells", "none")
+#: one cell; each lane's ops on four cells of its own; nothing committed;
+#: signed priorities (negatives, ties, the int32 extremes) with columns
+#: from -C-1 to C and ring heads from -D-1 to D (the reference counts a
+#: negative index from the end once and drops one past either end).
+APPLY_MODES = ("mixed", "one_cell", "lane_cells", "none", "signed")
 
 
 def apply_values_inputs(N, T, K, C, D, mode, dev, seed):
     """One wave's replay inputs on ``dev`` from ``seed``: (values f32[N,
     C] or the ring [N, D, C], batch, commit bool[T], prio int32[T],
-    slot_of int32[N] or None), the ops made with numpy, the tables with a
-    generator on ``dev``.  Deltas are non-integer, so the float32 sums
+    slot_of int32[N] or None, head_old int32[N] or None), the ops made
+    with numpy, the tables with a generator on ``dev``.  The ring's new
+    heads are the old ones plus 1 (mod D), or in the signed mode both
+    drawn from [-D-1, D].  Deltas are non-integer, so the float32 sums
     depend on their order."""
     from repro_torch.core import types as t
     rng = np.random.default_rng(seed)
@@ -1956,21 +1971,27 @@ def apply_values_inputs(N, T, K, C, D, mode, dev, seed):
     key = rng.integers(0, N, (T, K))
     commit = rng.random(T) < 0.7
     commit[0] = True
-    if mode == "mixed":
+    prio = rng.permutation(T)
+    if mode in ("mixed", "signed"):
         hot = rng.integers(0, N, 8)
         pick = rng.random((T, K))
         key = np.where(pick < 0.3, hot[rng.integers(0, 8, (T, K))], key)
         key = np.where(pick > 0.9, -1, key)
         key = np.where((pick > 0.88) & (pick <= 0.9), N + 3, key)
-    elif mode == "one_cell":
+    if mode == "one_cell":
         key[:], col[:] = N // 2, C - 1
         kind = np.where(rng.random((T, K)) < 0.1, t.WRITE, t.ADD)
     elif mode == "lane_cells":
         key = rng.integers(0, N, (T, 4))[np.arange(T)[:, None],
                                          rng.integers(0, 4, (T, K))]
         col = np.zeros_like(col)
-    else:
+    elif mode == "none":
         commit[:] = False
+    elif mode == "signed":
+        col = rng.integers(-C - 1, C + 1, (T, K))
+        prio = rng.integers(-(T // 4) - 1, T // 4 + 1, T)
+        prio[rng.integers(0, T, 2)] = (np.iinfo(np.int32).min,
+                                       np.iinfo(np.int32).max)
     vals = (rng.standard_normal((T, K)) * 3.3).astype(np.float32)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -1984,70 +2005,175 @@ def apply_values_inputs(N, T, K, C, D, mode, dev, seed):
         return torch.from_numpy(np.ascontiguousarray(a.astype(dtype))).to(dev)
     batch = t.TxnBatch(**{k: d(v, np.float32 if k == "op_val" else np.int32)
                           for k, v in fields.items()})
-    slot_of = (torch.randint(0, D, (N,), generator=g, device=dev,
-                             dtype=torch.int32) if D else None)
-    return (table, batch, d(commit, np.bool_),
-            d(rng.permutation(T), np.int32), slot_of)
+    slot_of = head_old = None
+    if D and mode == "signed":
+        slot_of, head_old = (torch.randint(-D - 1, D + 1, (N,), generator=g,
+                                           device=dev, dtype=torch.int32)
+                             for _ in range(2))
+    elif D:
+        head_old = torch.randint(0, D, (N,), generator=g, device=dev,
+                                 dtype=torch.int32)
+        slot_of = (head_old + 1) % D
+    return (table, batch, d(commit, np.bool_), d(prio, np.int32), slot_of,
+            head_old)
 
 
 def apply_values_cases(shapes=APPLY_TIMED):
     """(label, N, T, K, C, D, mode): every mode at each timed shape, plus
-    one op, one lane of 1,030 ops (wider than a block) and a ring of D =
-    1."""
+    one op, one lane of 1,030 ops (wider than a block), a ring of D = 1
+    and 2,048 lanes of 2 ops (past the one-launch form's lanes)."""
     out = [(f"{name} {mode}", N, T, K, C, D, mode)
            for name, N, T, K, C, D in shapes for mode in APPLY_MODES]
     return out + [("one op", 17, 1, 1, 3, 0, "one_cell"),
                   ("wide lane", 5000, 3, 1030, 2, 0, "mixed"),
-                  ("ring D=1", 5000, 16, 40, 3, 1, "mixed")]
+                  ("ring D=1", 5000, 16, 40, 3, 1, "mixed"),
+                  ("ring D=1 signed", 5000, 16, 40, 3, 1, "signed"),
+                  ("many lanes", 5000, 2048, 2, 3, 0, "signed")]
 
 
-def apply_values_checks(check, dev, shapes=APPLY_TIMED, seed=101):
-    """apply_values against its plain version on every case, bit for bit
-    (the updated values), then the timed forms: kernel, plain replay and
-    bound at each of ``shapes`` on its mixed input.  Returns {name:
-    timing dict}."""
-    from repro_torch import kernels as K
+def parent_apply_values(fns, values, batch, commit, prio, slot_of=None):
+    """A call of the parent's build of the replay (``fns``: its C entries
+    repro_apply_values_keys and repro_apply_values_walk, bound with the
+    parent's own signature): the keys launch, torch.sort, the walk
+    launch, as the parent's wrapper made them."""
+    from repro_torch.kernels import build
+    T, K = batch.op_key.shape
+    N, D, C = ((values.shape[0], 1, values.shape[1]) if slot_of is None
+               else tuple(values.shape))
+    n, dev = T * K, values.device
+    keys = torch.empty((n,), dtype=torch.int64, device=dev)
+    build.raise_on_error("parent apply_values", fns["apply_values_keys"](
+        *(build.ptr(x) for x in (batch.op_key, batch.op_col, batch.op_kind,
+                                 commit, prio, slot_of, keys)),
+        T, K, N, D, C, build.stream(dev)))
+    ordered, perm = torch.sort(keys)
+    build.raise_on_error("parent apply_values", fns["apply_values_walk"](
+        *(build.ptr(x) for x in (ordered, perm, batch.op_kind,
+                                 batch.op_val, values)),
+        n, build.stream(dev)))
+    return values
+
+
+def parent_install_values(fns, vals, head_old, head_new, batch, commit,
+                          prio):
+    """The parent's ``mvstore.install_values``: the copy-forward as its
+    torch index ops, then its replay into the new slots."""
+    from repro_torch.core.claims import record_index
+    N, D, C = vals.shape
+    do = (batch.is_write() & batch.live() & commit[:, None]).reshape(-1)
+    k, valid = record_index(batch.op_key.reshape(-1), N)
+    src = k * D + head_old.index_select(0, k).to(torch.int64)
+    dst = torch.where(do & valid,
+                      k * D + head_new.index_select(0, k).to(torch.int64),
+                      src)
+    rows = vals.view(N * D, C)
+    rows.index_copy_(0, dst, rows.index_select(0, src))
+    return parent_apply_values(fns, vals, batch, commit, prio, head_new)
+
+
+def _apply_bytes(table, batch, commit, prio, slot_of, head_old=None):
+    """Bytes the replay must move on these inputs: per op a key, a column,
+    a kind and a value, per lane a commit byte and a priority; without
+    the copy-forward each written cell read and written once (the ring
+    also reads each written record's slot once); with it (``head_old``)
+    each written record's two heads read once and its row read and
+    written once, which holds every cell the replay writes there.
+    Returns (bytes, ops applied)."""
     from repro_torch.core import types as t
-    from repro_torch.kernels.apply_values import apply_values_plain
+    from repro_torch.kernels.apply_values import _serial_ops
+    T, K = batch.op_key.shape
+    cell, act, _, _ = _serial_ops(table, batch, commit, prio, slot_of)
+    n_bytes = T * K * 16 + T * 5
+    if head_old is None:
+        n_bytes += torch.unique(cell[act]).numel() * 8
+    if slot_of is not None:
+        N, _, C = table.shape
+        key = batch.op_key
+        do = (commit[:, None] & ((batch.op_kind == t.WRITE)
+                                 | (batch.op_kind == t.ADD))
+              & (key >= 0) & (key < N))
+        per_record = 4 if head_old is None else 8 + 8 * C
+        n_bytes += torch.unique(key[do]).numel() * per_record
+    return n_bytes, int(act.sum())
+
+
+def apply_values_checks(check, dev, shapes=APPLY_TIMED, seed=101,
+                        parent=None):
+    """apply_values against its plain version on every case, bit for bit
+    (the updated values; the ring with the copy-forward), then the timed
+    forms: kernel, plain replay and bound at each of ``shapes`` on its
+    mixed input, and with ``parent`` (--parent's C entries) the parent's
+    chain on the same inputs (its keys launch, torch.sort and walk
+    launch; for the ring its torch copy-forward first), in turns parent,
+    this, this, parent, after checking that the two builds agree there.
+    Returns {name: timing dict}."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.apply_values import apply_values_plain, route
     for i, (label, N, T, Kk, C, D, mode) in enumerate(
             apply_values_cases(shapes)):
-        table, batch, commit, prio, slot_of = apply_values_inputs(
+        table, batch, commit, prio, slot_of, head_old = apply_values_inputs(
             N, T, Kk, C, D, mode, dev, seed + i)
         a, b = table.clone(), table.clone()
-        K.apply_values(a, batch, commit, prio, slot_of)
-        apply_values_plain(b, batch, commit, prio, slot_of)
+        K.apply_values(a, batch, commit, prio, slot_of, head_old)
+        apply_values_plain(b, batch, commit, prio, slot_of, head_old)
         check.compare([a], [b])
+        if not check.equal:
+            raise AssertionError(f"apply_values case {label} ({route(T, Kk)}"
+                                 " form) differs from the plain replay")
         if mode != "none" and torch.equal(a, table):
             raise AssertionError(f"apply_values case {label}: no cell "
                                  "changed")
     timings = {}
     for i, (name, N, T, Kk, C, D) in enumerate(shapes):
-        table, batch, commit, prio, slot_of = apply_values_inputs(
+        table, batch, commit, prio, slot_of, head_old = apply_values_inputs(
             N, T, Kk, C, D, "mixed", dev, seed + 50 + i)
-        act = (commit[:, None] & ((batch.op_kind == t.WRITE)
-                                  | (batch.op_kind == t.ADD))
-               & (batch.op_key >= 0) & (batch.op_key < N))
-        cells = torch.unique(batch.op_key[act].long() * C
-                             + batch.op_col[act].long()).numel()
-        rows = torch.unique(batch.op_key[act]).numel() if D else 0
-        # Per op a key, a column, a kind and a value in; per lane a commit
-        # byte and a priority; each written cell read and written once
-        # (with the ring, each written record's new slot read once).
-        n_bytes = T * Kk * 16 + T * 5 + cells * 8 + rows * 4
-        timings[name] = dict(
-            form=("ring D=4, slot_of the new heads" if D else "flat values"),
+        n_bytes, n_act = _apply_bytes(table, batch, commit, prio, slot_of,
+                                     head_old)
+
+        def this():
+            return K.apply_values(table, batch, commit, prio, slot_of,
+                                  head_old)
+        row = dict(
+            form=(f"ring D={D}, the copy-forward from head_old, slot_of the "
+                  f"new heads" if D else "flat values")
+                 + f", {route(T, Kk)} form",
             shape=f"T={T} K={Kk} N={N} C={C}" + (f" D={D}" if D else ""),
-            ms=time_ms(lambda: K.apply_values(table, batch, commit, prio,
-                                              slot_of), dev),
+            ms=time_ms(this, dev),
             plain_ms=time_ms(lambda: apply_values_plain(
-                table, batch, commit, prio, slot_of), dev, n=3, warmup=1),
-            library_ms=None,
-            bound=bound_ms(n_bytes, int(act.sum())))
+                table, batch, commit, prio, slot_of, head_old), dev, n=3,
+                warmup=1),
+            library_ms=None, parent_ms=None,
+            bound=bound_ms(n_bytes, n_act))
+        if parent is not None:
+            def prev():
+                if D:
+                    return parent_install_values(parent, table, head_old,
+                                                 slot_of, batch, commit,
+                                                 prio)
+                return parent_apply_values(parent, table, batch, commit,
+                                           prio)
+            start = table.clone()
+            this()
+            mine = table.clone()
+            table.copy_(start)
+            prev()
+            if not torch.equal(mine, table):
+                raise AssertionError(f"{name}: the parent's build and this "
+                                     "one differ on the timing input")
+            ts = {"parent": [], "this": []}
+            for who in ("parent", "this", "this", "parent"):
+                ts[who].append(time_ms(prev if who == "parent" else this,
+                                       dev, n=30, warmup=3))
+            row["parent_ms"] = statistics.mean(ts["parent"])
+            row["this_turns_ms"] = ts["this"]
+            log(f"  {name} in turns: parent {ts['parent']} ms, this build "
+                f"{ts['this']} ms")
+        timings[name] = row
     return timings
 
 
 def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES,
-                 apply_shapes=APPLY_TIMED):
+                 apply_shapes=APPLY_TIMED, parent=None):
     """Compare every kernel with its plain version over every flag
     combination at ``shapes``, and the sharded wave's kernels at its
     shapes for ``dist_lanes`` lanes; time them.  apply_values at
@@ -2346,7 +2472,7 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES,
     timings["dist"].update(verdict_fold_timings(
         dev, dist_lanes, N=YCSB_N if dev.type == "cuda" else 1 << 16))
     timings.setdefault("tpcc", {}).update(apply_values_checks(
-        checks["apply_values"], dev, apply_shapes))
+        checks["apply_values"], dev, apply_shapes, parent=parent))
     for label, t in timings.items():
         for name, r in t.items():
             plain = ("-" if r["plain_ms"] is None
@@ -5616,41 +5742,47 @@ def _sync(dev):
 
 #: The C entries (repro_<name>) whose parent build ``--parent`` times
 #: beside this checkout's kernels: the kernels the change redesigned, each
-#: with its source (csrc/<source>.cu) and the module and table of its C
-#: signature here, which the parent's must equal.  flash_attention's
-#: backward: the parent's scalar kernels (its scratch is Di alone), timed
-#: by flash_backward_phase.
-PARENT_KERNELS = {"flash_attention_bwd": ("flash_attention_bwd",
-                                          "flash_attention", "_BWD_SIG")}
+#: with its source (csrc/<source>.cu) and its ctypes argtypes in the
+#: parent's tree, which bind it (a parent bound with this checkout's
+#: signature crashes).  apply_values: the parent's keys and walk launches
+#: around torch.sort (parent_apply_values), timed by apply_values_checks.
+PARENT_KERNELS = {
+    "apply_values_keys": ("apply_values",
+                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                          + [ctypes.c_void_p]),
+    "apply_values_walk": ("apply_values",
+                          [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                          + [ctypes.c_void_p])}
 
 
 def parent_kernels(parent_root: str) -> dict:
     """{name: C entry} of another build of PARENT_KERNELS (a parent
     commit's, unpacked at ``parent_root``): its csrc sources built with
     the port's nvcc flags into build/parent_kernels, each entry bound with
-    this checkout's C signature, so a phase times both builds on the same
-    inputs in one process."""
-    import importlib
+    the parent's own C signature, so a phase times both builds on the
+    same inputs in one process."""
     from repro_torch.kernels import build
     out_dir = os.path.join(ROOT, "build", "parent_kernels")
     os.makedirs(out_dir, exist_ok=True)
     csrc = os.path.join(parent_root, "src", "repro_torch", "csrc")
+    t0 = time.perf_counter()
     procs = {src: subprocess.Popen(
         [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
          os.path.join(out_dir, f"{src}.so"), os.path.join(csrc,
                                                           f"{src}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src, _, _ in set(PARENT_KERNELS.values())}
+        for src in {v[0] for v in PARENT_KERNELS.values()}}
     for src, p in procs.items():
         text, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {csrc}/{src}.cu:\n{text}")
+    log(f"parent build: {time.perf_counter() - t0:.2f} s for "
+        f"{sorted(procs)}")
     fns = {}
-    for n, (src, module, table) in PARENT_KERNELS.items():
+    for n, (src, argtypes) in PARENT_KERNELS.items():
         fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"{src}.so")),
                      f"repro_{n}")
-        fn.argtypes = getattr(importlib.import_module(
-            f"repro_torch.kernels.{module}"), table)[f"repro_{n}"]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[n] = fn
     return fns
@@ -5892,27 +6024,7 @@ def bwd_split(fn, n=5) -> tuple[dict, dict, float]:
             pr["device_busy_ms_per_wave"])
 
 
-def parent_bwd(fn, q, k, v, o, lse, do, *, causal, window, sq_valid,
-               sk_valid):
-    """A call of the parent's build of the backward (``fn``: its C entry,
-    repro_flash_attention_bwd, whose signature did not change; its
-    scratch is Di alone) on flash_attention_backward's inputs."""
-    from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import DTYPE_CODES
-    B, Hq, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
-                  torch.empty_like(v))
-    di = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    build.raise_on_error("parent flash_attention_bwd", fn(
-        *(build.ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv, di)),
-        B, Hq, Hkv, Sq, Sk, D, int(causal), int(window is not None),
-        int(window or 0), ctypes.c_float(D ** -0.5), sq_valid or Sq,
-        sk_valid or Sk, DTYPE_CODES[q.dtype], build.stream(q.device)))
-    return dq, dk, dv
-
-
-def flash_backward_phase(dev, seed=23, cases=None, parent=None):
+def flash_backward_phase(dev, seed=23, cases=None):
     """flash_attention_backward against flash_attention_backward_plain on
     the same inputs (q, k, v, the kernel forward's output and lse, and a
     random dO), dq, dk, dv within FLASH_BWD_RTOL in relative L2, over
@@ -5923,10 +6035,8 @@ def flash_backward_phase(dev, seed=23, cases=None, parent=None):
     the backward gives the same bits.  The first case is timed: the
     forward with lse, the backward (and its launches' split), the plain
     backward, SDPA's forward + backward (the same mask; and is_causal
-    with enable_gqa where the mask is that one) and, with ``parent``
-    (--parent's {"flash_attention_bwd": C entry}), the parent's build on
-    the same inputs, in turns parent, this, this, parent.  Returns
-    (summary, timing row)."""
+    with enable_gqa where the mask is that one).  Returns (summary,
+    timing row)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_backward_plain,
         flash_attention_forward, flash_attention_plain)
@@ -6014,7 +6124,6 @@ def flash_backward_phase(dev, seed=23, cases=None, parent=None):
                 "library_causal_ms": (time_ms(_sdpa_causal_train(
                     args, dout), dev, n=10, warmup=2)
                     if _plain_causal(s) else None),
-                "parent_ms": None,
                 "bytes": bb, "ops": bo,
                 "shape": f"{label} "
                          + " ".join(f"{k}={v}" for k, v in s.items())
@@ -6023,17 +6132,6 @@ def flash_backward_phase(dev, seed=23, cases=None, parent=None):
                 (row["split_ms"], row["split_launches"],
                  row["busy_ms"]) = bwd_split(
                     lambda: flash_attention_backward(*bargs, **kw))
-            if parent is not None:
-                pfn = parent["flash_attention_bwd"]
-                ts = {"parent": [], "this": []}
-                for who in ("parent", "this", "this", "parent"):
-                    fn = ((lambda: parent_bwd(pfn, *bargs, **kw))
-                          if who == "parent" else
-                          (lambda: flash_attention_backward(*bargs, **kw)))
-                    ts[who].append(time_ms(fn, dev, n=5, warmup=1))
-                row["parent_ms"] = statistics.mean(ts["parent"])
-                log(f"  flash_attention_backward in turns: parent "
-                    f"{ts['parent']} ms, this build {ts['this']} ms")
             log(f"  flash_attention backward split (profiler, ms a launch): "
                 + ", ".join(f"{k} {v:.6f} (x{row['split_launches'][k]:.0f})"
                             for k, v in row["split_ms"].items())
@@ -6629,7 +6727,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="a parent commit unpacked in DIR: time its build "
-                         "of PARENT_KERNELS (flash_attention's backward) "
+                         "of PARENT_KERNELS (apply_values' keys and walk) "
                          "beside this checkout's on the same inputs, in "
                          "turns")
     args = ap.parse_args(argv)
@@ -6660,7 +6758,7 @@ def main(argv=None) -> int:
 
     parent = parent_kernels(args.parent) if args.parent else None
     phase("kernels vs plain versions:")
-    checks, timings = kernel_phase(dev, SHAPES)
+    checks, timings = kernel_phase(dev, SHAPES, parent=parent)
 
     phase("main path, TPC-C:")
     tpcc, l_tpcc = main_path("tpcc", dev, **MAIN_KW["tpcc"])
@@ -6761,7 +6859,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lm_checks, lm_timings = lm_kernel_phase(dev)
     phase("flash_attention's backward and lse vs plain versions:")
-    bwd_check, bwd_timing = flash_backward_phase(dev, parent=parent)
+    bwd_check, bwd_timing = flash_backward_phase(dev)
     lm_rows, lm_launches = [], {op: 0 for op in K.WRAPPERS}
     for arch in LM_ARCHS:
         phase(f"LM serving, {arch}:")
@@ -6859,7 +6957,6 @@ def main(argv=None) -> int:
         "split_ms": bwd_timing["split_ms"],
         "split_launches": bwd_timing["split_launches"],
         "busy_ms": bwd_timing["busy_ms"],
-        "parent_ms": bwd_timing["parent_ms"],
         "shape": bwd_timing["shape"],
     })
     log(f"total: {time.perf_counter() - t_start:.1f} s")

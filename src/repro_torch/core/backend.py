@@ -9,7 +9,8 @@ kernel (kernels/).  Every op of the surface is ported; ``probe`` has no
 caller in either package's engine, and ``claim_scatter`` none in the
 port's (its work rides other ops' calls); ``mv_gather``'s one caller is
 ``mvstore.snapshot_values``.  One op is the port's own:
-``apply_values``, the tracked values' serial replay.
+``apply_values``, the tracked values' serial replay (and, for the
+version ring, its copy-forward), one launch a call on the card.
 
 All word tables are updated in place, so ops that install return only
 their per-op outputs (see each kernel module).
@@ -130,8 +131,9 @@ for _op in SURFACE_OPS:
     setattr(Backend, _op, staticmethod(kernels.WRAPPERS[_op]))
 
 #: The port's own op beside the surface: the tracked values' serial replay
-#: (kernels/apply_values.py), which the JAX package computes with a
-#: ``lax.scan`` in its engine rather than through its backend.
+#: and the ring's copy-forward (kernels/apply_values.py), which the JAX
+#: package computes with a ``lax.scan`` in its engine and two index ops in
+#: ``mvstore.install_values`` rather than through its backend.
 Backend.apply_values = staticmethod(kernels.WRAPPERS["apply_values"])
 
 #: The one backend: every config uses it; the tensors' device picks the

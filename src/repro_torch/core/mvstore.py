@@ -91,31 +91,17 @@ def install_values(vals: torch.Tensor, head_old: torch.Tensor,
     Two steps, as the begin-table install of ``mv_install``: every slot
     the wave installed is first copied from its record's previous newest
     slot, all columns (the unwritten columns carry forward), then the
-    committed writes are replayed into the new slots by the
-    ``apply_values`` op (``slot_of=head_new``), the one definition of the
-    serial replay.  ``head_old`` is the ring's heads before the wave's
+    committed writes are replayed into the new slots in serial order.
+    Both are one call of the ``apply_values`` op (``slot_of=head_new``,
+    ``head_old=head_old``), the one definition of the serial replay: on
+    the card one launch that copies each record's row before replaying
+    its writes.  ``head_old`` is the ring's heads before the wave's
     ``mv_install`` (which updates ``mv_head`` in place), ``head_new``
-    after it.  The copy runs before the replay in stream order.
-
-    Every op writes one row: a committed write its record's new slot
-    from the old one, any other op its record's old slot (or record 0's
-    for a key outside the table) with that row's own contents.  Writers
-    of one row therefore write the same bytes (a record's new slot
-    differs from its old one unless D = 1, where both copies are the
-    identity), so the unordered copy is deterministic on every device."""
+    after it.  Every writer of a row copies the same bytes, so the copy
+    is deterministic on every device."""
     from repro_torch.core import backend as kb
-    from repro_torch.core.claims import record_index
-    N, D, C = vals.shape
-    do = (batch.is_write() & batch.live() & commit[:, None]).reshape(-1)
-    k, valid = record_index(batch.op_key.reshape(-1), N)
-    src = k * D + head_old.index_select(0, k).to(torch.int64)
-    dst = torch.where(do & valid,
-                      k * D + head_new.index_select(0, k).to(torch.int64),
-                      src)
-    rows = vals.view(N * D, C)
-    rows.index_copy_(0, dst, rows.index_select(0, src))
     return kb.BACKEND.apply_values(vals, batch, commit, prio,
-                                   slot_of=head_new)
+                                   slot_of=head_new, head_old=head_old)
 
 
 def snapshot_values(vals: torch.Tensor, begin: torch.Tensor,

@@ -28,8 +28,9 @@ from repro_torch.kernels.wave_commit import wave_commit
 
 #: Op -> kernel wrapper: the backend surface's ops, the language models'
 #: (flash_attention, rglru, rwkv6), then the port's own kernels, which no
-#: TPU kernel computes: apply_values (the tracked values' serial replay)
-#: and flash_attention_backward (attention's gradient in training).
+#: TPU kernel computes: apply_values (the tracked values' serial replay
+#: and the version ring's copy-forward, one launch) and
+#: flash_attention_backward (attention's gradient in training).
 WRAPPERS = {
     "wave_commit": wave_commit,
     "segment_count": segment_count,

@@ -350,13 +350,23 @@ def test_sharded_wave_identical_on_card_and_cpu():
 @pytest.mark.cuda
 def test_apply_values_bit_identical_to_plain_replay():
     """The serial replay's kernel on chip_smoke.apply_values_cases at small
-    shapes, flat and into a ring, bit for bit."""
+    shapes, bit for bit: flat, into a ring with the copy-forward
+    (head_old), and past the one-launch form (160 x 64 ops: the grid
+    form), every mode (signed priorities, negative columns and ring heads
+    among them)."""
+    from repro_torch.kernels.apply_values import route
+    shapes = (("apply_values", 997, 16, 64, 4, 0),
+              ("apply_values_ycsb", 4096, 128, 16, 10, 0),
+              ("apply_values_ring", 997, 16, 64, 4, 4),
+              ("apply_values_grid", 997, 160, 64, 4, 0))
+    assert [route(T, K) for _, _, T, K, _, _ in shapes] == \
+        ["block", "block", "block", "grid"]
     check = chip_smoke.KernelCheck("apply_values")
-    chip_smoke.apply_values_checks(
-        check, _cuda(), (("apply_values", 997, 16, 64, 4, 0),
-                         ("apply_values_ycsb", 4096, 128, 16, 10, 0),
-                         ("apply_values_ring", 997, 16, 64, 4, 4)))
-    assert check.equal and check.cases > 0
+    chip_smoke.apply_values_checks(check, _cuda(), shapes)
+    modes = {c[-1] for c in chip_smoke.apply_values_cases(shapes)}
+    assert {"signed", "one_cell", "none"} <= modes
+    assert check.equal and check.cases == len(
+        chip_smoke.apply_values_cases(shapes))
 
 
 @pytest.mark.cuda
