@@ -80,9 +80,9 @@
 // Scalar float32 FMAs for float32 (the smoke models; their gate,
 // relative L2 1e-4, is one TF32 would not hold) and for bf16 at D = 256
 // (a 64-key slice's float32 dK and dV alone take 256 registers a
-// thread; D 256 is recurrentgemma-9b's width, which does not train on
-// the card yet, ROADMAP A.12.3b; its tensor-core route is B.14d), three
-// launches:
+// thread; D 256 is recurrentgemma-9b's width, where this route takes
+// about a fifth of a training step; its tensor-core route is ROADMAP
+// B.14d), three launches:
 //  1. delta as above.
 //  2. dkdv: one block of 256 threads per (b, kv head, key tile of BK =
 //     64 keys; 32 at D = 256), K and V of the tile in shared memory

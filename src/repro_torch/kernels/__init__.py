@@ -17,9 +17,9 @@ from repro_torch.kernels.mv_gather import mv_gather
 from repro_torch.kernels.mv_install import mv_install
 from repro_torch.kernels.occ_commit import commit_install
 from repro_torch.kernels.occ_validate import validate, validate_dual
-from repro_torch.kernels.rglru import rglru
+from repro_torch.kernels.rglru import rglru, rglru_backward
 from repro_torch.kernels.route_pack import route_pack
-from repro_torch.kernels.rwkv6 import rwkv6
+from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_backward
 from repro_torch.kernels.segment_count import segment_count
 from repro_torch.kernels.ts_gather import ts_gather
 from repro_torch.kernels.ts_install import ts_install_max
@@ -29,8 +29,8 @@ from repro_torch.kernels.wave_commit import wave_commit
 #: Op -> kernel wrapper: the backend surface's ops, the language models'
 #: (flash_attention, rglru, rwkv6), then the port's own kernels, which no
 #: TPU kernel computes: apply_values (the tracked values' serial replay
-#: and the version ring's copy-forward, one launch) and
-#: flash_attention_backward (attention's gradient in training).
+#: and the version ring's copy-forward, one launch) and the gradients of
+#: training, flash_attention_backward, rglru_backward and rwkv6_backward.
 WRAPPERS = {
     "wave_commit": wave_commit,
     "segment_count": segment_count,
@@ -53,6 +53,8 @@ WRAPPERS = {
     "rwkv6": rwkv6,
     "apply_values": apply_values,
     "flash_attention_backward": flash_attention_backward,
+    "rglru_backward": rglru_backward,
+    "rwkv6_backward": rwkv6_backward,
 }
 
 

@@ -40,7 +40,7 @@ SOURCES = ("wave_commit", "segment_count", "ts_gather", "ts_install",
            "occ_commit", "claim_scatter", "occ_validate", "claim_probe",
            "iterate_validate", "mv_gather", "mv_install", "route_pack",
            "verdict_pack", "flash_attention", "flash_attention_bwd",
-           "rglru", "rwkv6", "apply_values")
+           "rglru", "rglru_bwd", "rwkv6", "rwkv6_bwd", "apply_values")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -158,17 +158,6 @@ def raise_on_error(kernel: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error code "
                            f"{rc}")
-
-
-def refuse_grad(op: str, *tensors) -> None:
-    """Raise for a CUDA call under autograd that needs a gradient: the
-    kernel has no backward yet (ROADMAP A.12.3b), and a kernel output has
-    no ``grad_fn``, so training would drop the gradient silently."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{op}: no backward kernel on the card yet (ROADMAP A.12.3b); "
-            f"hybrid and ssm training run on the CPU's plain route")
 
 
 def launch_device(t: torch.Tensor) -> torch.device:

@@ -116,20 +116,21 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                           sq_valid: Optional[int] = None,
                           sk_valid: Optional[int] = None,
                           with_lse: bool = False):
-    """Plain PyTorch version: ``ref.attention``'s float32 masked softmax
-    over the whole score matrix; rows that see no key give 0.
+    """Plain PyTorch version: ``ref.attention``'s float32 (float64 for
+    float64 q) masked softmax over the whole score matrix; rows that see no key give 0.
     ``with_lse`` returns (out, lse float32 [B, Hq, Sq], -inf for a row
     that sees no key)."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     sq_valid, sk_valid = _valid(Sq, Sk, sq_valid, sk_valid)
     rep = Hq // Hkv
-    kf, vf = k.float(), v.float()
+    ft = torch.promote_types(q.dtype, torch.float32)   # float64 stays
+    kf, vf = k.to(ft), v.to(ft)
     if rep > 1:
         kf = kf.repeat_interleave(rep, dim=1)
         vf = vf.repeat_interleave(rep, dim=1)
     s = scale if scale is not None else 1.0 / (D ** 0.5)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * s
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(ft), kf) * s
     mask = attention_mask(Sq, Sk, causal=causal, window=window,
                           sq_valid=sq_valid, sk_valid=sk_valid,
                           device=q.device)

@@ -29,10 +29,21 @@ length (``route``):
   one state column in registers.
 
 A failure to build or launch raises; nothing falls back.  CPU tensors
-take ``rwkv6_plain``, which autograd differentiates.  The kernels have no
-backward yet: a CUDA call under autograd with an input that requires
-grad raises ``NotImplementedError`` (ROADMAP A.12.3b) rather than return
-an output without a gradient.
+take ``rwkv6_plain``.
+
+Training: when grad is enabled and an input requires it, ``rwkv6`` goes
+through ``RWKV6Fn`` on either device: the forward above (either kernel),
+saving its inputs; the backward ``rwkv6_backward``, which launches
+``csrc/rwkv6_bwd.cu`` (a kernel of the port's own: the JAX package
+differentiates ``ops.rwkv6`` by autodiff of its scan) and on the CPU takes
+``rwkv6_backward_plain``.  Both recompute the float32 states S_{t-1} from
+the inputs (the chunked forward never holds them), then walk back with
+dS_T = ds_last, dS_{t-1} = diag(w_t) dS_t + r_t dout_t^T:
+dr_t = S_{t-1} dout_t + u k_t (v_t . dout_t), dk_t = dS_t v_t +
+u r_t (v_t . dout_t), dv_t = dS_t^T k_t + (sum_i r u k) dout_t,
+dw_t = rowsum(dS_t * S_{t-1}), du = sum_{b, t} r k (v . dout), ds0 = dS_0;
+dr, dk, dv in r's dtype, dw, du, ds0 float32.  The kernel takes Dv up to
+``MAX_BWD_VALUE_DIM`` (even for bfloat16) and 4-byte-aligned tensors.
 """
 from __future__ import annotations
 
@@ -48,6 +59,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = {"repro_rwkv6": [_P] * 8 + [_I] * 5 + [_I, _P],
         "repro_rwkv6_chunked": [_P] * 8 + [_I] * 5 + [_P]}
+_BWD_SIG = {"repro_rwkv6_bwd": [_P] * 15 + [_I] * 6 + [_P],
+            "repro_rwkv6_bwd_scratch": [_I] * 6
+            + [ctypes.POINTER(ctypes.c_longlong)]}
 
 #: Key widths both kernels are compiled for, and the widest value row the
 #: recurrent kernel stages in shared memory.
@@ -56,6 +70,9 @@ MAX_VALUE_DIM = 1024
 #: Tokens a chunk of the chunked kernel; shorter bfloat16 inputs take the
 #: recurrent kernel.
 CHUNK = 64
+#: The widest value row the backward kernel takes (16 state columns a
+#: thread, at most 8 threads a state row).
+MAX_BWD_VALUE_DIM = 128
 
 
 def route(dtype: torch.dtype, S: int) -> str:
@@ -67,15 +84,26 @@ def route(dtype: torch.dtype, S: int) -> str:
 
 
 def rwkv6_plain(r, k, v, w, u, s0: Optional[torch.Tensor] = None):
-    """Plain PyTorch version: a float32 loop over t, as ``ref.rwkv6``'s
-    scan."""
+    """Plain PyTorch version: a float32 (float64 for float64 r) loop over
+    t, as ``ref.rwkv6``'s scan."""
     B, H, S, Dk = r.shape
     Dv = v.shape[-1]
-    state = (torch.zeros((B, H, Dk, Dv), dtype=torch.float32,
-                         device=r.device) if s0 is None else s0.float())
-    rs, ks, vs, ws = (t.float() for t in (r, k, v, w))
-    uu = u.float()[None, :, :, None]
-    outs = torch.empty((B, H, S, Dv), dtype=torch.float32, device=r.device)
+    ft = torch.promote_types(r.dtype, torch.float32)   # float64 stays
+    state = (torch.zeros((B, H, Dk, Dv), dtype=ft, device=r.device)
+             if s0 is None else s0.to(ft))
+    rs, ks, vs, ws = (t.to(ft) for t in (r, k, v, w))
+    uu = u.to(ft)[None, :, :, None]
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, w, u, s0)):
+        # Under autograd: the tokens' views by unbind and the outputs by
+        # stack, so the backward writes no full-size gradient a token.
+        outs = []
+        for rt, kt, vt, wt in zip(*(t.unbind(2) for t in (rs, ks, vs, ws))):
+            kv = kt[..., None] * vt[..., None, :]
+            outs.append(torch.einsum("bhkv,bhk->bhv", state + uu * kv, rt))
+            state = wt[..., None] * state + kv
+        return torch.stack(outs, 2).to(r.dtype), state
+    outs = torch.empty((B, H, S, Dv), dtype=ft, device=r.device)
     for t in range(S):
         kv = ks[:, :, t, :, None] * vs[:, :, t, None, :]
         outs[:, :, t] = torch.einsum("bhkv,bhk->bhv", state + uu * kv,
@@ -84,12 +112,48 @@ def rwkv6_plain(r, k, v, w, u, s0: Optional[torch.Tensor] = None):
     return outs.to(r.dtype), state
 
 
-def rwkv6(r, k, v, w, u, s0: Optional[torch.Tensor] = None):
-    """(out [B, H, S, Dv] in r.dtype, s_last [B, H, Dk, Dv] float32)."""
-    rwkv6.calls += 1
+def rwkv6_backward_plain(r, k, v, w, u, s0, dout, ds_last=None):
+    """Plain PyTorch version of the backward: the states S_{t-1} by the
+    forward's float32 loop, then the reverse walk of dS in float32.
+    Returns (dr, dk, dv in r's dtype, dw float32, du float32 [H, Dk],
+    ds0 float32, or None without s0)."""
+    B, H, S, Dk = r.shape
+    Dv = v.shape[-1]
+    dev = r.device
+    rs, ks, vs, ws, dos = (t.float() for t in (r, k, v, w, dout))
+    uu = u.float()[None, :, None, :]
+    state = (torch.zeros((B, H, Dk, Dv), dtype=torch.float32, device=dev)
+             if s0 is None else s0.float())
+    prev = torch.empty((B, H, S, Dk, Dv), dtype=torch.float32, device=dev)
+    for t in range(S):
+        prev[:, :, t] = state
+        kv = ks[:, :, t, :, None] * vs[:, :, t, None, :]
+        state = ws[:, :, t, :, None] * state + kv
+    vd = (vs * dos).sum(-1, keepdim=True)              # v_t . dout_t
+    dr = torch.einsum("bhskv,bhsv->bhsk", prev, dos) + uu * ks * vd
+    ds = (torch.zeros((B, H, Dk, Dv), dtype=torch.float32, device=dev)
+          if ds_last is None else ds_last.float())
+    dk = torch.empty((B, H, S, Dk), dtype=torch.float32, device=dev)
+    dv = torch.empty((B, H, S, Dv), dtype=torch.float32, device=dev)
+    dw = torch.empty((B, H, S, Dk), dtype=torch.float32, device=dev)
+    for t in range(S - 1, -1, -1):
+        dk[:, :, t] = torch.einsum("bhkv,bhv->bhk", ds, vs[:, :, t])
+        dv[:, :, t] = torch.einsum("bhkv,bhk->bhv", ds, ks[:, :, t])
+        dw[:, :, t] = (ds * prev[:, :, t]).sum(-1)
+        ds = (ws[:, :, t, :, None] * ds
+              + rs[:, :, t, :, None] * dos[:, :, t, None, :])
+    dk = dk + uu * rs * vd
+    dv = dv + (rs * uu * ks).sum(-1, keepdim=True) * dos
+    du = (rs * ks * vd).sum(dim=(0, 2))
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw, du,
+            None if s0 is None else ds)
+
+
+def rwkv6_forward(r, k, v, w, u, s0: Optional[torch.Tensor] = None):
+    """The forward on r's device: the launch behind ``rwkv6`` and
+    ``RWKV6Fn`` (it counts launches, the op counts calls)."""
     if r.device.type == "cpu":
         return rwkv6_plain(r, k, v, w, u, s0)
-    build.refuse_grad("rwkv6", r, k, v, w, u, s0)
     dev = build.launch_device(r)
     B, H, S, Dk = r.shape
     Dv = v.shape[-1]
@@ -134,5 +198,90 @@ def rwkv6(r, k, v, w, u, s0: Optional[torch.Tensor] = None):
     return out, s_last
 
 
+class RWKV6Fn(torch.autograd.Function):
+    """``rwkv6`` under autograd: the forward saves r, k, v, w, u and s0;
+    the backward is ``rwkv6_backward``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return rwkv6_forward(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, dout, ds_last):
+        return rwkv6_backward(*ctx.saved_tensors, dout.contiguous(),
+                              ds_last.contiguous())
+
+
+def rwkv6(r, k, v, w, u, s0: Optional[torch.Tensor] = None):
+    """(out [B, H, S, Dv] in r.dtype, s_last [B, H, Dk, Dv] float32);
+    differentiable (``RWKV6Fn``) when grad is enabled and an input
+    requires it."""
+    rwkv6.calls += 1
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, w, u, s0)):
+        return RWKV6Fn.apply(r, k, v, w, u, s0)
+    return rwkv6_forward(r, k, v, w, u, s0)
+
+
 rwkv6.launches = 0
 rwkv6.calls = 0
+
+
+def rwkv6_backward(r, k, v, w, u, s0, dout, ds_last=None):
+    """(dr, dk, dv in r.dtype, dw float32, du float32 [H, Dk], ds0 float32
+    or None without s0) from the forward's inputs, out's gradient ``dout``
+    (r's dtype) and s_last's ``ds_last`` (float32; zeros when None)."""
+    rwkv6_backward.calls += 1
+    if r.device.type == "cpu":
+        return rwkv6_backward_plain(r, k, v, w, u, s0, dout, ds_last)
+    dev = build.launch_device(r)
+    B, H, S, Dk = r.shape
+    Dv = v.shape[-1]
+    if r.dtype not in DTYPE_CODES:
+        raise TypeError(f"rwkv6_backward takes float32 or bfloat16 r, k, v, "
+                        f"got {r.dtype}")
+    if Dk not in KEY_DIMS:
+        raise ValueError(f"rwkv6_backward: key width {Dk} not in "
+                         f"{KEY_DIMS}")
+    if not 1 <= Dv <= MAX_BWD_VALUE_DIM or (r.dtype == torch.bfloat16
+                                            and Dv % 2):
+        raise ValueError(f"rwkv6_backward: value width {Dv} outside [1, "
+                         f"{MAX_BWD_VALUE_DIM}] (even for bfloat16)")
+    for name, t, dt, shape in (
+            ("r", r, r.dtype, (B, H, S, Dk)), ("k", k, r.dtype, (B, H, S, Dk)),
+            ("v", v, r.dtype, (B, H, S, Dv)),
+            ("w", w, torch.float32, (B, H, S, Dk)),
+            ("u", u, torch.float32, (H, Dk)),
+            ("dout", dout, r.dtype, (B, H, S, Dv))):
+        build.check(name, t, dt, shape, dev)
+        if t.data_ptr() % 4:
+            raise ValueError(f"rwkv6_backward: {name} must be 4-byte "
+                             f"aligned (cp.async words)")
+    for name, t in (("s0", s0), ("ds_last", ds_last)):
+        if t is not None:
+            build.check(name, t, torch.float32, (B, H, Dk, Dv), dev)
+    dr, dk = torch.empty_like(r), torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dw = torch.empty((B, H, S, Dk), dtype=torch.float32, device=dev)
+    du = torch.empty((H, Dk), dtype=torch.float32, device=dev)
+    ds0 = (None if s0 is None
+           else torch.empty((B, H, Dk, Dv), dtype=torch.float32, device=dev))
+    lib = build.load("rwkv6_bwd", _BWD_SIG)
+    n = ctypes.c_longlong(0)
+    rc = lib.repro_rwkv6_bwd_scratch(B, H, S, Dk, Dv, DTYPE_CODES[r.dtype],
+                                     ctypes.byref(n))
+    build.raise_on_error("rwkv6_backward", rc)
+    scratch = torch.empty((n.value,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.repro_rwkv6_bwd(
+            *(build.ptr(t) for t in (r, k, v, w, u, s0, dout, ds_last, dr,
+                                     dk, dv, dw, du, ds0, scratch)),
+            B, H, S, Dk, Dv, DTYPE_CODES[r.dtype], build.stream(dev))
+    build.raise_on_error("rwkv6_backward", rc)
+    rwkv6_backward.launches += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+rwkv6_backward.launches = 0
+rwkv6_backward.calls = 0

@@ -14,11 +14,10 @@
   same stream;
 - preemption: SIGTERM flushes the pending checkpoint before exit.
 
-``--device cuda`` (the default) runs the kernels (``flash_attention`` and
-its backward) and raises without CUDA; ``--device cpu`` runs their plain
-versions.  One card or the CPU: ``--data`` / ``--model`` above 1 raise
-(ROADMAP A.12.3c).  Hybrid and ssm models train on the CPU only (ROADMAP
-A.12.3b).
+``--device cuda`` (the default) runs the kernels (``flash_attention``,
+``rglru`` and ``rwkv6``, forward and backward) and raises without CUDA;
+``--device cpu`` runs their plain versions.  One card or the CPU:
+``--data`` / ``--model`` above 1 raise (ROADMAP A.12.3c).
 """
 from __future__ import annotations
 

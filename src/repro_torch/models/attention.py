@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.models import common
-from repro_torch.models.common import ParamSpec
+from repro_torch.models.common import ParamSpec, widen
 
 NEG_INF = -1e30
 
@@ -81,11 +81,11 @@ def cache_schema(cfg, batch: int, s_cache: int, tp: int, device) -> dict:
 def _dense(q, k, v, mask):
     """q: [B,G,R,Sq,Dh]; k,v: [B,G,Sk,Dh]; mask broadcastable [Sq,Sk].
     Products accumulate in float32; p is cast to v's dtype before P.V."""
-    s = torch.einsum("bgrqd,bgkd->bgrqk", q.float(), k.float())
+    s = torch.einsum("bgrqd,bgkd->bgrqk", widen(q), widen(k))
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bgrqk,bgkd->bgrqd", p.to(v.dtype).float(),
-                        v.float()).to(q.dtype)
+    return torch.einsum("bgrqk,bgkd->bgrqd", widen(p.to(v.dtype)),
+                        widen(v)).to(q.dtype)
 
 
 def _flash(q, k, v, *, causal: bool, window: Optional[int],

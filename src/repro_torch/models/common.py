@@ -9,7 +9,9 @@ against the JAX package, carry the JAX draw across
 (``core/convert.lm_params_from_jax``).
 
 The norms and RoPE keep the JAX package's casts: statistics in float32,
-the result cast back to the input's dtype before the scale.
+the result cast back to the input's dtype before the scale.  A float64
+model (the plain route's reference in ``chip_smoke.py``'s training gate)
+keeps float64 throughout: ``widen`` is float32 or wider.
 """
 from __future__ import annotations
 
@@ -19,7 +21,13 @@ from typing import Optional
 
 import torch
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float64": torch.float64}
+
+
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or as it is when float64."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,14 +102,14 @@ def init_from_schema(schema, gen: torch.Generator, device) -> dict:
 
 # --------------------------------------------------------------------- norms
 def rmsnorm(x, scale, eps):
-    xf = x.float()
+    xf = widen(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) \
         * (1.0 + scale.to(x.dtype))
 
 
 def layernorm(x, scale, bias, eps):
-    xf = x.float()
+    xf = widen(x)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
@@ -127,11 +135,12 @@ def rope(x, positions, theta: float):
     """x: [..., S, n, d_head]; positions: broadcastable to [..., S]."""
     d = x.shape[-1]
     half = d // 2
-    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                   device=x.device) / half)
-    ang = positions[..., None].float() * freq              # [..., S, half]
+    ft = torch.promote_types(x.dtype, torch.float32)
+    freq = theta ** (-torch.arange(0, half, dtype=ft, device=x.device)
+                     / half)
+    ang = positions[..., None].to(ft) * freq               # [..., S, half]
     cos = torch.cos(ang)[..., None, :]                     # [..., S, 1, half]
     sin = torch.sin(ang)[..., None, :]
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    x1, x2 = widen(x[..., :half]), widen(x[..., half:])
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rglru import rglru, rglru_plain
 from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_plain
-from repro_torch.models.common import ParamSpec, rmsnorm
+from repro_torch.models.common import ParamSpec, rmsnorm, widen
 
 
 # ------------------------------------------------------------------- RG-LRU
@@ -59,7 +59,7 @@ def rec_apply(p, x, cfg, cache=None, plain: bool = False):
     conv = sum(ext[:, i:i + S] * p["conv_w"][i] for i in range(cw))
     conv = conv + p["conv_b"]
 
-    gate_a = torch.sigmoid((x @ p["w_a"]).float())
+    gate_a = torch.sigmoid(widen(x @ p["w_a"]))
     log_a = -8.0 * F.softplus(p["lam"]) * gate_a          # [B, S, W] f32
 
     h0 = cache["h"] if cache is not None else None
@@ -137,7 +137,7 @@ def rwkv_time_mix(p, x, cfg, cache=None, plain: bool = False):
     k = _heads(lerp(1), p["w_k"])
     v = _heads(lerp(2), p["w_v"])
     g = F.silu((lerp(3) @ p["w_g"].reshape(D, H * Dh)).reshape(B, S, H, Dh))
-    wexp = _heads(lerp(4), p["w_w"]).float()
+    wexp = widen(_heads(lerp(4), p["w_w"]))
     w = torch.exp(-torch.exp(p["w0"][None, :, None] + wexp))  # (0,1) decay
 
     s0 = cache["state"] if cache is not None else None

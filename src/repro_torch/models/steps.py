@@ -4,11 +4,10 @@ Port of ``repro/models/steps.py`` with ``tp = 1`` and ``n_groups = 1``:
 the JAX steps on a one-device host mesh, whose sharding constraints are
 the identity.  ``plain`` runs the kernels' plain versions even on the
 card (the reference route, differentiated by autograd through plain
-torch ops); otherwise attention goes through ``flash_attention`` (its
-forward and backward kernels on the card).  Hybrid and ssm training on
-the card raise ``NotImplementedError`` (ROADMAP A.12.3b: ``rglru`` and
-``rwkv6`` have no backward kernel yet); on the CPU their plain versions
-run.
+torch ops); otherwise attention goes through ``flash_attention`` and the
+recurrences through ``rglru`` and ``rwkv6``, each an autograd Function
+whose forward and backward are kernels on the card, so all three
+families train there; on the CPU the Functions run the plain versions.
 """
 from __future__ import annotations
 
@@ -16,14 +15,14 @@ import torch
 
 from repro_torch.models import model as model_mod
 from repro_torch.models.attention import ModelCtx
-from repro_torch.models.common import DTYPES, flatten, tree_map
+from repro_torch.models.common import DTYPES, flatten, tree_map, widen
 
 
 # -------------------------------------------------------------------- loss
 def xent_loss(logits, labels, mask):
     """Mean next-token cross-entropy over masked positions, in float32
     (the max is held constant, as JAX's ``stop_gradient``)."""
-    lf = logits.float()
+    lf = widen(logits)
     m = lf.max(dim=-1, keepdim=True).values.detach()
     lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
     lab = torch.gather(lf, -1, labels[..., None])[..., 0]

@@ -609,10 +609,36 @@ def test_flash_attention_backward_matches_its_plain_version():
 
 
 @pytest.mark.cuda
-def test_training_path_on_card():
-    """The training path on qwen2-7b's smoke config: gradient gates,
-    run_supervised's launch counts, the restart, the hybrid refusal."""
-    row, launches = chip_smoke.lm_train_path(_cuda(), smoke=True, batch=4,
-                                             seq=64)
-    assert launches["flash_attention_backward"] > 0
+def test_recurrent_backwards_match_their_plain_versions():
+    """rglru_backward and rwkv6_backward against their plain versions on
+    every edge of chip_smoke's cases (all but the training shapes): a = 1
+    exactly and log_a <= -20, S and D off the tiles, h0 / dh_last absent;
+    w = 0 and 1, S = 1 to 1,000, Dk 16 to 128 with Dv != Dk, s0 / ds_last
+    absent; float32 and bf16; two calls give the same bits
+    (recurrent_backward_phase raises otherwise)."""
+    cases = {"rglru_backward": chip_smoke.RGLRU_BWD_CASES[1:],
+             "rwkv6_backward": chip_smoke.RWKV_BWD_CASES[1:]}
+    summary, timings = chip_smoke.recurrent_backward_phase(_cuda(),
+                                                           cases=cases)
+    for name, c in cases.items():
+        assert summary[name]["cases"] == len(c) and timings[name]["ms"] > 0
+    # rglru's backward keeps the plain version's operations: bit for bit.
+    assert all(summary["rglru_backward"]["bit_identical"].values())
+    assert summary["rwkv6_backward"]["bit_identical"]["ds0"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-7b", "recurrentgemma-9b",
+                                  "rwkv6-3b"])
+def test_training_path_on_card(arch):
+    """The training path on each family's smoke config: gradient gates,
+    run_supervised's launch counts (every layer's kernel and its
+    backward), the restart."""
+    row, launches = chip_smoke.lm_train_path(_cuda(), arch, smoke=True,
+                                             batch=4, seq=64)
+    from repro_torch import configs
+    ops = {op for lt in configs.get_smoke(arch).layer_types()
+           for op in chip_smoke.LAYER_KERNELS[lt]}
+    assert all(launches[op] > 0 for op in ops), launches
     assert row["restart"]["restore_bit_exact"]
+

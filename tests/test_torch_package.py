@@ -205,12 +205,13 @@ def test_every_kernel_has_a_cuda_source_and_a_counter():
                                "mv_gather", "mv_install", "route_pack",
                                "verdict_pack", "verdict_unpack",
                                "flash_attention", "rglru", "rwkv6",
-                               "apply_values", "flash_attention_backward"}
+                               "apply_values", "flash_attention_backward",
+                               "rglru_backward", "rwkv6_backward"}
     # validate and validate_dual share csrc/occ_validate.cu, verdict_pack
     # and verdict_unpack csrc/verdict_pack.cu, claim_probe and probe
-    # csrc/claim_probe.cu; flash_attention_backward has its own
-    # csrc/flash_attention_bwd.cu.
-    assert len(build.SOURCES) == 18 and len(K.WRAPPERS) == 21
+    # csrc/claim_probe.cu; the backwards have their own
+    # csrc/{flash_attention,rglru,rwkv6}_bwd.cu.
+    assert len(build.SOURCES) == 20 and len(K.WRAPPERS) == 23
     for w in K.WRAPPERS.values():
         assert isinstance(w.launches, int) and isinstance(w.calls, int)
 

@@ -13,9 +13,10 @@ tests/test_checkpoint.py holds the JAX package's.
   no-failure run's parameters exactly;
 - the launcher: ``--device cpu`` runs; ``--data``/``--model`` above 1
   raise naming ROADMAP A.12.3c; CUDA asked for and absent raises;
-- rglru and rwkv6 refuse a kernel call under autograd (ROADMAP A.12.3b)
-  on a device other than the CPU (meta tensors stand in for the card's
-  here), and without grad go on to the launch checks.
+- rglru and rwkv6 refuse a device without a kernel (meta tensors stand
+  in for the card's here) under autograd as without grad: the autograd
+  call goes through RGLRUFn / RWKV6Fn to the same launch checks, and so
+  do their backward wrappers.
 """
 import dataclasses
 import os
@@ -29,8 +30,8 @@ from repro_torch.checkpoint import (CheckpointManager, latest_step, restore,
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data import make_batch
 from repro_torch.ft import FailureInjector
-from repro_torch.kernels.rglru import rglru
-from repro_torch.kernels.rwkv6 import rwkv6
+from repro_torch.kernels.rglru import rglru, rglru_backward
+from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_backward
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.train import TrainRun, run_supervised
 from repro_torch.models import model as M
@@ -233,15 +234,16 @@ def test_recurrent_kernels_refuse_autograd_off_the_cpu():
     m = torch.device("meta")
     log_a = torch.zeros(1, 4, 8, device=m)
     x = torch.zeros(1, 4, 8, device=m, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A.12.3b"):
-        rglru(log_a, x)
     r = torch.zeros(1, 2, 4, 16, device=m, requires_grad=True)
     w = torch.zeros(1, 2, 4, 16, device=m)
     u = torch.zeros(2, 16, device=m)
-    with pytest.raises(NotImplementedError, match="A.12.3b"):
-        rwkv6(r, r, r, w, u)
-    with torch.no_grad():       # forward only: on to the launch checks
-        with pytest.raises(ValueError, match="no kernel for device meta"):
-            rglru(log_a, x)
-        with pytest.raises(ValueError, match="no kernel for device meta"):
-            rwkv6(r, r, r, w, u)
+    for grad in (True, False):  # through RGLRUFn / RWKV6Fn, and without
+        with torch.set_grad_enabled(grad):
+            with pytest.raises(ValueError, match="no kernel for device meta"):
+                rglru(log_a, x)
+            with pytest.raises(ValueError, match="no kernel for device meta"):
+                rwkv6(r, r, r, w, u)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        rglru_backward(log_a, x, None, x)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        rwkv6_backward(r, r, r, w, u, None, r)

@@ -1,7 +1,7 @@
 """The port's training step against the JAX package's on the smoke
 configuration of recurrentgemma-9b (the hybrid family: RG-LRU and local
-attention, rglru's plain version under autograd): one AdamW step,
-n_micro 1 and 2. The checks and their tolerances are in
+attention; rglru through RGLRUFn, its plain forward and backward): one
+AdamW step, n_micro 1 and 2. The checks and their tolerances are in
 tests/train_harness.py."""
 import pytest
 

@@ -1,7 +1,8 @@
 """The port's training step against the JAX package's on the smoke
-configuration of rwkv6-3b (the ssm family, rwkv6's plain version under
-autograd): the loss and every gradient, and remat on = remat off, bit
-for bit. The checks and their tolerances are in tests/train_harness.py."""
+configuration of rwkv6-3b (the ssm family; rwkv6 through RWKV6Fn, its
+plain forward and backward): the loss and every gradient, and remat on =
+remat off, bit for bit. The checks and their tolerances are in
+tests/train_harness.py."""
 import train_harness as th
 
 ARCH = "rwkv6-3b"
