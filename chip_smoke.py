@@ -132,9 +132,7 @@ src/repro_torch/csrc, then:
      ties and the int32 extremes, columns and ring heads from one past
      the negative end to one past the end, non-integer deltas; one op, a
      lane of 1,030 ops, rings of D = 1 and 2,048 lanes of 2 ops; each
-     timed form beside its bound and its plain replay and, with --parent,
-     the parent's keys launch, torch.sort and walk launch (for the ring
-     after its torch copy-forward) on the same inputs, in turns;
+     timed form beside its bound and its plain replay;
   2. the main path on TPC-C (full scale, T = 128, 200 waves) through the
      benchmark CLI's grid runner: OCC, TicToc, 2PL, SwissTM and Adaptive
      x coarse and fine, plus AutoGran coarse, with the launch counters set
@@ -332,19 +330,22 @@ src/repro_torch/csrc, then:
  14. flash_attention's backward (flash_attention_backward, the port's own
      kernel) and its forward's lse against their plain versions
      (flash_backward_phase): the training shape (B 1, Hq 32 over Hkv 4,
-     S 4,096, D 128, causal, bf16), recurrentgemma's shape at S 3,072 (D
-     256, window 2,048, GQA 16/1) and FLASH_CASES' decode shape and edges
+     S 4,096, D 128, causal, bf16), recurrentgemma-9b's training shape
+     (B 1, Hq 16 over Hkv 1, S 4,096, D 256, causal, window 2,048, bf16)
+     and the same at S 3,072, and FLASH_CASES' decode shape and edges
      (sq_valid, sk_valid, rows without keys, D 16 and 32, rep 1,
      float32): dq, dk, dv within relative L2 1e-4 (float32) / 1e-2
      (bf16), lse within 1e-4 + 1e-5 |lse| and -inf on the same rows, the
      output with lse equal bit for bit to the one without; bf16 edges of
-     the tensor-core backward (D 128 GQA 8 with a window of 100 at 300
-     rows, Sq 100 < Sk 260 with sk_valid 230, D 64 rep 1 not causal, D 16
-     with rows that see no key); two calls give the same bits.  The
-     forward with lse and the backward timed at the training shape beside
-     their bounds, the plain backward, SDPA's forward + backward with the
-     same boolean mask and with is_causal and enable_gqa, and the
-     per-launch split (delta, dkdv, the rep sum, dq) from the profiler;
+     the tensor-core backward at D 128 and D 256 (GQA 8 / 16 with a
+     window of 100 at 300 rows, Sq 100 < Sk 260 with sk_valid 230, rep 1
+     not causal, rows that see no key); two calls give the same bits.
+     The forward with lse and the backward timed at both training shapes
+     beside their bounds, the plain backward, SDPA's forward + backward
+     with the same boolean mask (and the backend it ran) and with
+     is_causal and enable_gqa, and the per-launch split (delta, dkdv, the
+     rep sum, dq) from the profiler; with --parent the parent's build at
+     D 256 in turns;
  15. the recurrences' backwards (recurrent_backward_phase; rglru_backward
      and rwkv6_backward, kernels of the port's own) against their plain
      versions at the training shapes (recurrentgemma-9b: B 1, S 4,096,
@@ -2050,46 +2051,6 @@ def apply_values_cases(shapes=APPLY_TIMED):
                   ("many lanes", 5000, 2048, 2, 3, 0, "signed")]
 
 
-def parent_apply_values(fns, values, batch, commit, prio, slot_of=None):
-    """A call of the parent's build of the replay (``fns``: its C entries
-    repro_apply_values_keys and repro_apply_values_walk, bound with the
-    parent's own signature): the keys launch, torch.sort, the walk
-    launch, as the parent's wrapper made them."""
-    from repro_torch.kernels import build
-    T, K = batch.op_key.shape
-    N, D, C = ((values.shape[0], 1, values.shape[1]) if slot_of is None
-               else tuple(values.shape))
-    n, dev = T * K, values.device
-    keys = torch.empty((n,), dtype=torch.int64, device=dev)
-    build.raise_on_error("parent apply_values", fns["apply_values_keys"](
-        *(build.ptr(x) for x in (batch.op_key, batch.op_col, batch.op_kind,
-                                 commit, prio, slot_of, keys)),
-        T, K, N, D, C, build.stream(dev)))
-    ordered, perm = torch.sort(keys)
-    build.raise_on_error("parent apply_values", fns["apply_values_walk"](
-        *(build.ptr(x) for x in (ordered, perm, batch.op_kind,
-                                 batch.op_val, values)),
-        n, build.stream(dev)))
-    return values
-
-
-def parent_install_values(fns, vals, head_old, head_new, batch, commit,
-                          prio):
-    """The parent's ``mvstore.install_values``: the copy-forward as its
-    torch index ops, then its replay into the new slots."""
-    from repro_torch.core.claims import record_index
-    N, D, C = vals.shape
-    do = (batch.is_write() & batch.live() & commit[:, None]).reshape(-1)
-    k, valid = record_index(batch.op_key.reshape(-1), N)
-    src = k * D + head_old.index_select(0, k).to(torch.int64)
-    dst = torch.where(do & valid,
-                      k * D + head_new.index_select(0, k).to(torch.int64),
-                      src)
-    rows = vals.view(N * D, C)
-    rows.index_copy_(0, dst, rows.index_select(0, src))
-    return parent_apply_values(fns, vals, batch, commit, prio, head_new)
-
-
 def _apply_bytes(table, batch, commit, prio, slot_of, head_old=None):
     """Bytes the replay must move on these inputs: per op a key, a column,
     a kind and a value, per lane a commit byte and a priority; without
@@ -2116,16 +2077,11 @@ def _apply_bytes(table, batch, commit, prio, slot_of, head_old=None):
     return n_bytes, int(act.sum())
 
 
-def apply_values_checks(check, dev, shapes=APPLY_TIMED, seed=101,
-                        parent=None):
+def apply_values_checks(check, dev, shapes=APPLY_TIMED, seed=101):
     """apply_values against its plain version on every case, bit for bit
     (the updated values; the ring with the copy-forward), then the timed
     forms: kernel, plain replay and bound at each of ``shapes`` on its
-    mixed input, and with ``parent`` (--parent's C entries) the parent's
-    chain on the same inputs (its keys launch, torch.sort and walk
-    launch; for the ring its torch copy-forward first), in turns parent,
-    this, this, parent, after checking that the two builds agree there.
-    Returns {name: timing dict}."""
+    mixed input.  Returns {name: timing dict}."""
     from repro_torch import kernels as K
     from repro_torch.kernels.apply_values import apply_values_plain, route
     for i, (label, N, T, Kk, C, D, mode) in enumerate(
@@ -2148,51 +2104,22 @@ def apply_values_checks(check, dev, shapes=APPLY_TIMED, seed=101,
             N, T, Kk, C, D, "mixed", dev, seed + 50 + i)
         n_bytes, n_act = _apply_bytes(table, batch, commit, prio, slot_of,
                                      head_old)
-
-        def this():
-            return K.apply_values(table, batch, commit, prio, slot_of,
-                                  head_old)
-        row = dict(
+        timings[name] = dict(
             form=(f"ring D={D}, the copy-forward from head_old, slot_of the "
                   f"new heads" if D else "flat values")
                  + f", {route(T, Kk)} form",
             shape=f"T={T} K={Kk} N={N} C={C}" + (f" D={D}" if D else ""),
-            ms=time_ms(this, dev),
+            ms=time_ms(lambda: K.apply_values(table, batch, commit, prio,
+                                              slot_of, head_old), dev),
             plain_ms=time_ms(lambda: apply_values_plain(
                 table, batch, commit, prio, slot_of, head_old), dev, n=3,
                 warmup=1),
-            library_ms=None, parent_ms=None,
-            bound=bound_ms(n_bytes, n_act))
-        if parent is not None:
-            def prev():
-                if D:
-                    return parent_install_values(parent, table, head_old,
-                                                 slot_of, batch, commit,
-                                                 prio)
-                return parent_apply_values(parent, table, batch, commit,
-                                           prio)
-            start = table.clone()
-            this()
-            mine = table.clone()
-            table.copy_(start)
-            prev()
-            if not torch.equal(mine, table):
-                raise AssertionError(f"{name}: the parent's build and this "
-                                     "one differ on the timing input")
-            ts = {"parent": [], "this": []}
-            for who in ("parent", "this", "this", "parent"):
-                ts[who].append(time_ms(prev if who == "parent" else this,
-                                       dev, n=30, warmup=3))
-            row["parent_ms"] = statistics.mean(ts["parent"])
-            row["this_turns_ms"] = ts["this"]
-            log(f"  {name} in turns: parent {ts['parent']} ms, this build "
-                f"{ts['this']} ms")
-        timings[name] = row
+            library_ms=None, bound=bound_ms(n_bytes, n_act))
     return timings
 
 
 def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES,
-                 apply_shapes=APPLY_TIMED, parent=None):
+                 apply_shapes=APPLY_TIMED):
     """Compare every kernel with its plain version over every flag
     combination at ``shapes``, and the sharded wave's kernels at its
     shapes for ``dist_lanes`` lanes; time them.  apply_values at
@@ -2491,7 +2418,7 @@ def kernel_phase(dev, shapes, wave=9, dist_lanes=DIST_LANES,
     timings["dist"].update(verdict_fold_timings(
         dev, dist_lanes, N=YCSB_N if dev.type == "cuda" else 1 << 16))
     timings.setdefault("tpcc", {}).update(apply_values_checks(
-        checks["apply_values"], dev, apply_shapes, parent=parent))
+        checks["apply_values"], dev, apply_shapes))
     for label, t in timings.items():
         for name, r in t.items():
             plain = ("-" if r["plain_ms"] is None
@@ -5769,15 +5696,14 @@ def _sync(dev):
 #: beside this checkout's kernels: the kernels the change redesigned, each
 #: with its source (csrc/<source>.cu) and its ctypes argtypes in the
 #: parent's tree, which bind it (a parent bound with this checkout's
-#: signature crashes).  apply_values: the parent's keys and walk launches
-#: around torch.sort (parent_apply_values), timed by apply_values_checks.
+#: signature crashes).  flash_attention's backward: the parent's
+#: repro_flash_attention_bwd (scalar kernels at D 256, whose scratch is Di
+#: alone), timed by flash_backward_phase through parent_bwd.
 PARENT_KERNELS = {
-    "apply_values_keys": ("apply_values",
-                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                          + [ctypes.c_void_p]),
-    "apply_values_walk": ("apply_values",
-                          [ctypes.c_void_p] * 5 + [ctypes.c_int]
-                          + [ctypes.c_void_p])}
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                            + [ctypes.c_float] + [ctypes.c_int] * 3
+                            + [ctypes.c_void_p])}
 
 
 def parent_kernels(parent_root: str) -> dict:
@@ -5916,20 +5842,27 @@ def lm_kernel_phase(dev, seed=21, cases=None):
 
 #: flash_attention's backward (and its forward's lse) against their plain
 #: versions: the training shape (qwen2-7b's attention at train_4k's
-#: length: Hq 32 over Hkv 4, D 128, causal), recurrentgemma's shape at
-#: S 3,072 (D 256, window 2,048, GQA 16/1), then FLASH_CASES' decode
-#: shape and edges (sq_valid and sk_valid, rows without keys, D 16 and
-#: 32, rep 1, float32).  The first is timed.
+#: length: Hq 32 over Hkv 4, D 128, causal), recurrentgemma-9b's training
+#: shape (FLASH_BWD_D256: S 4,096, D 256, window 2,048, GQA 16/1) and its
+#: shape at S 3,072, then FLASH_CASES' decode shape and edges (sq_valid
+#: and sk_valid, rows without keys, D 16 and 32, rep 1, float32).  The
+#: first is timed, and FLASH_BWD_D256 wherever it is among the cases.
+FLASH_BWD_D256 = "rg9b train-4k"
 FLASH_BWD_CASES = (
     ("train-4k", dict(B=1, Hq=32, Hkv=4, Sq=4096, Sk=4096, D=128,
                       causal=True, window=None), torch.bfloat16),
+    (FLASH_BWD_D256, dict(B=1, Hq=16, Hkv=1, Sq=4096, Sk=4096, D=256,
+                          causal=True, window=2048), torch.bfloat16),
     ("rg9b S=3072", dict(B=1, Hq=16, Hkv=1, Sq=3072, Sk=3072, D=256,
                          causal=True, window=2048), torch.bfloat16),
 ) + FLASH_CASES[1:]
-#: Edges of the bf16 tensor-core backward (D <= 128): GQA 8 with a window
-#: across 128-key blocks and 64-row tiles, Sq < Sk end-aligned with
-#: ragged tiles and sk_valid < Sk, rep 1 without the causal band (no
-#: partials), D 16 padded to 64 with rows that see no key.
+#: Edges of the bf16 tensor-core backward, at D <= 128 (128-key and
+#: 128-row blocks of two 64-wide warpgroups) and at D 256 (64-key and
+#: 64-row blocks, the columns split between the warpgroups): GQA 8 / 16
+#: with a window across the key blocks and 64-row tiles, Sq < Sk
+#: end-aligned with ragged tiles and sk_valid < Sk, rep 1 without the
+#: causal band (no partials), rows that see no key (D 16 padded to 64,
+#: and D 256).
 FLASH_BWD_BF16_EDGE_CASES = (
     ("bwd bf16 rep8 window 100", dict(B=1, Hq=8, Hkv=1, Sq=300, Sk=300,
                                       D=128, causal=True, window=100),
@@ -5944,6 +5877,20 @@ FLASH_BWD_BF16_EDGE_CASES = (
                                             Sk=150, D=16, causal=True,
                                             window=None, sq_valid=80,
                                             sk_valid=50), torch.bfloat16),
+    ("bwd bf16 D256 rep16 window 100", dict(B=1, Hq=16, Hkv=1, Sq=300,
+                                            Sk=300, D=256, causal=True,
+                                            window=100), torch.bfloat16),
+    ("bwd bf16 D256 Sq<Sk sk_valid", dict(B=2, Hq=4, Hkv=2, Sq=100,
+                                          Sk=260, D=256, causal=True,
+                                          window=None, sk_valid=230),
+     torch.bfloat16),
+    ("bwd bf16 D256 rep1 full", dict(B=2, Hq=3, Hkv=3, Sq=70, Sk=70,
+                                     D=256, causal=False, window=None),
+     torch.bfloat16),
+    ("bwd bf16 D256 rows without keys", dict(B=1, Hq=4, Hkv=2, Sq=90,
+                                             Sk=150, D=256, causal=True,
+                                             window=None, sq_valid=80,
+                                             sk_valid=50), torch.bfloat16),
 )
 FLASH_BWD_CASES = FLASH_BWD_CASES + FLASH_BWD_BF16_EDGE_CASES
 #: Relative L2 allowed between the backward kernel's dq, dk, dv and the
@@ -5971,7 +5918,9 @@ def _sdpa_train(args, kw, dout):
     """One PyTorch call of the same function as the forward and backward
     together: scaled dot-product attention with the same boolean mask,
     forward and backward through autograd (kv heads repeated first,
-    outside the timing).  A yardstick only; the port never calls it."""
+    outside the timing), and the name of the backend PyTorch picks for
+    it (``torch._fused_sdp_choice`` on these inputs).  A yardstick only;
+    the port never calls it.  Returns (run, backend)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_mask
     q, k, v = args
@@ -5987,7 +5936,8 @@ def _sdpa_train(args, kw, dout):
     def run():
         out = F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask)
         torch.autograd.grad(out, (q, kk, vv), dout)
-    return run
+    from torch.nn.attention import SDPBackend
+    return run, SDPBackend(torch._fused_sdp_choice(q, kk, vv, mask)).name
 
 
 def _plain_causal(s) -> bool:
@@ -6051,7 +6001,109 @@ def bwd_split(fn, n=5) -> tuple[dict, dict, float]:
             pr["device_busy_ms_per_wave"])
 
 
-def flash_backward_phase(dev, seed=23, cases=None):
+def parent_bwd(fn, q, k, v, o, lse, do, *, causal, window, sq_valid,
+               sk_valid):
+    """A call of the parent's build of flash_attention_backward (``fn``:
+    its C entry repro_flash_attention_bwd, bound with PARENT_KERNELS'
+    signature) at D 256 in bf16, where the parent ran its scalar kernels:
+    outputs and scratch as the parent's wrapper made them (Di alone)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import DTYPE_CODES
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if D != 256 or q.dtype != torch.bfloat16:
+        raise ValueError("parent_bwd times the parent's bf16 D 256 route")
+    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty_like(v))
+    scratch = torch.empty((B * Hq * Sq,), dtype=torch.float32,
+                          device=q.device)
+    build.raise_on_error("parent flash_attention_backward", fn(
+        *(build.ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv, scratch)),
+        B, Hq, Hkv, Sq, Sk, D, int(causal), int(window is not None),
+        int(window or 0), ctypes.c_float(D ** -0.5), sq_valid or Sq,
+        Sk if sk_valid is None else sk_valid, DTYPE_CODES[q.dtype],
+        build.stream(q.device)))
+    return dq, dk, dv
+
+
+def _bwd_timing(label, s, dtype, args, kw, bargs, dout, dev, parent=None):
+    """One timed backward case: the forward with lse, the backward (and
+    its launches' split), the plain backward, the bound, SDPA's forward +
+    backward (the same mask, the backend that ran; and is_causal with
+    enable_gqa where the mask is that one) and, with ``parent`` (the
+    --parent C entries), the parent's build on the same inputs in turns
+    parent, this, this, parent.  Returns the timing row."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_plain,
+        flash_attention_forward)
+    fkw = dict(kw, scale=None)
+    fwd = flash_attention_forward
+    fb, fo, rate = flash_work(s, dtype, dev)
+    bb, bo, _ = flash_bwd_work(s, dtype, dev)
+
+    def this():
+        return flash_attention_backward(*bargs, **kw)
+    f_ms = time_ms(lambda: fwd(*args, with_lse=True, **fkw), dev, n=10,
+                   warmup=2)
+    b_ms = time_ms(this, dev, n=10, warmup=2)
+    sdpa, backend = _sdpa_train(args, kw, dout)
+    row = {
+        "ms": b_ms,
+        "plain_ms": time_ms(
+            lambda: flash_attention_backward_plain(*bargs, **kw), dev, n=3,
+            warmup=1),
+        "bound": (max(bb / PEAK_BYTES_PER_S, bo / rate) * 1e3,
+                  "bytes" if bb / PEAK_BYTES_PER_S >= bo / rate
+                  else "operations"),
+        "library_ms": time_ms(sdpa, dev, n=10, warmup=2),
+        "library_backend": backend,
+        "forward_lse_ms": f_ms,
+        "forward_ms": time_ms(lambda: fwd(*args, with_lse=False, **fkw),
+                              dev, n=10, warmup=2),
+        "forward_bound_ms": max(fb / PEAK_BYTES_PER_S, fo / rate) * 1e3,
+        "split_ms": {}, "split_launches": {}, "busy_ms": None,
+        "library_causal_ms": (time_ms(_sdpa_causal_train(args, dout), dev,
+                                      n=10, warmup=2)
+                              if _plain_causal(s) else None),
+        "parent_ms": None,
+        "bytes": bb, "ops": bo,
+        "shape": f"{label} " + " ".join(f"{k}={v}" for k, v in s.items())
+                 + f" {str(dtype).split('.')[-1]}"}
+    if dev.type == "cuda":
+        row["split_ms"], row["split_launches"], row["busy_ms"] = bwd_split(
+            this)
+    if parent is not None:
+        def prev():
+            return parent_bwd(parent["flash_attention_bwd"], *bargs, **kw)
+        err = max(rel_l2(a, b) for a, b in zip(
+            prev(), flash_attention_backward_plain(*bargs, **kw)))
+        ts = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            ts[who].append(time_ms(prev if who == "parent" else this, dev,
+                                   n=10, warmup=2))
+        row["parent_ms"] = statistics.mean(ts["parent"])
+        row["this_turns_ms"] = ts["this"]
+        log(f"  {label} in turns: parent {ts['parent']} ms, this build "
+            f"{ts['this']} ms (the parent's rel L2 to plain {err:.3g})")
+    log(f"  flash_attention backward split (profiler, ms a launch): "
+        + ", ".join(f"{k} {v:.6f} (x{row['split_launches'][k]:.0f})"
+                    for k, v in row["split_ms"].items())
+        + f"; device-busy {row['busy_ms']} ms a call"
+        + f"; SDPA is_causal enable_gqa forward + backward "
+        f"{row['library_causal_ms']} ms; SDPA with the mask ran "
+        f"{backend}")
+    log(f"  flash_attention forward+lse {f_ms:.6f} ms (without "
+        f"lse {row['forward_ms']:.6f} ms), bound "
+        f"{row['forward_bound_ms']:.6f} ms; backward {b_ms:.6f} ms,"
+        f" bound {row['bound'][0]:.6f} ms ({row['bound'][1]}; "
+        f"{bo / 1e9:.2f} Gop, {row['bound'][0] / b_ms:.1%} of the "
+        f"kernel's time); plain backward {row['plain_ms']:.4f} ms; "
+        f"SDPA forward + backward {row['library_ms']:.4f} ms "
+        f"against {f_ms + b_ms:.4f} ms  [{row['shape']}]")
+    return row
+
+
+def flash_backward_phase(dev, seed=23, cases=None, parent=None):
     """flash_attention_backward against flash_attention_backward_plain on
     the same inputs (q, k, v, the kernel forward's output and lse, and a
     random dO), dq, dk, dv within FLASH_BWD_RTOL in relative L2, over
@@ -6059,11 +6111,11 @@ def flash_backward_phase(dev, seed=23, cases=None):
     small shapes); and the forward's lse against the plain log-sum-exp
     (-inf on the same rows, finite ones within 1e-4 + 1e-5 |lse|), its
     output equal bit for bit to the forward without lse; a second call of
-    the backward gives the same bits.  The first case is timed: the
-    forward with lse, the backward (and its launches' split), the plain
-    backward, SDPA's forward + backward (the same mask; and is_causal
-    with enable_gqa where the mask is that one).  Returns (summary,
-    timing row)."""
+    the backward gives the same bits.  The first case and FLASH_BWD_D256
+    are timed (_bwd_timing; ``parent``, the --parent C entries, times the
+    parent's build at FLASH_BWD_D256 too).  Returns (summary, the first
+    case's timing row, with FLASH_BWD_D256's under "d256" where it ran).
+    """
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_backward_plain,
         flash_attention_forward, flash_attention_plain)
@@ -6071,7 +6123,7 @@ def flash_backward_phase(dev, seed=23, cases=None):
     gen.manual_seed(seed)
     worst = {"dq_dk_dv_rel_l2": 0.0, "lse_max_abs_err": 0.0,
              "max_abs_err": 0.0, "cases": 0}
-    row = None
+    row = d256 = None
     for i, (label, s, dtype) in enumerate(cases or FLASH_BWD_CASES):
         args, kw = flash_inputs(s, dtype, dev, gen)
         fkw = dict(kw, scale=None)
@@ -6124,56 +6176,15 @@ def flash_backward_phase(dev, seed=23, cases=None):
         worst["dq_dk_dv_rel_l2"] = max(worst["dq_dk_dv_rel_l2"], *errs)
         worst["lse_max_abs_err"] = max(worst["lse_max_abs_err"], lse_err)
         worst["cases"] += 1
+        del got, again, want, plain_out, plain_lse
         if i == 0:
-            fb, fo, rate = flash_work(s, dtype, dev)
-            bb, bo, _ = flash_bwd_work(s, dtype, dev)
-            f_ms = time_ms(lambda: fwd(*args, with_lse=True, **fkw), dev,
-                           n=10, warmup=2)
-            b_ms = time_ms(lambda: flash_attention_backward(*bargs, **kw),
-                           dev, n=10, warmup=2)
-            row = {
-                "ms": b_ms,
-                "plain_ms": time_ms(
-                    lambda: flash_attention_backward_plain(*bargs, **kw),
-                    dev, n=3, warmup=1),
-                "bound": (max(bb / PEAK_BYTES_PER_S, bo / rate) * 1e3,
-                          "bytes" if bb / PEAK_BYTES_PER_S >= bo / rate
-                          else "operations"),
-                "library_ms": time_ms(_sdpa_train(args, kw, dout), dev,
-                                      n=10, warmup=2),
-                "forward_lse_ms": f_ms,
-                "forward_ms": time_ms(
-                    lambda: fwd(*args, with_lse=False, **fkw), dev, n=10,
-                    warmup=2),
-                "forward_bound_ms": max(fb / PEAK_BYTES_PER_S,
-                                        fo / rate) * 1e3,
-                "split_ms": {}, "split_launches": {}, "busy_ms": None,
-                "library_causal_ms": (time_ms(_sdpa_causal_train(
-                    args, dout), dev, n=10, warmup=2)
-                    if _plain_causal(s) else None),
-                "bytes": bb, "ops": bo,
-                "shape": f"{label} "
-                         + " ".join(f"{k}={v}" for k, v in s.items())
-                         + f" {str(dtype).split('.')[-1]}"}
-            if dev.type == "cuda":
-                (row["split_ms"], row["split_launches"],
-                 row["busy_ms"]) = bwd_split(
-                    lambda: flash_attention_backward(*bargs, **kw))
-            log(f"  flash_attention backward split (profiler, ms a launch): "
-                + ", ".join(f"{k} {v:.6f} (x{row['split_launches'][k]:.0f})"
-                            for k, v in row["split_ms"].items())
-                + f"; device-busy {row['busy_ms']} ms a call"
-                + f"; SDPA is_causal enable_gqa forward + backward "
-                f"{row['library_causal_ms']} ms")
-            log(f"  flash_attention forward+lse {f_ms:.6f} ms (without "
-                f"lse {row['forward_ms']:.6f} ms), bound "
-                f"{row['forward_bound_ms']:.6f} ms; backward {b_ms:.6f} ms,"
-                f" bound {row['bound'][0]:.6f} ms ({row['bound'][1]}; "
-                f"{bo / 1e9:.2f} Gop, {row['bound'][0] / b_ms:.1%} of the "
-                f"kernel's time); plain backward {row['plain_ms']:.4f} ms; "
-                f"SDPA forward + backward {row['library_ms']:.4f} ms "
-                f"against {f_ms + b_ms:.4f} ms  [{row['shape']}]")
-        del args, out, lse, plain_out, plain_lse, dout, bargs, got, want
+            row = _bwd_timing(label, s, dtype, args, kw, bargs, dout, dev)
+        elif label == FLASH_BWD_D256:
+            d256 = _bwd_timing(label, s, dtype, args, kw, bargs, dout, dev,
+                               parent)
+        del args, out, lse, dout, bargs
+    if row is not None and d256 is not None:
+        row["d256"] = d256
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     log(f"  flash_attention_backward {worst['cases']} cases vs plain: "
@@ -7103,9 +7114,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="a parent commit unpacked in DIR: time its build "
-                         "of PARENT_KERNELS (apply_values' keys and walk) "
-                         "beside this checkout's on the same inputs, in "
-                         "turns")
+                         "of PARENT_KERNELS (flash_attention's backward at "
+                         "D 256) beside this checkout's on the same "
+                         "inputs, in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
@@ -7134,7 +7145,7 @@ def main(argv=None) -> int:
 
     parent = parent_kernels(args.parent) if args.parent else None
     phase("kernels vs plain versions:")
-    checks, timings = kernel_phase(dev, SHAPES, parent=parent)
+    checks, timings = kernel_phase(dev, SHAPES)
 
     phase("main path, TPC-C:")
     tpcc, l_tpcc = main_path("tpcc", dev, **MAIN_KW["tpcc"])
@@ -7235,7 +7246,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lm_checks, lm_timings = lm_kernel_phase(dev)
     phase("flash_attention's backward and lse vs plain versions:")
-    bwd_check, bwd_timing = flash_backward_phase(dev)
+    bwd_check, bwd_timing = flash_backward_phase(dev, parent=parent)
     phase("rglru's and rwkv6's backwards vs plain versions:")
     rec_checks, rec_timings = recurrent_backward_phase(dev)
     lm_rows, lm_launches = [], {op: 0 for op in K.WRAPPERS}
@@ -7340,6 +7351,8 @@ def main(argv=None) -> int:
         "split_launches": bwd_timing["split_launches"],
         "busy_ms": bwd_timing["busy_ms"],
         "shape": bwd_timing["shape"],
+        "d256": {k: (list(v) if k == "bound" else v)
+                 for k, v in bwd_timing.get("d256", {}).items()},
     })
     for name, (src, replaces) in RECURRENT_BWD_META.items():
         t, c = rec_timings[name], rec_checks[name]

@@ -33,10 +33,12 @@
 // Hkv 4, S 4,096, D 128, causal, bf16) the 268 M visible pairs need 10 D
 // flops each (S and dP recomputed, dV, dK, dQ): 343.7 GFLOP, 0.348 ms at
 // the tensor cores' 989 TFLOP/s; the bytes (q, k, v, o, dO, lse read
-// once, dq, dk, dv written once, 152 MB) take 0.045 ms.
+// once, dq, dk, dv written once, 152 MB) take 0.045 ms.  At
+// recurrentgemma-9b's (B 1, Hq 16, Hkv 1, S 4,096, D 256, causal, window
+// 2,048) 100.7 M pairs: 257.7 GFLOP, 0.261 ms (the bytes 0.043 ms).
 //
-// bfloat16 at D <= 128 (the trained dtype): the tensor cores through
-// wgmma (wgmma.cuh), FlashAttention-2's two passes, four launches:
+// bfloat16 (the trained dtype): the tensor cores through wgmma
+// (wgmma.cuh), FlashAttention-2's two passes, four launches:
 //  1. delta: Di = rowsum(dO * O) in float32, one warp a row.
 //  2. dkdv: one block of two warpgroups per (b, query head, 128-key
 //     tile), each warpgroup owning 64 keys; K and V of the tile loaded
@@ -72,17 +74,41 @@
 // KB, lse and Di), dq 129 KB (Q and dO 64 KB, 2 x (K + V) 64 KB); one
 // block of 256 threads an SM, __launch_bounds__(256, 1): a dkdv thread
 // holds dK and dV (64 + 64 float32), S^T and dP^T (32 + 32) and the
-// fragments (ptxas: 251 registers for dkdv, 181 for dq, no spill).  Head widths 16 and 32 are padded to 64 in shared memory,
-// as the forward's.  What it leaves: no TMA or producer warp, no
-// setmaxnreg; the two warpgroups run in step (two barriers a tile), so
-// the tensor cores idle through the exponentials and the loads' waits.
+// fragments (ptxas: 251 registers for dkdv, 181 for dq, no spill).  Head
+// widths 16 and 32 are padded to 64 in shared memory, as the forward's.
+// What it leaves: no TMA or producer warp, no setmaxnreg; the two
+// warpgroups run in step (two barriers a tile), so the tensor cores idle
+// through the exponentials and the loads' waits.
+//
+// D = 256 (recurrentgemma-9b's width) splits the head's columns between
+// the two warpgroups (kSplit).  At D 256 a warpgroup's 64 keys of float32
+// dK and dV over every column would take 64 x 256 x 2 / 128 = 256
+// registers a thread, past the 255 a thread can have.  Two layouts fit:
+// (a) both warpgroups take the block's 64 keys and compute the full-depth
+// S^T and dP^T, then each accumulates dK and dV of one half of D (128
+// columns) with P^T and dS^T straight from its registers
+// (wgmma_rs_t<128>); (b) one warpgroup computes S^T, the other dP^T, and
+// they trade P^T and dS^T through shared memory (and P or dP^T - Di in
+// float32, since dS^T needs both) with barriers between the two.  This is
+// (a): a thread holds what it holds at D 128 (dK and dV 64 + 64, S^T and
+// dP^T 32 + 32, the fragments), the dataflow and the block's two barriers
+// a tile stay as at D 128, and no shared-memory round trip or wait on the
+// other warpgroup sits between the exponentials and the products.  Its
+// price: both warpgroups compute S^T and dP^T (and the exponentials), 4 D
+// flops a pair more.  dq likewise: Q and dO of 128 rows (128 KB) beside
+// two stages of K and V (128 KB) would pass 227 KB, so a block takes 64
+// rows and each warpgroup accumulates dQ of one half of D.  So a pair
+// costs 12 D flops in dkdv and 10 D in dq, 22 D against the bound's 10 D
+// (14 D at D <= 128).  Shared memory: dkdv 194 KB (K and V of 64 keys 64
+// KB, 2 x (Q + dO) 128 KB, lse and Di), dq 193 KB (Q and dO of 64 rows 64
+// KB, 2 x (K + V) 128 KB), within the 227 KB a block can have.  At the
+// training shape 1,024 blocks a pass (16 heads x 64 tiles) on 132 SMs,
+// longest first as at D 128.  ptxas: 237 registers for dkdv, 174 for dq,
+// no spill.  What it leaves: what D 128 leaves, and the products made
+// twice.
 //
 // Scalar float32 FMAs for float32 (the smoke models; their gate,
-// relative L2 1e-4, is one TF32 would not hold) and for bf16 at D = 256
-// (a 64-key slice's float32 dK and dV alone take 256 registers a
-// thread; D 256 is recurrentgemma-9b's width, where this route takes
-// about a fifth of a training step; its tensor-core route is ROADMAP
-// B.14d), three launches:
+// relative L2 1e-4, is one TF32 would not hold), three launches:
 //  1. delta as above.
 //  2. dkdv: one block of 256 threads per (b, kv head, key tile of BK =
 //     64 keys; 32 at D = 256), K and V of the tile in shared memory
@@ -453,7 +479,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------- bfloat16, D <= 128: warpgroup products
+// ------------------------------------- bfloat16: warpgroup products
 namespace wg {
 
 using namespace hopper;
@@ -461,23 +487,37 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kGroups = 2;                // consumer warpgroups a block
 constexpr int kThreads = 128 * kGroups;
-constexpr int kBlk = 64 * kGroups;        // keys (dkdv), rows (dq) a block
 constexpr int kTile = 64;                 // rows (dkdv), keys (dq) a tile
 constexpr float kLog2e = 1.4426950408889634f;
+
+// D = 256 splits the head's columns between the warpgroups: both take the
+// block's 64 keys (dkdv) or rows (dq), each accumulates one half of D.
+template <int D>
+constexpr bool kSplit = D > 128;
+// Keys (dkdv) or rows (dq) a block: 64 a warpgroup, or 64 when split.
+template <int D>
+constexpr int kBlk = kSplit<D> ? 64 : 64 * kGroups;
+// Columns of dK and dV (dkdv) or dQ (dq) that a warpgroup accumulates.
+template <int D>
+constexpr int kCols = kSplit<D> ? kPadded<D> / kGroups : kPadded<D>;
 
 // dkdv: K and V of the block, 2 x (Q + dO) tiles, 2 x (lse + Di) rows,
 // and 1 KB to align the tiles to the swizzle's period.
 template <int D>
 constexpr size_t dkdv_smem() {
-  return 1024 + (size_t)(2 * kBlk + 4 * kTile) * kPadded<D> * sizeof(bf16)
+  return 1024
+         + (size_t)(2 * kBlk<D> + 4 * kTile) * kPadded<D> * sizeof(bf16)
          + 4 * kTile * sizeof(float);
 }
 
 // dq: Q and dO of the block, 2 x (K + V) tiles.
 template <int D>
 constexpr size_t dq_smem() {
-  return 1024 + (size_t)(2 * kBlk + 4 * kTile) * kPadded<D> * sizeof(bf16);
+  return 1024
+         + (size_t)(2 * kBlk<D> + 4 * kTile) * kPadded<D> * sizeof(bf16);
 }
+static_assert(dkdv_smem<256>() <= 232448 && dq_smem<256>() <= 232448,
+              "a block has at most 227 KB of shared memory");
 
 // The accumulators' layout (m64nNk16, as the forward's): warp w of the
 // warpgroup holds rows 16 w + g and 16 w + g + 8 (lane = 4 g + t), d[4 j
@@ -491,20 +531,20 @@ __device__ __forceinline__ void to_frag(unsigned (&a)[4][4], int j,
 }
 
 // x = A0.B0^T and y = A1.B1^T, 64 x 64 each, over DP / 16 steps of 16
-// columns, both operands K-major in shared memory: A0 and A1 this
-// warpgroup's 64 rows of kBlk-row tiles, B0 and B1 kTile-row tiles.
-template <int DP>
+// columns, both operands K-major in shared memory: A0 and A1 the 64 rows
+// from row a_row of RA-row tiles, B0 and B1 kTile-row tiles.
+template <int DP, int RA>
 __device__ __forceinline__ void two_products(float (&x)[32], float (&y)[32],
                                              unsigned a0, unsigned a1,
                                              unsigned b0, unsigned b1,
-                                             int wgi) {
+                                             int a_row) {
   fence_regs(x);
   fence_regs(y);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
     const unsigned col = (kk % 4) * 32u;
-    const unsigned a = (kk / 4) * (kBlk * kRow) + wgi * 64 * kRow + col;
+    const unsigned a = (kk / 4) * (RA * kRow) + a_row * kRow + col;
     const unsigned b = (kk / 4) * (kTile * kRow) + col;
     wgmma_ss<0, 0>(x, desc(a0 + a, 16, 1024), desc(b0 + b, 16, 1024),
                    kk > 0);
@@ -517,8 +557,9 @@ __device__ __forceinline__ void two_products(float (&x)[32], float (&y)[32],
   fence_regs(y);
 }
 
-// 2. dK and dV of 64 keys a warpgroup, over the query tiles of one query
-// head; float32 partials where Hq > Hkv, else dk and dv.
+// 2. dK and dV of 64 keys a warpgroup (of the block's 64 keys and half
+// of D when split), over the query tiles of one query head; float32
+// partials where Hq > Hkv, else dk and dv.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -528,8 +569,9 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             float* __restrict__ part_k, float* __restrict__ part_v, int Hq,
             int Hkv, int Sk, float scale, float scale_log2, Mask mask) {
   constexpr int DP = kPadded<D>;
-  constexpr int NC = DP / 64;
-  constexpr unsigned KB = kBlk * DP * 2;     // K or V of the block's keys
+  constexpr int BK = kBlk<D>;
+  constexpr int NC = kCols<D> / 64;
+  constexpr unsigned KB = BK * DP * 2;       // K or V of the block's keys
   constexpr unsigned TB = kTile * DP * 2;    // a Q or dO tile
   extern __shared__ float4 smem4[];
   const unsigned base = smem_addr(smem4);
@@ -548,7 +590,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long b = bh / Hq, h = bh % Hq;
   const int rep = Hq / Hkv;
   const long long kvh = b * Hkv + h / rep;
-  const int k0 = blockIdx.y * kBlk;          // longest first under causal
+  const int k0 = blockIdx.y * BK;            // longest first under causal
   const int Sq = mask.Sq;
   const bf16* qb = q + bh * Sq * D;
   const bf16* ob = dout + bh * Sq * D;
@@ -557,7 +599,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // Query rows that can see a key of [k0, k_hi): pos >= k0 (causal),
   // pos < k_hi - 1 + window (window).
-  const int k_hi = min(k0 + kBlk, mask.sk_valid);
+  const int k_hi = min(k0 + BK, mask.sk_valid);
   int i_begin = 0, i_end = 0;
   if (k0 < mask.sk_valid) {
     i_begin = mask.causal ? max(0, k0 - mask.delta) : 0;
@@ -581,18 +623,21 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
   if (n_tiles > 0) {
-    load_tile<D, kBlk, kThreads>(Ks, k + kvh * Sk * D, k0, Sk, tid);
-    load_tile<D, kBlk, kThreads>(Vs, v + kvh * Sk * D, k0, Sk, tid);
+    load_tile<D, BK, kThreads>(Ks, k + kvh * Sk * D, k0, Sk, tid);
+    load_tile<D, BK, kThreads>(Vs, v + kvh * Sk * D, k0, Sk, tid);
     load_stage(0, 0);
   }
   cp_async_commit();
 
-  // The warpgroup's 64 keys; this thread's two.
-  const int wk0 = k0 + 64 * wgi;
+  // The warpgroup's 64 keys (from row wrow of K and V) and its first
+  // column; this thread's two keys.
+  const int wrow = kSplit<D> ? 0 : 64 * wgi;
+  const int col0 = kSplit<D> ? kCols<D> * wgi : 0;
+  const int wk0 = k0 + wrow;
   const int key[2] = {wk0 + 16 * warp + g, wk0 + 16 * warp + g + 8};
-  float adk[DP / 2], adv[DP / 2];
+  float adk[kCols<D> / 2], adv[kCols<D> / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) adk[i] = adv[i] = 0.f;
+  for (int i = 0; i < kCols<D> / 2; ++i) adk[i] = adv[i] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t & 1;
@@ -614,7 +659,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
       // S^T = K.Q^T and dP^T = V.dO^T: 64 keys x 64 rows.
       float s[32], dp[32];
-      two_products<DP>(s, dp, Ks, Vs, qt, ot, wgi);
+      two_products<DP, BK>(s, dp, Ks, Vs, qt, ot, wrow);
 
       // P^T and dS^T in float32, as bf16 A fragments (rows: keys; depth:
       // the tile's query rows); lse and Di by column.
@@ -640,9 +685,11 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         to_frag(da, j, ds);
       }
 
-      // dV += P^T.dO and dK += dS^T.Q: per 16-row step, dO's and Q's
-      // 16 x DP block read MN-major (8-row groups 1,024 bytes apart, the
-      // stride byte offset; 64-column chunks the leading one).
+      // dV += P^T.dO and dK += dS^T.Q over the warpgroup's columns: per
+      // 16-row step, dO's and Q's 16 x kCols block from column col0 read
+      // MN-major (8-row groups 1,024 bytes apart, the stride byte offset;
+      // 64-column chunks the leading one).
+      const unsigned cof = (unsigned)(col0 / 64) * (kTile * kRow);
       fence_regs(adv);
       fence_regs(adk);
       fence_regs(pa);
@@ -650,10 +697,10 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
-        wgmma_rs_t<DP>(adv, pa[ks],
-                       desc(ot + ks * 16 * kRow, kTile * kRow, 1024));
-        wgmma_rs_t<DP>(adk, da[ks],
-                       desc(qt + ks * 16 * kRow, kTile * kRow, 1024));
+        wgmma_rs_t<kCols<D>>(
+            adv, pa[ks], desc(ot + cof + ks * 16 * kRow, kTile * kRow, 1024));
+        wgmma_rs_t<kCols<D>>(
+            adk, da[ks], desc(qt + cof + ks * 16 * kRow, kTile * kRow, 1024));
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -672,7 +719,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int c = 0; c < NC; ++c) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int col = 64 * c + 8 * j + 2 * t4;
+        const int col = col0 + 64 * c + 8 * j + 2 * t4;
         if (col >= D) continue;
         const int i = 32 * c + 4 * j + 2 * r;
         if (rep == 1) {
@@ -719,7 +766,8 @@ rep_sum_kernel(const float4* __restrict__ part_k,
   }
 }
 
-// 4. dQ of 64 rows a warpgroup, over the key tiles the block's rows see.
+// 4. dQ of 64 rows a warpgroup (of the block's 64 rows and half of D when
+// split), over the key tiles the block's rows see.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -728,8 +776,9 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           bf16* __restrict__ dq, int Hq, int Hkv, int Sk, float scale,
           float scale_log2, Mask mask) {
   constexpr int DP = kPadded<D>;
-  constexpr int NC = DP / 64;
-  constexpr unsigned QB = kBlk * DP * 2;     // Q or dO of the block's rows
+  constexpr int BQ = kBlk<D>;
+  constexpr int NC = kCols<D> / 64;
+  constexpr unsigned QB = BQ * DP * 2;       // Q or dO of the block's rows
   constexpr unsigned TB = kTile * DP * 2;    // a K or V tile
   extern __shared__ float4 smem4[];
   const unsigned Qs = (smem_addr(smem4) + 1023u) & ~1023u;
@@ -743,13 +792,13 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long bh = blockIdx.x;
   const long long b = bh / Hq, h = bh % Hq;
   const long long kvh = b * Hkv + h / (Hq / Hkv);
-  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kBlk;  // longest first
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * BQ;  // longest first
   const int Sq = mask.Sq;
   const bf16* kb = k + kvh * Sk * D;
   const bf16* vb = v + kvh * Sk * D;
 
   // Key tiles any row of the block sees.
-  const int rows = min(kBlk, Sq - q0);
+  const int rows = min(BQ, Sq - q0);
   int k_end = mask.sk_valid;
   if (mask.causal) k_end = min(k_end, q0 + rows - 1 + mask.delta + 1);
   const int k_begin =
@@ -759,16 +808,19 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                       : 0;
 
   if (n_tiles > 0) {
-    load_tile<D, kBlk, kThreads>(Qs, q + bh * Sq * D, q0, Sq, tid);
-    load_tile<D, kBlk, kThreads>(Os, dout + bh * Sq * D, q0, Sq, tid);
+    load_tile<D, BQ, kThreads>(Qs, q + bh * Sq * D, q0, Sq, tid);
+    load_tile<D, BQ, kThreads>(Os, dout + bh * Sq * D, q0, Sq, tid);
     load_tile<D, kTile, kThreads>(Ks, kb, t_begin * kTile, Sk, tid);
     load_tile<D, kTile, kThreads>(Vs, vb, t_begin * kTile, Sk, tid);
   }
   cp_async_commit();
 
-  // The warpgroup's 64 rows and their positions; this thread's two rows,
-  // their lse (log2 units) and Di.
-  const int wq0 = q0 + 64 * wgi;
+  // The warpgroup's 64 rows (from row wrow of Q and dO), their positions
+  // and its first column; this thread's two rows, their lse (log2 units)
+  // and Di.
+  const int wrow = kSplit<D> ? 0 : 64 * wgi;
+  const int col0 = kSplit<D> ? kCols<D> * wgi : 0;
+  const int wq0 = q0 + wrow;
   const int wlo = wq0 + mask.delta, whi = wlo + 63;
   const int row[2] = {wq0 + 16 * warp + g, wq0 + 16 * warp + g + 8};
   float l2[2], dd[2];
@@ -778,9 +830,9 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l2[r] = ok ? lse[bh * Sq + row[r]] * kLog2e : 0.f;
     dd[r] = ok ? di[bh * Sq + row[r]] : 0.f;
   }
-  float adq[DP / 2];
+  float adq[kCols<D> / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) adq[i] = 0.f;
+  for (int i = 0; i < kCols<D> / 2; ++i) adq[i] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t & 1;
@@ -806,7 +858,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
       // S = Q.K^T and dP = dO.V^T: 64 rows x 64 keys.
       float s[32], dp[32];
-      two_products<DP>(s, dp, Qs, Os, kt, vt, wgi);
+      two_products<DP, BQ>(s, dp, Qs, Os, kt, vt, wrow);
 
       // dS = P (dP - Di), P = exp2(S s log2(e) - lse log2(e)).
       unsigned da[4][4];
@@ -825,14 +877,16 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         to_frag(da, j, ds);
       }
 
-      // dQ += dS.K: per 16-key step, K's 16 x DP block read MN-major.
+      // dQ += dS.K: per 16-key step, K's 16 x kCols block from column col0
+      // read MN-major.
+      const unsigned cof = (unsigned)(col0 / 64) * (kTile * kRow);
       fence_regs(adq);
       fence_regs(da);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
-        wgmma_rs_t<DP>(adq, da[ks],
-                       desc(kt + ks * 16 * kRow, kTile * kRow, 1024));
+        wgmma_rs_t<kCols<D>>(
+            adq, da[ks], desc(kt + cof + ks * 16 * kRow, kTile * kRow, 1024));
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -848,7 +902,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int c = 0; c < NC; ++c) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int col = 64 * c + 8 * j + 2 * t4;
+        const int col = col0 + 64 * c + 8 * j + 2 * t4;
         if (col >= D) continue;
         const int i = 32 * c + 4 * j + 2 * r;
         *reinterpret_cast<__nv_bfloat162*>(
@@ -889,7 +943,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                            (int)smem_q);
   if (e != cudaSuccess) return (int)e;
   if (Sk > 0) {
-    const dim3 grid((unsigned)(B * Hq), (unsigned)((Sk + kBlk - 1) / kBlk));
+    const dim3 grid((unsigned)(B * Hq),
+                    (unsigned)((Sk + kBlk<D> - 1) / kBlk<D>));
     kdkdv<<<grid, kThreads, smem_kv, s>>>(
         qx, kx, vx, dox, lse, di, static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), part_k, part_v, Hq, Hkv, Sk, scale,
@@ -909,7 +964,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       if (e != cudaSuccess) return (int)e;
     }
   }
-  const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + kBlk - 1) / kBlk));
+  const dim3 grid((unsigned)(B * Hq),
+                  (unsigned)((Sq + kBlk<D> - 1) / kBlk<D>));
   kdq<<<grid, kThreads, smem_q, s>>>(qx, kx, vx, dox, lse, di,
                                      static_cast<bf16*>(dq), Hq, Hkv, Sk,
                                      scale, scale_log2, mask);
@@ -918,32 +974,34 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace wg
 
-template <typename X>
-int dispatch(int D, const void* q, const void* k, const void* v,
-             const void* o, const float* lse, const void* dout, void* dq,
-             void* dk, void* dv, float* di, int B, int Hq, int Hkv, int Sq,
-             int Sk, float scale, const Mask& mask, cudaStream_t s) {
+// float32: the scalar kernels.
+int dispatch_f32(int D, const void* q, const void* k, const void* v,
+                 const void* o, const float* lse, const void* dout, void* dq,
+                 void* dk, void* dv, float* di, int B, int Hq, int Hkv,
+                 int Sq, int Sk, float scale, const Mask& mask,
+                 cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<X, 16>(q, k, v, o, lse, dout, dq, dk, dv, di, B, Hq,
-                           Hkv, Sq, Sk, scale, mask, s);
+      return launch<float, 16>(q, k, v, o, lse, dout, dq, dk, dv, di, B, Hq,
+                               Hkv, Sq, Sk, scale, mask, s);
     case 32:
-      return launch<X, 32>(q, k, v, o, lse, dout, dq, dk, dv, di, B, Hq,
-                           Hkv, Sq, Sk, scale, mask, s);
+      return launch<float, 32>(q, k, v, o, lse, dout, dq, dk, dv, di, B, Hq,
+                               Hkv, Sq, Sk, scale, mask, s);
     case 64:
-      return launch<X, 64>(q, k, v, o, lse, dout, dq, dk, dv, di, B, Hq,
-                           Hkv, Sq, Sk, scale, mask, s);
+      return launch<float, 64>(q, k, v, o, lse, dout, dq, dk, dv, di, B, Hq,
+                               Hkv, Sq, Sk, scale, mask, s);
     case 128:
-      return launch<X, 128>(q, k, v, o, lse, dout, dq, dk, dv, di, B, Hq,
-                            Hkv, Sq, Sk, scale, mask, s);
+      return launch<float, 128>(q, k, v, o, lse, dout, dq, dk, dv, di, B,
+                                Hq, Hkv, Sq, Sk, scale, mask, s);
     case 256:
-      return launch<X, 256>(q, k, v, o, lse, dout, dq, dk, dv, di, B, Hq,
-                            Hkv, Sq, Sk, scale, mask, s);
+      return launch<float, 256>(q, k, v, o, lse, dout, dq, dk, dv, di, B,
+                                Hq, Hkv, Sq, Sk, scale, mask, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// bfloat16: the tensor cores at D <= 128, the scalar kernels at D = 256.
+// bfloat16: the tensor cores at every D (D = 256 split between the
+// warpgroups).
 int dispatch_bf16(int D, const void* q, const void* k, const void* v,
                   const void* o, const float* lse, const void* dout,
                   void* dq, void* dk, void* dv, float* scratch, int B,
@@ -963,9 +1021,8 @@ int dispatch_bf16(int D, const void* q, const void* k, const void* v,
       return wg::launch<128>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B,
                              Hq, Hkv, Sq, Sk, scale, mask, s);
     case 256:
-      return launch<__nv_bfloat16, 256>(q, k, v, o, lse, dout, dq, dk, dv,
-                                        scratch, B, Hq, Hkv, Sq, Sk, scale,
-                                        mask, s);
+      return wg::launch<256>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B,
+                             Hq, Hkv, Sq, Sk, scale, mask, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -987,6 +1044,6 @@ extern "C" int repro_flash_attention_bwd(
     return dispatch_bf16(D, q, k, v, o, lse, dout, dq, dk, dv, di, B, Hq,
                          Hkv, Sq, Sk, scale, mask, s);
   }
-  return dispatch<float>(D, q, k, v, o, lse, dout, dq, dk, dv, di, B, Hq,
-                         Hkv, Sq, Sk, scale, mask, s);
+  return dispatch_f32(D, q, k, v, o, lse, dout, dq, dk, dv, di, B, Hq, Hkv,
+                      Sq, Sk, scale, mask, s);
 }

@@ -37,12 +37,13 @@ from ``lse``: ``Di = rowsum(dO * O)``, ``dS = P * (dO.V^T - Di)``,
 ``dQ = scale dS.K``, ``dK = scale dS^T.Q`` and ``dV = P^T.dO`` summed over
 the query heads of each kv head, all accumulated in float32, with no float
 atomics (a call's bits repeat).  The kernel is chosen by
-``tensor_core_backward``: bfloat16 at D <= 128 (the trained dtype) runs
-every product on the tensor cores through ``wgmma`` (a dK/dV pass per 128
-keys of one query head, float32 partials summed over the query heads of a
-kv head in head order, and a dQ pass per 128 rows; P and dS rounded to
-bf16 once for the A operand); float32, and bfloat16 at D 256, keep scalar
-float32 FMAs.  Check it on the card with ``python3 chip_smoke.py`` (its
+``tensor_core_backward``: bfloat16 (the trained dtype) runs every product
+on the tensor cores through ``wgmma`` (a dK/dV pass per 128 keys of one
+query head, float32 partials summed over the query heads of a kv head in
+head order, and a dQ pass per 128 rows; at D 256 per 64 keys or rows,
+the head's columns split between the two warpgroups; P and dS rounded to
+bf16 once for the A operand); float32 keeps scalar float32 FMAs.  Check
+it on the card with ``python3 chip_smoke.py`` (its
 ``flash_backward_phase``) or ``python -m pytest -q tests/test_torch_cuda.py
 -k backward``.
 """
@@ -69,9 +70,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def tensor_core_backward(dtype: torch.dtype, D: int) -> bool:
-    """Whether the backward runs on the tensor cores (bf16, D <= 128)
-    rather than on scalar FMAs (float32, and bf16 at D 256)."""
-    return dtype == torch.bfloat16 and D <= 128
+    """Whether the backward runs on the tensor cores (bf16, every head
+    width of HEAD_DIMS) rather than on scalar FMAs (float32)."""
+    return dtype == torch.bfloat16 and D in HEAD_DIMS
 
 
 def bwd_scratch_numel(q_shape, k_shape, dtype: torch.dtype) -> int:

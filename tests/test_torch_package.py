@@ -222,12 +222,13 @@ def test_every_kernel_has_a_cuda_source_and_a_counter():
     ((2, 6, 7, 64), (2, 3, 9, 64), torch.bfloat16, True,
      84 + 2 * 2 * 6 * 9 * 64),
     ((2, 3, 7, 16), (2, 3, 9, 16), torch.bfloat16, True, 42),
-    ((2, 6, 7, 256), (2, 3, 9, 256), torch.bfloat16, False, 84),
+    ((2, 6, 7, 256), (2, 3, 9, 256), torch.bfloat16, True,
+     84 + 2 * 2 * 6 * 9 * 256),
     ((2, 6, 7, 128), (2, 3, 9, 128), torch.float32, False, 84),
 ], ids=["train-4k", "gqa-round-up", "rep1", "d256", "f32"])
 def test_flash_backward_route_and_scratch(q_shape, k_shape, dtype, route,
                                           numel):
-    """The backward's route (tensor cores for bf16 at D <= 128) and its
+    """The backward's route (tensor cores for bf16 at every D) and its
     float32 scratch: Di of every row, then, on that route with GQA, from
     the next multiple of 4, the dK and dV partials of every query head,
     as csrc/flash_attention_bwd.cu lays them out."""

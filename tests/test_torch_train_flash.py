@@ -33,6 +33,7 @@ CASES = [  # B, Hq, Hkv, Sq, Sk, D, causal, window, sk_valid
     (2, 4, 1, 8, 56, 32, True, 20, None),        # Sq != Sk, window
     (1, 8, 2, 20, 40, 16, True, None, 33),       # sk_valid < Sk
     (1, 16, 1, 12, 30, 16, True, 9, 25),         # rep 16, window, sk_valid
+    (1, 16, 1, 10, 24, 256, True, 8, 21),        # D 256, as rep 16 above
 ]
 
 
