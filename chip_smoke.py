@@ -344,21 +344,25 @@ src/repro_torch/csrc, then:
      beside their bounds, the plain backward, SDPA's forward + backward
      with the same boolean mask (and the backend it ran) and with
      is_causal and enable_gqa, and the per-launch split (delta, dkdv, the
-     rep sum, dq) from the profiler; with --parent the parent's build at
-     D 256 in turns;
+     rep sum, dq) from the profiler;
  15. the recurrences' backwards (recurrent_backward_phase; rglru_backward
      and rwkv6_backward, kernels of the port's own) against their plain
      versions at the training shapes (recurrentgemma-9b: B 1, S 4,096,
-     D 4,096; rwkv6-3b: B 1, H 40, S 4,096, Dk = Dv = 64; bf16) and
-     edges: rglru at a = 1 exactly (its dlog_a infinite or NaN on the
-     plain version's elements) and log_a <= -20, S = 1, 63, 65 and 1,000,
-     D off the 64-channel block with and without 16-byte rows, h0 and
-     dh_last given and absent, float32; rwkv6 at w = 0 and 1 exactly,
-     S = 1, 63, 64, 65 and 1,000, Dk 16, 32 and 128, Dv != Dk, s0 and
-     ds_last given and absent, bf16 and float32: every gradient within
-     relative L2 1e-4 (float32) / 1e-2 (bf16), the gradients that are
-     bit-identical named; two calls give the same bits; each timed at its
-     training shape beside its bound and its plain version;
+     D 4,096; rwkv6-3b: B 1, H 48 as the trained model pads its heads,
+     and H 40, S 4,096, Dk = Dv = 64; bf16) and edges: rglru at a = 1
+     exactly (its dlog_a infinite or NaN on the plain version's elements)
+     and log_a <= -20, S = 1, 63, 65 and 1,000, D off the 64-channel
+     block with and without 16-byte rows, h0 and dh_last given and
+     absent, float32; rwkv6 on both routes (bf16 with S >= 64 split in
+     time, float32 and S < 64 recurrent) at w = 0 and 1 exactly and at
+     1.9e-24, S = 1, 63, 64, 65, 128, 1,000 and 4,097, Dk 16, 32 and 128,
+     Dv != Dk, s0 and ds_last given and absent, bf16 and float32: every
+     gradient within relative L2 1e-4 (float32) / 1e-2 (bf16), the
+     gradients that are bit-identical named by route; two calls give the
+     same bits; each timed at its training shape (rwkv6 at H 48 and H 40)
+     beside its bound and its plain version, rwkv6's per-launch split
+     (the chains, the chunk pass, du's sum) from the profiler; with
+     --parent the parent's recurrent rwkv6 backward in turns;
  16. training (lm_train_path) of all three families at published widths,
      random weights from a seed, bf16 with float32 master and moments,
      n_micro 4, remat: qwen2-7b cut to 8 layers, recurrentgemma-9b to 6
@@ -5615,7 +5619,10 @@ def rglru_inputs(s, dtype, dev, gen):
 
 
 def rwkv_decay(shape, mode, dev, gen):
-    """w of RWKV_CASES' decay ``mode`` ("uniform", "model" or "edge")."""
+    """w of RWKV_CASES' decay ``mode``: "uniform"; "model" (w = exp(-exp(z)),
+    z in [-6, 4]: 1.9e-24 to 0.9975); "edge" (that draw with a tenth of
+    the steps at w = 0 and a tenth at 1 exactly); "1e-24" (a third at
+    exp(-exp(4)) = 1.9e-24 and a third at 1 exactly)."""
     if mode == "uniform":
         return torch.rand(shape, generator=gen, device=dev) * 0.9 + 0.05
     z = torch.rand(shape, generator=gen, device=dev) * 10.0 - 6.0
@@ -5624,6 +5631,11 @@ def rwkv_decay(shape, mode, dev, gen):
         pick = torch.rand(shape, generator=gen, device=dev)
         w = torch.where(pick < 0.1, torch.zeros_like(w), w)
         w = torch.where(pick > 0.9, torch.ones_like(w), w)
+    elif mode == "1e-24":
+        pick = torch.rand(shape, generator=gen, device=dev)
+        w = torch.where(pick < 1 / 3, torch.full_like(w, math.exp(
+            -math.exp(4.0))), w)
+        w = torch.where(pick > 2 / 3, torch.ones_like(w), w)
     return w
 
 
@@ -5696,14 +5708,14 @@ def _sync(dev):
 #: beside this checkout's kernels: the kernels the change redesigned, each
 #: with its source (csrc/<source>.cu) and its ctypes argtypes in the
 #: parent's tree, which bind it (a parent bound with this checkout's
-#: signature crashes).  flash_attention's backward: the parent's
-#: repro_flash_attention_bwd (scalar kernels at D 256, whose scratch is Di
-#: alone), timed by flash_backward_phase through parent_bwd.
+#: signature crashes).  rwkv6's backward: the parent's recurrent
+#: repro_rwkv6_bwd and its scratch size, timed by recurrent_backward_phase
+#: through parent_rwkv6_bwd.
 PARENT_KERNELS = {
-    "flash_attention_bwd": ("flash_attention_bwd",
-                            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                            + [ctypes.c_float] + [ctypes.c_int] * 3
-                            + [ctypes.c_void_p])}
+    "rwkv6_bwd": ("rwkv6_bwd", [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
+                  + [ctypes.c_void_p]),
+    "rwkv6_bwd_scratch": ("rwkv6_bwd", [ctypes.c_int] * 6
+                          + [ctypes.POINTER(ctypes.c_longlong)])}
 
 
 def parent_kernels(parent_root: str) -> dict:
@@ -5988,51 +6000,36 @@ def bwd_kernels(top_device: list, launches=BWD_LAUNCHES) -> dict:
     return out
 
 
-def bwd_split(fn, n=5) -> tuple[dict, dict, float]:
+def bwd_split(fn, n=5, launches=BWD_LAUNCHES) -> tuple[dict, dict, float]:
     """({launch: device ms of one launch, the mean over those the profile
-    holds}, {launch: launches it holds}, device-busy ms a call) of the
-    backward's launches over ``n`` calls of ``fn`` under torch.profiler:
-    each call makes each launch once (the rep sum where Hq > Hkv)."""
+    holds}, {launch: launches it holds}, device-busy ms a call) of a
+    backward's ``launches`` (flash_attention_backward's by default) over
+    ``n`` calls of ``fn`` under torch.profiler: each call makes each
+    launch once (the rep sum where Hq > Hkv).  Late in a long process
+    the profiler on the card has dropped a window's events (a launch held
+    fewer than ``n`` times, or none): such a window is taken again, up to
+    three windows, and the one holding the most launches kept."""
     from repro_torch.launch.wave_profile import profile_device
-    pr = profile_device(lambda: [fn() for _ in range(n)], n, top=12)
-    seen = bwd_kernels(pr["top_device"])
+    best = None
+    for _ in range(3):
+        pr = profile_device(lambda: [fn() for _ in range(n)], n, top=12)
+        seen = bwd_kernels(pr["top_device"], launches)
+        held = sum(c for _, c in seen.values())
+        if best is None or held > best[0]:
+            best = (held, seen, pr["device_busy_ms_per_wave"])
+        if seen and all(round(c * n) == n for _, c in seen.values()):
+            break
+    _, seen, busy = best
     return ({k: ms / c for k, (ms, c) in seen.items()},
-            {k: c * n for k, (_, c) in seen.items()},
-            pr["device_busy_ms_per_wave"])
+            {k: c * n for k, (_, c) in seen.items()}, busy)
 
 
-def parent_bwd(fn, q, k, v, o, lse, do, *, causal, window, sq_valid,
-               sk_valid):
-    """A call of the parent's build of flash_attention_backward (``fn``:
-    its C entry repro_flash_attention_bwd, bound with PARENT_KERNELS'
-    signature) at D 256 in bf16, where the parent ran its scalar kernels:
-    outputs and scratch as the parent's wrapper made them (Di alone)."""
-    from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import DTYPE_CODES
-    B, Hq, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    if D != 256 or q.dtype != torch.bfloat16:
-        raise ValueError("parent_bwd times the parent's bf16 D 256 route")
-    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
-                  torch.empty_like(v))
-    scratch = torch.empty((B * Hq * Sq,), dtype=torch.float32,
-                          device=q.device)
-    build.raise_on_error("parent flash_attention_backward", fn(
-        *(build.ptr(t) for t in (q, k, v, o, lse, do, dq, dk, dv, scratch)),
-        B, Hq, Hkv, Sq, Sk, D, int(causal), int(window is not None),
-        int(window or 0), ctypes.c_float(D ** -0.5), sq_valid or Sq,
-        Sk if sk_valid is None else sk_valid, DTYPE_CODES[q.dtype],
-        build.stream(q.device)))
-    return dq, dk, dv
-
-
-def _bwd_timing(label, s, dtype, args, kw, bargs, dout, dev, parent=None):
+def _bwd_timing(label, s, dtype, args, kw, bargs, dout, dev):
     """One timed backward case: the forward with lse, the backward (and
-    its launches' split), the plain backward, the bound, SDPA's forward +
-    backward (the same mask, the backend that ran; and is_causal with
-    enable_gqa where the mask is that one) and, with ``parent`` (the
-    --parent C entries), the parent's build on the same inputs in turns
-    parent, this, this, parent.  Returns the timing row."""
+    its launches' split), the plain backward, the bound, and SDPA's
+    forward + backward (the same mask, the backend that ran; and
+    is_causal with enable_gqa where the mask is that one).  Returns the
+    timing row."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_backward_plain,
         flash_attention_forward)
@@ -6065,26 +6062,12 @@ def _bwd_timing(label, s, dtype, args, kw, bargs, dout, dev, parent=None):
         "library_causal_ms": (time_ms(_sdpa_causal_train(args, dout), dev,
                                       n=10, warmup=2)
                               if _plain_causal(s) else None),
-        "parent_ms": None,
         "bytes": bb, "ops": bo,
         "shape": f"{label} " + " ".join(f"{k}={v}" for k, v in s.items())
                  + f" {str(dtype).split('.')[-1]}"}
     if dev.type == "cuda":
         row["split_ms"], row["split_launches"], row["busy_ms"] = bwd_split(
             this)
-    if parent is not None:
-        def prev():
-            return parent_bwd(parent["flash_attention_bwd"], *bargs, **kw)
-        err = max(rel_l2(a, b) for a, b in zip(
-            prev(), flash_attention_backward_plain(*bargs, **kw)))
-        ts = {"parent": [], "this": []}
-        for who in ("parent", "this", "this", "parent"):
-            ts[who].append(time_ms(prev if who == "parent" else this, dev,
-                                   n=10, warmup=2))
-        row["parent_ms"] = statistics.mean(ts["parent"])
-        row["this_turns_ms"] = ts["this"]
-        log(f"  {label} in turns: parent {ts['parent']} ms, this build "
-            f"{ts['this']} ms (the parent's rel L2 to plain {err:.3g})")
     log(f"  flash_attention backward split (profiler, ms a launch): "
         + ", ".join(f"{k} {v:.6f} (x{row['split_launches'][k]:.0f})"
                     for k, v in row["split_ms"].items())
@@ -6103,7 +6086,7 @@ def _bwd_timing(label, s, dtype, args, kw, bargs, dout, dev, parent=None):
     return row
 
 
-def flash_backward_phase(dev, seed=23, cases=None, parent=None):
+def flash_backward_phase(dev, seed=23, cases=None):
     """flash_attention_backward against flash_attention_backward_plain on
     the same inputs (q, k, v, the kernel forward's output and lse, and a
     random dO), dq, dk, dv within FLASH_BWD_RTOL in relative L2, over
@@ -6112,9 +6095,8 @@ def flash_backward_phase(dev, seed=23, cases=None, parent=None):
     (-inf on the same rows, finite ones within 1e-4 + 1e-5 |lse|), its
     output equal bit for bit to the forward without lse; a second call of
     the backward gives the same bits.  The first case and FLASH_BWD_D256
-    are timed (_bwd_timing; ``parent``, the --parent C entries, times the
-    parent's build at FLASH_BWD_D256 too).  Returns (summary, the first
-    case's timing row, with FLASH_BWD_D256's under "d256" where it ran).
+    are timed (_bwd_timing).  Returns (summary, the first case's timing
+    row, with FLASH_BWD_D256's under "d256" where it ran).
     """
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_backward_plain,
@@ -6180,8 +6162,7 @@ def flash_backward_phase(dev, seed=23, cases=None, parent=None):
         if i == 0:
             row = _bwd_timing(label, s, dtype, args, kw, bargs, dout, dev)
         elif label == FLASH_BWD_D256:
-            d256 = _bwd_timing(label, s, dtype, args, kw, bargs, dout, dev,
-                               parent)
+            d256 = _bwd_timing(label, s, dtype, args, kw, bargs, dout, dev)
         del args, out, lse, dout, bargs
     if row is not None and d256 is not None:
         row["d256"] = d256
@@ -6224,12 +6205,26 @@ RGLRU_BWD_CASES = (
     ("B*D<block", dict(B=1, S=77, D=40), torch.float32),
 )
 #: rwkv6_backward's cases, s0 and ds_last given unless "s0" / "last" is
-#: False.  The first is rwkv6-3b's training shape (one microbatch, the
-#: model's decay), timed; then w = 0 and 1 exactly, S = 1, 63, 64, 65 and
-#: 1,000, Dk 16, 32 and 128 with Dv = Dk and Dv != Dk, bf16 and float32.
+#: False.  The first is rwkv6-3b's training step's shape (one microbatch,
+#: the model's decay, H 48: the model pads its 40 wkv heads to
+#: cfg.n_heads), the second the same at the raw 40 heads, both timed
+#: (RWKV_BWD_TIMED); then w = 0 and 1 exactly, S = 1, 63, 64, 65, 128,
+#: 1,000 and 4,097 (a chunk of one token), w at 1.9e-24 on a third of the
+#: steps, Dk 16, 32 and 128 with Dv = Dk and Dv != Dk, bf16 and float32:
+#: both routes (rwkv6.route), every tile count of the chunked one.
 RWKV_BWD_CASES = (
-    ("rwkv6-3b-train", dict(B=1, H=40, S=4096, Dk=64, Dv=64,
+    ("rwkv6-3b-train", dict(B=1, H=48, S=4096, Dk=64, Dv=64,
                             decay="model"), torch.bfloat16),
+    ("rwkv6-3b-train H40", dict(B=1, H=40, S=4096, Dk=64, Dv=64,
+                                decay="model"), torch.bfloat16),
+    ("S=64", dict(B=2, H=3, S=64, Dk=64, Dv=64, decay="model"),
+     torch.bfloat16),
+    ("S=128", dict(B=1, H=4, S=128, Dk=64, Dv=64, decay="model"),
+     torch.bfloat16),
+    ("w 1e-24", dict(B=2, H=2, S=200, Dk=64, Dv=64, decay="1e-24"),
+     torch.bfloat16),
+    ("S=4097", dict(B=1, H=4, S=4097, Dk=64, Dv=64, decay="model"),
+     torch.bfloat16),
     ("w 0 and 1", dict(B=2, H=4, S=300, Dk=64, Dv=64, decay="edge"),
      torch.bfloat16),
     ("S=1", dict(B=2, H=4, S=1, Dk=64, Dv=64), torch.float32),
@@ -6341,16 +6336,111 @@ def _grad_gate(what, names, got, want, rtol) -> tuple[dict, float]:
     return out, worst
 
 
-def recurrent_backward_phase(dev, seed=25, cases=None):
+#: rwkv6_backward's cases timed beside the first case (the step's H 48):
+#: the raw head count, timed by every PR before the chunked route.
+RWKV_BWD_TIMED = ("rwkv6-3b-train H40",)
+#: rwkv6_backward's launches in a profile, by a piece of their kernels'
+#: names: the chunked route's chains, chunk pass, tile combine and du sum,
+#: and the recurrent route's kernel.
+RWKV_BWD_LAUNCHES = (("chains", "rwkv6_bwd_chain_kernel"),
+                     ("chunk pass", "rwkv6_bwd_chunk_kernel"),
+                     ("combine", "rwkv6_bwd_combine_kernel"),
+                     ("du sum", "du_sum_kernel"),
+                     ("recurrent", "rwkv6_bwd_kernel"))
+
+
+def parent_rwkv6_bwd(fns, r, k, v, w, u, s0, dout, ds_last=None):
+    """A call of the parent's build of rwkv6_backward (``fns``: its C
+    entries repro_rwkv6_bwd and repro_rwkv6_bwd_scratch, bound with
+    PARENT_KERNELS' signatures): the recurrent kernel, outputs and
+    scratch as the parent's wrapper made them."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import DTYPE_CODES
+    B, H, S, Dk = r.shape
+    Dv = v.shape[-1]
+    dev = r.device
+    dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
+    dw = torch.empty((B, H, S, Dk), dtype=torch.float32, device=dev)
+    du = torch.empty((H, Dk), dtype=torch.float32, device=dev)
+    ds0 = (None if s0 is None
+           else torch.empty((B, H, Dk, Dv), dtype=torch.float32, device=dev))
+    n = ctypes.c_longlong(0)
+    code = DTYPE_CODES[r.dtype]
+    build.raise_on_error("parent rwkv6_backward", fns["rwkv6_bwd_scratch"](
+        B, H, S, Dk, Dv, code, ctypes.byref(n)))
+    scratch = torch.empty((n.value,), dtype=torch.float32, device=dev)
+    build.raise_on_error("parent rwkv6_backward", fns["rwkv6_bwd"](
+        *(build.ptr(t) for t in (r, k, v, w, u, s0, dout, ds_last, dr, dk,
+                                 dv, dw, du, ds0, scratch)),
+        B, H, S, Dk, Dv, code, build.stream(dev)))
+    return dr, dk, dv, dw, du, ds0
+
+
+def _rec_bwd_timing(name, label, s, dtype, kernel, plain, args, work, dev,
+                    parent=None, split=False) -> dict:
+    """One timed recurrent backward case: the kernel, its plain version,
+    the bound; for rwkv6_backward on the card with ``split`` the
+    per-launch split (RWKV_BWD_LAUNCHES) and, with ``parent`` (the
+    --parent C entries), the parent's build on the same inputs in turns
+    parent, this, this, parent.  Returns the timing row."""
+    n_bytes, n_ops, rate = work(s, dtype, dev)
+    tb, to = n_bytes / PEAK_BYTES_PER_S, n_ops / rate
+
+    def this():
+        return kernel(*args)
+    row = {"ms": time_ms(this, dev, n=10, warmup=2),
+           "plain_ms": time_ms(lambda: plain(*args), dev, n=2, warmup=1),
+           "bound": (max(tb, to) * 1e3, "bytes" if tb >= to
+                     else "operations"),
+           "library_ms": None, "bytes": n_bytes, "ops": n_ops,
+           "split_ms": {}, "split_launches": {}, "busy_ms": None,
+           "parent_ms": None,
+           "shape": f"{label} " + " ".join(f"{k}={v}" for k, v in s.items())
+                    + f" {str(dtype).split('.')[-1]}"}
+    if split and name == "rwkv6_backward" and dev.type == "cuda":
+        row["split_ms"], row["split_launches"], row["busy_ms"] = bwd_split(
+            this, launches=RWKV_BWD_LAUNCHES)
+        log(f"  rwkv6_backward split (profiler, ms a launch): "
+            + ", ".join(f"{k} {v:.6f} (x{row['split_launches'][k]:.0f})"
+                        for k, v in row["split_ms"].items())
+            + f"; device-busy {row['busy_ms']} ms a call  [{label}]")
+    if name == "rwkv6_backward" and parent is not None:
+        def prev():
+            return parent_rwkv6_bwd(parent, *args)
+        want = plain(*args)
+        err = max(rel_l2(a, b) for a, b in zip(prev(), want)
+                  if a is not None)
+        ts = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            ts[who].append(time_ms(prev if who == "parent" else this, dev,
+                                   n=10, warmup=2))
+        row["parent_ms"] = statistics.mean(ts["parent"])
+        row["this_turns_ms"] = ts["this"]
+        log(f"  {label} in turns: parent {ts['parent']} ms, this build "
+            f"{ts['this']} ms (the parent's rel L2 to plain {err:.3g})")
+    log(f"  {name:15s} kernel {row['ms']:.6f} ms  plain "
+        f"{row['plain_ms']:.4f} ms  bound {row['bound'][0]:.6f} ms "
+        f"({row['bound'][1]}; {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} "
+        f"Gop; {row['bound'][0] / row['ms']:.1%} of the kernel's time)  "
+        f"[{row['shape']}]")
+    return row
+
+
+def recurrent_backward_phase(dev, seed=25, cases=None, parent=None):
     """rglru_backward and rwkv6_backward against their plain versions on
     the same inputs (random forward inputs and output gradients) over
     RGLRU_BWD_CASES and RWKV_BWD_CASES (``cases``, {name: cases}, replaces
     them: a rehearsal on the CPU at small shapes), every gradient within
     RECURRENT_BWD_RTOL by dtype (_grad_gate), a second call giving the
-    same bits; the first case of each timed beside its bound and its
-    plain version.  Returns ({name: summary}, {name: timing row})."""
+    same bits; the first case of each, and RWKV_BWD_TIMED, timed beside
+    its bound and its plain version (_rec_bwd_timing: the per-launch
+    split at the first case; ``parent``, the --parent C entries, times
+    the parent's rwkv6_backward at each).
+    Returns ({name: summary, with each route's cases and bit-identical
+    gradients under "by_route"}, {name: the first case's timing row, with
+    RWKV_BWD_TIMED's under their labels})."""
     from repro_torch.kernels.rglru import rglru_backward, rglru_backward_plain
-    from repro_torch.kernels.rwkv6 import (rwkv6_backward,
+    from repro_torch.kernels.rwkv6 import (route, rwkv6_backward,
                                            rwkv6_backward_plain)
     table = {
         "rglru_backward": (rglru_backward, rglru_backward_plain,
@@ -6366,9 +6456,14 @@ def recurrent_backward_phase(dev, seed=25, cases=None):
     for name, (kernel, plain, default, inputs, work, names) in table.items():
         sm = summary[name] = {"cases": 0, "max_rel_l2": 0.0,
                               "max_abs_err": 0.0,
-                              "bit_identical": {g: True for g in names}}
+                              "bit_identical": {g: True for g in names},
+                              "by_route": {}}
         for i, (label, s, dtype) in enumerate((cases or {}).get(name,
                                                                 default)):
+            rt = (route(dtype, s["S"]) if name == "rwkv6_backward"
+                  else "recurrent")
+            br = sm["by_route"].setdefault(rt, {
+                "cases": 0, "bit_identical": {g: True for g in names}})
             args = inputs(s, dtype, dev, gen)
             got, again = kernel(*args), kernel(*args)
             want = plain(*args)
@@ -6381,41 +6476,33 @@ def recurrent_backward_phase(dev, seed=25, cases=None):
                                      RECURRENT_BWD_RTOL)
             for g in names:
                 if g in errs and errs[g] != "bits":
-                    sm["bit_identical"][g] = False
+                    sm["bit_identical"][g] = br["bit_identical"][g] = False
                     sm["max_rel_l2"] = max(sm["max_rel_l2"], errs[g])
             sm["max_abs_err"] = max(sm["max_abs_err"], worst)
             sm["cases"] += 1
-            log(f"    {name} {label} {str(dtype).split('.')[-1]}: "
+            br["cases"] += 1
+            log(f"    {name} {label} {str(dtype).split('.')[-1]} ({rt}): "
                 + ", ".join(f"{g} " + (v if v == "bits" else f"{v:.3g}")
                             for g, v in errs.items())
                 + f"; max abs err {worst:.3g}")
-            if i == 0:
-                n_bytes, n_ops, rate = work(s, dtype, dev)
-                tb, to = n_bytes / PEAK_BYTES_PER_S, n_ops / rate
-                timings[name] = {
-                    "ms": time_ms(lambda: kernel(*args), dev, n=10,
-                                  warmup=2),
-                    "plain_ms": time_ms(lambda: plain(*args), dev, n=2,
-                                        warmup=1),
-                    "bound": (max(tb, to) * 1e3,
-                              "bytes" if tb >= to else "operations"),
-                    "library_ms": None, "bytes": n_bytes, "ops": n_ops,
-                    "shape": f"{label} "
-                             + " ".join(f"{k}={v}" for k, v in s.items())
-                             + f" {str(dtype).split('.')[-1]}"}
-            del args, got, again, want
+            del got, again, want
+            if i == 0 or (name == "rwkv6_backward"
+                          and label in RWKV_BWD_TIMED):
+                row = _rec_bwd_timing(name, label, s, dtype, kernel, plain,
+                                      args, work, dev, parent, split=i == 0)
+                if i == 0:
+                    timings[name] = row
+                else:
+                    timings[name][label] = row
+            del args
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        r = timings[name]
         log(f"  {name}: {sm['cases']} cases vs plain: max rel L2 "
             f"{sm['max_rel_l2']:.3g}, max abs err {sm['max_abs_err']:.3g}; "
-            f"bit-identical in every case: "
-            f"{[g for g, b in sm['bit_identical'].items() if b]}")
-        log(f"  {name:15s} kernel {r['ms']:.6f} ms  plain "
-            f"{r['plain_ms']:.4f} ms  bound {r['bound'][0]:.6f} ms "
-            f"({r['bound'][1]}; {r['bytes'] / 1e6:.1f} MB, "
-            f"{r['ops'] / 1e9:.2f} Gop; {r['bound'][0] / r['ms']:.1%} of "
-            f"the kernel's time)  [{r['shape']}]")
+            f"bit-identical in every case, by route: "
+            + "; ".join(f"{r} ({b['cases']} cases) "
+                        f"{[g for g, v in b['bit_identical'].items() if v]}"
+                        for r, b in sm["by_route"].items()))
     return summary, timings
 
 
@@ -6775,9 +6862,12 @@ def _train_launches(cfg, n_micro, steps=1) -> dict:
 
 #: The training backwards' launches in a profile, by a piece of their
 #: kernels' names (BWD_LAUNCHES: flash_attention_backward's).
-TRAIN_BWD_LAUNCHES = BWD_LAUNCHES + (("rglru bwd", "rglru_bwd_kernel"),
-                                     ("rwkv6 bwd", "rwkv6_bwd_kernel"),
-                                     ("rwkv6 du sum", "du_sum_kernel"))
+TRAIN_BWD_LAUNCHES = BWD_LAUNCHES + (
+    ("rglru bwd", "rglru_bwd_kernel"), ("rwkv6 bwd", "rwkv6_bwd_kernel"),
+    ("rwkv6 bwd chains", "rwkv6_bwd_chain_kernel"),
+    ("rwkv6 bwd chunk pass", "rwkv6_bwd_chunk_kernel"),
+    ("rwkv6 bwd combine", "rwkv6_bwd_combine_kernel"),
+    ("rwkv6 du sum", "du_sum_kernel"))
 
 
 def lm_train_path(dev, arch="qwen2-7b", n_layers=None, seed=0,
@@ -7114,9 +7204,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="a parent commit unpacked in DIR: time its build "
-                         "of PARENT_KERNELS (flash_attention's backward at "
-                         "D 256) beside this checkout's on the same "
-                         "inputs, in turns")
+                         "of PARENT_KERNELS (rwkv6's backward) beside this "
+                         "checkout's on the same inputs, in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this smoke "
@@ -7246,9 +7335,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lm_checks, lm_timings = lm_kernel_phase(dev)
     phase("flash_attention's backward and lse vs plain versions:")
-    bwd_check, bwd_timing = flash_backward_phase(dev, parent=parent)
+    bwd_check, bwd_timing = flash_backward_phase(dev)
     phase("rglru's and rwkv6's backwards vs plain versions:")
-    rec_checks, rec_timings = recurrent_backward_phase(dev)
+    rec_checks, rec_timings = recurrent_backward_phase(dev, parent=parent)
     lm_rows, lm_launches = [], {op: 0 for op in K.WRAPPERS}
     for arch in LM_ARCHS:
         phase(f"LM serving, {arch}:")
@@ -7360,10 +7449,16 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": lm_launches[name],
             "max_abs_err": c["max_abs_err"], "max_rel_l2": c["max_rel_l2"],
-            "bit_identical": [g for g, b in c["bit_identical"].items() if b],
+            "bit_identical": {r: [g for g, v in b["bit_identical"].items()
+                                  if v] for r, b in c["by_route"].items()},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"], "shape": t["shape"],
+            "parent_ms": t["parent_ms"], "split_ms": t["split_ms"],
+            "split_launches": t["split_launches"], "busy_ms": t["busy_ms"],
+            **{label: {k: (list(v) if k == "bound" else v)
+                       for k, v in t[label].items()}
+               for label in RWKV_BWD_TIMED if label in t},
         })
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -265,21 +265,8 @@ struct Layout {
   static constexpr size_t kBytes = 1024 + oRed + 4 * 32 * 33 * 4;
 };
 
-__device__ __forceinline__ float ld_bf(const unsigned char* p) {
-  return __bfloat162float(*reinterpret_cast<const bf16*>(p));
-}
 __device__ __forceinline__ float2 ld_bf2(const unsigned char* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// x = hi + mid + lo, each a bfloat16 (24 significant bits in all); the
-// subtractions are exact.
-__device__ __forceinline__ void split(float x, bf16 (&o)[3]) {
-  o[0] = __float2bfloat16_rn(x);
-  x -= __bfloat162float(o[0]);
-  o[1] = __float2bfloat16_rn(x);
-  x -= __bfloat162float(o[1]);
-  o[2] = __float2bfloat16_rn(x);
 }
 
 // The three parts of (x, y) as packed bf16 pairs.
@@ -466,7 +453,7 @@ rwkv6_chunked(const bf16* __restrict__ r, const bf16* __restrict__ k,
         const float wb = c0 + tb < S ? Ws[tb * KP + kc] : 1.f;
         RF[tf * RFS + kc] = ld_bf(Rs + swz<kL>(tf, kc)) * pf;
         bf16 part[3];
-        split(ld_bf(Ks + swz<kL>(tb, kc)) * pb, part);
+        split3(ld_bf(Ks + swz<kL>(tb, kc)) * pb, part);
 #pragma unroll
         for (int p = 0; p < 3; ++p) {
           *reinterpret_cast<bf16*>(sm + Lt::oKh + p * Lt::kKhPart

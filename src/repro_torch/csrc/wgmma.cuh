@@ -76,6 +76,21 @@ __device__ __forceinline__ unsigned pack(__nv_bfloat162 x) {
   return *reinterpret_cast<unsigned*>(&x);
 }
 
+// A bfloat16 in shared memory, as a float.
+__device__ __forceinline__ float ld_bf(const unsigned char* p) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+}
+
+// x = hi + mid + lo, each a bfloat16 (24 significant bits in all; the
+// subtractions are exact): a float32 operand of the bf16 tensor cores.
+__device__ __forceinline__ void split3(float x, __nv_bfloat16 (&o)[3]) {
+  o[0] = __float2bfloat16_rn(x);
+  x -= __bfloat162float(o[0]);
+  o[1] = __float2bfloat16_rn(x);
+  x -= __bfloat162float(o[1]);
+  o[2] = __float2bfloat16_rn(x);
+}
+
 // Shared-memory matrix descriptor: start address, leading and stride
 // byte offsets, 128-byte swizzle.
 __device__ __forceinline__ unsigned long long desc(unsigned addr,

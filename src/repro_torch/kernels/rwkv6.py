@@ -33,17 +33,29 @@ take ``rwkv6_plain``.
 
 Training: when grad is enabled and an input requires it, ``rwkv6`` goes
 through ``RWKV6Fn`` on either device: the forward above (either kernel),
-saving its inputs; the backward ``rwkv6_backward``, which launches
-``csrc/rwkv6_bwd.cu`` (a kernel of the port's own: the JAX package
-differentiates ``ops.rwkv6`` by autodiff of its scan) and on the CPU takes
-``rwkv6_backward_plain``.  Both recompute the float32 states S_{t-1} from
-the inputs (the chunked forward never holds them), then walk back with
-dS_T = ds_last, dS_{t-1} = diag(w_t) dS_t + r_t dout_t^T:
+saving its inputs; the backward ``rwkv6_backward`` (a kernel of the port's
+own, ``csrc/rwkv6_bwd.cu``: the JAX package differentiates ``ops.rwkv6``
+by autodiff of its scan), which on the CPU takes ``rwkv6_backward_plain``.
+Its gradient: dS_T = ds_last, dS_{t-1} = diag(w_t) dS_t + r_t dout_t^T,
 dr_t = S_{t-1} dout_t + u k_t (v_t . dout_t), dk_t = dS_t v_t +
 u r_t (v_t . dout_t), dv_t = dS_t^T k_t + (sum_i r u k) dout_t,
 dw_t = rowsum(dS_t * S_{t-1}), du = sum_{b, t} r k (v . dout), ds0 = dS_0;
-dr, dk, dv in r's dtype, dw, du, ds0 float32.  The kernel takes Dv up to
-``MAX_BWD_VALUE_DIM`` (even for bfloat16) and 4-byte-aligned tensors.
+dr, dk, dv in r's dtype, dw, du, ds0 float32.  CUDA tensors take one of
+two kernels of ``csrc/rwkv6_bwd.cu``, by the forward's ``route``:
+
+- ``"chunked"``: bfloat16 r, k, v with S >= ``CHUNK``, split in time.  A
+  chain over the chunks on ``wgmma`` (the forward's anchored running
+  products and three-part splits) gives each 64-token chunk's start state
+  and end gradient, then one block per (b, h, chunk) walks its 64 tokens
+  exactly from them (dw has no chunked form without a logarithm or a
+  division), and a last launch sums du.  It needs Dv a multiple of 8 and
+  16-byte-aligned r, k, v, w and dout.
+- ``"recurrent"``: float32 r, k, v, or S < ``CHUNK``.  One block per
+  (b, h) recomputes the float32 states S_{t-1} from checkpoints every few
+  tokens and walks back over the whole sequence.  It takes Dv up to
+  ``MAX_BWD_VALUE_DIM`` (even for bfloat16) and 4-byte-aligned tensors.
+
+A failure to build or launch raises; neither route falls back.
 """
 from __future__ import annotations
 
@@ -61,6 +73,9 @@ _SIG = {"repro_rwkv6": [_P] * 8 + [_I] * 5 + [_I, _P],
         "repro_rwkv6_chunked": [_P] * 8 + [_I] * 5 + [_P]}
 _BWD_SIG = {"repro_rwkv6_bwd": [_P] * 15 + [_I] * 6 + [_P],
             "repro_rwkv6_bwd_scratch": [_I] * 6
+            + [ctypes.POINTER(ctypes.c_longlong)],
+            "repro_rwkv6_bwd_chunked": [_P] * 15 + [_I] * 5 + [_P],
+            "repro_rwkv6_bwd_chunked_scratch": [_I] * 5
             + [ctypes.POINTER(ctypes.c_longlong)]}
 
 #: Key widths both kernels are compiled for, and the widest value row the
@@ -70,14 +85,14 @@ MAX_VALUE_DIM = 1024
 #: Tokens a chunk of the chunked kernel; shorter bfloat16 inputs take the
 #: recurrent kernel.
 CHUNK = 64
-#: The widest value row the backward kernel takes (16 state columns a
-#: thread, at most 8 threads a state row).
+#: The widest value row the backward kernels take (the recurrent one: 16
+#: state columns a thread, at most 8 threads a state row).
 MAX_BWD_VALUE_DIM = 128
 
 
 def route(dtype: torch.dtype, S: int) -> str:
-    """The kernel that serves a CUDA call: "chunked" for bfloat16 r, k, v
-    and S >= CHUNK, else "recurrent"."""
+    """The kernel that serves a CUDA call, forward and backward: "chunked"
+    for bfloat16 r, k, v and S >= CHUNK, else "recurrent"."""
     if dtype == torch.bfloat16 and S >= CHUNK:
         return "chunked"
     return "recurrent"
@@ -261,6 +276,16 @@ def rwkv6_backward(r, k, v, w, u, s0, dout, ds_last=None):
     for name, t in (("s0", s0), ("ds_last", ds_last)):
         if t is not None:
             build.check(name, t, torch.float32, (B, H, Dk, Dv), dev)
+    chunked = route(r.dtype, S) == "chunked"
+    if chunked:
+        if Dv % 8:
+            raise ValueError(f"rwkv6_backward: the chunked kernel takes value "
+                             f"widths that are multiples of 8, got {Dv}")
+        for name, t in (("r", r), ("k", k), ("v", v), ("w", w),
+                        ("dout", dout)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"rwkv6_backward: {name} must be 16-byte "
+                                 f"aligned for the chunked kernel")
     dr, dk = torch.empty_like(r), torch.empty_like(k)
     dv = torch.empty_like(v)
     dw = torch.empty((B, H, S, Dk), dtype=torch.float32, device=dev)
@@ -269,15 +294,24 @@ def rwkv6_backward(r, k, v, w, u, s0, dout, ds_last=None):
            else torch.empty((B, H, Dk, Dv), dtype=torch.float32, device=dev))
     lib = build.load("rwkv6_bwd", _BWD_SIG)
     n = ctypes.c_longlong(0)
-    rc = lib.repro_rwkv6_bwd_scratch(B, H, S, Dk, Dv, DTYPE_CODES[r.dtype],
-                                     ctypes.byref(n))
+    if chunked:
+        rc = lib.repro_rwkv6_bwd_chunked_scratch(B, H, S, Dk, Dv,
+                                                 ctypes.byref(n))
+    else:
+        rc = lib.repro_rwkv6_bwd_scratch(B, H, S, Dk, Dv,
+                                         DTYPE_CODES[r.dtype],
+                                         ctypes.byref(n))
     build.raise_on_error("rwkv6_backward", rc)
     scratch = torch.empty((n.value,), dtype=torch.float32, device=dev)
+    ptrs = [build.ptr(t) for t in (r, k, v, w, u, s0, dout, ds_last, dr, dk,
+                                   dv, dw, du, ds0, scratch)]
     with torch.cuda.device(dev):
-        rc = lib.repro_rwkv6_bwd(
-            *(build.ptr(t) for t in (r, k, v, w, u, s0, dout, ds_last, dr,
-                                     dk, dv, dw, du, ds0, scratch)),
-            B, H, S, Dk, Dv, DTYPE_CODES[r.dtype], build.stream(dev))
+        if chunked:
+            rc = lib.repro_rwkv6_bwd_chunked(*ptrs, B, H, S, Dk, Dv,
+                                             build.stream(dev))
+        else:
+            rc = lib.repro_rwkv6_bwd(*ptrs, B, H, S, Dk, Dv,
+                                     DTYPE_CODES[r.dtype], build.stream(dev))
     build.raise_on_error("rwkv6_backward", rc)
     rwkv6_backward.launches += 1
     return dr, dk, dv, dw, du, ds0
